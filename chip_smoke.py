@@ -1,0 +1,538 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (``paddle_tpu_torch``).
+
+    python3 chip_smoke.py [--layers 32] [--seed 0]
+
+Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
+
+1. Build: compiles every CUDA source of the serving path from the
+   checkout (one nvcc per source, all started together).
+2. Kernels: each hand-written kernel (RMSNorm in Triton, flash-attention
+   forward and paged decode in CUDA) against its plain PyTorch version
+   at the serving path's Llama-2-7B shapes in bf16, once in f32 and in a
+   GQA case (H=32, Hkv=8), with the tolerances below; prints each
+   kernel's median device time, its bound (bytes over 3.35 TB/s or operations
+   over the card's peak for their type), the plain version's time and
+   the one-call PyTorch equivalent's time where one exists.
+3. Full-width f32 check: a 2-layer model at Llama-2-7B widths gives the
+   same prefill logits on the card (kernels) as on the CPU (plain
+   versions), and the same greedy tokens through the predictor.
+4. Serve: Llama-2-7B widths in bf16 with random weights drawn on the
+   card from a seeded torch.Generator, 8 requests through
+   ContinuousBatchingPredictor (max_batch_size=4, two requests sharing
+   a cached prefix so suffix prefill and copy-on-write run); every
+   request must finish 'ok' and every kernel's launch count must rise.
+   Prints TTFT, decode tokens/s and peak memory.
+
+The line before the last is the ``kernels`` JSON record; the last line
+is ``{"ok": true, "device": {...}}``. Any failed check raises, so the
+script then exits non-zero and prints no result. Exits non-zero before
+doing anything without a CUDA device or without the package beside it.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
+PEAK_OPS = {"bfloat16": 989e12,    # dense bf16 tensor cores
+            "float32": 67e12}      # f32 outside the tensor cores
+NEG = -1e30
+# kernel vs plain version on the card: f32 sums in another order over up
+# to 512 keys / 4096 features. bf16 outputs are rounded at other places,
+# at most one bf16 ulp apart (2^-7 relative, within rtol); atol holds the
+# small outputs of long contexts (|out| ~ 0.05 at 557 keys) to a few
+# bf16 ulps of their own size
+TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
+       "bfloat16": dict(atol=5e-3, rtol=2e-2)}
+# full-width 2-layer f32 prefill logits, card vs CPU
+LOGIT_TOL = dict(atol=1e-3, rtol=1e-3)
+
+
+def log(msg):
+    print(f"chip_smoke: {msg}", flush=True)
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def device_kernel_ms(torch, prof):
+    """{device activity (kernel, copy, memset): (device ms, count)} from
+    a profiler trace; host ops are left out so nothing counts twice."""
+    from torch.autograd import DeviceType
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0)
+        if e.device_type == DeviceType.CUDA and us > 0:
+            out[e.key] = (us / 1e3, e.count)
+    return out
+
+
+def time_ms(torch, fn, sets, iters=24, warmup=4):
+    """Times of one call of fn(*sets[i % len(sets)]), in ms. The input
+    sets together exceed the 50 MB L2, so every call reads its inputs
+    from device memory, as the bound assumes.
+
+    - "median": median over `iters` calls of the device time between two
+      CUDA events around the call; a ~0.6 ms sleep kernel queued ahead
+      of each call keeps the device busy while the host enqueues it, so
+      host launch cost stays outside the events.
+    - "cupti": the CUPTI-traced device time of everything the calls
+      launch (torch.profiler), per call — a cross-check.
+    - "queue": CUDA events around `iters` back-to-back calls, per call —
+      what a caller launching from Python gets, host cost included where
+      it exceeds the device time.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    def run(n):
+        for i in range(n):
+            fn(*sets[i % len(sets)])
+
+    def event():
+        return torch.cuda.Event(enable_timing=True)
+    run(warmup)
+    torch.cuda.synchronize()
+    pairs = []
+    for i in range(iters):
+        torch.cuda._sleep(1_000_000)
+        start, end = event(), event()
+        start.record()
+        fn(*sets[i % len(sets)])
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    median = statistics.median(a.elapsed_time(b) for a, b in pairs)
+    start, end = event(), event()
+    start.record()
+    run(iters)
+    end.record()
+    end.synchronize()
+    queue = start.elapsed_time(end) / iters
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(iters)
+        torch.cuda.synchronize()
+    cupti = sum(ms for ms, _ in device_kernel_ms(torch, prof).values())
+    return {"median": median, "cupti": cupti / iters, "queue": queue}
+
+
+def bound(nbytes, ops, dtype):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare(torch, name, got, want, dtype, rows=None):
+    got, want = got.float(), want.float()
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    if rows is not None:
+        got, want = got[rows], want[rows]
+    err = float((got - want).abs().max())
+    rms = float(want.square().mean().sqrt())
+    tol = TOL[dtype]
+    ok = torch.allclose(got, want, **tol)
+    log(f"  {name}: max_abs_err={err:.3e}, reference rms {rms:.3e} "
+        f"(atol={tol['atol']}, rtol={tol['rtol']}) "
+        f"{'ok' if ok else 'MISMATCH'}")
+    check(ok, f"{name}: kernel disagrees with its plain version")
+    return err
+
+
+# ------------------------------------------------------------- kernels --
+
+def rms_phase(torch, dev, g):
+    from paddle_tpu_torch.kernels import norm
+    F = torch.nn.functional
+    main = None
+    for dtype, n in (("bfloat16", 2048), ("float32", 2048),
+                     ("bfloat16", 4)):
+        dt = getattr(torch, dtype)
+        x = torch.randn(n, 4096, device=dev, generator=g).to(dt)
+        w = (1 + 0.1 * torch.randn(4096, device=dev, generator=g)).to(dt)
+        err = compare(torch, f"rms_norm {dtype} x[{n}, 4096]",
+                      norm.rms_norm_kernel(x, w, 1e-6),
+                      norm.rms_norm_plain(x, w, 1e-6), dtype)
+        if main is None:
+            sets = [(x, w)] + [(torch.randn_like(x), w) for _ in range(3)]
+            t = time_ms(
+                torch, lambda a, b: norm.rms_norm_kernel(a, b, 1e-6), sets)
+            plain = time_ms(torch, lambda a, b: norm.rms_norm_plain(
+                a, b, 1e-6), sets)["median"]
+            lib = time_ms(torch, lambda a, b: F.rms_norm(
+                a, (4096,), b, 1e-6), sets)["median"]
+            isz = x.element_size()
+            b_ms, by = bound(2 * x.numel() * isz + w.numel() * isz,
+                             4 * x.numel(), "float32")
+            main = dict(max_abs_err=err, t=t, plain_ms=plain,
+                        library_ms=lib, bound_ms=b_ms, bound_by=by,
+                        shape=f"x[{n}, 4096] {dtype}")
+    return main
+
+
+def prefill_mask(torch, dev, lens, s):
+    j = torch.arange(s, device=dev)
+    key_valid = j[None, :] >= (s - lens)[:, None]
+    ok = key_valid[:, None, :] & (j[None, :] <= j[:, None])[None]
+    return torch.where(ok, 0.0, NEG).float()[:, None], key_valid
+
+
+def flash_phase(torch, dev, g):
+    from paddle_tpu_torch.kernels import attention as A
+    F = torch.nn.functional
+    b, s, d = 4, 512, 128
+    lens = torch.tensor([512, 384, 200, 64], device=dev)
+    mask, key_valid = prefill_mask(torch, dev, lens, s)
+    main = None
+    for dtype, h, hkv in (("bfloat16", 32, 32), ("float32", 32, 32),
+                          ("bfloat16", 32, 8)):
+        dt = getattr(torch, dtype)
+        q = torch.randn(b, s, h, d, device=dev, generator=g).to(dt)
+        k = torch.randn(b, s, hkv, d, device=dev, generator=g).to(dt)
+        v = torch.randn(b, s, hkv, d, device=dev, generator=g).to(dt)
+        sc = d ** -0.5
+        out, lse = A.flash_attention_kernel(q, k, v, sc, True, mask)
+        want = A.flash_attention_plain(q, k, v, sc, True, mask)
+        check(bool(torch.isfinite(lse).all()), "flash lse non-finite")
+        err = compare(torch, f"flash_fwd causal+mask {dtype} "
+                      f"q[{b}, {s}, {h}, {d}] Hkv={hkv}", out, want, dtype,
+                      rows=key_valid)
+        if main is None:
+            sets = [(q, k, v), tuple(torch.randn_like(t) for t in (q, k, v))]
+            t = time_ms(torch, lambda a, b, c: A.flash_attention_kernel(
+                a, b, c, sc, True, mask), sets)
+            plain = time_ms(torch, lambda a, b, c: A.flash_attention_plain(
+                a, b, c, sc, True, mask), sets)["median"]
+            # one PyTorch call of the same function: SDPA with the same
+            # float mask (the causal part folded in, as SDPA takes one)
+            causal = torch.tril(torch.ones(s, s, dtype=torch.bool,
+                                           device=dev))
+            full = (mask + torch.where(causal, 0.0, NEG)).to(dt)
+            lib = time_ms(
+                torch, lambda a, b, c: F.scaled_dot_product_attention(
+                    a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
+                    attn_mask=full, scale=sc), sets)["median"]
+            # work the data needs: (query, key) pairs left by causal +
+            # padding, per head; bytes: q, k, v, mask, out, lse once
+            pairs = int(((mask[:, 0] > NEG / 2) & causal).sum()) * h
+            isz = q.element_size()
+            nbytes = (3 * q.numel() * isz + mask.numel() * 4
+                      + q.numel() * isz + lse.numel() * 4)
+            b_ms, by = bound(nbytes, 4 * d * pairs, dtype)
+            main = dict(max_abs_err=err, t=t, plain_ms=plain,
+                        library_ms=lib, bound_ms=b_ms, bound_by=by,
+                        shape=f"q[{b}, {s}, {h}, {d}] {dtype} causal+mask")
+    # suffix prefill: Sq < Sk, causality carried by the mask alone
+    sq, sk = 128, 384
+    q = torch.randn(1, sq, 32, d, device=dev, generator=g).bfloat16()
+    k = torch.randn(1, sk, 32, d, device=dev, generator=g).bfloat16()
+    v = torch.randn(1, sk, 32, d, device=dev, generator=g).bfloat16()
+    jq = torch.arange(sq, device=dev)[:, None]
+    jk = torch.arange(sk, device=dev)[None, :]
+    m = torch.where((jk < 200) | ((jk >= sk - sq) & (jk - (sk - sq) <= jq)),
+                    0.0, NEG).float()[None, None]
+    compare(torch, "flash_fwd suffix mask-only bfloat16 q[1, 128, 32, 128] "
+            "Sk=384", A.flash_attention_kernel(q, k, v, d ** -0.5, False,
+                                               m)[0],
+            A.flash_attention_plain(q, k, v, d ** -0.5, False, m),
+            "bfloat16")
+    return main
+
+
+def paged_phase(torch, dev, g):
+    from paddle_tpu_torch.kernels import paged_attention as P
+    b, d, page, pps = 4, 128, 16, 64
+    num_pages = b * pps + 1
+    lens = torch.tensor([557, 300, 97, 1], dtype=torch.int32, device=dev)
+    tables = torch.randperm(num_pages, device=dev, generator=g)[
+        :b * pps].reshape(b, pps).to(torch.int32).contiguous()
+    main = None
+    for dtype, h, hkv in (("bfloat16", 32, 32), ("float32", 32, 32),
+                          ("bfloat16", 32, 8)):
+        dt = getattr(torch, dtype)
+        q = torch.randn(b, h, d, device=dev, generator=g).to(dt)
+        kp = torch.randn(num_pages, page, hkv, d, device=dev,
+                         generator=g).to(dt)
+        vp = torch.randn(num_pages, page, hkv, d, device=dev,
+                         generator=g).to(dt)
+        sc = d ** -0.5
+        err = compare(
+            torch, f"paged_decode {dtype} q[{b}, {h}, {d}] Hkv={hkv} "
+            f"ctx={lens.tolist()}",
+            P.paged_attention_kernel(q, kp, vp, tables, lens, sc),
+            P.paged_attention_plain(q, kp, vp, tables, lens, sc), dtype)
+        if main is None:
+            sets = [(kp, vp)] + [(torch.randn_like(kp), torch.randn_like(vp))
+                                 for _ in range(3)]
+            t = time_ms(torch, lambda a, b: P.paged_attention_kernel(
+                q, a, b, tables, lens, sc), sets)
+            plain = time_ms(torch, lambda a, b: P.paged_attention_plain(
+                q, a, b, tables, lens, sc), sets)["median"]
+            toks = int(lens.sum())
+            isz = q.element_size()
+            nbytes = (2 * q.numel() * isz + 2 * toks * hkv * d * isz
+                      + tables.numel() * 4 + lens.numel() * 4)
+            b_ms, by = bound(nbytes, 4 * d * h * toks, dtype)
+            main = dict(max_abs_err=err, t=t, plain_ms=plain,
+                        library_ms=None, bound_ms=b_ms, bound_by=by,
+                        shape=f"q[{b}, {h}, {d}] {dtype} page={page} "
+                              f"ctx={lens.tolist()}")
+    # context_lens past pps * page attend to the keys the table names
+    # (the last case's bf16 GQA pages)
+    q = torch.randn(2, 32, d, device=dev, generator=g).bfloat16()
+    over = torch.tensor([pps * page + 9, 2 * pps * page], dtype=torch.int32,
+                        device=dev)
+    compare(torch, f"paged_decode bfloat16 Hkv=8 ctx={over.tolist()} > "
+            f"pps*page={pps * page}",
+            P.paged_attention_kernel(q, kp, vp, tables[:2].contiguous(), over,
+                                     d ** -0.5),
+            P.paged_attention_plain(q, kp, vp, tables[:2].contiguous(), over,
+                                    d ** -0.5), "bfloat16")
+    # context_lens == 0 rows are zero
+    zero = torch.zeros(2, dtype=torch.int32, device=dev)
+    out = P.paged_attention_kernel(q, kp, vp, tables[:2].contiguous(), zero,
+                                   0.1)
+    check(not bool(out.any()), "paged_decode: context_lens == 0 rows not 0")
+    return main
+
+
+# ---------------------------------------------------- full-width checks --
+
+def f32_parity_phase(torch, dev, seed):
+    """2-layer Llama-2-7B-width f32 model: card (kernels) vs CPU (plain
+    versions) on the same weights."""
+    from paddle_tpu_torch.inference import ContinuousBatchingPredictor
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=2, dtype="float32")
+    cpu = LlamaForCausalLM(cfg, device="cpu").init_weights(
+        torch.Generator().manual_seed(seed))
+    gpu = LlamaForCausalLM(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    s = 64
+    lens = torch.tensor([64, 37])
+    gen = torch.Generator().manual_seed(seed + 1)
+    ids = torch.randint(1, cfg.vocab_size, (2, s), generator=gen)
+    pos = torch.zeros(2, s, dtype=torch.long)
+    for i, L in enumerate(lens.tolist()):
+        ids[i, :s - L] = 0
+        pos[i, s - L:] = torch.arange(L)
+    mask, key_valid = prefill_mask(torch, "cpu", lens, s)
+    with torch.no_grad():
+        want = cpu(ids, attn_mask=mask, position_ids=pos)
+        got = gpu(ids.to(dev), attn_mask=mask.to(dev),
+                  position_ids=pos.to(dev)).cpu()
+    check(bool(torch.isfinite(got).all()), "f32 prefill logits non-finite")
+    err = float((got[key_valid] - want[key_valid]).abs().max())
+    ok = torch.allclose(got[key_valid], want[key_valid], **LOGIT_TOL)
+    log(f"f32 2-layer full-width prefill logits, card vs CPU: max_abs_err="
+        f"{err:.3e} (atol={LOGIT_TOL['atol']}, rtol={LOGIT_TOL['rtol']}) "
+        f"{'ok' if ok else 'MISMATCH'}")
+    check(ok, "f32 prefill logits differ between kernels and plain path")
+    prompts = [ids[0, :].tolist()[-40:], ids[1, -37:].tolist(),
+               ids[0, -21:].tolist()]
+    geom = dict(max_batch_size=2, page_size=16, max_seq_len=128)
+    toks_gpu = ContinuousBatchingPredictor(gpu, device=dev, **geom).generate(
+        prompts, max_new_tokens=6)
+    toks_cpu = ContinuousBatchingPredictor(cpu, device="cpu",
+                                           **geom).generate(
+        prompts, max_new_tokens=6)
+    log(f"f32 2-layer greedy tokens, card == CPU: {toks_gpu == toks_cpu}")
+    check(toks_gpu == toks_cpu,
+          f"greedy tokens differ: card {toks_gpu} vs CPU {toks_cpu}")
+    return err
+
+
+def serve_phase(torch, dev, seed, layers, card):
+    from paddle_tpu_torch.inference import ContinuousBatchingPredictor
+    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=layers, dtype="bfloat16")
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    log(f"serve: Llama-2-7B widths (hidden {cfg.hidden_size}, heads "
+        f"{cfg.num_attention_heads}/{cfg.num_key_value_heads}, "
+        f"intermediate {cfg.intermediate_size}, vocab {cfg.vocab_size}), "
+        f"{layers} of 32 layers, bf16, random weights (seed {seed}) built "
+        f"in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(seed + 2)
+
+    def toks(n):
+        return torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+    shared = toks(8 * 16 + 5)           # 8 full pages + a partial page
+    prompts = [toks(512), toks(48), shared, toks(32), toks(300),
+               shared + toks(91), toks(200), toks(130)]
+    max_new = [64, 40, 48, 32, 56, 48, 36, 60]
+    cb = ContinuousBatchingPredictor(model, max_batch_size=4, page_size=16,
+                                     max_seq_len=1024, device=dev)
+    prefill_s = [0.0]
+
+    def timed(fn):                      # prefills end in a host sync
+        def run(*a):
+            t = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                prefill_s[0] += time.perf_counter() - t
+        return run
+    cb._batch_prefill = timed(cb._batch_prefill)
+    cb._suffix_prefill = timed(cb._suffix_prefill)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = cb.generate(prompts, max_new_tokens=max_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"serve: status {cb.last_status}; stats {cb.stats}")
+    log(f"serve: kernel launches {counts}")
+    check(cb.last_status == ["ok"] * len(prompts), "a request did not end ok")
+    check([len(o) for o in outs] == max_new, "wrong number of new tokens")
+    check(all(0 <= t < cfg.vocab_size for o in outs for t in o),
+          "token id out of range")
+    check(all(v > 0 for v in counts.values()),
+          f"a kernel was never launched on the main path: {counts}")
+    check(cb.stats["prefix_partial_hits"] >= 1,
+          "the shared prefix did not take the suffix-prefill path")
+    log("serve: TTFT per request (ms, from the generate call): "
+        + ", ".join(f"{t * 1e3:.1f}" for t in cb.last_ttft_s))
+    n_tok = sum(len(o) for o in outs)
+    dec_tok = n_tok - len(outs)         # first tokens come from prefill
+    ttft = sorted(cb.last_ttft_s)
+    dec_s = max(wall - prefill_s[0], 1e-9)
+    log(f"serve on {card}: TTFT p50 {statistics.median(ttft) * 1e3:.1f} ms, "
+        f"max {ttft[-1] * 1e3:.1f} ms; {n_tok} new tokens in {wall:.2f} s "
+        f"({n_tok / wall:.1f} tok/s overall); decode {dec_tok} tokens in "
+        f"{dec_s:.2f} s outside prefill ({dec_tok / dec_s:.1f} tok/s, "
+        f"{cb.stats['decode_steps']} steps); peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    serve_profile(torch, dev, model, prompts[:4], card)
+    return counts
+
+
+def serve_profile(torch, dev, model, prompts, card):
+    """A second, profiled serve of 4 requests (after the counted run, so
+    the tracer's cost stays out of the numbers above): device busy and
+    idle share, and the device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.inference import ContinuousBatchingPredictor
+    cb = ContinuousBatchingPredictor(model, max_batch_size=4, page_size=16,
+                                     max_seq_len=1024, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cb.generate(prompts, max_new_tokens=32)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = device_kernel_ms(torch, prof)
+    busy = sum(ms for ms, _ in kern.values())
+    log(f"serve profile on {card}: {len(prompts)} requests x 32 tokens, "
+        f"{cb.stats['decode_steps']} decode steps, wall {wall:.1f} ms "
+        f"(traced), device busy {busy:.1f} ms, idle share "
+        f"{1 - busy / wall:.3f}")
+    for name, (ms, n) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:10]:
+        log(f"  {ms:9.2f} ms {100 * ms / busy:5.1f}% x{n:<6d} {name[:90]}")
+    from torch.autograd import DeviceType
+    host = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU]
+    host_ms = sum(e.self_cpu_time_total for e in host) / 1e3
+    log(f"serve profile: host ops {host_ms:.1f} ms of self time "
+        f"({sum(e.count for e in host)} calls); top by self time:")
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]:
+        log(f"  {e.self_cpu_time_total / 1e3:9.2f} ms x{e.count:<6d} "
+            f"{e.key[:60]}")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--layers", type=int, default=32,
+                    help="decoder layers of the served model (of 32)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU",
+              file=sys.stderr)
+        return 2
+    try:
+        from paddle_tpu_torch.kernels import _build
+    except ImportError as e:
+        print(f"chip_smoke: the paddle_tpu_torch package is not beside "
+              f"this script ({e})", file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    dev = torch.device("cuda", 0)
+    card = f"{torch.cuda.get_device_name(0)} ({smi})"
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, card {card}")
+
+    t0 = time.perf_counter()
+    _build.build(["flash_fwd", "paged_decode"])
+    log(f"built CUDA kernels in {time.perf_counter() - t0:.1f} s")
+
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    t0 = time.perf_counter()
+    log("kernels vs plain versions (Llama-2-7B serving shapes):")
+    mains = {"rms_norm": rms_phase(torch, dev, g),
+             "flash_fwd": flash_phase(torch, dev, g),
+             "paged_decode": paged_phase(torch, dev, g)}
+    for name, m in mains.items():
+        lib = "n/a" if m["library_ms"] is None else f"{m['library_ms']:.4f}"
+        t = m["t"]
+        log(f"  {name} on {card}, {m['shape']}: kernel median "
+            f"{t['median']:.4f} ms (CUPTI {t['cupti']:.4f} ms, back to back "
+            f"{t['queue']:.4f} ms per call), bound {m['bound_ms']:.4f} ms "
+            f"({m['bound_by']}), plain {m['plain_ms']:.4f} ms, library "
+            f"{lib} ms")
+    log(f"kernel phase took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    f32_parity_phase(torch, dev, args.seed)
+    log(f"f32 phase took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    if args.layers != 32:
+        log(f"serving {args.layers} layers instead of 32 (--layers)")
+    t0 = time.perf_counter()
+    counts = serve_phase(torch, dev, args.seed, args.layers, card)
+    log(f"serve phase took {time.perf_counter() - t0:.1f} s")
+
+    sources = {"rms_norm": ("triton",
+                            "paddle_tpu_torch/kernels/_rms_triton.py",
+                            "paddle_tpu/kernels/norm.py:27"),
+               "flash_fwd": ("cuda", "paddle_tpu_torch/csrc/flash_fwd.cu",
+                             "paddle_tpu/kernels/attention.py:163"),
+               "paged_decode": ("cuda",
+                                "paddle_tpu_torch/csrc/paged_decode.cu",
+                                "paddle_tpu/kernels/paged_attention.py:104")}
+    rows = []
+    for name, (route, src, replaces) in sources.items():
+        m = mains[name]
+        rows.append({"name": name, "route": route, "source": src,
+                     "replaces": replaces, "launches": counts[name],
+                     "max_abs_err": m["max_abs_err"],
+                     "ms": m["t"]["median"],
+                     "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                     "bound_by": m["bound_by"],
+                     "library_ms": m["library_ms"]})
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,25 @@
+"""PyTorch/CUDA port of paddle_tpu, for one NVIDIA Hopper GPU.
+
+The JAX package ``paddle_tpu`` is the reference this package is held
+against; nothing here imports it (or JAX). Plain tensor code is PyTorch;
+every Pallas kernel of the ported path is a hand-written Hopper kernel
+(CUDA C++ under ``csrc/``, or Triton), with a plain PyTorch version of
+the same function beside it that CPU tensors take.
+
+Ported so far: Llama greedy serving — ``models.llama``,
+``generation.kv_cache`` and ``inference.ContinuousBatchingPredictor``
+over the RMSNorm, flash-attention forward and paged-decode kernels.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+import torch
+
+# f32 parity with the reference, which forces
+# jax_default_matmul_precision="highest": no TF32 in f32 matmuls or
+# convolutions.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from .framework import resolve_device  # noqa: E402
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,250 @@
+// Paged-KV decode attention for Hopper (sm_90a), plain C interface.
+//
+// Replaces: paddle_tpu/kernels/paged_attention.py `_paged_kernel`
+// (launched by `_paged_attention_pallas` from `paged_attention`), the
+// one-token-per-sequence attention of every serving decode step.
+//
+// Computes, for sequence b and query head h (KV head h / (H / Hkv)):
+//   out[b, h] = sum_{t < ctx[b]} softmax_t(q[b, h] . K[t] * scale) V[t]
+// where token t lives in page block_tables[b, t / page] at row
+// t % page, and rows with context_lens == 0 are zero (as the Pallas
+// kernel writes them). Scores, softmax and the accumulator are f32.
+// Page ids are clamped into [0, num_pages), as JAX's gather clamps, and
+// the context into [0, pps * page], the keys the block table can name
+// (the reference attends no further either).
+//
+// Bound on the H100: memory. Each cached K/V byte is used for ~2
+// operations per query head in the group, far below the ~295 operations
+// per byte the card needs before compute limits it. So the design reads
+// every valid K/V row exactly once: one block per (sequence, KV head)
+// serves that KV head's whole query-head group (GQA natively, no
+// repeated K/V), reads block_tables itself and walks the sequence's
+// tokens in 64-token chunks (several pages) with an online softmax;
+// chunks past context_lens are never read. Each chunk is fetched with
+// 16-byte loads, all of a thread's loads issued before any is used.
+// Query, probabilities and the f32 accumulator live in shared memory.
+// With few sequences this grid
+// is small (B * Hkv blocks); splitting the KV walk across blocks
+// (flash-decoding) is later work.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+
+namespace {
+
+constexpr float kNegInf = -1e30f;
+constexpr int kChunk = 64;
+constexpr int kThreads = 128;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
+    float x) {
+  return __float2bfloat16(x);
+}
+
+// 16-byte vector loads: VecIO<T>::N elements of T, unpacked to f32
+template <typename T> struct VecIO;
+template <> struct VecIO<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void unpack(const uint4& u, float* f) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+};
+template <> struct VecIO<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void unpack(const uint4& u, float* f) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 t = __bfloat1622float2(h[i]);
+      f[2 * i] = t.x;
+      f[2 * i + 1] = t.y;
+    }
+  }
+};
+
+__device__ __forceinline__ float warp_max(float x) {
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+template <int D>
+size_t smem_floats(int G) {
+  return (size_t)G * D            // query group
+         + kChunk * (D + 1)       // K chunk
+         + kChunk * D             // V chunk
+         + (size_t)G * kChunk     // scores / probabilities
+         + (size_t)G * D          // accumulator
+         + 3 * (size_t)G;         // running max, sum, rescale factor
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) paged_decode_kernel(
+    const T* __restrict__ q, const T* __restrict__ k_pages,
+    const T* __restrict__ v_pages, const int* __restrict__ tables,
+    const int* __restrict__ lens, T* __restrict__ out, int H, int Hkv,
+    int page, int pps, int num_pages, float scale) {
+  extern __shared__ float smem[];
+  const int G = H / Hkv;
+  float* qs = smem;
+  float* ks = qs + G * D;
+  float* vs = ks + kChunk * (D + 1);
+  float* ps = vs + kChunk * D;
+  float* acc = ps + G * kChunk;
+  float* m_s = acc + G * D;
+  float* l_s = m_s + G;
+  float* a_s = l_s + G;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int ctx = min(max(lens[b], 0), pps * page);
+  const T* qb = q + ((long long)b * H + (long long)hk * G) * D;
+  const int* tb = tables + (long long)b * pps;
+  const long long row_stride = (long long)Hkv * D;  // between tokens
+
+  for (int i = tid; i < G * D; i += kThreads) {
+    qs[i] = to_f(qb[i]);
+    acc[i] = 0.f;
+  }
+  for (int g = tid; g < G; g += kThreads) {
+    m_s[g] = kNegInf;
+    l_s[g] = 0.f;
+  }
+  __syncthreads();
+
+  constexpr int VN = VecIO<T>::N;    // elements per 16-byte vector
+  constexpr int VPR = D / VN;         // vectors per token row
+  static_assert((kChunk * VPR) % kThreads == 0, "chunk must split evenly");
+  for (int c0 = 0; c0 < ctx; c0 += kChunk) {
+    // unrolled, so every thread has all its (independent) table lookups
+    // and 16-byte K/V loads in flight at once
+#pragma unroll
+    for (int it = 0; it < kChunk * VPR / kThreads; ++it) {
+      const int i = tid + it * kThreads;
+      const int t = i / VPR, c = (i % VPR) * VN, pos = c0 + t;
+      uint4 ku = make_uint4(0u, 0u, 0u, 0u), vu = ku;
+      if (pos < ctx) {
+        int pid = tb[pos / page];
+        pid = min(max(pid, 0), num_pages - 1);
+        const long long off =
+            ((long long)pid * page + pos % page) * row_stride +
+            (long long)hk * D + c;
+        ku = *reinterpret_cast<const uint4*>(k_pages + off);
+        vu = *reinterpret_cast<const uint4*>(v_pages + off);
+      }
+      float kf[VN], vf[VN];
+      VecIO<T>::unpack(ku, kf);
+      VecIO<T>::unpack(vu, vf);
+#pragma unroll
+      for (int e = 0; e < VN; ++e) {
+        ks[t * (D + 1) + c + e] = kf[e];
+        vs[t * D + c + e] = vf[e];
+      }
+    }
+    __syncthreads();
+
+    for (int pr = tid; pr < G * kChunk; pr += kThreads) {
+      const int g = pr / kChunk, t = pr % kChunk;
+      const float* qg = qs + g * D;
+      const float* kt = ks + t * (D + 1);
+      float s = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < D; ++d) s = fmaf(qg[d], kt[d], s);
+      ps[pr] = (c0 + t < ctx) ? s * scale : kNegInf;
+    }
+    __syncthreads();
+
+    for (int g = warp; g < G; g += kThreads / 32) {
+      float* row = ps + g * kChunk;
+      const float s0 = row[lane], s1 = row[lane + 32];
+      const float m_prev = m_s[g];
+      const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
+      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
+      const float psum = warp_sum(p0 + p1);
+      row[lane] = p0;
+      row[lane + 32] = p1;
+      if (lane == 0) {
+        const float alpha = expf(m_prev - m_new);
+        a_s[g] = alpha;
+        l_s[g] = l_s[g] * alpha + psum;
+        m_s[g] = m_new;
+      }
+    }
+    __syncthreads();
+
+    for (int e = tid; e < G * D; e += kThreads) {
+      const int g = e / D, d = e % D;
+      const float* pg = ps + g * kChunk;
+      float a = acc[e] * a_s[g];
+#pragma unroll 8
+      for (int t = 0; t < kChunk; ++t) a = fmaf(pg[t], vs[t * D + d], a);
+      acc[e] = a;
+    }
+    __syncthreads();
+  }
+
+  T* ob = out + ((long long)b * H + (long long)hk * G) * D;
+  for (int e = tid; e < G * D; e += kThreads) {
+    const float l = l_s[e / D];
+    ob[e] = from_f<T>(acc[e] / (l == 0.f ? 1.f : l));
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k_pages, const void* v_pages,
+           const int* tables, const int* lens, void* out, int B, int H,
+           int Hkv, int page, int pps, int num_pages, float scale,
+           cudaStream_t stream) {
+  const size_t smem = smem_floats<D>(H / Hkv) * sizeof(float);
+  auto kern = paged_decode_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(Hkv, B);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pages),
+      static_cast<const T*>(v_pages), tables, lens, static_cast<T*>(out), H,
+      Hkv, page, pps, num_pages, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. Layouts (contiguous): q/out
+// [B, H, D], k_pages/v_pages [num_pages, page, Hkv, D] (16-byte
+// aligned), tables int32 [B, pps], lens int32 [B]. Returns
+// cudaGetLastError().
+extern "C" int paged_decode(int dtype, int head_dim, const void* q,
+                            const void* k_pages, const void* v_pages,
+                            const int* tables, const int* lens, void* out,
+                            int B, int H, int Hkv, int page, int pps,
+                            int num_pages, float scale,
+                            cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || page <= 0 ||
+      pps <= 0 || num_pages <= 0)
+    return (int)cudaErrorInvalidValue;
+#define PAGED_CASE(T, D)                                                 \
+  return launch<T, D>(q, k_pages, v_pages, tables, lens, out, B, H, Hkv, \
+                      page, pps, num_pages, scale, stream)
+  if (dtype == 0 && head_dim == 64) PAGED_CASE(float, 64);
+  if (dtype == 0 && head_dim == 128) PAGED_CASE(float, 128);
+  if (dtype == 1 && head_dim == 64) PAGED_CASE(__nv_bfloat16, 64);
+  if (dtype == 1 && head_dim == 128) PAGED_CASE(__nv_bfloat16, 128);
+#undef PAGED_CASE
+  return (int)cudaErrorInvalidValue;
+}

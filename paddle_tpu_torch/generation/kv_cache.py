@@ -1,0 +1,326 @@
+"""Paged KV cache for serving (counterpart of
+``paddle_tpu/generation/kv_cache.py``): the refcounted page pool, the
+prefix cache over page-aligned prompt prefixes, and the decode-step
+contract ``paged_cache_update_attend``.
+
+Unlike the functional JAX version, the pool's page tensors are updated
+IN PLACE on the device: the decode step's K/V write, the prefill
+scatters and copy-on-write all mutate ``PagedKVPool.k[i]`` /
+``PagedKVPool.v[i]``. Every write and every read of a page runs on the
+device's current stream, so a write is always ordered before the
+attention that reads it.
+"""
+from __future__ import annotations
+
+from typing import List, NamedTuple
+
+import torch
+
+from ..kernels.paged_attention import paged_attention
+
+
+class PagedKVPool:
+    """Host-side page allocator over device-resident paged K/V tensors
+    (one [num_pages, page_size, n_kv_heads, head_dim] tensor per layer
+    for K and for V). The free list and reference counts live on the
+    host, the page contents on the device.
+
+    ``alloc`` hands out pages at refcount 1, ``retain``/``release``
+    adjust the count, and a page returns to the free list only at zero.
+    ``copy_into`` is the write half of copy-on-write. An optional
+    ``reclaimer`` (the PrefixCache) drops cached-but-unused pages when
+    ``alloc`` runs short; ``free_count`` counts them as available.
+    """
+
+    def __init__(self, n_layers, num_pages, page_size, n_kv_heads,
+                 head_dim, dtype=torch.float32, device="cpu"):
+        self.page_size = int(page_size)
+        self.num_pages = int(num_pages)
+        self.n_kv_heads = int(n_kv_heads)
+        self.head_dim = int(head_dim)
+        shape = (self.num_pages, self.page_size, self.n_kv_heads,
+                 self.head_dim)
+        self.k = [torch.zeros(shape, dtype=dtype, device=device)
+                  for _ in range(n_layers)]
+        self.v = [torch.zeros(shape, dtype=dtype, device=device)
+                  for _ in range(n_layers)]
+        self._free = list(range(self.num_pages))
+        self._refs = {}
+        self.reclaimer = None
+
+    @property
+    def free_count(self):
+        extra = (self.reclaimer.reclaimable_count(self)
+                 if self.reclaimer is not None else 0)
+        return len(self._free) + extra
+
+    def alloc(self, n):
+        """n page ids (each at refcount 1), or None when the pool cannot
+        satisfy the request even after reclaiming cached pages."""
+        if n > len(self._free) and self.reclaimer is not None:
+            self.reclaimer.reclaim(self, n - len(self._free))
+        if n > len(self._free):
+            return None
+        got, self._free = self._free[:n], self._free[n:]
+        for p in got:
+            self._refs[p] = 1
+        return got
+
+    def retain(self, ids):
+        for p in ids:
+            self._refs[p] = self._refs.get(p, 0) + 1
+
+    def release(self, ids):
+        for p in ids:
+            c = self._refs.get(p, 1) - 1
+            if c <= 0:
+                self._refs.pop(p, None)
+                self._free.append(p)
+            else:
+                self._refs[p] = c
+
+    def ref_count(self, pid):
+        return self._refs.get(pid, 0)
+
+    def copy_into(self, src, dst):
+        """Device-side page copy across all layers (no host round-trip):
+        one page of traffic per layer."""
+        for k in self.k:
+            k[dst].copy_(k[src])
+        for v in self.v:
+            v[dst].copy_(v[src])
+
+
+def prefix_page_keys(prompt, page_size):
+    """One hashable key per FULL page of ``prompt`` (a trailing sub-page
+    chunk is a partial, not a key). The PrefixCache trie edges are
+    exactly these keys."""
+    page = int(page_size)
+    return tuple(tuple(prompt[m:m + page])
+                 for m in range(0, len(prompt) - page + 1, page))
+
+
+class _PrefixNode:
+    __slots__ = ("page", "next_token", "last_use", "children", "partials")
+
+    def __init__(self, page=None, next_token=None, last_use=0):
+        self.page = page
+        self.next_token = next_token
+        self.last_use = last_use
+        self.children = {}   # full page-size token tuple -> _PrefixNode
+        self.partials = {}   # sub-page token tuple -> [page, next_token, use]
+
+
+class PrefixCache:
+    """Hash-trie over page-aligned prompt prefixes: each edge is one KV
+    page worth of token ids, each node holds the page caching that
+    prefix's K/V and the greedy token after it. Nodes also keep
+    *partial* trailing chunks (< page_size tokens); a request extending
+    one copies the page first (copy-on-write at the divergence page).
+
+    The trie holds one pool reference per cached page; pages whose only
+    reference is the trie are reclaimed LRU leaf-first under allocation
+    pressure and count as free in the pool.
+    """
+
+    def __init__(self, page_size):
+        self.page = int(page_size)
+        self._root = _PrefixNode()
+        self._clock = 0
+
+    def _bump(self):
+        self._clock += 1
+        return self._clock
+
+    def lookup(self, prompt):
+        """Longest cached page-aligned prefix of ``prompt``: (pages,
+        covered, partial, next_token). ``pages`` cover the first
+        ``covered`` tokens; ``partial`` is (page_id, n_tokens) for a
+        shared sub-page chunk extending them (copy it before appending);
+        ``next_token`` is the cached greedy continuation when the whole
+        prompt is covered, else None."""
+        node = self._root
+        pages = []
+        m = 0
+        n = len(prompt)
+        for key in prefix_page_keys(prompt, self.page):
+            child = node.children.get(key)
+            if child is None:
+                break
+            child.last_use = self._bump()
+            pages.append(child.page)
+            m += self.page
+            node = child
+        next_token = node.next_token if (m == n and m > 0) else None
+        partial = None
+        if m < n:
+            rem = tuple(prompt[m:])
+            best = None
+            for toks, rec in node.partials.items():
+                if (len(toks) <= len(rem) and rem[:len(toks)] == toks
+                        and (best is None or len(toks) > len(best[0]))):
+                    best = (toks, rec)
+            if best is not None:
+                toks, rec = best
+                rec[2] = self._bump()
+                partial = (rec[0], len(toks))
+                if m + len(toks) == n and rec[1] is not None:
+                    next_token = rec[1]
+        return pages, m, partial, next_token
+
+    def insert(self, prompt, page_ids, next_tokens, pool):
+        """Record a freshly prefilled prompt: ``page_ids`` hold its K/V in
+        order, ``next_tokens[i]`` is the greedy token after position i
+        (None where unknown). Existing nodes are left untouched; new
+        nodes retain their page in the pool."""
+        node = self._root
+        m, i, n = 0, 0, len(prompt)
+        for chunk in prefix_page_keys(prompt, self.page):
+            child = node.children.get(chunk)
+            if child is None:
+                nt = next_tokens[m + self.page - 1] if next_tokens else None
+                child = _PrefixNode(page_ids[i], nt, self._bump())
+                pool.retain([page_ids[i]])
+                node.children[chunk] = child
+            m += self.page
+            i += 1
+            node = child
+        if m < n:
+            rem = tuple(prompt[m:])
+            if rem not in node.partials:
+                nt = next_tokens[n - 1] if next_tokens else None
+                node.partials[rem] = [page_ids[i], nt, self._bump()]
+                pool.retain([page_ids[i]])
+
+    def _droppable(self, pool):
+        """(last_use, kind, parent, key) for every entry whose page the
+        pool would actually free (the trie holds the only reference)."""
+        out = []
+
+        def walk(node):
+            for toks, rec in node.partials.items():
+                if pool.ref_count(rec[0]) == 1:
+                    out.append((rec[2], "partial", node, toks))
+            for chunk, child in node.children.items():
+                if (not child.children and not child.partials
+                        and pool.ref_count(child.page) == 1):
+                    out.append((child.last_use, "leaf", node, chunk))
+                else:
+                    walk(child)
+
+        walk(self._root)
+        return out
+
+    def reclaimable_count(self, pool):
+        """Pages the trie holds that no request uses (slightly optimistic
+        for a ref-1 interior node above a pinned descendant; exact once
+        the pool is idle)."""
+        count = 0
+
+        def walk(node):
+            nonlocal count
+            for rec in node.partials.values():
+                if pool.ref_count(rec[0]) == 1:
+                    count += 1
+            for child in node.children.values():
+                if pool.ref_count(child.page) == 1:
+                    count += 1
+                walk(child)
+
+        walk(self._root)
+        return count
+
+    def reclaim(self, pool, need):
+        """Drop least-recently-used unpinned leaves until ``need`` pages
+        were freed or nothing droppable remains. Returns pages freed."""
+        freed = 0
+        while freed < need:
+            cands = self._droppable(pool)
+            if not cands:
+                break
+            cands.sort(key=lambda c: c[0])
+            for _, kind, parent, key in cands[:max(need - freed, 1)]:
+                if kind == "partial":
+                    rec = parent.partials.pop(key)
+                    pool.release([rec[0]])
+                else:
+                    child = parent.children.pop(key)
+                    pool.release([child.page])
+                freed += 1
+                if freed >= need:
+                    break
+        return freed
+
+    def clear(self, pool):
+        """Release every cached page."""
+
+        def walk(node):
+            for rec in node.partials.values():
+                pool.release([rec[0]])
+            for child in node.children.values():
+                walk(child)
+                pool.release([child.page])
+
+        walk(self._root)
+        self._root = _PrefixNode()
+
+
+class DecodeIndex(NamedTuple):
+    """Where one decode step writes and how far it attends, per slot: the
+    same in every layer, so ``decode_index`` computes it once per step.
+    ``write_page`` [B] int64 is ``block_table[b, cl // page]``,
+    ``write_off`` [B] int64 is ``cl % page`` and ``attend_lens`` [B]
+    int32 is ``cl + 1``."""
+    write_page: torch.Tensor
+    write_off: torch.Tensor
+    attend_lens: torch.Tensor
+
+
+def decode_index(block_table, context_lens, page_size) -> DecodeIndex:
+    cl = context_lens.long()
+    rows = torch.arange(cl.shape[0], device=cl.device)
+    return DecodeIndex(block_table[rows, cl // page_size].long(),
+                       cl % page_size, (cl + 1).to(torch.int32))
+
+
+class PagedCacheEntry(NamedTuple):
+    """Per-layer paged KV cache: ``k_pages``/``v_pages`` [num_pages,
+    page_size, n_kv_heads, head_dim]; ``block_table`` [B, pages_per_seq]
+    int32 page ids per slot; ``context_lens`` [B] int32 tokens already
+    cached per slot (before the token being decoded); ``step`` their
+    ``decode_index``, shared by all layers."""
+    k_pages: torch.Tensor
+    v_pages: torch.Tensor
+    block_table: torch.Tensor
+    context_lens: torch.Tensor
+    step: DecodeIndex
+
+
+class PagedKVCache:
+    """A list of per-layer PagedCacheEntry, passed as ``past_key_values``."""
+
+    def __init__(self, entries: List[PagedCacheEntry]):
+        self.entries = entries
+
+    def __len__(self):
+        return len(self.entries)
+
+    def __getitem__(self, i):
+        return self.entries[i]
+
+    def __iter__(self):
+        return iter(self.entries)
+
+
+def paged_cache_update_attend(entry: PagedCacheEntry, q, k, v, scale=None):
+    """Decode-step contract: write this step's K/V (one token per slot)
+    into page ``block_table[b, cl // page]`` at row ``cl % page``, then
+    attend the query token over ``cl + 1`` cached tokens with the
+    paged-decode kernel. q [B, 1, H, D]; k/v [B, 1, Hkv, D] -> (out
+    [B, 1, H, D], entry). The write is in place; inactive slots point at
+    the predictor's trash page."""
+    kp, vp, bt, _, step = entry
+    kp[step.write_page, step.write_off] = k[:, 0]
+    vp[step.write_page, step.write_off] = v[:, 0]
+    out = paged_attention(q[:, 0], kp, vp, bt, step.attend_lens, scale)
+    return out[:, None], entry

@@ -1,0 +1,125 @@
+"""Build and bind the port's CUDA kernels (role of
+``paddle_tpu/kernels/_common.py``).
+
+Each ``paddle_tpu_torch/csrc/<name>.cu`` is compiled at first use with
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
+-fPIC`` into ``paddle_tpu_torch/_build/`` (listed in ``.gitignore``) and
+loaded with ``ctypes``. The library file name carries a hash of the
+source and the flags, so an edited source is rebuilt and a stale
+library is never loaded. The sources expose a plain C interface (no
+``torch/extension.h``): every entry returns ``cudaGetLastError()`` and
+:func:`check` raises when that is not 0.
+
+Also here: the shared ``NEG_INF`` constant and the per-kernel launch
+counters that show a run really went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+NEG_INF = -1e30
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# launches per kernel name; a wrapper adds one where it launches its
+# kernel and nowhere else
+launch_counts = {"rms_norm": 0, "flash_fwd": 0, "paged_decode": 0}
+
+
+def count_launch(name: str) -> None:
+    launch_counts[name] += 1
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def nvcc_path() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path(name: str) -> Path:
+    src = SRC_DIR / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _nvcc_cmd(name: str, out: Path):
+    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out),
+            str(SRC_DIR / f"{name}.cu")]
+
+
+def build(names) -> dict:
+    """Compile every named source whose library is missing, one nvcc per
+    source, all started together. Returns {name: library path}."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {n: library_path(n) for n in names}
+    procs = {}
+    for n, p in paths.items():
+        if p.exists():
+            continue
+        tmp = p.with_suffix(f".{os.getpid()}.tmp")
+        procs[n] = (subprocess.Popen(_nvcc_cmd(n, tmp),
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp)
+    errors = []
+    for n, (proc, tmp) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {n}.cu:\n{out}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, paths[n])     # atomic: readers never see half
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return paths
+
+
+_libs = {}
+_lock = threading.Lock()
+
+
+def load(name: str, signatures: dict) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu (built if needed), with
+    explicit ``argtypes``/``restype`` set from ``signatures``
+    ({function: [ctypes types]}); every entry returns an int error."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            for fn, argtypes in signatures.items():
+                f = getattr(lib, fn)
+                f.argtypes = list(argtypes)
+                f.restype = ctypes.c_int
+            _libs[name] = lib
+        return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a C entry reported a CUDA error (a refused launch is
+    otherwise silent until the next synchronizing call)."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def stream_ptr(device) -> int:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,56 @@
+"""RMSNorm forward: a Triton kernel, its plain PyTorch version, and the
+``fused_rms_norm`` entry (counterpart of ``paddle_tpu/kernels/norm.py``
+``_rms_kernel`` / ``_rms_pallas`` / ``_rms_fwd``).
+
+``y = x * rsqrt(mean(x^2) + eps) * w``: statistics in f32, output in
+``x.dtype``. Forward only; the analytic backward comes with training.
+"""
+from __future__ import annotations
+
+import torch
+
+from ._build import count_launch
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def rms_norm_plain(x2d: torch.Tensor, w: torch.Tensor, eps: float):
+    """Reference math (``_rms_fwd``'s non-Pallas branch): f32 (or wider)
+    statistics, result cast back to ``x.dtype``."""
+    cdt = torch.promote_types(x2d.dtype, torch.float32)
+    xf = x2d.to(cdt)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.to(cdt)).to(x2d.dtype)
+
+
+def rms_norm_kernel(x2d: torch.Tensor, w: torch.Tensor, eps: float):
+    """Launch the Triton RMSNorm kernel on CUDA tensors x [N, D], w [D]."""
+    if x2d.dim() != 2 or w.shape != (x2d.shape[1],):
+        raise ValueError(f"rms_norm: want x [N, D] and w [D], got "
+                         f"{tuple(x2d.shape)} and {tuple(w.shape)}")
+    if x2d.dtype not in _DTYPES or w.dtype not in _DTYPES:
+        raise TypeError(f"rms_norm: unsupported dtypes {x2d.dtype}, "
+                        f"{w.dtype} (kernel takes float32/bfloat16)")
+    if not (x2d.is_contiguous() and w.is_contiguous()):
+        raise ValueError("rms_norm: x and w must be contiguous")
+    if w.device != x2d.device:
+        raise ValueError("rms_norm: x and w on different devices")
+    from ._rms_triton import launch
+    n, d = x2d.shape
+    y = torch.empty_like(x2d)
+    if n:
+        launch(x2d, w, y, float(eps))
+        count_launch("rms_norm")
+    return y
+
+
+def fused_rms_norm(x: torch.Tensor, weight: torch.Tensor, eps=1e-6):
+    """RMSNorm over the last axis of ``x``. A CPU tensor takes the plain
+    version; a CUDA tensor launches the Triton kernel or raises."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    if x.device.type == "cpu":
+        return rms_norm_plain(x2, weight, eps).reshape(shape)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_rms_norm: unsupported device {x.device}")
+    return rms_norm_kernel(x2.contiguous(), weight, eps).reshape(shape)

@@ -1,0 +1,295 @@
+"""The port's kernel modules against the JAX reference.
+
+On the CPU each wrapper takes its plain PyTorch version; those are held
+against the reference functions on the same seeded numpy inputs, through
+the reference's XLA path and, where its gate admits the shape, through
+its Pallas kernels in interpret mode. f32 tolerance: atol = rtol = 1e-5
+(the same algorithm summed in another order).
+
+The ``cuda`` cases hold each hand-written kernel against its plain
+version on the card and skip without one. The JAX side is imported
+inside the CPU cases only, so the CUDA cases also run where JAX is not
+installed: ``python -m pytest --noconftest -m cuda
+tests/test_torch_kernels.py``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.kernels.attention import (additive_mask,
+                                                flash_attention_bshd,
+                                                flash_attention_kernel,
+                                                flash_attention_plain)
+from paddle_tpu_torch.kernels.norm import (fused_rms_norm, rms_norm_kernel,
+                                           rms_norm_plain)
+from paddle_tpu_torch.kernels.paged_attention import (
+    paged_attention, paged_attention_kernel, paged_attention_plain)
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+NEG = -1e30
+
+
+@pytest.fixture(params=[False, True], ids=["xla", "pallas_interpret"])
+def ref_mode(request):
+    """Run the reference through its XLA path, or through its Pallas
+    kernels in interpret mode (flags restored afterwards)."""
+    from paddle_tpu.framework.flags import get_flags, set_flags
+    if not request.param:
+        yield "xla"
+        return
+    old = get_flags(["use_pallas_kernels", "pallas_interpret"])
+    set_flags({"use_pallas_kernels": True, "pallas_interpret": True})
+    try:
+        yield "pallas_interpret"
+    finally:
+        set_flags({k.removeprefix("FLAGS_"): v for k, v in old.items()})
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _j(a):
+    import jax.numpy as jnp
+    return jnp.asarray(a)
+
+
+# ------------------------------------------------------------- RMSNorm --
+
+@pytest.mark.parametrize("shape", [(6, 128), (2, 3, 256)])
+def test_rms_norm_plain_matches_reference(ref_mode, shape):
+    from paddle_tpu.kernels.norm import fused_rms_norm as ref_rms
+    rng = np.random.RandomState(0)
+    x = rng.randn(*shape).astype(np.float32)
+    w = rng.randn(shape[-1]).astype(np.float32)
+    want = np.asarray(ref_rms(_j(x), _j(w), 1e-6))
+    got = fused_rms_norm(torch.from_numpy(x), torch.from_numpy(w), 1e-6)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+# ------------------------------------------------------ flash forward --
+
+def _prefill_mask(b, s, pads):
+    """Additive [B, 1, S, S] causal + left-padding mask, as prefill
+    builds it."""
+    j = np.arange(s)
+    key_valid = j[None, :] >= np.asarray(pads)[:, None]
+    ok = key_valid[:, None, :] & (j[None, :] <= j[:, None])[None]
+    return np.where(ok, 0.0, NEG).astype(np.float32)[:, None]
+
+
+def _flash_case(name, rng):
+    """(q, k, v, causal, mask, kv_lens, valid rows [B, Sq]) for a case."""
+    b, h, d = 2, 4, 64
+    if name == "causal_mask":
+        sq = sk = 16
+        hkv = h
+        mask = _prefill_mask(b, sq, [0, 5])
+        causal, lens = True, None
+    elif name == "mask_sq_lt_sk":
+        sq, sk, hkv = 8, 24, h
+        mask = np.where(rng.rand(1, 1, sq, sk) < 0.3, NEG, 0.0)
+        mask[..., -1] = 0.0                       # every row keeps a key
+        mask = mask.astype(np.float32)
+        causal, lens = False, None
+    elif name == "gqa_causal_mask":
+        sq = sk = 16
+        hkv = 2
+        mask = _prefill_mask(b, sq, [3, 0])
+        causal, lens = True, None
+    elif name == "gqa_key_padding_q1":
+        sq = sk = 12
+        hkv = 1
+        mask = np.zeros((b, 1, 1, sk), np.float32)
+        mask[1, ..., :4] = NEG
+        causal, lens = False, None
+    elif name == "kv_lens":
+        sq = sk = 16
+        hkv = h
+        mask, causal, lens = None, True, np.array([16, 9], np.int32)
+    else:
+        raise ValueError(name)
+    q = rng.randn(b, sq, h, d).astype(np.float32)
+    k = rng.randn(b, sk, hkv, d).astype(np.float32)
+    v = rng.randn(b, sk, hkv, d).astype(np.float32)
+    # rows with at least one valid key (fully masked padding rows are
+    # implementation-defined in both packages)
+    s = np.zeros((b, 1, sq, sk), np.float32)
+    if mask is not None:
+        s = s + mask
+    if causal:
+        s = np.where(np.arange(sq)[:, None] >= np.arange(sk)[None, :], s, NEG)
+    if lens is not None:
+        s = np.where(np.arange(sk)[None, None, None, :]
+                     < lens[:, None, None, None], s, NEG)
+    valid = (s > NEG / 2).any(-1)[:, 0]           # [B, Sq]
+    return q, k, v, causal, mask, lens, valid
+
+
+FLASH_CASES = ["causal_mask", "mask_sq_lt_sk", "gqa_causal_mask",
+               "gqa_key_padding_q1", "kv_lens"]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_plain_matches_reference(ref_mode, case):
+    from paddle_tpu.kernels.attention import flash_attention_jax
+    rng = np.random.RandomState(1)
+    q, k, v, causal, mask, lens, valid = _flash_case(case, rng)
+    want = np.asarray(flash_attention_jax(
+        _j(q), _j(k), _j(v), causal=causal,
+        mask=None if mask is None else _j(mask),
+        kv_lens=None if lens is None else _j(lens)))
+    got = flash_attention_bshd(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        attn_mask=None if mask is None else torch.from_numpy(mask),
+        is_causal=causal, kv_lens=lens).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got[valid], want[valid], **TOL)
+
+
+def test_flash_bool_mask_equals_additive():
+    rng = np.random.RandomState(2)
+    q, k, v = (torch.from_numpy(rng.randn(1, 8, 2, 64).astype(np.float32))
+               for _ in range(3))
+    keep = torch.from_numpy(rng.rand(1, 1, 8, 8) < 0.7)
+    keep[..., 0] = True
+    add = torch.where(keep, 0.0, NEG)
+    torch.testing.assert_close(
+        flash_attention_bshd(q, k, v, attn_mask=keep),
+        flash_attention_bshd(q, k, v, attn_mask=add), atol=0, rtol=0)
+
+
+def test_flash_rejects_dropout_and_bad_mask():
+    q = torch.zeros(1, 8, 2, 64)
+    with pytest.raises(NotImplementedError):
+        flash_attention_bshd(q, q, q, dropout_p=0.1, training=True)
+    with pytest.raises(ValueError):
+        additive_mask(torch.zeros(3, 1, 8, 8), 1, 2, 8, 8)
+
+
+# --------------------------------------------------------- paged decode --
+
+def _paged_case(rng, h, hkv, d, lens, page=4, pps=4, num_pages=14):
+    b = len(lens)
+    q = rng.randn(b, h, d).astype(np.float32)
+    kp = rng.randn(num_pages, page, hkv, d).astype(np.float32)
+    vp = rng.randn(num_pages, page, hkv, d).astype(np.float32)
+    tables = rng.permutation(num_pages)[:b * pps].reshape(b, pps)
+    return q, kp, vp, tables.astype(np.int32), np.asarray(lens, np.int32)
+
+
+@pytest.mark.parametrize("h,hkv,d", [(8, 8, 128), (4, 2, 64), (8, 1, 128)],
+                         ids=["mha", "gqa", "mqa"])
+def test_paged_plain_matches_reference(ref_mode, h, hkv, d):
+    """Mixed context lengths (a partial last page, a full table, one
+    token, and a length past the table, where both reference paths
+    attend to the keys the table names); held to context_lens >= 1, the
+    only rows decode produces."""
+    from paddle_tpu.kernels.paged_attention import paged_attention as ref
+    rng = np.random.RandomState(3)
+    q, kp, vp, tables, lens = _paged_case(rng, h, hkv, d, [5, 16, 1, 23],
+                                          num_pages=20)
+    want = np.asarray(ref(_j(q), _j(kp), _j(vp), _j(tables), _j(lens),
+                          interpret=ref_mode == "pallas_interpret"))
+    got = paged_attention(*(torch.from_numpy(a) for a in
+                            (q, kp, vp, tables, lens))).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_paged_zero_context_rows_are_zero():
+    """context_lens == 0 gives zero rows, as the Pallas kernel writes
+    them (the reference's XLA path averages V uniformly there instead —
+    the decode step never asks for such a row)."""
+    from paddle_tpu.kernels.paged_attention import paged_attention as ref
+    rng = np.random.RandomState(4)
+    q, kp, vp, tables, lens = _paged_case(rng, 8, 8, 128, [0, 7, 0])
+    got = paged_attention(*(torch.from_numpy(a) for a in
+                            (q, kp, vp, tables, lens))).numpy()
+    assert not got[[0, 2]].any()
+    pallas = np.asarray(ref(_j(q), _j(kp), _j(vp), _j(tables), _j(lens),
+                            interpret=True))
+    np.testing.assert_allclose(got, pallas, **TOL)
+
+
+# ------------------------------------------- wrappers on the CPU / CUDA --
+
+def test_cpu_tensors_take_plain_versions():
+    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    x = torch.randn(4, 64)
+    fused_rms_norm(x, torch.ones(64))
+    q = torch.randn(1, 8, 2, 64)
+    flash_attention_bshd(q, q, q, is_causal=True)
+    paged_attention(torch.randn(1, 2, 64), torch.randn(3, 4, 2, 64),
+                    torch.randn(3, 4, 2, 64),
+                    torch.tensor([[0, 1]], dtype=torch.int32),
+                    torch.tensor([5], dtype=torch.int32))
+    assert launch_counts == {"rms_norm": 0, "flash_fwd": 0,
+                             "paged_decode": 0}
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    x = torch.randn(4, 64)
+    with pytest.raises(ValueError):
+        flash_attention_kernel(*(torch.randn(1, 8, 2, 64),) * 3, 0.125)
+    with pytest.raises(ValueError):
+        paged_attention_kernel(
+            torch.randn(1, 2, 64), torch.randn(3, 4, 2, 64),
+            torch.randn(3, 4, 2, 64),
+            torch.tensor([[0, 1]], dtype=torch.int32),
+            torch.tensor([5], dtype=torch.int32), 0.125)
+    with pytest.raises(TypeError):
+        rms_norm_kernel(x.double(), torch.ones(64, dtype=torch.float64), 1e-6)
+
+
+# bf16 tolerance on the card: the kernel and its plain version round the
+# output to bf16 at different places, one bf16 ulp apart at most (2^-7
+# relative: rtol); atol covers small outputs, where the largest error
+# measured at serving shapes is 3.9e-3
+CARD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+            torch.bfloat16: dict(atol=5e-3, rtol=2e-2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_kernel_matches_plain(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(37, 4096, device=cuda, generator=g).to(dtype)
+    w = torch.randn(4096, device=cuda, generator=g).to(dtype)
+    torch.testing.assert_close(rms_norm_kernel(x, w, 1e-6),
+                               rms_norm_plain(x, w, 1e-6), **CARD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, dtype, case):
+    rng = np.random.RandomState(5)
+    q, k, v, causal, mask, lens, valid = _flash_case(case, rng)
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype) for a in (q, k, v))
+    m = None if mask is None else torch.from_numpy(mask).to(cuda)
+    kl = None if lens is None else torch.from_numpy(lens).to(cuda)
+    out, lse = flash_attention_kernel(q, k, v, 0.125, causal, m, kl)
+    want = flash_attention_plain(q, k, v, 0.125, causal, m, kl)
+    assert torch.isfinite(out.float()).all() and lse.shape == q.shape[:1] + (
+        q.shape[2], q.shape[1])
+    vm = torch.from_numpy(valid).to(cuda)
+    torch.testing.assert_close(out[vm].float(), want[vm].float(),
+                               **CARD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv,d", [(8, 8, 128), (4, 2, 64), (32, 8, 128)])
+def test_paged_kernel_matches_plain(cuda, dtype, h, hkv, d):
+    rng = np.random.RandomState(6)
+    arrs = _paged_case(rng, h, hkv, d, [5, 16, 1, 0, 23], num_pages=20)
+    q, kp, vp = (torch.from_numpy(a).to(cuda, dtype) for a in arrs[:3])
+    tables, lens = (torch.from_numpy(a).to(cuda) for a in arrs[3:])
+    torch.testing.assert_close(
+        paged_attention_kernel(q, kp, vp, tables, lens, 0.1).float(),
+        paged_attention_plain(q, kp, vp, tables, lens, 0.1).float(),
+        **CARD_TOL[dtype])
