@@ -7,22 +7,32 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
 
 1. Build: compiles every CUDA source of the serving path from the
    checkout (one nvcc per source, all started together).
-2. Kernels: each hand-written kernel (RMSNorm in Triton, flash-attention
-   forward and paged decode in CUDA) against its plain PyTorch version
-   at the serving path's Llama-2-7B shapes in bf16, once in f32 and in a
-   GQA case (H=32, Hkv=8), with the tolerances below; prints each
-   kernel's median device time, its bound (bytes over 3.35 TB/s or operations
+2. Kernels: each hand-written kernel (RMSNorm in Triton; flash-attention
+   forward, paged decode, ragged decode and the variable-query span
+   kernel in CUDA) against its plain PyTorch version at the serving
+   path's Llama-2-7B shapes in bf16, once in f32 and in a GQA case
+   (H=32, Hkv=8), with the tolerances below; prints each kernel's
+   median device time, its bound (bytes over 3.35 TB/s or operations
    over the card's peak for their type), the plain version's time and
    the one-call PyTorch equivalent's time where one exists.
-3. Full-width f32 check: a 2-layer model at Llama-2-7B widths gives the
+3. Full-width f32 checks: a 2-layer model at Llama-2-7B widths gives the
    same prefill logits on the card (kernels) as on the CPU (plain
-   versions), and the same greedy tokens through the predictor.
+   versions) and the same greedy tokens through the predictor; and the
+   chunked + speculative + ragged configuration gives the same greedy
+   tokens on the card as the plain configuration on the card, and as
+   itself on the CPU (chunking and speculation are lossless), with drafts
+   both accepted and rejected (so the verify step commits drafts and
+   rolls back rejected positions on the card).
 4. Serve: Llama-2-7B widths in bf16 with random weights drawn on the
-   card from a seeded torch.Generator, 8 requests through
-   ContinuousBatchingPredictor (max_batch_size=4, two requests sharing
-   a cached prefix so suffix prefill and copy-on-write run); every
-   request must finish 'ok' and every kernel's launch count must rise.
-   Prints TTFT, decode tokens/s and peak memory.
+   card from a seeded torch.Generator. Run 1: 8 requests through
+   ContinuousBatchingPredictor (max_batch_size=4, block-table decode,
+   two requests sharing a cached prefix so suffix prefill and
+   copy-on-write run). Run 2: the same 8 plus two 320-token prompts that
+   repeat a 64-token segment, the last copy led by the model's own
+   continuation (``lookup_prompt``), with ragged decode, chunked prefill
+   (256) and speculative decoding (4 drafts). Every request must finish 'ok'
+   and every kernel a run drives must have launched in that run. Prints
+   TTFT, tokens/s and peak memory of each, and profiles a pass of each.
 
 The line before the last is the ``kernels`` JSON record; the last line
 is ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -301,6 +311,176 @@ def paged_phase(torch, dev, g):
     return main
 
 
+def _builder_meta(torch, dev, tables, lens, page):
+    """The serving loop's ragged meta for these tables / post-write
+    lengths, as an int32 [6, G] tensor on the card."""
+    from paddle_tpu_torch.kernels.paged_attention import RaggedMetaBuilder
+    b, pps = tables.shape
+    builder = RaggedMetaBuilder(b, pps, page, trash_page=0)
+    tab = tables.cpu().numpy()
+    for s, n in enumerate(lens.tolist()):
+        builder.set_slot(s, tab[s], n)
+    return torch.from_numpy(builder.stacked()).to(dev)
+
+
+def ragged_phase(torch, dev, g):
+    from paddle_tpu_torch.kernels import paged_attention as P
+    b, d, page, pps = 4, 128, 16, 64
+    num_pages = b * pps + 1
+    lens = torch.tensor([557, 300, 97, 1], dtype=torch.int32, device=dev)
+    tables = torch.randperm(num_pages, device=dev, generator=g)[
+        :b * pps].reshape(b, pps).to(torch.int32).contiguous()
+    meta = _builder_meta(torch, dev, tables, lens, page)
+    main = None
+    for dtype, h, hkv in (("bfloat16", 32, 32), ("float32", 32, 32),
+                          ("bfloat16", 32, 8)):
+        dt = getattr(torch, dtype)
+        q = torch.randn(b, h, d, device=dev, generator=g).to(dt)
+        kp = torch.randn(num_pages, page, hkv, d, device=dev,
+                         generator=g).to(dt)
+        vp = torch.randn(num_pages, page, hkv, d, device=dev,
+                         generator=g).to(dt)
+        sc = d ** -0.5
+        out = P.paged_attention_ragged_kernel(q, kp, vp, lens, meta, sc)
+        err = compare(
+            torch, f"ragged_decode {dtype} q[{b}, {h}, {d}] Hkv={hkv} "
+            f"ctx={lens.tolist()} G={meta.shape[1]}", out,
+            P.paged_attention_ragged_plain(q, kp, vp, lens, meta, sc), dtype)
+        if dtype == "float32":
+            # the same function as the block-table kernel
+            compare(torch, "ragged_decode vs paged_decode float32", out,
+                    P.paged_attention_kernel(q, kp, vp, tables, lens, sc),
+                    dtype)
+        if main is None:
+            sets = [(kp, vp)] + [(torch.randn_like(kp), torch.randn_like(vp))
+                                 for _ in range(3)]
+            t = time_ms(torch, lambda a, c: P.paged_attention_ragged_kernel(
+                q, a, c, lens, meta, sc), sets)
+            plain = time_ms(torch, lambda a, c: P.paged_attention_ragged_plain(
+                q, a, c, lens, meta, sc), sets)["median"]
+            toks = int(lens.sum())
+            isz = q.element_size()
+            nbytes = (2 * q.numel() * isz + 2 * toks * hkv * d * isz
+                      + meta.numel() * 4 + lens.numel() * 4)
+            b_ms, by = bound(nbytes, 4 * d * h * toks, dtype)
+            main = dict(max_abs_err=err, t=t, plain_ms=plain,
+                        library_ms=None, bound_ms=b_ms, bound_by=by,
+                        shape=f"q[{b}, {h}, {d}] {dtype} page={page} "
+                              f"ctx={lens.tolist()} G={meta.shape[1]}")
+    # context_lens == 0 rows are zero
+    zero = torch.zeros(b, dtype=torch.int32, device=dev)
+    out = P.paged_attention_ragged_kernel(q, kp, vp, zero, meta, 0.1)
+    check(not bool(out.any()), "ragged_decode: context_lens == 0 rows not 0")
+    return main
+
+
+def varq_phase(torch, dev, g):
+    from paddle_tpu_torch.kernels import paged_attention as P
+    b, qb, d, page, pps = 4, 256, 128, 16, 64
+    num_pages = b * pps + 1
+    q_lens = torch.tensor([256, 1, 1, 97], dtype=torch.int32, device=dev)
+    kv_lens = torch.tensor([512, 301, 98, 97], dtype=torch.int32, device=dev)
+    tables = torch.randperm(num_pages, device=dev, generator=g)[
+        :b * pps].reshape(b, pps).to(torch.int32).contiguous()
+    meta = _builder_meta(torch, dev, tables, kv_lens, page)
+    rows = torch.arange(qb, device=dev)[None, :] < q_lens[:, None]
+    main = None
+    for dtype, h, hkv in (("bfloat16", 32, 32), ("float32", 32, 32),
+                          ("bfloat16", 32, 8)):
+        dt = getattr(torch, dtype)
+        q = torch.randn(b, qb, h, d, device=dev, generator=g).to(dt)
+        kp = torch.randn(num_pages, page, hkv, d, device=dev,
+                         generator=g).to(dt)
+        vp = torch.randn(num_pages, page, hkv, d, device=dev,
+                         generator=g).to(dt)
+        sc = d ** -0.5
+        name = (f"paged_varq {dtype} q[{b}, {qb}, {h}, {d}] Hkv={hkv} "
+                f"q_lens={q_lens.tolist()} kv_lens={kv_lens.tolist()}")
+        out = P.paged_attention_varq_kernel(q, kp, vp, kv_lens, q_lens, sc,
+                                            meta=meta)
+        err = compare(torch, name + " (meta)", out,
+                      P.paged_attention_ragged_varq_plain(
+                          q, kp, vp, kv_lens, q_lens, meta, sc), dtype)
+        compare(torch, name + " (block table)",
+                P.paged_attention_varq_kernel(q, kp, vp, kv_lens, q_lens, sc,
+                                              block_tables=tables),
+                P.paged_attention_varq_plain(q, kp, vp, tables, kv_lens,
+                                             q_lens, sc), dtype)
+        check(not bool(out[~rows].any()), "paged_varq: padding rows not 0")
+        if main is None:
+            sets = [(kp, vp)] + [(torch.randn_like(kp), torch.randn_like(vp))
+                                 for _ in range(3)]
+            t = time_ms(torch, lambda a, c: P.paged_attention_varq_kernel(
+                q, a, c, kv_lens, q_lens, sc, meta=meta), sets)
+            # the plain version of the same function through the block
+            # table (the meta route's plain version reads its page count
+            # back to the host)
+            plain = time_ms(torch, lambda a, c: P.paged_attention_varq_plain(
+                q, a, c, tables, kv_lens, q_lens, sc), sets)["median"]
+            # (query, key) pairs the causal spans need, per head
+            start = (kv_lens - q_lens).long()
+            pairs = sum(int(s) * n + n * (n + 1) // 2 for s, n in
+                        zip(start.tolist(), q_lens.tolist()))
+            # bytes: the real span rows of q read once (padding rows are
+            # never read), the whole output written once, each slot's
+            # keys and values, the meta and both length vectors
+            isz = q.element_size()
+            nbytes = (int(q_lens.sum()) * h * d * isz + q.numel() * isz
+                      + 2 * int(kv_lens.sum()) * hkv * d * isz
+                      + meta.numel() * 4 + 2 * b * 4)
+            b_ms, by = bound(nbytes, 4 * d * h * pairs, dtype)
+            main = dict(max_abs_err=err, t=t, plain_ms=plain,
+                        library_ms=None, bound_ms=b_ms, bound_by=by,
+                        shape=f"q[{b}, {qb}, {h}, {d}] {dtype} page={page} "
+                              f"q_lens={q_lens.tolist()} "
+                              f"kv_lens={kv_lens.tolist()}")
+        if dtype == "float32":
+            # single-token spans are decode attention: against the
+            # ragged decode kernel, f32 tolerance
+            ones = torch.ones_like(q_lens)
+            span = P.paged_attention_varq_kernel(
+                q[:, :1].contiguous(), kp, vp, kv_lens, ones, sc, meta=meta)
+            compare(torch, "paged_varq q_lens == 1 vs ragged_decode float32",
+                    span[:, 0], P.paged_attention_ragged_kernel(
+                        q[:, 0].contiguous(), kp, vp, kv_lens, meta, sc),
+                    dtype)
+    return main
+
+
+def lookup_prompt(torch, model, dev, toks, seg_len, reps, m, rounds=8,
+                  **kw):
+    """``reps`` copies of a random ``seg_len``-token segment, the first
+    ``m`` tokens of the last copy (the lead) replaced by the model's own
+    greedy continuation of the prompt. When the first generated token
+    equals the lead's first, prompt lookup matches the segment's last
+    tokens at the start of the last copy and drafts the rest of the lead;
+    the drafts the model accepts are the lead's tokens its continuation
+    repeats. The continuation changes with the lead it replaces (a
+    random-weight model's logits are nearly flat), so the lead is
+    recomputed up to ``rounds`` times; the prompt whose continuation
+    repeats the most of its lead is returned, at once when that is at
+    least 2 tokens (one accepted draft). Callers read the stats. ``kw``
+    is the predictor configuration the continuation is computed with."""
+    from paddle_tpu_torch.inference import ContinuousBatchingPredictor
+    cb = ContinuousBatchingPredictor(model, device=dev,
+                                     enable_prefix_cache=False, **kw)
+    seg, lead = toks(seg_len), toks(m)
+    best = (-1, None)
+    for r in range(1, rounds + 1):
+        p = seg * (reps - 1) + lead + seg[m:]
+        y = cb.generate([p], max_new_tokens=m)[0]
+        k = next((i for i, (a, b) in enumerate(zip(y, lead)) if a != b), m)
+        best = max(best, (k, p), key=lambda kp: kp[0])
+        if k >= 2:
+            break
+        lead = y
+    log(f"lookup prompt ({reps} x {seg_len} tokens): after {r} rounds the "
+        f"continuation repeats {best[0]} of its {m}-token lead")
+    del cb
+    torch.cuda.empty_cache()
+    return best[1]
+
+
 # ---------------------------------------------------- full-width checks --
 
 def f32_parity_phase(torch, dev, seed):
@@ -344,12 +524,63 @@ def f32_parity_phase(torch, dev, seed):
     log(f"f32 2-layer greedy tokens, card == CPU: {toks_gpu == toks_cpu}")
     check(toks_gpu == toks_cpu,
           f"greedy tokens differ: card {toks_gpu} vs CPU {toks_cpu}")
+    # chunked prefill + speculation + ragged decode are lossless: the
+    # same greedy tokens as the block-table unchunked configuration on
+    # the card, and as themselves on the CPU (plain versions). A
+    # 100-token prompt is chunked (chunk 64); a lookup prompt (a 16-token
+    # segment four times, its last copy led by the model's continuation)
+    # gives the drafter matches. The gate needs drafts both accepted and
+    # rejected, so committed drafts and the rollback of rejected
+    # positions run through paged_varq: up to 8 lookup prompts are tried.
+    geom = dict(max_batch_size=2, page_size=16, max_seq_len=256)
+    new = dict(use_ragged=True, prefill_chunk_tokens=64, spec_draft_tokens=4)
+
+    def toks(n):
+        return torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+    for attempt in range(1, 9):
+        prompts = [toks(100), ids[1, -37:].tolist(),
+                   lookup_prompt(torch, gpu, dev, toks, 16, 4, 8,
+                                 use_ragged=False, **geom)]
+        card = ContinuousBatchingPredictor(gpu, device=dev, **geom, **new)
+        toks_new = card.generate(prompts, max_new_tokens=12)
+        st = card.stats
+        log(f"f32 lookup prompt {attempt}: drafts accepted "
+            f"{st['spec_accepted']} of {st['spec_proposed']}")
+        if 0 < st["spec_accepted"] < st["spec_proposed"]:
+            break
+    check(0 < st["spec_accepted"] < st["spec_proposed"],
+          f"no lookup prompt gave both accepted and rejected drafts: {st}")
+    base = ContinuousBatchingPredictor(gpu, device=dev, use_ragged=False,
+                                       **geom).generate(prompts,
+                                                        max_new_tokens=12)
+    cpu_new = ContinuousBatchingPredictor(cpu, device="cpu", **geom, **new)
+    toks_cpu = cpu_new.generate(prompts, max_new_tokens=12)
+    log(f"f32 2-layer greedy tokens, ragged + chunked (64) + speculative "
+        f"(4) vs block-table unchunked on the card: {toks_new == base}; "
+        f"vs the same configuration on the CPU: {toks_new == toks_cpu}; "
+        f"card stats {st}")
+    check(toks_new == base, f"chunked/speculative tokens {toks_new} differ "
+          f"from the plain configuration's {base}")
+    check(toks_new == toks_cpu,
+          f"chunked/speculative tokens differ: card {toks_new} vs CPU "
+          f"{toks_cpu}")
+    check(st == cpu_new.stats, f"stats differ: card {st} vs CPU "
+          f"{cpu_new.stats}")
+    check(st["chunked_requests"] == 1, f"the f32 check did not chunk: {st}")
     return err
 
 
+# kernels each served run must launch (the ragged run decodes through
+# ragged_decode and runs its chunks and verify spans through paged_varq)
+RUN1_KERNELS = ("rms_norm", "flash_fwd", "paged_decode")
+RUN2_KERNELS = ("rms_norm", "flash_fwd", "ragged_decode", "paged_varq")
+RUN1 = dict(use_ragged=False)
+RUN2 = dict(use_ragged="auto", prefill_chunk_tokens=256, spec_draft_tokens=4)
+GEOM = dict(max_batch_size=4, page_size=16, max_seq_len=1024)
+
+
 def serve_phase(torch, dev, seed, layers, card):
-    from paddle_tpu_torch.inference import ContinuousBatchingPredictor
-    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+    """Both served runs on one model; returns each run's launch counts."""
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     cfg = LlamaConfig.llama2_7b(num_hidden_layers=layers, dtype="bfloat16")
     t0 = time.perf_counter()
@@ -369,8 +600,54 @@ def serve_phase(torch, dev, seed, layers, card):
     prompts = [toks(512), toks(48), shared, toks(32), toks(300),
                shared + toks(91), toks(200), toks(130)]
     max_new = [64, 40, 48, 32, 56, 48, 36, 60]
-    cb = ContinuousBatchingPredictor(model, max_batch_size=4, page_size=16,
-                                     max_seq_len=1024, device=dev)
+    t0 = time.perf_counter()
+    outs1, counts1, _ = serve_run(torch, dev, model, cfg, prompts, max_new,
+                                  card, "run 1 (block-table decode)",
+                                  RUN1_KERNELS, RUN1)
+    serve_profile(torch, dev, model, prompts[:4], card, RUN1)
+    log(f"serve run 1 took {time.perf_counter() - t0:.1f} s")
+
+    # run 2: two lookup prompts that repeat a 64-token segment five times,
+    # the last copy led by 16 tokens of the model's own continuation, so
+    # that the prompt-lookup drafter has matches the model may accept;
+    # 512, 300 and both 320-token prompts exceed the 256-token chunk
+    # threshold
+    reps = [lookup_prompt(torch, model, dev, toks, 64, 5, 16, **GEOM,
+                          **dict(RUN2, spec_draft_tokens=0))
+            for _ in range(2)]
+    t0 = time.perf_counter()
+    outs2, counts2, cb = serve_run(
+        torch, dev, model, cfg, prompts + reps, max_new + [64, 64], card,
+        "run 2 (ragged decode, chunked prefill 256, 4 drafts)",
+        RUN2_KERNELS, RUN2)
+    st = cb.stats
+    check(cb.use_ragged, "use_ragged='auto' did not turn on on CUDA")
+    check(st["chunked_requests"] >= 3, f"fewer than 3 chunked requests: {st}")
+    check(st["mixed_steps"] > 0 and st["spec_proposed"] > 0,
+          f"no mixed step or no drafts: {st}")
+    same = sum(a == b for a, b in zip(outs1, outs2))
+    # index of the first token where run 2 leaves run 1 (bf16 rounds at
+    # other places in the two decode kernels and in chunked prefill)
+    split = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                  min(len(a), len(b))) for a, b in zip(outs1, outs2)]
+    log(f"serve run 2: draft acceptance {st['spec_accepted']} / "
+        f"{st['spec_proposed']} = "
+        f"{st['spec_accepted'] / max(st['spec_proposed'], 1):.3f}; "
+        f"{same} of {len(outs1)} requests' bf16 tokens equal run 1's; "
+        f"first differing token per request {split}")
+    serve_profile(torch, dev, model, [prompts[0], prompts[1], reps[0],
+                                      prompts[3]], card, RUN2)
+    log(f"serve run 2 took {time.perf_counter() - t0:.1f} s")
+    return counts1, counts2
+
+
+def serve_run(torch, dev, model, cfg, prompts, max_new, card, label,
+              required, kw):
+    """One counted serve: launch counters set to 0 just before it and
+    read just after; every kernel in ``required`` must have launched."""
+    from paddle_tpu_torch.inference import ContinuousBatchingPredictor
+    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+    cb = ContinuousBatchingPredictor(model, device=dev, **GEOM, **kw)
     prefill_s = [0.0]
 
     def timed(fn):                      # prefills end in a host sync
@@ -392,40 +669,39 @@ def serve_phase(torch, dev, seed, layers, card):
     wall = time.perf_counter() - t0
     counts = dict(launch_counts)
     peak = torch.cuda.max_memory_allocated(dev)
-    log(f"serve: status {cb.last_status}; stats {cb.stats}")
-    log(f"serve: kernel launches {counts}")
+    log(f"serve {label}: status {cb.last_status}; stats {cb.stats}")
+    log(f"serve {label}: kernel launches {counts}")
     check(cb.last_status == ["ok"] * len(prompts), "a request did not end ok")
     check([len(o) for o in outs] == max_new, "wrong number of new tokens")
     check(all(0 <= t < cfg.vocab_size for o in outs for t in o),
           "token id out of range")
-    check(all(v > 0 for v in counts.values()),
-          f"a kernel was never launched on the main path: {counts}")
+    check(all(counts[k] > 0 for k in required),
+          f"a kernel of {label} was never launched in it: {counts}")
     check(cb.stats["prefix_partial_hits"] >= 1,
           "the shared prefix did not take the suffix-prefill path")
-    log("serve: TTFT per request (ms, from the generate call): "
+    log(f"serve {label}: TTFT per request (ms, from the generate call): "
         + ", ".join(f"{t * 1e3:.1f}" for t in cb.last_ttft_s))
     n_tok = sum(len(o) for o in outs)
     dec_tok = n_tok - len(outs)         # first tokens come from prefill
     ttft = sorted(cb.last_ttft_s)
     dec_s = max(wall - prefill_s[0], 1e-9)
-    log(f"serve on {card}: TTFT p50 {statistics.median(ttft) * 1e3:.1f} ms, "
-        f"max {ttft[-1] * 1e3:.1f} ms; {n_tok} new tokens in {wall:.2f} s "
-        f"({n_tok / wall:.1f} tok/s overall); decode {dec_tok} tokens in "
-        f"{dec_s:.2f} s outside prefill ({dec_tok / dec_s:.1f} tok/s, "
+    log(f"serve {label} on {card}: TTFT p50 "
+        f"{statistics.median(ttft) * 1e3:.1f} ms, max {ttft[-1] * 1e3:.1f} "
+        f"ms; {n_tok} new tokens in {wall:.2f} s ({n_tok / wall:.1f} tok/s "
+        f"overall); decode {dec_tok} tokens in {dec_s:.2f} s outside "
+        f"monolithic prefill ({dec_tok / dec_s:.1f} tok/s, "
         f"{cb.stats['decode_steps']} steps); peak memory "
         f"{peak / 2**30:.2f} GiB")
-    serve_profile(torch, dev, model, prompts[:4], card)
-    return counts
+    return outs, counts, cb
 
 
-def serve_profile(torch, dev, model, prompts, card):
-    """A second, profiled serve of 4 requests (after the counted run, so
-    the tracer's cost stays out of the numbers above): device busy and
-    idle share, and the device time by kernel."""
+def serve_profile(torch, dev, model, prompts, card, kw):
+    """A profiled serve of 4 requests (after the counted run, so the
+    tracer's cost stays out of its numbers): device busy and idle share,
+    and the device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.inference import ContinuousBatchingPredictor
-    cb = ContinuousBatchingPredictor(model, max_batch_size=4, page_size=16,
-                                     max_seq_len=1024, device=dev)
+    cb = ContinuousBatchingPredictor(model, device=dev, **GEOM, **kw)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -435,11 +711,13 @@ def serve_profile(torch, dev, model, prompts, card):
         wall = (time.perf_counter() - t0) * 1e3
     kern = device_kernel_ms(torch, prof)
     busy = sum(ms for ms, _ in kern.values())
-    log(f"serve profile on {card}: {len(prompts)} requests x 32 tokens, "
-        f"{cb.stats['decode_steps']} decode steps, wall {wall:.1f} ms "
+    log(f"serve profile {kw} on {card}: {len(prompts)} requests "
+        f"({[len(p) for p in prompts]} prompt tokens) x 32 tokens, "
+        f"{cb.stats['decode_steps']} steps ({cb.stats['mixed_steps']} mixed, "
+        f"{cb.stats['spec_ticks']} speculative), wall {wall:.1f} ms "
         f"(traced), device busy {busy:.1f} ms, idle share "
         f"{1 - busy / wall:.3f}")
-    for name, (ms, n) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:10]:
+    for name, (ms, n) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"  {ms:9.2f} ms {100 * ms / busy:5.1f}% x{n:<6d} {name[:90]}")
     from torch.autograd import DeviceType
     host = [e for e in prof.key_averages()
@@ -479,7 +757,8 @@ def main(argv=None):
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, card {card}")
 
     t0 = time.perf_counter()
-    _build.build(["flash_fwd", "paged_decode"])
+    _build.build(["flash_fwd", "paged_decode", "ragged_decode",
+                  "paged_varq"])
     log(f"built CUDA kernels in {time.perf_counter() - t0:.1f} s")
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
@@ -487,7 +766,9 @@ def main(argv=None):
     log("kernels vs plain versions (Llama-2-7B serving shapes):")
     mains = {"rms_norm": rms_phase(torch, dev, g),
              "flash_fwd": flash_phase(torch, dev, g),
-             "paged_decode": paged_phase(torch, dev, g)}
+             "paged_decode": paged_phase(torch, dev, g),
+             "ragged_decode": ragged_phase(torch, dev, g),
+             "paged_varq": varq_phase(torch, dev, g)}
     for name, m in mains.items():
         lib = "n/a" if m["library_ms"] is None else f"{m['library_ms']:.4f}"
         t = m["t"]
@@ -506,7 +787,7 @@ def main(argv=None):
     if args.layers != 32:
         log(f"serving {args.layers} layers instead of 32 (--layers)")
     t0 = time.perf_counter()
-    counts = serve_phase(torch, dev, args.seed, args.layers, card)
+    counts1, counts2 = serve_phase(torch, dev, args.seed, args.layers, card)
     log(f"serve phase took {time.perf_counter() - t0:.1f} s")
 
     sources = {"rms_norm": ("triton",
@@ -516,10 +797,19 @@ def main(argv=None):
                              "paddle_tpu/kernels/attention.py:163"),
                "paged_decode": ("cuda",
                                 "paddle_tpu_torch/csrc/paged_decode.cu",
-                                "paddle_tpu/kernels/paged_attention.py:104")}
+                                "paddle_tpu/kernels/paged_attention.py:104"),
+               "ragged_decode": ("cuda",
+                                 "paddle_tpu_torch/csrc/ragged_decode.cu",
+                                 "paddle_tpu/kernels/paged_attention.py:363"),
+               "paged_varq": ("cuda", "paddle_tpu_torch/csrc/paged_varq.cu",
+                              "paddle_tpu/kernels/paged_attention.py:516")}
     rows = []
     for name, (route, src, replaces) in sources.items():
         m = mains[name]
+        # launches from the served run that drives the kernel: run 1 for
+        # the block-table run's three, run 2 (ragged, chunked,
+        # speculative) for the rest
+        counts = counts1 if name in RUN1_KERNELS else counts2
         rows.append({"name": name, "route": route, "source": src,
                      "replaces": replaces, "launches": counts[name],
                      "max_abs_err": m["max_abs_err"],

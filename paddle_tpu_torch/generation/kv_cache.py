@@ -1,12 +1,13 @@
 """Paged KV cache for serving (counterpart of
 ``paddle_tpu/generation/kv_cache.py``): the refcounted page pool, the
-prefix cache over page-aligned prompt prefixes, and the decode-step
-contract ``paged_cache_update_attend``.
+prefix cache over page-aligned prompt prefixes, and the step contracts
+``paged_cache_update_attend`` (one decode token per slot) and
+``paged_cache_mixed_update_attend`` (a span of tokens per slot).
 
 Unlike the functional JAX version, the pool's page tensors are updated
 IN PLACE on the device: the decode step's K/V write, the prefill
-scatters and copy-on-write all mutate ``PagedKVPool.k[i]`` /
-``PagedKVPool.v[i]``. Every write and every read of a page runs on the
+scatters, the mixed step's span writes and copy-on-write all mutate
+``PagedKVPool.k[i]`` / ``PagedKVPool.v[i]``. Every write and every read of a page runs on the
 device's current stream, so a write is always ordered before the
 attention that reads it.
 """
@@ -16,7 +17,10 @@ from typing import List, NamedTuple
 
 import torch
 
-from ..kernels.paged_attention import paged_attention
+from ..kernels.paged_attention import (paged_attention,
+                                       paged_attention_ragged,
+                                       paged_attention_ragged_varq,
+                                       paged_attention_varq)
 
 
 class PagedKVPool:
@@ -283,17 +287,59 @@ def decode_index(block_table, context_lens, page_size) -> DecodeIndex:
                        cl % page_size, (cl + 1).to(torch.int32))
 
 
+class SpanIndex(NamedTuple):
+    """Where one mixed (span) step writes and how far it attends: the
+    same in every layer, so ``span_index`` computes it once per step.
+    ``rows`` int64 [4, N] holds, for each REAL span position (span index
+    i < q_lens[b]), its slot b, its span index i, and its destination
+    page ``block_table[b, (cl + i) // page]`` and row ``(cl + i) % page``;
+    padding positions are not listed, so they write nothing.
+    ``kv_lens`` [B] int32 is ``cl + q_lens``."""
+    rows: torch.Tensor
+    kv_lens: torch.Tensor
+
+
+def span_index(block_table, context_lens, q_lens, page_size) -> SpanIndex:
+    """The SpanIndex of a step whose slot b writes q_lens[b] positions
+    from context_lens[b] on. The real positions are selected before the
+    index-put: torch has no "drop" mode, and a padding position past a
+    full table would otherwise clamp into the slot's last real page and
+    race this step's real K/V there. (Selecting them needs the lengths
+    on the host: the predictor builds this from its host arrays.)"""
+    cl = context_lens.long()
+    ql = q_lens.long()
+    b = torch.repeat_interleave(torch.arange(cl.shape[0], device=cl.device),
+                                ql)
+    start = torch.cumsum(ql, 0) - ql
+    i = torch.arange(b.shape[0], device=cl.device) - start[b]
+    pos = cl[b] + i
+    pslot = (pos // page_size).clamp(max=block_table.shape[1] - 1)
+    page = block_table.long()[b, pslot]
+    rows = torch.stack([b, i, page, pos % page_size])
+    return SpanIndex(rows, (cl + ql).to(torch.int32))
+
+
 class PagedCacheEntry(NamedTuple):
     """Per-layer paged KV cache: ``k_pages``/``v_pages`` [num_pages,
     page_size, n_kv_heads, head_dim]; ``block_table`` [B, pages_per_seq]
     int32 page ids per slot; ``context_lens`` [B] int32 tokens already
-    cached per slot (before the token being decoded); ``step`` their
-    ``decode_index``, shared by all layers."""
+    cached per slot (before the token or span being run); ``step`` their
+    ``decode_index`` (or, for a span step, ``span_index``), shared by all
+    layers.
+
+    ``ragged_meta`` (optional, int32 [6, G]): ragged metadata for the
+    POST-write lengths; when present, attention runs the ragged kernels.
+    ``q_lens`` (optional, [B] int32): per-slot query SPAN lengths of the
+    MIXED prefill+decode step (a prefill chunk, drafted tokens, or 1 for
+    a decode token) starting at context_lens[b]; when present, attention
+    goes through ``paged_cache_mixed_update_attend``."""
     k_pages: torch.Tensor
     v_pages: torch.Tensor
     block_table: torch.Tensor
     context_lens: torch.Tensor
-    step: DecodeIndex
+    step: object
+    ragged_meta: torch.Tensor = None
+    q_lens: torch.Tensor = None
 
 
 class PagedKVCache:
@@ -316,11 +362,42 @@ def paged_cache_update_attend(entry: PagedCacheEntry, q, k, v, scale=None):
     """Decode-step contract: write this step's K/V (one token per slot)
     into page ``block_table[b, cl // page]`` at row ``cl % page``, then
     attend the query token over ``cl + 1`` cached tokens with the
-    paged-decode kernel. q [B, 1, H, D]; k/v [B, 1, Hkv, D] -> (out
-    [B, 1, H, D], entry). The write is in place; inactive slots point at
-    the predictor's trash page."""
-    kp, vp, bt, _, step = entry
+    paged-decode kernel, or with the ragged kernel when the entry has
+    ``ragged_meta``. An entry with ``q_lens`` runs the mixed step
+    (``paged_cache_mixed_update_attend``) instead. q [B, 1, H, D]; k/v
+    [B, 1, Hkv, D] -> (out [B, 1, H, D], entry). The write is in place;
+    inactive slots point at the predictor's trash page."""
+    if entry.q_lens is not None:
+        return paged_cache_mixed_update_attend(entry, q, k, v, scale)
+    kp, vp, bt, _, step, meta, _ = entry
     kp[step.write_page, step.write_off] = k[:, 0]
     vp[step.write_page, step.write_off] = v[:, 0]
-    out = paged_attention(q[:, 0], kp, vp, bt, step.attend_lens, scale)
+    if meta is not None:
+        out = paged_attention_ragged(q[:, 0], kp, vp, step.attend_lens,
+                                     meta, scale)
+    else:
+        out = paged_attention(q[:, 0], kp, vp, bt, step.attend_lens, scale)
     return out[:, None], entry
+
+
+def paged_cache_mixed_update_attend(entry: PagedCacheEntry, q, k, v,
+                                    scale=None):
+    """Mixed-step contract: slot b carries a span of ``q_lens[b]``
+    queries starting at absolute position ``context_lens[b]``. The
+    span's K/V is written into the slot's pages (real positions only,
+    from ``entry.step``, a ``span_index``), then the span attends
+    causally over the pages with the variable-query kernel, through the
+    ragged meta when the entry has one, else through the block table.
+    q [B, Qb, H, D]; k/v [B, Qb, Hkv, D] -> (out [B, Qb, H, D], entry).
+    Padding positions (i >= q_lens[b]) write nothing and read back
+    zeros."""
+    kp, vp, bt, _, step, meta, ql = entry
+    src_b, src_i, page, off = step.rows
+    kp[page, off] = k[src_b, src_i]
+    vp[page, off] = v[src_b, src_i]
+    if meta is not None:
+        out = paged_attention_ragged_varq(q, kp, vp, step.kv_lens, ql, meta,
+                                          scale)
+    else:
+        out = paged_attention_varq(q, kp, vp, bt, step.kv_lens, ql, scale)
+    return out, entry

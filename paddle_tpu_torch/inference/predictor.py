@@ -1,24 +1,37 @@
 """Continuous-batching greedy serving (counterpart of
 ``paddle_tpu/inference/__init__.py`` ``ContinuousBatchingPredictor``,
-limited to the greedy ``generate`` path).
+limited to greedy generation).
 
 The admission / decode / resolve loop, the prompt bucketing, the prefix
-cache with copy-on-write and the stats keys follow the reference, so
-both predictors form the same batches and emit the same greedy tokens.
-Three device programs carry it, as in the reference:
+cache with copy-on-write, chunked prefill, prompt-lookup speculative
+decoding and the stats keys follow the reference, so both predictors
+form the same batches and emit the same greedy tokens. Five device
+programs carry it, as in the reference:
 
 - ``_raw_prefill``: batched, bucketed, left-padded prefill; the greedy
   token for every position and the K/V scatter into the paged pool;
 - ``_raw_suffix_prefill``: a prefix-cache partial hit runs only the
   prompt suffix against the cached pages;
 - ``_raw_decode_step``: the paged K/V write, paged attention and argmax
-  for every slot.
+  for every slot;
+- ``_raw_mixed_step``: every slot carries a span (a page-aligned chunk
+  of a long prompt, or one decode token) through the variable-query
+  kernel, so a long prompt ingests while the other slots decode;
+- ``_raw_spec_step``: every slot's committed token plus its drafted
+  tokens verify in one span; the accepted prefix is found on the device
+  and the rejected positions' K/V is restored there.
 
-Decode steps are double-buffered as in the reference: step t+1 is
-dispatched (chaining step t's device-resident token) before step t's
-token is fetched. On CUDA the fetch is an asynchronous copy into pinned
-host memory behind an event, so waiting for step t never waits for the
-step already queued behind it.
+With ``use_ragged`` the decode attention runs over the ragged (slot,
+page) work list (``RaggedMetaBuilder``) and the span attention takes its
+pages from the same list; without it both read the block table.
+
+Decode and mixed steps are double-buffered as in the reference: step
+t+1 is dispatched (chaining step t's device-resident token) before step
+t's token is fetched. On CUDA the fetch is an asynchronous copy into
+pinned host memory behind an event, so waiting for step t never waits
+for the step already queued behind it. Speculative mode resolves each
+step before dispatching the next: the drafter needs the committed
+tokens.
 """
 from __future__ import annotations
 
@@ -32,9 +45,12 @@ import torch
 
 from ..framework import resolve_device
 from ..framework.runtime_config import RuntimeConfig
+from ..generation import sampling
 from ..generation.kv_cache import (PagedCacheEntry, PagedKVCache,
-                                   PagedKVPool, PrefixCache, decode_index)
+                                   PagedKVPool, PrefixCache, SpanIndex,
+                                   decode_index, span_index)
 from ..kernels import NEG_INF
+from ..kernels.paged_attention import RaggedMetaBuilder
 
 
 def _pow2_bucket(n):
@@ -52,12 +68,23 @@ class ContinuousBatchingPredictor:
 
     ``device`` defaults to CUDA and must be where the model lives;
     ``device="cpu"`` runs the plain PyTorch path.
+
+    ``use_ragged``: decode over the ragged (slot, page) work list;
+    "auto" turns it on on CUDA and off on the CPU (the reference's rule
+    without its TPU tiling terms). ``prefill_chunk_tokens``: prompts
+    longer than this (rounded down to page * 2^k) ingest chunk by chunk
+    through the mixed step; 0 disables. ``spec_draft_tokens`` /
+    ``spec_ngram_max``: prompt-lookup speculative decoding with up to
+    that many drafted tokens per step; 0 disables. Unset values come
+    from ``runtime_config``.
     """
 
     def __init__(self, model, max_batch_size=None, page_size=None,
                  num_pages=None, max_seq_len=None, pad_token_id=0,
-                 eos_token_id=None, enable_prefix_cache=True,
-                 runtime_config=None, device=None):
+                 eos_token_id=None, use_ragged="auto",
+                 enable_prefix_cache=True, prefill_chunk_tokens=None,
+                 runtime_config=None, spec_draft_tokens=None,
+                 spec_ngram_max=None, device=None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, predictor "
@@ -98,11 +125,38 @@ class ContinuousBatchingPredictor:
             else None
         if self.prefix_cache is not None:
             self.pool.reclaimer = self.prefix_cache
+        if use_ragged == "auto":
+            use_ragged = self.device.type == "cuda"
+        self.use_ragged = bool(use_ragged)
+        # chunked prefill: the threshold is a latency bound, so it
+        # normalizes DOWN to a power-of-two multiple of page_size (min
+        # one page); chunk buckets form the set {page * 2^k <= chunk_max}
+        if prefill_chunk_tokens is None:
+            prefill_chunk_tokens = rc.prefill_chunk_tokens
+        chunk = int(prefill_chunk_tokens or 0)
+        if chunk > 0:
+            b = self.page
+            while b * 2 <= chunk:
+                b *= 2
+            chunk = b
+        self._chunk_max = chunk
+        if spec_draft_tokens is None:
+            spec_draft_tokens = rc.spec_draft_tokens
+        if spec_ngram_max is None:
+            spec_ngram_max = rc.spec_ngram_max
+        self._spec_k = max(0, int(spec_draft_tokens))
+        self._ngram_max = max(1, int(spec_ngram_max))
+        # span positions past the prompt (padding) may run past the RoPE
+        # table; their outputs are never used
+        self._max_pos = cfg.max_position_embeddings - 1
         self.stats = {"prefills": 0, "prefill_batches": 0,
                       "decode_steps": 0, "evictions": 0,
                       "max_in_flight": 0, "prefix_hits": 0,
                       "prefix_partial_hits": 0, "prefix_misses": 0,
-                      "pages_reused": 0, "hol_skips": 0}
+                      "pages_reused": 0, "hol_skips": 0,
+                      "spec_ticks": 0, "spec_proposed": 0,
+                      "spec_accepted": 0, "prefill_chunks": 0,
+                      "chunked_requests": 0, "mixed_steps": 0}
         self.last_status: List[str] = []
         # seconds from the generate() call to each request's first token
         self.last_ttft_s: List[float] = []
@@ -120,8 +174,9 @@ class ContinuousBatchingPredictor:
         """Host array -> device tensor, snapshotting it: the host mutates
         tables/ctx in place while a dispatched step may still read them.
         On CUDA the copy is asynchronous from pinned memory, so it never
-        waits for the steps already queued."""
-        t = torch.from_numpy(arr)
+        waits for the steps already queued. Takes a numpy array or a CPU
+        tensor."""
+        t = torch.as_tensor(arr)
         if self.device.type == "cuda":
             # pin_memory() copies, so the snapshot is taken right here
             return t.pin_memory().to(self.device, non_blocking=True)
@@ -212,26 +267,89 @@ class ContinuousBatchingPredictor:
             vp[dst_page, dst_off] = cv[:, past_len:]
         return nexts
 
+    def _done(self, tok):
+        if self.eos_token_id is not None:
+            return tok == self.eos_token_id
+        return torch.zeros(tok.shape, dtype=torch.bool, device=tok.device)
+
     @torch.no_grad()
-    def _raw_decode_step(self, tables, ctx, last_tok):
+    def _raw_decode_step(self, tables, ctx, last_tok, meta=None):
         """One decode step for all slots: paged K/V write + paged
-        attention + greedy argmax + eos detection, all on the device.
-        Returns (next_token [B] int32, done [B] bool)."""
+        attention (ragged over ``meta`` [6, G] when given) + greedy
+        argmax + eos detection, all on the device. Returns (next_token
+        [B] int32, done [B] bool)."""
         # the write position and attended length are the same in every
         # layer: computed once per step, not once per layer
         step = decode_index(tables, ctx, self.page)
-        entries = [PagedCacheEntry(k, v, tables, ctx, step)
+        entries = [PagedCacheEntry(k, v, tables, ctx, step, meta)
                    for k, v in zip(self.pool.k, self.pool.v)]
         logits, _ = self.model(last_tok[:, None].long(),
                                position_ids=ctx[:, None].long(),
                                past_key_values=PagedKVCache(entries),
                                use_cache=True)
         nxt = logits[:, -1].argmax(dim=-1).to(torch.int32)
-        if self.eos_token_id is not None:
-            done = nxt == self.eos_token_id
-        else:
-            done = torch.zeros(nxt.shape, dtype=torch.bool, device=nxt.device)
-        return nxt, done
+        return nxt, self._done(nxt)
+
+    def _span_forward(self, tables, ctx, span_ids, q_lens, tok_in, span,
+                      meta):
+        """The forward of a span step: slot b runs span_ids[b] with
+        column 0 replaced by tok_in[b] (the decode-chained or host
+        token), at positions ctx[b] + i, through the mixed cache
+        contract. Returns (logits [B, Qb, V], the span ids run)."""
+        qb = span_ids.shape[1]
+        ids = span_ids.clone()
+        ids[:, 0] = tok_in.to(ids.dtype)
+        pos = (ctx[:, None].long()
+               + torch.arange(qb, device=ctx.device)[None, :])
+        entries = [PagedCacheEntry(k, v, tables, ctx, span, meta, q_lens)
+                   for k, v in zip(self.pool.k, self.pool.v)]
+        logits, _ = self.model(ids.long(),
+                               position_ids=pos.clamp(max=self._max_pos),
+                               past_key_values=PagedKVCache(entries),
+                               use_cache=True)
+        return logits, ids
+
+    @torch.no_grad()
+    def _raw_mixed_step(self, tables, ctx, span_ids, q_lens, tok_in, span,
+                        meta=None):
+        """One MIXED prefill+decode step: every slot carries a span -- a
+        prefill chunk of q_lens[b] prompt tokens, or one decode token --
+        from absolute position ctx[b] (``span`` is its ``span_index``).
+        Returns (next_token [B] int32, the argmax at each slot's LAST
+        span position, done [B] bool): for a slot finishing its prompt
+        this step it is the request's first generated token; mid-prompt
+        slots' outputs are ignored."""
+        logits, _ = self._span_forward(tables, ctx, span_ids, q_lens,
+                                       tok_in, span, meta)
+        qb = span_ids.shape[1]
+        last = (q_lens.long() - 1).clamp(0, qb - 1)
+        rows = torch.arange(last.shape[0], device=last.device)
+        nxt = logits[rows, last].argmax(dim=-1).to(torch.int32)
+        return nxt, self._done(nxt)
+
+    @torch.no_grad()
+    def _raw_spec_step(self, tables, ctx, span_ids, q_lens, tok_in, span,
+                       meta=None):
+        """One speculative verify step: slot b's span is its committed
+        last token (column 0, from tok_in) followed by q_lens[b] - 1
+        drafted tokens. The longest accepted draft prefix and the bonus
+        token are computed on the device (``verify_spans_greedy``), and
+        the REJECTED positions' K/V is rolled back there: the span's
+        destinations are read before the forward (the pages are updated
+        in place) and written back at span index accepted < i < q_lens.
+        Returns (bonus [B] int32, accepted [B] int32)."""
+        src_b, src_i, page, off = span.rows
+        old_k = [k[page, off] for k in self.pool.k]
+        old_v = [v[page, off] for v in self.pool.v]
+        logits, ids = self._span_forward(tables, ctx, span_ids, q_lens,
+                                         tok_in, span, meta)
+        accepted, bonus = sampling.verify_spans_greedy(logits, ids, q_lens)
+        # real positions only (the span index lists no padding), so the
+        # write-back touches exactly the span's own destinations
+        rej = (src_i > accepted.long()[src_b])[:, None, None]
+        for pages, old in zip(self.pool.k + self.pool.v, old_k + old_v):
+            pages[page, off] = torch.where(rej, old, pages[page, off])
+        return bonus, accepted
 
     # -------------------------------------------------------------- serve
     def generate(self, prompts, max_new_tokens=32, strict=True):
@@ -300,10 +418,19 @@ class ContinuousBatchingPredictor:
         slot_req = [-1] * self.B                  # -1 = free
         slot_pages = [[] for _ in range(self.B)]
         slot_new = [[] for _ in range(self.B)]
+        # chunked prefill: the un-ingested prompt tail per slot (a
+        # non-empty tail turns the next dispatch into a MIXED step)
+        slot_pending = [[] for _ in range(self.B)]
+        # prompt + committed tokens: what the prompt-lookup drafter reads
+        slot_hist = [[] for _ in range(self.B)]
         tables = np.full((self.B, self.pages_per_seq), self._trash, np.int32)
         ctx = np.ones((self.B,), np.int32)        # inactive: 1 dummy token
         last_tok_host = np.zeros((self.B,), np.int32)
         override = np.zeros((self.B,), bool)      # host token beats device
+        builder = RaggedMetaBuilder(self.B, self.pages_per_seq, self.page,
+                                    self._trash) if self.use_ragged \
+            else None
+        spec_mode = self._spec_k > 0
 
         def evict(b, status_val="ok"):
             r = slot_req[b]
@@ -311,19 +438,26 @@ class ContinuousBatchingPredictor:
             status[r] = status_val
             self.pool.release(slot_pages[b])
             slot_req[b], slot_pages[b], slot_new[b] = -1, [], []
+            slot_pending[b], slot_hist[b] = [], []
             tables[b, :] = self._trash
             ctx[b] = 1
+            if builder is not None:
+                builder.clear_slot(b)
             self.stats["evictions"] += 1
 
         def reserve(r):
             """Reserve pages for request r (prefix-cache lookup, retain,
             alloc, copy-on-write): the admission plan, or None when the
-            pool cannot satisfy it right now."""
+            pool cannot satisfy it right now. Prompts over the chunk
+            threshold ingest through the mixed step and bypass the
+            prefix cache (no monolithic prefill computes the
+            per-position tokens the trie stores)."""
             prompt = prompts[r]
             L = len(prompt)
             need = -(-(L + max_new[r]) // self.page)
+            chunked = bool(self._chunk_max) and L > self._chunk_max
             full_pages, covered, partial, cached_next = [], 0, None, None
-            if self.prefix_cache is not None:
+            if self.prefix_cache is not None and not chunked:
                 full_pages, covered, partial, cached_next = \
                     self.prefix_cache.lookup(prompt)
                 if covered + (partial[1] if partial else 0) == L \
@@ -348,7 +482,8 @@ class ContinuousBatchingPredictor:
                 if fresh is None:
                     return None
                 return {"r": r, "prompt": prompt, "covered": 0,
-                        "pages": fresh, "reused": 0, "next": None}
+                        "pages": fresh, "reused": 0, "next": None,
+                        "chunked": False}
             if partial is not None:
                 # copy-on-write at the divergence page
                 self.pool.copy_into(partial[0], fresh[0])
@@ -357,7 +492,32 @@ class ContinuousBatchingPredictor:
             return {"r": r, "prompt": prompt, "covered": covered,
                     "pages": full_pages + fresh,
                     "reused": len(full_pages) + (1 if partial else 0),
-                    "next": cached_next if covered == L else None}
+                    "next": cached_next if covered == L else None,
+                    "chunked": chunked}
+
+        def place_chunked(b, plan):
+            """Install a chunked admission: pages reserved, no forward
+            yet -- the prompt ingests chunk by chunk through the mixed
+            step. TTFT is recorded when the final chunk resolves."""
+            r = plan["r"]
+            pages = plan["pages"]
+            slot_req[b], slot_pages[b] = r, pages
+            slot_new[b] = []
+            tables[b, :] = self._trash
+            tables[b, :len(pages)] = pages
+            ctx[b] = 0
+            slot_pending[b] = list(plan["prompt"])
+            slot_hist[b] = list(plan["prompt"])
+            override[b] = False
+            if builder is not None:
+                builder.set_slot(b, tables[b], 1)
+            status[r] = "running"
+            self.stats["chunked_requests"] += 1
+
+        def chunk_first_token(b, r):
+            """The final chunk resolved: its argmax is the request's
+            first generated token."""
+            ttft[r] = time.perf_counter() - t_start
 
         def place(b, plan, first):
             r = plan["r"]
@@ -367,9 +527,12 @@ class ContinuousBatchingPredictor:
             tables[b, :] = self._trash
             tables[b, :len(pages)] = pages
             slot_new[b] = [first]
+            slot_hist[b] = list(plan["prompt"]) + [first]
             ctx[b] = L
             last_tok_host[b] = first
             override[b] = True
+            if builder is not None:
+                builder.set_slot(b, tables[b], L + 1)
             status[r] = "running"
             ttft[r] = time.perf_counter() - t_start
             if self.eos_token_id is not None and first == self.eos_token_id:
@@ -382,7 +545,8 @@ class ContinuousBatchingPredictor:
             """Fill every free slot with the first admissible queued
             requests (a request waiting for pages does not block later
             ones), then run the round's prefills: full hits need none,
-            partial hits a suffix prefill, misses batch per bucket."""
+            partial hits a suffix prefill, misses batch per bucket, and
+            chunked requests wait for the mixed step."""
             free = [b for b in range(self.B) if slot_req[b] < 0]
             if not free or not queue:
                 return False
@@ -406,10 +570,11 @@ class ContinuousBatchingPredictor:
                     1 for i, s in enumerate(seq) if not s and i < last_pick)
             if not plans:
                 return False
-            hits = [p for p in plans if p["next"] is not None]
-            partials = [p for p in plans
+            now_plans = [p for p in plans if not p["chunked"]]
+            hits = [p for p in now_plans if p["next"] is not None]
+            partials = [p for p in now_plans
                         if p["next"] is None and p["covered"] > 0]
-            misses = [p for p in plans
+            misses = [p for p in now_plans
                       if p["next"] is None and p["covered"] == 0]
             firsts = {}
             for plan in hits:
@@ -428,11 +593,30 @@ class ContinuousBatchingPredictor:
             for bucket, group in sorted(by_bucket.items()):
                 firsts.update(self._batch_prefill(bucket, group))
             for b, plan in zip(free, plans):
-                place(b, plan, firsts[plan["r"]])
+                if plan["chunked"]:
+                    place_chunked(b, plan)
+                else:
+                    place(b, plan, firsts[plan["r"]])
             return True
+
+        def resolve(step):
+            if step.get("spec"):
+                self._resolve_spec_step(step, slot_req, slot_new, slot_hist,
+                                        last_tok_host, max_new, ctx,
+                                        override, builder, evict)
+            else:
+                self._resolve_step(step, slot_req, slot_new, last_tok_host,
+                                   max_new, evict, chunk_first_token,
+                                   slot_hist)
 
         inflight = None
         while True:
+            if inflight is not None and spec_mode:
+                # speculative mode resolves BEFORE it dispatches: the
+                # drafter needs the committed tokens in the histories,
+                # and ctx / the ragged meta rewound to the kept prefix
+                prev, inflight = inflight, None
+                resolve(prev)
             while admission_round():
                 pass
             active = [b for b in range(self.B) if slot_req[b] >= 0]
@@ -444,15 +628,28 @@ class ContinuousBatchingPredictor:
                 # is met once the in-flight step resolves
                 pend = {b for b, r in inflight["snap"]
                         if slot_req[b] == r} if inflight else set()
-                if any(len(slot_new[b]) + (1 if b in pend else 0)
-                       < max_new[slot_req[b]] for b in active):
-                    cur = self._dispatch_step(active, slot_req, tables, ctx,
-                                              last_tok_host, override,
-                                              inflight)
+                useful = any(len(slot_new[b]) + (1 if b in pend else 0)
+                             < max_new[slot_req[b]] for b in active)
+                if any(slot_pending[b] for b in active):
+                    # a prompt is mid-ingest: this step runs the MIXED
+                    # program -- its chunk advances while the decode
+                    # slots take their normal token step
+                    cur = self._dispatch_mixed_step(
+                        active, slot_req, slot_pending, tables, ctx,
+                        last_tok_host, override, builder, inflight)
+                elif useful:
+                    if spec_mode:
+                        cur = self._dispatch_spec_step(
+                            active, slot_req, slot_hist, tables, ctx,
+                            last_tok_host, override, builder, max_new,
+                            slot_new)
+                    else:
+                        cur = self._dispatch_step(
+                            active, slot_req, tables, ctx, last_tok_host,
+                            override, builder, inflight)
             prev, inflight = inflight, cur
             if prev is not None:
-                self._resolve_step(prev, slot_req, slot_new, last_tok_host,
-                                   max_new, evict)
+                resolve(prev)
             elif cur is None:
                 break
         for r, res in enumerate(results):
@@ -535,43 +732,215 @@ class ContinuousBatchingPredictor:
         return first
 
     # --------------------------------------------------------- decode ops
+    def _tok_in(self, last_tok_host, override, inflight):
+        """Each slot's input token: the in-flight step's device-resident
+        token, or the host's where ``override`` is set (a newly admitted
+        slot's first token, a chunk's first token)."""
+        host_tok = self._put(last_tok_host)
+        tok = host_tok if inflight is None else torch.where(
+            self._put(override), host_tok, inflight["tok"])
+        override[:] = False
+        return tok
+
+    def _meta(self, builder, active, post_lens):
+        """Advance the ragged meta of the active slots to their post-step
+        lengths and snapshot it onto the device (the host mutates it
+        while the step is in flight); None without ``use_ragged``."""
+        if builder is None:
+            return None
+        for b in active:
+            builder.advance_slot(b, int(post_lens[b]))
+        return self._put(builder.stacked())
+
+    def _span(self, tables, ctx, q_lens):
+        """The step's span index, built from the host arrays (no device
+        sync selects the real positions) and copied to the device."""
+        s = span_index(torch.from_numpy(tables), torch.from_numpy(ctx),
+                       torch.from_numpy(q_lens), self.page)
+        return SpanIndex(self._put(s.rows), self._put(s.kv_lens))
+
     def _dispatch_step(self, active, slot_req, tables, ctx, last_tok_host,
-                       override, inflight):
+                       override, builder, inflight):
         """Dispatch one decode step WITHOUT waiting for the previous one:
         continuing slots chain the device-resident token straight back
         in; newly admitted slots inject their host-known first token."""
         t0 = time.perf_counter()
-        host_tok = self._put(last_tok_host)
-        if inflight is None:
-            tok_in = host_tok
-        else:
-            tok_in = torch.where(self._put(override), host_tok,
-                                 inflight["tok"])
-        override[:] = False
+        meta = self._meta(builder, active, ctx + 1)
+        tok_in = self._tok_in(last_tok_host, override, inflight)
         nxt, done = self._raw_decode_step(self._put(tables), self._put(ctx),
-                                          tok_in)
+                                          tok_in, meta)
         fetch = self._fetch_async(nxt, done)
         snap = [(b, slot_req[b]) for b in active]
         ctx[active] += 1
         self.stats["decode_steps"] += 1
         return {"tok": nxt, "fetch": fetch, "snap": snap, "t": t0}
 
-    def _resolve_step(self, step, slot_req, slot_new, last_tok_host, max_new,
-                      evict):
-        """Sync a previously dispatched step (its successor is already in
-        flight) and apply its tokens: append, detect eos / budget, evict.
-        Slots recycled since the dispatch are skipped."""
-        nxt, done = step["fetch"]()
+    def _chunk_bucket(self, remaining, n_decode):
+        """Page-aligned chunk bucket for one mixed step: about
+        chunk_max / (1 + decoding slots), so an ingest never holds the
+        decode slots for more than a bounded slice, as page * 2^k,
+        shrunk to the smallest bucket covering what is left."""
+        tgt = max(self.page, self._chunk_max // (1 + max(0, n_decode)))
+        b = self.page
+        while b * 2 <= tgt:
+            b *= 2
+        while b > self.page and b // 2 >= remaining:
+            b //= 2
+        return b
+
+    def _dispatch_mixed_step(self, active, slot_req, slot_pending, tables,
+                             ctx, last_tok_host, override, builder,
+                             inflight):
+        """Dispatch one MIXED prefill+decode step: every slot with a
+        pending prompt tail ingests its next chunk while the decode
+        slots take their normal single-token step, chained off the
+        in-flight step like ``_dispatch_step`` (chunk tokens are
+        host-known, so chunk steps pipeline too)."""
+        t0 = time.perf_counter()
+        chunk_slots = [b for b in active if slot_pending[b]]
+        qb = self._chunk_bucket(max(len(slot_pending[b])
+                                    for b in chunk_slots),
+                                len(active) - len(chunk_slots))
+        span_ids = np.full((self.B, qb), self.pad_token_id, np.int64)
+        q_lens = np.ones((self.B,), np.int32)
+        mid, final = set(), set()
+        for b in chunk_slots:
+            take = min(len(slot_pending[b]), qb)
+            chunk = slot_pending[b][:take]
+            span_ids[b, :take] = chunk
+            q_lens[b] = take
+            # the chunk's first token rides the host-override path a
+            # newly admitted decode slot uses (column 0 comes from tok_in)
+            last_tok_host[b] = chunk[0]
+            override[b] = True
+            del slot_pending[b][:take]
+            (final if not slot_pending[b] else mid).add(b)
+            self.stats["prefill_chunks"] += 1
+        meta = self._meta(builder, active, ctx + q_lens)
+        tok_in = self._tok_in(last_tok_host, override, inflight)
+        nxt, done = self._raw_mixed_step(
+            self._put(tables), self._put(ctx), self._put(span_ids),
+            self._put(q_lens), tok_in, self._span(tables, ctx, q_lens), meta)
+        fetch = self._fetch_async(nxt, done)
+        snap = [(b, slot_req[b]) for b in active]
+        ctx[active] += q_lens[active]
+        self.stats["decode_steps"] += 1
+        self.stats["mixed_steps"] += 1
+        return {"tok": nxt, "fetch": fetch, "snap": snap, "t": t0,
+                "chunk_mid": mid, "chunk_final": final}
+
+    def _dispatch_spec_step(self, active, slot_req, slot_hist, tables, ctx,
+                            last_tok_host, override, builder, max_new,
+                            slot_new):
+        """Dispatch one SPECULATIVE step: each slot's prompt-lookup
+        drafter proposes up to spec_draft_tokens continuations from the
+        request's own history; the committed last token plus the drafts
+        run as one span (``_raw_spec_step``). ctx and the ragged meta
+        advance over the whole span; the resolver rewinds them to the
+        accepted prefix. With no drafts anywhere the step is a plain
+        decode step. Nothing is in flight here (spec mode resolves
+        first), so every input token comes from the host."""
+        t0 = time.perf_counter()
+        qs = self._spec_k + 1
+        span_ids = np.full((self.B, qs), self.pad_token_id, np.int64)
+        q_lens = np.ones((self.B,), np.int32)
+        drafts = {}
+        for b in active:
+            room = max_new[slot_req[b]] - len(slot_new[b]) - 1
+            kb = min(self._spec_k, max(0, room))
+            d = sampling.propose_ngram_drafts(slot_hist[b], kb,
+                                              self._ngram_max) \
+                if kb > 0 else []
+            if d:
+                span_ids[b, 1:1 + len(d)] = d
+                q_lens[b] = 1 + len(d)
+                drafts[b] = list(d)
+        if not drafts:
+            return self._dispatch_step(active, slot_req, tables, ctx,
+                                       last_tok_host, override, builder,
+                                       None)
+        meta = self._meta(builder, active, ctx + q_lens)
+        tok_in = self._tok_in(last_tok_host, override, None)
+        bonus, accepted = self._raw_spec_step(
+            self._put(tables), self._put(ctx), self._put(span_ids),
+            self._put(q_lens), tok_in, self._span(tables, ctx, q_lens), meta)
+        fetch = self._fetch_async(bonus, accepted)
+        snap = [(b, slot_req[b]) for b in active]
+        ctx0 = {b: int(ctx[b]) for b in active}
+        ctx[active] += q_lens[active]       # optimistic; resolve rewinds
+        self.stats["decode_steps"] += 1
+        self.stats["spec_ticks"] += 1
+        self.stats["spec_proposed"] += sum(len(d) for d in drafts.values())
+        return {"spec": True, "tok": bonus, "fetch": fetch, "snap": snap,
+                "t": t0, "ctx0": ctx0, "drafts": drafts,
+                "qlen": {b: int(q_lens[b]) for b in active}}
+
+    def _resolve_spec_step(self, step, slot_req, slot_new, slot_hist,
+                           last_tok_host, max_new, ctx, override, builder,
+                           evict):
+        """Sync one speculative step and commit each slot's accepted
+        drafts plus the bonus token: tokens append (eos and the budget
+        truncate and evict as in plain decode), ctx and the ragged meta
+        rewind to the kept prefix (the rejected positions' K/V was
+        already restored on the device), and the drafting history
+        extends."""
+        bonus, acc = step["fetch"]()
+        accepted_total = 0
         for b, r in step["snap"]:
             if slot_req[b] != r:
                 continue                  # evicted (and maybe re-admitted)
-            if len(slot_new[b]) >= max_new[r]:
+            drafts = step["drafts"].get(b, [])
+            a = min(int(acc[b]), len(drafts))
+            new_ctx = step["ctx0"][b] + a + 1
+            ctx[b] = new_ctx
+            if builder is not None and a + 1 < step["qlen"][b]:
+                builder.rollback_slot(b, new_ctx)
+            accepted_total += a
+            span_toks = []
+            ended = False
+            for t in drafts[:a] + [int(bonus[b])]:
+                if self.eos_token_id is not None and t == self.eos_token_id:
+                    ended = True          # eos is stripped
+                    break
+                slot_new[b].append(t)
+                span_toks.append(t)
+                if len(slot_new[b]) >= max_new[r]:
+                    break
+            if span_toks:
+                slot_hist[b].extend(span_toks)
+                last_tok_host[b] = span_toks[-1]
+                override[b] = True
+            if ended or len(slot_new[b]) >= max_new[r]:
+                evict(b)
+        self.stats["spec_accepted"] += accepted_total
+
+    def _resolve_step(self, step, slot_req, slot_new, last_tok_host, max_new,
+                      evict, first_cb, hist):
+        """Sync a previously dispatched step (its successor may already
+        be in flight) and apply its tokens: append, detect eos / budget,
+        evict. Slots recycled since the dispatch are skipped. In a mixed
+        step, mid-prompt chunk slots produce no token, and a slot whose
+        FINAL chunk ran takes the step's argmax as its first token
+        (``first_cb`` records TTFT). Committed tokens extend ``hist``."""
+        nxt, done = step["fetch"]()
+        chunk_mid = step.get("chunk_mid", ())
+        chunk_final = step.get("chunk_final", ())
+        for b, r in step["snap"]:
+            if slot_req[b] != r:
+                continue                  # evicted (and maybe re-admitted)
+            if b in chunk_mid:
+                continue                  # mid-prompt chunk: no token yet
+            first = b in chunk_final
+            if first:
+                first_cb(b, r)
+            elif len(slot_new[b]) >= max_new[r]:
                 continue                  # token of a post-budget step
             t = int(nxt[b])
-            slot_new[b].append(t)
-            last_tok_host[b] = t
             if bool(done[b]):             # eos computed on the device
-                slot_new[b].pop()         # eos is stripped
-                evict(b)
-            elif len(slot_new[b]) >= max_new[r]:
+                evict(b)                  # eos is stripped
+                continue
+            slot_new[b].append(t)
+            hist[b].append(t)
+            last_tok_host[b] = t
+            if len(slot_new[b]) >= max_new[r]:
                 evict(b)

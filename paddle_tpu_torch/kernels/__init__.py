@@ -1,9 +1,10 @@
 """Hand-written Hopper kernels of the port and their plain versions.
 
 The entries live in their modules (``norm.fused_rms_norm``,
-``attention.flash_attention_bshd``, ``paged_attention.paged_attention``,
-``rope``); this package exports the shared constant and the launch
-counters.
+``attention.flash_attention_bshd``, ``paged_attention.paged_attention``
+/ ``paged_attention_ragged`` / ``paged_attention_varq`` /
+``paged_attention_ragged_varq``, ``rope``); this package exports the
+shared constant and the launch counters.
 """
 from ._build import NEG_INF, launch_counts, reset_launch_counts
 

@@ -23,7 +23,9 @@ from paddle_tpu_torch.kernels.attention import (additive_mask,
 from paddle_tpu_torch.kernels.norm import (fused_rms_norm, rms_norm_kernel,
                                            rms_norm_plain)
 from paddle_tpu_torch.kernels.paged_attention import (
-    paged_attention, paged_attention_kernel, paged_attention_plain)
+    RaggedMetaBuilder, paged_attention, paged_attention_kernel,
+    paged_attention_plain, paged_attention_ragged,
+    paged_attention_ragged_varq, paged_attention_varq)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 NEG = -1e30
@@ -223,12 +225,21 @@ def test_cpu_tensors_take_plain_versions():
     fused_rms_norm(x, torch.ones(64))
     q = torch.randn(1, 8, 2, 64)
     flash_attention_bshd(q, q, q, is_causal=True)
-    paged_attention(torch.randn(1, 2, 64), torch.randn(3, 4, 2, 64),
-                    torch.randn(3, 4, 2, 64),
-                    torch.tensor([[0, 1]], dtype=torch.int32),
-                    torch.tensor([5], dtype=torch.int32))
+    kp = torch.randn(3, 4, 2, 64)
+    tables = torch.tensor([[0, 1]], dtype=torch.int32)
+    lens = torch.tensor([5], dtype=torch.int32)
+    paged_attention(torch.randn(1, 2, 64), kp, kp, tables, lens)
+    builder = RaggedMetaBuilder(1, 2, 4)
+    builder.set_slot(0, tables[0].numpy(), 5)
+    meta = torch.from_numpy(builder.stacked())
+    paged_attention_ragged(torch.randn(1, 2, 64), kp, kp, lens, meta)
+    q = torch.randn(1, 3, 2, 64)
+    ql = torch.tensor([3], dtype=torch.int32)
+    paged_attention_varq(q, kp, kp, tables, lens, ql)
+    paged_attention_ragged_varq(q, kp, kp, lens, ql, meta)
     assert launch_counts == {"rms_norm": 0, "flash_fwd": 0,
-                             "paged_decode": 0}
+                             "paged_decode": 0, "ragged_decode": 0,
+                             "paged_varq": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
