@@ -5,24 +5,28 @@
 
 Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
 
-1. Build: compiles every CUDA source of the serving path from the
-   checkout (one nvcc per source, all started together).
+1. Build: compiles every CUDA source of the port from the checkout (one
+   nvcc per source, all started together).
 2. Kernels: each hand-written kernel (RMSNorm in Triton; flash-attention
-   forward, paged decode, ragged decode and the variable-query span
-   kernel in CUDA) against its plain PyTorch version at the serving
-   path's Llama-2-7B shapes in bf16, once in f32 and in a GQA case
-   (H=32, Hkv=8), with the tolerances below; prints each kernel's
-   median device time, its bound (bytes over 3.35 TB/s or operations
-   over the card's peak for their type), the plain version's time and
-   the one-call PyTorch equivalent's time where one exists.
+   forward and backward (dK/dV, dQ), paged decode, ragged decode and the
+   variable-query span kernel in CUDA) against its plain PyTorch version
+   at the Llama-2-7B serving and training shapes in bf16, once in f32
+   and in a GQA case (H=32, Hkv=8); the backward also at head_dim 64 and
+   with Sq != Sk, a key-padding mask and kv_lens; with the tolerances
+   below. Prints each kernel's median device time, its bound (bytes over
+   3.35 TB/s or operations over the card's peak for their type), the
+   plain version's time and the one-call PyTorch equivalent's time where
+   one exists.
 3. Full-width f32 checks: a 2-layer model at Llama-2-7B widths gives the
    same prefill logits on the card (kernels) as on the CPU (plain
-   versions) and the same greedy tokens through the predictor; and the
+   versions) and the same greedy tokens through the predictor; the
    chunked + speculative + ragged configuration gives the same greedy
    tokens on the card as the plain configuration on the card, and as
    itself on the CPU (chunking and speculation are lossless), with drafts
    both accepted and rejected (so the verify step commits drafts and
-   rolls back rejected positions on the card).
+   rolls back rejected positions on the card); and 3 AdamW TrainSteps of
+   the same 2-layer model give the CPU's losses, step-1 gradients,
+   weight changes and moments.
 4. Serve: Llama-2-7B widths in bf16 with random weights drawn on the
    card from a seeded torch.Generator. Run 1: 8 requests through
    ContinuousBatchingPredictor (max_batch_size=4, block-table decode,
@@ -33,6 +37,17 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    (256) and speculative decoding (4 drafts). Every request must finish 'ok'
    and every kernel a run drives must have launched in that run. Prints
    TTFT, tokens/s and peak memory of each, and profiles a pass of each.
+5. Train: Llama-2-7B widths in bf16, 8 of 32 layers (AdamW's f32 master
+   weights and moments take 16 bytes per parameter: all 32 layers would
+   need 108 GB), through ``Trainer`` for 6 steps at batch 2 x 2048 on one
+   fixed batch: every loss finite, the last below the first, and each
+   kernel launched its per-layer count every step. Prints step time,
+   tokens/s, MFU and peak memory, and profiles one step. Then checkpoint
+   and resume on a 2-layer hidden-1024 bf16 model: a fresh Trainer
+   resumed from the step-4 checkpoint reaches the uninterrupted run's
+   step-5 and step-6 losses and, bitwise, its step-6 weights and
+   optimizer state. Checkpoints go to ``output/`` in the checkout and
+   are deleted afterwards.
 
 The line before the last is the ``kernels`` JSON record; the last line
 is ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -42,7 +57,11 @@ doing anything without a CUDA device or without the package beside it.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -252,6 +271,98 @@ def flash_phase(torch, dev, g):
             A.flash_attention_plain(q, k, v, d ** -0.5, False, m),
             "bfloat16")
     return main
+
+
+def flash_bwd_phase(torch, dev, g):
+    """Both backward kernels against the plain backward on the same
+    inputs (q, k, v, dO random; out and lse from the forward kernel);
+    timed at the training shape, q[2, 2048, 32, 128] bf16 causal."""
+    from paddle_tpu_torch.kernels import attention as A
+    F = torch.nn.functional
+    # (dtype, B, Sq, Sk, H, Hkv, D, causal, key-padding mask + kv_lens)
+    cases = [("bfloat16", 2, 2048, 2048, 32, 32, 128, True, False),
+             ("float32", 2, 2048, 2048, 32, 32, 128, True, False),
+             ("bfloat16", 2, 2048, 2048, 32, 8, 128, True, False),
+             ("bfloat16", 2, 1024, 1024, 16, 16, 64, True, False),
+             ("bfloat16", 2, 384, 640, 32, 32, 128, False, True)]
+
+    def inputs(dt, b, sq, sk, h, hkv, d, causal, mask, lens):
+        q = torch.randn(b, sq, h, d, device=dev, generator=g).to(dt)
+        k = torch.randn(b, sk, hkv, d, device=dev, generator=g).to(dt)
+        v = torch.randn(b, sk, hkv, d, device=dev, generator=g).to(dt)
+        do = torch.randn(b, sq, h, d, device=dev, generator=g).to(dt)
+        out, lse = A.flash_attention_kernel(q, k, v, d ** -0.5, causal, mask,
+                                            lens)
+        return q, k, v, do, lse, A.bwd_delta(out, do), out
+
+    rows = {}
+    for dtype, b, sq, sk, h, hkv, d, causal, padded in cases:
+        dt = getattr(torch, dtype)
+        mask = lens = None
+        if padded:
+            mask = torch.zeros(b, 1, 1, sk, device=dev)
+            mask[1, ..., -100:] = NEG
+            lens = torch.tensor([sk, sk - 128], dtype=torch.int32,
+                                device=dev)
+        sc = d ** -0.5
+        q, k, v, do, lse, delta, out = inputs(dt, b, sq, sk, h, hkv, d,
+                                              causal, mask, lens)
+        dk, dv = A.flash_bwd_dkdv_kernel(q, k, v, do, lse, delta, sc, causal,
+                                         mask, lens)
+        dq = A.flash_bwd_dq_kernel(q, k, v, do, lse, delta, sc, causal,
+                                   mask, lens)
+        want = A.flash_attention_bwd_plain(q, k, v, out, lse, do, sc, causal,
+                                           mask, lens)
+        name = (f"{dtype} q[{b}, {sq}, {h}, {d}] Sk={sk} Hkv={hkv} "
+                f"{'causal' if causal else 'non-causal'}"
+                f"{' + key mask + kv_lens' if padded else ''}")
+        errs = [compare(torch, f"flash_bwd_{w} {name}", got, ref, dtype)
+                for w, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                       want)]
+        if rows:
+            continue
+        # the timed case: two input sets (~200 MB each, past the L2)
+        sets = [(q, k, v, do, lse, delta, out),
+                inputs(dt, b, sq, sk, h, hkv, d, causal, None, None)]
+        t_kv = time_ms(torch, lambda q_, k_, v_, do_, l_, dl_, o_:
+                       A.flash_bwd_dkdv_kernel(q_, k_, v_, do_, l_, dl_, sc,
+                                               True), sets)
+        t_q = time_ms(torch, lambda q_, k_, v_, do_, l_, dl_, o_:
+                      A.flash_bwd_dq_kernel(q_, k_, v_, do_, l_, dl_, sc,
+                                            True), sets)
+        plain = time_ms(torch, lambda q_, k_, v_, do_, l_, dl_, o_:
+                        A.flash_attention_bwd_plain(q_, k_, v_, o_, l_, do_,
+                                                    sc, True),
+                        sets)["median"]
+        # one PyTorch call of the same function: the backward of causal
+        # SDPA, dQ, dK and dV together
+        graphs = []
+        for q_, k_, v_, do_, *_ in sets:
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q_, k_, v_))
+            graphs.append((F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), (qt, kt, vt),
+                do_.transpose(1, 2)))
+        lib = time_ms(torch, lambda o_, ins, g_: torch.autograd.grad(
+            o_, ins, g_, retain_graph=True), graphs)["median"]
+        del graphs
+        # work of this run's inputs: causal (query, key) pairs per head;
+        # dK/dV does 4 products (Q K^T, P^T dO, dO V^T, dS^T Q), dQ 3;
+        # bytes: each input read once, each output written once
+        pairs = b * h * sq * (sq + 1) // 2
+        isz = q.element_size()
+        rows_b = 2 * lse.numel() * 4
+        qb_, kb_ = q.numel() * isz, k.numel() * isz
+        kv_b, kvq_b = bound(2 * qb_ + 4 * kb_ + rows_b, 8 * d * pairs,
+                            dtype)
+        q_b, qq_b = bound(3 * qb_ + 2 * kb_ + rows_b, 6 * d * pairs, dtype)
+        shape = f"q[{b}, {sq}, {h}, {d}] {dtype} causal"
+        common = dict(plain_ms=plain, library_ms=lib, shape=shape)
+        rows["flash_bwd_dkdv"] = dict(max_abs_err=max(errs[1:]), t=t_kv,
+                                      bound_ms=kv_b, bound_by=kvq_b, **common)
+        rows["flash_bwd_dq"] = dict(max_abs_err=errs[0], t=t_q, bound_ms=q_b,
+                                    bound_by=qq_b, **common)
+    return rows
 
 
 def paged_phase(torch, dev, g):
@@ -577,6 +688,15 @@ RUN2_KERNELS = ("rms_norm", "flash_fwd", "ragged_decode", "paged_varq")
 RUN1 = dict(use_ragged=False)
 RUN2 = dict(use_ragged="auto", prefill_chunk_tokens=256, spec_draft_tokens=4)
 GEOM = dict(max_batch_size=4, page_size=16, max_seq_len=1024)
+TRAIN_KERNELS = ("rms_norm", "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+# decoder layers of the trained model, of 32: AdamW with f32 master
+# weights keeps 16 bytes per parameter, 108 GB for all 32 layers
+TRAIN_LAYERS = 8
+
+
+def free_card(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def serve_phase(torch, dev, seed, layers, card):
@@ -730,6 +850,271 @@ def serve_profile(torch, dev, model, prompts, card, kw):
             f"{e.key[:60]}")
 
 
+# ------------------------------------------------------------ training --
+
+# launches of each kernel per training step of an L-layer Llama: RMSNorm
+# twice per layer plus the final norm; one flash forward and one of each
+# backward kernel per layer
+def train_kernels_per_step(layers):
+    return {"rms_norm": 2 * layers + 1, "flash_fwd": layers,
+            "flash_bwd_dkdv": layers, "flash_bwd_dq": layers}
+
+
+def _adamw(model, lr, epsilon=1e-8):
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    return AdamW(learning_rate=lr, epsilon=epsilon, weight_decay=0.1,
+                 parameters=model.parameters(),
+                 grad_clip=ClipGradByGlobalNorm(1.0))
+
+
+# the f32 training gate's AdamW. At lr 1e-4 one step memorizes the single
+# batch (loss 11.2 -> 1.8e-3), whose tiny losses no backend reproduces to
+# 1e-4; at eps 1e-8 Adam's first step, lr*g/(|g| + eps), turns the
+# backends' ~1e-10 gradient rounding into lr-sized moves of the weights
+# whose gradient is near 0 (slope lr/eps at g = 0). lr 1e-5 keeps the
+# loss near its start and eps 1e-6 bounds that slope at 10
+F32_TRAIN_LR, F32_TRAIN_EPS = 1e-5, 1e-6
+# card vs CPU after 3 steps, each tensor's max |difference| over its own
+# largest CPU value: step-1 gradients, the 3 steps' weight change, and
+# both moments
+F32_TRAIN_TOL = {"gradient": 1e-3, "update": 1e-2, "moment1": 1e-3,
+                 "moment2": 1e-3}
+
+
+def f32_train_run(torch, model, ids, lr, eps, steps=3):
+    """``steps`` TrainSteps of AdamW (wd 0.1, global-norm clip 1.0) on
+    one batch: (losses, {kind: {parameter: CPU tensor}}) with the step-1
+    gradients, the weight change over all steps and the moments after
+    them."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaPretrainingCriterion
+    crit = LlamaPretrainingCriterion()
+    step = TrainStep(model, _adamw(model, lr, eps),
+                     lambda lg, lb: crit(lg, lb))
+    named = dict(model.named_parameters())
+    p0 = {n: p.detach().cpu().clone() for n, p in named.items()}
+    losses, out = [], {}
+    for i in range(steps):
+        losses.append(float(step(ids, ids)))
+        if i == 0:
+            out["gradient"] = {n: p.grad.detach().cpu()
+                               for n, p in named.items()}
+    out["update"] = {n: p.detach().cpu() - p0[n] for n, p in named.items()}
+    state = dict(zip(step._p_names, step.opt_state))
+    for k in ("moment1", "moment2"):
+        out[k] = {n: st[k].cpu() for n, st in state.items()}
+    return losses, out
+
+
+def worst_rel(a, b):
+    """(max over tensors of max|a - b| / max|b|, that tensor's name)."""
+    return max((float((a[n] - t).abs().max())
+                / max(float(t.abs().max()), 1e-30), n) for n, t in b.items())
+
+
+def train_f32_phase(torch, dev, seed):
+    """2-layer Llama-2-7B-width f32 model, the same weights on the card
+    (kernels) and the CPU (plain versions): 3 TrainSteps of AdamW (lr
+    1e-5, eps 1e-6, wd 0.1, global-norm clip 1.0) on one 1 x 128 batch.
+    Every step's loss within rtol 1e-4; the step-1 gradients, the weight
+    change over the 3 steps and both moments within ``F32_TRAIN_TOL`` of
+    each tensor's largest CPU value."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=2, dtype="float32")
+    cpu = LlamaForCausalLM(cfg, device="cpu").init_weights(
+        torch.Generator().manual_seed(seed))
+    gpu = LlamaForCausalLM(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    ids = torch.randint(0, cfg.vocab_size, (1, 128),
+                        generator=torch.Generator().manual_seed(seed + 3))
+    l_gpu, s_gpu = f32_train_run(torch, gpu, ids, F32_TRAIN_LR,
+                                 F32_TRAIN_EPS)
+    l_cpu, s_cpu = f32_train_run(torch, cpu, ids, F32_TRAIN_LR,
+                                 F32_TRAIN_EPS)
+    worst = {k: worst_rel(s_gpu[k], s_cpu[k]) for k in F32_TRAIN_TOL}
+    log(f"f32 2-layer full-width training, card vs CPU: losses "
+        f"{l_gpu} vs {l_cpu}; worst max|card - cpu| / max|cpu| per "
+        "tensor: " + ", ".join(f"{k} {e:.3e} ({n})"
+                               for k, (e, n) in worst.items()))
+    for i, (a, b) in enumerate(zip(l_gpu, l_cpu)):
+        check(abs(a - b) <= 1e-4 * abs(b),
+              f"step {i + 1} loss {a} on the card vs {b} on the CPU")
+    for k, (e, n) in worst.items():
+        check(e <= F32_TRAIN_TOL[k], f"{k} of {n} differs by {e:.3e} of "
+              f"its largest value (limit {F32_TRAIN_TOL[k]})")
+
+
+def _fixed_batch_iter(torch, batch, stamps):
+    """data_iter_fn for one fixed batch; stamps each step's start (after
+    a synchronize) so step times can be read back."""
+    def data_iter_fn(start_step):
+        def gen():
+            while True:
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+                yield batch, batch
+        return gen()
+    return data_iter_fn
+
+
+def train_phase(torch, dev, seed, card, layers, out_dir):
+    """bf16 pretraining at Llama-2-7B widths (``layers`` of 32) through
+    ``Trainer``: 6 steps at batch 2 x 2048 on one fixed batch, AdamW (lr
+    3e-4 through CosineAnnealingDecay, wd 0.1, f32 master weights). Every
+    loss finite, the last below the first, each kernel launched its
+    per-layer count every step. Returns the run's launch counts."""
+    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         LlamaPretrainingCriterion)
+    from paddle_tpu_torch.optimizer.lr import CosineAnnealingDecay
+    from paddle_tpu_torch.trainer import Trainer, TrainingArguments
+    steps, b, s = 6, 2, 2048
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=layers, dtype="bfloat16")
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(seed))
+    n_params = sum(p.numel() for p in model.parameters())
+    crit = LlamaPretrainingCriterion(cfg)
+    opt = _adamw(model, CosineAnnealingDecay(3e-4, T_max=steps))
+    ids = torch.randint(0, cfg.vocab_size, (b, s),
+                        generator=torch.Generator().manual_seed(seed + 4))
+    stamps = []
+    trainer = Trainer(
+        model, opt, lambda lg, lb: crit(lg, lb),
+        TrainingArguments(output_dir=out_dir, max_steps=steps,
+                          logging_steps=1, save_steps=steps + 1, bf16=True),
+        _fixed_batch_iter(torch, ids, stamps), tokens_per_batch=b * s)
+    torch.cuda.synchronize()
+    log(f"train: Llama-2-7B widths, {layers} of 32 layers, bf16, "
+        f"{n_params / 1e9:.3f} B parameters, random weights (seed {seed}) "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    res = trainer.train()
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    counts = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [r["loss"] for r in res["logs"]]
+    step_s = [b_ - a for a, b_ in zip(stamps, stamps[1:])]
+    med = statistics.median(step_s[1:])
+    tok_s = b * s / med
+    log(f"train: losses {losses}; step times (s) "
+        f"{[round(t, 4) for t in step_s]}; launches {counts}")
+    log(f"train on {card}: step median (steps 2-{steps}) {med * 1e3:.1f} ms, "
+        f"{tok_s:.1f} tokens/s, MFU {6 * n_params * tok_s / 989e12:.4f} "
+        f"(6 N tokens/s over 989e12); SpeedMeter {res['tokens_per_sec']:.1f} "
+        f"tokens/s, MFU {res['mfu']:.4f}; peak memory {peak / 2**30:.2f} GiB")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(len(losses) == steps and losses[-1] < losses[0],
+          f"the loss does not descend: {losses}")
+    want = {k: n * steps for k, n in train_kernels_per_step(layers).items()}
+    check(all(counts[k] == n for k, n in want.items()),
+          f"launches {counts} are not {want} ({steps} steps)")
+    train_profile(torch, model, trainer, ids, card)
+    return counts
+
+
+def train_profile(torch, model, trainer, ids, card):
+    """One more step under the profiler: device busy and idle share and
+    the device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer._step_obj(ids, ids)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = device_kernel_ms(torch, prof)
+    busy = sum(ms for ms, _ in kern.values())
+    log(f"train profile on {card}: one step, wall {wall:.1f} ms (traced), "
+        f"device busy {busy:.1f} ms, idle share {1 - busy / wall:.3f}")
+    for name, (ms, n) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:14]:
+        log(f"  {ms:9.2f} ms {100 * ms / busy:5.1f}% x{n:<6d} {name[:90]}")
+    cats = {}
+    for name, (ms, n) in kern.items():
+        cat = next((c for c, keys in TRAIN_OP_CATEGORIES
+                    if any(k in name for k in keys)), "other")
+        cats[cat] = cats.get(cat, 0.0) + ms
+    log("train profile by category: " + ", ".join(
+        f"{c} {ms:.1f} ms ({100 * ms / busy:.1f}%)"
+        for c, ms in sorted(cats.items(), key=lambda kv: -kv[1])))
+
+
+# device kernels of a training step by kind, matched on the kernel name
+TRAIN_OP_CATEGORIES = (
+    ("flash_bwd", ("flash_bwd",)), ("flash_fwd", ("flash_fwd",)),
+    ("rms_norm", ("_rms_norm_fwd",)),
+    ("gemm", ("nvjet", "gemm", "cutlass", "splitKreduce")),
+    ("elementwise", ("elementwise", "copy_kernel", "CatArray", "fill")),
+    ("reduce", ("reduce", "softmax", "Softmax")))
+
+
+def resume_phase(torch, dev, seed, out_dir):
+    """Checkpoint and resume on the card: a 2-layer bf16 model (hidden
+    1024, 8 heads of 128, intermediate 2816, vocab 32000) trains 6 steps
+    at batch 2 x 256 with a save at step 4; a fresh Trainer (other
+    weights, fresh optimizer) resumes from it and must reach the same
+    step-5 and step-6 losses, and bitwise the same step-6 weights and
+    optimizer state."""
+    import numpy as np
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         LlamaPretrainingCriterion)
+    from paddle_tpu_torch.trainer import Trainer, TrainingArguments
+    cfg = LlamaConfig(hidden_size=1024, num_attention_heads=8,
+                      num_key_value_heads=8, intermediate_size=2816,
+                      num_hidden_layers=2, dtype="bfloat16")
+    crit = LlamaPretrainingCriterion(cfg)
+
+    def data_iter_fn(start_step):
+        def gen():
+            step = start_step
+            while True:
+                rs = np.random.RandomState(step)
+                t = torch.from_numpy(rs.randint(0, cfg.vocab_size,
+                                                (2, 256)).astype(np.int64))
+                yield t, t
+                step += 1
+        return gen()
+
+    def trainer(model_seed, save_steps):
+        model = LlamaForCausalLM(cfg, device=dev).init_weights(
+            torch.Generator(device=dev).manual_seed(model_seed))
+        return Trainer(model, _adamw(model, 3e-4), lambda lg, lb: crit(lg, lb),
+                       TrainingArguments(output_dir=out_dir, max_steps=6,
+                                         logging_steps=1,
+                                         save_steps=save_steps, bf16=True),
+                       data_iter_fn)
+    t0 = time.perf_counter()
+    t_full = trainer(seed, 4)
+    full = t_full.train()
+    ckpt = os.path.join(out_dir, "checkpoints", "4")
+    size = sum(os.path.getsize(os.path.join(ckpt, f))
+               for f in os.listdir(ckpt))
+    t_res = trainer(seed + 1, 100)
+    res = t_res.train()
+    a = [r["loss"] for r in full["logs"]]
+    b_ = [r["loss"] for r in res["logs"]]
+    # the losses are bf16 scalars (an ulp is 0.0625 at 10): the weights,
+    # master weights and moments after step 6 are compared too
+    pairs = [(x.detach(), y.detach()) for x, y in zip(
+        t_full.model.parameters(), t_res.model.parameters())]
+    pairs += [(x[k], y[k]) for x, y in zip(t_full._step_obj.opt_state,
+                                           t_res._step_obj.opt_state)
+              for k in x]
+    diff = max(float((x.float() - y.float()).abs().max()) for x, y in pairs)
+    log(f"resume: uninterrupted losses {a}; resumed from step "
+        f"{res['start_step']} ({size / 2**30:.2f} GiB checkpoint): {b_}; "
+        f"step-6 weights and optimizer state, {len(pairs)} tensors, max "
+        f"abs difference {diff:.3e}; {time.perf_counter() - t0:.1f} s")
+    check(res["start_step"] == 4, f"resumed at {res['start_step']}, not 4")
+    check(b_ == a[4:], f"resumed losses {b_} differ from {a[4:]}")
+    check(all(torch.equal(x, y) for x, y in pairs),
+          f"resumed step-6 state differs (max abs {diff:.3e})")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -757,15 +1142,17 @@ def main(argv=None):
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, card {card}")
 
     t0 = time.perf_counter()
-    _build.build(["flash_fwd", "paged_decode", "ragged_decode",
+    _build.build(["flash_fwd", "flash_bwd", "paged_decode", "ragged_decode",
                   "paged_varq"])
     log(f"built CUDA kernels in {time.perf_counter() - t0:.1f} s")
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
     t0 = time.perf_counter()
-    log("kernels vs plain versions (Llama-2-7B serving shapes):")
+    log("kernels vs plain versions (Llama-2-7B serving and training "
+        "shapes):")
     mains = {"rms_norm": rms_phase(torch, dev, g),
              "flash_fwd": flash_phase(torch, dev, g),
+             **flash_bwd_phase(torch, dev, g),
              "paged_decode": paged_phase(torch, dev, g),
              "ragged_decode": ragged_phase(torch, dev, g),
              "paged_varq": varq_phase(torch, dev, g)}
@@ -778,23 +1165,46 @@ def main(argv=None):
             f"({m['bound_by']}), plain {m['plain_ms']:.4f} ms, library "
             f"{lib} ms")
     log(f"kernel phase took {time.perf_counter() - t0:.1f} s")
+    free_card(torch)
 
     t0 = time.perf_counter()
     f32_parity_phase(torch, dev, args.seed)
-    log(f"f32 phase took {time.perf_counter() - t0:.1f} s")
-    torch.cuda.empty_cache()
+    log(f"f32 serving phase took {time.perf_counter() - t0:.1f} s")
+    free_card(torch)
+    t0 = time.perf_counter()
+    train_f32_phase(torch, dev, args.seed)
+    log(f"f32 training phase took {time.perf_counter() - t0:.1f} s")
+    free_card(torch)
 
     if args.layers != 32:
         log(f"serving {args.layers} layers instead of 32 (--layers)")
     t0 = time.perf_counter()
     counts1, counts2 = serve_phase(torch, dev, args.seed, args.layers, card)
     log(f"serve phase took {time.perf_counter() - t0:.1f} s")
+    free_card(torch)
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "output", "chip_smoke_train")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        counts3 = train_phase(torch, dev, args.seed, card, TRAIN_LAYERS,
+                              os.path.join(out_dir, "run"))
+        log(f"training phase took {time.perf_counter() - t0:.1f} s")
+        free_card(torch)
+        resume_phase(torch, dev, args.seed, os.path.join(out_dir, "resume"))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
 
     sources = {"rms_norm": ("triton",
                             "paddle_tpu_torch/kernels/_rms_triton.py",
                             "paddle_tpu/kernels/norm.py:27"),
                "flash_fwd": ("cuda", "paddle_tpu_torch/csrc/flash_fwd.cu",
                              "paddle_tpu/kernels/attention.py:163"),
+               "flash_bwd_dkdv": ("cuda", "paddle_tpu_torch/csrc/flash_bwd.cu",
+                                  "paddle_tpu/kernels/attention.py:361"),
+               "flash_bwd_dq": ("cuda", "paddle_tpu_torch/csrc/flash_bwd.cu",
+                                "paddle_tpu/kernels/attention.py:464"),
                "paged_decode": ("cuda",
                                 "paddle_tpu_torch/csrc/paged_decode.cu",
                                 "paddle_tpu/kernels/paged_attention.py:104"),
@@ -806,10 +1216,12 @@ def main(argv=None):
     rows = []
     for name, (route, src, replaces) in sources.items():
         m = mains[name]
-        # launches from the served run that drives the kernel: run 1 for
-        # the block-table run's three, run 2 (ragged, chunked,
-        # speculative) for the rest
-        counts = counts1 if name in RUN1_KERNELS else counts2
+        # launches from the run that drives the kernel: the training run
+        # for the four kernels it runs, serve run 1 (block table) for
+        # paged_decode, serve run 2 (ragged, chunked, speculative) for
+        # the rest
+        counts = counts3 if name in TRAIN_KERNELS else \
+            counts1 if name in RUN1_KERNELS else counts2
         rows.append({"name": name, "route": route, "source": src,
                      "replaces": replaces, "launches": counts[name],
                      "max_abs_err": m["max_abs_err"],

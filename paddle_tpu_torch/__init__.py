@@ -8,7 +8,10 @@ the same function beside it that CPU tensors take.
 
 Ported so far: Llama greedy serving — ``models.llama``,
 ``generation.kv_cache`` and ``inference.ContinuousBatchingPredictor``
-over the RMSNorm, flash-attention forward and paged-decode kernels.
+over the RMSNorm, flash-attention forward and paged/ragged decode
+kernels — and Llama pretraining — ``trainer.Trainer`` over
+``jit.TrainStep``, ``optimizer.AdamW`` and ``distributed.
+VerifiedCheckpointer``, with the flash-attention backward kernels.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

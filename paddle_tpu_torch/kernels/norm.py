@@ -1,9 +1,12 @@
-"""RMSNorm forward: a Triton kernel, its plain PyTorch version, and the
-``fused_rms_norm`` entry (counterpart of ``paddle_tpu/kernels/norm.py``
-``_rms_kernel`` / ``_rms_pallas`` / ``_rms_fwd``).
+"""RMSNorm: a Triton forward kernel, its plain PyTorch version, the
+analytic backward and the ``fused_rms_norm`` entry (counterpart of
+``paddle_tpu/kernels/norm.py`` ``_rms_kernel`` / ``_rms_pallas`` /
+``_rms_core`` / ``_rms_fwd`` / ``_rms_bwd``).
 
 ``y = x * rsqrt(mean(x^2) + eps) * w``: statistics in f32, output in
-``x.dtype``. Forward only; the analytic backward comes with training.
+``x.dtype``. The backward is ``_rms_bwd``'s formula in plain torch ops
+on every device: the reference computes it in XLA, not in a Pallas
+kernel.
 """
 from __future__ import annotations
 
@@ -44,13 +47,46 @@ def rms_norm_kernel(x2d: torch.Tensor, w: torch.Tensor, eps: float):
     return y
 
 
+def rms_norm_bwd(x2d, w, g2d, eps):
+    """``_rms_bwd``: (dx, dw) for x [N, D], w [D] and the output's
+    gradient g [N, D]; f32 statistics, ``dw`` summed over rows in f32 and
+    then cast to ``w.dtype``."""
+    cdt = torch.promote_types(x2d.dtype, torch.float32)
+    xf, gf, wf = x2d.to(cdt), g2d.to(cdt), w.to(cdt)
+    inv = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    xhat = xf * inv
+    gw = (gf * xhat).sum(dim=0).to(w.dtype)
+    gx_hat = gf * wf
+    gx = inv * (gx_hat - xhat * (gx_hat * xhat).mean(dim=-1, keepdim=True))
+    return gx.to(x2d.dtype), gw
+
+
+class _RMSNorm(torch.autograd.Function):
+    """Counterpart of the reference's ``_rms_core`` custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, x2d, w, eps):
+        ctx.save_for_backward(x2d, w)
+        ctx.eps = eps
+        if x2d.device.type == "cpu":
+            return rms_norm_plain(x2d, w, eps)
+        return rms_norm_kernel(x2d, w, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2d, w = ctx.saved_tensors
+        gx, gw = rms_norm_bwd(x2d, w, g, ctx.eps)
+        return gx, gw, None
+
+
 def fused_rms_norm(x: torch.Tensor, weight: torch.Tensor, eps=1e-6):
     """RMSNorm over the last axis of ``x``. A CPU tensor takes the plain
-    version; a CUDA tensor launches the Triton kernel or raises."""
+    version; a CUDA tensor launches the Triton kernel or raises.
+    Differentiable in ``x`` and ``weight`` when grad is enabled."""
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
-    if x.device.type == "cpu":
-        return rms_norm_plain(x2, weight, eps).reshape(shape)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_rms_norm: unsupported device {x.device}")
-    return rms_norm_kernel(x2.contiguous(), weight, eps).reshape(shape)
+    if x.device.type == "cuda":
+        x2 = x2.contiguous()
+    return _RMSNorm.apply(x2, weight, eps).reshape(shape)

@@ -1,4 +1,5 @@
-"""Llama for serving (counterpart of ``paddle_tpu/models/llama.py``).
+"""Llama for serving and pretraining (counterpart of
+``paddle_tpu/models/llama.py``).
 
 Parameter names equal the reference state dict's (for example
 ``llama.layers.0.self_attn.q_proj.weight``), so ``convert.
@@ -247,3 +248,20 @@ class LlamaForCausalLM(nn.Module):
         if use_cache:
             return logits, caches
         return logits
+
+
+class LlamaPretrainingCriterion(nn.Module):
+    """Shifted-label causal LM loss: logits [B, S, V] at position t are
+    scored against labels[:, t + 1] by ``cross_entropy`` (mean over the
+    labels that are not ``ignore_index``)."""
+
+    def __init__(self, config: LlamaConfig = None, ignore_index=-100):
+        super().__init__()
+        self.ignore_index = ignore_index
+
+    def forward(self, logits, labels):
+        lg = logits[:, :-1, :]
+        lb = labels[:, 1:]
+        b, s, v = lg.shape
+        return PF.cross_entropy(lg.reshape(b * s, v), lb.reshape(b * s),
+                                ignore_index=self.ignore_index)

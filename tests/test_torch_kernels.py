@@ -238,6 +238,7 @@ def test_cpu_tensors_take_plain_versions():
     paged_attention_varq(q, kp, kp, tables, lens, ql)
     paged_attention_ragged_varq(q, kp, kp, lens, ql, meta)
     assert launch_counts == {"rms_norm": 0, "flash_fwd": 0,
+                             "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
                              "paged_decode": 0, "ragged_decode": 0,
                              "paged_varq": 0}
 
