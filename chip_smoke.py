@@ -7,16 +7,20 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
 
 1. Build: compiles every CUDA source of the port from the checkout (one
    nvcc per source, all started together).
-2. Kernels: each hand-written kernel (RMSNorm in Triton; flash-attention
-   forward and backward (dK/dV, dQ), paged decode, ragged decode and the
-   variable-query span kernel in CUDA) against its plain PyTorch version
-   at the Llama-2-7B serving and training shapes in bf16, once in f32
-   and in a GQA case (H=32, Hkv=8); the backward also at head_dim 64 and
-   with Sq != Sk, a key-padding mask and kv_lens; with the tolerances
-   below. Prints each kernel's median device time, its bound (bytes over
-   3.35 TB/s or operations over the card's peak for their type), the
-   plain version's time and the one-call PyTorch equivalent's time where
-   one exists.
+2. Kernels: each hand-written kernel (RMSNorm and LayerNorm in Triton;
+   flash-attention forward and backward (dK/dV, dQ), paged decode,
+   ragged decode and the variable-query span kernel in CUDA) against its
+   plain PyTorch version at the Llama-2-7B serving and training shapes in
+   bf16, once in f32 and in a GQA case (H=32, Hkv=8); the backward also
+   at head_dim 64 and with Sq != Sk, a key-padding mask and kv_lens;
+   LayerNorm at BERT-base's x[2048, 768] in f32 and bf16; the three flash
+   kernels with attention dropout 0.1 at BERT-base's q[16, 128, 12, 64]
+   with a key-padding mask in f32 and bf16 (the keep rate within
+   binomial bounds of 0.9); with the tolerances below. Prints each
+   kernel's median device time, its bound (bytes over 3.35 TB/s or
+   operations over the card's peak for their type), the plain version's
+   time and the one-call PyTorch equivalent's time where one exists, and
+   the flash kernels' times with and without dropout at the BERT shape.
 3. Full-width f32 checks: a 2-layer model at Llama-2-7B widths gives the
    same prefill logits on the card (kernels) as on the CPU (plain
    versions) and the same greedy tokens through the predictor; the
@@ -24,9 +28,13 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    tokens on the card as the plain configuration on the card, and as
    itself on the CPU (chunking and speculation are lossless), with drafts
    both accepted and rejected (so the verify step commits drafts and
-   rolls back rejected positions on the card); and 3 AdamW TrainSteps of
+   rolls back rejected positions on the card); 3 AdamW TrainSteps of
    the same 2-layer model give the CPU's losses, step-1 gradients,
-   weight changes and moments.
+   weight changes and moments; and BERT-base (all 12 layers) gives the
+   CPU's eval logits within 1e-3 and, over 3 eager AdamW steps of the
+   fine-tune example's loop with attention dropout 0.1 (the same host
+   seeds) and hidden dropout 0, its losses within rtol 1e-4 and step-1
+   gradients within 1e-3 of each tensor's largest.
 4. Serve: Llama-2-7B widths in bf16 with random weights drawn on the
    card from a seeded torch.Generator. Run 1: 8 requests through
    ContinuousBatchingPredictor (max_batch_size=4, block-table decode,
@@ -37,7 +45,13 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    (256) and speculative decoding (4 drafts). Every request must finish 'ok'
    and every kernel a run drives must have launched in that run. Prints
    TTFT, tokens/s and peak memory of each, and profiles a pass of each.
-5. Train: Llama-2-7B widths in bf16, 8 of 32 layers (AdamW's f32 master
+5. Fine-tune, through ``paddle_tpu_torch/examples/bert_finetune.py``:
+   BERT-base, 30 steps at batch 16 x 128 with row lengths 32-128 through
+   ``attention_mask``, every dropout 0.1; then ERNIE-3.0-base for 6
+   steps. Every loss finite, and per step 25 LayerNorm launches and 12 of
+   each flash kernel. Prints step time, tokens/s, MFU (f32 peak) and
+   peak memory, and profiles one step.
+6. Train: Llama-2-7B widths in bf16, 8 of 32 layers (AdamW's f32 master
    weights and moments take 16 bytes per parameter: all 32 layers would
    need 108 GB), through ``Trainer`` for 6 steps at batch 2 x 2048 on one
    fixed batch: every loss finite, the last below the first, and each
@@ -558,6 +572,125 @@ def varq_phase(torch, dev, g):
     return main
 
 
+def ln_phase(torch, dev, g):
+    """The LayerNorm kernel against its plain version at BERT-base's
+    x[2048, 768] (16 x 128 tokens) in f32 and bf16, eps 1e-12; timed in
+    both dtypes, the f32 numbers go into the kernels line."""
+    from paddle_tpu_torch.kernels import norm
+    F = torch.nn.functional
+    d, n = 768, 2048
+    rows = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        x = (3 * torch.randn(n, d, device=dev, generator=g) + 1).to(dt)
+        w = (1 + 0.1 * torch.randn(d, device=dev, generator=g)).to(dt)
+        b = (0.1 * torch.randn(d, device=dev, generator=g)).to(dt)
+        err = compare(torch, f"layer_norm {dtype} x[{n}, {d}]",
+                      norm.layer_norm_kernel(x, w, b, 1e-12),
+                      norm.layer_norm_plain(x, w, b, 1e-12), dtype)
+        # 12 input sets of 6.3 MB at f32, 24 of 3.1 MB at bf16: ~75 MB
+        # of x rotate past the 50 MB L2 in both dtypes
+        sets = [(x, w, b)] + [(torch.randn_like(x), w, b)
+                              for _ in range(48 // x.element_size() - 1)]
+        t = time_ms(torch, lambda a, c, e: norm.layer_norm_kernel(
+            a, c, e, 1e-12), sets)
+        plain = time_ms(torch, lambda a, c, e: norm.layer_norm_plain(
+            a, c, e, 1e-12), sets)["median"]
+        lib = time_ms(torch, lambda a, c, e: F.layer_norm(
+            a, (d,), c, e, 1e-12), sets)["median"]
+        isz = x.element_size()
+        # bytes: x read once, y written once, w and b once; ~8 operations
+        # per element (sum, centre, square, sum, scale, weight, bias)
+        b_ms, by = bound(2 * x.numel() * isz + 2 * d * isz, 8 * x.numel(),
+                         "float32")
+        rows[dtype] = dict(max_abs_err=err, t=t, plain_ms=plain,
+                           library_ms=lib, bound_ms=b_ms, bound_by=by,
+                           shape=f"x[{n}, {d}] {dtype}")
+    return rows
+
+
+# BERT-base attention: batch 16 x 128, 12 heads of 64, a key-padding
+# mask of row lengths 32..128, dropout 0.1
+BERT_ATTN = dict(b=16, s=128, h=12, d=64, p=0.1)
+
+
+def dropout_phase(torch, dev, g):
+    """The three flash kernels with attention dropout against their plain
+    versions at the BERT-base fine-tuning shape (f32 and bf16, additive
+    key mask, p 0.1, one fixed seed pair); the pattern's keep rate over
+    the unmasked entries within 6 binomial standard deviations of 0.9;
+    the f32 kernels timed with and without dropout (and SDPA with
+    dropout as the yardstick), logged."""
+    from paddle_tpu_torch.kernels import attention as A
+    F = torch.nn.functional
+    b, s, h, d, p = (BERT_ATTN[k] for k in ("b", "s", "h", "d", "p"))
+    seeds = (-1234567891, 987654321)
+    lens = torch.randint(32, s + 1, (b,), device=dev, generator=g)
+    keys = torch.arange(s, device=dev)[None, :] < lens[:, None]
+    mask = ((1.0 - keys.float()) * -1e4)[:, None, None, :].contiguous()
+    rows = torch.arange(b * h, device=dev).reshape(b, h, 1, 1)
+    keep = A.dropout_keep_mask(torch.arange(s, device=dev)[:, None],
+                               torch.arange(s, device=dev)[None, :], rows,
+                               seeds[0], seeds[1], p)
+    valid = keys[:, None, None, :].expand(b, h, s, s)
+    n = int(valid.sum())
+    rate = float(keep[valid].float().mean())
+    sd = (p * (1 - p) / n) ** 0.5
+    log(f"dropout keep rate over {n} unmasked entries: {rate:.5f} "
+        f"(1 - p = {1 - p}, 6 sd = {6 * sd:.5f})")
+    check(abs(rate - (1 - p)) <= 6 * sd, "dropout keep rate off 1 - p")
+    sc = d ** -0.5
+    drop = dict(dropout_p=p, seeds=seeds)
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        q, k, v, do = (torch.randn(b, s, h, d, device=dev, generator=g).to(dt)
+                       for _ in range(4))
+        out, lse = A.flash_attention_kernel(q, k, v, sc, False, mask, **drop)
+        name = f"{dtype} q[{b}, {s}, {h}, {d}] key mask, dropout {p}"
+        compare(torch, f"flash_fwd {name}", out,
+                A.flash_attention_plain(q, k, v, sc, False, mask, **drop),
+                dtype)
+        plain0 = A.flash_attention_plain(q, k, v, sc, False, mask)
+        check(not torch.allclose(out.float(), plain0.float(), **TOL[dtype]),
+              "flash_fwd with dropout gives the output without it")
+        got = A.flash_attention_bwd_kernel(q, k, v, out, lse, do, sc, False,
+                                           mask, **drop)
+        want = A.flash_attention_bwd_plain(q, k, v, out, lse, do, sc, False,
+                                           mask, **drop)
+        for w, a, r in zip(("dq", "dk", "dv"), got, want):
+            compare(torch, f"flash_bwd_{w} {name}", a, r, dtype)
+    # f32 timings at this shape, with and without dropout
+    def inputs():
+        q, k, v, do = (torch.randn(b, s, h, d, device=dev, generator=g)
+                       for _ in range(4))
+        out, lse = A.flash_attention_kernel(q, k, v, sc, False, mask, **drop)
+        return q, k, v, do, lse, A.bwd_delta(out, do)
+    sets = [inputs() for _ in range(4)]
+    times = {}
+    for label, kw in (("p=0", {}), (f"p={p}", drop)):
+        times[label] = {
+            "flash_fwd": time_ms(torch, lambda q_, k_, v_, *_:
+                                 A.flash_attention_kernel(
+                                     q_, k_, v_, sc, False, mask, **kw),
+                                 sets)["median"],
+            "flash_bwd_dkdv": time_ms(torch, lambda q_, k_, v_, do_, l_, dl_:
+                                      A.flash_bwd_dkdv_kernel(
+                                          q_, k_, v_, do_, l_, dl_, sc,
+                                          False, mask, **kw),
+                                      sets)["median"],
+            "flash_bwd_dq": time_ms(torch, lambda q_, k_, v_, do_, l_, dl_:
+                                    A.flash_bwd_dq_kernel(
+                                        q_, k_, v_, do_, l_, dl_, sc, False,
+                                        mask, **kw), sets)["median"]}
+    sdpa = time_ms(torch, lambda q_, k_, v_, *_: F.scaled_dot_product_attention(
+        q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
+        attn_mask=mask, dropout_p=p, scale=sc), sets)["median"]
+    for label, t in times.items():
+        log(f"  BERT-shape f32 q[{b}, {s}, {h}, {d}] key mask, {label}: "
+            + ", ".join(f"{k} {ms:.4f} ms" for k, ms in t.items()))
+    log(f"  SDPA forward with dropout {p} at that shape: {sdpa:.4f} ms")
+
+
 def lookup_prompt(torch, model, dev, toks, seg_len, reps, m, rounds=8,
                   **kw):
     """``reps`` copies of a random ``seg_len``-token segment, the first
@@ -850,6 +983,217 @@ def serve_profile(torch, dev, model, prompts, card, kw):
             f"{e.key[:60]}")
 
 
+# ---------------------------------------------------------- fine-tuning --
+
+# launches of each kernel per fine-tuning step of a 12-layer encoder: the
+# embedding LayerNorm and two per layer; one flash forward and one of each
+# backward kernel per layer
+FINETUNE_KERNELS = ("layer_norm", "flash_fwd", "flash_bwd_dkdv",
+                    "flash_bwd_dq")
+
+
+def finetune_kernels_per_step(layers):
+    return {"layer_norm": 2 * layers + 1, "flash_fwd": layers,
+            "flash_bwd_dkdv": layers, "flash_bwd_dq": layers}
+
+
+F32_PEAK = 67e12                    # f32 outside the tensor cores
+BERT_GATE_TOL = dict(atol=1e-3, rtol=1e-3)
+
+
+def bert_gate_run(torch, model, batch, seed, steps=3):
+    """Eval logits, then ``steps`` steps of the example's loop (its AdamW
+    and schedule, lr 3e-5 over 30 steps) on one batch with the port's
+    random state reset to ``seed``: (logits, losses, {parameter: step-1
+    gradient}) on the CPU."""
+    from paddle_tpu_torch.examples import bert_finetune as ex
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    ids, labels, mask = ex.to_device(batch, model.device)
+    model.eval()
+    with torch.no_grad():
+        logits = model(ids, attention_mask=mask).cpu()
+    model.train()
+    prandom.seed(seed)
+    opt = ex.build_optimizer(model, 3e-5, 30)
+    crit = CrossEntropyLoss()
+    losses, grads = [], None
+    for i in range(steps):
+        loss = crit(model(ids, attention_mask=mask), labels)
+        loss.backward()
+        if i == 0:
+            grads = {n: p.grad.detach().cpu().clone()
+                     for n, p in model.named_parameters()}
+        opt.step()
+        opt.clear_grad()
+        opt._learning_rate.step()
+        losses.append(float(loss.detach()))
+    return logits, losses, grads
+
+
+def grad_layer(name):
+    """The layer a parameter belongs to: its name up to the last numeric
+    component (``bert.encoder.layers.3``), else the parameter itself."""
+    parts = name.split(".")
+    nums = [i for i, p in enumerate(parts) if p.isdigit()]
+    return ".".join(parts[:nums[-1] + 1]) if nums else name
+
+
+def bert_f32_gate(torch, dev, seed):
+    """BERT-base at full width (12 layers, hidden 768, 12 heads of 64), f32,
+    the same weights on the card (kernels) and the CPU (plain versions),
+    one batch of 2 x 128 with row lengths 128 and 77: eval logits within
+    1e-3; then 3 steps with attention dropout 0.1 (the same host seeds on
+    both) and hidden dropout 0: losses within rtol 1e-4, step-1 gradients
+    per tensor within 1e-3 of the tensor's largest CPU value. A tensor
+    whose largest CPU gradient is at rounding level (below 1e-4 of the
+    largest in its layer) is measured against its layer's largest
+    instead: the key projections' biases are such, their gradient is 0
+    in exact arithmetic (softmax ignores a shift shared by a row's
+    scores), so both sides hold rounding noise only. The tensors that
+    took that rule are logged."""
+    from paddle_tpu_torch.examples import bert_finetune as ex
+    from paddle_tpu_torch.models import (BertConfig,
+                                         BertForSequenceClassification)
+    cfg = BertConfig(num_labels=ex.NUM_CLASSES, hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.1)
+    cpu = BertForSequenceClassification(cfg, device="cpu").init_weights(
+        torch.Generator().manual_seed(seed))
+    gpu = BertForSequenceClassification(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = torch.Generator().manual_seed(seed + 5)
+    ids = torch.randint(0, cfg.vocab_size, (2, 128), generator=rng).numpy()
+    labels = torch.randint(0, ex.NUM_CLASSES, (2,), generator=rng).numpy()
+    mask = (torch.arange(128)[None, :]
+            < torch.tensor([128, 77])[:, None]).long().numpy()
+    t0 = time.perf_counter()
+    lg_gpu, l_gpu, g_gpu = bert_gate_run(torch, gpu, (ids, labels, mask), seed)
+    lg_cpu, l_cpu, g_cpu = bert_gate_run(torch, cpu, (ids, labels, mask), seed)
+    err = float((lg_gpu - lg_cpu).abs().max())
+
+    top = {n: float(t.abs().max()) for n, t in g_cpu.items()}
+    layer_top = {}
+    for n, v in top.items():
+        layer_top[grad_layer(n)] = max(layer_top.get(grad_layer(n), 0.0), v)
+    noise = sorted(n for n, v in top.items()
+                   if v < 1e-4 * layer_top[grad_layer(n)])
+
+    def scale(n):
+        return max(layer_top[grad_layer(n)] if n in noise else top[n], 1e-30)
+    worst = max((float((g_gpu[n] - t).abs().max()) / scale(n), n)
+                for n, t in g_cpu.items())
+    log(f"f32 BERT-base gate, card vs CPU ({time.perf_counter() - t0:.1f} "
+        f"s): eval logits max_abs_err {err:.3e} (atol = rtol = 1e-3); losses "
+        f"{l_gpu} vs {l_cpu}; step-1 gradients worst max|card - cpu| / "
+        f"max|cpu| {worst[0]:.3e} ({worst[1]}); measured against their "
+        f"layer's largest, at rounding level: {noise}")
+    check(bool(torch.isfinite(lg_gpu).all()), "BERT logits non-finite")
+    check(torch.allclose(lg_gpu, lg_cpu, **BERT_GATE_TOL),
+          "BERT eval logits differ between the card and the CPU")
+    for i, (a, b_) in enumerate(zip(l_gpu, l_cpu)):
+        check(abs(a - b_) <= 1e-4 * abs(b_),
+              f"BERT step {i + 1} loss {a} on the card vs {b_} on the CPU")
+    check(worst[0] <= 1e-3, f"BERT step-1 gradient of {worst[1]} differs by "
+          f"{worst[0]:.3e} of its largest value (limit 1e-3)")
+
+
+def finetune_run(torch, dev, card, model, steps):
+    """One counted fine-tune through the example's ``main`` (batch 16 x
+    128, row lengths 32-128, every dropout 0.1): launch counters set to 0
+    just before it and read just after. Every loss finite and each kernel
+    launched its per-step count every step. Prints step time (median of
+    steps 2 on), tokens/s, MFU over the f32 peak and peak memory, then
+    profiles one more step. MFU counts 6 N FLOPs per token with N the
+    parameters outside the embedding tables, which do no matrix product
+    (attention's own products are left out, as 6 N does). Returns the
+    run's launch counts."""
+    from paddle_tpu_torch.nn.layers_common import Embedding
+    from paddle_tpu_torch.examples import bert_finetune as ex
+    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    res = ex.main(["--model", model, "--steps", str(steps), "--batch", "16",
+                   "--seq", "128", "--min-len", "32", "--device", str(dev)])
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated(dev)
+    cfg = res["config"]
+    n_params = sum(p.numel() for p in res["model"].parameters())
+    n_emb = sum(m.weight.numel() for m in res["model"].modules()
+                if isinstance(m, Embedding))
+    losses, step_s = res["losses"], res["step_s"]
+    med = statistics.median(step_s[1:])
+    tok_s = res["tokens_per_step"] / med
+    log(f"fine-tune {model} (hidden {cfg.hidden_size}, {cfg.num_hidden_layers}"
+        f" layers, vocab {cfg.vocab_size}, {n_params / 1e6:.2f} M parameters,"
+        f" f32): losses {[round(x, 4) for x in losses]}; step times (s) "
+        f"{[round(t, 4) for t in step_s]}; launches {counts}")
+    log(f"fine-tune {model} on {card}: step median (steps 2-{steps}) "
+        f"{med * 1e3:.2f} ms, {tok_s:.1f} tokens/s, MFU "
+        f"{6 * (n_params - n_emb) * tok_s / F32_PEAK:.4f} (6 N tokens/s over"
+        f" the f32 peak, {F32_PEAK / 1e12:.0f} TFLOP/s, N = "
+        f"{(n_params - n_emb) / 1e6:.2f} M outside the embeddings); peak "
+        f"memory "
+        f"{peak / 2**30:.2f} GiB")
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"non-finite fine-tune loss {losses}")
+    want = {k: n * steps for k, n in finetune_kernels_per_step(
+        cfg.num_hidden_layers).items()}
+    check(all(counts[k] == n for k, n in want.items()),
+          f"launches {counts} are not {want} ({steps} steps)")
+    finetune_profile(torch, dev, res, card, med * 1e3)
+    return counts
+
+
+def finetune_profile(torch, dev, res, card, step_ms):
+    """One more fine-tune step under the profiler (a fresh batch of the
+    same shape): device busy and idle share and the device time by
+    kernel and by kind. The tracer slows the host, so the idle share is
+    given against the traced wall time and against ``step_ms``, the
+    untraced step median."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.examples import bert_finetune as ex
+    batch = next(ex.synthetic_batches(np.random.RandomState(99),
+                                      res["config"].vocab_size, 16, 128,
+                                      ex.NUM_CLASSES, 1, 32))
+    args = ex.to_device(batch, dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss = ex.train_step(res["model"], res["optimizer"],
+                             res["criterion"], *args)
+        float(loss.detach())
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = device_kernel_ms(torch, prof)
+    busy = sum(ms for ms, _ in kern.values())
+    log(f"fine-tune profile on {card}: one step, wall {wall:.1f} ms (traced),"
+        f" device busy {busy:.1f} ms, idle share {1 - busy / wall:.3f} of the"
+        f" traced step, {1 - busy / step_ms:.3f} of the untraced median "
+        f"{step_ms:.2f} ms")
+    for name, (ms, n) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"  {ms:9.2f} ms {100 * ms / busy:5.1f}% x{n:<6d} {name[:90]}")
+    cats = {}
+    for name, (ms, n) in kern.items():
+        cat = next((c for c, keys in TRAIN_OP_CATEGORIES
+                    if any(k in name for k in keys)), "other")
+        cats[cat] = cats.get(cat, 0.0) + ms
+    log("fine-tune profile by category: " + ", ".join(
+        f"{c} {ms:.1f} ms ({100 * ms / busy:.1f}%)"
+        for c, ms in sorted(cats.items(), key=lambda kv: -kv[1])))
+    from torch.autograd import DeviceType
+    host = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU]
+    host_ms = sum(e.self_cpu_time_total for e in host) / 1e3
+    log(f"fine-tune profile: host ops {host_ms:.1f} ms of self time "
+        f"({sum(e.count for e in host)} calls); top by self time:")
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]:
+        log(f"  {e.self_cpu_time_total / 1e3:9.2f} ms x{e.count:<6d} "
+            f"{e.key[:60]}")
+
+
 # ------------------------------------------------------------ training --
 
 # launches of each kernel per training step of an L-layer Llama: RMSNorm
@@ -1046,7 +1390,7 @@ def train_profile(torch, model, trainer, ids, card):
 # device kernels of a training step by kind, matched on the kernel name
 TRAIN_OP_CATEGORIES = (
     ("flash_bwd", ("flash_bwd",)), ("flash_fwd", ("flash_fwd",)),
-    ("rms_norm", ("_rms_norm_fwd",)),
+    ("rms_norm", ("_rms_norm_fwd",)), ("layer_norm", ("_layer_norm_fwd",)),
     ("gemm", ("nvjet", "gemm", "cutlass", "splitKreduce")),
     ("elementwise", ("elementwise", "copy_kernel", "CatArray", "fill")),
     ("reduce", ("reduce", "softmax", "Softmax")))
@@ -1148,15 +1492,18 @@ def main(argv=None):
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
     t0 = time.perf_counter()
-    log("kernels vs plain versions (Llama-2-7B serving and training "
-        "shapes):")
+    log("kernels vs plain versions (Llama-2-7B serving and training, "
+        "BERT-base fine-tuning shapes):")
+    ln = ln_phase(torch, dev, g)
     mains = {"rms_norm": rms_phase(torch, dev, g),
+             "layer_norm": ln["float32"],
              "flash_fwd": flash_phase(torch, dev, g),
              **flash_bwd_phase(torch, dev, g),
              "paged_decode": paged_phase(torch, dev, g),
              "ragged_decode": ragged_phase(torch, dev, g),
              "paged_varq": varq_phase(torch, dev, g)}
-    for name, m in mains.items():
+    dropout_phase(torch, dev, g)
+    for name, m in [*mains.items(), ("layer_norm (bf16)", ln["bfloat16"])]:
         lib = "n/a" if m["library_ms"] is None else f"{m['library_ms']:.4f}"
         t = m["t"]
         log(f"  {name} on {card}, {m['shape']}: kernel median "
@@ -1175,12 +1522,23 @@ def main(argv=None):
     train_f32_phase(torch, dev, args.seed)
     log(f"f32 training phase took {time.perf_counter() - t0:.1f} s")
     free_card(torch)
+    t0 = time.perf_counter()
+    bert_f32_gate(torch, dev, args.seed)
+    log(f"f32 BERT-base gate took {time.perf_counter() - t0:.1f} s")
+    free_card(torch)
 
     if args.layers != 32:
         log(f"serving {args.layers} layers instead of 32 (--layers)")
     t0 = time.perf_counter()
     counts1, counts2 = serve_phase(torch, dev, args.seed, args.layers, card)
     log(f"serve phase took {time.perf_counter() - t0:.1f} s")
+    free_card(torch)
+
+    t0 = time.perf_counter()
+    counts_ft = finetune_run(torch, dev, card, "bert", 30)
+    free_card(torch)
+    finetune_run(torch, dev, card, "ernie", 6)
+    log(f"fine-tune phase took {time.perf_counter() - t0:.1f} s")
     free_card(torch)
 
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1199,6 +1557,9 @@ def main(argv=None):
     sources = {"rms_norm": ("triton",
                             "paddle_tpu_torch/kernels/_rms_triton.py",
                             "paddle_tpu/kernels/norm.py:27"),
+               "layer_norm": ("triton",
+                              "paddle_tpu_torch/kernels/_ln_triton.py",
+                              "paddle_tpu/kernels/norm.py:98"),
                "flash_fwd": ("cuda", "paddle_tpu_torch/csrc/flash_fwd.cu",
                              "paddle_tpu/kernels/attention.py:163"),
                "flash_bwd_dkdv": ("cuda", "paddle_tpu_torch/csrc/flash_bwd.cu",
@@ -1216,11 +1577,13 @@ def main(argv=None):
     rows = []
     for name, (route, src, replaces) in sources.items():
         m = mains[name]
-        # launches from the run that drives the kernel: the training run
-        # for the four kernels it runs, serve run 1 (block table) for
+        # launches from the run that drives the kernel: the BERT-base
+        # fine-tune run for LayerNorm and the flash kernels, the Llama
+        # training run for rms_norm, serve run 1 (block table) for
         # paged_decode, serve run 2 (ragged, chunked, speculative) for
         # the rest
-        counts = counts3 if name in TRAIN_KERNELS else \
+        counts = counts_ft if name in FINETUNE_KERNELS else \
+            counts3 if name in TRAIN_KERNELS else \
             counts1 if name in RUN1_KERNELS else counts2
         rows.append({"name": name, "route": route, "source": src,
                      "replaces": replaces, "launches": counts[name],

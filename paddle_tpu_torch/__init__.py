@@ -9,9 +9,12 @@ the same function beside it that CPU tensors take.
 Ported so far: Llama greedy serving — ``models.llama``,
 ``generation.kv_cache`` and ``inference.ContinuousBatchingPredictor``
 over the RMSNorm, flash-attention forward and paged/ragged decode
-kernels — and Llama pretraining — ``trainer.Trainer`` over
+kernels — Llama pretraining — ``trainer.Trainer`` over
 ``jit.TrainStep``, ``optimizer.AdamW`` and ``distributed.
-VerifiedCheckpointer``, with the flash-attention backward kernels.
+VerifiedCheckpointer``, with the flash-attention backward kernels — and
+BERT / ERNIE sequence-classification fine-tuning
+(``examples.bert_finetune``) over the LayerNorm kernel and the flash
+kernels' counter-hash attention dropout.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

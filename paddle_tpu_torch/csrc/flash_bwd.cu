@@ -15,6 +15,13 @@
 //   dS    = keep ? P * (dP - delta[q]) : 0,   delta = rowsum(dO * O)
 //   dV[k] += P * dO[q]          dK[k] += dS * q[q] * scale
 //   dQ[q] += dS * k[k] * scale
+// With attention dropout (`dscale` > 0), D = keep / (1 - p) is the
+// forward's pattern, regenerated from the same counter hash
+// (`_fmix32` / `dropout_keep_mask`, attention.py:87-139) over the
+// row b*H + h of the QUERY head (also in dK/dV, which walks a KV head's
+// query-head group) and the absolute q and k:
+//   dV[k] += P * D * dO[q],   dS = P * (dP * D - delta)
+// (delta = rowsum(dO * O) still equals rowsum(P * D * dP)).
 // Entries that are masked or out of range contribute exactly zero (the
 // reference's `jnp.where(keep, ds, 0)`); a row with no valid key stays
 // finite. Causality is top-left (q >= k) also when Sq != Sk, as in the
@@ -43,6 +50,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <stdint.h>
 
 namespace {
 
@@ -62,6 +70,25 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float x) {
   return __float2bfloat16(x);
 }
+
+// murmur3 finalizer (the reference's `_fmix32`): unsigned arithmetic, so
+// products wrap mod 2^32 and shifts are logical
+__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+
+// the call's dropout: dscale = 1 / (1 - p), 0 when off. The row's first
+// hash, fmix32((b*H + h) ^ seed0) of the query head being processed, is
+// passed beside it as `row_key`
+struct Dropout {
+  uint32_t seed1, thresh;
+  float dscale;
+};
 
 // rows [r0, r0 + 64) of a [.., n, heads, D] tensor (row stride `stride`
 // elements, `src` at the head's first element) into an f32 [64][D + 1]
@@ -110,17 +137,22 @@ __device__ __forceinline__ void score_tiles(const float* Qs, const float* dOs,
   }
 }
 
-// turns the thread's S into P and dP into dS in place (see the header)
+// turns the thread's S into P * D (P without dropout) and dP into dS in
+// place (see the header); DROP = false compiles the dropout away
+template <bool DROP>
 __device__ __forceinline__ void probs(float s[4][4], float dp[4][4], int q0,
                                       int k0, int Sq, int Sk, int len,
                                       int causal, const float* mb,
                                       long long msq, long long msk,
                                       float scale, const float* lse_s,
-                                      const float* dl_s, int tx, int ty) {
+                                      const float* dl_s, int tx, int ty,
+                                      const Dropout& drop, uint32_t row_key) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i, qi = q0 + r;
     const float lse = lse_s[r], dl = dl_s[r];
+    uint32_t xq = 0u;
+    if constexpr (DROP) xq = fmix32(row_key ^ (uint32_t)qi);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int ki = k0 + tx + 16 * j;
@@ -130,7 +162,12 @@ __device__ __forceinline__ void probs(float s[4][4], float dp[4][4], int q0,
         float x = s[i][j] * scale;
         if (mb) x += mb[qi * msq + ki * msk];
         p = expf(x - lse);
-        ds = p * (dp[i][j] - dl);
+        float dm = 1.f;
+        if constexpr (DROP)
+          dm = fmix32(xq ^ (uint32_t)ki ^ drop.seed1) >= drop.thresh
+                   ? drop.dscale : 0.f;
+        ds = p * (dp[i][j] * dm - dl);
+        p *= dm;
       }
       s[i][j] = p;
       dp[i][j] = ds;
@@ -154,7 +191,7 @@ constexpr size_t dq_smem_floats() {
          + 2 * kBQ;             // lse, delta
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const T* __restrict__ dout,
@@ -162,7 +199,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     const float* __restrict__ mask, const int* __restrict__ kv_lens,
     T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H, int Hkv,
     long long msb, long long msh, long long msq, long long msk, float scale,
-    int causal) {
+    int causal, uint32_t seed0, Dropout drop) {
   extern __shared__ float smem[];
   float* Ks = smem;
   float* Vs = Ks + kBK * (D + 1);
@@ -204,6 +241,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
       const float* lb = lse + ((long long)b * H + h) * Sq;
       const float* db = delta + ((long long)b * H + h) * Sq;
       const float* mb = mask ? mask + b * msb + h * msh : nullptr;
+      // dropout hashes the query head's row, not the KV head's
+      const uint32_t row_key = fmix32((uint32_t)(b * H + h) ^ seed0);
       for (int it = i_first; it < nq; ++it) {
         const int q0 = it * kBQ;
         __syncthreads();  // the previous tile's readers are done
@@ -218,8 +257,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
 
         float s[4][4], dp[4][4];
         score_tiles<D>(Qs, dOs, Ks, Vs, tx, ty, s, dp);
-        probs(s, dp, q0, k0, Sq, Sk, len, causal, mb, msq, msk, scale, lse_s,
-              dl_s, tx, ty);
+        probs<DROP>(s, dp, q0, k0, Sq, Sk, len, causal, mb, msq, msk, scale,
+                    lse_s, dl_s, tx, ty, drop, row_key);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -230,7 +269,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
           }
         __syncthreads();
 
-        // dV[key] += P[q, key] dO[q];  dK[key] += dS[q, key] Q[q]; the
+        // dV[key] += (P D)[q, key] dO[q];  dK[key] += dS[q, key] Q[q]; the
         // thread owns keys ty + 16 i and features tx + 16 j
         const int rows = min(kBQ, Sq - q0);
         for (int qq = 0; qq < rows; ++qq) {
@@ -272,14 +311,15 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const float* __restrict__ mask, const int* __restrict__ kv_lens,
     T* __restrict__ dq, int Sq, int Sk, int H, int Hkv, long long msb,
-    long long msh, long long msq, long long msk, float scale, int causal) {
+    long long msh, long long msq, long long msk, float scale, int causal,
+    uint32_t seed0, Dropout drop) {
   extern __shared__ float smem[];
   float* Qs = smem;
   float* dOs = Qs + kBQ * (D + 1);
@@ -303,6 +343,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const float* db = delta + (long long)blockIdx.y * Sq;
   const float* mb = mask ? mask + b * msb + h * msh : nullptr;
   const int len = kv_lens ? kv_lens[b] : Sk;
+  const uint32_t row_key = fmix32((uint32_t)blockIdx.y ^ seed0);  // b*H + h
 
   load_tile<T, D>(Qs, q + q_off, q_stride, q0, Sq, tid);
   load_tile<T, D>(dOs, dout + q_off, q_stride, q0, Sq, tid);
@@ -332,8 +373,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 
     float s[4][4], dp[4][4];
     score_tiles<D>(Qs, dOs, Ks, Vs, tx, ty, s, dp);
-    probs(s, dp, q0, k0, Sq, Sk, len, causal, mb, msq, msk, scale, lse_s,
-          dl_s, tx, ty);
+    probs<DROP>(s, dp, q0, k0, Sq, Sk, len, causal, mb, msq, msk, scale,
+                lse_s, dl_s, tx, ty, drop, row_key);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -376,12 +417,15 @@ struct Args {
   long long msb, msh, msq, msk;
   float scale;
   int causal;
+  uint32_t seed0;
+  Dropout drop;
 };
 
 template <typename T, int D>
 int launch_dkdv(const Args& a, void* dk, void* dv, cudaStream_t stream) {
   const size_t smem = dkdv_smem_floats<D>() * sizeof(float);
-  auto kern = flash_bwd_dkdv_kernel<T, D>;
+  auto kern = a.drop.dscale > 0.f ? flash_bwd_dkdv_kernel<T, D, true>
+                                  : flash_bwd_dkdv_kernel<T, D, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -390,14 +434,16 @@ int launch_dkdv(const Args& a, void* dk, void* dv, cudaStream_t stream) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
       a.delta, a.mask, a.kv_lens, static_cast<T*>(dk), static_cast<T*>(dv),
-      a.Sq, a.Sk, a.H, a.Hkv, a.msb, a.msh, a.msq, a.msk, a.scale, a.causal);
+      a.Sq, a.Sk, a.H, a.Hkv, a.msb, a.msh, a.msq, a.msk, a.scale, a.causal,
+      a.seed0, a.drop);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch_dq(const Args& a, void* dq, cudaStream_t stream) {
   const size_t smem = dq_smem_floats<D>() * sizeof(float);
-  auto kern = flash_bwd_dq_kernel<T, D>;
+  auto kern = a.drop.dscale > 0.f ? flash_bwd_dq_kernel<T, D, true>
+                                  : flash_bwd_dq_kernel<T, D, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -406,7 +452,7 @@ int launch_dq(const Args& a, void* dq, cudaStream_t stream) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
       a.delta, a.mask, a.kv_lens, static_cast<T*>(dq), a.Sq, a.Sk, a.H,
-      a.Hkv, a.msb, a.msh, a.msq, a.msk, a.scale, a.causal);
+      a.Hkv, a.msb, a.msh, a.msq, a.msk, a.scale, a.causal, a.seed0, a.drop);
   return (int)cudaGetLastError();
 }
 
@@ -420,7 +466,9 @@ bool valid(const Args& a) {
 // dtype: 0 = float32, 1 = bfloat16. Layouts: q/dout/dq [B, Sq, H, D],
 // k/v/dk/dv [B, Sk, Hkv, D], lse/delta [B, H, Sq] f32, all contiguous;
 // mask (may be null) is f32 addressed as mask[b*msb + h*msh + q*msq +
-// k*msk]; kv_lens (may be null) is int32 [B]. Each returns
+// k*msk]; kv_lens (may be null) is int32 [B]. Dropout: dscale = 1 / (1 - p)
+// as f32, 0 for none; thresh = min(2^32 - 1, round(p * 2^32)); seed0 and
+// seed1 the forward call's two int32 seeds. Each returns
 // cudaGetLastError().
 #define FLASH_BWD_ARGS                                                        \
   int dtype, int head_dim, const void *q, const void *k, const void *v,       \
@@ -428,11 +476,13 @@ bool valid(const Args& a) {
       const float *mask, const int *kv_lens
 #define FLASH_BWD_DIMS                                                        \
   int B, int Sq, int Sk, int H, int Hkv, long long msb, long long msh,        \
-      long long msq, long long msk, float scale, int causal,                  \
-      cudaStream_t stream
+      long long msq, long long msk, float scale, int causal, int seed0,       \
+      int seed1, unsigned thresh, float dscale, cudaStream_t stream
 #define FLASH_BWD_PACK                                                        \
-  const Args a{q,   k,  v,   dout, lse, delta, mask, kv_lens, B,     Sq,      \
-               Sk,  H,  Hkv, msb,  msh, msq,   msk,  scale,   causal};        \
+  const Args a{q,     k,     v,      dout,   lse, delta, mask,              \
+               kv_lens, B,   Sq,     Sk,     H,   Hkv,   msb,               \
+               msh,   msq,   msk,    scale,  causal, (uint32_t)seed0,        \
+               Dropout{(uint32_t)seed1, (uint32_t)thresh, dscale}};          \
   if (!valid(a)) return (int)cudaErrorInvalidValue
 
 extern "C" int flash_bwd_dkdv(FLASH_BWD_ARGS, void* dk, void* dv,

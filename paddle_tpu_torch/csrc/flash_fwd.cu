@@ -14,6 +14,16 @@
 // P is rounded to the input dtype before the P.V product, like the
 // reference (`p_acc.astype(v.dtype)`); the normalizer uses unrounded P.
 //
+// Attention dropout (`dscale` > 0): the reference's counter hash
+// (`_fmix32` / `dropout_keep_mask`, attention.py:87-139). Element
+// (b, h, q, k) is kept iff
+//   fmix32(fmix32(fmix32((b*H + h) ^ seed0) ^ q) ^ k ^ seed1) >= thresh
+// in uint32, with absolute q and k, so the backward kernels regenerate
+// the same bits whatever their tiling. A kept P is multiplied by
+// dscale = 1 / (1 - p) before rounding; a dropped one is 0. The
+// normalizer and lse keep the P before dropout. The first hash is taken
+// once per block, the second once per (row, tile), the third per element.
+//
 // Bound on the H100: at prefill sizes (S in the hundreds, D = 128) the
 // work is ~S operations per byte, so it is compute-bound; the card's
 // ceiling is the bf16 tensor-core rate. This first version runs on the
@@ -30,6 +40,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <stdint.h>
 
 namespace {
 
@@ -51,6 +62,17 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
   return __float2bfloat16(x);
 }
 
+// murmur3 finalizer (the reference's `_fmix32`): unsigned arithmetic, so
+// products wrap mod 2^32 and shifts are logical
+__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -70,14 +92,16 @@ constexpr size_t smem_floats() {
          + 3 * kBQ;         // running max, sum, rescale factor
 }
 
-template <typename T, int D>
+// DROP = false compiles the dropout away
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const float* __restrict__ mask,
     const int* __restrict__ kv_lens, T* __restrict__ out,
     float* __restrict__ lse, int Sq, int Sk, int H, int Hkv,
     long long msb, long long msh, long long msq, long long msk,
-    float scale, int causal) {
+    float scale, int causal, uint32_t seed0, uint32_t seed1, uint32_t thresh,
+    float dscale) {
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + kBQ * (D + 1);
@@ -102,6 +126,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const T* vb = v + ((long long)b * Sk * Hkv + hk) * D;
   const float* mb = mask ? mask + b * msb + h * msh : nullptr;
   const int len = kv_lens ? kv_lens[b] : Sk;
+  const uint32_t row_key = fmix32((uint32_t)bh ^ seed0);  // dropout row
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, c = i % D, s = q0 + r;
@@ -176,8 +201,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       const float s0 = row[lane], s1 = row[lane + 32];
       const float m_prev = m_s[r];
       const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
+      float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
       const float psum = warp_sum(p0 + p1);
+      if constexpr (DROP) {  // dropout after the normalizer's sum
+        const uint32_t xq = fmix32(row_key ^ (uint32_t)(q0 + r));
+        const uint32_t k_lo = (uint32_t)(k0 + lane);
+        p0 = fmix32(xq ^ k_lo ^ seed1) >= thresh ? p0 * dscale : 0.f;
+        p1 = fmix32(xq ^ (k_lo + 32u) ^ seed1) >= thresh ? p1 * dscale : 0.f;
+      }
       row[lane] = to_f(from_f<T>(p0));
       row[lane + 32] = to_f(from_f<T>(p1));
       if (lane == 0) {
@@ -228,9 +259,11 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const float* mask,
            const int* kv_lens, void* out, float* lse, int B, int Sq, int Sk,
            int H, int Hkv, long long msb, long long msh, long long msq,
-           long long msk, float scale, int causal, cudaStream_t stream) {
+           long long msk, float scale, int causal, int seed0, int seed1,
+           unsigned thresh, float dscale, cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
-  auto kern = flash_fwd_kernel<T, D>;
+  auto kern = dscale > 0.f ? flash_fwd_kernel<T, D, true>
+                           : flash_fwd_kernel<T, D, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -238,7 +271,8 @@ int launch(const void* q, const void* k, const void* v, const float* mask,
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), mask, kv_lens, static_cast<T*>(out), lse,
-      Sq, Sk, H, Hkv, msb, msh, msq, msk, scale, causal);
+      Sq, Sk, H, Hkv, msb, msh, msq, msk, scale, causal, (uint32_t)seed0,
+      (uint32_t)seed1, (uint32_t)thresh, dscale);
   return (int)cudaGetLastError();
 }
 
@@ -247,18 +281,22 @@ int launch(const void* q, const void* k, const void* v, const float* mask,
 // dtype: 0 = float32, 1 = bfloat16. Layouts: q/out [B, Sq, H, D],
 // k/v [B, Sk, Hkv, D], lse [B, H, Sq], all contiguous; mask (may be
 // null) is f32 addressed as mask[b*msb + h*msh + q*msq + k*msk];
-// kv_lens (may be null) is int32 [B]. Returns cudaGetLastError().
+// kv_lens (may be null) is int32 [B]. Dropout: dscale = 1 / (1 - p) as
+// f32, 0 for none; thresh = min(2^32 - 1, round(p * 2^32)); seed0 and
+// seed1 the call's two int32 seeds. Returns cudaGetLastError().
 extern "C" int flash_fwd(int dtype, int head_dim, const void* q,
                          const void* k, const void* v, const float* mask,
                          const int* kv_lens, void* out, float* lse, int B,
                          int Sq, int Sk, int H, int Hkv, long long msb,
                          long long msh, long long msq, long long msk,
-                         float scale, int causal, cudaStream_t stream) {
+                         float scale, int causal, int seed0, int seed1,
+                         unsigned thresh, float dscale, cudaStream_t stream) {
   if (H <= 0 || Hkv <= 0 || H % Hkv != 0 || B <= 0 || Sq <= 0 || Sk <= 0)
     return (int)cudaErrorInvalidValue;
 #define FLASH_CASE(T, D)                                                  \
   return launch<T, D>(q, k, v, mask, kv_lens, out, lse, B, Sq, Sk, H, Hkv, \
-                      msb, msh, msq, msk, scale, causal, stream)
+                      msb, msh, msq, msk, scale, causal, seed0, seed1,  \
+                      thresh, dscale, stream)
   if (dtype == 0 && head_dim == 64) FLASH_CASE(float, 64);
   if (dtype == 0 && head_dim == 128) FLASH_CASE(float, 128);
   if (dtype == 1 && head_dim == 64) FLASH_CASE(__nv_bfloat16, 64);

@@ -33,9 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # launches per kernel name; a wrapper adds one where it launches its
 # kernel and nowhere else
-launch_counts = {"rms_norm": 0, "flash_fwd": 0, "flash_bwd_dkdv": 0,
-                 "flash_bwd_dq": 0, "paged_decode": 0, "ragged_decode": 0,
-                 "paged_varq": 0}
+launch_counts = {"rms_norm": 0, "layer_norm": 0, "flash_fwd": 0,
+                 "flash_bwd_dkdv": 0, "flash_bwd_dq": 0, "paged_decode": 0,
+                 "ragged_decode": 0, "paged_varq": 0}
 
 
 def count_launch(name: str) -> None:

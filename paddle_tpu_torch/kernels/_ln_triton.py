@@ -1,0 +1,48 @@
+"""Triton LayerNorm forward kernel. Imported only by
+``norm.layer_norm_kernel`` when it launches on a CUDA tensor, so
+importing the package never needs ``triton``.
+
+Replaces: ``paddle_tpu/kernels/norm.py`` ``_ln_kernel`` (called through
+``_ln_pallas``), which normalizes 256-row VMEM blocks.
+
+Bound on the H100: memory. Per row it reads D values of x and writes D
+of y with ~8 operations per value, far below the ~295 operations per
+byte the card needs before compute limits it. The design moves each byte
+once: one program per row holds the whole row in registers as one
+power-of-two block (D = 768 in a 1024-wide block; D up to 16384), takes
+the mean and then the variance of the centred row in f32 (two reductions
+over registers, no second read of x) and writes the normalized row
+straight back in ``x.dtype``. The padding lanes load 0 and are set to 0
+after centring, so they enter neither the mean nor the variance. The
+weight and bias vectors are re-read per row but stay in L2.
+"""
+import triton
+import triton.language as tl
+
+
+@triton.jit
+def _layer_norm_fwd(x_ptr, w_ptr, b_ptr, y_ptr, D, eps,
+                    BLOCK_D: tl.constexpr):
+    row = tl.program_id(0).to(tl.int64)
+    cols = tl.arange(0, BLOCK_D)
+    keep = cols < D
+    x = tl.load(x_ptr + row * D + cols, mask=keep, other=0.0).to(tl.float32)
+    mean = tl.sum(x, axis=0) / D
+    xc = tl.where(keep, x - mean, 0.0)
+    var = tl.sum(xc * xc, axis=0) / D
+    rstd = 1.0 / tl.sqrt(var + eps)
+    w = tl.load(w_ptr + cols, mask=keep, other=0.0).to(tl.float32)
+    b = tl.load(b_ptr + cols, mask=keep, other=0.0).to(tl.float32)
+    y = xc * rstd * w + b
+    tl.store(y_ptr + row * D + cols, y.to(y_ptr.dtype.element_ty), mask=keep)
+
+
+def launch(x2d, w, b, y, eps):
+    n, d = x2d.shape
+    block = triton.next_power_of_2(d)
+    if block > 16384:
+        raise ValueError(f"layer_norm: D={d} exceeds the one-block row "
+                         "limit of 16384")
+    warps = 4 if block <= 1024 else (8 if block <= 4096 else 16)
+    _layer_norm_fwd[(n,)](x2d, w, b, y, d, eps, BLOCK_D=block,
+                          num_warps=warps)

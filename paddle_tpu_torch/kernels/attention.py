@@ -1,15 +1,23 @@
 """Flash attention: the CUDA kernels ``csrc/flash_fwd.cu`` (forward) and
 ``csrc/flash_bwd.cu`` (backward: dK/dV and dQ), their plain PyTorch
-versions, and the ``[B, S, H, D]`` entry ``flash_attention_bshd``
-(counterpart of ``paddle_tpu/kernels/attention.py`` ``_fwd_kernel`` /
-``_bwd_dkdv_kernel`` / ``_bwd_dq_kernel`` / ``_flash_bwd_pallas`` /
-``_flash_core`` / ``flash_attention_bshd``).
+versions, the counter-hash attention dropout and the ``[B, S, H, D]``
+entry ``flash_attention_bshd`` (counterpart of
+``paddle_tpu/kernels/attention.py`` ``_fmix32`` / ``dropout_keep_mask`` /
+``_fwd_kernel`` / ``_bwd_dkdv_kernel`` / ``_bwd_dq_kernel`` /
+``_flash_bwd_pallas`` / ``_gen_reference`` / ``flash_attention_bshd``).
 
 ``flash_attention_bshd`` goes through ``_FlashAttention``, an autograd
 Function that saves ``(q, k, v, out, lse)`` and recomputes the
 probabilities from ``lse`` in the backward, as the reference's
-custom_vjp does; without grad it records nothing. Dropout is not ported
-yet (it raises).
+custom_vjp does; without grad it records nothing.
+
+Dropout follows the reference's kernel path on every device: element
+(b, h, q, k) is kept iff ``dropout_keep_mask`` says so for row b*H + h
+(the query head) and the absolute positions q and k, with two int32
+seeds drawn on the host per call (``framework.random.dropout_seeds``).
+The normaliser and lse use the probabilities P before dropout;
+``O = (P*D) V`` with ``D = keep / (1 - p)``, and the backward regenerates
+the same pattern: ``dV = (P*D)^T dO``, ``dS = P * (dP*D - delta)``.
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ import math
 
 import torch
 
+from ..framework import random as _random
 from ._build import NEG_INF, check, count_launch, load, stream_ptr
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -25,7 +34,9 @@ _HEAD_DIMS = (64, 128)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _DIMS = [_I, _I, _I, _I, _I,                # B, Sq, Sk, H, Hkv
          _LL, _LL, _LL, _LL,                # mask strides
-         ctypes.c_float, _I, _P]            # scale, causal, stream
+         ctypes.c_float, _I,                # scale, causal
+         _I, _I, ctypes.c_uint, ctypes.c_float,  # seed0, seed1, thresh, dscale
+         _P]                                # stream
 _SIGNATURES = {"flash_fwd": [
     _I, _I, _P, _P, _P, _P, _P, _P, _P,     # dtype, head_dim, pointers
     *_DIMS]}
@@ -35,6 +46,70 @@ _BWD_SIGNATURES = {
                        *_DIMS],
     # dtype, head_dim, q, k, v, dout, lse, delta, mask, kv_lens, dq
     "flash_bwd_dq": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, *_DIMS]}
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c):
+    """(x * c) mod 2^32 for x in [0, 2^32) held in int64 (or a Python
+    int): c is split into 16-bit halves so no product passes 2^49."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def fmix32(x):
+    """murmur3's finalizer on uint32 words held in int64 (values in
+    [0, 2^32); a tensor or a Python int): the reference's ``_fmix32``,
+    whose shifts are logical, which ``>>`` on these non-negative values
+    is."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def dropout_threshold(p: float) -> int:
+    """``min(2^32 - 1, round(p * 2^32))`` on the host, as the reference
+    computes it (Python's ``round``: ties to even); the kernels take it
+    as a uint32 and never recompute it in float."""
+    return min(_M32, int(round(p * 4294967296.0)))
+
+
+def dropout_keep_mask(q_ids, k_ids, row, seed0, seed1, p):
+    """Counter-hash attention-dropout keep mask, bit for bit the
+    reference's ``dropout_keep_mask``: element (row, q, k) is kept iff
+    ``fmix32(fmix32(fmix32(row ^ s0) ^ q) ^ k ^ s1) >= thresh`` in uint32
+    order. ``row`` is b*H + h with the query head, ``q_ids`` and ``k_ids``
+    absolute positions (never tile-local); the three broadcast together.
+    Seeds are int32 (negative ones wrap to their uint32 bits)."""
+    dev = q_ids.device if torch.is_tensor(q_ids) else None
+
+    def u32(a):
+        return torch.as_tensor(a, dtype=torch.int64, device=dev) & _M32
+    x = fmix32(u32(row) ^ (seed0 & _M32))
+    x = fmix32(x ^ u32(q_ids))
+    x = fmix32(x ^ u32(k_ids) ^ (seed1 & _M32))
+    return x >= dropout_threshold(p)
+
+
+def _dropout_args(dropout_p, seeds):
+    """(seed0, seed1, thresh, dscale) for a C entry; dscale 0 means no
+    dropout, else it is float32(1 / (1 - p)) as in the reference."""
+    if not dropout_p:
+        return 0, 0, 0, 0.0
+    if seeds is None:
+        raise ValueError("dropout_p > 0 needs the call's two int32 seeds")
+    s0, s1 = (int(s) for s in seeds)
+    return s0, s1, dropout_threshold(dropout_p), 1.0 / (1.0 - dropout_p)
+
+
+def _dropout_mult(b, h, sq, sk, dropout_p, seeds, dev):
+    """f32 [B, H, Sq, Sk]: 1 / (1 - p) where the pattern keeps, else 0."""
+    rows = torch.arange(b * h, device=dev).reshape(b, h, 1, 1)
+    keep = dropout_keep_mask(torch.arange(sq, device=dev)[:, None],
+                             torch.arange(sk, device=dev)[None, :], rows,
+                             seeds[0], seeds[1], dropout_p)
+    return torch.where(keep, torch.tensor(1.0 / (1.0 - dropout_p)), 0.0)
 
 
 def additive_mask(mask, b, h, sq, sk):
@@ -74,13 +149,16 @@ def _keep(sq, sk, causal, kv_lens, dev):
 
 
 def flash_attention_plain(q, k, v, scale, causal=False, mask=None,
-                          kv_lens=None, return_lse=False):
-    """Reference math (``_gen_reference`` with dropout off): q [B, Sq, H,
-    D], k/v [B, Sk, Hkv, D], mask additive f32 broadcastable to
-    [B, H, Sq, Sk], kv_lens [B] ints. Scores in f32; P is cast to V's
-    dtype before the P.V product, accumulated in f32. With
-    ``return_lse``, also the f32 log-sum-exp [B, H, Sq] of the masked
-    scores, as the kernel returns it."""
+                          kv_lens=None, return_lse=False, dropout_p=0.0,
+                          seeds=None):
+    """Reference math (``_gen_reference``): q [B, Sq, H, D], k/v [B, Sk,
+    Hkv, D], mask additive f32 broadcastable to [B, H, Sq, Sk], kv_lens
+    [B] ints. Scores in f32; with ``dropout_p`` the probabilities are
+    multiplied by the keep pattern of ``seeds`` (two int32) over
+    1 - p after the normaliser; P is cast to V's dtype before the P.V
+    product, accumulated in f32. With ``return_lse``, also the f32
+    log-sum-exp [B, H, Sq] of the masked scores (before dropout), as the
+    kernel returns it."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     k, v = _repeat_kv(k, h), _repeat_kv(v, h)
@@ -91,6 +169,8 @@ def flash_attention_plain(q, k, v, scale, causal=False, mask=None,
     if keep is not None:
         s = torch.where(keep, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
+    if dropout_p:
+        p = p * _dropout_mult(b, h, sq, sk, dropout_p, seeds, q.device)
     out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(),
                        v.float()).to(q.dtype)
     if return_lse:
@@ -105,10 +185,13 @@ def bwd_delta(out, dout):
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, scale, causal=False,
-                              mask=None, kv_lens=None):
-    """The backward recomputed from ``lse`` (the reference's XLA path,
-    ``_flash_bwd``), in f32 plain torch ops; masked entries give exactly
-    zero, as in the kernels. GQA dK/dV are summed over each KV head's
+                              mask=None, kv_lens=None, dropout_p=0.0,
+                              seeds=None):
+    """The backward recomputed from ``lse`` (the reference's
+    ``_bwd_dkdv_kernel`` / ``_bwd_dq_kernel`` math), in f32 plain torch
+    ops; masked entries give exactly zero, as in the kernels. With
+    dropout, D is the forward's pattern over 1 - p: dV = (P*D)^T dO,
+    dS = P * (dP*D - delta). GQA dK/dV are summed over each KV head's
     query-head group. Returns (dq, dk, dv) in the inputs' dtypes."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -120,7 +203,12 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, scale, causal=False,
     keep = _keep(sq, sk, causal, kv_lens, q.device)
     p = torch.exp(s - lse[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    if dropout_p:
+        dmul = _dropout_mult(b, h, sq, sk, dropout_p, seeds, q.device)
+        dp = dp * dmul
     ds = p * (dp - bwd_delta(out, dout)[..., None])
+    if dropout_p:
+        p = p * dmul
     if keep is not None:
         p = torch.where(keep, p, 0.0)
         ds = torch.where(keep, ds, 0.0)
@@ -188,12 +276,13 @@ def _mask_args(mask, sk):
 
 
 def flash_attention_kernel(q, k, v, scale, causal=False, mask=None,
-                           kv_lens=None):
+                           kv_lens=None, dropout_p=0.0, seeds=None):
     """Launch ``csrc/flash_fwd.cu`` on CUDA tensors. q [B, Sq, H, D], k/v
     [B, Sk, Hkv, D] (contiguous, one dtype of float32/bfloat16, D 64 or
     128, H % Hkv == 0); mask additive f32 [Bm, Hm, Sq|1, Sk|1] or None;
-    kv_lens int32 [B] or None. Returns (out [B, Sq, H, D], lse [B, H, Sq]
-    f32)."""
+    kv_lens int32 [B] or None; ``dropout_p`` in [0, 1) with ``seeds``
+    (two int32) when it is not 0. Returns (out [B, Sq, H, D], lse
+    [B, H, Sq] f32)."""
     b, sq, h, d, sk, hkv = _check("flash_fwd", q, k, v, mask, kv_lens)
     m_ptr, *strides = _mask_args(mask, sk)
     out = torch.empty_like(q)
@@ -203,7 +292,8 @@ def flash_attention_kernel(q, k, v, scale, causal=False, mask=None,
         _DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         m_ptr, kv_lens.data_ptr() if kv_lens is not None else None,
         out.data_ptr(), lse.data_ptr(), b, sq, sk, h, hkv, *strides,
-        float(scale), int(bool(causal)), stream_ptr(q.device))
+        float(scale), int(bool(causal)), *_dropout_args(dropout_p, seeds),
+        stream_ptr(q.device))
     check(err, "flash_fwd")
     count_launch("flash_fwd")
     return out, lse
@@ -228,17 +318,20 @@ def _bwd_args(what, q, k, v, dout, lse, delta, mask, kv_lens):
 
 
 def flash_bwd_dkdv_kernel(q, k, v, dout, lse, delta, scale, causal=False,
-                          mask=None, kv_lens=None):
+                          mask=None, kv_lens=None, dropout_p=0.0,
+                          seeds=None):
     """Launch ``flash_bwd_dkdv`` (counterpart of ``_bwd_dkdv_kernel``):
     q/dout [B, Sq, H, D], k/v [B, Sk, Hkv, D], lse/delta f32 [B, H, Sq],
-    mask and kv_lens as for the forward. Returns (dk, dv) [B, Sk, Hkv, D]
-    in k's dtype, summed over each KV head's query-head group."""
+    mask, kv_lens, dropout_p and seeds as for the forward. Returns (dk,
+    dv) [B, Sk, Hkv, D] in k's dtype, summed over each KV head's
+    query-head group."""
     head, dims = _bwd_args("flash_bwd_dkdv", q, k, v, dout, lse, delta,
                            mask, kv_lens)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = load("flash_bwd", _BWD_SIGNATURES)
     err = lib.flash_bwd_dkdv(*head, dk.data_ptr(), dv.data_ptr(), *dims,
                              float(scale), int(bool(causal)),
+                             *_dropout_args(dropout_p, seeds),
                              stream_ptr(q.device))
     check(err, "flash_bwd_dkdv")
     count_launch("flash_bwd_dkdv")
@@ -246,7 +339,7 @@ def flash_bwd_dkdv_kernel(q, k, v, dout, lse, delta, scale, causal=False,
 
 
 def flash_bwd_dq_kernel(q, k, v, dout, lse, delta, scale, causal=False,
-                        mask=None, kv_lens=None):
+                        mask=None, kv_lens=None, dropout_p=0.0, seeds=None):
     """Launch ``flash_bwd_dq`` (counterpart of ``_bwd_dq_kernel``); inputs
     as for ``flash_bwd_dkdv_kernel``. Returns dq [B, Sq, H, D]."""
     head, dims = _bwd_args("flash_bwd_dq", q, k, v, dout, lse, delta, mask,
@@ -254,21 +347,24 @@ def flash_bwd_dq_kernel(q, k, v, dout, lse, delta, scale, causal=False,
     dq = torch.empty_like(q)
     lib = load("flash_bwd", _BWD_SIGNATURES)
     err = lib.flash_bwd_dq(*head, dq.data_ptr(), *dims, float(scale),
-                           int(bool(causal)), stream_ptr(q.device))
+                           int(bool(causal)), *_dropout_args(dropout_p, seeds),
+                           stream_ptr(q.device))
     check(err, "flash_bwd_dq")
     count_launch("flash_bwd_dq")
     return dq
 
 
 def flash_attention_bwd_kernel(q, k, v, out, lse, dout, scale, causal=False,
-                               mask=None, kv_lens=None):
+                               mask=None, kv_lens=None, dropout_p=0.0,
+                               seeds=None):
     """The backward on the card: delta = rowsum(dO * O) as a torch op,
     then both kernels. Returns (dq, dk, dv)."""
     delta = bwd_delta(out, dout)
+    drop = dict(dropout_p=dropout_p, seeds=seeds)
     dk, dv = flash_bwd_dkdv_kernel(q, k, v, dout, lse, delta, scale, causal,
-                                   mask, kv_lens)
+                                   mask, kv_lens, **drop)
     dq = flash_bwd_dq_kernel(q, k, v, dout, lse, delta, scale, causal, mask,
-                             kv_lens)
+                             kv_lens, **drop)
     return dq, dk, dv
 
 
@@ -279,15 +375,17 @@ class _FlashAttention(torch.autograd.Function):
     no gradient, as in the reference."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, kv_lens, scale, causal):
+    def forward(ctx, q, k, v, mask, kv_lens, scale, causal, dropout_p,
+                seeds):
+        drop = dict(dropout_p=dropout_p, seeds=seeds)
         if q.device.type == "cpu":
             out, lse = flash_attention_plain(q, k, v, scale, causal, mask,
-                                             kv_lens, return_lse=True)
+                                             kv_lens, return_lse=True, **drop)
         else:
             out, lse = flash_attention_kernel(q, k, v, scale, causal, mask,
-                                              kv_lens)
+                                              kv_lens, **drop)
         ctx.save_for_backward(q, k, v, out, lse, mask, kv_lens)
-        ctx.scale, ctx.causal = scale, causal
+        ctx.scale, ctx.causal, ctx.drop = scale, causal, drop
         return out
 
     @staticmethod
@@ -296,8 +394,8 @@ class _FlashAttention(torch.autograd.Function):
         bwd = flash_attention_bwd_plain if q.device.type == "cpu" \
             else flash_attention_bwd_kernel
         dq, dk, dv = bwd(q, k, v, out, lse, dout.contiguous(), ctx.scale,
-                         ctx.causal, mask, kv_lens)
-        return dq, dk, dv, None, None, None, None
+                         ctx.causal, mask, kv_lens, **ctx.drop)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention_bshd(query, key, value, attn_mask=None, dropout_p=0.0,
@@ -307,10 +405,14 @@ def flash_attention_bshd(query, key, value, attn_mask=None, dropout_p=0.0,
     [B, S, H, D] tensors (GQA: key/value may carry fewer heads). A CPU
     query takes the plain versions; a CUDA query launches the kernels or
     raises. Differentiable in query, key and value when grad is enabled;
-    a mask that requires grad raises (the reference sends it to XLA)."""
-    if dropout_p > 0.0 and training:
-        raise NotImplementedError(
-            "attention dropout is not ported yet (the _fmix32 counter hash)")
+    a mask that requires grad raises (the reference sends it to XLA).
+    With ``training`` and ``dropout_p`` in (0, 1), the call draws its two
+    dropout seeds from ``framework.random`` (the reference's kernel-path
+    pattern); ``training=False`` runs without dropout."""
+    p = float(dropout_p) if training else 0.0
+    if not 0.0 <= p < 1.0:
+        raise ValueError(f"dropout_p={dropout_p} is not in [0, 1)")
+    seeds = _random.dropout_seeds() if p else None
     b, sq, h, d = query.shape
     sk = key.shape[1]
     sc = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -327,4 +429,4 @@ def flash_attention_bshd(query, key, value, attn_mask=None, dropout_p=0.0,
         raise ValueError(f"flash_attention: unsupported device {query.device}")
     return _FlashAttention.apply(
         query.contiguous(), key.contiguous(), value.contiguous(), mask,
-        kv_lens, sc, bool(is_causal))
+        kv_lens, sc, bool(is_causal), p, seeds)

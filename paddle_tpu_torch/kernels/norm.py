@@ -1,12 +1,15 @@
-"""RMSNorm: a Triton forward kernel, its plain PyTorch version, the
-analytic backward and the ``fused_rms_norm`` entry (counterpart of
+"""RMSNorm and LayerNorm: Triton forward kernels, their plain PyTorch
+versions, the analytic backwards and the ``fused_rms_norm`` /
+``fused_layer_norm`` entries (counterpart of
 ``paddle_tpu/kernels/norm.py`` ``_rms_kernel`` / ``_rms_pallas`` /
-``_rms_core`` / ``_rms_fwd`` / ``_rms_bwd``).
+``_rms_core`` / ``_rms_fwd`` / ``_rms_bwd`` and ``_ln_kernel`` /
+``_ln_pallas`` / ``_ln_core`` / ``_ln_fwd`` / ``_ln_bwd``).
 
-``y = x * rsqrt(mean(x^2) + eps) * w``: statistics in f32, output in
-``x.dtype``. The backward is ``_rms_bwd``'s formula in plain torch ops
-on every device: the reference computes it in XLA, not in a Pallas
-kernel.
+``y = x * rsqrt(mean(x^2) + eps) * w`` and
+``y = (x - mean) * rsqrt(var + eps) * w + b``: statistics in f32, output
+in ``x.dtype``. The backwards are ``_rms_bwd``'s and ``_ln_bwd``'s
+formulas in plain torch ops on every device: the reference computes
+them in XLA, not in a Pallas kernel.
 """
 from __future__ import annotations
 
@@ -15,6 +18,25 @@ import torch
 from ._build import count_launch
 
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_rows(what, x2d, *vecs):
+    """Validate kernel inputs: x [N, D] and vectors [D], one CUDA device,
+    contiguous, float32/bfloat16."""
+    d = x2d.shape[-1] if x2d.dim() == 2 else None
+    if d is None or any(v.shape != (d,) for v in vecs):
+        raise ValueError(f"{what}: want x [N, D] and vectors [D], got "
+                         f"{tuple(x2d.shape)} and "
+                         f"{[tuple(v.shape) for v in vecs]}")
+    if x2d.dtype not in _DTYPES or any(v.dtype not in _DTYPES for v in vecs):
+        raise TypeError(f"{what}: unsupported dtypes {x2d.dtype}, "
+                        f"{[v.dtype for v in vecs]} (kernel takes "
+                        "float32/bfloat16)")
+    if not all(t.is_contiguous() for t in (x2d, *vecs)):
+        raise ValueError(f"{what}: inputs must be contiguous")
+    if x2d.device.type != "cuda" or any(v.device != x2d.device
+                                        for v in vecs):
+        raise ValueError(f"{what}: every input must be on x's CUDA device")
 
 
 def rms_norm_plain(x2d: torch.Tensor, w: torch.Tensor, eps: float):
@@ -28,16 +50,7 @@ def rms_norm_plain(x2d: torch.Tensor, w: torch.Tensor, eps: float):
 
 def rms_norm_kernel(x2d: torch.Tensor, w: torch.Tensor, eps: float):
     """Launch the Triton RMSNorm kernel on CUDA tensors x [N, D], w [D]."""
-    if x2d.dim() != 2 or w.shape != (x2d.shape[1],):
-        raise ValueError(f"rms_norm: want x [N, D] and w [D], got "
-                         f"{tuple(x2d.shape)} and {tuple(w.shape)}")
-    if x2d.dtype not in _DTYPES or w.dtype not in _DTYPES:
-        raise TypeError(f"rms_norm: unsupported dtypes {x2d.dtype}, "
-                        f"{w.dtype} (kernel takes float32/bfloat16)")
-    if not (x2d.is_contiguous() and w.is_contiguous()):
-        raise ValueError("rms_norm: x and w must be contiguous")
-    if w.device != x2d.device:
-        raise ValueError("rms_norm: x and w on different devices")
+    _check_rows("rms_norm", x2d, w)
     from ._rms_triton import launch
     n, d = x2d.shape
     y = torch.empty_like(x2d)
@@ -90,3 +103,78 @@ def fused_rms_norm(x: torch.Tensor, weight: torch.Tensor, eps=1e-6):
     if x.device.type == "cuda":
         x2 = x2.contiguous()
     return _RMSNorm.apply(x2, weight, eps).reshape(shape)
+
+
+# ------------------------------------------------------------ LayerNorm --
+
+def layer_norm_plain(x2d, w, b, eps):
+    """Reference math (``_ln_fwd``'s non-Pallas branch): f32 (or wider)
+    statistics, result cast back to ``x.dtype``."""
+    cdt = torch.promote_types(x2d.dtype, torch.float32)
+    xf = x2d.to(cdt)
+    xc = xf - xf.mean(dim=-1, keepdim=True)
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    return (xc * torch.rsqrt(var + eps) * w.to(cdt)
+            + b.to(cdt)).to(x2d.dtype)
+
+
+def layer_norm_kernel(x2d, w, b, eps):
+    """Launch the Triton LayerNorm kernel on CUDA tensors x [N, D],
+    w [D], b [D]."""
+    _check_rows("layer_norm", x2d, w, b)
+    from ._ln_triton import launch
+    y = torch.empty_like(x2d)
+    if x2d.shape[0]:
+        launch(x2d, w, b, y, float(eps))
+        count_launch("layer_norm")
+    return y
+
+
+def layer_norm_bwd(x2d, w, b, g2d, eps):
+    """``_ln_bwd``: (dx, dw, db) for x [N, D], w and b [D] and the
+    output's gradient g [N, D]; f32 statistics, ``dw`` and ``db`` summed
+    over rows in f32 and then cast to the vectors' dtypes."""
+    cdt = torch.promote_types(x2d.dtype, torch.float32)
+    xf, gf, wf = x2d.to(cdt), g2d.to(cdt), w.to(cdt)
+    xc = xf - xf.mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    xhat = xc * inv
+    gw = (gf * xhat).sum(dim=0).to(w.dtype)
+    gb = gf.sum(dim=0).to(b.dtype)
+    gx_hat = gf * wf
+    gx = inv * (gx_hat - gx_hat.mean(dim=-1, keepdim=True)
+                - xhat * (gx_hat * xhat).mean(dim=-1, keepdim=True))
+    return gx.to(x2d.dtype), gw, gb
+
+
+class _LayerNorm(torch.autograd.Function):
+    """Counterpart of the reference's ``_ln_core`` custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, x2d, w, b, eps):
+        ctx.save_for_backward(x2d, w, b)
+        ctx.eps = eps
+        if x2d.device.type == "cpu":
+            return layer_norm_plain(x2d, w, b, eps)
+        return layer_norm_kernel(x2d, w, b, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2d, w, b = ctx.saved_tensors
+        gx, gw, gb = layer_norm_bwd(x2d, w, b, g, ctx.eps)
+        return gx, gw, gb, None
+
+
+def fused_layer_norm(x: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor, eps=1e-5):
+    """LayerNorm over the last axis of ``x`` with ``weight`` and ``bias``.
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    Triton kernel or raises. Differentiable in all three when grad is
+    enabled."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_layer_norm: unsupported device {x.device}")
+    if x.device.type == "cuda":
+        x2 = x2.contiguous()
+    return _LayerNorm.apply(x2, weight, bias, eps).reshape(shape)

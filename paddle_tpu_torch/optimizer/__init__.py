@@ -1,5 +1,5 @@
-"""Counterpart of ``paddle_tpu/optimizer`` (Adam, AdamW and the cosine
-LR schedule so far)."""
+"""Counterpart of ``paddle_tpu/optimizer`` (Adam, AdamW and the cosine,
+polynomial and linear-warmup LR schedules so far)."""
 from . import lr  # noqa: F401
 from .optimizer import Adam, AdamW, Optimizer
 

@@ -155,7 +155,8 @@ def test_flash_mask_requiring_grad_raises():
     with pytest.raises(NotImplementedError):
         flash_attention_bshd(q, q, q, attn_mask=mask)
     with pytest.raises(NotImplementedError):
-        flash_attention_bshd(q, q, q, dropout_p=0.1, training=True)
+        flash_attention_bshd(q, q, q, attn_mask=mask, dropout_p=0.1,
+                             training=True)
 
 
 def test_flash_bwd_kernel_refuses_cpu_tensors():

@@ -20,8 +20,8 @@ from paddle_tpu_torch.kernels.attention import (additive_mask,
                                                 flash_attention_bshd,
                                                 flash_attention_kernel,
                                                 flash_attention_plain)
-from paddle_tpu_torch.kernels.norm import (fused_rms_norm, rms_norm_kernel,
-                                           rms_norm_plain)
+from paddle_tpu_torch.kernels.norm import (fused_layer_norm, fused_rms_norm,
+                                           rms_norm_kernel, rms_norm_plain)
 from paddle_tpu_torch.kernels.paged_attention import (
     RaggedMetaBuilder, paged_attention, paged_attention_kernel,
     paged_attention_plain, paged_attention_ragged,
@@ -165,9 +165,12 @@ def test_flash_bool_mask_equals_additive():
 
 
 def test_flash_rejects_dropout_and_bad_mask():
+    """Dropout outside [0, 1) and a mask that does not broadcast raise
+    (dropout in [0, 1) runs: ``test_torch_attn_dropout.py``)."""
     q = torch.zeros(1, 8, 2, 64)
-    with pytest.raises(NotImplementedError):
-        flash_attention_bshd(q, q, q, dropout_p=0.1, training=True)
+    for p in (1.0, 1.5, -0.1):
+        with pytest.raises(ValueError):
+            flash_attention_bshd(q, q, q, dropout_p=p, training=True)
     with pytest.raises(ValueError):
         additive_mask(torch.zeros(3, 1, 8, 8), 1, 2, 8, 8)
 
@@ -237,7 +240,8 @@ def test_cpu_tensors_take_plain_versions():
     ql = torch.tensor([3], dtype=torch.int32)
     paged_attention_varq(q, kp, kp, tables, lens, ql)
     paged_attention_ragged_varq(q, kp, kp, lens, ql, meta)
-    assert launch_counts == {"rms_norm": 0, "flash_fwd": 0,
+    fused_layer_norm(x, torch.ones(64), torch.zeros(64))
+    assert launch_counts == {"rms_norm": 0, "layer_norm": 0, "flash_fwd": 0,
                              "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
                              "paged_decode": 0, "ragged_decode": 0,
                              "paged_varq": 0}

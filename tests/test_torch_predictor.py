@@ -211,7 +211,9 @@ def test_port_imports_no_jax():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.inference, "
             "paddle_tpu_torch.convert, paddle_tpu_torch.trainer, "
             "paddle_tpu_torch.optimizer, paddle_tpu_torch.jit, "
-            "paddle_tpu_torch.distributed, paddle_tpu_torch.nn; "
+            "paddle_tpu_torch.distributed, paddle_tpu_torch.nn, "
+            "paddle_tpu_torch.models, paddle_tpu_torch.incubate.nn, "
+            "paddle_tpu_torch.examples.bert_finetune; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'paddle_tpu' or m.startswith('paddle_tpu.')"
             " for m in sys.modules), 'paddle_tpu imported'")
