@@ -289,8 +289,10 @@ def flash_phase(torch, dev, g):
 
 def flash_bwd_phase(torch, dev, g):
     """Both backward kernels against the plain backward on the same
-    inputs (q, k, v, dO random; out and lse from the forward kernel);
-    timed at the training shape, q[2, 2048, 32, 128] bf16 causal."""
+    inputs (q, k, v, dO random; out and lse from the forward kernel),
+    each bf16 case's largest error logged beside the output's largest
+    value; two bf16 launches must agree bit for bit; timed at the training
+    shape, q[2, 2048, 32, 128] bf16 causal, and at head_dim 64 (logged)."""
     from paddle_tpu_torch.kernels import attention as A
     F = torch.nn.functional
     # (dtype, B, Sq, Sk, H, Hkv, D, causal, key-padding mask + kv_lens)
@@ -298,7 +300,8 @@ def flash_bwd_phase(torch, dev, g):
              ("float32", 2, 2048, 2048, 32, 32, 128, True, False),
              ("bfloat16", 2, 2048, 2048, 32, 8, 128, True, False),
              ("bfloat16", 2, 1024, 1024, 16, 16, 64, True, False),
-             ("bfloat16", 2, 384, 640, 32, 32, 128, False, True)]
+             ("bfloat16", 2, 384, 640, 32, 32, 128, False, True),
+             ("bfloat16", 2, 2048, 2048, 32, 32, 64, True, False)]
 
     def inputs(dt, b, sq, sk, h, hkv, d, causal, mask, lens):
         q = torch.randn(b, sq, h, d, device=dev, generator=g).to(dt)
@@ -333,6 +336,30 @@ def flash_bwd_phase(torch, dev, g):
         errs = [compare(torch, f"flash_bwd_{w} {name}", got, ref, dtype)
                 for w, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv),
                                        want)]
+        if dtype == "bfloat16":
+            # the tensor-core kernels take P and dS as bf16 hi + lo parts
+            # where the plain version keeps them in f32
+            tops = [float(w.float().abs().max()) for w in want]
+            log("  bf16 error over the largest |value|: " + ", ".join(
+                f"{w} {e:.3e} / {t:.3e} = {e / t:.3e}"
+                for w, e, t in zip(("dq", "dk", "dv"), errs, tops)))
+            again = (A.flash_bwd_dq_kernel(q, k, v, do, lse, delta, sc,
+                                           causal, mask, lens),
+                     *A.flash_bwd_dkdv_kernel(q, k, v, do, lse, delta, sc,
+                                              causal, mask, lens))
+            check(all(torch.equal(a, b) for a, b in zip((dq, dk, dv),
+                                                        again)),
+                  f"flash_bwd {name}: a second launch differs")
+        if d == 64 and sq == 2048:
+            sets = [(q, k, v, do, lse, delta),
+                    inputs(dt, b, sq, sk, h, hkv, d, causal, None, None)[:6]]
+            t64 = [time_ms(torch, fn, sets)["median"] for fn in (
+                lambda q_, k_, v_, do_, l_, dl_: A.flash_bwd_dkdv_kernel(
+                    q_, k_, v_, do_, l_, dl_, sc, True),
+                lambda q_, k_, v_, do_, l_, dl_: A.flash_bwd_dq_kernel(
+                    q_, k_, v_, do_, l_, dl_, sc, True))]
+            log(f"  flash_bwd at {name}: dkdv {t64[0]:.4f} ms, dq "
+                f"{t64[1]:.4f} ms (median device time)")
         if rows:
             continue
         # the timed case: two input sets (~200 MB each, past the L2)

@@ -28,7 +28,7 @@
 // forward kernel. Grouped-query attention maps query head h onto KV head
 // h / (H / Hkv); K and V are never repeated.
 //
-// `flash_bwd_dkdv`: one block per (batch x KV head, 64-key tile). It holds
+// `flash_bwd_dkdv`: one block per (batch x KV head, key tile). It holds
 // its K and V tiles in shared memory and walks every query head of its
 // group and, for causal, only the query tiles at or past the key tile's
 // first row, so dK and dV of the whole group accumulate in registers and
@@ -40,17 +40,69 @@
 // Bound on the H100: at training sizes (S = 2048, D = 128) dK/dV does 4
 // matrix products (Q K^T, P^T dO, dO V^T, dS^T Q) and dQ 3 (Q K^T, dO V^T,
 // dS K) per (query, key) pair, ~S/2 operations per byte: compute-bound on
-// the bf16 tensor cores. This first version runs on the FMA units in f32
-// (mma/wgmma and TMA are later work): 256 threads per block, each owning
-// a 4x4 micro-tile of the 64x64 score tile (for S and dP at once) and a
+// the bf16 tensor cores, 989 TFLOP/s dense (dK/dV at q[2, 2048, 32, 128]
+// causal: 1.37e11 operations, 0.139 ms; dQ 1.03e11, 0.104 ms).
+//
+// bf16 (dtype 1): tensor-core kernels, `tc::flash_bwd_dkdv_wgmma` and
+// `tc::flash_bwd_dq_wgmma`. Every product is a `wgmma.mma_async` (sm_90a)
+// m64nNk16 in bf16 with f32 accumulators; none uses mma.sync. They follow
+// FlashAttention-3's register arrangement:
+// - dK/dV: a CTA of one warpgroup (128 threads) per (batch x KV head,
+//   64-key tile). Per (query head, 64-row query tile) it computes S^T =
+//   K Q^T and dP^T = V dO^T (keys as M, both operands from shared memory,
+//   m64n64k16); the f32 accumulators already sit in the A-operand register
+//   layout, so P*D and dS are formed there and fed as A from registers to
+//   dV += (P*D)^T dO and dK += dS^T Q (m64nDk16, B = the query-major dO /
+//   Q tiles read transposed). P and dS never touch shared memory. Shared:
+//   K + V 2 x 64 x D bf16 and a 2-stage ring of Q + dO (2 x 64 x D bf16)
+//   + lse and delta (2 x 64 f32): 100,352 bytes at D = 128, 2 CTAs per SM.
+//   `kDkdvWG` = 2 (two warpgroups sharing each Q / dO tile) halves the
+//   ring's traffic but runs the two in lockstep, one SM's only CTA: 0.4690
+//   against 0.4466 ms at q[2, 2048, 32, 128] causal on an H100 80GB HBM3
+//   at 700 W (tools/flash_bwd_variants.py).
+// - dQ: a CTA of one warpgroup per (batch x query head, 64-row query
+//   tile), the tiles with the longest causal rows first. Q and dO stay in
+//   shared memory; 64-key K and V tiles stream through a 2-stage ring:
+//   99,328 bytes at D = 128, 2 CTAs per SM. S = Q K^T and dP = dO V^T from
+//   shared memory, dS formed in registers, dQ += dS K with A from
+//   registers and the key-major K tile read transposed.
+// Precision: one bf16 keeps 8 significant bits of P and dS, where the
+// reference and the f32 kernels keep 24; at the bf16 card tolerance
+// (atol 5e-3, rtol 2e-2) that failed on outputs near 0 whose terms are
+// large (a causal row's first keys, rows with no valid key). So each A
+// operand is split into bf16 hi + lo parts (hi = bf16(x), lo = bf16(x -
+// hi): 16 bits) and every accumulating product runs twice, on the same B:
+// dK/dV does 6 m64-products per tile pair instead of 4, dQ 4 instead of 3.
+// Tiles are copied with 16-byte cp.async into the 128-byte-swizzled layout
+// that wgmma's descriptors read (rows past the ragged edge zero-filled, as
+// TMA would); the next tile's copies start before the current tile's
+// products, so the load overlaps them. The per-element keep test (bounds,
+// kv_lens, causality) runs only on edge and diagonal tiles, and the
+// exponent is one fma and one ex2 without a branch; a warpgroup whose keys
+// a whole query tile masks skips it. Registers (ptxas -v, CUDA 12.8, 255
+// at most): dK/dV D = 128 255 with 76 bytes spilled (36 with dropout), D =
+// 64 254; dQ D = 128 255 with 4 bytes spilled, D = 64 206 (210); the
+// accumulators take D/2 + D/2 (dK/dV) or D/2 (dQ) f32, S and dP 32 + 32,
+// the hi/lo fragments 64 (dK/dV) or 32 (dQ).
+//
+// f32 (dtype 0): the FMA-unit kernels below (TF32 is off in the port, so
+// the tensor cores do not apply): 256 threads per block, each owning a
+// 4x4 micro-tile of the 64x64 score tile (for S and dP at once) and a
 // 4 x D/16 slice of its accumulators; tiles are f32 in shared memory with
 // one column of padding so the strided reads stay free of bank conflicts.
-// Scores never leave the chip: device memory sees each input tile read
-// once per tile pair and each output written once.
+//
+// No atomics in either dtype: every output tile has one owner CTA that
+// writes it once, the dK/dV CTA walking its KV head's whole query-head
+// group, so a launch repeated on the same inputs gives the same bits (the
+// resume check of chip_smoke.py relies on that). Scores never leave the
+// chip: device memory sees each input tile read once per tile pair and
+// each output written once.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -59,16 +111,9 @@ constexpr int kBK = 64;
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
 }
 
 // murmur3 finalizer (the reference's `_fmix32`): unsigned arithmetic, so
@@ -409,6 +454,611 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   }
 }
 
+// ------------------------------------------------------------------------
+// bf16: the tensor-core kernels (wgmma, sm_90a). See the note at the top.
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kBM = 64;       // query rows per tile
+constexpr int kStages = 2;    // depth of the cp.async ring
+// warpgroups of 64 keys in a dK/dV CTA: 1 runs two independent CTAs per
+// SM, whose elementwise phases overlap each other's products
+constexpr int kDkdvWG = 1;
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// asynchronous global -> shared copies; `bytes` 0 writes zeros instead
+// (rows past the ragged edge), reading nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// waits for this thread's copies and makes them visible to wgmma, which
+// reads shared memory through the async proxy; a __syncthreads follows
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// pins registers that an asynchronous wgmma reads or writes: the compiler
+// may not move their other uses across this point
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// Shared tiles: R rows x D bf16 as D/64 panels of R rows x 128 bytes, the
+// 16-byte chunk c of row r stored at chunk c ^ (r % 8) (the 128-byte
+// swizzle, as TMA's SWIZZLE_128B writes it), each panel 1024-byte aligned.
+// A wgmma descriptor: start address, leading and stride byte offsets in
+// 16-byte units, layout type 1 = 128-byte swizzle.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+// K-major operand (rows x features, features contiguous), k-step kk of 16
+// features, from row `row0` of an R-row tile: 8-row groups 1024 bytes apart
+template <int R>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int row0,
+                                                int kk) {
+  return sw128_desc(tile + (kk / 4) * (R * 128) + row0 * 128 + (kk % 4) * 32,
+                    16, 1024);
+}
+// MN-major (transposed) B operand: the k-step of rows [16 kk, 16 kk + 16)
+// of an R-row tile as K and all D features as N; 64-feature panels R * 128
+// bytes apart (leading), 8-row groups 1024 bytes apart (stride)
+template <int R>
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
+  return sw128_desc(tile + kk * 16 * 128, R * 128, 1024);
+}
+
+// rows [r0, r0 + R) of a [.., n, heads, D] bf16 tensor (row stride
+// `stride` elements, `src` at the head's first element) into a swizzled
+// tile, 16 bytes per copy; rows at or past n are zero-filled
+template <int R, int D, int NT>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
+                                          long long stride, int r0, int n,
+                                          int tid) {
+  constexpr int CPR = D / 8;  // 16-byte chunks per row
+  static_assert((R * CPR) % NT == 0, "tile chunks must split evenly");
+#pragma unroll
+  for (int j = 0; j < R * CPR / NT; ++j) {
+    const int i = tid + j * NT, r = i / CPR, c = i % CPR, s = r0 + r;
+    const bool in = s < n;
+    const bf16* g = src + (in ? (long long)s * stride : 0) + c * 8;
+    cp_async16(dst + (c / 8) * (R * 128) + r * 128 + (((c % 8) ^ (r % 8)) << 4),
+               g, in ? 16 : 0);
+  }
+}
+
+// A fragments of the 4 k-steps of a 64 x 64 f32 accumulator (its columns
+// become wgmma's K; the m64nNk16 accumulator layout already is the A
+// layout), each value x split in two bf16, hi = bf16(x) and lo = bf16(x -
+// hi): hi + lo keeps 16 significant bits of x where one bf16 keeps 8
+__device__ __forceinline__ void to_a_frags(const float (&x)[32],
+                                           uint32_t (&hi)[4][4],
+                                           uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float a = x[8 * s + 2 * i], b = x[8 * s + 2 * i + 1];
+      __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+      const float2 hf = __bfloat1622float2(h);
+      __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+      hi[s][i] = *reinterpret_cast<uint32_t*>(&h);
+      lo[s][i] = *reinterpret_cast<uint32_t*>(&l);
+    }
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64], A in registers, B MN-major
+// (transposed) in shared memory
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] B[16 x 128], A in registers, B MN-major
+// (transposed) in shared memory
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// P = exp(s * scale + mask - lse) where kept, else exactly 0, on one
+// element of an S (or S^T) accumulator, without a branch: a dropped
+// entry's exponent is computed and discarded, its mask entry read at a
+// safe index. With a mask, s * scale + mask is summed first, as in the
+// plain version, so a row whose keys the mask all sets to -1e30 (lse
+// -1e30 too) gets P = 1 as there; without one the exponent is one fma in
+// base 2 (nlse2 = -lse * log2(e), sl2 = scale * log2(e)).
+template <bool MASK>
+__device__ __forceinline__ float prob(float s, bool keep, const float* mb,
+                                      long long mi, float scale, float lse,
+                                      float nlse2, float sl2) {
+  float x;
+  if constexpr (MASK)
+    x = (s * scale + mb[keep ? mi : 0] - lse) * kLog2e;
+  else
+    x = fmaf(s, sl2, nlse2);
+  const float p = ex2(x);
+  return keep ? p : 0.f;
+}
+
+// dK/dV: one CTA of kDkdvWG warpgroups per (batch x KV head, 64 kDkdvWG
+// keys); warpgroup w owns keys [k0 + 64 w, k0 + 64 w + 64). K and V stay
+// in shared memory; Q, dO, lse and delta of the (query head, query tile)
+// pairs stream through a 2-stage cp.async ring.
+template <int D, bool DROP>
+__global__ void __launch_bounds__(128 * kDkdvWG, 2 / kDkdvWG)
+    flash_bwd_dkdv_wgmma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const float* __restrict__ mask, const int* __restrict__ kv_lens,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk, int H,
+    int Hkv, long long msb, long long msh, long long msq, long long msk,
+    float scale, int causal, uint32_t seed0, Dropout drop) {
+  constexpr int BN = 64 * kDkdvWG, NT = 128 * kDkdvWG;
+  constexpr uint32_t KV_BYTES = BN * D * 2, Q_BYTES = kBM * D * 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t sK = (raw + 1023) & ~1023u, sV = sK + KV_BYTES;
+  const uint32_t sQ = sV + KV_BYTES, sO = sQ + kStages * Q_BYTES;
+  const uint32_t sRows = sO + kStages * Q_BYTES;  // [stage][lse | delta]
+  const float* rows = reinterpret_cast<const float*>(smem_raw + (sRows - raw));
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int warp = (tid & 127) >> 5, lane = tid & 31;
+  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv, group = H / Hkv;
+  const int k0 = blockIdx.y * BN, kw = k0 + 64 * wg;
+  const long long q_stride = (long long)H * D, kv_stride = (long long)Hkv * D;
+  const long long kv_off = ((long long)b * Sk * Hkv + hk) * D;
+  const int kend = kv_lens ? min(Sk, kv_lens[b]) : Sk;
+  // the query tiles whose last row reaches the key tile's first row, for
+  // every query head of the group; none when the tile is past kv_lens
+  const int nq = (Sq + kBM - 1) / kBM;
+  const int i_first = causal ? k0 / kBM : 0;
+  const int per_g = k0 < kend && i_first < nq ? nq - i_first : 0;
+  const int n_it = group * per_g;
+
+  auto load_stage = [&](int it, int st) {
+    const int h = hk * group + it / per_g;
+    const int q0 = (i_first + it % per_g) * kBM;
+    const long long q_off = ((long long)b * Sq * H + h) * D;
+    load_tile<kBM, D, NT>(sQ + st * Q_BYTES, q + q_off, q_stride, q0, Sq, tid);
+    load_tile<kBM, D, NT>(sO + st * Q_BYTES, dout + q_off, q_stride, q0, Sq,
+                          tid);
+    if (tid < 2 * kBM) {
+      const int r = tid % kBM;
+      const bool in = q0 + r < Sq;
+      const float* src = (tid < kBM ? lse : delta) +
+                         ((long long)b * H + h) * Sq + (in ? q0 + r : 0);
+      cp_async4(sRows + (st * 2 * kBM + tid) * 4, src, in ? 4 : 0);
+    }
+  };
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  if (n_it > 0) {
+    load_tile<BN, D, NT>(sK, k + kv_off, kv_stride, k0, Sk, tid);
+    load_tile<BN, D, NT>(sV, v + kv_off, kv_stride, k0, Sk, tid);
+    load_stage(0, 0);
+  }
+  cp_async_commit();
+
+  // the thread's key rows (kr, kr + 8 of its warpgroup's 64) and query
+  // columns (8 j + qc + {0, 1}) in the S^T accumulator layout
+  const int kr = 16 * warp + (lane >> 2), qc = 2 * (lane & 3);
+  const float sl2 = scale * kLog2e;
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % kStages;
+    cp_async_wait_all();
+    __syncthreads();  // stage st landed; everyone is done with stage st ^ 1
+    if (it + 1 < n_it) load_stage(it + 1, st ^ 1);
+    cp_async_commit();
+
+    const int h = hk * group + it / per_g;
+    const int q0 = (i_first + it % per_g) * kBM;
+    // uniform over the warpgroup: none of its keys is kept by this tile
+    if (kw >= kend || (causal && q0 + kBM - 1 < kw)) continue;
+    const bool full = q0 + kBM <= Sq && kw + 64 <= kend &&
+                      (!causal || q0 >= kw + 63);
+    const uint32_t qs = sQ + st * Q_BYTES, os = sO + st * Q_BYTES;
+    const float* lse_t = rows + st * 2 * kBM;
+    const float* dl_t = lse_t + kBM;
+    const float* mb = mask ? mask + b * msb + h * msh : nullptr;
+
+    // S^T = K Q^T and dP^T = V dO^T (keys x queries), A and B from shared
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, kmajor_desc<BN>(sK, 64 * wg, kk),
+               kmajor_desc<kBM>(qs, 0, kk), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dp, kmajor_desc<BN>(sV, 64 * wg, kk),
+               kmajor_desc<kBM>(os, 0, kk), kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
+    auto to_probs = [&](auto masked, auto interior) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + qc + e, qi = q0 + c;
+          const float l = lse_t[c];
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int ki = kw + kr + 8 * rr;
+            const bool keep = decltype(interior)::value ||
+                              ((qi < Sq) & (ki < kend) &
+                               (!causal | (qi >= ki)));
+            float& x = s[4 * j + 2 * rr + e];
+            x = prob<decltype(masked)::value>(x, keep, mb,
+                                              qi * msq + ki * msk, scale, l,
+                                              -l * kLog2e, sl2);
+          }
+        }
+    };
+    if (mb)
+      to_probs(std::true_type{}, std::false_type{});
+    else if (full)
+      to_probs(std::false_type{}, std::true_type{});
+    else
+      to_probs(std::false_type{}, std::false_type{});
+    wgmma_wait<0>();
+    fence_regs(dp);
+    const uint32_t row_key = fmix32((uint32_t)(b * H + h) ^ seed0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + qc + e;
+        const float dl = dl_t[c];
+        uint32_t xq = 0u;
+        if constexpr (DROP) xq = fmix32(row_key ^ (uint32_t)(q0 + c));
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int i = 4 * j + 2 * rr + e;
+          if constexpr (DROP) {
+            const uint32_t ki = (uint32_t)(kw + kr + 8 * rr);
+            const float dm =
+                fmix32(xq ^ ki ^ drop.seed1) >= drop.thresh ? drop.dscale
+                                                            : 0.f;
+            dp[i] = s[i] * (dp[i] * dm - dl);
+            s[i] *= dm;
+          } else {
+            dp[i] = s[i] * (dp[i] - dl);
+          }
+        }
+      }
+    // dV += (P D)^T dO and dK += dS^T Q, each as the hi and the lo part:
+    // A from registers, B the query-major dO / Q tiles read transposed
+    uint32_t ph[4][4], pl[4][4], sh[4][4], sl[4][4];
+    to_a_frags(s, ph, pl);
+    to_a_frags(dp, sh, sl);
+    wgmma_fence();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // two independent chains, interleaved
+      wgmma_rs_tb(dv_acc, ph[kk], mnmajor_desc<kBM>(os, kk));
+      wgmma_rs_tb(dk_acc, sh[kk], mnmajor_desc<kBM>(qs, kk));
+      wgmma_rs_tb(dv_acc, pl[kk], mnmajor_desc<kBM>(os, kk));
+      wgmma_rs_tb(dk_acc, sl[kk], mnmajor_desc<kBM>(qs, kk));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    fence_regs(ph);
+    fence_regs(pl);
+    fence_regs(sh);
+    fence_regs(sl);
+  }
+
+  bf16* dkb = dk + kv_off;
+  bf16* dvb = dv + kv_off;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int ki = kw + kr + 8 * rr;
+    if (ki >= Sk) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const long long o = ki * kv_stride + 8 * j + qc;
+      const int i = 4 * j + 2 * rr;
+      *reinterpret_cast<__nv_bfloat162*>(dkb + o) =
+          __floats2bfloat162_rn(dk_acc[i] * scale, dk_acc[i + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvb + o) =
+          __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
+    }
+  }
+}
+
+// dQ: one CTA of one warpgroup per (batch x query head, 64-row query
+// tile), launched longest causal row first. Q and dO stay in shared
+// memory; K and V tiles of 64 keys stream through a 2-stage ring.
+template <int D, bool DROP>
+__global__ void __launch_bounds__(128, 2) flash_bwd_dq_wgmma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const float* __restrict__ mask, const int* __restrict__ kv_lens,
+    bf16* __restrict__ dq, int Sq, int Sk, int H, int Hkv, long long msb,
+    long long msh, long long msq, long long msk, float scale, int causal,
+    uint32_t seed0, Dropout drop) {
+  constexpr int BN = 64, NT = 128;
+  constexpr uint32_t T_BYTES = 64 * D * 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t sO = sQ + T_BYTES, sKV = sO + T_BYTES;  // [stage][K | V]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.x / H, h = blockIdx.x % H, hk = h / (H / Hkv);
+  const int q0 = ((Sq + kBM - 1) / kBM - 1 - (int)blockIdx.y) * kBM;
+  const long long q_stride = (long long)H * D, kv_stride = (long long)Hkv * D;
+  const long long q_off = ((long long)b * Sq * H + h) * D;
+  const long long kv_off = ((long long)b * Sk * Hkv + hk) * D;
+  const int kend = kv_lens ? min(Sk, kv_lens[b]) : Sk;
+  // key tiles up to the causal end and the kv_lens end
+  const int k_stop = causal ? min(kend, q0 + kBM) : kend;
+  const int n_it = k_stop > 0 ? (k_stop + BN - 1) / BN : 0;
+  const float* mb = mask ? mask + b * msb + h * msh : nullptr;
+
+  // the thread's query rows (qr, qr + 8) and key columns (8 j + kc +
+  // {0, 1}) in the S accumulator layout, with their lse, delta and hash
+  const int qr = 16 * warp + (lane >> 2), kc = 2 * (lane & 3);
+  const float sl2 = scale * kLog2e;
+  const float* lb = lse + (long long)blockIdx.x * Sq;
+  const float* db = delta + (long long)blockIdx.x * Sq;
+  float l[2], nl2[2], dl[2];
+  uint32_t xq[2];
+  const uint32_t row_key = fmix32((uint32_t)blockIdx.x ^ seed0);  // b*H + h
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int qi = q0 + qr + 8 * rr;
+    l[rr] = qi < Sq ? lb[qi] : 0.f;
+    dl[rr] = qi < Sq ? db[qi] : 0.f;
+    nl2[rr] = -l[rr] * kLog2e;
+    xq[rr] = DROP ? fmix32(row_key ^ (uint32_t)qi) : 0u;
+  }
+
+  auto load_stage = [&](int it, int st) {
+    const uint32_t kv = sKV + st * 2 * T_BYTES;
+    load_tile<BN, D, NT>(kv, k + kv_off, kv_stride, it * BN, Sk, tid);
+    load_tile<BN, D, NT>(kv + T_BYTES, v + kv_off, kv_stride, it * BN, Sk,
+                         tid);
+  };
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  if (n_it > 0) {
+    load_tile<kBM, D, NT>(sQ, q + q_off, q_stride, q0, Sq, tid);
+    load_tile<kBM, D, NT>(sO, dout + q_off, q_stride, q0, Sq, tid);
+    load_stage(0, 0);
+  }
+  cp_async_commit();
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % kStages, k0 = it * BN;
+    cp_async_wait_all();
+    __syncthreads();  // stage st landed; everyone is done with stage st ^ 1
+    if (it + 1 < n_it) load_stage(it + 1, st ^ 1);
+    cp_async_commit();
+    const uint32_t ks = sKV + st * 2 * T_BYTES, vs = ks + T_BYTES;
+    const bool full = q0 + kBM <= Sq && k0 + BN <= kend &&
+                      (!causal || k0 + BN - 1 <= q0);
+
+    // S = Q K^T and dP = dO V^T (queries x keys), A and B from shared
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, kmajor_desc<kBM>(sQ, 0, kk), kmajor_desc<BN>(ks, 0, kk),
+               kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dp, kmajor_desc<kBM>(sO, 0, kk), kmajor_desc<BN>(vs, 0, kk),
+               kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
+    auto to_probs = [&](auto masked, auto interior) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int ki = k0 + 8 * j + kc + e;
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const int qi = q0 + qr + 8 * rr;
+            const bool keep = decltype(interior)::value ||
+                              ((qi < Sq) & (ki < kend) &
+                               (!causal | (qi >= ki)));
+            float& x = s[4 * j + 2 * rr + e];
+            x = prob<decltype(masked)::value>(x, keep, mb,
+                                              qi * msq + ki * msk, scale,
+                                              l[rr], nl2[rr], sl2);
+          }
+        }
+    };
+    if (mb)
+      to_probs(std::true_type{}, std::false_type{});
+    else if (full)
+      to_probs(std::false_type{}, std::true_type{});
+    else
+      to_probs(std::false_type{}, std::false_type{});
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int i = 4 * j + 2 * rr + e;
+          float dm = 1.f;
+          if constexpr (DROP)
+            dm = fmix32(xq[rr] ^ (uint32_t)(k0 + 8 * j + kc + e) ^
+                        drop.seed1) >= drop.thresh
+                     ? drop.dscale
+                     : 0.f;
+          dp[i] = s[i] * (dp[i] * dm - dl[rr]);
+        }
+    // dQ += dS K as the hi and the lo part: A from registers, B the
+    // key-major K tile read transposed
+    uint32_t sh[4][4], sl[4][4];
+    to_a_frags(dp, sh, sl);
+    wgmma_fence();
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs_tb(acc, sh[kk], mnmajor_desc<BN>(ks, kk));
+      wgmma_rs_tb(acc, sl[kk], mnmajor_desc<BN>(ks, kk));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(sh);
+    fence_regs(sl);
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int qi = q0 + qr + 8 * rr;
+    if (qi >= Sq) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int i = 4 * j + 2 * rr;
+      *reinterpret_cast<__nv_bfloat162*>(dq + q_off + qi * q_stride + 8 * j +
+                                         kc) =
+          __floats2bfloat162_rn(acc[i] * scale, acc[i + 1] * scale);
+    }
+  }
+}
+
+template <int D>
+constexpr int dkdv_smem_bytes() {
+  return 1024 + 2 * 64 * kDkdvWG * D * 2 +
+         kStages * (2 * kBM * D * 2 + 2 * kBM * 4);
+}
+template <int D>
+constexpr int dq_smem_bytes() {
+  return 1024 + 2 * kBM * D * 2 + kStages * 2 * 64 * D * 2;
+}
+
+}  // namespace tc
+
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta, *mask;
@@ -456,6 +1106,52 @@ int launch_dq(const Args& a, void* dq, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// the bf16 kernels copy 16 bytes at a time and store bf16 pairs
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+bool aligned16(const Args& a) {
+  return aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
+         aligned16(a.dout);
+}
+
+template <int D>
+int launch_dkdv_wgmma(const Args& a, void* dk, void* dv, cudaStream_t stream) {
+  constexpr int smem = tc::dkdv_smem_bytes<D>();
+  auto kern = a.drop.dscale > 0.f ? tc::flash_bwd_dkdv_wgmma<D, true>
+                                  : tc::flash_bwd_dkdv_wgmma<D, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  // key tile 0 has the most query tiles under causality: blockIdx.y = 0
+  // (every batch x KV head of it) is scheduled first
+  constexpr int BN = 64 * tc::kDkdvWG;
+  dim3 grid(a.B * a.Hkv, (a.Sk + BN - 1) / BN);
+  kern<<<grid, 128 * tc::kDkdvWG, smem, stream>>>(
+      static_cast<const tc::bf16*>(a.q), static_cast<const tc::bf16*>(a.k),
+      static_cast<const tc::bf16*>(a.v), static_cast<const tc::bf16*>(a.dout),
+      a.lse, a.delta, a.mask, a.kv_lens, static_cast<tc::bf16*>(dk),
+      static_cast<tc::bf16*>(dv), a.Sq, a.Sk, a.H, a.Hkv, a.msb, a.msh, a.msq,
+      a.msk, a.scale, a.causal, a.seed0, a.drop);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dq_wgmma(const Args& a, void* dq, cudaStream_t stream) {
+  constexpr int smem = tc::dq_smem_bytes<D>();
+  auto kern = a.drop.dscale > 0.f ? tc::flash_bwd_dq_wgmma<D, true>
+                                  : tc::flash_bwd_dq_wgmma<D, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(a.B * a.H, (a.Sq + tc::kBM - 1) / tc::kBM);
+  kern<<<grid, 128, smem, stream>>>(
+      static_cast<const tc::bf16*>(a.q), static_cast<const tc::bf16*>(a.k),
+      static_cast<const tc::bf16*>(a.v), static_cast<const tc::bf16*>(a.dout),
+      a.lse, a.delta, a.mask, a.kv_lens, static_cast<tc::bf16*>(dq), a.Sq,
+      a.Sk, a.H, a.Hkv, a.msb, a.msh, a.msq, a.msk, a.scale, a.causal,
+      a.seed0, a.drop);
+  return (int)cudaGetLastError();
+}
+
 bool valid(const Args& a) {
   return a.H > 0 && a.Hkv > 0 && a.H % a.Hkv == 0 && a.B > 0 && a.Sq > 0 &&
          a.Sk > 0;
@@ -490,10 +1186,12 @@ extern "C" int flash_bwd_dkdv(FLASH_BWD_ARGS, void* dk, void* dv,
   FLASH_BWD_PACK;
   if (dtype == 0 && head_dim == 64) return launch_dkdv<float, 64>(a, dk, dv, stream);
   if (dtype == 0 && head_dim == 128) return launch_dkdv<float, 128>(a, dk, dv, stream);
-  if (dtype == 1 && head_dim == 64)
-    return launch_dkdv<__nv_bfloat16, 64>(a, dk, dv, stream);
-  if (dtype == 1 && head_dim == 128)
-    return launch_dkdv<__nv_bfloat16, 128>(a, dk, dv, stream);
+  if (dtype == 1 && (head_dim == 64 || head_dim == 128)) {
+    if (!aligned16(a) || !aligned16(dk) || !aligned16(dv))
+      return (int)cudaErrorMisalignedAddress;
+    return head_dim == 64 ? launch_dkdv_wgmma<64>(a, dk, dv, stream)
+                          : launch_dkdv_wgmma<128>(a, dk, dv, stream);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -501,9 +1199,10 @@ extern "C" int flash_bwd_dq(FLASH_BWD_ARGS, void* dq, FLASH_BWD_DIMS) {
   FLASH_BWD_PACK;
   if (dtype == 0 && head_dim == 64) return launch_dq<float, 64>(a, dq, stream);
   if (dtype == 0 && head_dim == 128) return launch_dq<float, 128>(a, dq, stream);
-  if (dtype == 1 && head_dim == 64)
-    return launch_dq<__nv_bfloat16, 64>(a, dq, stream);
-  if (dtype == 1 && head_dim == 128)
-    return launch_dq<__nv_bfloat16, 128>(a, dq, stream);
+  if (dtype == 1 && (head_dim == 64 || head_dim == 128)) {
+    if (!aligned16(a) || !aligned16(dq)) return (int)cudaErrorMisalignedAddress;
+    return head_dim == 64 ? launch_dq_wgmma<64>(a, dq, stream)
+                          : launch_dq_wgmma<128>(a, dq, stream);
+  }
   return (int)cudaErrorInvalidValue;
 }

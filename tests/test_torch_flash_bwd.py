@@ -9,9 +9,10 @@ Pallas kernels in interpret mode (``_flash_bwd_pallas``), on the same
 seeded numpy inputs. f32 tolerance: atol = rtol = 1e-5.
 
 The ``cuda`` cases hold the two backward kernels of ``csrc/flash_bwd.cu``
-against ``flash_attention_bwd_plain`` on the card and skip without one;
-run them with ``python -m pytest --noconftest -m cuda
-tests/test_torch_flash_bwd.py``.
+against ``flash_attention_bwd_plain`` on the card (printing each bf16
+case's largest error), check that two bf16 launches agree bit for bit,
+and skip without a card; run them with ``python -m pytest --noconftest
+-m cuda -s tests/test_torch_flash_bwd.py``.
 """
 import numpy as np
 import pytest
@@ -37,6 +38,9 @@ CASES = {
     "kv_lens": (2, 16, 16, 4, 4, 64, True, None, [16, 9]),
     "mask_kv_lens_sq_ne_sk": (2, 24, 40, 4, 2, 64, False, "full", [40, 23]),
     "no_valid_key": (2, 16, 16, 4, 2, 64, False, "dead_batch", None),
+    # the edges of the bf16 kernels' tiles: 64 query rows, 64 keys
+    "tail_200_129": (1, 200, 129, 4, 1, 128, True, None, None),
+    "gqa4_d128_kvlens": (2, 72, 136, 8, 2, 128, False, None, [136, 65]),
 }
 
 
@@ -206,6 +210,8 @@ CARD_CASES = dict(CASES, **{
     "tail_100_d128": (2, 100, 100, 4, 1, 128, True, None, None),
     "sq_gt_sk_causal": (1, 130, 70, 2, 2, 64, True, None, None),
     "zero_kv_len": (2, 16, 16, 4, 4, 64, False, None, [16, 0]),
+    # the training geometry (head_dim 128, causal) cut to 512 tokens
+    "train_512": (1, 512, 512, 4, 4, 128, True, None, None),
 })
 
 
@@ -225,8 +231,35 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, case):
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == dtype and a.shape == w.shape
         assert torch.isfinite(a.float()).all(), name
+        err = float((a.float() - w.float()).abs().max())
+        top = float(w.float().abs().max())
+        # the bf16 kernels' products take P and dS as bf16 hi + lo parts;
+        # `pytest -s` shows how far that lands from the f32 plain version
+        print(f"{case} {dtype} {name}: max abs err {err:.3e}, largest "
+              f"|value| {top:.3e}, ratio {err / max(top, 1e-30):.3e}")
         torch.testing.assert_close(a.float(), w.float(), msg=name,
                                    **CARD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["train_512", "gqa4_d128_kvlens"])
+def test_flash_bwd_bf16_launches_are_bitwise_repeatable(cuda, case):
+    """Two launches of the bf16 backward on the same inputs give bitwise
+    equal dQ, dK and dV: each output tile has one owner block and no
+    atomics (the resume check of chip_smoke.py relies on it)."""
+    q, k, v, g, causal, mask, lens = _case(case, seed=7, cases=CARD_CASES)
+    q, k, v, g = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+                  for a in (q, k, v, g))
+    kl = None if lens is None else torch.from_numpy(lens).to(cuda)
+    sc = q.shape[-1] ** -0.5
+    out, lse = flash_attention_kernel(q, k, v, sc, causal, None, kl)
+    first = flash_attention_bwd_kernel(q, k, v, out, lse, g, sc, causal,
+                                       None, kl)
+    again = flash_attention_bwd_kernel(q, k, v, out, lse, g, sc, causal,
+                                       None, kl)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, again):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
