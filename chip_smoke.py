@@ -21,6 +21,10 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    operations over the card's peak for their type), the plain version's
    time and the one-call PyTorch equivalent's time where one exists, and
    the flash kernels' times with and without dropout at the BERT shape.
+   Also times the forward at the training shape q[2, 2048, 32, 128] bf16
+   causal (with lse, beside causal SDPA and its operations bound), paged
+   decode at contexts up to pps * page = 1024 (beside ragged decode on
+   the same inputs), and the f32 instances of both at their bf16 shapes.
 3. Full-width f32 checks: a 2-layer model at Llama-2-7B widths gives the
    same prefill logits on the card (kernels) as on the CPU (plain
    versions) and the same greedy tokens through the predictor; the
@@ -270,6 +274,14 @@ def flash_phase(torch, dev, g):
             main = dict(max_abs_err=err, t=t, plain_ms=plain,
                         library_ms=lib, bound_ms=b_ms, bound_by=by,
                         shape=f"q[{b}, {s}, {h}, {d}] {dtype} causal+mask")
+        elif dtype == "float32" and hkv == h:
+            # the f32 instance (FMA units) at the same shape, logged
+            sets = [(q, k, v), tuple(torch.randn_like(t) for t in (q, k, v))]
+            t32 = time_ms(torch, lambda a, b, c: A.flash_attention_kernel(
+                a, b, c, sc, True, mask), sets)["median"]
+            log(f"  flash_fwd float32 q[{b}, {s}, {h}, {d}] causal+mask: "
+                f"{t32:.4f} ms (median device time)")
+    main["extra"] = flash_train_row(torch, dev, g)
     # suffix prefill: Sq < Sk, causality carried by the mask alone
     sq, sk = 128, 384
     q = torch.randn(1, sq, 32, d, device=dev, generator=g).bfloat16()
@@ -285,6 +297,39 @@ def flash_phase(torch, dev, g):
             A.flash_attention_plain(q, k, v, d ** -0.5, False, m),
             "bfloat16")
     return main
+
+
+def flash_train_row(torch, dev, g):
+    """The forward at the training shape, q[2, 2048, 32, 128] bf16 causal
+    without a mask, with lse (what each layer of the training run
+    launches): against its plain version, timed beside causal SDPA at the
+    same shape and the operations bound of the causal pairs."""
+    from paddle_tpu_torch.kernels import attention as A
+    F = torch.nn.functional
+    b, s, h, d = 2, 2048, 32, 128
+    sets = [tuple(torch.randn(b, s, h, d, device=dev, generator=g).bfloat16()
+                  for _ in range(3)) for _ in range(2)]
+    sc = d ** -0.5
+    out, lse = A.flash_attention_kernel(*sets[0], sc, True)
+    want, want_lse = A.flash_attention_plain(*sets[0], sc, True,
+                                             return_lse=True)
+    shape = f"q[{b}, {s}, {h}, {d}] bfloat16 causal"
+    err = compare(torch, f"flash_fwd {shape}", out, want, "bfloat16")
+    compare(torch, f"flash_fwd lse {shape}", lse, want_lse, "float32")
+    t = time_ms(torch, lambda a, c, e: A.flash_attention_kernel(
+        a, c, e, sc, True), sets)
+    lib = time_ms(torch, lambda a, c, e: F.scaled_dot_product_attention(
+        a.transpose(1, 2), c.transpose(1, 2), e.transpose(1, 2),
+        is_causal=True, scale=sc), sets)["median"]
+    pairs = b * h * s * (s + 1) // 2
+    nbytes = 4 * out.numel() * out.element_size() + lse.numel() * 4
+    b_ms, by = bound(nbytes, 4 * d * pairs, "bfloat16")
+    log(f"  flash_fwd at the training shape, {shape}: kernel median "
+        f"{t['median']:.4f} ms (CUPTI {t['cupti']:.4f}), bound {b_ms:.4f} "
+        f"ms ({by}), SDPA {lib:.4f} ms")
+    return {"train_shape": shape, "train_ms": t["median"],
+            "train_bound_ms": b_ms, "train_library_ms": lib,
+            "train_max_abs_err": err}
 
 
 def flash_bwd_phase(torch, dev, g):
@@ -444,6 +489,16 @@ def paged_phase(torch, dev, g):
                         library_ms=None, bound_ms=b_ms, bound_by=by,
                         shape=f"q[{b}, {h}, {d}] {dtype} page={page} "
                               f"ctx={lens.tolist()}")
+            main["extra"] = paged_long_row(torch, dev, q, sets, tables,
+                                           page, sc, lens)
+        elif dtype == "float32":
+            # the f32 instance (one block per walk) at the same shape
+            sets = [(kp, vp)] + [(torch.randn_like(kp), torch.randn_like(vp))
+                                 for _ in range(3)]
+            t32 = time_ms(torch, lambda a, b: P.paged_attention_kernel(
+                q, a, b, tables, lens, sc), sets)["median"]
+            log(f"  paged_decode float32 q[{b}, {h}, {d}] ctx="
+                f"{lens.tolist()}: {t32:.4f} ms (median device time)")
     # context_lens past pps * page attend to the keys the table names
     # (the last case's bf16 GQA pages)
     q = torch.randn(2, 32, d, device=dev, generator=g).bfloat16()
@@ -461,6 +516,43 @@ def paged_phase(torch, dev, g):
                                    0.1)
     check(not bool(out.any()), "paged_decode: context_lens == 0 rows not 0")
     return main
+
+
+def paged_long_row(torch, dev, q, sets, tables, page, sc, serve_lens):
+    """bf16 decode at a long context, up to pps * page = 1024 tokens (the
+    first sequence's walk spans every rank of the cluster), against the
+    plain version, timed beside ragged_decode on the same inputs and the
+    bytes bound; and ragged_decode on the serving shape's inputs."""
+    from paddle_tpu_torch.kernels import paged_attention as P
+    meta = _builder_meta(torch, dev, tables, serve_lens, page)
+    serve_rag = time_ms(torch, lambda a, b: P.paged_attention_ragged_kernel(
+        q, a, b, serve_lens, meta, sc), sets)["median"]
+    log(f"  ragged_decode on paged_decode's inputs, ctx="
+        f"{serve_lens.tolist()}: {serve_rag:.4f} ms")
+    lens = torch.tensor([tables.shape[1] * page, 1000, 700, 333],
+                        dtype=torch.int32, device=dev)
+    kp, vp = sets[0]
+    err = compare(torch, f"paged_decode bfloat16 q{list(q.shape)} ctx="
+                  f"{lens.tolist()}",
+                  P.paged_attention_kernel(q, kp, vp, tables, lens, sc),
+                  P.paged_attention_plain(q, kp, vp, tables, lens, sc),
+                  "bfloat16")
+    t = time_ms(torch, lambda a, b: P.paged_attention_kernel(
+        q, a, b, tables, lens, sc), sets)["median"]
+    meta = _builder_meta(torch, dev, tables, lens, page)
+    rag = time_ms(torch, lambda a, b: P.paged_attention_ragged_kernel(
+        q, a, b, lens, meta, sc), sets)["median"]
+    isz, hkv, d = q.element_size(), kp.shape[2], q.shape[2]
+    toks = int(lens.sum())
+    b_ms, by = bound(2 * q.numel() * isz + 2 * toks * hkv * d * isz
+                     + tables.numel() * 4 + lens.numel() * 4,
+                     4 * d * q.shape[1] * toks, "bfloat16")
+    log(f"  paged_decode at long contexts {lens.tolist()}: kernel median "
+        f"{t:.4f} ms, bound {b_ms:.4f} ms ({by}), ragged_decode on the "
+        f"same inputs {rag:.4f} ms")
+    return {"ragged_ms": serve_rag, "long_ctx": lens.tolist(),
+            "long_ms": t, "long_bound_ms": b_ms, "long_ragged_ms": rag,
+            "long_max_abs_err": err}
 
 
 def _builder_meta(torch, dev, tables, lens, page):
@@ -1618,7 +1710,7 @@ def main(argv=None):
                      "ms": m["t"]["median"],
                      "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                      "bound_by": m["bound_by"],
-                     "library_ms": m["library_ms"]})
+                     "library_ms": m["library_ms"], **m.get("extra", {})})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,10 +5,11 @@ Each ``paddle_tpu_torch/csrc/<name>.cu`` is compiled at first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 -fPIC`` into ``paddle_tpu_torch/_build/`` (listed in ``.gitignore``) and
 loaded with ``ctypes``. The library file name carries a hash of the
-source and the flags, so an edited source is rebuilt and a stale
-library is never loaded. The sources expose a plain C interface (no
-``torch/extension.h``): every entry returns ``cudaGetLastError()`` and
-:func:`check` raises when that is not 0.
+source, of the headers beside it and of the flags, so an edited source
+or header is rebuilt and a stale library is never loaded. The sources
+expose a plain C interface (no ``torch/extension.h``): every entry
+returns ``cudaGetLastError()`` and :func:`check` raises when that is
+not 0.
 
 Also here: the shared ``NEG_INF`` constant and the per-kernel launch
 counters that show a run really went through the kernels.
@@ -57,8 +58,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    """The library's path, named by a hash of ``<name>.cu``, of every
+    header in ``SRC_DIR`` (``*.cuh``, ``*.h``) it may include, and of the
+    flags: an edited header rebuilds each source beside it."""
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for hdr in sorted(SRC_DIR.glob("*.cuh")) + sorted(SRC_DIR.glob("*.h")):
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

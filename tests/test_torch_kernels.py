@@ -86,7 +86,32 @@ def _prefill_mask(b, s, pads):
 def _flash_case(name, rng):
     """(q, k, v, causal, mask, kv_lens, valid rows [B, Sq]) for a case."""
     b, h, d = 2, 4, 64
-    if name == "causal_mask":
+    mask, causal, lens = None, False, None
+    if name == "tile_edge_130":                   # one row past 64 and 128
+        sq = sk = 130
+        hkv, d, causal = h, 128, True
+    elif name == "suffix_mask_only":              # Sq < Sk, causal by mask
+        sq, sk, hkv, d = 40, 130, h, 128
+        j = np.arange(sk)[None, :] - (sk - sq)
+        mask = np.where(j <= np.arange(sq)[:, None], 0.0, NEG)
+        mask = mask.astype(np.float32)[None, None]
+    elif name == "gqa4_d128":
+        h, hkv, d, causal = 8, 2, 128, True
+        sq = sk = 70
+    elif name == "kv_lens_mid_tile":
+        sq = sk = 130
+        hkv, d, lens = h, 128, np.array([130, 70], np.int32)
+    elif name == "dropout_key_mask":
+        sq = sk = 130
+        hkv = h
+        mask = np.zeros((b, 1, 1, sk), np.float32)
+        mask[1, ..., -50:] = NEG
+    elif name == "no_valid_key":                  # whole rows masked out
+        sq = sk = 72
+        hkv, lens = h, np.array([72, 0], np.int32)
+        mask = np.zeros((b, 1, sq, sk), np.float32)
+        mask[0, :, [3, 40]] = NEG
+    elif name == "causal_mask":
         sq = sk = 16
         hkv = h
         mask = _prefill_mask(b, sq, [0, 5])
@@ -247,6 +272,28 @@ def test_cpu_tensors_take_plain_versions():
                              "paged_varq": 0}
 
 
+def test_library_path_follows_headers(tmp_path, monkeypatch):
+    """A header edit renames every library (each source may include it),
+    a source edit only its own: a stale library is never loaded."""
+    import shutil
+    from paddle_tpu_torch.kernels import _build
+    for f in _build.SRC_DIR.iterdir():
+        shutil.copy(f, tmp_path)
+    monkeypatch.setattr(_build, "SRC_DIR", tmp_path)
+    names = sorted(f.stem for f in tmp_path.glob("*.cu"))
+    assert "flash_fwd" in names and list(tmp_path.glob("*.cuh"))
+    before = {n: _build.library_path(n) for n in names}
+    assert before == {n: _build.library_path(n) for n in names}
+    hdr = next(tmp_path.glob("*.cuh"))
+    hdr.write_text(hdr.read_text() + "\n// edited\n")
+    after = {n: _build.library_path(n) for n in names}
+    assert all(after[n] != before[n] for n in names)
+    src = tmp_path / "paged_decode.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    again = {n: _build.library_path(n) for n in names}
+    assert [n for n in names if again[n] != after[n]] == ["paged_decode"]
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     x = torch.randn(4, 64)
     with pytest.raises(ValueError):
@@ -279,33 +326,74 @@ def test_rms_norm_kernel_matches_plain(cuda, dtype):
                                rms_norm_plain(x, w, 1e-6), **CARD_TOL[dtype])
 
 
+# the card cases add tile edges (64- and 128-row tiles), head_dim 128,
+# GQA 4, kv_lens inside a tile, dropout and rows with no valid key
+CARD_FLASH_CASES = FLASH_CASES + [
+    "tile_edge_130", "suffix_mask_only", "gqa4_d128", "kv_lens_mid_tile",
+    "dropout_key_mask", "no_valid_key"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("case", CARD_FLASH_CASES)
 def test_flash_kernel_matches_plain(cuda, dtype, case):
+    """Output on the rows with a valid key within the card tolerance, lse
+    there within the f32 one (scores are f32 in both dtypes), lse exactly
+    -1e30 on rows with none (the backward kernels rebuild P from it), and
+    a second launch bitwise equal to the first."""
     rng = np.random.RandomState(5)
     q, k, v, causal, mask, lens, valid = _flash_case(case, rng)
     q, k, v = (torch.from_numpy(a).to(cuda, dtype) for a in (q, k, v))
     m = None if mask is None else torch.from_numpy(mask).to(cuda)
     kl = None if lens is None else torch.from_numpy(lens).to(cuda)
-    out, lse = flash_attention_kernel(q, k, v, 0.125, causal, m, kl)
-    want = flash_attention_plain(q, k, v, 0.125, causal, m, kl)
+    drop = dict(dropout_p=0.1, seeds=(-5, 2 ** 31 - 3)) \
+        if case == "dropout_key_mask" else {}
+    args = (q, k, v, 0.125, causal, m, kl)
+    out, lse = flash_attention_kernel(*args, **drop)
+    want, want_lse = flash_attention_plain(*args, return_lse=True, **drop)
     assert torch.isfinite(out.float()).all() and lse.shape == q.shape[:1] + (
         q.shape[2], q.shape[1])
     vm = torch.from_numpy(valid).to(cuda)
     torch.testing.assert_close(out[vm].float(), want[vm].float(),
                                **CARD_TOL[dtype])
+    lse_rows = lse.transpose(1, 2)                # [B, Sq, H]
+    torch.testing.assert_close(lse_rows[vm],
+                               want_lse.transpose(1, 2)[vm],
+                               **CARD_TOL[torch.float32])
+    assert (lse_rows[~vm] == NEG).all()
+    again = flash_attention_kernel(*args, **drop)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+# (page, pages per sequence, context lengths, pages): a 16-token table (a
+# cluster of one CTA in bf16), then a 512-token one split over 8 ranks in
+# shares of ceil(ctx / 8) rounded up to 16 tokens: contexts 0, 1, 63-65,
+# 127-129 (one share boundary per rank), pps * page and past it
+PAGED_GEOMETRIES = [(4, 4, [5, 16, 1, 0, 23], 20),
+                    (16, 32, [0, 1, 63, 64, 65, 127, 128, 129, 512, 600],
+                     324)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,hkv,d", [(8, 8, 128), (4, 2, 64), (32, 8, 128)])
+@pytest.mark.parametrize("h,hkv,d", [(8, 8, 128), (4, 2, 64), (32, 8, 128),
+                                     (4, 4, 64), (16, 4, 64), (8, 1, 64),
+                                     (16, 2, 128)],
+                         ids=["g1_d128", "g2_d64", "g4_d128", "g1_d64",
+                              "g4_d64", "g8_d64", "g8_d128"])
 def test_paged_kernel_matches_plain(cuda, dtype, h, hkv, d):
+    """Each geometry within the card tolerance of the plain version, and
+    a second launch bitwise equal to the first."""
     rng = np.random.RandomState(6)
-    arrs = _paged_case(rng, h, hkv, d, [5, 16, 1, 0, 23], num_pages=20)
-    q, kp, vp = (torch.from_numpy(a).to(cuda, dtype) for a in arrs[:3])
-    tables, lens = (torch.from_numpy(a).to(cuda) for a in arrs[3:])
-    torch.testing.assert_close(
-        paged_attention_kernel(q, kp, vp, tables, lens, 0.1).float(),
-        paged_attention_plain(q, kp, vp, tables, lens, 0.1).float(),
-        **CARD_TOL[dtype])
+    for page, pps, ctx, num_pages in PAGED_GEOMETRIES:
+        arrs = _paged_case(rng, h, hkv, d, ctx, page=page, pps=pps,
+                           num_pages=num_pages)
+        q, kp, vp = (torch.from_numpy(a).to(cuda, dtype) for a in arrs[:3])
+        tables, lens = (torch.from_numpy(a).to(cuda) for a in arrs[3:])
+        out = paged_attention_kernel(q, kp, vp, tables, lens, 0.1)
+        torch.testing.assert_close(
+            out.float(),
+            paged_attention_plain(q, kp, vp, tables, lens, 0.1).float(),
+            **CARD_TOL[dtype])
+        assert torch.equal(out, paged_attention_kernel(q, kp, vp, tables,
+                                                       lens, 0.1))

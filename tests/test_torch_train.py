@@ -93,6 +93,23 @@ def test_cross_entropy_out_of_range_label_is_nan():
                                            torch.from_numpy(lab))))
 
 
+def test_cross_entropy_neg_inf_logit_diverges_from_reference():
+    """A known divergence, kept on purpose: a -inf logit gives the
+    reference NaN (its hard-label path sums one_hot * log_softmax, and
+    0 * -inf is NaN, in any class of the row), while the port gathers the
+    label's log-probability and stays finite, as upstream Paddle's kernel
+    does."""
+    import paddle_tpu.nn.functional as RF
+    x = np.array([[0.0, -np.inf, 1.0], [2.0, 0.5, -np.inf]], np.float32)
+    lab = np.array([0, 1], np.int64)
+    want = np.asarray(RF.cross_entropy(_ref_tensor(x), _ref_tensor(lab),
+                                       reduction="none").numpy())
+    got = PF.cross_entropy(torch.from_numpy(x), torch.from_numpy(lab),
+                           reduction="none").numpy()
+    assert np.isnan(want).all()
+    np.testing.assert_allclose(got, [1.3132616, 1.7014132], **TOL)
+
+
 def test_pretraining_criterion_matches_reference():
     from paddle_tpu.models import LlamaPretrainingCriterion as RefCrit
     rng = np.random.RandomState(2)

@@ -70,8 +70,9 @@ def build(sources, out_dir):
         with open(cu, "w") as f:
             f.write(text)
         procs[name] = subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-             os.path.join(out_dir, f"{name}.so"), cu],
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
+             str(_build.SRC_DIR), "-o", os.path.join(out_dir, f"{name}.so"),
+             cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
