@@ -24,7 +24,12 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    Also times the forward at the training shape q[2, 2048, 32, 128] bf16
    causal (with lse, beside causal SDPA and its operations bound), paged
    decode at contexts up to pps * page = 1024 (beside ragged decode on
-   the same inputs), and the f32 instances of both at their bf16 shapes.
+   the same inputs, held to its plain version there too), the
+   variable-query kernel at the speculative verify shape q[4, 5, 32, 128]
+   (5-row spans over 561 / 305 / 101 / 5 keys), and the f32 instances of
+   both decode kernels at their bf16 shapes. A second bf16 launch of the
+   backward, ragged-decode and variable-query kernels must equal the
+   first bit for bit.
 3. Full-width f32 checks: a 2-layer model at Llama-2-7B widths gives the
    same prefill logits on the card (kernels) as on the CPU (plain
    versions) and the same greedy tokens through the predictor; the
@@ -522,7 +527,8 @@ def paged_long_row(torch, dev, q, sets, tables, page, sc, serve_lens):
     """bf16 decode at a long context, up to pps * page = 1024 tokens (the
     first sequence's walk spans every rank of the cluster), against the
     plain version, timed beside ragged_decode on the same inputs and the
-    bytes bound; and ragged_decode on the serving shape's inputs."""
+    bytes bound (ragged_decode held to its plain version there too);
+    and ragged_decode on the serving shape's inputs."""
     from paddle_tpu_torch.kernels import paged_attention as P
     meta = _builder_meta(torch, dev, tables, serve_lens, page)
     serve_rag = time_ms(torch, lambda a, b: P.paged_attention_ragged_kernel(
@@ -540,6 +546,12 @@ def paged_long_row(torch, dev, q, sets, tables, page, sc, serve_lens):
     t = time_ms(torch, lambda a, b: P.paged_attention_kernel(
         q, a, b, tables, lens, sc), sets)["median"]
     meta = _builder_meta(torch, dev, tables, lens, page)
+    rag_err = compare(torch, f"ragged_decode bfloat16 q{list(q.shape)} ctx="
+                      f"{lens.tolist()} G={meta.shape[1]}",
+                      P.paged_attention_ragged_kernel(q, kp, vp, lens, meta,
+                                                      sc),
+                      P.paged_attention_ragged_plain(q, kp, vp, lens, meta,
+                                                     sc), "bfloat16")
     rag = time_ms(torch, lambda a, b: P.paged_attention_ragged_kernel(
         q, a, b, lens, meta, sc), sets)["median"]
     isz, hkv, d = q.element_size(), kp.shape[2], q.shape[2]
@@ -552,7 +564,7 @@ def paged_long_row(torch, dev, q, sets, tables, page, sc, serve_lens):
         f"same inputs {rag:.4f} ms")
     return {"ragged_ms": serve_rag, "long_ctx": lens.tolist(),
             "long_ms": t, "long_bound_ms": b_ms, "long_ragged_ms": rag,
-            "long_max_abs_err": err}
+            "long_max_abs_err": err, "long_ragged_max_abs_err": rag_err}
 
 
 def _builder_meta(torch, dev, tables, lens, page):
@@ -590,6 +602,9 @@ def ragged_phase(torch, dev, g):
             torch, f"ragged_decode {dtype} q[{b}, {h}, {d}] Hkv={hkv} "
             f"ctx={lens.tolist()} G={meta.shape[1]}", out,
             P.paged_attention_ragged_plain(q, kp, vp, lens, meta, sc), dtype)
+        check(torch.equal(out, P.paged_attention_ragged_kernel(
+            q, kp, vp, lens, meta, sc)),
+            f"ragged_decode {dtype}: a second launch differs from the first")
         if dtype == "float32":
             # the same function as the block-table kernel
             compare(torch, "ragged_decode vs paged_decode float32", out,
@@ -607,10 +622,14 @@ def ragged_phase(torch, dev, g):
             nbytes = (2 * q.numel() * isz + 2 * toks * hkv * d * isz
                       + meta.numel() * 4 + lens.numel() * 4)
             b_ms, by = bound(nbytes, 4 * d * h * toks, dtype)
+            # the block-table kernel on the same inputs
+            paged = time_ms(torch, lambda a, c: P.paged_attention_kernel(
+                q, a, c, tables, lens, sc), sets)["median"]
             main = dict(max_abs_err=err, t=t, plain_ms=plain,
                         library_ms=None, bound_ms=b_ms, bound_by=by,
                         shape=f"q[{b}, {h}, {d}] {dtype} page={page} "
-                              f"ctx={lens.tolist()} G={meta.shape[1]}")
+                              f"ctx={lens.tolist()} G={meta.shape[1]}",
+                        extra={"paged_ms": paged})
     # context_lens == 0 rows are zero
     zero = torch.zeros(b, dtype=torch.int32, device=dev)
     out = P.paged_attention_ragged_kernel(q, kp, vp, zero, meta, 0.1)
@@ -651,6 +670,9 @@ def varq_phase(torch, dev, g):
                 P.paged_attention_varq_plain(q, kp, vp, tables, kv_lens,
                                              q_lens, sc), dtype)
         check(not bool(out[~rows].any()), "paged_varq: padding rows not 0")
+        check(torch.equal(out, P.paged_attention_varq_kernel(
+            q, kp, vp, kv_lens, q_lens, sc, meta=meta)),
+            f"paged_varq {dtype}: a second launch differs from the first")
         if main is None:
             sets = [(kp, vp)] + [(torch.randn_like(kp), torch.randn_like(vp))
                                  for _ in range(3)]
@@ -661,23 +683,14 @@ def varq_phase(torch, dev, g):
             # back to the host)
             plain = time_ms(torch, lambda a, c: P.paged_attention_varq_plain(
                 q, a, c, tables, kv_lens, q_lens, sc), sets)["median"]
-            # (query, key) pairs the causal spans need, per head
-            start = (kv_lens - q_lens).long()
-            pairs = sum(int(s) * n + n * (n + 1) // 2 for s, n in
-                        zip(start.tolist(), q_lens.tolist()))
-            # bytes: the real span rows of q read once (padding rows are
-            # never read), the whole output written once, each slot's
-            # keys and values, the meta and both length vectors
-            isz = q.element_size()
-            nbytes = (int(q_lens.sum()) * h * d * isz + q.numel() * isz
-                      + 2 * int(kv_lens.sum()) * hkv * d * isz
-                      + meta.numel() * 4 + 2 * b * 4)
-            b_ms, by = bound(nbytes, 4 * d * h * pairs, dtype)
+            b_ms, by = varq_bound(q, q_lens, kv_lens, hkv, meta)
             main = dict(max_abs_err=err, t=t, plain_ms=plain,
                         library_ms=None, bound_ms=b_ms, bound_by=by,
                         shape=f"q[{b}, {qb}, {h}, {d}] {dtype} page={page} "
                               f"q_lens={q_lens.tolist()} "
-                              f"kv_lens={kv_lens.tolist()}")
+                              f"kv_lens={kv_lens.tolist()}",
+                        extra=varq_verify_row(torch, dev, g, sets, tables,
+                                              page, sc))
         if dtype == "float32":
             # single-token spans are decode attention: against the
             # ragged decode kernel, f32 tolerance
@@ -689,6 +702,63 @@ def varq_phase(torch, dev, g):
                         q[:, 0].contiguous(), kp, vp, kv_lens, meta, sc),
                     dtype)
     return main
+
+
+def varq_bound(q, q_lens, kv_lens, hkv, meta):
+    """The least time of a varq call: bytes (the real span rows of q read
+    once, padding rows never, the whole output written once, each slot's
+    keys and values, the meta and both length vectors) or operations
+    (the (query, key) pairs the causal spans need, per head)."""
+    b, _, h, d = q.shape
+    start = (kv_lens - q_lens).long()
+    pairs = sum(int(s) * n + n * (n + 1) // 2 for s, n in
+                zip(start.tolist(), q_lens.tolist()))
+    isz = q.element_size()
+    nbytes = (int(q_lens.sum()) * h * d * isz + q.numel() * isz
+              + 2 * int(kv_lens.sum()) * hkv * d * isz
+              + meta.numel() * 4 + 2 * b * 4)
+    return bound(nbytes, 4 * d * h * pairs, str(q.dtype).split(".")[-1])
+
+
+def varq_verify_row(torch, dev, g, sets, tables, page, sc):
+    """paged_varq at the speculative verify shape, q[4, 5, 32, 128] bf16
+    (1 + 4 drafts per slot) over contexts 561 / 305 / 101 / 5: one query
+    tile per slot, so each walk is split over a cluster. Held to its plain
+    version through the meta and the block table, timed beside the plain
+    version and the bound; returns the ``verify_*`` keys."""
+    from paddle_tpu_torch.kernels import paged_attention as P
+    kp, vp = sets[0]
+    q = torch.randn(4, 5, kp.shape[2], kp.shape[3], device=dev,
+                    generator=g).bfloat16()
+    q_lens = torch.full((4,), 5, dtype=torch.int32, device=dev)
+    kv_lens = torch.tensor([561, 305, 101, 5], dtype=torch.int32,
+                           device=dev)
+    meta = _builder_meta(torch, dev, tables, kv_lens, page)
+    shape = (f"q{list(q.shape)} bfloat16 page={page} q_lens="
+             f"{q_lens.tolist()} kv_lens={kv_lens.tolist()}")
+    out = P.paged_attention_varq_kernel(q, kp, vp, kv_lens, q_lens, sc,
+                                        meta=meta)
+    err = compare(torch, f"paged_varq {shape} (meta)", out,
+                  P.paged_attention_ragged_varq_plain(
+                      q, kp, vp, kv_lens, q_lens, meta, sc), "bfloat16")
+    compare(torch, f"paged_varq {shape} (block table)",
+            P.paged_attention_varq_kernel(q, kp, vp, kv_lens, q_lens, sc,
+                                          block_tables=tables),
+            P.paged_attention_varq_plain(q, kp, vp, tables, kv_lens, q_lens,
+                                         sc), "bfloat16")
+    check(torch.equal(out, P.paged_attention_varq_kernel(
+        q, kp, vp, kv_lens, q_lens, sc, meta=meta)),
+        "paged_varq verify: a second launch differs from the first")
+    t = time_ms(torch, lambda a, c: P.paged_attention_varq_kernel(
+        q, a, c, kv_lens, q_lens, sc, meta=meta), sets)["median"]
+    plain = time_ms(torch, lambda a, c: P.paged_attention_varq_plain(
+        q, a, c, tables, kv_lens, q_lens, sc), sets)["median"]
+    b_ms, by = varq_bound(q, q_lens, kv_lens, kp.shape[2], meta)
+    log(f"  paged_varq at the verify shape {shape}: kernel median {t:.4f} "
+        f"ms, bound {b_ms:.4f} ms ({by}), plain {plain:.4f} ms")
+    return {"verify_shape": shape, "verify_ms": t, "verify_plain_ms": plain,
+            "verify_bound_ms": b_ms, "verify_bound_by": by,
+            "verify_max_abs_err": err}
 
 
 def ln_phase(torch, dev, g):
@@ -811,7 +881,7 @@ def dropout_phase(torch, dev, g):
 
 
 def lookup_prompt(torch, model, dev, toks, seg_len, reps, m, rounds=8,
-                  **kw):
+                  tries=4, **kw):
     """``reps`` copies of a random ``seg_len``-token segment, the first
     ``m`` tokens of the last copy (the lead) replaced by the model's own
     greedy continuation of the prompt. When the first generated token
@@ -820,25 +890,36 @@ def lookup_prompt(torch, model, dev, toks, seg_len, reps, m, rounds=8,
     the drafts the model accepts are the lead's tokens its continuation
     repeats. The continuation changes with the lead it replaces (a
     random-weight model's logits are nearly flat), so the lead is
-    recomputed up to ``rounds`` times; the prompt whose continuation
-    repeats the most of its lead is returned, at once when that is at
-    least 2 tokens (one accepted draft). Callers read the stats. ``kw``
-    is the predictor configuration the continuation is computed with."""
+    recomputed up to ``rounds`` times. When no continuation repeated even
+    the lead's first token (so no draft would be proposed), the search
+    starts over from a fresh segment and lead, up to ``tries`` searches;
+    a later search replaces only the lead's first token while none
+    repeats (the smallest change to the prompt, so the continuation's
+    first token, which prompt lookup matches, is the likeliest to stay).
+    The prompt whose continuation repeats the most of its lead is
+    returned, at once when that is at least 2 tokens (one accepted
+    draft). Callers read the stats. ``kw`` is the predictor configuration
+    the continuation is computed with."""
     from paddle_tpu_torch.inference import ContinuousBatchingPredictor
     cb = ContinuousBatchingPredictor(model, device=dev,
                                      enable_prefix_cache=False, **kw)
-    seg, lead = toks(seg_len), toks(m)
     best = (-1, None)
-    for r in range(1, rounds + 1):
-        p = seg * (reps - 1) + lead + seg[m:]
-        y = cb.generate([p], max_new_tokens=m)[0]
-        k = next((i for i, (a, b) in enumerate(zip(y, lead)) if a != b), m)
-        best = max(best, (k, p), key=lambda kp: kp[0])
-        if k >= 2:
+    for t in range(1, tries + 1):
+        seg, lead = toks(seg_len), toks(m)
+        for r in range(1, rounds + 1):
+            p = seg * (reps - 1) + lead + seg[m:]
+            y = cb.generate([p], max_new_tokens=m)[0]
+            k = next((i for i, (a, b) in enumerate(zip(y, lead)) if a != b),
+                     m)
+            best = max(best, (k, p), key=lambda kp: kp[0])
+            if k >= 2:
+                break
+            lead = y if t == 1 or k else y[:1] + lead[1:]
+        if best[0] >= 1:
             break
-        lead = y
-    log(f"lookup prompt ({reps} x {seg_len} tokens): after {r} rounds the "
-        f"continuation repeats {best[0]} of its {m}-token lead")
+    log(f"lookup prompt ({reps} x {seg_len} tokens): after {t} searches "
+        f"and {r} rounds in the last the continuation repeats {best[0]} of "
+        f"its {m}-token lead")
     del cb
     torch.cuda.empty_cache()
     return best[1]
@@ -1621,6 +1702,13 @@ def main(argv=None):
              "paged_decode": paged_phase(torch, dev, g),
              "ragged_decode": ragged_phase(torch, dev, g),
              "paged_varq": varq_phase(torch, dev, g)}
+    # ragged_decode at the long context (timed and held to its plain
+    # version in paged_long_row) beside paged_decode on the same inputs
+    long = mains["paged_decode"]["extra"]
+    mains["ragged_decode"]["extra"].update(
+        long_ctx=long["long_ctx"], long_ms=long["long_ragged_ms"],
+        long_paged_ms=long["long_ms"], long_bound_ms=long["long_bound_ms"],
+        long_max_abs_err=long["long_ragged_max_abs_err"])
     dropout_phase(torch, dev, g)
     for name, m in [*mains.items(), ("layer_norm (bf16)", ln["bfloat16"])]:
         lib = "n/a" if m["library_ms"] is None else f"{m['library_ms']:.4f}"

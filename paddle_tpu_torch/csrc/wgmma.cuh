@@ -1,9 +1,11 @@
 // Building blocks of the bf16 tensor-core (wgmma, sm_90a) kernels, shared
-// by flash_fwd.cu and flash_bwd.cu (paged_decode.cu uses the cp.async
-// copies): 16-byte cp.async copies into the 128-byte-swizzled shared
-// layout that wgmma's descriptors read, the descriptors themselves, and
-// the m64nNk16 bf16 products with f32 accumulators (A and B from shared
-// memory, or A from registers and B read transposed). Thread (warp w,
+// by flash_fwd.cu, flash_bwd.cu and paged_varq.cu (decode_split.cuh uses
+// the cp.async copies): 16-byte cp.async copies into the
+// 128-byte-swizzled shared layout that wgmma's descriptors read (whole
+// tiles of a dense tensor, or rows gathered from a paged pool), the
+// descriptors themselves, and the m64nNk16 bf16 products with f32
+// accumulators (A and B from shared memory, or A from registers and B
+// read transposed). Thread (warp w,
 // lane l) of a warpgroup holds rows 16 w + l / 4 and 16 w + l / 4 + 8 of
 // an m64nN accumulator, columns 8 j + 2 (l % 4) + {0, 1}, as elements
 // 4 j + {0, 1} and 4 j + {2, 3}.
@@ -100,9 +102,36 @@ __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
   return sw128_desc(tile + kk * 16 * 128, R * 128, 1024);
 }
 
+// rows [0, R) of a swizzled tile, row r from element offset row_off(r) of
+// `src` (a negative offset zero-fills the row and reads nothing), 16 bytes
+// per copy: rows may lie anywhere, as the rows of a paged KV pool do. With
+// `src2`, the same rows of a second tensor into the tile at `dst2` (K and
+// V rows of one pool position: each offset is computed once)
+template <int R, int D, int NT, class RowOff>
+__device__ __forceinline__ void load_rows(uint32_t dst, const bf16* src,
+                                          RowOff row_off, int tid,
+                                          uint32_t dst2 = 0,
+                                          const bf16* src2 = nullptr) {
+  constexpr int CPR = D / 8;  // 16-byte chunks per row
+  static_assert((R * CPR) % NT == 0, "tile chunks must split evenly");
+#pragma unroll
+  for (int j = 0; j < R * CPR / NT; ++j) {
+    const int i = tid + j * NT, r = i / CPR, c = i % CPR;
+    const long long off = row_off(r);
+    const bool in = off >= 0;
+    const uint32_t sw =
+        (c / 8) * (R * 128) + r * 128 + (((c % 8) ^ (r % 8)) << 4);
+    const long long at = (in ? off : 0) + c * 8;
+    cp_async16(dst + sw, src + at, in ? 16 : 0);
+    if (src2 != nullptr) cp_async16(dst2 + sw, src2 + at, in ? 16 : 0);
+  }
+}
+
 // rows [r0, r0 + R) of a [.., n, heads, D] bf16 tensor (row stride
 // `stride` elements, `src` at the head's first element) into a swizzled
-// tile, 16 bytes per copy; rows at or past n are zero-filled
+// tile, 16 bytes per copy; rows at or past n are zero-filled. (Not
+// written over load_rows: routed through it, the flash kernels, which use
+// every register, ran 3-6 % slower on an H100.)
 template <int R, int D, int NT>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
                                           long long stride, int r0, int n,

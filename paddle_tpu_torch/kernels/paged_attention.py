@@ -388,8 +388,10 @@ def paged_attention_ragged_kernel(q, k_pages, v_pages, context_lens, meta,
                                   scale):
     """Launch ``csrc/ragged_decode.cu`` on CUDA tensors: q [B, H, D],
     pages [P, page, Hkv, D], context_lens int32 [B] (post-write lengths),
-    meta int32 [6, G]. Two passes: per-entry partial softmax into an f32
-    workspace [G, H, D + 2], then one combine per (sequence, head)."""
+    meta int32 [6, G]. bf16: one launch, each (sequence, KV head) walk
+    split over a thread-block cluster. f32: two passes, a per-entry
+    partial softmax into an f32 workspace [G, H, D + 2], then one combine
+    per (sequence, head)."""
     _check_meta("ragged_decode", meta)
     _check_paged("ragged_decode", q, k_pages, v_pages, 3,
                  (context_lens, meta))
@@ -398,16 +400,17 @@ def paged_attention_ragged_kernel(q, k_pages, v_pages, context_lens, meta,
     if context_lens.shape != (b,):
         raise TypeError("ragged_decode: context_lens must be int32 [B]")
     g = meta.shape[1]
-    if g > 2**31 - 1 or hkv > 65535:
+    if g * page > 2**31 - 1 or hkv > 65535:
         raise ValueError("ragged_decode: grid too large")
     out = torch.empty_like(q)
-    ws = torch.empty(g * h * (d + 2), dtype=torch.float32, device=q.device)
+    ws = None if q.dtype == torch.bfloat16 else torch.empty(
+        g * h * (d + 2), dtype=torch.float32, device=q.device)
     lib = load("ragged_decode", _SIGNATURES["ragged_decode"])
     err = lib.ragged_decode(
         _DTYPE_CODE[q.dtype], d, q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), meta.data_ptr(), context_lens.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), b, h, hkv, page, num_pages, g,
-        float(scale), stream_ptr(q.device))
+        out.data_ptr(), None if ws is None else ws.data_ptr(), b, h, hkv,
+        page, num_pages, g, float(scale), stream_ptr(q.device))
     check(err, "ragged_decode")
     count_launch("ragged_decode")
     return out
@@ -440,7 +443,8 @@ def paged_attention_varq_kernel(q, k_pages, v_pages, kv_lens, q_lens, scale,
     else:
         pps, g = 0, meta.shape[1]
     rows = _VARQ_MAX_GROUP // (h // hkv)            # span rows per tile
-    if -(-qb // rows) > 2**31 - 1 or hkv > 65535:
+    if -(-qb // rows) > 2**31 - 1 or hkv > 65535 \
+            or max(pps, g) * page > 2**31 - 1:
         raise ValueError("paged_varq: grid too large")
     out = torch.empty_like(q)
     lib = load("paged_varq", _SIGNATURES["paged_varq"])

@@ -281,13 +281,15 @@ def test_library_path_follows_headers(tmp_path, monkeypatch):
         shutil.copy(f, tmp_path)
     monkeypatch.setattr(_build, "SRC_DIR", tmp_path)
     names = sorted(f.stem for f in tmp_path.glob("*.cu"))
-    assert "flash_fwd" in names and list(tmp_path.glob("*.cuh"))
-    before = {n: _build.library_path(n) for n in names}
-    assert before == {n: _build.library_path(n) for n in names}
-    hdr = next(tmp_path.glob("*.cuh"))
-    hdr.write_text(hdr.read_text() + "\n// edited\n")
+    headers = sorted(tmp_path.glob("*.cuh"))
+    assert "flash_fwd" in names and len(headers) >= 2
     after = {n: _build.library_path(n) for n in names}
-    assert all(after[n] != before[n] for n in names)
+    assert after == {n: _build.library_path(n) for n in names}
+    for hdr in headers:                 # wgmma.cuh, decode_split.cuh
+        before = after
+        hdr.write_text(hdr.read_text() + "\n// edited\n")
+        after = {n: _build.library_path(n) for n in names}
+        assert all(after[n] != before[n] for n in names), hdr.name
     src = tmp_path / "paged_decode.cu"
     src.write_text(src.read_text() + "\n// edited\n")
     again = {n: _build.library_path(n) for n in names}

@@ -155,6 +155,26 @@ def _builder_meta(tables, post_lens, page):
     return builder.meta()
 
 
+def _interleaved_meta(tables, lens, page):
+    """Each sequence's entries in reverse sequence order, with padding
+    entries (valid == 0, aliasing live pages and other sequences)
+    between and inside the sequences' ranges: a layout the reference's
+    sequential kernel accepts that no builder produces."""
+    meta = {k: [] for k in FIELDS}
+
+    def add(seq, page_id, ordinal, first, last, valid):
+        for k, x in zip(FIELDS, (seq, page_id, ordinal, first, last, valid)):
+            meta[k].append(x)
+    for s in reversed(range(len(lens))):
+        n = -(-int(lens[s]) // page)
+        add((s + 1) % len(lens), int(tables[0, 0]), 0, 0, 0, 0)
+        for o in range(n):
+            add(s, int(tables[s, o]), o, int(o == 0), int(o == n - 1), 1)
+            if o == 0 and n > 1:        # padding inside the range
+                add(s, int(tables[s, 1]), 1, 0, 0, 0)
+    return {k: np.asarray(v, np.int32) for k, v in meta.items()}
+
+
 @pytest.mark.parametrize("layout", ["builder", "compact"])
 def test_ragged_plain_matches_reference(interpret, layout):
     """H = Hkv = 8, D = 128 (the Pallas kernel's geometry): the plain
@@ -210,6 +230,30 @@ def test_ragged_plain_zero_rows_and_padding_entries(interpret):
         **TOL)
 
 
+@pytest.mark.parametrize("lens", [[30, 0, 17], [17, 9, 1]])
+def test_ragged_plain_interleaved_meta_matches_reference(interpret, lens):
+    """Sequences in reverse order with padding entries between and inside
+    their ranges (the card kernel walks a sequence's range and skips
+    them), and sequences whose one valid key opens their last page:
+    against the interpret-mode `_ragged_kernel` and the XLA block-table
+    path."""
+    from paddle_tpu.kernels.paged_attention import (
+        _paged_attention_xla, paged_attention_ragged as ref_ragged)
+    rs = np.random.RandomState(9)
+    kp, vp, tables = _pool(rs, 8, 8, 128)
+    q = (rs.randn(3, 8, 128) * 0.3).astype(np.float32)
+    lens = np.asarray(lens, np.int32)
+    meta = _interleaved_meta(tables, lens, 8)
+    got = paged_attention_ragged(*_t(q, kp, vp, lens), _m(meta)).numpy()
+    pallas = np.asarray(ref_ragged(_j(q), _j(kp), _j(vp), lens, meta))
+    xla = np.asarray(_paged_attention_xla(_j(q), _j(kp), _j(vp),
+                                          _j(tables), _j(lens),
+                                          128 ** -0.5))
+    np.testing.assert_allclose(got, pallas, **TOL)
+    np.testing.assert_allclose(got[lens > 0], xla[lens > 0], **TOL)
+    assert not got[lens == 0].any()
+
+
 # ------------------------------------------------------- varq (spans) --
 
 # the spans of tests/test_mixed_step.py: a 2-page chunk, a decode token
@@ -257,6 +301,30 @@ def test_varq_plain_gqa_matches_reference_xla():
     meta = _m(_builder_meta(tables, kl, 8))
     got_m = paged_attention_ragged_varq(*_t(q, kp, vp, kl, ql), meta).numpy()
     np.testing.assert_allclose(got_m, want, **TOL)
+
+
+@pytest.mark.parametrize("source", ["table", "meta"])
+def test_varq_plain_long_spans_match_reference_xla(source):
+    """The card tests' span shapes at a small width: a span crossing
+    64-row query tiles whose first key tile is partial, a short chunk, a
+    decode row; GQA 2, head_dim 64."""
+    from paddle_tpu.kernels.paged_attention import _paged_attention_varq_xla
+    rs = np.random.RandomState(10)
+    kp, vp, tables = _pool(rs, 4, 2, 64, pps=16)
+    tables[:] = rs.permutation(kp.shape[0])[:tables.size].reshape(
+        tables.shape)
+    q = (rs.randn(3, 80, 4, 64) * 0.3).astype(np.float32)
+    kl = np.asarray([107, 60, 33], np.int32)
+    ql = np.asarray([70, 5, 1], np.int32)
+    want = np.asarray(_paged_attention_varq_xla(
+        _j(q), _j(kp), _j(vp), _j(tables), kl, ql, 64 ** -0.5))
+    if source == "table":
+        got = paged_attention_varq(*_t(q, kp, vp, tables, kl, ql)).numpy()
+    else:
+        got = paged_attention_ragged_varq(
+            *_t(q, kp, vp, kl, ql), _m(_builder_meta(tables, kl, 8))).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    assert not got[0, 70:].any() and not got[1, 5:].any()
 
 
 def test_varq_single_token_spans_equal_ragged_decode():
@@ -327,58 +395,93 @@ CARD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
             torch.bfloat16: dict(atol=5e-3, rtol=2e-2)}
 
 
-def _card_pool(rs, h, hkv, d, dtype, dev):
-    kp, vp, tables = _pool(rs, h, hkv, d)
+# GQA groups 1, 4 and 8 at head_dim 64 and 128
+CARD_GEOMS = [(8, 8, 128), (8, 8, 64), (8, 2, 64), (32, 8, 128), (32, 4, 64),
+              (32, 4, 128)]
+
+
+def _card_pool(rs, h, hkv, d, dtype, dev, page=8, pps=6, b=3):
+    """A pool of b * pps + 1 pages and b shuffled block-table rows."""
+    p = b * pps + 1
+    kp, vp = ((rs.randn(p, page, hkv, d) * 0.3).astype(np.float32)
+              for _ in range(2))
+    tables = rs.permutation(p)[:b * pps].reshape(b, pps).astype(np.int32)
     return (torch.from_numpy(kp).to(dev, dtype),
             torch.from_numpy(vp).to(dev, dtype), tables)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,hkv,d", [(8, 8, 128), (8, 2, 64), (32, 8, 128)])
-def test_ragged_kernel_matches_plain(cuda, dtype, h, hkv, d):
+@pytest.mark.parametrize("page", [8, 16])
+@pytest.mark.parametrize("h,hkv,d", CARD_GEOMS)
+def test_ragged_kernel_matches_plain(cuda, dtype, page, h, hkv, d):
+    """Contexts over several cluster ranks ending mid-page, a zero row,
+    a sequence whose one valid key opens its last page, and a single key;
+    builder, compact-bucketed and interleaved metas; a second launch is
+    bitwise the first."""
     rs = np.random.RandomState(5)
-    kp, vp, tables = _card_pool(rs, h, hkv, d, dtype, cuda)
-    q = torch.from_numpy(rs.randn(3, h, d).astype(np.float32)).to(cuda,
+    kp, vp, tables = _card_pool(rs, h, hkv, d, dtype, cuda, page, 48, 4)
+    q = torch.from_numpy(rs.randn(4, h, d).astype(np.float32)).to(cuda,
                                                                  dtype)
-    lens = np.asarray([30, 0, 17], np.int32)
-    for meta in (_builder_meta(tables, lens, 8),
-                 build_ragged_meta(tables, lens, 8, bucket_to=24)):
+    lens = np.asarray([323, 0, 2 * page + 1, 1], np.int32)
+    cl = torch.from_numpy(lens).to(cuda)
+    for meta in (_builder_meta(tables, lens, page),
+                 build_ragged_meta(tables, lens, page, bucket_to=64),
+                 _interleaved_meta(tables, lens, page)):
         m = _m(meta, cuda)
-        cl = torch.from_numpy(lens).to(cuda)
         got = paged_attention_ragged_kernel(q, kp, vp, cl, m, 0.1)
         want = paged_attention_ragged_plain(q, kp, vp, cl, m, 0.1)
         torch.testing.assert_close(got.float(), want.float(),
                                    **CARD_TOL[dtype])
         assert not got[1].any()
+        assert torch.equal(paged_attention_ragged_kernel(q, kp, vp, cl, m,
+                                                         0.1), got)
+
+
+def _varq_card_check(q, kp, vp, kl, ql, tables, page, dtype):
+    """The kernel against its plain version through the block table and
+    through the meta, padding rows zero, a second launch bitwise equal;
+    returns the meta."""
+    bt = torch.from_numpy(tables).to(q.device)
+    m = _m(_builder_meta(tables, kl.cpu().numpy(), page), q.device)
+    pad = torch.arange(q.shape[1], device=q.device)[None] >= ql[:, None]
+    for src, plain in ((dict(block_tables=bt),
+                        lambda: paged_attention_varq_plain(q, kp, vp, bt, kl,
+                                                           ql, 0.1)),
+                       (dict(meta=m),
+                        lambda: paged_attention_ragged_varq_plain(
+                            q, kp, vp, kl, ql, m, 0.1))):
+        got = paged_attention_varq_kernel(q, kp, vp, kl, ql, 0.1, **src)
+        torch.testing.assert_close(got.float(), plain().float(),
+                                   **CARD_TOL[dtype])
+        assert not got[pad].any() and not got[kl <= 0].any()
+        assert torch.equal(
+            paged_attention_varq_kernel(q, kp, vp, kl, ql, 0.1, **src), got)
+    return m
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,hkv,d", [(8, 8, 128), (8, 2, 64), (32, 8, 128)])
-def test_varq_kernel_matches_plain(cuda, dtype, h, hkv, d):
+@pytest.mark.parametrize("page", [8, 16])
+@pytest.mark.parametrize("h,hkv,d", CARD_GEOMS)
+def test_varq_kernel_matches_plain(cuda, dtype, page, h, hkv, d):
+    """Mixed spans (one crossing 64-row tiles and starting mid key tile,
+    a short chunk, a decode row, a kv_lens == 0 slot), then 5-row verify
+    spans (one query tile per slot: the cluster-split walk), then
+    single-token spans against the ragged decode kernel."""
     rs = np.random.RandomState(6)
-    kp, vp, tables = _card_pool(rs, h, hkv, d, dtype, cuda)
-    q = torch.from_numpy(rs.randn(3, SPANS["qb"], h, d).astype(
-        np.float32)).to(cuda, dtype)
-    kl, ql = (torch.from_numpy(SPANS[k]).to(cuda)
-              for k in ("kv_lens", "q_lens"))
-    bt = torch.from_numpy(tables).to(cuda)
-    got = paged_attention_varq_kernel(q, kp, vp, kl, ql, 0.1,
-                                      block_tables=bt)
-    torch.testing.assert_close(
-        got.float(), paged_attention_varq_plain(q, kp, vp, bt, kl, ql,
-                                                0.1).float(),
-        **CARD_TOL[dtype])
-    m = _m(_builder_meta(tables, SPANS["kv_lens"], 8), cuda)
-    got_m = paged_attention_varq_kernel(q, kp, vp, kl, ql, 0.1, meta=m)
-    torch.testing.assert_close(
-        got_m.float(), paged_attention_ragged_varq_plain(
-            q, kp, vp, kl, ql, m, 0.1).float(), **CARD_TOL[dtype])
-    assert not got[1, 1:].any() and not got[2, 5:].any()
-    assert not got_m[1, 1:].any() and not got_m[2, 5:].any()
-    # single-token spans against the ragged decode kernel
-    ones = torch.ones_like(ql)
+    kp, vp, tables = _card_pool(rs, h, hkv, d, dtype, cuda, page, 48, 4)
+
+    def span_case(qb, q_lens, kv_lens):
+        q = torch.from_numpy(rs.randn(4, qb, h, d).astype(np.float32)).to(
+            cuda, dtype)
+        kl, ql = (torch.tensor(x, dtype=torch.int32, device=cuda)
+                  for x in (kv_lens, q_lens))
+        return q, kl, ql, _varq_card_check(q, kp, vp, kl, ql, tables, page,
+                                           dtype)
+    span_case(96, [80, 20, 1, 3], [117, 83, 130, 0])
+    q, kl, _, m = span_case(5, [5, 5, 5, 5], [301, 150, 37, 5])
+    ones = torch.ones_like(kl)
     dec = paged_attention_ragged_kernel(q[:, 0].contiguous(), kp, vp, kl, m,
                                         0.1)
     span = paged_attention_varq_kernel(q[:, :1].contiguous(), kp, vp, kl,

@@ -17,7 +17,13 @@ shapes ``chip_smoke.py`` uses:
 - ``flash_bwd_dkdv`` and ``flash_bwd_dq`` bf16 at q[2, 2048, 32, 128]
   causal, f32 at BERT's shape;
 - ``paged_decode`` bf16 and f32 at q[4, 32, 128], contexts 557 / 300 /
-  97 / 1, page 16, 64 pages per sequence.
+  97 / 1, page 16, 64 pages per sequence, and ``ragged_decode`` bf16 on
+  the same inputs through the serving loop's meta (G = 256);
+- ``paged_varq`` bf16 at the mixed shape q[4, 256, 32, 128], q_lens 256 /
+  1 / 1 / 97, kv_lens 512 / 301 / 98 / 97, and the verify shape
+  q[4, 5, 32, 128], q_lens 5 / 5 / 5 / 5, kv_lens 561 / 305 / 101 / 5;
+- ``rms_norm`` bf16 at x[2048, 4096] and ``layer_norm`` bf16 at
+  x[2048, 768] (Triton).
 
 Prints the card and one JSON object {kernel and shape: ms}. Needs one
 CUDA device and nvcc; imports nothing of JAX.
@@ -46,6 +52,7 @@ def main(argv=None):
         print("kernel_times: needs a CUDA device", file=sys.stderr)
         return 2
     from paddle_tpu_torch.kernels import attention as A
+    from paddle_tpu_torch.kernels import norm as N
     from paddle_tpu_torch.kernels import paged_attention as P
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -104,13 +111,35 @@ def main(argv=None):
     ctx = torch.tensor([557, 300, 97, 1], dtype=torch.int32, device=dev)
     tables = torch.randperm(257, device=dev, generator=g)[:256].reshape(
         4, 64).to(torch.int32).contiguous()
-    for dt in (torch.bfloat16, torch.float32):
+    for dt in (torch.float32, torch.bfloat16):   # bf16 pages kept below
         q = rnd((4, 32, 128), dt)
         pages = [tuple(rnd((257, 16, 32, 128), dt) for _ in range(2))
                  for _ in range(4)]
         med(f"paged_decode {short[dt]} q[4, 32, 128] ctx 557/300/97/1",
             lambda kp, vp: P.paged_attention_kernel(q, kp, vp, tables, ctx,
                                                     128 ** -0.5), pages)
+    meta = S._builder_meta(torch, dev, tables, ctx, 16)
+    med("ragged_decode bf16 q[4, 32, 128] ctx 557/300/97/1 G=256",
+        lambda kp, vp: P.paged_attention_ragged_kernel(q, kp, vp, ctx, meta,
+                                                       128 ** -0.5), pages)
+    for qb, q_lens, kv_lens in ((256, [256, 1, 1, 97], [512, 301, 98, 97]),
+                                (5, [5, 5, 5, 5], [561, 305, 101, 5])):
+        q = rnd((4, qb, 32, 128), torch.bfloat16)
+        ql, kl = (torch.tensor(x, dtype=torch.int32, device=dev)
+                  for x in (q_lens, kv_lens))
+        meta = S._builder_meta(torch, dev, tables, kl, 16)
+        med(f"paged_varq bf16 q[4, {qb}, 32, 128] kv_lens "
+            f"{'/'.join(map(str, kv_lens))}",
+            lambda kp, vp: P.paged_attention_varq_kernel(
+                q, kp, vp, kl, ql, 128 ** -0.5, meta=meta), pages)
+    for name, n, fn in (("rms_norm", 4096, lambda x, w, b: N.rms_norm_kernel(
+                            x, w, 1e-6)),
+                        ("layer_norm", 768, lambda x, w, b:
+                         N.layer_norm_kernel(x, w, b, 1e-12))):
+        # 8 row blocks of 2048 rows: 134 MB at 4096 features
+        sets = [(rnd((2048, n), torch.bfloat16), rnd((n,), torch.bfloat16),
+                 rnd((n,), torch.bfloat16)) for _ in range(8)]
+        med(f"{name} bf16 x[2048, {n}]", fn, sets)
     print(json.dumps(times), flush=True)
     return 0
 

@@ -1,11 +1,19 @@
 #!/usr/bin/env python3
-"""Design variants of the port's bf16 flash-attention forward
-(``paddle_tpu_torch/csrc/flash_fwd.cu``) and bf16 paged decode
-(``paddle_tpu_torch/csrc/paged_decode.cu``), built side by side on one GPU.
+"""Design variants of the port's bf16 attention kernels, built side by
+side on one GPU: the flash-attention forward (``csrc/flash_fwd.cu``),
+paged decode (``csrc/paged_decode.cu``), ragged decode
+(``csrc/ragged_decode.cu``; both decode kernels run the cluster-split
+walk of ``csrc/decode_split.cuh``) and the variable-query span kernel
+(``csrc/paged_varq.cu``).
 
-    python3 tools/kernel_variants.py [--iters 24]
+    python3 tools/kernel_variants.py [--iters 24] [--only NAME,...]
+                                     [--parent DIR]
 
-Each variant is the shipped source with one choice changed:
+``--only`` picks sections (flash_fwd, paged_decode, ragged_decode,
+paged_varq; default all). ``--parent`` names a checkout of another
+commit (``git archive`` of it unpacked anywhere): its ragged decode and
+span kernels are built and timed beside these as ``parent``. Each
+variant is the shipped source with one choice changed:
 
 - ``flash_fwd wgW_bnN``: W warpgroups (64 query rows each) per CTA and
   key tiles of N keys (``kFwdWG``, ``kFwdBN``), W in {1, 2}, N in
@@ -15,11 +23,16 @@ Each variant is the shipped source with one choice changed:
   off) instead of bf16 hi + lo parts. ``wg1_bn64_l2_mask``: the mask read
   from L2 into registers in the accumulator layout where the shipped
   kernel stages it through shared memory by cp.async.
-- ``paged_decode clusterC``: each (sequence, KV head) walk split over at
-  most C CTAs (``kMaxCluster``), C in {1, 2, 4, 8}; 1 is one CTA walking
-  the whole context, as before the split; 4 is shipped.
-  ``cluster4_chunk64``: 64-token ring stages (``kSplitChunk``) instead of
-  32.
+- ``paged_decode clusterC`` and ``ragged_decode clusterC``: each
+  (sequence, KV head) walk split over at most C CTAs (``kMaxCluster``),
+  C in {1, 2, 4} (and 8 for paged decode); 1 is one CTA walking the
+  whole context; 4 is shipped. ``cluster4_chunk64``: 64-key ring stages
+  (``kSplitChunk``) instead of 32.
+- ``paged_varq``: ``shipped`` (P as bf16 hi + lo, a 2-stage K/V ring,
+  one-tile spans split over up to 2 CTAs), ``single_bf16_p``
+  (``kVarqSplitP`` off), ``stages3`` (``kVarqStages`` 3: two tiles of
+  gathers in flight) and ``clusterC``, C in {1, 4} (``kVarqMaxCluster``:
+  1 walks a one-tile span's whole context in one CTA).
 
 Every variant is compiled with the same nvcc flags as the package and
 called through the same C entries. Prints, per variant, the largest
@@ -29,11 +42,16 @@ events around each call, inputs rotating past the 50 MB L2) at the
 shapes of ``chip_smoke.py``: flash at q[4, 512, 32, 128] causal + a
 prefill mask and at the training shape q[2, 2048, 32, 128] causal (its
 error over four input draws, with the first elements outside the
-tolerance); paged decode at q[4, 32, 128] with contexts 557 / 300 / 97 /
-1 and at a long context of 1024 / 1000 / 700 / 333 (page 16, 64 pages
-per sequence). Beside them: each flash variant at the first shape
-without its mask (what the mask costs), SDPA at both flash shapes, and ``ragged_decode`` on the paged
-inputs. Needs one CUDA device and nvcc; imports nothing of JAX.
+tolerance); paged and ragged decode at q[4, 32, 128] with contexts 557 /
+300 / 97 / 1 and at a long context of 1024 / 1000 / 700 / 333 (page 16,
+64 pages per sequence, the ragged meta as the serving loop builds it,
+G = 256); the span kernel at the mixed shape q[4, 256, 32, 128], q_lens
+256 / 1 / 1 / 97, kv_lens 512 / 301 / 98 / 97, and at the verify shape
+q[4, 5, 32, 128], q_lens 5 / 5 / 5 / 5, kv_lens 561 / 305 / 101 / 5
+(through the meta). Beside them: each flash variant at the first shape
+without its mask (what the mask costs), SDPA at both flash shapes, and
+the shipped paged decode on the ragged inputs. Needs one CUDA device and
+nvcc; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -51,41 +69,54 @@ TOL = dict(atol=5e-3, rtol=2e-2)
 NEG = -1e30
 
 
-def variants(path, consts):
-    """{name: source} of the file with each listed constant set; raises
-    if a constant's shipped line is no longer in the source."""
-    with open(path) as f:
-        src = f.read()
+def variants(csrc, target, consts):
+    """{name: {file: text}} of the sources a variant build needs: the
+    target ``.cu`` and every file of ``csrc`` a constant of the variant
+    lives in, each listed (file, old, new) substitution applied; raises
+    if a substitution's shipped text is no longer in its file."""
     out = {}
     for name, subs in consts.items():
-        text = src
-        for old, new in subs:
+        files = {target: None}
+        for fname, old, new in subs:
+            text = files.get(fname)
+            if text is None:
+                with open(os.path.join(csrc, fname)) as f:
+                    text = f.read()
             if old not in text:
-                raise RuntimeError(f"pattern not in {path}: {old!r}")
-            text = text.replace(old, new)
-        out[name] = text
+                raise RuntimeError(f"pattern not in {fname}: {old!r}")
+            files[fname] = text.replace(old, new)
+        if files[target] is None:
+            with open(os.path.join(csrc, target)) as f:
+                files[target] = f.read()
+        out[name] = files
     return out
 
 
-def build(sources, out_dir, signatures):
-    """Compile every variant in parallel; returns {name: ctypes library}."""
+def build(sources, out_dir, signatures, include):
+    """Compile every variant in parallel, each in a directory of its own
+    holding its changed files (they shadow those of ``include``, a
+    ``csrc`` directory); returns {name: ctypes library}."""
     from paddle_tpu_torch.kernels import _build
     procs = {}
-    for name, text in sources.items():
-        cu = os.path.join(out_dir, f"{name}.cu")
-        with open(cu, "w") as f:
-            f.write(text)
+    for name, files in sources.items():
+        vdir = os.path.join(out_dir, name.replace(" ", "_"))
+        os.makedirs(vdir, exist_ok=True)
+        for fname, text in files.items():
+            with open(os.path.join(vdir, fname), "w") as f:
+                f.write(text)
+        cu = os.path.join(vdir, next(f for f in files if f.endswith(".cu")))
         procs[name] = subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
-             str(_build.SRC_DIR), "-o", os.path.join(out_dir, f"{name}.so"),
-             cu], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", vdir, "-I",
+             str(include), "-o", os.path.join(vdir, "lib.so"), cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
         out, _ = proc.communicate()
         if proc.returncode:
             print(f"{name}: nvcc failed, skipped:\n{out}", flush=True)
             continue
-        lib = ctypes.CDLL(os.path.join(out_dir, f"{name}.so"))
+        lib = ctypes.CDLL(os.path.join(out_dir, name.replace(" ", "_"),
+                                       "lib.so"))
         for fn, argtypes in signatures.items():
             f = getattr(lib, fn)
             f.argtypes, f.restype = list(argtypes), ctypes.c_int
@@ -93,10 +124,21 @@ def build(sources, out_dir, signatures):
     return libs
 
 
+SECTIONS = ("flash_fwd", "paged_decode", "ragged_decode", "paged_varq")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=24)
+    ap.add_argument("--only", default=",".join(SECTIONS),
+                    help="comma-separated sections to run")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout whose ragged decode and span kernels "
+                         "are timed beside these")
     args = ap.parse_args(argv)
+    only = set(args.only.split(","))
+    if only - set(SECTIONS):
+        ap.error(f"unknown sections {sorted(only - set(SECTIONS))}")
     import torch
     if not torch.cuda.is_available():
         print("kernel_variants: needs a CUDA device", file=sys.stderr)
@@ -111,26 +153,60 @@ def main(argv=None):
     csrc = os.path.join(REPO, "paddle_tpu_torch", "csrc")
     wg, bn = "constexpr int kFwdWG = 1;", "constexpr int kFwdBN = 64;"
     st = "constexpr int kFwdStages = 2;"
-    fwd_consts = {f"wg{w}_bn{n}": [(wg, f"constexpr int kFwdWG = {w};"),
-                                   (bn, f"constexpr int kFwdBN = {n};")]
+    fwd = "flash_fwd.cu"
+    fwd_consts = {f"wg{w}_bn{n}": [(fwd, wg, f"constexpr int kFwdWG = {w};"),
+                                   (fwd, bn, f"constexpr int kFwdBN = {n};")]
                   for w in (1, 2) for n in (64, 128)}
-    fwd_consts["wg1_bn64_3stages"] = [(st, "constexpr int kFwdStages = 3;")]
+    fwd_consts["wg1_bn64_3stages"] = [
+        (fwd, st, "constexpr int kFwdStages = 3;")]
     fwd_consts["wg1_bn64_single_bf16_p"] = [(
-        "constexpr bool kFwdSplitP = true;",
+        fwd, "constexpr bool kFwdSplitP = true;",
         "constexpr bool kFwdSplitP = false;")]
     fwd_consts["wg1_bn64_l2_mask"] = [(
-        "  const int stage = kFwdWG == 1 && mask",
+        fwd, "  const int stage = kFwdWG == 1 && mask",
         "  const int stage = false && mask")]
-    fwd_src = variants(os.path.join(csrc, "flash_fwd.cu"), fwd_consts)
+    split = "decode_split.cuh"
     cl = "constexpr int kMaxCluster = 4;"
-    paged_consts = {f"cluster{c}": [(cl, f"constexpr int kMaxCluster = {c};")]
-                    for c in (1, 2, 4, 8)}
-    paged_consts["cluster4_chunk64"] = [("constexpr int kSplitChunk = 32;",
+
+    def clusters(cs):
+        return {f"cluster{c}": [(split, cl,
+                                 f"constexpr int kMaxCluster = {c};")]
+                for c in cs}
+    paged_consts = clusters((1, 2, 4, 8))
+    paged_consts["cluster4_chunk64"] = [(split,
+                                         "constexpr int kSplitChunk = 32;",
                                          "constexpr int kSplitChunk = 64;")]
-    paged_src = variants(os.path.join(csrc, "paged_decode.cu"), paged_consts)
+    ragged_consts = clusters((1, 2, 4))
+    vq = "paged_varq.cu"
+    varq_consts = {"shipped": [], "single_bf16_p": [(
+        vq, "constexpr bool kVarqSplitP = true;",
+        "constexpr bool kVarqSplitP = false;")]}
+    varq_consts["stages3"] = [(vq, "constexpr int kVarqStages = 2;",
+                               "constexpr int kVarqStages = 3;")]
+    for c in (1, 4):
+        varq_consts[f"cluster{c}"] = [(
+            vq, "constexpr int kVarqMaxCluster = 2;",
+            f"constexpr int kVarqMaxCluster = {c};")]
     tmp = tempfile.mkdtemp(prefix="kernel_variants_")
-    fwd_libs = build(fwd_src, tmp, A._SIGNATURES)
-    paged_libs = build(paged_src, tmp, P._SIGNATURES["paged_decode"])
+    want = {"flash_fwd": (fwd, fwd_consts, A._SIGNATURES),
+            "paged_decode": ("paged_decode.cu", paged_consts,
+                             P._SIGNATURES["paged_decode"]),
+            "ragged_decode": ("ragged_decode.cu", ragged_consts,
+                              P._SIGNATURES["ragged_decode"]),
+            "paged_varq": (vq, varq_consts, P._SIGNATURES["paged_varq"])}
+    libs = {}
+    for sec in SECTIONS:
+        if sec not in only:
+            continue
+        target, consts, sig = want[sec]
+        libs[sec] = {}
+        if args.parent and sec in ("ragged_decode", "paged_varq"):
+            pdir = os.path.join(os.path.abspath(args.parent),
+                                "paddle_tpu_torch", "csrc")
+            libs[sec].update(build(variants(pdir, target, {"parent": []}),
+                                   os.path.join(tmp, sec), sig, pdir))
+        libs[sec].update(build(variants(csrc, target, consts),
+                               os.path.join(tmp, sec), sig, csrc))
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -150,7 +226,14 @@ def main(argv=None):
         return f"max abs err {float((got - want).abs().max()):.3e}, " \
                f"{int(bad.sum())} outside tolerance {where or ''}"
 
-    # ------------------------------------------------------ flash_fwd --
+    if "flash_fwd" in libs:
+        flash_section(torch, S, A, libs["flash_fwd"], dev, g, med, verdict)
+    if only & {"paged_decode", "ragged_decode", "paged_varq"}:
+        decode_sections(torch, S, A, P, libs, dev, g, med, verdict)
+    return 0
+
+
+def flash_section(torch, S, A, fwd_libs, dev, g, med, verdict):
     def fwd(lib, q, k, v, mask, causal):
         b, sq, h, d = q.shape
         m_ptr, *strides = A._mask_args(mask, k.shape[1])
@@ -201,9 +284,11 @@ def main(argv=None):
                       torch.stack(want_t))
         print(f"  serve shape {e_s}; training shape {e_t}", flush=True)
 
-    # --------------------------------------------------- paged_decode --
+
+def decode_sections(torch, S, A, P, libs, dev, g, med, verdict):
     b, d, page, pps, h, hkv = 4, 128, 16, 64, 32, 32
     num_pages = b * pps + 1
+    sc = d ** -0.5
     tables = torch.randperm(num_pages, device=dev, generator=g)[
         :b * pps].reshape(b, pps).to(torch.int32).contiguous()
     q = torch.randn(b, h, d, device=dev, generator=g).bfloat16()
@@ -211,29 +296,82 @@ def main(argv=None):
                               generator=g).bfloat16() for _ in range(2))
             for _ in range(4)]
 
+    def call(lib, fn, *args):
+        err = getattr(lib, fn)(*args, A.stream_ptr(dev))
+        if err:
+            raise RuntimeError(f"{fn}: CUDA error {err} at launch")
+
     def paged(lib, kp, vp, ctx):
         out = torch.empty_like(q)
-        err = lib.paged_decode(1, d, q.data_ptr(), kp.data_ptr(),
-                               vp.data_ptr(), tables.data_ptr(),
-                               ctx.data_ptr(), out.data_ptr(), b, h, hkv,
-                               page, pps, num_pages, d ** -0.5,
-                               A.stream_ptr(dev))
-        if err:
-            raise RuntimeError(f"paged_decode: CUDA error {err} at launch")
+        call(lib, "paged_decode", 1, d, q.data_ptr(), kp.data_ptr(),
+             vp.data_ptr(), tables.data_ptr(), ctx.data_ptr(),
+             out.data_ptr(), b, h, hkv, page, pps, num_pages, sc)
+        return out
+
+    def ragged(lib, kp, vp, ctx, meta, ws):
+        out = torch.empty_like(q)
+        call(lib, "ragged_decode", 1, d, q.data_ptr(), kp.data_ptr(),
+             vp.data_ptr(), meta.data_ptr(), ctx.data_ptr(), out.data_ptr(),
+             ws.data_ptr(), b, h, hkv, page, num_pages, meta.shape[1], sc)
         return out
 
     for ctx_list in ([557, 300, 97, 1], [1024, 1000, 700, 333]):
         ctx = torch.tensor(ctx_list, dtype=torch.int32, device=dev)
-        want = P.paged_attention_plain(q, *sets[0], tables, ctx, d ** -0.5)
+        want = P.paged_attention_plain(q, *sets[0], tables, ctx, sc)
         meta = S._builder_meta(torch, dev, tables, ctx, page)
-        t_r = med(lambda kp, vp: P.paged_attention_ragged_kernel(
-            q, kp, vp, ctx, meta, d ** -0.5), sets)
-        print(f"ragged_decode at ctx {ctx_list}: {t_r:.4f} ms", flush=True)
-        for name, lib in paged_libs.items():
+        # the parent's two-pass kernel takes a workspace in bf16 too
+        ws = torch.empty(meta.shape[1] * h * (d + 2), device=dev)
+        t_p = med(lambda kp, vp: P.paged_attention_kernel(
+            q, kp, vp, tables, ctx, sc), sets)
+        print(f"paged_decode (shipped) at ctx {ctx_list}: {t_p:.4f} ms",
+              flush=True)
+        for name, lib in libs.get("paged_decode", {}).items():
             t = med(lambda kp, vp: paged(lib, kp, vp, ctx), sets)
             print(f"paged_decode {name} ctx {ctx_list}: {t:.4f} ms; "
                   f"{verdict(paged(lib, *sets[0], ctx), want)}", flush=True)
-    return 0
+        for name, lib in libs.get("ragged_decode", {}).items():
+            t = med(lambda kp, vp: ragged(lib, kp, vp, ctx, meta, ws), sets)
+            print(f"ragged_decode {name} ctx {ctx_list} G={meta.shape[1]}: "
+                  f"{t:.4f} ms; "
+                  f"{verdict(ragged(lib, *sets[0], ctx, meta, ws), want)}",
+                  flush=True)
+    if "paged_varq" in libs:
+        varq_section(torch, S, A, P, libs["paged_varq"], dev, g, med,
+                     verdict, tables, sets, page)
+
+
+def varq_section(torch, S, A, P, libs, dev, g, med, verdict, tables, sets,
+                 page):
+    b, pps = tables.shape
+    num_pages, _, hkv, d = sets[0][0].shape
+    h, sc = 32, d ** -0.5
+    for qb, q_lens, kv_lens in ((256, [256, 1, 1, 97], [512, 301, 98, 97]),
+                                (5, [5, 5, 5, 5], [561, 305, 101, 5])):
+        q = torch.randn(b, qb, h, d, device=dev, generator=g).bfloat16()
+        ql, kl = (torch.tensor(x, dtype=torch.int32, device=dev)
+                  for x in (q_lens, kv_lens))
+        meta = S._builder_meta(torch, dev, tables, kl, page)
+        rows = torch.arange(qb, device=dev)[None, :] < ql[:, None]
+        want = P.paged_attention_ragged_varq_plain(q, *sets[0], kl, ql, meta,
+                                                   sc)
+
+        def run(lib, kp, vp):
+            out = torch.empty_like(q)
+            err = lib.paged_varq(1, d, q.data_ptr(), kp.data_ptr(),
+                                 vp.data_ptr(), None, meta.data_ptr(),
+                                 kl.data_ptr(), ql.data_ptr(), out.data_ptr(),
+                                 b, qb, h, hkv, page, pps, num_pages,
+                                 meta.shape[1], sc, A.stream_ptr(dev))
+            if err:
+                raise RuntimeError(f"paged_varq: CUDA error {err} at launch")
+            return out
+        b_ms, by = S.varq_bound(q, ql, kl, hkv, meta)
+        print(f"paged_varq at q[{b}, {qb}, {h}, {d}] q_lens {q_lens} kv_lens "
+              f"{kv_lens}: bound {b_ms:.4f} ms ({by})", flush=True)
+        for name, lib in libs.items():
+            t = med(lambda kp, vp: run(lib, kp, vp), sets)
+            print(f"paged_varq {name} qb {qb}: {t:.4f} ms; "
+                  f"{verdict(run(lib, *sets[0]), want, rows)}", flush=True)
 
 
 if __name__ == "__main__":
