@@ -29,7 +29,14 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    (5-row spans over 561 / 305 / 101 / 5 keys), and the f32 instances of
    both decode kernels at their bf16 shapes. A second bf16 launch of the
    backward, ragged-decode and variable-query kernels must equal the
-   first bit for bit.
+   first bit for bit. Then the fused optimizer's two CUDA kernels
+   (``fused_update``, ``grad_sq_norm``) against their plain versions for
+   one AdamW step with a global-norm clip, at one Llama-2-7B layer's
+   tensors plus the embedding in bf16 with f32 master weights and at
+   BERT-base's 201 tensors in f32, a second kernel step from an equal
+   copy bit for bit equal; each timed beside its bound, its plain version
+   and ``torch._fused_adamw_`` / ``torch._foreach_norm`` on the same
+   tensors.
 3. Full-width f32 checks: a 2-layer model at Llama-2-7B widths gives the
    same prefill logits on the card (kernels) as on the CPU (plain
    versions) and the same greedy tokens through the predictor; the
@@ -57,14 +64,16 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
 5. Fine-tune, through ``paddle_tpu_torch/examples/bert_finetune.py``:
    BERT-base, 30 steps at batch 16 x 128 with row lengths 32-128 through
    ``attention_mask``, every dropout 0.1; then ERNIE-3.0-base for 6
-   steps. Every loss finite, and per step 25 LayerNorm launches and 12 of
-   each flash kernel. Prints step time, tokens/s, MFU (f32 peak) and
-   peak memory, and profiles one step.
+   steps. Every loss finite, and per step 25 LayerNorm launches, 12 of
+   each flash kernel and one ``fused_update`` (the eager ``opt.step()``).
+   Prints step time, tokens/s, MFU (f32 peak) and peak memory, and
+   profiles one step.
 6. Train: Llama-2-7B widths in bf16, 8 of 32 layers (AdamW's f32 master
    weights and moments take 16 bytes per parameter: all 32 layers would
    need 108 GB), through ``Trainer`` for 6 steps at batch 2 x 2048 on one
    fixed batch: every loss finite, the last below the first, and each
-   kernel launched its per-layer count every step. Prints step time,
+   kernel launched its per-layer count every step (``fused_update`` and
+   ``grad_sq_norm`` once a step, through ``TrainStep``). Prints step time,
    tokens/s, MFU and peak memory, and profiles one step. Then checkpoint
    and resume on a 2-layer hidden-1024 bf16 model: a fresh Trainer
    resumed from the step-4 checkpoint reaches the uninterrupted run's
@@ -180,14 +189,14 @@ def bound(nbytes, ops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(torch, name, got, want, dtype, rows=None):
+def compare(torch, name, got, want, dtype, rows=None, tol=None):
     got, want = got.float(), want.float()
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
     if rows is not None:
         got, want = got[rows], want[rows]
     err = float((got - want).abs().max())
     rms = float(want.square().mean().sqrt())
-    tol = TOL[dtype]
+    tol = TOL[dtype] if tol is None else tol
     ok = torch.allclose(got, want, **tol)
     log(f"  {name}: max_abs_err={err:.3e}, reference rms {rms:.3e} "
         f"(atol={tol['atol']}, rtol={tol['rtol']}) "
@@ -798,6 +807,194 @@ def ln_phase(torch, dev, g):
     return rows
 
 
+# fused optimizer kernels vs plain on the card. f32 buffers (masters,
+# moments, f32 parameters): the same ops in the same order (IEEE division
+# and square root, no FMA contraction), so only powf and the global
+# norm's summation order may differ, by a few ulps. bf16 parameters, cast
+# down from the masters: one bf16 ulp where a master sits at a rounding
+# boundary. atol is held relative to each buffer's largest magnitude
+# (capped at 1): after one clipped step moment2 is ~1e-11 and moment1
+# ~1e-5, so an absolute atol would let a kernel that never stores them pass
+OPT_TOL = {"float32": dict(atol=1e-6, rtol=1e-5),
+           "bfloat16": dict(atol=1e-5, rtol=8e-3)}
+
+
+def scaled_close(torch, got, want, atol, rtol):
+    """``torch.allclose`` with atol times min(1, want's largest finite
+    magnitude): each buffer is held at its own size, none more loosely
+    than at atol."""
+    got, want = got.float(), want.float()
+    fin = want[torch.isfinite(want)]
+    size = min(1.0, float(fin.abs().max())) if fin.numel() else 1.0
+    return torch.allclose(got, want, atol=atol * size, rtol=rtol)
+
+
+def llama_layer_shapes():
+    """One Llama-2-7B decoder layer's weights plus the embedding table."""
+    h, f, v = 4096, 11008, 32000
+    return [(h, h)] * 4 + [(f, h), (f, h), (h, f), (h,), (h,), (v, h)]
+
+
+def bert_shapes(torch):
+    from paddle_tpu_torch.models import (BertConfig,
+                                         BertForSequenceClassification)
+    model = BertForSequenceClassification(BertConfig(num_labels=4),
+                                          device="meta")
+    return [tuple(p.shape) for p in model.parameters()]
+
+
+def _opt_copy(torch, dev, shapes, dtype, seed):
+    """Parameters, gradients and an AdamW (lr 1e-4, wd 0.1 on matrices,
+    global-norm clip 1.0, which the gradients' norm engages) with its
+    fused plan, all drawn from ``seed``: two calls give equal copies."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.fused import fused_plan
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ps = [torch.nn.Parameter((0.02 * torch.randn(s, device=dev, generator=g))
+                             .to(dtype)) for s in shapes]
+    grads = [(0.01 * torch.randn(s, device=dev, generator=g)).to(dtype)
+             for s in shapes]
+    opt = AdamW(learning_rate=1e-4, parameters=ps, weight_decay=0.1,
+                grad_clip=ClipGradByGlobalNorm(1.0),
+                apply_decay_param_fun=lambda n: len(shapes[int(n[5:])]) > 1)
+    plan = fused_plan(opt, ps, grads)
+    check(plan is not None, "the optimizer phase's AdamW did not fuse")
+    return ps, grads, opt, plan
+
+
+def _opt_buffers(ps, opt):
+    return [("param", p.detach()) for p in ps] + [
+        (k, v) for p in ps for k, v in sorted(opt._state_of(p).items())]
+
+
+def optimizer_shape(torch, dev, label, shapes, dtype, seed):
+    """fused_update and grad_sq_norm against their plain versions for one
+    AdamW step on one set of tensors; a second kernel step from an equal
+    copy equals the first bit for bit; then times, bounds and the
+    library calls. Returns {kernel: row}."""
+    from paddle_tpu_torch.kernels import fused_optimizer as fk
+    n = sum(math.prod(s) for s in shapes)
+    desc = (f"{label}: {len(shapes)} tensors, {n / 1e6:.1f} M parameters, "
+            f"{dtype}{' with f32 master weights' if dtype != 'float32' else ''}")
+    dt = getattr(torch, dtype)
+    runs = []
+    for how in ("kernel", "plain", "kernel"):
+        ps, grads, opt, plan = _opt_copy(torch, dev, shapes, dt, seed)
+        lr = opt._lr_operand(dev)
+        if how == "kernel":
+            sq, scales = fk.grad_sq_norm(plan.table, grads)
+            fk.fused_update(plan.table, grads, lr, scales)
+        else:
+            sq, scales = fk.grad_sq_norm_plain(plan.table, grads)
+            fk.fused_update_plain(plan.table, grads, lr, scales)
+        torch.cuda.synchronize()
+        runs.append([("sq", sq), ("scales", scales)] + _opt_buffers(ps, opt))
+        if how == "plain":
+            errs = {}
+            for (k, a), (_, b) in zip(runs[0], runs[1]):
+                kdt = "bfloat16" if a.dtype == torch.bfloat16 else "float32"
+                tol = (dict(atol=0.0, rtol=1e-5) if k in ("sq", "scales")
+                       else OPT_TOL[kdt])
+                ok = scaled_close(torch, a, b, **tol)
+                e = float((a.float() - b.float()).abs().max())
+                errs[k] = max(errs.get(k, 0.0), e)
+                check(bool(torch.isfinite(a.float()).all()) and ok,
+                      f"{desc}: {k} differs from the plain version by {e:.3e}"
+                      f" (largest {float(b.float().abs().max()):.3e}; {tol})")
+            log(f"  fused optimizer, {desc}: kernel vs plain max_abs_err "
+                + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+                + f"; global norm {float(sq.sum().sqrt()):.3f}, scale "
+                f"{float(scales[0]):.5f}")
+            del runs[1][:]
+            del ps, grads, opt, plan, sq, scales
+            free_card(torch)
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(runs[0], runs[2]))
+    log(f"  fused optimizer, {desc}: a second kernel step equals the first "
+        f"bit for bit: {same}")
+    check(same, f"{desc}: two kernel steps from one start differ")
+    del runs
+    free_card(torch)
+
+    ps, grads, opt, plan = _opt_copy(torch, dev, shapes, dt, seed)
+    lr = opt._lr_operand(dev)
+    table = plan.table
+    sq, scales = fk.grad_sq_norm(table, grads)
+    t_upd = time_ms(torch, lambda: fk.fused_update(table, grads, lr, scales),
+                    [()])
+    t_norm = time_ms(torch, lambda: fk.grad_sq_norm(table, grads), [()])
+    p_upd = time_ms(torch, lambda: fk.fused_update_plain(
+        table, grads, lr, scales), [()], iters=4, warmup=1)["median"]
+    p_norm = time_ms(torch, lambda: fk.grad_sq_norm_plain(table, grads),
+                     [()], iters=4, warmup=1)["median"]
+    lib_norm = time_ms(torch, lambda: torch._foreach_norm(grads),
+                       [()])["median"]
+    # torch._fused_adamw_ takes one dtype: the f32 masters (or f32
+    # parameters) with f32 gradients, one lr and wd for all
+    states = [opt._state_of(p) for p in ps]
+    lib_p = [st.get("master_weight", p.detach()) for st, p in zip(states, ps)]
+    lib_g = [gr.float() for gr in grads]
+    lib_m = [st["moment1"] for st in states]
+    lib_v = [st["moment2"] for st in states]
+    lib_t = [torch.ones((), device=dev) for _ in ps]
+    lib_upd = time_ms(torch, lambda: torch._fused_adamw_(
+        lib_p, lib_g, lib_m, lib_v, [], lib_t, lr=1e-4, beta1=0.9,
+        beta2=0.999, weight_decay=0.1, eps=1e-8, amsgrad=False,
+        maximize=False), [()])["median"]
+    gsz = grads[0].element_size()
+    psz = ps[0].element_size()
+    # update: the gradient, the master (or parameter) and both moments
+    # read, those three written and a cast-down parameter where there are
+    # masters; ~17 f32 operations per element (clip, decay, moments, bias
+    # correction, sqrt, division, update)
+    upd_bytes = n * (gsz + 24 + (psz if dtype != "float32" else 0))
+    b_upd, by_upd = bound(upd_bytes, 17 * n, "float32")
+    b_norm, by_norm = bound(n * gsz, 2 * n, "float32")
+    log(f"  fused optimizer, {desc}: fused_update {t_upd['median']:.4f} ms "
+        f"(CUPTI {t_upd['cupti']:.4f}, back to back {t_upd['queue']:.4f}), "
+        f"bound {b_upd:.4f} ms ({by_upd}, {upd_bytes / 1e9:.2f} GB), plain "
+        f"{p_upd:.4f} ms, torch._fused_adamw_ {lib_upd:.4f} ms; grad_sq_norm "
+        f"{t_norm['median']:.4f} ms (CUPTI {t_norm['cupti']:.4f}), bound "
+        f"{b_norm:.4f} ms, plain {p_norm:.4f} ms, torch._foreach_norm "
+        f"{lib_norm:.4f} ms")
+    out = {"fused_update": dict(t=t_upd, plain_ms=p_upd, library_ms=lib_upd,
+                                bound_ms=b_upd, bound_by=by_upd,
+                                shape=desc),
+           "grad_sq_norm": dict(t=t_norm, plain_ms=p_norm,
+                                library_ms=lib_norm, bound_ms=b_norm,
+                                bound_by=by_norm, shape=desc)}
+    del ps, grads, opt, plan, table, lib_p, lib_g, lib_m, lib_v, states
+    free_card(torch)
+    return out, errs
+
+
+def optimizer_phase(torch, dev, seed):
+    """The fused optimizer kernels (``optimizer_shape``) at one Llama-2-7B
+    layer's tensors plus the embedding in bf16 with f32 master weights
+    (the kernels line's numbers), and at BERT-base's 201 tensors in f32
+    (its numbers under ``bert_*`` keys)."""
+    llama, e_l = optimizer_shape(torch, dev, "Llama-2-7B layer + embedding",
+                                 llama_layer_shapes(), "bfloat16", seed + 11)
+    bert, e_b = optimizer_shape(torch, dev, "BERT-base", bert_shapes(torch),
+                                "float32", seed + 12)
+    norm_keys = ("sq", "scales")
+    rows = {}
+    for k in ("fused_update", "grad_sq_norm"):
+        def worst(errs):
+            return max(e for j, e in errs.items()
+                       if (j in norm_keys) == (k == "grad_sq_norm"))
+        m, b = llama[k], bert[k]
+        m["max_abs_err"] = worst(e_l)
+        m["extra"] = {"bert_ms": b["t"]["median"],
+                      "bert_cupti_ms": b["t"]["cupti"],
+                      "bert_bound_ms": b["bound_ms"],
+                      "bert_plain_ms": b["plain_ms"],
+                      "bert_library_ms": b["library_ms"],
+                      "bert_max_abs_err": worst(e_b)}
+        rows[k] = m
+    return rows
+
+
 # BERT-base attention: batch 16 x 128, 12 heads of 64, a key-padding
 # mask of row lengths 32..128, dropout 0.1
 BERT_ATTN = dict(b=16, s=128, h=12, d=64, p=0.1)
@@ -1021,7 +1218,8 @@ RUN2_KERNELS = ("rms_norm", "flash_fwd", "ragged_decode", "paged_varq")
 RUN1 = dict(use_ragged=False)
 RUN2 = dict(use_ragged="auto", prefill_chunk_tokens=256, spec_draft_tokens=4)
 GEOM = dict(max_batch_size=4, page_size=16, max_seq_len=1024)
-TRAIN_KERNELS = ("rms_norm", "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+TRAIN_KERNELS = ("rms_norm", "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
+                 "fused_update", "grad_sq_norm")
 # decoder layers of the trained model, of 32: AdamW with f32 master
 # weights keeps 16 bytes per parameter, 108 GB for all 32 layers
 TRAIN_LAYERS = 8
@@ -1193,8 +1391,10 @@ FINETUNE_KERNELS = ("layer_norm", "flash_fwd", "flash_bwd_dkdv",
 
 
 def finetune_kernels_per_step(layers):
+    # the example's AdamW has no clip: one fused_update, no grad_sq_norm
     return {"layer_norm": 2 * layers + 1, "flash_fwd": layers,
-            "flash_bwd_dkdv": layers, "flash_bwd_dq": layers}
+            "flash_bwd_dkdv": layers, "flash_bwd_dq": layers,
+            "fused_update": 1, "grad_sq_norm": 0}
 
 
 F32_PEAK = 67e12                    # f32 outside the tensor cores
@@ -1398,10 +1598,12 @@ def finetune_profile(torch, dev, res, card, step_ms):
 
 # launches of each kernel per training step of an L-layer Llama: RMSNorm
 # twice per layer plus the final norm; one flash forward and one of each
-# backward kernel per layer
+# backward kernel per layer; one fused optimizer update and one gradient
+# norm (the global-norm clip) per step
 def train_kernels_per_step(layers):
     return {"rms_norm": 2 * layers + 1, "flash_fwd": layers,
-            "flash_bwd_dkdv": layers, "flash_bwd_dq": layers}
+            "flash_bwd_dkdv": layers, "flash_bwd_dq": layers,
+            "fused_update": 1, "grad_sq_norm": 1}
 
 
 def _adamw(model, lr, epsilon=1e-8):
@@ -1589,6 +1791,7 @@ def train_profile(torch, model, trainer, ids, card):
 
 # device kernels of a training step by kind, matched on the kernel name
 TRAIN_OP_CATEGORIES = (
+    ("fused_optimizer", ("fused_update_kernel", "grad_sq_", "bump_steps")),
     ("flash_bwd", ("flash_bwd",)), ("flash_fwd", ("flash_fwd",)),
     ("rms_norm", ("_rms_norm_fwd",)), ("layer_norm", ("_layer_norm_fwd",)),
     ("gemm", ("nvjet", "gemm", "cutlass", "splitKreduce")),
@@ -1687,7 +1890,7 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     _build.build(["flash_fwd", "flash_bwd", "paged_decode", "ragged_decode",
-                  "paged_varq"])
+                  "paged_varq", "fused_optimizer"])
     log(f"built CUDA kernels in {time.perf_counter() - t0:.1f} s")
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
@@ -1710,6 +1913,8 @@ def main(argv=None):
         long_paged_ms=long["long_ms"], long_bound_ms=long["long_bound_ms"],
         long_max_abs_err=long["long_ragged_max_abs_err"])
     dropout_phase(torch, dev, g)
+    free_card(torch)
+    mains.update(optimizer_phase(torch, dev, args.seed))
     for name, m in [*mains.items(), ("layer_norm (bf16)", ln["bfloat16"])]:
         lib = "n/a" if m["library_ms"] is None else f"{m['library_ms']:.4f}"
         t = m["t"]
@@ -1780,15 +1985,25 @@ def main(argv=None):
                                  "paddle_tpu_torch/csrc/ragged_decode.cu",
                                  "paddle_tpu/kernels/paged_attention.py:363"),
                "paged_varq": ("cuda", "paddle_tpu_torch/csrc/paged_varq.cu",
-                              "paddle_tpu/kernels/paged_attention.py:516")}
+                              "paddle_tpu/kernels/paged_attention.py:516"),
+               # no Pallas kernel: the reference leaves the fused update
+               # (and the clip's norm) to XLA
+               "fused_update": ("cuda",
+                                "paddle_tpu_torch/csrc/fused_optimizer.cu",
+                                "paddle_tpu/optimizer/fused.py:181 (XLA, "
+                                "no Pallas)"),
+               "grad_sq_norm": ("cuda",
+                                "paddle_tpu_torch/csrc/fused_optimizer.cu",
+                                "paddle_tpu/optimizer/fused.py:181 (XLA, "
+                                "no Pallas)")}
     rows = []
     for name, (route, src, replaces) in sources.items():
         m = mains[name]
         # launches from the run that drives the kernel: the BERT-base
         # fine-tune run for LayerNorm and the flash kernels, the Llama
-        # training run for rms_norm, serve run 1 (block table) for
-        # paged_decode, serve run 2 (ragged, chunked, speculative) for
-        # the rest
+        # training run for rms_norm and the optimizer kernels, serve run
+        # 1 (block table) for paged_decode, serve run 2 (ragged, chunked,
+        # speculative) for the rest
         counts = counts_ft if name in FINETUNE_KERNELS else \
             counts3 if name in TRAIN_KERNELS else \
             counts1 if name in RUN1_KERNELS else counts2
@@ -1799,6 +2014,8 @@ def main(argv=None):
                      "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                      "bound_by": m["bound_by"],
                      "library_ms": m["library_ms"], **m.get("extra", {})})
+        if name == "fused_update":
+            rows[-1]["bert_launches"] = counts_ft[name]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

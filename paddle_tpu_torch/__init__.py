@@ -14,7 +14,10 @@ kernels — Llama pretraining — ``trainer.Trainer`` over
 VerifiedCheckpointer``, with the flash-attention backward kernels — and
 BERT / ERNIE sequence-classification fine-tuning
 (``examples.bert_finetune``) over the LayerNorm kernel and the flash
-kernels' counter-hash attention dropout.
+kernels' counter-hash attention dropout — and the fused multi-tensor
+optimizer step (``optimizer.fused``: SGD, Momentum, Adam, AdamW under
+the eager ``step()`` and ``TrainStep``) over the ``grad_sq_norm`` and
+``fused_update`` kernels.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

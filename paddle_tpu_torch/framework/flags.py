@@ -60,6 +60,10 @@ def flag_value(name: str):
     return _REGISTRY[name].value
 
 
+define_flag("fused_optimizer", True,
+            "Run SGD / Momentum / Adam / AdamW steps (eager step() and "
+            "TrainStep) as one fused multi-tensor update per step where the "
+            "configuration allows it; False forces the per-parameter path.")
 define_flag("anomaly_guard", True,
             "Trainer anomaly guard: a NaN/Inf loss leaves parameters, master "
             "weights and moments at their pre-step values (device selects, "

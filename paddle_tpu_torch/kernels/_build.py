@@ -36,7 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # kernel and nowhere else
 launch_counts = {"rms_norm": 0, "layer_norm": 0, "flash_fwd": 0,
                  "flash_bwd_dkdv": 0, "flash_bwd_dq": 0, "paged_decode": 0,
-                 "ragged_decode": 0, "paged_varq": 0}
+                 "ragged_decode": 0, "paged_varq": 0, "fused_update": 0,
+                 "grad_sq_norm": 0}
 
 
 def count_launch(name: str) -> None:

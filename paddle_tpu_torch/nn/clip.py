@@ -5,6 +5,12 @@ Each class clips a list of gradient tensors (``clip_grads``, what
 ``TrainStep`` calls) or, called on ``[(param, grad), ...]`` pairs, the
 pairs an optimizer's eager ``step`` collects. Nothing syncs with the
 host: the scale factors stay on the device.
+
+``need_clip``: as in the reference, the eager form leaves the gradient
+of a parameter whose ``need_clip`` attribute is False as it is, and out
+of the global norm (``paddle_tpu/nn/clip.py``); ``clip_grads``, the
+``TrainStep`` form, clips every gradient, as the reference's
+``_clip_grads_functional`` does.
 """
 from __future__ import annotations
 
@@ -13,10 +19,12 @@ import torch
 
 class ClipGradBase:
     def __call__(self, params_grads):
-        grads = [g for _, g in params_grads if g is not None]
-        clipped = iter(self.clip_grads(grads))
-        return [(p, g if g is None else next(clipped))
-                for p, g in params_grads]
+        out = list(params_grads)
+        idx = [i for i, (p, g) in enumerate(out)
+               if g is not None and getattr(p, "need_clip", True)]
+        for i, g in zip(idx, self.clip_grads([out[i][1] for i in idx])):
+            out[i] = (out[i][0], g)
+        return out
 
     def clip_grads(self, grads):
         raise NotImplementedError

@@ -266,10 +266,18 @@ def test_cpu_tensors_take_plain_versions():
     paged_attention_varq(q, kp, kp, tables, lens, ql)
     paged_attention_ragged_varq(q, kp, kp, lens, ql, meta)
     fused_layer_norm(x, torch.ones(64), torch.zeros(64))
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    w = torch.nn.Parameter(torch.randn(5, 3))
+    w.grad = torch.randn(5, 3)
+    opt = AdamW(parameters=[w], grad_clip=ClipGradByGlobalNorm(1.0))
+    opt.step()
+    assert opt._fused_plan is not None
     assert launch_counts == {"rms_norm": 0, "layer_norm": 0, "flash_fwd": 0,
                              "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
                              "paged_decode": 0, "ragged_decode": 0,
-                             "paged_varq": 0}
+                             "paged_varq": 0, "fused_update": 0,
+                             "grad_sq_norm": 0}
 
 
 def test_library_path_follows_headers(tmp_path, monkeypatch):
