@@ -36,7 +36,14 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    BERT-base's 201 tensors in f32, a second kernel step from an equal
    copy bit for bit equal; each timed beside its bound, its plain version
    and ``torch._fused_adamw_`` / ``torch._foreach_norm`` on the same
-   tensors.
+   tensors. Then the sampling draw kernel's two entry points
+   (``csrc/sampling.cu``): ``categorical_rows`` at serve run 3's decode
+   shape logits[4, 32000] f32 and at its verify shape [20, 32000] with
+   offsets, tokens equal to the plain version's on every row (a row that
+   differs prints its top-2 margin in f32 ulps), and ``uniform64_rows``
+   bit for bit; 20,000 draws over a 16-way distribution pass a
+   chi-square test at p > 1e-3; timed beside the bound, the plain version
+   and ``torch.multinomial(softmax(l))`` (another stream).
 3. Full-width f32 checks: a 2-layer model at Llama-2-7B widths gives the
    same prefill logits on the card (kernels) as on the CPU (plain
    versions) and the same greedy tokens through the predictor; the
@@ -58,9 +65,17 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    copy-on-write run). Run 2: the same 8 plus two 320-token prompts that
    repeat a 64-token segment, the last copy led by the model's own
    continuation (``lookup_prompt``), with ragged decode, chunked prefill
-   (256) and speculative decoding (4 drafts). Every request must finish 'ok'
+   (256) and speculative decoding (4 drafts). Run 3: run 2's configuration
+   and ten prompts with ``sampling_enabled=True``, 3 greedy and 7 sampled
+   requests (``RUN3_MIX``); (a) the same run again gives the same tokens,
+   (b) all ten greedy on that predictor give run 2's tokens, (c) another
+   seed for one sampled request changes its tokens, (d) sampled requests
+   were admitted, a mixed step paused a sampled slot and sampled slots
+   drafted, (e) both draw kernels launched. Every request must finish 'ok'
    and every kernel a run drives must have launched in that run. Prints
-   TTFT, tokens/s and peak memory of each, and profiles a pass of each.
+   TTFT, tokens/s and peak memory of each, profiles a pass of runs 1-2,
+   and counts the device activities of a greedy and a sampled decode
+   tick.
 5. Fine-tune, through ``paddle_tpu_torch/examples/bert_finetune.py``:
    BERT-base, 30 steps at batch 16 x 128 with row lengths 32-128 through
    ``attention_mask``, every dropout 0.1; then ERNIE-3.0-base for 6
@@ -995,6 +1010,148 @@ def optimizer_phase(torch, dev, seed):
     return rows
 
 
+# ------------------------------------------------------------- sampling --
+
+# run 3's draw shapes: a sampled decode step's [B, V] rows, and a verify
+# step's [B * Qb, V] families (4 drafts: Qb = 5) with their Qb - 1
+# acceptance uniforms per slot
+SAMPLE_B, SAMPLE_V, SAMPLE_QB = 4, 32000, 5
+# operations per logit of a draw: threefry2x32 (2 + 20 x 3 + 5 x 2 32-bit
+# integer ops), the uniform and Gumbel transform (~8 f32 ops, two logf at
+# ~20 each) and the add and compare: ~120, counted against the f32 rate
+# outside the tensor cores (the table's rate for 32-bit non-tensor work)
+DRAW_OPS = 120
+DRAW_OPS_U64 = 2 * 72 + 6      # two threefry calls per row, the f64 unit
+CHI2_CRIT_15 = 37.697          # chi-square(15 dof) at upper tail 1e-3
+
+
+def _draw_margin_ulps(torch, ks, logits, seed, ctr, off, row):
+    """Row ``row``'s top-2 margin of logits + Gumbel noise (the plain
+    version's), in f32 ulps of the top value."""
+    k0, k1 = ks.row_keys(seed[row:row + 1].long(), ctr[row:row + 1].long(),
+                         None if off is None else off[row:row + 1].long())
+    hi, lo = ks._flat_index((logits.shape[1],), logits.device)
+    y0, y1 = ks.threefry2x32(k0[:, None], k1[:, None], hi[None], lo[None])
+    v = (logits[row] + ks._gumbel_from_bits(y0 ^ y1)[0])
+    top = torch.topk(v, 2).values
+    ulp = float(torch.nextafter(top[0], torch.tensor(float("inf"),
+                                                     device=v.device))
+                - top[0])
+    return float(top[0] - top[1]) / ulp
+
+
+def _check_draws(torch, ks, label, logits, seed, ctr, off):
+    got = ks.categorical_rows_kernel(logits, seed, ctr, off)
+    want = ks.categorical_rows_plain(logits, seed, ctr, off)
+    bad = (got != want).nonzero().flatten().tolist()
+    for row in bad:
+        log(f"  categorical_rows {label}: row {row} kernel {int(got[row])} "
+            f"plain {int(want[row])}, top-2 margin "
+            f"{_draw_margin_ulps(torch, ks, logits, seed, ctr, off, row):.1f}"
+            " f32 ulps")
+    log(f"  categorical_rows {label}: {logits.shape[0] - len(bad)} of "
+        f"{logits.shape[0]} rows equal the plain version's "
+        f"{'ok' if not bad else 'MISMATCH'}")
+    check(not bad, f"categorical_rows {label}: kernel tokens differ")
+    check(torch.equal(got, ks.categorical_rows_kernel(logits, seed, ctr,
+                                                      off)),
+          f"categorical_rows {label}: a second launch differs")
+
+
+def sampling_phase(torch, dev, g):
+    """The sampling draw kernels (``csrc/sampling.cu``) against their plain
+    version at run 3's shapes, a chi-square test of 20,000 draws, and
+    their times; returns the two ``kernels`` rows."""
+    from paddle_tpu_torch.kernels import sampling as ks
+    b, v, qb = SAMPLE_B, SAMPLE_V, SAMPLE_QB
+
+    def ints(n, lo, hi):
+        return torch.randint(lo, hi, (n,), device=dev, generator=g,
+                             dtype=torch.int64).to(torch.int32)
+    # decode step: processed-logit-like rows (a temperature-scaled spread,
+    # a top-k-masked tail at -1e30 in one row), seeds over all of int32
+    logits = torch.randn(b, v, device=dev, generator=g) * 2.5
+    logits[1, 50:] = NEG
+    seed, ctr = ints(b, -2 ** 31, 2 ** 31 - 1), ints(b, 0, 1000)
+    _check_draws(torch, ks, f"decode [{b}, {v}] f32", logits, seed, ctr,
+                 None)
+    # verify step: Qb rows a slot, offsets Qb .. 2 Qb - 1 (the normal
+    # draws; the residual family takes 2 Qb .. 3 Qb - 1)
+    rows = b * qb
+    vlog = torch.randn(rows, v, device=dev, generator=g) * 2.5
+    vseed = seed.repeat_interleave(qb)
+    vctr = ctr.repeat_interleave(qb)
+    for lo in (qb, 2 * qb):
+        voff = (torch.arange(qb, device=dev, dtype=torch.int32) + lo) \
+            .repeat(b)
+        _check_draws(torch, ks, f"verify [{rows}, {v}] f32 offsets {lo}..",
+                     vlog, vseed, vctr, voff)
+    # acceptance uniforms: (Qb - 1) a slot, offsets 0 .. Qb - 2
+    n_u = b * (qb - 1)
+    useed = seed.repeat_interleave(qb - 1)
+    uctr = ctr.repeat_interleave(qb - 1)
+    uoff = torch.arange(qb - 1, device=dev, dtype=torch.int32).repeat(b)
+    u = ks.uniform64_rows_kernel(useed, uctr, uoff)
+    u_plain = ks.uniform64_rows_plain(useed, uctr, uoff)
+    same = torch.equal(u.view(torch.int64), u_plain.view(torch.int64))
+    log(f"  uniform64_rows [{n_u}] f64: bit for bit equal to the plain "
+        f"version's: {same}")
+    check(same, "uniform64_rows differs from its plain version")
+    check(bool(((u >= 0) & (u < 1)).all()), "uniform64_rows outside [0, 1)")
+    # 20,000 draws of one key sequence (counters 0 .. 19,999) over a fixed
+    # 16-way distribution
+    n, k = 20000, 16
+    p = torch.softmax(torch.linspace(0.0, 3.0, k, device=dev), 0)
+    draws = ks.categorical_rows_kernel(
+        torch.log(p)[None].expand(n, k).contiguous(),
+        torch.full((n,), 1234, dtype=torch.int32, device=dev),
+        torch.arange(n, dtype=torch.int32, device=dev))
+    obs = torch.bincount(draws.long(), minlength=k).double()
+    exp = n * p.double()
+    chi2 = float(((obs - exp) ** 2 / exp).sum())
+    log(f"  categorical_rows: {n} draws over a 16-way distribution, "
+        f"chi-square {chi2:.2f} (15 dof; p > 1e-3 below {CHI2_CRIT_15}) "
+        f"{'ok' if chi2 < CHI2_CRIT_15 else 'MISMATCH'}")
+    check(chi2 < CHI2_CRIT_15, f"draws fail the chi-square test: {chi2}")
+
+    sets = [(logits,)] + [(torch.randn_like(logits) * 2.5,)
+                          for _ in range(3)]
+    t = time_ms(torch, lambda a: ks.categorical_rows_kernel(a, seed, ctr),
+                sets)
+    plain = time_ms(torch, lambda a: ks.categorical_rows_plain(a, seed, ctr),
+                    sets)["median"]
+    # not the same function (torch's own generator, another stream): the
+    # draw a caller without this kernel would make
+    multinomial = time_ms(torch, lambda a: torch.multinomial(
+        torch.softmax(a, -1), 1), sets)["median"]
+    # verify-shape family, beside
+    vt = time_ms(torch, lambda a: ks.categorical_rows_kernel(
+        a, vseed, vctr, voff), [(vlog,), (torch.randn_like(vlog),)])
+    nbytes = logits.numel() * 4 + 3 * b * 4        # logits, seed, ctr, out
+    b_ms, by = bound(nbytes, DRAW_OPS * logits.numel(), "float32")
+    vb_ms, _ = bound(vlog.numel() * 4 + 4 * rows * 4,
+                     DRAW_OPS * vlog.numel(), "float32")
+    cat = dict(max_abs_err=0.0, t=t, plain_ms=plain, library_ms=None,
+               bound_ms=b_ms, bound_by=by, shape=f"logits[{b}, {v}] f32",
+               extra={"multinomial_ms": multinomial,
+                      "verify_ms": vt["median"], "verify_cupti_ms":
+                      vt["cupti"], "verify_bound_ms": vb_ms})
+    log(f"  torch.multinomial(softmax(l)) at [{b}, {v}] (another stream): "
+        f"{multinomial:.4f} ms; categorical_rows at the verify shape "
+        f"[{rows}, {v}]: {vt['median']:.4f} ms (CUPTI {vt['cupti']:.4f}), "
+        f"bound {vb_ms:.4f} ms")
+    usets = [(useed, uctr, uoff)]
+    ut = time_ms(torch, lambda s, c, o: ks.uniform64_rows_kernel(s, c, o),
+                 usets)
+    uplain = time_ms(torch, lambda s, c, o: ks.uniform64_rows_plain(s, c, o),
+                     usets)["median"]
+    ub_ms, uby = bound(3 * n_u * 4 + 8 * n_u, DRAW_OPS_U64 * n_u, "float32")
+    uni = dict(max_abs_err=float((u - u_plain).abs().max()), t=ut,
+               plain_ms=uplain, library_ms=None, bound_ms=ub_ms,
+               bound_by=uby, shape=f"[{n_u}] f64")
+    return {"categorical_rows": cat, "uniform64_rows": uni}
+
+
 # BERT-base attention: batch 16 x 128, 12 heads of 64, a key-padding
 # mask of row lengths 32..128, dropout 0.1
 BERT_ATTN = dict(b=16, s=128, h=12, d=64, p=0.1)
@@ -1252,9 +1409,10 @@ def serve_phase(torch, dev, seed, layers, card):
                shared + toks(91), toks(200), toks(130)]
     max_new = [64, 40, 48, 32, 56, 48, 36, 60]
     t0 = time.perf_counter()
-    outs1, counts1, _ = serve_run(torch, dev, model, cfg, prompts, max_new,
-                                  card, "run 1 (block-table decode)",
-                                  RUN1_KERNELS, RUN1)
+    outs1, counts1, _, _ = serve_run(torch, dev, model, cfg, prompts,
+                                     max_new, card,
+                                     "run 1 (block-table decode)",
+                                     RUN1_KERNELS, RUN1)
     serve_profile(torch, dev, model, prompts[:4], card, RUN1)
     log(f"serve run 1 took {time.perf_counter() - t0:.1f} s")
 
@@ -1267,7 +1425,7 @@ def serve_phase(torch, dev, seed, layers, card):
                           **dict(RUN2, spec_draft_tokens=0))
             for _ in range(2)]
     t0 = time.perf_counter()
-    outs2, counts2, cb = serve_run(
+    outs2, counts2, cb, tok_s2 = serve_run(
         torch, dev, model, cfg, prompts + reps, max_new + [64, 64], card,
         "run 2 (ragged decode, chunked prefill 256, 4 drafts)",
         RUN2_KERNELS, RUN2)
@@ -1289,13 +1447,173 @@ def serve_phase(torch, dev, seed, layers, card):
     serve_profile(torch, dev, model, [prompts[0], prompts[1], reps[0],
                                       prompts[3]], card, RUN2)
     log(f"serve run 2 took {time.perf_counter() - t0:.1f} s")
-    return counts1, counts2
+    del cb
+    free_card(torch)
+    t0 = time.perf_counter()
+    counts3 = serve_run3(torch, dev, model, cfg, prompts + reps,
+                         max_new + [64, 64], card, outs2, tok_s2)
+    log(f"serve run 3 took {time.perf_counter() - t0:.1f} s")
+    return counts1, counts2, counts3
+
+
+# run 3: run 2's configuration and prompts with sampling on; per request
+# None (greedy) or the SamplingParams fields. Greedy: the 512-token prompt
+# (chunked while sampled slots decode, so they pause), the shared prefix
+# and its extension (which takes the prefix cache's suffix prefill; sampled
+# requests bypass the cache); both lookup prompts (8, 9) sampled, so
+# sampled slots draft and verify; the 300-token prompt sampled and chunked,
+# so its first token comes by replay after its final chunk
+RUN3 = dict(RUN2, sampling_enabled=True)
+SAMPLING_KERNELS = ("categorical_rows", "uniform64_rows")
+RUN3_KERNELS = RUN2_KERNELS + SAMPLING_KERNELS
+_A = dict(temperature=0.8, top_k=50, top_p=0.95)
+_B = dict(temperature=1.0)
+_D = dict(temperature=0.6, top_p=0.9)
+RUN3_MIX = [None, _A, None, _B, _D, None, _A, _B, _A, _D]
+
+
+def run3_sampling(seed_of=None):
+    from paddle_tpu_torch.generation.sampling import SamplingParams
+    seed_of = seed_of or {}
+    return [None if kw is None else
+            SamplingParams(seed=seed_of.get(r, 11 + r), **kw)
+            for r, kw in enumerate(RUN3_MIX)]
+
+
+def serve_run3(torch, dev, model, cfg, prompts, max_new, card, outs2,
+               tok_s2):
+    """Serve run 3: greedy and sampled requests through one
+    sampling-enabled predictor, checked (a)-(e); returns its launch
+    counts."""
+    label = "run 3 (run 2 + sampling: 3 greedy, 7 sampled)"
+    sp = run3_sampling()
+    outs, counts, cb, tok_s = serve_run(
+        torch, dev, model, cfg, prompts, max_new, card, label, RUN3_KERNELS,
+        RUN3, sp)
+    ss = cb.sampling_stats
+    log(f"serve run 3: sampling stats {ss}")
+    log(f"serve run 3 on {card}: decode {tok_s:.1f} tok/s outside "
+        f"monolithic prefill; run 2 {tok_s2:.1f} tok/s")
+    # (a) the same run again gives the same tokens
+    again = run3_predictor(model, dev).generate(
+        prompts, max_new_tokens=max_new, sampling=sp)
+    diff = [r for r, (x, y) in enumerate(zip(outs, again)) if x != y]
+    log(f"serve run 3 (a): repeated, requests with other tokens {diff}")
+    check(not diff, f"run 3 repeated gives other tokens for {diff}")
+    # (b) all greedy on this sampling-enabled predictor: run 2's tokens
+    greedy = run3_predictor(model, dev).generate(
+        prompts, max_new_tokens=max_new)
+    diff = [r for r, (x, y) in enumerate(zip(greedy, outs2)) if x != y]
+    log(f"serve run 3 (b): all greedy with sampling enabled vs run 2, "
+        f"requests with other tokens {diff}")
+    check(not diff, f"greedy on the sampling predictor differs from run 2 "
+          f"for {diff}")
+    # run 3's own greedy requests share their batches with sampled ones
+    # (other prefill groups, replay and paused ticks, other chunk sizes),
+    # so bf16 rounds at other places than in run 2: logged, not checked
+    split = {r: next((i for i, (x, y) in enumerate(zip(outs[r], outs2[r]))
+                      if x != y), len(outs[r]))
+             for r, kw in enumerate(RUN3_MIX) if kw is None}
+    log(f"serve run 3: per greedy request, the index of its first token "
+        f"that differs from run 2's (its length where none does) {split}")
+    # (c) another seed for one sampled request changes its tokens
+    r_c = 1
+    other = run3_predictor(model, dev).generate(
+        prompts, max_new_tokens=max_new,
+        sampling=run3_sampling({r_c: 1000 + r_c}))
+    log(f"serve run 3 (c): request {r_c} with seed {1000 + r_c}: tokens "
+        f"{'differ' if other[r_c] != outs[r_c] else 'EQUAL'}")
+    check(other[r_c] != outs[r_c], "another seed gave the same tokens")
+    # (d) sampled requests, a paused sampled slot, sampled drafts
+    check(ss["sampled_requests"] == sum(kw is not None for kw in RUN3_MIX),
+          f"not every sampled request was admitted as sampled: {ss}")
+    check(ss["paused_slots"] > 0 and cb.stats["mixed_steps"] > 0,
+          f"no mixed step paused a sampled slot: {ss}")
+    check(ss["sampled_spec_proposed"] > 0, f"no sampled drafts: {ss}")
+    # (e) both draw kernels ran in the counted run (serve_run checked
+    # RUN3_KERNELS)
+    log(f"serve run 3 (e): categorical_rows {counts['categorical_rows']}, "
+        f"uniform64_rows {counts['uniform64_rows']} launches")
+    tick_launches(torch, dev, cb, card)
+    # a profiled pass: the 512-token prompt (greedy, chunked), a sampled
+    # short prompt, a sampled lookup prompt and another sampled prompt
+    pick = (0, 1, 8, 3)
+    serve_profile(torch, dev, model, [prompts[r] for r in pick], card, RUN3,
+                  [sp[r] for r in pick])
+    return counts
+
+
+def run3_predictor(model, dev):
+    """A fresh predictor of run 3's configuration."""
+    from paddle_tpu_torch.inference import ContinuousBatchingPredictor
+    return ContinuousBatchingPredictor(model, device=dev, **GEOM, **RUN3)
+
+
+def tick_launches(torch, dev, cb, card):
+    """Device activities (kernels, copies, memsets) of one greedy decode
+    tick, one sampled decode tick (the same inputs; operands for 2 of 4
+    sampled slots) and the draw alone, kernel and plain, from the
+    profiler; the sampled tick must launch the draw kernel once."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.kernels import (launch_counts, reset_launch_counts,
+                                          sampling as ks)
+    from paddle_tpu_torch.kernels.paged_attention import RaggedMetaBuilder
+    b, pps = cb.B, cb.pages_per_seq
+    tables = np.full((b, pps), cb._trash, np.int32)
+    builder = RaggedMetaBuilder(b, pps, cb.page, cb._trash)
+    for i in range(b):
+        builder.set_slot(i, tables[i], 2)
+    args = (cb._put(tables), cb._put(np.ones(b, np.int32)),
+            cb._put(np.arange(b, dtype=np.int32) + 5))
+    meta = cb._put(builder.stacked())
+    samp = tuple(cb._put(a) for a in (
+        np.asarray([0.0, 0.8, 0.0, 0.6], np.float32),
+        np.asarray([0, 50, 0, 0], np.int32),
+        np.asarray([1.0, 0.95, 1.0, 0.9], np.float32),
+        np.arange(b, dtype=np.int32), np.zeros(b, np.int32)))
+    lg = torch.randn(b, cb.model.config.vocab_size, device=dev)
+    seed, ctr = samp[3], samp[4]
+
+    def count(fn, reps=1):
+        """(activities, device ms) per call over ``reps`` calls, and
+        whether a kernel named like the draw kernel was traced."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kern = device_kernel_ms(torch, prof)
+        return (sum(n for _, n in kern.values()) / reps,
+                sum(ms for ms, _ in kern.values()) / reps,
+                any("categorical" in k for k in kern))
+    greedy = count(lambda: cb._raw_decode_step(*args, meta))
+    sampled = count(lambda: cb._raw_decode_sample_step(*args, samp, meta))
+    kernel = count(lambda: ks.categorical_rows_kernel(lg, seed, ctr), 10)
+    plain = count(lambda: ks.categorical_rows_plain(lg, seed, ctr))
+    reset_launch_counts()
+    cb._raw_decode_sample_step(*args, samp, meta)
+    draws = dict(launch_counts)
+    log(f"serve run 3 on {card}: device activities per decode tick "
+        f"(profiler, {cb.model.config.num_hidden_layers} layers): greedy "
+        f"{greedy[0]:.0f} ({greedy[1]:.3f} ms of device time), sampled "
+        f"{sampled[0]:.0f} ({sampled[1]:.3f} ms; the draw kernel in the "
+        f"trace: {sampled[2]}; launch counts: categorical_rows "
+        f"{draws['categorical_rows']}, uniform64_rows "
+        f"{draws['uniform64_rows']}); the draw alone: kernel "
+        f"{kernel[0]:.1f} ({kernel[1]:.4f} ms, over 10 calls), plain "
+        f"threefry ops {plain[0]:.0f} ({plain[1]:.4f} ms)")
+    check(draws["categorical_rows"] == 1 and draws["uniform64_rows"] == 0,
+          f"a sampled decode tick did not draw in one launch: {draws}")
 
 
 def serve_run(torch, dev, model, cfg, prompts, max_new, card, label,
-              required, kw):
+              required, kw, sampling=None):
     """One counted serve: launch counters set to 0 just before it and
-    read just after; every kernel in ``required`` must have launched."""
+    read just after; every kernel in ``required`` must have launched.
+    Returns the tokens, the counts, the predictor and the decode
+    tokens/s outside monolithic prefill."""
     from paddle_tpu_torch.inference import ContinuousBatchingPredictor
     from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
     cb = ContinuousBatchingPredictor(model, device=dev, **GEOM, **kw)
@@ -1315,7 +1633,7 @@ def serve_run(torch, dev, model, cfg, prompts, max_new, card, label,
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
     t0 = time.perf_counter()
-    outs = cb.generate(prompts, max_new_tokens=max_new)
+    outs = cb.generate(prompts, max_new_tokens=max_new, sampling=sampling)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(launch_counts)
@@ -1343,10 +1661,10 @@ def serve_run(torch, dev, model, cfg, prompts, max_new, card, label,
         f"monolithic prefill ({dec_tok / dec_s:.1f} tok/s, "
         f"{cb.stats['decode_steps']} steps); peak memory "
         f"{peak / 2**30:.2f} GiB")
-    return outs, counts, cb
+    return outs, counts, cb, dec_tok / dec_s
 
 
-def serve_profile(torch, dev, model, prompts, card, kw):
+def serve_profile(torch, dev, model, prompts, card, kw, sampling=None):
     """A profiled serve of 4 requests (after the counted run, so the
     tracer's cost stays out of its numbers): device busy and idle share,
     and the device time by kernel."""
@@ -1357,7 +1675,7 @@ def serve_profile(torch, dev, model, prompts, card, kw):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        cb.generate(prompts, max_new_tokens=32)
+        cb.generate(prompts, max_new_tokens=32, sampling=sampling)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kern = device_kernel_ms(torch, prof)
@@ -1889,8 +2207,7 @@ def main(argv=None):
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, card {card}")
 
     t0 = time.perf_counter()
-    _build.build(["flash_fwd", "flash_bwd", "paged_decode", "ragged_decode",
-                  "paged_varq", "fused_optimizer"])
+    _build.build(_build.SOURCES)
     log(f"built CUDA kernels in {time.perf_counter() - t0:.1f} s")
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
@@ -1915,6 +2232,7 @@ def main(argv=None):
     dropout_phase(torch, dev, g)
     free_card(torch)
     mains.update(optimizer_phase(torch, dev, args.seed))
+    mains.update(sampling_phase(torch, dev, g))
     for name, m in [*mains.items(), ("layer_norm (bf16)", ln["bfloat16"])]:
         lib = "n/a" if m["library_ms"] is None else f"{m['library_ms']:.4f}"
         t = m["t"]
@@ -1942,7 +2260,8 @@ def main(argv=None):
     if args.layers != 32:
         log(f"serving {args.layers} layers instead of 32 (--layers)")
     t0 = time.perf_counter()
-    counts1, counts2 = serve_phase(torch, dev, args.seed, args.layers, card)
+    counts1, counts2, counts_s = serve_phase(torch, dev, args.seed,
+                                             args.layers, card)
     log(f"serve phase took {time.perf_counter() - t0:.1f} s")
     free_card(torch)
 
@@ -1995,18 +2314,27 @@ def main(argv=None):
                "grad_sq_norm": ("cuda",
                                 "paddle_tpu_torch/csrc/fused_optimizer.cu",
                                 "paddle_tpu/optimizer/fused.py:181 (XLA, "
-                                "no Pallas)")}
+                                "no Pallas)"),
+               # no Pallas kernel: the reference leaves the draws to XLA
+               "categorical_rows": ("cuda", "paddle_tpu_torch/csrc/sampling.cu",
+                                    "paddle_tpu/generation/sampling.py:175 "
+                                    "(XLA, no Pallas)"),
+               "uniform64_rows": ("cuda", "paddle_tpu_torch/csrc/sampling.cu",
+                                  "paddle_tpu/generation/sampling.py:199 "
+                                  "(XLA, no Pallas)")}
     rows = []
     for name, (route, src, replaces) in sources.items():
         m = mains[name]
         # launches from the run that drives the kernel: the BERT-base
         # fine-tune run for LayerNorm and the flash kernels, the Llama
         # training run for rms_norm and the optimizer kernels, serve run
-        # 1 (block table) for paged_decode, serve run 2 (ragged, chunked,
+        # 1 (block table) for paged_decode, serve run 3 (run 2 with
+        # sampling) for the draw kernels, serve run 2 (ragged, chunked,
         # speculative) for the rest
         counts = counts_ft if name in FINETUNE_KERNELS else \
             counts3 if name in TRAIN_KERNELS else \
-            counts1 if name in RUN1_KERNELS else counts2
+            counts1 if name in RUN1_KERNELS else \
+            counts_s if name in SAMPLING_KERNELS else counts2
         rows.append({"name": name, "route": route, "source": src,
                      "replaces": replaces, "launches": counts[name],
                      "max_abs_err": m["max_abs_err"],

@@ -6,10 +6,12 @@ every Pallas kernel of the ported path is a hand-written Hopper kernel
 (CUDA C++ under ``csrc/``, or Triton), with a plain PyTorch version of
 the same function beside it that CPU tensors take.
 
-Ported so far: Llama greedy serving — ``models.llama``,
-``generation.kv_cache`` and ``inference.ContinuousBatchingPredictor``
-over the RMSNorm, flash-attention forward and paged/ragged decode
-kernels — Llama pretraining — ``trainer.Trainer`` over
+Ported so far: Llama serving, greedy and sampled — ``models.llama``,
+``generation.kv_cache``, ``generation.sampling`` and
+``inference.ContinuousBatchingPredictor`` over the RMSNorm,
+flash-attention forward, paged/ragged decode and sampling-draw kernels,
+and the eager ``generate()`` of ``generation.GenerationMixin`` — Llama
+pretraining — ``trainer.Trainer`` over
 ``jit.TrainStep``, ``optimizer.AdamW`` and ``distributed.
 VerifiedCheckpointer``, with the flash-attention backward kernels — and
 BERT / ERNIE sequence-classification fine-tuning

@@ -12,6 +12,8 @@ Two streams, both set by :func:`seed`:
 - **Elementwise dropout** (``nn.functional.dropout``) draws its mask with
   ``torch.bernoulli`` on the tensor's device, from one generator per
   device.
+- **Generation seeds**: ``generate()`` without a ``seed`` draws the base
+  of its sampling keys once on the host (:func:`generation_seed`).
 
 ``seed(s)`` also calls ``torch.manual_seed(s)``, so that parameters
 initialised with torch's default generators (the layers' own
@@ -26,9 +28,11 @@ import torch
 _INT32_MIN, _INT32_MAX = -2 ** 31, 2 ** 31 - 1
 # the attention stream's seed is kept apart from the elementwise one's
 _ATTN_SALT = 0x5DEECE66D
+_GEN_SALT = 0x2545F491
 
 _seed = 0
 _attn = torch.Generator().manual_seed(_seed ^ _ATTN_SALT)
+_gen = torch.Generator().manual_seed(_seed ^ _GEN_SALT)
 _per_device = {}
 
 
@@ -39,6 +43,7 @@ def seed(s: int):
     _seed = int(s)
     torch.manual_seed(_seed)
     _attn.manual_seed(_seed ^ _ATTN_SALT)
+    _gen.manual_seed(_seed ^ _GEN_SALT)
     _per_device.clear()
 
 
@@ -48,6 +53,13 @@ def dropout_seeds() -> tuple:
     s = torch.randint(_INT32_MIN, _INT32_MAX, (2,), dtype=torch.int64,
                       generator=_attn)
     return int(s[0]), int(s[1])
+
+
+def generation_seed() -> int:
+    """One int in [0, 2^31 - 1) from the generation stream: the base seed
+    of a ``generate()`` call given no ``seed``."""
+    return int(torch.randint(0, _INT32_MAX, (1,), dtype=torch.int64,
+                             generator=_gen))
 
 
 def device_generator(device) -> torch.Generator:

@@ -23,6 +23,9 @@ class RuntimeConfig:
     # prompt-lookup drafting: longest suffix n-gram matched against the
     # request's own prompt + generation history
     spec_ngram_max: int = 3
+    # on-device sampling: the decode and verify steps take per-request
+    # temperature / top-k / top-p / seed operands; off = greedy only
+    sampling_enabled: bool = False
 
     def __post_init__(self):
         if self.page_size <= 0 or self.max_batch_size <= 0 \

@@ -1,12 +1,11 @@
-"""Continuous-batching greedy serving (counterpart of
-``paddle_tpu/inference/__init__.py`` ``ContinuousBatchingPredictor``,
-limited to greedy generation).
+"""Continuous-batching serving (counterpart of
+``paddle_tpu/inference/__init__.py`` ``ContinuousBatchingPredictor``).
 
 The admission / decode / resolve loop, the prompt bucketing, the prefix
 cache with copy-on-write, chunked prefill, prompt-lookup speculative
-decoding and the stats keys follow the reference, so both predictors
-form the same batches and emit the same greedy tokens. Five device
-programs carry it, as in the reference:
+decoding, on-device sampling and the stats keys follow the reference, so
+both predictors form the same batches and emit the same tokens, greedy
+and sampled. Six device programs carry it, as in the reference:
 
 - ``_raw_prefill``: batched, bucketed, left-padded prefill; the greedy
   token for every position and the K/V scatter into the paged pool;
@@ -14,12 +13,23 @@ programs carry it, as in the reference:
   prompt suffix against the cached pages;
 - ``_raw_decode_step``: the paged K/V write, paged attention and argmax
   for every slot;
+- ``_raw_decode_sample_step`` (``sampling_enabled``): the same step with
+  each slot's token drawn on the device from its own temperature,
+  top-k, top-p and seed (``generation.sampling.sample_tokens``); greedy
+  slots take the argmax, bitwise the greedy step's token;
 - ``_raw_mixed_step``: every slot carries a span (a page-aligned chunk
   of a long prompt, or one decode token) through the variable-query
   kernel, so a long prompt ingests while the other slots decode;
 - ``_raw_spec_step``: every slot's committed token plus its drafted
   tokens verify in one span; the accepted prefix is found on the device
-  and the rejected positions' K/V is restored there.
+  (by rejection sampling for sampled slots) and the rejected positions'
+  K/V is restored there.
+
+A sampled request's first token is drawn, not taken from the admission
+argmax: the slot backs up one position and replays its last prompt
+token through the sampling step (first-token replay). Sampled requests
+bypass the prefix cache, and sampled decode slots pause while a mixed
+step ingests a chunk (the mixed step takes no sampling operands).
 
 With ``use_ragged`` the decode attention runs over the ragged (slot,
 page) work list (``RaggedMetaBuilder``) and the span attention takes its
@@ -31,7 +41,8 @@ t's token is fetched. On CUDA the fetch is an asynchronous copy into
 pinned host memory behind an event, so waiting for step t never waits
 for the step already queued behind it. Speculative mode resolves each
 step before dispatching the next: the drafter needs the committed
-tokens.
+tokens. So does a mixed step on a sampling-enabled predictor: its
+resolve moves sampled slots into first-token replay.
 """
 from __future__ import annotations
 
@@ -46,6 +57,7 @@ import torch
 from ..framework import resolve_device
 from ..framework.runtime_config import RuntimeConfig
 from ..generation import sampling
+from ..generation.sampling import SamplingParams
 from ..generation.kv_cache import (PagedCacheEntry, PagedKVCache,
                                    PagedKVPool, PrefixCache, SpanIndex,
                                    decode_index, span_index)
@@ -62,9 +74,9 @@ def _pow2_bucket(n):
 
 
 class ContinuousBatchingPredictor:
-    """Greedy continuous batching over a paged KV pool: requests join and
-    leave the running batch mid-flight; full prefix-cache hits admit with
-    no forward pass, partial hits prefill only the suffix.
+    """Continuous batching over a paged KV pool: requests join and leave
+    the running batch mid-flight; full prefix-cache hits admit with no
+    forward pass, partial hits prefill only the suffix.
 
     ``device`` defaults to CUDA and must be where the model lives;
     ``device="cpu"`` runs the plain PyTorch path.
@@ -75,8 +87,10 @@ class ContinuousBatchingPredictor:
     longer than this (rounded down to page * 2^k) ingest chunk by chunk
     through the mixed step; 0 disables. ``spec_draft_tokens`` /
     ``spec_ngram_max``: prompt-lookup speculative decoding with up to
-    that many drafted tokens per step; 0 disables. Unset values come
-    from ``runtime_config``.
+    that many drafted tokens per step; 0 disables. ``sampling_enabled``:
+    serve sampled requests (``generate(sampling=...)``) through the
+    sampling decode and verify steps. Unset values come from
+    ``runtime_config``.
     """
 
     def __init__(self, model, max_batch_size=None, page_size=None,
@@ -84,7 +98,7 @@ class ContinuousBatchingPredictor:
                  eos_token_id=None, use_ragged="auto",
                  enable_prefix_cache=True, prefill_chunk_tokens=None,
                  runtime_config=None, spec_draft_tokens=None,
-                 spec_ngram_max=None, device=None):
+                 spec_ngram_max=None, sampling_enabled=None, device=None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, predictor "
@@ -146,6 +160,9 @@ class ContinuousBatchingPredictor:
             spec_ngram_max = rc.spec_ngram_max
         self._spec_k = max(0, int(spec_draft_tokens))
         self._ngram_max = max(1, int(spec_ngram_max))
+        if sampling_enabled is None:
+            sampling_enabled = rc.sampling_enabled
+        self.sampling_enabled = bool(sampling_enabled)
         # span positions past the prompt (padding) may run past the RoPE
         # table; their outputs are never used
         self._max_pos = cfg.max_position_embeddings - 1
@@ -157,6 +174,11 @@ class ContinuousBatchingPredictor:
                       "spec_ticks": 0, "spec_proposed": 0,
                       "spec_accepted": 0, "prefill_chunks": 0,
                       "chunked_requests": 0, "mixed_steps": 0}
+        # the port's own counts beside the reference's ``stats``: sampled
+        # requests admitted, paused sampled slots summed over mixed steps,
+        # drafts proposed for sampled slots
+        self.sampling_stats = {"sampled_requests": 0, "paused_slots": 0,
+                               "sampled_spec_proposed": 0}
         self.last_status: List[str] = []
         # seconds from the generate() call to each request's first token
         self.last_ttft_s: List[float] = []
@@ -290,6 +312,27 @@ class ContinuousBatchingPredictor:
         nxt = logits[:, -1].argmax(dim=-1).to(torch.int32)
         return nxt, self._done(nxt)
 
+    @torch.no_grad()
+    def _raw_decode_sample_step(self, tables, ctx, last_tok, samp,
+                                meta=None):
+        """The sampling variant of the decode step: the same K/V write and
+        paged attention, with the next token from ``sample_tokens``.
+        ``samp`` holds the per-slot operands on the device (temperature,
+        top-k, top-p, seed and the generated-token counter that keys each
+        request's stream); temperature <= 0 slots take the raw argmax,
+        bitwise ``_raw_decode_step``'s token. Returns (next_token [B]
+        int32, done [B] bool)."""
+        step = decode_index(tables, ctx, self.page)
+        entries = [PagedCacheEntry(k, v, tables, ctx, step, meta)
+                   for k, v in zip(self.pool.k, self.pool.v)]
+        logits, _ = self.model(last_tok[:, None].long(),
+                               position_ids=ctx[:, None].long(),
+                               past_key_values=PagedKVCache(entries),
+                               use_cache=True)
+        nxt, _ = sampling.sample_tokens(logits[:, -1], *samp,
+                                        with_logp=False)
+        return nxt, self._done(nxt)
+
     def _span_forward(self, tables, ctx, span_ids, q_lens, tok_in, span,
                       meta):
         """The forward of a span step: slot b runs span_ids[b] with
@@ -329,21 +372,28 @@ class ContinuousBatchingPredictor:
 
     @torch.no_grad()
     def _raw_spec_step(self, tables, ctx, span_ids, q_lens, tok_in, span,
-                       meta=None):
+                       meta=None, samp=None):
         """One speculative verify step: slot b's span is its committed
         last token (column 0, from tok_in) followed by q_lens[b] - 1
         drafted tokens. The longest accepted draft prefix and the bonus
-        token are computed on the device (``verify_spans_greedy``), and
-        the REJECTED positions' K/V is rolled back there: the span's
-        destinations are read before the forward (the pages are updated
-        in place) and written back at span index accepted < i < q_lens.
-        Returns (bonus [B] int32, accepted [B] int32)."""
+        token are computed on the device (``verify_spans``: argmax
+        compare, or with ``samp`` -- the sampling operands, on a
+        sampling-enabled predictor -- rejection sampling for the sampled
+        slots), and the REJECTED positions' K/V is rolled back there: the
+        span's destinations are read before the forward (the pages are
+        updated in place) and written back at span index accepted < i <
+        q_lens. Returns (bonus [B] int32, accepted [B] int32)."""
         src_b, src_i, page, off = span.rows
         old_k = [k[page, off] for k in self.pool.k]
         old_v = [v[page, off] for v in self.pool.v]
         logits, ids = self._span_forward(tables, ctx, span_ids, q_lens,
                                          tok_in, span, meta)
-        accepted, bonus = sampling.verify_spans_greedy(logits, ids, q_lens)
+        if samp is None:
+            accepted, bonus = sampling.verify_spans_greedy(logits, ids,
+                                                           q_lens)
+        else:
+            accepted, bonus = sampling.verify_spans(logits, ids, q_lens,
+                                                    *samp)
         # real positions only (the span index lists no padding), so the
         # write-back touches exactly the span's own destinations
         rej = (src_i > accepted.long()[src_b])[:, None, None]
@@ -352,19 +402,44 @@ class ContinuousBatchingPredictor:
         return bonus, accepted
 
     # -------------------------------------------------------------- serve
-    def generate(self, prompts, max_new_tokens=32, strict=True):
+    def generate(self, prompts, max_new_tokens=32, strict=True,
+                 sampling=None):
         """Continuous batching over a list of prompts: List[List[int]] ->
         List[List[int]] (new tokens per prompt, eos stripped, in request
         order). ``max_new_tokens`` is one budget for every request or a
         list of per-request budgets (the reference's ``ServeRequest``
         carries one per request the same way).
 
+        ``sampling``: a ``SamplingParams`` for every request, or a list
+        with one per request (None = greedy). A request whose temperature
+        is above 0 is sampled, and needs a predictor built with
+        ``sampling_enabled=True``.
+
         A request that can never be served (prompt + max_new_tokens over
-        ``max_seq_len``, or more KV pages than the pool holds) raises
-        ValueError up front when ``strict``; otherwise its result is []
-        and ``last_status[r]`` names the reason
-        ('rejected_over_max_seq_len' / 'rejected_over_pool_capacity';
-        'ok' for served requests)."""
+        ``max_seq_len``, more KV pages than the pool holds, or sampling on
+        a predictor without it) raises ValueError up front when
+        ``strict``; otherwise its result is [] and ``last_status[r]``
+        names the reason ('rejected_over_max_seq_len' /
+        'rejected_over_pool_capacity' / 'rejected_sampling_disabled'; 'ok'
+        for served requests)."""
+        n = len(prompts)
+        if sampling is None:
+            per_sp = [None] * n
+        else:
+            per_sp = list(sampling) \
+                if isinstance(sampling, (list, tuple)) \
+                and not isinstance(sampling, SamplingParams) \
+                else [sampling] * n
+            if len(per_sp) != n:
+                raise ValueError(f"sampling has {len(per_sp)} entries for "
+                                 f"{n} prompts")
+            if strict and not self.sampling_enabled and any(
+                    self._wants_sampling(sp) for sp in per_sp):
+                raise ValueError(
+                    "sampling requested but this predictor was built with "
+                    "sampling_enabled=False (pass sampling_enabled=True, "
+                    "or strict=False to reject those requests and serve "
+                    "the rest)")
         if isinstance(max_new_tokens, int):
             max_new = [max_new_tokens] * len(prompts)
         else:
@@ -381,7 +456,14 @@ class ContinuousBatchingPredictor:
                         "Raise max_seq_len/num_pages, shorten the prompt, "
                         "or pass strict=False to reject it and serve the "
                         "rest.")
-        return self._serve([list(p) for p in prompts], max_new)
+        return self._serve([list(p) for p in prompts], max_new, per_sp)
+
+    @staticmethod
+    def _wants_sampling(sp):
+        """True when the request needs the sampling steps: a
+        SamplingParams with temperature > 0 (temperature <= 0 is greedy,
+        served bit-identically by the argmax steps)."""
+        return sp is not None and float(sp.temperature) > 0
 
     def _unservable(self, prompt, max_new):
         """(kind, detail) when the request can never be served on this
@@ -398,7 +480,7 @@ class ContinuousBatchingPredictor:
                     f"{self.capacity}")
         return None
 
-    def _serve(self, prompts, max_new):
+    def _serve(self, prompts, max_new, samp_of):
         n = len(prompts)
         t_start = time.perf_counter()
         results = [None] * n
@@ -409,6 +491,9 @@ class ContinuousBatchingPredictor:
         queue = collections.deque()
         for r, p in enumerate(prompts):
             uns = self._unservable(p, max_new[r])
+            if uns is None and not self.sampling_enabled \
+                    and self._wants_sampling(samp_of[r]):
+                uns = ("sampling_disabled", "")
             if uns is not None:
                 results[r] = []
                 status[r] = "rejected_" + uns[0]
@@ -431,6 +516,36 @@ class ContinuousBatchingPredictor:
                                     self._trash) if self.use_ragged \
             else None
         spec_mode = self._spec_k > 0
+        # sampling: per-slot operand rows (greedy zeros), and the flag of
+        # a slot whose first token is still to be drawn (first-token
+        # replay: the admission argmax is discarded, the last prompt
+        # token runs again through the sampling step)
+        s_temp = np.zeros((self.B,), np.float32)
+        s_topk = np.zeros((self.B,), np.int32)
+        s_topp = np.ones((self.B,), np.float32)
+        s_seed = np.zeros((self.B,), np.int32)
+        slot_await_first = [False] * self.B
+
+        def set_samp(b, sp):
+            if sp is None:
+                s_temp[b], s_topk[b], s_topp[b], s_seed[b] = 0, 0, 1, 0
+            else:
+                s_temp[b] = float(sp.temperature)
+                s_topk[b] = int(sp.top_k)
+                s_topp[b] = float(sp.top_p)
+                s_seed[b] = int(sp.seed)
+
+        def samp_vec(pend):
+            """The sampling operands of one dispatch, on the device: the
+            per-slot rows and the generated-token counter that keys each
+            request's stream. A slot with a step in flight (``pend``)
+            counts its pending token; a mixed step, which commits no
+            token for its chunk and paused slots, is never in flight
+            here (sampling-enabled predictors resolve it first)."""
+            ctr = np.fromiter((len(slot_new[b]) + (1 if b in pend else 0)
+                               for b in range(self.B)), np.int32, self.B)
+            return tuple(self._put(a) for a in (s_temp, s_topk, s_topp,
+                                                 s_seed, ctr))
 
         def evict(b, status_val="ok"):
             r = slot_req[b]
@@ -439,6 +554,8 @@ class ContinuousBatchingPredictor:
             self.pool.release(slot_pages[b])
             slot_req[b], slot_pages[b], slot_new[b] = -1, [], []
             slot_pending[b], slot_hist[b] = [], []
+            slot_await_first[b] = False
+            set_samp(b, None)
             tables[b, :] = self._trash
             ctx[b] = 1
             if builder is not None:
@@ -451,13 +568,18 @@ class ContinuousBatchingPredictor:
             pool cannot satisfy it right now. Prompts over the chunk
             threshold ingest through the mixed step and bypass the
             prefix cache (no monolithic prefill computes the
-            per-position tokens the trie stores)."""
+            per-position tokens the trie stores). Sampled requests
+            bypass it too, lookup and insertion: their first-token
+            replay rewrites position L-1's K/V, which must land in a page
+            the request owns alone."""
             prompt = prompts[r]
             L = len(prompt)
             need = -(-(L + max_new[r]) // self.page)
+            sampled = self._wants_sampling(samp_of[r])
             chunked = bool(self._chunk_max) and L > self._chunk_max
             full_pages, covered, partial, cached_next = [], 0, None, None
-            if self.prefix_cache is not None and not chunked:
+            if self.prefix_cache is not None and not chunked \
+                    and not sampled:
                 full_pages, covered, partial, cached_next = \
                     self.prefix_cache.lookup(prompt)
                 if covered + (partial[1] if partial else 0) == L \
@@ -483,7 +605,7 @@ class ContinuousBatchingPredictor:
                     return None
                 return {"r": r, "prompt": prompt, "covered": 0,
                         "pages": fresh, "reused": 0, "next": None,
-                        "chunked": False}
+                        "chunked": False, "no_cache": sampled}
             if partial is not None:
                 # copy-on-write at the divergence page
                 self.pool.copy_into(partial[0], fresh[0])
@@ -493,7 +615,7 @@ class ContinuousBatchingPredictor:
                     "pages": full_pages + fresh,
                     "reused": len(full_pages) + (1 if partial else 0),
                     "next": cached_next if covered == L else None,
-                    "chunked": chunked}
+                    "chunked": chunked, "no_cache": sampled}
 
         def place_chunked(b, plan):
             """Install a chunked admission: pages reserved, no forward
@@ -508,24 +630,55 @@ class ContinuousBatchingPredictor:
             ctx[b] = 0
             slot_pending[b] = list(plan["prompt"])
             slot_hist[b] = list(plan["prompt"])
+            set_samp(b, samp_of[r])
             override[b] = False
             if builder is not None:
                 builder.set_slot(b, tables[b], 1)
             status[r] = "running"
             self.stats["chunked_requests"] += 1
+            if self._wants_sampling(samp_of[r]):
+                self.sampling_stats["sampled_requests"] += 1
 
         def chunk_first_token(b, r):
-            """The final chunk resolved: its argmax is the request's
-            first generated token."""
+            """The step that gives the request its first generated token
+            resolved (a final chunk's argmax, or a sampled request's
+            replay draw)."""
             ttft[r] = time.perf_counter() - t_start
 
+        def sampled_chunk_first(b, r):
+            """A sampled request's final chunk resolved: its argmax is
+            discarded and the slot moves to first-token replay (see
+            ``place``)."""
+            ctx[b] -= 1
+            last_tok_host[b] = prompts[r][-1]
+            override[b] = True
+            slot_await_first[b] = True
+
         def place(b, plan, first):
+            """Install an admitted request into slot b. ``first`` is the
+            admission argmax; a sampled request discards it: the slot
+            backs up one position and replays the last prompt token
+            through the sampling step, whose draw the next resolve takes
+            as the first token (TTFT lands there)."""
             r = plan["r"]
             L = len(plan["prompt"])
             pages = plan["pages"]
             slot_req[b], slot_pages[b] = r, pages
             tables[b, :] = self._trash
             tables[b, :len(pages)] = pages
+            set_samp(b, samp_of[r])
+            status[r] = "running"
+            if self._wants_sampling(samp_of[r]):
+                slot_new[b] = []
+                slot_hist[b] = list(plan["prompt"])
+                ctx[b] = L - 1
+                last_tok_host[b] = plan["prompt"][-1]
+                override[b] = True
+                slot_await_first[b] = True
+                if builder is not None:
+                    builder.set_slot(b, tables[b], L)
+                self.sampling_stats["sampled_requests"] += 1
+                return
             slot_new[b] = [first]
             slot_hist[b] = list(plan["prompt"]) + [first]
             ctx[b] = L
@@ -533,7 +686,6 @@ class ContinuousBatchingPredictor:
             override[b] = True
             if builder is not None:
                 builder.set_slot(b, tables[b], L + 1)
-            status[r] = "running"
             ttft[r] = time.perf_counter() - t_start
             if self.eos_token_id is not None and first == self.eos_token_id:
                 slot_new[b] = []          # eos is stripped
@@ -603,18 +755,26 @@ class ContinuousBatchingPredictor:
             if step.get("spec"):
                 self._resolve_spec_step(step, slot_req, slot_new, slot_hist,
                                         last_tok_host, max_new, ctx,
-                                        override, builder, evict)
+                                        override, builder, evict,
+                                        chunk_first_token)
             else:
                 self._resolve_step(step, slot_req, slot_new, last_tok_host,
                                    max_new, evict, chunk_first_token,
-                                   slot_hist)
+                                   slot_hist, sampled_chunk_first)
 
         inflight = None
         while True:
-            if inflight is not None and spec_mode:
-                # speculative mode resolves BEFORE it dispatches: the
-                # drafter needs the committed tokens in the histories,
-                # and ctx / the ragged meta rewound to the kept prefix
+            if inflight is not None and (
+                    spec_mode or (self.sampling_enabled
+                                  and "chunk_mid" in inflight)):
+                # resolve BEFORE dispatching when the next dispatch needs
+                # this step's host state: in speculative mode the drafter
+                # needs the committed tokens in the histories, and ctx /
+                # the ragged meta rewound to the kept prefix; a mixed step
+                # on a sampling-enabled predictor moves sampled slots into
+                # first-token replay and un-pauses sampled decode slots,
+                # and a dispatch chained in between would take the
+                # discarded argmax or advance ctx past the replay position
                 prev, inflight = inflight, None
                 resolve(prev)
             while admission_round():
@@ -633,20 +793,51 @@ class ContinuousBatchingPredictor:
                 if any(slot_pending[b] for b in active):
                     # a prompt is mid-ingest: this step runs the MIXED
                     # program -- its chunk advances while the decode
-                    # slots take their normal token step
+                    # slots take their normal token step. Sampled decode
+                    # slots PAUSE (the mixed step has no sampling
+                    # operands): they run their committed token again at
+                    # the same position, and resume after the ingest
+                    paused = [b for b in active if not slot_pending[b]
+                              and self._wants_sampling(
+                                  samp_of[slot_req[b]])]
+                    for b in paused:
+                        override[b] = True
                     cur = self._dispatch_mixed_step(
                         active, slot_req, slot_pending, tables, ctx,
-                        last_tok_host, override, builder, inflight)
+                        last_tok_host, override, builder, inflight, paused)
                 elif useful:
                     if spec_mode:
+                        sv = samp_vec(set()) if self.sampling_enabled \
+                            else None
                         cur = self._dispatch_spec_step(
                             active, slot_req, slot_hist, tables, ctx,
                             last_tok_host, override, builder, max_new,
-                            slot_new)
+                            slot_new, sv, s_temp)
                     else:
+                        sv = samp_vec(pend) if self.sampling_enabled \
+                            else None
                         cur = self._dispatch_step(
                             active, slot_req, tables, ctx, last_tok_host,
-                            override, builder, inflight)
+                            override, builder, inflight, sv)
+            if cur is not None:
+                # slots awaiting their first sampled token draw it in this
+                # step: they ride the chunk_final first-token path of the
+                # resolver (paused slots keep waiting)
+                firsts = {b for b in active if slot_await_first[b]
+                          and b not in cur.get("chunk_mid", ())}
+                if firsts:
+                    cur["chunk_final"] = set(cur.get("chunk_final", ())) \
+                        | firsts
+                    for b in firsts:
+                        slot_await_first[b] = False
+                # sampled requests' final chunks: from the argmax
+                # first-token path to first-token replay
+                cfs = {b for b in cur.get("chunk_final", ())
+                       if b not in firsts and slot_req[b] >= 0
+                       and self._wants_sampling(samp_of[slot_req[b]])}
+                if cfs:
+                    cur["chunk_final"] = set(cur["chunk_final"]) - cfs
+                    cur["chunk_final_sampled"] = cfs
             prev, inflight = inflight, cur
             if prev is not None:
                 resolve(prev)
@@ -689,7 +880,7 @@ class ContinuousBatchingPredictor:
             prompt = plan["prompt"]
             L = len(prompt)
             firsts[plan["r"]] = int(nexts[i, -1])
-            if self.prefix_cache is not None:
+            if self.prefix_cache is not None and not plan.get("no_cache"):
                 toks = [int(t) for t in nexts[i, bucket - L:]]
                 npages = -(-L // self.page)
                 self.prefix_cache.insert(prompt, plan["pages"][:npages],
@@ -760,15 +951,21 @@ class ContinuousBatchingPredictor:
         return SpanIndex(self._put(s.rows), self._put(s.kv_lens))
 
     def _dispatch_step(self, active, slot_req, tables, ctx, last_tok_host,
-                       override, builder, inflight):
+                       override, builder, inflight, samp=None):
         """Dispatch one decode step WITHOUT waiting for the previous one:
         continuing slots chain the device-resident token straight back
-        in; newly admitted slots inject their host-known first token."""
+        in; newly admitted slots inject their host-known first token.
+        With ``samp`` (the sampling operands on the device) the sampling
+        step runs instead."""
         t0 = time.perf_counter()
         meta = self._meta(builder, active, ctx + 1)
         tok_in = self._tok_in(last_tok_host, override, inflight)
-        nxt, done = self._raw_decode_step(self._put(tables), self._put(ctx),
-                                          tok_in, meta)
+        if samp is None:
+            nxt, done = self._raw_decode_step(
+                self._put(tables), self._put(ctx), tok_in, meta)
+        else:
+            nxt, done = self._raw_decode_sample_step(
+                self._put(tables), self._put(ctx), tok_in, samp, meta)
         fetch = self._fetch_async(nxt, done)
         snap = [(b, slot_req[b]) for b in active]
         ctx[active] += 1
@@ -790,12 +987,18 @@ class ContinuousBatchingPredictor:
 
     def _dispatch_mixed_step(self, active, slot_req, slot_pending, tables,
                              ctx, last_tok_host, override, builder,
-                             inflight):
+                             inflight, paused=()):
         """Dispatch one MIXED prefill+decode step: every slot with a
         pending prompt tail ingests its next chunk while the decode
         slots take their normal single-token step, chained off the
         in-flight step like ``_dispatch_step`` (chunk tokens are
-        host-known, so chunk steps pipeline too)."""
+        host-known, so chunk steps pipeline too).
+
+        ``paused`` slots (sampled decodes: this step's argmax would be
+        the wrong token for them) run their committed token again at
+        their position without advancing: the K/V written there is
+        written again by their next sampling step, and their output is
+        dropped like a mid-prompt chunk's."""
         t0 = time.perf_counter()
         chunk_slots = [b for b in active if slot_pending[b]]
         qb = self._chunk_bucket(max(len(slot_pending[b])
@@ -803,7 +1006,7 @@ class ContinuousBatchingPredictor:
                                 len(active) - len(chunk_slots))
         span_ids = np.full((self.B, qb), self.pad_token_id, np.int64)
         q_lens = np.ones((self.B,), np.int32)
-        mid, final = set(), set()
+        mid, final = set(paused), set()
         for b in chunk_slots:
             take = min(len(slot_pending[b]), qb)
             chunk = slot_pending[b][:take]
@@ -816,30 +1019,35 @@ class ContinuousBatchingPredictor:
             del slot_pending[b][:take]
             (final if not slot_pending[b] else mid).add(b)
             self.stats["prefill_chunks"] += 1
-        meta = self._meta(builder, active, ctx + q_lens)
+        adv = [b for b in active if b not in paused]
+        meta = self._meta(builder, adv, ctx + q_lens)
         tok_in = self._tok_in(last_tok_host, override, inflight)
         nxt, done = self._raw_mixed_step(
             self._put(tables), self._put(ctx), self._put(span_ids),
             self._put(q_lens), tok_in, self._span(tables, ctx, q_lens), meta)
         fetch = self._fetch_async(nxt, done)
         snap = [(b, slot_req[b]) for b in active]
-        ctx[active] += q_lens[active]
+        ctx[adv] += q_lens[adv]
         self.stats["decode_steps"] += 1
         self.stats["mixed_steps"] += 1
+        self.sampling_stats["paused_slots"] += len(paused)
         return {"tok": nxt, "fetch": fetch, "snap": snap, "t": t0,
                 "chunk_mid": mid, "chunk_final": final}
 
     def _dispatch_spec_step(self, active, slot_req, slot_hist, tables, ctx,
                             last_tok_host, override, builder, max_new,
-                            slot_new):
+                            slot_new, samp=None, s_temp=None):
         """Dispatch one SPECULATIVE step: each slot's prompt-lookup
         drafter proposes up to spec_draft_tokens continuations from the
         request's own history; the committed last token plus the drafts
-        run as one span (``_raw_spec_step``). ctx and the ragged meta
-        advance over the whole span; the resolver rewinds them to the
-        accepted prefix. With no drafts anywhere the step is a plain
-        decode step. Nothing is in flight here (spec mode resolves
-        first), so every input token comes from the host."""
+        run as one span (``_raw_spec_step``; with ``samp``, the sampling
+        operands, sampled slots verify by rejection sampling). ctx and
+        the ragged meta advance over the whole span; the resolver
+        rewinds them to the accepted prefix. With no drafts anywhere the
+        step is a plain (or sampling) decode step. Nothing is in flight
+        here (spec mode resolves first), so every input token comes from
+        the host. ``s_temp``: the host's per-slot temperatures (for the
+        sampled-draft count)."""
         t0 = time.perf_counter()
         qs = self._spec_k + 1
         span_ids = np.full((self.B, qs), self.pad_token_id, np.int64)
@@ -858,12 +1066,13 @@ class ContinuousBatchingPredictor:
         if not drafts:
             return self._dispatch_step(active, slot_req, tables, ctx,
                                        last_tok_host, override, builder,
-                                       None)
+                                       None, samp)
         meta = self._meta(builder, active, ctx + q_lens)
         tok_in = self._tok_in(last_tok_host, override, None)
         bonus, accepted = self._raw_spec_step(
             self._put(tables), self._put(ctx), self._put(span_ids),
-            self._put(q_lens), tok_in, self._span(tables, ctx, q_lens), meta)
+            self._put(q_lens), tok_in, self._span(tables, ctx, q_lens), meta,
+            samp)
         fetch = self._fetch_async(bonus, accepted)
         snap = [(b, slot_req[b]) for b in active]
         ctx0 = {b: int(ctx[b]) for b in active}
@@ -871,20 +1080,25 @@ class ContinuousBatchingPredictor:
         self.stats["decode_steps"] += 1
         self.stats["spec_ticks"] += 1
         self.stats["spec_proposed"] += sum(len(d) for d in drafts.values())
+        if s_temp is not None:
+            self.sampling_stats["sampled_spec_proposed"] += sum(
+                len(d) for b, d in drafts.items() if s_temp[b] > 0)
         return {"spec": True, "tok": bonus, "fetch": fetch, "snap": snap,
                 "t": t0, "ctx0": ctx0, "drafts": drafts,
                 "qlen": {b: int(q_lens[b]) for b in active}}
 
     def _resolve_spec_step(self, step, slot_req, slot_new, slot_hist,
                            last_tok_host, max_new, ctx, override, builder,
-                           evict):
+                           evict, first_cb):
         """Sync one speculative step and commit each slot's accepted
         drafts plus the bonus token: tokens append (eos and the budget
         truncate and evict as in plain decode), ctx and the ragged meta
         rewind to the kept prefix (the rejected positions' K/V was
         already restored on the device), and the drafting history
-        extends."""
+        extends. Slots in ``chunk_final`` draw their first (sampled)
+        token in this step: ``first_cb`` records TTFT."""
         bonus, acc = step["fetch"]()
+        firsts = step.get("chunk_final", ())
         accepted_total = 0
         for b, r in step["snap"]:
             if slot_req[b] != r:
@@ -896,6 +1110,8 @@ class ContinuousBatchingPredictor:
             if builder is not None and a + 1 < step["qlen"][b]:
                 builder.rollback_slot(b, new_ctx)
             accepted_total += a
+            if b in firsts:
+                first_cb(b, r)
             span_toks = []
             ended = False
             for t in drafts[:a] + [int(bonus[b])]:
@@ -915,21 +1131,28 @@ class ContinuousBatchingPredictor:
         self.stats["spec_accepted"] += accepted_total
 
     def _resolve_step(self, step, slot_req, slot_new, last_tok_host, max_new,
-                      evict, first_cb, hist):
+                      evict, first_cb, hist, sampled_first):
         """Sync a previously dispatched step (its successor may already
         be in flight) and apply its tokens: append, detect eos / budget,
         evict. Slots recycled since the dispatch are skipped. In a mixed
-        step, mid-prompt chunk slots produce no token, and a slot whose
-        FINAL chunk ran takes the step's argmax as its first token
-        (``first_cb`` records TTFT). Committed tokens extend ``hist``."""
+        step, mid-prompt chunk slots and paused slots produce no token,
+        and a slot whose FINAL chunk ran takes the step's argmax as its
+        first token (``first_cb`` records TTFT); a sampled request's
+        final chunk instead goes to ``sampled_first`` (first-token
+        replay). A decode step's ``chunk_final`` slots draw their first
+        sampled token. Committed tokens extend ``hist``."""
         nxt, done = step["fetch"]()
         chunk_mid = step.get("chunk_mid", ())
         chunk_final = step.get("chunk_final", ())
+        chunk_final_sampled = step.get("chunk_final_sampled", ())
         for b, r in step["snap"]:
             if slot_req[b] != r:
                 continue                  # evicted (and maybe re-admitted)
             if b in chunk_mid:
                 continue                  # mid-prompt chunk: no token yet
+            if b in chunk_final_sampled:
+                sampled_first(b, r)       # argmax dropped: replay next
+                continue
             first = b in chunk_final
             if first:
                 first_cb(b, r)

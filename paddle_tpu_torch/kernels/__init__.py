@@ -4,7 +4,8 @@ The entries live in their modules (``norm.fused_rms_norm``,
 ``attention.flash_attention_bshd``, ``paged_attention.paged_attention``
 / ``paged_attention_ragged`` / ``paged_attention_varq`` /
 ``paged_attention_ragged_varq``, ``rope``,
-``fused_optimizer.fused_update`` / ``grad_sq_norm``); this package
+``fused_optimizer.fused_update`` / ``grad_sq_norm``,
+``sampling.categorical_rows`` / ``uniform64_rows``); this package
 exports the shared constant and the launch counters.
 """
 from ._build import NEG_INF, launch_counts, reset_launch_counts

@@ -32,12 +32,17 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
+# every source under csrc/ with a C entry (the headers are included)
+SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "ragged_decode",
+           "paged_varq", "fused_optimizer", "sampling")
+
 # launches per kernel name; a wrapper adds one where it launches its
 # kernel and nowhere else
 launch_counts = {"rms_norm": 0, "layer_norm": 0, "flash_fwd": 0,
                  "flash_bwd_dkdv": 0, "flash_bwd_dq": 0, "paged_decode": 0,
                  "ragged_decode": 0, "paged_varq": 0, "fused_update": 0,
-                 "grad_sq_norm": 0}
+                 "grad_sq_norm": 0, "categorical_rows": 0,
+                 "uniform64_rows": 0}
 
 
 def count_launch(name: str) -> None:

@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from ..framework import resolve_device
+from ..generation import GenerationMixin
 from ..generation.kv_cache import PagedCacheEntry, paged_cache_update_attend
 from ..incubate.nn.functional import swiglu
 from ..kernels.norm import fused_rms_norm
@@ -207,10 +208,13 @@ class LlamaModel(nn.Module):
         return h
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(nn.Module, GenerationMixin):
     """Llama with its LM head. ``device`` defaults to CUDA (raising when
     none is present); ``device="cpu"`` builds the plain-path model the
-    CPU tests use."""
+    CPU tests use. ``generate()`` runs the eager path of
+    ``GenerationMixin`` (the static-cache path is not ported)."""
+
+    supports_static_cache = False
 
     def __init__(self, config: LlamaConfig, device=None):
         super().__init__()

@@ -273,11 +273,17 @@ def test_cpu_tensors_take_plain_versions():
     opt = AdamW(parameters=[w], grad_clip=ClipGradByGlobalNorm(1.0))
     opt.step()
     assert opt._fused_plan is not None
+    from paddle_tpu_torch.kernels.sampling import (categorical_rows,
+                                                   uniform64_rows)
+    ints = torch.arange(4, dtype=torch.int32)
+    categorical_rows(torch.randn(4, 64), ints, ints, ints)
+    uniform64_rows(ints, ints, ints)
     assert launch_counts == {"rms_norm": 0, "layer_norm": 0, "flash_fwd": 0,
                              "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
                              "paged_decode": 0, "ragged_decode": 0,
                              "paged_varq": 0, "fused_update": 0,
-                             "grad_sq_norm": 0}
+                             "grad_sq_norm": 0, "categorical_rows": 0,
+                             "uniform64_rows": 0}
 
 
 def test_library_path_follows_headers(tmp_path, monkeypatch):
