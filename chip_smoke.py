@@ -76,14 +76,34 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    TTFT, tokens/s and peak memory of each, profiles a pass of runs 1-2,
    and counts the device activities of a greedy and a sampled decode
    tick.
-5. Fine-tune, through ``paddle_tpu_torch/examples/bert_finetune.py``:
+5. AOT engine (``paddle_tpu_torch/inference/aot``): two bundles built
+   from the serve phase's model (``EngineBuilder``: run 1's block-table
+   geometry, and runs 2-3's with sampling enabled; power-of-two prompt
+   buckets and the runs' prompts served once, so the shared prompt's
+   suffix prefill is recorded), each program captured into a CUDA graph.
+   A 2-layer full-width f32 model warm-started on the card gives the CPU
+   eager predictor's tokens and stats. Then a second process (this
+   script with ``--aot-child``, its default kernel build directory empty)
+   draws the same weights from the seed, warm-starts from the bundles and
+   serves runs 1-3 through replayed graphs: tokens, stats and (runs 1 and
+   3) every kernel's launch count, counted by replay, equal this
+   process's eager runs; every counted run hits the bundle and misses
+   nothing; a sampled decode tick draws once. A 600-token prompt (bucket
+   1024, uncalibrated) misses once, is served with the eager tokens and
+   written back, and a second warm start hits it. No nvcc runs in that
+   process. Prints, beside eager, each run's decode tokens/s, TTFT p50,
+   idle share of a profiled pass, host ops per decode step, device
+   activities per decode tick, peak memory (the graph pool included) and
+   the capture seconds at warm start. The bundles go to
+   ``output/chip_smoke_aot`` and are deleted afterwards.
+6. Fine-tune, through ``paddle_tpu_torch/examples/bert_finetune.py``:
    BERT-base, 30 steps at batch 16 x 128 with row lengths 32-128 through
    ``attention_mask``, every dropout 0.1; then ERNIE-3.0-base for 6
    steps. Every loss finite, and per step 25 LayerNorm launches, 12 of
    each flash kernel and one ``fused_update`` (the eager ``opt.step()``).
    Prints step time, tokens/s, MFU (f32 peak) and peak memory, and
    profiles one step.
-6. Train: Llama-2-7B widths in bf16, 8 of 32 layers (AdamW's f32 master
+7. Train: Llama-2-7B widths in bf16, 8 of 32 layers (AdamW's f32 master
    weights and moments take 16 bytes per parameter: all 32 layers would
    need 108 GB), through ``Trainer`` for 6 steps at batch 2 x 2048 on one
    fixed batch: every loss finite, the last below the first, and each
@@ -1388,7 +1408,9 @@ def free_card(torch):
 
 
 def serve_phase(torch, dev, seed, layers, card):
-    """Both served runs on one model; returns each run's launch counts."""
+    """The three served runs on one model; returns each run's launch
+    counts and, for the aot phase, the model, the prompts and each run's
+    eager results."""
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     cfg = LlamaConfig.llama2_7b(num_hidden_layers=layers, dtype="bfloat16")
     t0 = time.perf_counter()
@@ -1409,11 +1431,12 @@ def serve_phase(torch, dev, seed, layers, card):
                shared + toks(91), toks(200), toks(130)]
     max_new = [64, 40, 48, 32, 56, 48, 36, 60]
     t0 = time.perf_counter()
-    outs1, counts1, _, _ = serve_run(torch, dev, model, cfg, prompts,
-                                     max_new, card,
-                                     "run 1 (block-table decode)",
-                                     RUN1_KERNELS, RUN1)
-    serve_profile(torch, dev, model, prompts[:4], card, RUN1)
+    run1 = serve_run(torch, dev, model, cfg, prompts, max_new, card,
+                     "run 1 (block-table decode)", RUN1_KERNELS, RUN1)
+    run1.update(serve_profile(torch, dev, model, prompts[:4], card, RUN1))
+    run1["tick"] = tick_launches(torch, dev, run1.pop("cb"), card,
+                                 "run 1")
+    outs1 = run1["outs"]
     log(f"serve run 1 took {time.perf_counter() - t0:.1f} s")
 
     # run 2: two lookup prompts that repeat a 64-token segment five times,
@@ -1425,10 +1448,11 @@ def serve_phase(torch, dev, seed, layers, card):
                           **dict(RUN2, spec_draft_tokens=0))
             for _ in range(2)]
     t0 = time.perf_counter()
-    outs2, counts2, cb, tok_s2 = serve_run(
+    run2 = serve_run(
         torch, dev, model, cfg, prompts + reps, max_new + [64, 64], card,
         "run 2 (ragged decode, chunked prefill 256, 4 drafts)",
         RUN2_KERNELS, RUN2)
+    cb, outs2 = run2.pop("cb"), run2["outs"]
     st = cb.stats
     check(cb.use_ragged, "use_ragged='auto' did not turn on on CUDA")
     check(st["chunked_requests"] >= 3, f"fewer than 3 chunked requests: {st}")
@@ -1444,16 +1468,18 @@ def serve_phase(torch, dev, seed, layers, card):
         f"{st['spec_accepted'] / max(st['spec_proposed'], 1):.3f}; "
         f"{same} of {len(outs1)} requests' bf16 tokens equal run 1's; "
         f"first differing token per request {split}")
-    serve_profile(torch, dev, model, [prompts[0], prompts[1], reps[0],
-                                      prompts[3]], card, RUN2)
+    run2.update(serve_profile(torch, dev, model, [prompts[0], prompts[1],
+                                                  reps[0], prompts[3]],
+                              card, RUN2))
     log(f"serve run 2 took {time.perf_counter() - t0:.1f} s")
     del cb
     free_card(torch)
     t0 = time.perf_counter()
-    counts3 = serve_run3(torch, dev, model, cfg, prompts + reps,
-                         max_new + [64, 64], card, outs2, tok_s2)
+    run3 = serve_run3(torch, dev, model, cfg, prompts + reps,
+                      max_new + [64, 64], card, outs2, run2["tok_s"])
     log(f"serve run 3 took {time.perf_counter() - t0:.1f} s")
-    return counts1, counts2, counts3
+    return {"model": model, "prompts": prompts, "reps": reps,
+            "max_new": max_new, "runs": [run1, run2, run3]}
 
 
 # run 3: run 2's configuration and prompts with sampling on; per request
@@ -1470,6 +1496,9 @@ _A = dict(temperature=0.8, top_k=50, top_p=0.95)
 _B = dict(temperature=1.0)
 _D = dict(temperature=0.6, top_p=0.9)
 RUN3_MIX = [None, _A, None, _B, _D, None, _A, _B, _A, _D]
+# run 3's profiled pass: the 512-token prompt (greedy, chunked), a
+# sampled short prompt, a sampled lookup prompt, another sampled prompt
+RUN3_PICK = (0, 1, 8, 3)
 
 
 def run3_sampling(seed_of=None):
@@ -1487,9 +1516,10 @@ def serve_run3(torch, dev, model, cfg, prompts, max_new, card, outs2,
     counts."""
     label = "run 3 (run 2 + sampling: 3 greedy, 7 sampled)"
     sp = run3_sampling()
-    outs, counts, cb, tok_s = serve_run(
-        torch, dev, model, cfg, prompts, max_new, card, label, RUN3_KERNELS,
-        RUN3, sp)
+    res = serve_run(torch, dev, model, cfg, prompts, max_new, card, label,
+                    RUN3_KERNELS, RUN3, sp)
+    outs, counts, cb, tok_s = (res["outs"], res["counts"], res.pop("cb"),
+                               res["tok_s"])
     ss = cb.sampling_stats
     log(f"serve run 3: sampling stats {ss}")
     log(f"serve run 3 on {card}: decode {tok_s:.1f} tok/s outside "
@@ -1534,13 +1564,12 @@ def serve_run3(torch, dev, model, cfg, prompts, max_new, card, outs2,
     # RUN3_KERNELS)
     log(f"serve run 3 (e): categorical_rows {counts['categorical_rows']}, "
         f"uniform64_rows {counts['uniform64_rows']} launches")
-    tick_launches(torch, dev, cb, card)
+    res["tick"] = tick_launches(torch, dev, cb, card, "run 3")
     # a profiled pass: the 512-token prompt (greedy, chunked), a sampled
     # short prompt, a sampled lookup prompt and another sampled prompt
-    pick = (0, 1, 8, 3)
-    serve_profile(torch, dev, model, [prompts[r] for r in pick], card, RUN3,
-                  [sp[r] for r in pick])
-    return counts
+    res.update(serve_profile(torch, dev, model, [prompts[r] for r in RUN3_PICK],
+                             card, RUN3, [sp[r] for r in RUN3_PICK]))
+    return res
 
 
 def run3_predictor(model, dev):
@@ -1549,11 +1578,15 @@ def run3_predictor(model, dev):
     return ContinuousBatchingPredictor(model, device=dev, **GEOM, **RUN3)
 
 
-def tick_launches(torch, dev, cb, card):
-    """Device activities (kernels, copies, memsets) of one greedy decode
-    tick, one sampled decode tick (the same inputs; operands for 2 of 4
-    sampled slots) and the draw alone, kernel and plain, from the
-    profiler; the sampled tick must launch the draw kernel once."""
+def tick_launches(torch, dev, cb, card, label):
+    """Device activities (kernels, copies, memsets) of one decode tick of
+    ``cb``, from the profiler, dispatched through its ``_jit_call``: the
+    eager steps without an engine, a replayed graph with one. Every slot
+    decodes one token over the trash page. A sampling-enabled predictor's
+    tick is the sampled one (operands for 2 of 4 sampled slots), which
+    must launch the draw kernel once; without an engine it also gives the
+    greedy tick (the same inputs) and the draw alone, kernel and plain.
+    Returns {"greedy" / "sampled": activities per tick}."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.kernels import (launch_counts, reset_launch_counts,
@@ -1561,19 +1594,28 @@ def tick_launches(torch, dev, cb, card):
     from paddle_tpu_torch.kernels.paged_attention import RaggedMetaBuilder
     b, pps = cb.B, cb.pages_per_seq
     tables = np.full((b, pps), cb._trash, np.int32)
-    builder = RaggedMetaBuilder(b, pps, cb.page, cb._trash)
-    for i in range(b):
-        builder.set_slot(i, tables[i], 2)
     args = (cb._put(tables), cb._put(np.ones(b, np.int32)),
             cb._put(np.arange(b, dtype=np.int32) + 5))
-    meta = cb._put(builder.stacked())
+    meta = None
+    if cb.use_ragged:
+        builder = RaggedMetaBuilder(b, pps, cb.page, cb._trash)
+        for i in range(b):
+            builder.set_slot(i, tables[i], 2)
+        meta = cb._put(builder.stacked())
     samp = tuple(cb._put(a) for a in (
         np.asarray([0.0, 0.8, 0.0, 0.6], np.float32),
         np.asarray([0, 50, 0, 0], np.int32),
         np.asarray([1.0, 0.95, 1.0, 0.9], np.float32),
         np.arange(b, dtype=np.int32), np.zeros(b, np.int32)))
-    lg = torch.randn(b, cb.model.config.vocab_size, device=dev)
-    seed, ctr = samp[3], samp[4]
+    meta_sig = cb._meta_sig(meta)
+
+    def greedy():
+        return cb._jit_call(("decode", tables.shape, meta_sig),
+                            cb._raw_decode_step, *args, meta)
+
+    def sampled():
+        return cb._jit_call(("decode_sample", tables.shape, meta_sig),
+                            cb._raw_decode_sample_step, *args, samp, meta)
 
     def count(fn, reps=1):
         """(activities, device ms) per call over ``reps`` calls, and
@@ -1588,35 +1630,51 @@ def tick_launches(torch, dev, cb, card):
         return (sum(n for _, n in kern.values()) / reps,
                 sum(ms for ms, _ in kern.values()) / reps,
                 any("categorical" in k for k in kern))
-    greedy = count(lambda: cb._raw_decode_step(*args, meta))
-    sampled = count(lambda: cb._raw_decode_sample_step(*args, samp, meta))
-    kernel = count(lambda: ks.categorical_rows_kernel(lg, seed, ctr), 10)
-    plain = count(lambda: ks.categorical_rows_plain(lg, seed, ctr))
+    how = "replayed graph" if cb._engine is not None else "eager"
+    layers = cb.model.config.num_hidden_layers
+    out = {}
+    if not cb.sampling_enabled or cb._engine is None:
+        g = count(greedy)
+        out["greedy"] = g[0]
+        log(f"serve {label} on {card}: device activities per greedy decode "
+            f"tick ({how}, profiler, {layers} layers): {g[0]:.0f} "
+            f"({g[1]:.3f} ms of device time)")
+    if not cb.sampling_enabled:
+        return out
+    smp = count(sampled)
+    out["sampled"] = smp[0]
     reset_launch_counts()
-    cb._raw_decode_sample_step(*args, samp, meta)
+    sampled()
     draws = dict(launch_counts)
-    log(f"serve run 3 on {card}: device activities per decode tick "
-        f"(profiler, {cb.model.config.num_hidden_layers} layers): greedy "
-        f"{greedy[0]:.0f} ({greedy[1]:.3f} ms of device time), sampled "
-        f"{sampled[0]:.0f} ({sampled[1]:.3f} ms; the draw kernel in the "
-        f"trace: {sampled[2]}; launch counts: categorical_rows "
+    log(f"serve {label} on {card}: device activities per sampled decode "
+        f"tick ({how}): {smp[0]:.0f} ({smp[1]:.3f} ms; the draw kernel in "
+        f"the trace: {smp[2]}; launch counts: categorical_rows "
         f"{draws['categorical_rows']}, uniform64_rows "
-        f"{draws['uniform64_rows']}); the draw alone: kernel "
-        f"{kernel[0]:.1f} ({kernel[1]:.4f} ms, over 10 calls), plain "
-        f"threefry ops {plain[0]:.0f} ({plain[1]:.4f} ms)")
+        f"{draws['uniform64_rows']})")
     check(draws["categorical_rows"] == 1 and draws["uniform64_rows"] == 0,
           f"a sampled decode tick did not draw in one launch: {draws}")
+    if cb._engine is None:
+        lg = torch.randn(b, cb.model.config.vocab_size, device=dev)
+        seed, ctr = samp[3], samp[4]
+        kernel = count(lambda: ks.categorical_rows_kernel(lg, seed, ctr), 10)
+        plain = count(lambda: ks.categorical_rows_plain(lg, seed, ctr))
+        log(f"serve {label} on {card}: the draw alone: kernel "
+            f"{kernel[0]:.1f} ({kernel[1]:.4f} ms, over 10 calls), plain "
+            f"threefry ops {plain[0]:.0f} ({plain[1]:.4f} ms)")
+    return out
 
 
 def serve_run(torch, dev, model, cfg, prompts, max_new, card, label,
-              required, kw, sampling=None):
-    """One counted serve: launch counters set to 0 just before it and
-    read just after; every kernel in ``required`` must have launched.
-    Returns the tokens, the counts, the predictor and the decode
-    tokens/s outside monolithic prefill."""
+              required, kw, sampling=None, cb=None):
+    """One counted serve (on ``cb``, else on a new predictor of ``kw``):
+    launch counters set to 0 just before it and read just after; every
+    kernel in ``required`` must have launched. Returns {"outs", "counts",
+    "stats", "cb", "tok_s": decode tokens/s outside monolithic prefill,
+    "ttft_p50_ms", "peak_gib"}."""
     from paddle_tpu_torch.inference import ContinuousBatchingPredictor
     from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
-    cb = ContinuousBatchingPredictor(model, device=dev, **GEOM, **kw)
+    if cb is None:
+        cb = ContinuousBatchingPredictor(model, device=dev, **GEOM, **kw)
     prefill_s = [0.0]
 
     def timed(fn):                      # prefills end in a host sync
@@ -1637,6 +1695,7 @@ def serve_run(torch, dev, model, cfg, prompts, max_new, card, label,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(launch_counts)
+    del cb._batch_prefill, cb._suffix_prefill
     peak = torch.cuda.max_memory_allocated(dev)
     log(f"serve {label}: status {cb.last_status}; stats {cb.stats}")
     log(f"serve {label}: kernel launches {counts}")
@@ -1661,16 +1720,27 @@ def serve_run(torch, dev, model, cfg, prompts, max_new, card, label,
         f"monolithic prefill ({dec_tok / dec_s:.1f} tok/s, "
         f"{cb.stats['decode_steps']} steps); peak memory "
         f"{peak / 2**30:.2f} GiB")
-    return outs, counts, cb, dec_tok / dec_s
+    return {"outs": outs, "counts": counts, "stats": dict(cb.stats),
+            "sampling_stats": dict(cb.sampling_stats), "cb": cb,
+            "tok_s": dec_tok / dec_s,
+            "ttft_p50_ms": statistics.median(ttft) * 1e3,
+            "peak_gib": peak / 2**30}
 
 
-def serve_profile(torch, dev, model, prompts, card, kw, sampling=None):
+def serve_profile(torch, dev, model, prompts, card, kw, sampling=None,
+                  cb=None):
     """A profiled serve of 4 requests (after the counted run, so the
-    tracer's cost stays out of its numbers): device busy and idle share,
-    and the device time by kernel."""
+    tracer's cost stays out of its numbers; on ``cb`` with its prefix
+    cache emptied, else on a new predictor of ``kw``): device busy and
+    idle share, host ops per decode step, and the device time by kernel.
+    Returns {"idle", "host_per_step"}."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.inference import ContinuousBatchingPredictor
-    cb = ContinuousBatchingPredictor(model, device=dev, **GEOM, **kw)
+    if cb is None:
+        cb = ContinuousBatchingPredictor(model, device=dev, **GEOM, **kw)
+    elif cb.prefix_cache is not None:
+        cb.prefix_cache.clear(cb.pool)
+    steps0 = dict(cb.stats)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1680,10 +1750,12 @@ def serve_profile(torch, dev, model, prompts, card, kw, sampling=None):
         wall = (time.perf_counter() - t0) * 1e3
     kern = device_kernel_ms(torch, prof)
     busy = sum(ms for ms, _ in kern.values())
-    log(f"serve profile {kw} on {card}: {len(prompts)} requests "
+    st = {k: cb.stats[k] - steps0[k] for k in steps0}
+    how = "replayed graphs" if cb._engine is not None else "eager"
+    log(f"serve profile {kw} ({how}) on {card}: {len(prompts)} requests "
         f"({[len(p) for p in prompts]} prompt tokens) x 32 tokens, "
-        f"{cb.stats['decode_steps']} steps ({cb.stats['mixed_steps']} mixed, "
-        f"{cb.stats['spec_ticks']} speculative), wall {wall:.1f} ms "
+        f"{st['decode_steps']} steps ({st['mixed_steps']} mixed, "
+        f"{st['spec_ticks']} speculative), wall {wall:.1f} ms "
         f"(traced), device busy {busy:.1f} ms, idle share "
         f"{1 - busy / wall:.3f}")
     for name, (ms, n) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:12]:
@@ -1692,11 +1764,297 @@ def serve_profile(torch, dev, model, prompts, card, kw, sampling=None):
     host = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CPU]
     host_ms = sum(e.self_cpu_time_total for e in host) / 1e3
+    calls = sum(e.count for e in host)
     log(f"serve profile: host ops {host_ms:.1f} ms of self time "
-        f"({sum(e.count for e in host)} calls); top by self time:")
+        f"({calls} calls, {calls / max(st['decode_steps'], 1):.0f} per "
+        f"decode step); top by self time:")
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]:
         log(f"  {e.self_cpu_time_total / 1e3:9.2f} ms x{e.count:<6d} "
             f"{e.key[:60]}")
+    return {"idle": 1 - busy / wall,
+            "host_per_step": calls / max(st["decode_steps"], 1)}
+
+
+# ------------------------------------------------------------------- AOT --
+
+# the aot phase's bundles: run 1's block-table geometry, and runs 2-3's
+# (ragged decode, chunk 256, 4 drafts, sampling enabled: run 2 serves its
+# greedy prompts on it). The prompt buckets are the power-of-two chain the
+# eager runs bucket by (a warm predictor buckets by its bundle's table),
+# up to the longest unchunked prompt; serving the runs' prompts once (2
+# tokens each) records the shared prompt's suffix prefill, which no
+# bucket steers
+AOT_BUNDLES = {"run1": (RUN1, (32, 64, 128, 256, 512)),
+               "run23": (RUN3, (32, 64, 128, 256))}
+AOT_MISS_LEN = 600           # bucket 1024: past run 1's bundle's table
+AOT_DIR = os.path.join("output", "chip_smoke_aot")
+AOT_CHILD_TIMEOUT = 600
+
+
+def weight_sum(torch, model):
+    """An f64 sum of every weight's f32 sum: equal in two processes only
+    when the seeded weights are."""
+    with torch.no_grad():
+        return float(torch.stack([p.float().sum()
+                                  for p in model.parameters()])
+                     .double().sum())
+
+
+def aot_phase(torch, dev, seed, layers, card, serve):
+    """The AOT engine at full width: both bundles built from the serve
+    phase's model (then freed), the f32 gate in this process, and a
+    second process that warm-starts from the bundles with an empty default
+    kernel build directory (``aot_child``), whose runs 1-3 must give this
+    process's eager tokens, stats and launch counts."""
+    import collections
+    from paddle_tpu_torch.inference import aot
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), AOT_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    model, prompts, reps = serve["model"], serve["prompts"], serve["reps"]
+    bundles = {}
+    for name, (kw, buckets) in AOT_BUNDLES.items():
+        b = aot.EngineBuilder(model, prompt_buckets=buckets,
+                              batch_sizes=(1, 2, 4), **GEOM, **kw)
+        b.add_traffic(prompts, max_new_tokens=2)
+        bundles[name] = os.path.join(root, name)
+        man = b.build(bundles[name], seed=seed)
+        torch.cuda.synchronize()
+        kinds = collections.Counter(r["kind"]
+                                    for r in man["artifacts"].values())
+        mib = sum(r["bytes"] for r in man["kernels"].values()) / 2**20
+        log(f"aot: bundle {name} ({kw}, prompt buckets {buckets}) built in "
+            f"{b.build_seconds:.1f} s on {card}: {len(man['artifacts'])} "
+            f"signatures {dict(kinds)}; {len(man['kernels'])} kernel files "
+            f"({mib:.1f} MiB)")
+        check(kinds["decode_sample" if kw.get("sampling_enabled")
+                    else "decode"] == 1 and kinds["suffix"] >= 1,
+              f"bundle {name} lacks a decode or suffix program: {kinds}")
+    wsum = weight_sum(torch, model)
+    del model, serve["model"], b
+    free_card(torch)
+    aot_f32_gate(torch, dev, seed, root, card)
+    free_card(torch)
+
+    spec = {"seed": seed, "layers": layers, "weight_sum": wsum,
+            "bundles": bundles, "prompts": prompts, "reps": reps,
+            "max_new": serve["max_new"],
+            "result": os.path.join(root, "child.json"),
+            "empty_build": os.path.join(root, "empty_build")}
+    os.makedirs(spec["empty_build"])
+    with open(os.path.join(root, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    env = dict(os.environ, PADDLE_TPU_TORCH_BUILD_DIR=spec["empty_build"])
+    env.pop("TRITON_CACHE_DIR", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--aot-child",
+         os.path.join(root, "spec.json")], env=env,
+        timeout=AOT_CHILD_TIMEOUT)
+    check(proc.returncode == 0,
+          f"the warm-start process failed (exit {proc.returncode})")
+    log(f"aot: the warm-start process took {time.perf_counter() - t0:.1f} s")
+    with open(spec["result"]) as f:
+        res = json.load(f)
+    names = ("run 1", "run 2", "run 3")
+    for i, (name, eager, warm) in enumerate(zip(names, serve["runs"],
+                                                res["runs"])):
+        diff = [r for r, (a, b) in enumerate(zip(eager["outs"],
+                                                 warm["outs"])) if a != b]
+        same = "n/a (the sampling bundle's ticks draw)" if i == 1 else \
+            warm["counts"] == eager["counts"]
+        log(f"aot {name}: graph tokens vs eager: requests that differ "
+            f"{diff}; stats equal: {warm['stats'] == eager['stats']}; "
+            f"launch counts equal: {same}")
+        check(not diff, f"{name} through graphs gives other tokens for "
+              f"{diff} than eager")
+        check(warm["stats"] == eager["stats"],
+              f"{name} stats: graphs {warm['stats']} vs eager "
+              f"{eager['stats']}")
+        if i != 1:   # run 2 ran on the sampling-enabled predictor
+            check(warm["counts"] == eager["counts"],
+                  f"{name} launch counts: graphs {warm['counts']} vs "
+                  f"eager {eager['counts']}")
+        if i == 2:
+            check(warm["sampling_stats"] == eager["sampling_stats"],
+                  f"run 3 sampling stats: graphs {warm['sampling_stats']} "
+                  f"vs eager {eager['sampling_stats']}")
+        tick = lambda r: ", ".join(f"{k} {v:.0f}"            # noqa: E731
+                                   for k, v in r.get("tick", {}).items())
+        log(f"aot {name} on {card}, eager | graphs: decode "
+            f"{eager['tok_s']:.1f} | {warm['tok_s']:.1f} tok/s; TTFT p50 "
+            f"{eager['ttft_p50_ms']:.1f} | {warm['ttft_p50_ms']:.1f} ms; "
+            f"idle share {eager['idle']:.3f} | {warm['idle']:.3f}; host ops "
+            f"per decode step {eager['host_per_step']:.0f} | "
+            f"{warm['host_per_step']:.0f}; device activities per tick "
+            f"[{tick(eager) or 'not measured'}] | "
+            f"[{tick(warm) or 'not measured'}]; peak memory "
+            f"{eager['peak_gib']:.2f} | {warm['peak_gib']:.2f} GiB (graph "
+            f"pool included); capture at warm start "
+            f"{warm['capture_s']:.2f} s ({warm['loads']} programs)")
+    shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
+def aot_f32_gate(torch, dev, seed, root, card):
+    """2 layers at full width in f32: a warm-started predictor on the
+    card gives the CPU eager predictor's tokens and stats."""
+    from paddle_tpu_torch.inference import ContinuousBatchingPredictor, aot
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=2, dtype="float32")
+    cpu = LlamaForCausalLM(cfg, device="cpu").init_weights(
+        torch.Generator().manual_seed(seed))
+    gpu = LlamaForCausalLM(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(seed + 3)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (40, 37, 21)]
+    geom = dict(max_batch_size=2, page_size=16, max_seq_len=128)
+    path = os.path.join(root, "f32")
+    b = aot.EngineBuilder(gpu, prompt_buckets=(32, 64), **geom)
+    b.build(path, seed=seed)
+    pred, eng = aot.warm_start(gpu, path, strict=True)
+    got = pred.generate(prompts, max_new_tokens=6)
+    want_cb = ContinuousBatchingPredictor(cpu, device="cpu", **geom)
+    want = want_cb.generate(prompts, max_new_tokens=6)
+    log(f"aot f32 gate on {card}: 2 layers at full width, warm-started "
+        f"tokens == CPU eager: {got == want}; stats equal: "
+        f"{pred.stats == want_cb.stats}; {eng.stats['loads']} programs, "
+        f"{eng.stats['hits']} hits, {eng.stats['misses']} misses")
+    check(got == want, f"f32 warm-started tokens {got} vs CPU {want}")
+    check(pred.stats == want_cb.stats,
+          f"f32 stats: card {pred.stats} vs CPU {want_cb.stats}")
+    check(eng.stats["misses"] == 0 and eng.stats["hits"] > 0,
+          f"f32 warm start missed: {eng.stats}")
+
+
+def aot_warm(torch, aot, model, path, card, label):
+    """A strict warm start (any invalidation raises); logs its time."""
+    t0 = time.perf_counter()
+    pred, eng = aot.warm_start(model, path, strict=True)
+    torch.cuda.synchronize()
+    log(f"aot child: warm start of {label} on {card}: {eng.stats['loads']} "
+        f"programs captured in {eng.stats['capture_s']:.2f} s "
+        f"({time.perf_counter() - t0:.2f} s in all)")
+    check(eng.warm and eng.stats["loads"] > 0, f"{label}: a cold bundle")
+    return pred, eng
+
+
+def aot_counted(torch, dev, aot, model, cfg, card, label, required, kw,
+                pred, eng, prompts, max_new, sampling=None):
+    """One counted run through graphs: no bucket miss, bundle hits,
+    every required kernel counted by replay."""
+    aot.reset_counters()
+    hits0 = eng.stats["hits"]
+    r = serve_run(torch, dev, model, cfg, prompts, max_new, card, label,
+                  required, kw, sampling, cb=pred)
+    misses = dict(aot.counters["bucket_misses"])
+    log(f"aot child {label}: bundle hits {eng.stats['hits'] - hits0} "
+        f"{dict(aot.counters['bundle_hits'])}, bucket misses {misses}")
+    check(not misses and eng.stats["hits"] > hits0,
+          f"{label}: a bucket miss or no bundle hit: {misses}")
+    r.update(capture_s=eng.stats["capture_s"], loads=eng.stats["loads"])
+    return r
+
+
+def aot_child(torch, dev, spec_path, card):
+    """The second process of the aot phase: warm-starts from the bundles
+    (the default kernel build directory empty), serves runs 1-3 through
+    graphs with their profiled passes and ticks, a bucket miss and a
+    second warm start, and writes the results for the first process."""
+    from paddle_tpu_torch.inference import ContinuousBatchingPredictor, aot
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    with open(spec_path) as f:
+        spec = json.load(f)
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=spec["layers"],
+                                dtype="bfloat16")
+    model = LlamaForCausalLM(cfg, device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(spec["seed"]))
+    check(weight_sum(torch, model) == spec["weight_sum"],
+          "the second process drew other weights from the seed")
+    prompts, reps, max_new = spec["prompts"], spec["reps"], spec["max_new"]
+    runs = []
+
+    def keep(r):
+        r.pop("cb", None)
+        runs.append(r)
+
+    # run 1 on the block-table bundle, then a bucket miss there
+    pred, eng = aot_warm(torch, aot, model, spec["bundles"]["run1"], card,
+                         "bundle run1")
+    r = aot_counted(torch, dev, aot, model, cfg, card, "run 1 (graphs)",
+                    RUN1_KERNELS, RUN1, pred, eng, prompts, max_new)
+    r.update(serve_profile(torch, dev, model, prompts[:4], card, RUN1,
+                           cb=pred))
+    r["tick"] = tick_launches(torch, dev, pred, card, "run 1 (graphs)")
+    keep(r)
+    gen = torch.Generator().manual_seed(spec["seed"] + 4)
+    miss = [torch.randint(1, cfg.vocab_size, (AOT_MISS_LEN,),
+                          generator=gen).tolist()]
+    want = ContinuousBatchingPredictor(model, device=dev, **GEOM,
+                                       **RUN1).generate(miss, 8)
+    aot.reset_counters()
+    n0 = len(aot.EngineBundle(spec["bundles"]["run1"]).artifacts())
+    got = pred.generate(miss, max_new_tokens=8)
+    m_after = len(aot.EngineBundle(spec["bundles"]["run1"]).artifacts())
+    log(f"aot child: a {AOT_MISS_LEN}-token prompt: bucket misses "
+        f"{dict(aot.counters['bucket_misses'])}, write-backs "
+        f"{eng.stats['write_backs']}, programs in the bundle {n0} -> "
+        f"{m_after}; tokens == eager: {got == want}")
+    check(dict(aot.counters["bucket_misses"]) == {"prefill": 1}
+          and eng.stats["write_backs"] == 1 and m_after == n0 + 1,
+          f"the uncalibrated bucket did not miss once and write back: "
+          f"{dict(aot.counters['bucket_misses'])}, {eng.stats}")
+    check(got == want, f"the missed bucket's tokens {got} vs eager {want}")
+    del pred, eng
+    free_card(torch)
+    pred, eng = aot_warm(torch, aot, model, spec["bundles"]["run1"], card,
+                         "bundle run1 after the write-back")
+    aot.reset_counters()
+    again = pred.generate(miss, max_new_tokens=8)
+    log(f"aot child: the written-back bucket after a second warm start: "
+        f"bundle hits {dict(aot.counters['bundle_hits'])}, misses "
+        f"{dict(aot.counters['bucket_misses'])}; tokens == eager: "
+        f"{again == want}")
+    check(again == want and not aot.counters["bucket_misses"]
+          and aot.counters["bundle_hits"]["prefill"] >= 1,
+          "the second warm start did not hit the written-back bucket")
+    del pred, eng
+    free_card(torch)
+
+    # run 2 (greedy) and run 3 on the sampling-enabled bundle, each on a
+    # fresh warm start
+    for label, required, kw, sampling in (
+            ("run 2 (graphs)", RUN2_KERNELS, RUN2, None),
+            ("run 3 (graphs)", RUN3_KERNELS, RUN3, run3_sampling())):
+        pred, eng = aot_warm(torch, aot, model, spec["bundles"]["run23"],
+                             card, f"bundle run23 for {label[:5]}")
+        r = aot_counted(torch, dev, aot, model, cfg, card, label, required,
+                        kw, pred, eng, prompts + reps, max_new + [64, 64],
+                        sampling)
+        if sampling is None:
+            r.update(serve_profile(torch, dev, model,
+                                   [prompts[0], prompts[1], reps[0],
+                                    prompts[3]], card, kw, cb=pred))
+        else:
+            allp = prompts + reps
+            r.update(serve_profile(torch, dev, model,
+                                   [allp[i] for i in RUN3_PICK], card, kw,
+                                   [sampling[i] for i in RUN3_PICK],
+                                   cb=pred))
+            r["tick"] = tick_launches(torch, dev, pred, card, label)
+        keep(r)
+        del pred, eng
+        free_card(torch)
+    left = os.listdir(spec["empty_build"])
+    log(f"aot child: nvcc runs in this process: {_build.build_stats['nvcc']}"
+        f"; files in the default build directory: {len(left)}")
+    check(_build.build_stats["nvcc"] == 0 and not left,
+          "the warm-start process built a kernel")
+    with open(spec["result"], "w") as f:
+        json.dump({"runs": runs}, f)
+    return 0
 
 
 # ---------------------------------------------------------- fine-tuning --
@@ -2185,6 +2543,8 @@ def main(argv=None):
     ap.add_argument("--layers", type=int, default=32,
                     help="decoder layers of the served model (of 32)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--aot-child", metavar="SPEC",
+                    help=argparse.SUPPRESS)   # the aot phase's 2nd process
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2197,6 +2557,9 @@ def main(argv=None):
         print(f"chip_smoke: the paddle_tpu_torch package is not beside "
               f"this script ({e})", file=sys.stderr)
         return 2
+    if args.aot_child:
+        return aot_child(torch, torch.device("cuda", 0), args.aot_child,
+                         torch.cuda.get_device_name(0))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2260,9 +2623,13 @@ def main(argv=None):
     if args.layers != 32:
         log(f"serving {args.layers} layers instead of 32 (--layers)")
     t0 = time.perf_counter()
-    counts1, counts2, counts_s = serve_phase(torch, dev, args.seed,
-                                             args.layers, card)
+    serve = serve_phase(torch, dev, args.seed, args.layers, card)
+    counts1, counts2, counts_s = (r["counts"] for r in serve["runs"])
     log(f"serve phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    aot_phase(torch, dev, args.seed, args.layers, card, serve)
+    del serve
+    log(f"aot phase took {time.perf_counter() - t0:.1f} s")
     free_card(torch)
 
     t0 = time.perf_counter()

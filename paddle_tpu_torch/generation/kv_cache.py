@@ -290,33 +290,51 @@ def decode_index(block_table, context_lens, page_size) -> DecodeIndex:
 class SpanIndex(NamedTuple):
     """Where one mixed (span) step writes and how far it attends: the
     same in every layer, so ``span_index`` computes it once per step.
-    ``rows`` int64 [4, N] holds, for each REAL span position (span index
-    i < q_lens[b]), its slot b, its span index i, and its destination
-    page ``block_table[b, (cl + i) // page]`` and row ``(cl + i) % page``;
-    padding positions are not listed, so they write nothing.
-    ``kv_lens`` [B] int32 is ``cl + q_lens``."""
+    ``rows`` int64 [4, N] holds, per entry, its slot b, its span index i,
+    and its destination page ``block_table[b, (cl + i) // page]`` and row
+    ``(cl + i) % page``. Unpadded, N = sum(q_lens) and only the REAL span
+    positions (i < q_lens[b]) are listed. Padded to a static N = B * Qb
+    (what a captured program needs), every (b, i) is listed in row-major
+    order; a padding position carries the flag i = -1 and the trash page,
+    row 0, as destination: its write lands on the trash page, and the
+    verify rollback, which restores positions with i > accepted[b],
+    never restores it. ``kv_lens`` [B] int32 is ``cl + q_lens``."""
     rows: torch.Tensor
     kv_lens: torch.Tensor
 
 
-def span_index(block_table, context_lens, q_lens, page_size) -> SpanIndex:
+def span_index(block_table, context_lens, q_lens, page_size, qb=None,
+               trash_page=0) -> SpanIndex:
     """The SpanIndex of a step whose slot b writes q_lens[b] positions
-    from context_lens[b] on. The real positions are selected before the
-    index-put: torch has no "drop" mode, and a padding position past a
-    full table would otherwise clamp into the slot's last real page and
-    race this step's real K/V there. (Selecting them needs the lengths
-    on the host: the predictor builds this from its host arrays.)"""
+    from context_lens[b] on; with ``qb`` (the span width) padded to
+    B * qb entries over ``trash_page``. A padding position never names a
+    real page: torch has no "drop" mode, and one past a full table would
+    otherwise clamp into the slot's last real page and race this step's
+    real K/V there. (Unpadded, selecting the real positions needs the
+    lengths on the host: the predictor builds both forms from its host
+    arrays.)"""
     cl = context_lens.long()
     ql = q_lens.long()
-    b = torch.repeat_interleave(torch.arange(cl.shape[0], device=cl.device),
-                                ql)
-    start = torch.cumsum(ql, 0) - ql
-    i = torch.arange(b.shape[0], device=cl.device) - start[b]
+    n = cl.shape[0]
+    dev = cl.device
+    if qb is None:
+        b = torch.repeat_interleave(torch.arange(n, device=dev), ql)
+        start = torch.cumsum(ql, 0) - ql
+        i = torch.arange(b.shape[0], device=dev) - start[b]
+    else:
+        b = torch.arange(n, device=dev).repeat_interleave(int(qb))
+        i = torch.arange(int(qb), device=dev).repeat(n)
     pos = cl[b] + i
     pslot = (pos // page_size).clamp(max=block_table.shape[1] - 1)
     page = block_table.long()[b, pslot]
-    rows = torch.stack([b, i, page, pos % page_size])
-    return SpanIndex(rows, (cl + ql).to(torch.int32))
+    off = pos % page_size
+    if qb is not None:
+        real = i < ql[b]
+        page = torch.where(real, page, int(trash_page))
+        off = torch.where(real, off, 0)
+        i = torch.where(real, i, -1)
+    return SpanIndex(torch.stack([b, i, page, off]),
+                     (cl + ql).to(torch.int32))
 
 
 class PagedCacheEntry(NamedTuple):
@@ -389,8 +407,8 @@ def paged_cache_mixed_update_attend(entry: PagedCacheEntry, q, k, v,
     causally over the pages with the variable-query kernel, through the
     ragged meta when the entry has one, else through the block table.
     q [B, Qb, H, D]; k/v [B, Qb, Hkv, D] -> (out [B, Qb, H, D], entry).
-    Padding positions (i >= q_lens[b]) write nothing and read back
-    zeros."""
+    Padding positions (i >= q_lens[b]) write nothing, or only the trash
+    page when the index is padded, and read back zeros."""
     kp, vp, bt, _, step, meta, ql = entry
     src_b, src_i, page, off = step.rows
     kp[page, off] = k[src_b, src_i]

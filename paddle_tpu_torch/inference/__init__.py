@@ -1,4 +1,6 @@
-"""Counterpart of ``paddle_tpu/inference`` (greedy continuous batching)."""
+"""Counterpart of ``paddle_tpu/inference``: continuous batching and its
+AOT engine (``aot``)."""
 from .predictor import ContinuousBatchingPredictor
+from . import aot
 
-__all__ = ["ContinuousBatchingPredictor"]
+__all__ = ["ContinuousBatchingPredictor", "aot"]

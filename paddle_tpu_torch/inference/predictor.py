@@ -35,6 +35,16 @@ With ``use_ragged`` the decode attention runs over the ragged (slot,
 page) work list (``RaggedMetaBuilder``) and the span attention takes its
 pages from the same list; without it both read the block table.
 
+Every step goes through ``_jit_call(sig, fn, *args)`` under the
+reference's program signatures. Without an engine that is the eager
+call. With an AOT engine (``inference.aot``) attached, a signature the
+engine holds replays its captured CUDA graph (on a CPU predictor, a
+program is the eager function), and a signature it does not hold runs
+eagerly once, is captured and is written back into the engine's bundle.
+Operands keep static shapes for that: the span index is padded to
+B * Qb entries and suffix prefill's prefix and suffix lengths are 0-d
+device tensors.
+
 Decode and mixed steps are double-buffered as in the reference: step
 t+1 is dispatched (chaining step t's device-resident token) before step
 t's token is fetched. On CUDA the fetch is an asynchronous copy into
@@ -55,7 +65,7 @@ import numpy as np
 import torch
 
 from ..framework import resolve_device
-from ..framework.runtime_config import RuntimeConfig
+from ..framework.runtime_config import RuntimeConfig, check_servable
 from ..generation import sampling
 from ..generation.sampling import SamplingParams
 from ..generation.kv_cache import (PagedCacheEntry, PagedKVCache,
@@ -91,6 +101,11 @@ class ContinuousBatchingPredictor:
     serve sampled requests (``generate(sampling=...)``) through the
     sampling decode and verify steps. Unset values come from
     ``runtime_config``.
+
+    ``engine``: an ``inference.aot.InferenceEngine`` whose programs serve
+    the steps (``aot.warm_start`` builds both); attaching it captures
+    every program its bundle holds. ``tp_degree`` and ``role`` take the
+    reference's defaults only (1, "unified"); another value raises.
     """
 
     def __init__(self, model, max_batch_size=None, page_size=None,
@@ -98,7 +113,8 @@ class ContinuousBatchingPredictor:
                  eos_token_id=None, use_ragged="auto",
                  enable_prefix_cache=True, prefill_chunk_tokens=None,
                  runtime_config=None, spec_draft_tokens=None,
-                 spec_ngram_max=None, sampling_enabled=None, device=None):
+                 spec_ngram_max=None, sampling_enabled=None, device=None,
+                 engine=None, tp_degree=None, role=None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, predictor "
@@ -114,6 +130,10 @@ class ContinuousBatchingPredictor:
             num_pages = rc.num_pages
         if max_seq_len is None:
             max_seq_len = rc.max_seq_len
+        self.tp = int(rc.tp_degree if tp_degree is None else tp_degree)
+        self.role = rc.serve_role if role is None else role
+        check_servable(self.tp, self.role)
+        self.tp_topology = "replicated"
         self._rc_buckets = tuple(rc.prompt_buckets)
         self.model = model
         cfg = model.config
@@ -182,6 +202,9 @@ class ContinuousBatchingPredictor:
         self.last_status: List[str] = []
         # seconds from the generate() call to each request's first token
         self.last_ttft_s: List[float] = []
+        self._engine = engine
+        if engine is not None:
+            engine.attach(self)
 
     def _bucket_len(self, n):
         """Admission prompt bucket: the smallest tuned-table entry
@@ -197,7 +220,8 @@ class ContinuousBatchingPredictor:
         tables/ctx in place while a dispatched step may still read them.
         On CUDA the copy is asynchronous from pinned memory, so it never
         waits for the steps already queued. Takes a numpy array or a CPU
-        tensor."""
+        tensor. (A captured program copies it into its static input
+        buffer.)"""
         t = torch.as_tensor(arr)
         if self.device.type == "cuda":
             # pin_memory() copies, so the snapshot is taken right here
@@ -222,6 +246,93 @@ class ContinuousBatchingPredictor:
         return wait
 
     # -------------------------------------------------------- device steps
+    def _jit_call(self, sig, fn, *args):
+        """Run one device step under its program signature (the
+        reference's tuples, so manifest keys agree). Without an engine
+        this is ``fn(*args)``. With one, a signature it holds replays its
+        program; a signature it lacks is the bucket-miss path
+        (``compile_fallback``: eager once, then captured and written
+        back)."""
+        if self._engine is None:
+            return fn(*args)
+        prog = self._engine.get(sig)
+        if prog is not None:
+            return prog(*args)
+        return self._engine.compile_fallback(sig, fn, args)
+
+    @staticmethod
+    def _meta_sig(meta):
+        """The meta part of a decode / mixed / spec signature: the shapes
+        of the reference's six [G] meta operands, () without ragged."""
+        return () if meta is None else ((int(meta.shape[1]),),) * 6
+
+    @torch.no_grad()
+    def _raw_forward(self, ids):
+        """The plain model forward (logits [N, S, V]) of ``ids`` [N, S]:
+        the builder's ``forward`` programs."""
+        return self.model(ids)
+
+    def _idle_program(self, sig):
+        """(fn, args) of the step ``sig`` names, on operands that send
+        every K/V write to the trash page: every slot idle over it,
+        dummy prefill rows, empty suffixes. The engine runs it to warm a
+        program up before capturing it, and the builder to capture
+        signatures that calibration traffic cannot steer."""
+        kind = sig[0]
+        B, trash, pad = self.B, self._trash, self.pad_token_id
+        put = self._put
+        if kind == "prefill":
+            (nb, bucket), (_, w) = sig[1], sig[2]
+            return self._raw_prefill, (
+                put(np.full((nb, bucket), pad, np.int64)),
+                put(np.zeros((nb, bucket), np.int64)),
+                put(np.zeros((nb,), np.int64)),
+                put(np.full((nb, w), trash, np.int64)))
+        if kind == "suffix":
+            (_, sb), (wpb,) = sig[1], sig[2]
+            return self._raw_suffix_prefill, (
+                put(np.full((1, sb), pad, np.int64)),
+                put(np.zeros((1, sb), np.int64)), put(np.int64(0)),
+                put(np.int64(0)), put(np.full((wpb,), trash, np.int64)),
+                put(np.full((self.pages_per_seq,), trash, np.int64)))
+        if kind == "forward":
+            return self._raw_forward, (put(np.full(sig[1], pad, np.int64)),)
+        tables = np.full((B, self.pages_per_seq), trash, np.int32)
+        ctx = np.ones((B,), np.int32)
+        meta = None
+        if self.use_ragged:
+            mb = RaggedMetaBuilder(B, self.pages_per_seq, self.page, trash)
+            for b in range(B):
+                mb.clear_slot(b)
+            meta = put(mb.stacked())
+        samp = tuple(put(a) for a in (
+            np.zeros((B,), np.float32), np.zeros((B,), np.int32),
+            np.ones((B,), np.float32), np.zeros((B,), np.int32),
+            np.zeros((B,), np.int32)))
+        head = (put(tables), put(ctx), put(np.zeros((B,), np.int32)))
+        if kind in ("decode", "decode_sample"):
+            got = (kind, tables.shape, self._meta_sig(meta))
+            fn, args = ((self._raw_decode_step, head + (meta,))
+                        if kind == "decode" else
+                        (self._raw_decode_sample_step, head + (samp, meta)))
+        elif kind in ("mixed", "spec"):
+            qb = sig[1]
+            q_lens = np.ones((B,), np.int32)
+            span = (put(np.full((B, qb), pad, np.int64)), put(q_lens))
+            args = head[:2] + span + head[2:] + (
+                self._span(tables, ctx, q_lens, qb), meta)
+            got = (kind, qb, tables.shape, self._meta_sig(meta))
+            fn = self._raw_mixed_step
+            if kind == "spec":
+                fn = self._raw_spec_step
+                args += (samp if self.sampling_enabled else None,)
+        else:
+            raise KeyError(f"no program of kind {kind!r}")
+        if got != sig:
+            raise ValueError(f"signature {sig} does not fit this predictor "
+                             f"(its {kind} program is {got})")
+        return fn, args
+
     @torch.no_grad()
     def _raw_prefill(self, ids, pos, lens, page_rows):
         """Batched prefill: ids/pos [N, bucket] (left-padded), lens [N],
@@ -255,7 +366,9 @@ class ContinuousBatchingPredictor:
         """Prefix-cache partial hit: forward only the prompt SUFFIX,
         attending to the cached prefix K/V gathered from its pages. ids/
         pos [1, sb] (left-padded suffix), m = cached prefix length, slen
-        = suffix length, past_rows [Wp] page ids covering the prefix
+        = suffix length (0-d int device tensors, as the reference traces
+        them: a captured program takes them as operands), past_rows [Wp]
+        page ids covering the prefix
         (trash-padded), page_rows [pages_per_seq] the request's table
         row. Returns next tokens [sb] int32."""
         sb = ids.shape[1]
@@ -394,8 +507,8 @@ class ContinuousBatchingPredictor:
         else:
             accepted, bonus = sampling.verify_spans(logits, ids, q_lens,
                                                     *samp)
-        # real positions only (the span index lists no padding), so the
-        # write-back touches exactly the span's own destinations
+        # padding entries carry span index -1, so they are never restored:
+        # the write-back touches exactly the span's own destinations
         rej = (src_i > accepted.long()[src_b])[:, None, None]
         for pages, old in zip(self.pool.k + self.pool.v, old_k + old_v):
             pages[page, off] = torch.where(rej, old, pages[page, off])
@@ -481,6 +594,8 @@ class ContinuousBatchingPredictor:
         return None
 
     def _serve(self, prompts, max_new, samp_of):
+        if self._engine is not None:
+            self._engine.check_bindings()
         n = len(prompts)
         t_start = time.perf_counter()
         results = [None] * n
@@ -870,8 +985,9 @@ class ContinuousBatchingPredictor:
             pos[i, bucket - L:] = np.arange(L)
             lens[i] = L
             rows[i, :min(W, len(plan["pages"]))] = plan["pages"][:W]
-        nexts = self._raw_prefill(self._put(ids), self._put(pos),
-                                  self._put(lens), self._put(rows))
+        nexts = self._jit_call(
+            ("prefill", ids.shape, rows.shape), self._raw_prefill,
+            self._put(ids), self._put(pos), self._put(lens), self._put(rows))
         # the admission download: every position's greedy token (the
         # prefix cache stores them as cached continuations)
         nexts = nexts.cpu().numpy()
@@ -909,9 +1025,10 @@ class ContinuousBatchingPredictor:
         past_rows[:wp] = plan["pages"][:wp]
         row = np.full((self.pages_per_seq,), self._trash, np.int64)
         row[:len(plan["pages"])] = plan["pages"]
-        nexts = self._raw_suffix_prefill(
-            self._put(ids), self._put(pos), covered, sl,
-            self._put(past_rows), self._put(row))
+        nexts = self._jit_call(
+            ("suffix", ids.shape, past_rows.shape), self._raw_suffix_prefill,
+            self._put(ids), self._put(pos), self._put(np.int64(covered)),
+            self._put(np.int64(sl)), self._put(past_rows), self._put(row))
         nexts = nexts.cpu().numpy()
         first = int(nexts[-1])
         if self.prefix_cache is not None:
@@ -943,11 +1060,13 @@ class ContinuousBatchingPredictor:
             builder.advance_slot(b, int(post_lens[b]))
         return self._put(builder.stacked())
 
-    def _span(self, tables, ctx, q_lens):
+    def _span(self, tables, ctx, q_lens, qb=None):
         """The step's span index, built from the host arrays (no device
-        sync selects the real positions) and copied to the device."""
+        sync) and copied to the device; the steps pass ``qb``, the span
+        width, so it is padded to B * qb entries over the trash page (a
+        static shape)."""
         s = span_index(torch.from_numpy(tables), torch.from_numpy(ctx),
-                       torch.from_numpy(q_lens), self.page)
+                       torch.from_numpy(q_lens), self.page, qb, self._trash)
         return SpanIndex(self._put(s.rows), self._put(s.kv_lens))
 
     def _dispatch_step(self, active, slot_req, tables, ctx, last_tok_host,
@@ -961,11 +1080,15 @@ class ContinuousBatchingPredictor:
         meta = self._meta(builder, active, ctx + 1)
         tok_in = self._tok_in(last_tok_host, override, inflight)
         if samp is None:
-            nxt, done = self._raw_decode_step(
-                self._put(tables), self._put(ctx), tok_in, meta)
+            nxt, done = self._jit_call(
+                ("decode", tables.shape, self._meta_sig(meta)),
+                self._raw_decode_step, self._put(tables), self._put(ctx),
+                tok_in, meta)
         else:
-            nxt, done = self._raw_decode_sample_step(
-                self._put(tables), self._put(ctx), tok_in, samp, meta)
+            nxt, done = self._jit_call(
+                ("decode_sample", tables.shape, self._meta_sig(meta)),
+                self._raw_decode_sample_step, self._put(tables),
+                self._put(ctx), tok_in, samp, meta)
         fetch = self._fetch_async(nxt, done)
         snap = [(b, slot_req[b]) for b in active]
         ctx[active] += 1
@@ -1022,9 +1145,11 @@ class ContinuousBatchingPredictor:
         adv = [b for b in active if b not in paused]
         meta = self._meta(builder, adv, ctx + q_lens)
         tok_in = self._tok_in(last_tok_host, override, inflight)
-        nxt, done = self._raw_mixed_step(
-            self._put(tables), self._put(ctx), self._put(span_ids),
-            self._put(q_lens), tok_in, self._span(tables, ctx, q_lens), meta)
+        nxt, done = self._jit_call(
+            ("mixed", qb, tables.shape, self._meta_sig(meta)),
+            self._raw_mixed_step, self._put(tables), self._put(ctx),
+            self._put(span_ids), self._put(q_lens), tok_in,
+            self._span(tables, ctx, q_lens, qb), meta)
         fetch = self._fetch_async(nxt, done)
         snap = [(b, slot_req[b]) for b in active]
         ctx[adv] += q_lens[adv]
@@ -1069,10 +1194,11 @@ class ContinuousBatchingPredictor:
                                        None, samp)
         meta = self._meta(builder, active, ctx + q_lens)
         tok_in = self._tok_in(last_tok_host, override, None)
-        bonus, accepted = self._raw_spec_step(
-            self._put(tables), self._put(ctx), self._put(span_ids),
-            self._put(q_lens), tok_in, self._span(tables, ctx, q_lens), meta,
-            samp)
+        bonus, accepted = self._jit_call(
+            ("spec", qs, tables.shape, self._meta_sig(meta)),
+            self._raw_spec_step, self._put(tables), self._put(ctx),
+            self._put(span_ids), self._put(q_lens), tok_in,
+            self._span(tables, ctx, q_lens, qs), meta, samp)
         fetch = self._fetch_async(bonus, accepted)
         snap = [(b, slot_req[b]) for b in active]
         ctx0 = {b: int(ctx[b]) for b in active}

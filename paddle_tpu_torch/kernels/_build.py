@@ -3,8 +3,14 @@
 
 Each ``paddle_tpu_torch/csrc/<name>.cu`` is compiled at first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
--fPIC`` into ``paddle_tpu_torch/_build/`` (listed in ``.gitignore``) and
-loaded with ``ctypes``. The library file name carries a hash of the
+-fPIC`` into the build directory and loaded with ``ctypes``. The build
+directory is ``paddle_tpu_torch/_build/`` (listed in ``.gitignore``),
+or ``$PADDLE_TPU_TORCH_BUILD_DIR``; ``set_build_dir`` redirects it (the
+AOT engine points it at a bundle, which then carries the libraries).
+Triton's cache lives in its ``triton/`` subdirectory unless
+``TRITON_CACHE_DIR`` says otherwise, so the Triton kernels travel with
+the CUDA libraries. ``build_stats["nvcc"]`` counts the nvcc runs of
+this process. The library file name carries a hash of the
 source, of the headers beside it and of the flags, so an edited source
 or header is rebuilt and a stale library is never loaded. The sources
 expose a plain C interface (no ``torch/extension.h``): every entry
@@ -12,7 +18,11 @@ returns ``cudaGetLastError()`` and :func:`check` raises when that is
 not 0.
 
 Also here: the shared ``NEG_INF`` constant and the per-kernel launch
-counters that show a run really went through the kernels.
+counters that show a run really went through the kernels. A captured
+CUDA graph runs no Python when it is replayed, so the AOT engine records
+the counters' change over each capture (``launch_counts_since``), puts
+them back (a capture launches nothing) and adds that change at every
+replay (``add_launch_counts``).
 """
 from __future__ import annotations
 
@@ -28,7 +38,8 @@ NEG_INF = -1e30
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
+BUILD_DIR = Path(os.environ.get("PADDLE_TPU_TORCH_BUILD_DIR")
+                 or _PKG / "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -52,6 +63,50 @@ def count_launch(name: str) -> None:
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+def launch_counts_since(before: dict) -> dict:
+    """The launches counted since ``before`` (a copy of
+    ``launch_counts``), by kernel; zeros left out."""
+    return {k: n - before[k] for k, n in launch_counts.items()
+            if n != before[k]}
+
+
+def add_launch_counts(delta: dict) -> None:
+    for k, n in delta.items():
+        launch_counts[k] += n
+
+
+# nvcc runs of this process (a warm start from a bundle runs none)
+build_stats = {"nvcc": 0}
+
+
+def set_build_dir(path) -> tuple:
+    """Point the build directory, and Triton's cache under it, at
+    ``path``; returns the previous (build directory, Triton cache
+    directory or None). Libraries already loaded stay loaded."""
+    global BUILD_DIR
+    prev = (BUILD_DIR, os.environ.get("TRITON_CACHE_DIR"))
+    BUILD_DIR = Path(path)
+    os.environ["TRITON_CACHE_DIR"] = str(BUILD_DIR / "triton")
+    return prev
+
+
+def restore_build_dir(prev: tuple) -> None:
+    """Undo ``set_build_dir`` with the pair it returned."""
+    global BUILD_DIR
+    BUILD_DIR = Path(prev[0])
+    if prev[1] is None:
+        os.environ.pop("TRITON_CACHE_DIR", None)
+    else:
+        os.environ["TRITON_CACHE_DIR"] = prev[1]
+
+
+def use_triton_cache() -> None:
+    """Triton's cache under the build directory, unless
+    ``TRITON_CACHE_DIR`` is set (called before a Triton kernel's first
+    compile)."""
+    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
 
 
 def nvcc_path() -> str:
@@ -90,6 +145,7 @@ def build(names) -> dict:
         if p.exists():
             continue
         tmp = p.with_suffix(f".{os.getpid()}.tmp")
+        build_stats["nvcc"] += 1
         procs[n] = (subprocess.Popen(_nvcc_cmd(n, tmp),
                                      stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
@@ -108,7 +164,14 @@ def build(names) -> dict:
 
 
 _libs = {}
+_lib_paths = {}
 _lock = threading.Lock()
+
+
+def loaded_libraries() -> dict:
+    """{source name: path} of every library this process loaded."""
+    with _lock:
+        return dict(_lib_paths)
 
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:
@@ -118,12 +181,14 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build([name])[name]))
+            path = build([name])[name]
+            lib = ctypes.CDLL(str(path))
             for fn, argtypes in signatures.items():
                 f = getattr(lib, fn)
                 f.argtypes = list(argtypes)
                 f.restype = ctypes.c_int
             _libs[name] = lib
+            _lib_paths[name] = path
         return lib
 
 

@@ -16,8 +16,11 @@ straight back in ``x.dtype``. The padding lanes load 0 and are set to 0
 after centring, so they enter neither the mean nor the variance. The
 weight and bias vectors are re-read per row but stay in L2.
 """
-import triton
-import triton.language as tl
+from ._build import use_triton_cache
+
+use_triton_cache()     # before triton reads TRITON_CACHE_DIR
+import triton  # noqa: E402
+import triton.language as tl  # noqa: E402
 
 
 @triton.jit

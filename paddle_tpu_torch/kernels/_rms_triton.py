@@ -13,8 +13,11 @@ once: one program per row holds the whole row in registers (D up to
 writes the scaled row straight back in ``x.dtype``; the weight vector is
 re-read per row but stays in L2.
 """
-import triton
-import triton.language as tl
+from ._build import use_triton_cache
+
+use_triton_cache()     # before triton reads TRITON_CACHE_DIR
+import triton  # noqa: E402
+import triton.language as tl  # noqa: E402
 
 
 @triton.jit

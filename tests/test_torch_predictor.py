@@ -209,6 +209,8 @@ def test_prefix_cache_lookup_partial_and_lru_reclaim():
 
 def test_port_imports_no_jax():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.inference, "
+            "paddle_tpu_torch.inference.aot, "
+            "paddle_tpu_torch.framework.integrity, "
             "paddle_tpu_torch.convert, paddle_tpu_torch.trainer, "
             "paddle_tpu_torch.optimizer, paddle_tpu_torch.jit, "
             "paddle_tpu_torch.distributed, paddle_tpu_torch.nn, "
