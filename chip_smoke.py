@@ -51,7 +51,9 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    tokens on the card as the plain configuration on the card, and as
    itself on the CPU (chunking and speculation are lossless), with drafts
    both accepted and rejected (so the verify step commits drafts and
-   rolls back rejected positions on the card); 3 AdamW TrainSteps of
+   rolls back rejected positions on the card); a weight change in place
+   between two serves flushes the prefix cache (no hit in the second
+   serve, a fresh predictor's tokens); 3 AdamW TrainSteps of
    the same 2-layer model give the CPU's losses, step-1 gradients,
    weight changes and moments; and BERT-base (all 12 layers) gives the
    CPU's eval logits within 1e-3 and, over 3 eager AdamW steps of the
@@ -75,20 +77,41 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    and every kernel a run drives must have launched in that run. Prints
    TTFT, tokens/s and peak memory of each, profiles a pass of runs 1-2,
    and counts the device activities of a greedy and a sampled decode
-   tick.
+   tick. Then the serving front end on the same model and run 1's
+   configuration: (a) run 1's requests through ``generate()``, through
+   ``generate_stream`` and streamed with the decode watchdog armed at
+   30 s, on fresh predictors in the order g s w s g: the concatenated
+   spans equal to run 1's tokens bit for bit, every end event 'ok', the
+   first event before half the stream's wall time, no trip, and each
+   kernel launched as often as in run 1 (time to first event and decode
+   tokens/s of the three side by side); (b) 4 interactive and 12
+   batch requests (32-300 prompt tokens, 16-32 new) with weights 4:1
+   into a queue bounded at 8, newest shed: exactly 8 batch requests
+   shed, the rest 'ok'; (c) ``deadline_s=0`` ends 'deadline' with no
+   token, a request cancelled after its 4th token ends 'cancelled' with
+   a prefix of its run 1 tokens, a stream closed after 3 events cancels
+   every request, and no slot holds a page after any of them; (d)
+   ``decode_wedge:sleep=5`` under a 0.5 s watchdog returns within 5 s
+   with one trip and every request 'watchdog', and the device then
+   synchronizes; (e) ``serve_stream`` over an intake of 2 requests a
+   poll for 4 polls (run 1's prompts, 16 new tokens each) serves all 8.
 5. AOT engine (``paddle_tpu_torch/inference/aot``): two bundles built
    from the serve phase's model (``EngineBuilder``: run 1's block-table
    geometry, and runs 2-3's with sampling enabled; power-of-two prompt
    buckets and the runs' prompts served once, so the shared prompt's
    suffix prefill is recorded), each program captured into a CUDA graph.
    A 2-layer full-width f32 model warm-started on the card gives the CPU
-   eager predictor's tokens and stats. Then a second process (this
+   eager predictor's tokens and stats, and a weight change in place
+   flushes its prefix cache as in 3. Then a second process (this
    script with ``--aot-child``, its default kernel build directory empty)
    draws the same weights from the seed, warm-starts from the bundles and
    serves runs 1-3 through replayed graphs: tokens, stats and (runs 1 and
    3) every kernel's launch count, counted by replay, equal this
    process's eager runs; every counted run hits the bundle and misses
-   nothing; a sampled decode tick draws once. A 600-token prompt (bucket
+   nothing; a sampled decode tick draws once; run 1's requests streamed
+   through graphs give the eager stream's tokens with no miss, unarmed
+   and with the watchdog armed at 30 s (their tokens/s beside
+   ``generate()``'s). A 600-token prompt (bucket
    1024, uncalibrated) misses once, is served with the eager tokens and
    written back, and a second warm start hits it. No nvcc runs in that
    process. Prints, beside eager, each run's decode tokens/s, TTFT p50,
@@ -1385,7 +1408,30 @@ def f32_parity_phase(torch, dev, seed):
     check(st == cpu_new.stats, f"stats differ: card {st} vs CPU "
           f"{cpu_new.stats}")
     check(st["chunked_requests"] == 1, f"the f32 check did not chunk: {st}")
+    f1_gate(torch, dev, gpu, prompts[:2], seed, "eager")
     return err
+
+
+def f1_gate(torch, dev, model, prompts, seed, label, pred=None):
+    """A weight change between two serves flushes the prefix cache: the
+    prompts served (on ``pred``, else a new predictor), every weight
+    changed in place, the prompts served again: no prefix hit, and a
+    fresh eager predictor's tokens on the new weights."""
+    from paddle_tpu_torch.inference import ContinuousBatchingPredictor
+    geom = dict(max_batch_size=2, page_size=16, max_seq_len=128)
+    cb = pred or ContinuousBatchingPredictor(model, device=dev, **geom)
+    cb.generate(prompts, max_new_tokens=6)
+    hits = cb.stats["prefix_hits"] + cb.stats["prefix_partial_hits"]
+    perturb_in_place(torch, model, seed + 7)
+    got = cb.generate(prompts, max_new_tokens=6)
+    want = ContinuousBatchingPredictor(model, device=dev, **geom).generate(
+        prompts, max_new_tokens=6)
+    again = cb.stats["prefix_hits"] + cb.stats["prefix_partial_hits"]
+    log(f"f32 F1 gate ({label}): after an in-place weight change, tokens "
+        f"== a fresh predictor's: {got == want}; prefix hits in the second "
+        f"serve {again - hits}")
+    check(got == want and again == hits,
+          f"{label}: a weight change left the prefix cache stale")
 
 
 # kernels each served run must launch (the ragged run decodes through
@@ -1664,6 +1710,29 @@ def tick_launches(torch, dev, cb, card, label):
     return out
 
 
+def time_prefills(cb):
+    """Wrap ``cb``'s two prefill entry points (each ends in a host sync)
+    to sum their wall time into the returned one-element list, until
+    ``untime_prefills(cb)``."""
+    prefill_s = [0.0]
+
+    def timed(fn):
+        def run(*a):
+            t = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                prefill_s[0] += time.perf_counter() - t
+        return run
+    cb._batch_prefill = timed(cb._batch_prefill)
+    cb._suffix_prefill = timed(cb._suffix_prefill)
+    return prefill_s
+
+
+def untime_prefills(cb):
+    del cb._batch_prefill, cb._suffix_prefill
+
+
 def serve_run(torch, dev, model, cfg, prompts, max_new, card, label,
               required, kw, sampling=None, cb=None):
     """One counted serve (on ``cb``, else on a new predictor of ``kw``):
@@ -1675,18 +1744,7 @@ def serve_run(torch, dev, model, cfg, prompts, max_new, card, label,
     from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
     if cb is None:
         cb = ContinuousBatchingPredictor(model, device=dev, **GEOM, **kw)
-    prefill_s = [0.0]
-
-    def timed(fn):                      # prefills end in a host sync
-        def run(*a):
-            t = time.perf_counter()
-            try:
-                return fn(*a)
-            finally:
-                prefill_s[0] += time.perf_counter() - t
-        return run
-    cb._batch_prefill = timed(cb._batch_prefill)
-    cb._suffix_prefill = timed(cb._suffix_prefill)
+    prefill_s = time_prefills(cb)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
@@ -1695,7 +1753,7 @@ def serve_run(torch, dev, model, cfg, prompts, max_new, card, label,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(launch_counts)
-    del cb._batch_prefill, cb._suffix_prefill
+    untime_prefills(cb)
     peak = torch.cuda.max_memory_allocated(dev)
     log(f"serve {label}: status {cb.last_status}; stats {cb.stats}")
     log(f"serve {label}: kernel launches {counts}")
@@ -1775,6 +1833,276 @@ def serve_profile(torch, dev, model, prompts, card, kw, sampling=None,
             "host_per_step": calls / max(st["decode_steps"], 1)}
 
 
+# -------------------------------------------------------------- front end --
+
+FRONT_TIERS = {"interactive": 4, "batch": 1}
+
+
+def stream_run(torch, dev, model, prompts, max_new, card, label, kw=None,
+               cb=None, required=()):
+    """One counted stream of ``prompts`` through ``generate_stream`` (on
+    ``cb``, else on a new predictor of ``kw``): launch counters set to 0
+    just before it and read just after; every kernel in ``required``
+    must have launched and every request must end 'ok'. Returns {"outs":
+    each request's concatenated spans, "first_ms": ms from the call to
+    each request's first event, "first_frac": the stream's first event
+    over its wall time, "tok_s": decode tokens/s outside monolithic
+    prefill, "peak_gib", "counts", "cb"}."""
+    from paddle_tpu_torch.inference import ContinuousBatchingPredictor
+    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+    if cb is None:
+        cb = ContinuousBatchingPredictor(model, device=dev, **GEOM, **kw)
+    prefill_s = time_prefills(cb)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    st = cb.generate_stream(prompts, max_new_tokens=max_new)
+    outs = [[] for _ in prompts]
+    first = [None] * len(prompts)
+    ends = {}
+    for ev in st:
+        t = time.perf_counter() - t0
+        if first[ev.request] is None:
+            first[ev.request] = t
+        if ev.kind == "token":
+            outs[ev.request].extend(ev.span)
+        else:
+            ends[ev.request] = ev.status
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    untime_prefills(cb)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    check(outs == st.results, f"{label}: the spans are not the results")
+    check([ends.get(r) for r in range(len(prompts))] == ["ok"] * len(prompts)
+          and st.status == ["ok"] * len(prompts),
+          f"{label}: a request did not end ok: {st.status}")
+    check(all(counts[k] > 0 for k in required),
+          f"a kernel of {label} was never launched in it: {counts}")
+    dec_tok = sum(len(o) for o in outs) - len(outs)
+    dec_s = max(wall - prefill_s[0], 1e-9)
+    first_ms = [t * 1e3 for t in first]
+    log(f"front end {label} on {card}: first event p50 "
+        f"{statistics.median(first_ms):.1f} ms (stream's first at "
+        f"{min(first_ms):.1f} of {wall * 1e3:.1f} ms); decode {dec_tok} "
+        f"tokens in {dec_s:.2f} s outside monolithic prefill "
+        f"({dec_tok / dec_s:.1f} tok/s); peak memory {peak:.2f} GiB")
+    return {"outs": outs, "first_ms": first_ms,
+            "first_frac": min(first) / wall, "tok_s": dec_tok / dec_s,
+            "peak_gib": peak, "counts": counts, "cb": cb}
+
+
+def no_page_held(cb, label):
+    """Every page is free or held by the prefix cache alone (the pool's
+    free count includes the cache's idle pages)."""
+    idle = cb.prefix_cache.reclaimable_count(cb.pool) \
+        if cb.prefix_cache is not None else 0
+    log(f"front end {label}: {len(cb.pool._free)} free pages + {idle} idle "
+        f"in the prefix cache of {cb.capacity}")
+    check(cb.pool.free_count == cb.capacity,
+          f"{label}: a slot still holds pages")
+
+
+def frontend_phase(torch, dev, seed, card, serve):
+    """The serving front end on the serve phase's model and run 1's
+    configuration: (a) run 1's requests through generate() and streamed,
+    unarmed and with the watchdog armed at 30 s, (b) tiers and shedding,
+    (c) deadlines and cancellation, (d) a wedged decode under a 0.5 s
+    watchdog, (e) ``serve_stream``. Returns the streamed tokens (run
+    1's) and (a)'s rates."""
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.inference import ContinuousBatchingPredictor
+    from paddle_tpu_torch.serving import ServeRequest
+    model, prompts, max_new = serve["model"], serve["prompts"], \
+        serve["max_new"]
+    run1 = serve["runs"][0]
+    n = len(prompts)
+
+    def fresh(**kw):
+        return ContinuousBatchingPredictor(model, device=dev, **GEOM, **RUN1,
+                                           **kw)
+
+    # (a) run 1's requests through generate() and streamed, unarmed and
+    # with the watchdog armed at 30 s ((d), first part), each on a fresh
+    # predictor, in the order g s w s g so that the three compare within
+    # this phase: every run gives run 1's tokens and launches each kernel
+    # as often as run 1
+    modes = ("generate", "stream", "armed", "stream", "generate")
+    rates = {m: [] for m in modes}
+    firsts = {m: [] for m in modes}
+    peaks = {m: [] for m in modes}
+    for mode in modes:
+        if mode == "generate":
+            r = serve_run(torch, dev, model, model.config, prompts, max_new,
+                          card, "(a) run 1 through generate()",
+                          RUN1_KERNELS, RUN1)
+            firsts[mode].append(r["ttft_p50_ms"])
+        else:
+            r = stream_run(torch, dev, model, prompts, max_new, card,
+                           f"(a) run 1 streamed, watchdog "
+                           f"{'armed at 30 s' if mode == 'armed' else 'unarmed'}",
+                           cb=fresh(decode_watchdog_s=30.0
+                                    if mode == "armed" else None),
+                           required=RUN1_KERNELS)
+            firsts[mode].append(statistics.median(r["first_ms"]))
+            check(r["first_frac"] < 0.5, f"the first event came at "
+                  f"{r['first_frac']:.3f} of the stream's wall time")
+        cb = r.pop("cb")
+        diff = [i for i, (x, y) in enumerate(zip(r["outs"], run1["outs"]))
+                if x != y]
+        check(not diff, f"(a) {mode}: tokens differ from run 1's for {diff}")
+        check(r["counts"] == run1["counts"],
+              f"(a) {mode}: launches {r['counts']} vs run 1's "
+              f"{run1['counts']}")
+        check(cb.stats["watchdog_trips"] == 0, "the watchdog tripped")
+        no_page_held(cb, f"(a) {mode}")
+        rates[mode].append(r["tok_s"])
+        peaks[mode].append(r["peak_gib"])
+        del cb
+        free_card(torch)
+    mean = {m: statistics.mean(v) for m, v in rates.items()}
+    log(f"front end (a) on {card}: run 1's tokens in every run; decode "
+        f"tok/s generate() {rates['generate']}, streamed "
+        f"{rates['stream']}, streamed with the watchdog armed at 30 s "
+        f"{rates['armed']} (means {mean['generate']:.1f} / "
+        f"{mean['stream']:.1f} / {mean['armed']:.1f}); TTFT p50 of "
+        f"generate() {firsts['generate']} ms, first-event p50 streamed "
+        f"{firsts['stream']} and armed {firsts['armed']} ms; peak memory "
+        f"{peaks['generate']} / {peaks['stream']} / {peaks['armed']} GiB")
+    # (b) tiers and shedding: 4 interactive and 12 batch requests into a
+    # queue bounded at 8; the batch tier is over its weight share (8/5)
+    # and sheds its 8 newest, the interactive one within its share (32/5)
+    gen = torch.Generator().manual_seed(seed + 5)
+    lens = torch.randint(32, 301, (16,), generator=gen).tolist()
+    budgets = torch.randint(16, 33, (16,), generator=gen).tolist()
+    tiers = ["interactive" if r % 4 == 0 else "batch" for r in range(16)]
+    ps = [torch.randint(1, model.config.vocab_size, (L,),
+                        generator=gen).tolist() for L in lens]
+    cb = fresh(max_queue=8, shed_policy="newest")
+    t0 = time.perf_counter()
+    outs = cb.generate(ps, max_new_tokens=budgets, tiers=tiers,
+                       tier_weights=FRONT_TIERS)
+    st = cb.last_status
+    shed = [r for r in range(16) if st[r] == "shed"]
+    log(f"front end (b) on {card}: 16 requests ({tiers.count('interactive')}"
+        f" interactive), max_queue 8, newest: shed {shed} in "
+        f"{time.perf_counter() - t0:.2f} s; status {st}; stats {cb.stats}")
+    check(len(shed) == 8 and all(tiers[r] == "batch" for r in shed)
+          and cb.stats["shed_requests"] == 8,
+          f"not exactly 8 batch requests shed: {shed}")
+    check(all(st[r] == "ok" and len(outs[r]) == budgets[r]
+              for r in range(16) if r not in shed),
+          "a request that was not shed did not end ok")
+    no_page_held(cb, "(b)")
+
+    # (c) deadlines and cancellation
+    cb = fresh()
+    outs = cb.generate([prompts[1], prompts[3]], max_new_tokens=[8, 8],
+                       deadline_s=[0.0, None])
+    log(f"front end (c) on {card}: deadline_s 0 and none: status "
+        f"{cb.last_status}, tokens {[len(o) for o in outs]}")
+    check(cb.last_status == ["deadline", "ok"] and outs[0] == []
+          and len(outs[1]) == 8, "deadline_s=0 did not end 'deadline'")
+    no_page_held(cb, "(c) deadline")
+    victim = 1
+    cb = fresh()
+    st = cb.generate_stream(prompts, max_new_tokens=max_new)
+    cut = None
+    for ev in st:
+        if cut is None and ev.request == victim and ev.kind == "token" \
+                and ev.index >= 4:
+            st.cancel(victim)
+            cut = ev.index
+    got = st.results[victim]
+    log(f"front end (c) on {card}: request {victim} cancelled at its "
+        f"token {cut}: status {st.status[victim]}, {len(got)} of "
+        f"{max_new[victim]} tokens, a prefix of run 1's: "
+        f"{got == run1['outs'][victim][:len(got)]}; the others "
+        f"{[s for r, s in enumerate(st.status) if r != victim]}; "
+        f"cancelled_requests {cb.stats['cancelled_requests']}")
+    check(st.status[victim] == "cancelled"
+          and 4 <= len(got) < max_new[victim]
+          and got == run1["outs"][victim][:len(got)],
+          "the cancelled request did not end with a prefix of its tokens")
+    check(all(s == "ok" for r, s in enumerate(st.status) if r != victim),
+          "a request that was not cancelled did not end ok")
+    no_page_held(cb, "(c) cancel")
+    cb = fresh()
+    with cb.generate_stream(prompts, max_new_tokens=max_new) as st:
+        for k, ev in enumerate(st, 1):
+            if k == 3:
+                break
+    log(f"front end (c) on {card}: stream closed after 3 events: status "
+        f"{st.status}; cancelled_requests {cb.stats['cancelled_requests']}")
+    check(st.status == ["cancelled"] * n
+          and cb.stats["cancelled_requests"] == n,
+          "closing the stream did not cancel every pending request")
+    no_page_held(cb, "(c) close")
+    del cb
+    free_card(torch)
+
+    # (d) a wedged decode: the first resolve's "ready" is held false for
+    # 5 s; the 0.5 s watchdog fails every request instead of hanging
+    flags.set_flags({"fault_injection": "decode_wedge:sleep=5"})
+    try:
+        cb = fresh(decode_watchdog_s=0.5)
+        t0 = time.perf_counter()
+        cb.generate(prompts, max_new_tokens=max_new)
+        took = time.perf_counter() - t0
+    finally:
+        flags.set_flags({"fault_injection": ""})
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    log(f"front end (d) on {card}: decode_wedge:sleep=5 under a 0.5 s "
+        f"watchdog: returned in {took:.2f} s, trips "
+        f"{cb.stats['watchdog_trips']}, status {cb.last_status}; the "
+        f"device synchronized {time.perf_counter() - t0:.3f} s after")
+    check(took < 5 and cb.stats["watchdog_trips"] == 1
+          and cb.last_status == ["watchdog"] * n,
+          "the watchdog did not fail the wedged call")
+    del cb
+    free_card(torch)
+
+    # (e) serve_stream: 2 requests a poll for 4 polls, then None
+    budgets = [min(m, 16) for m in max_new]
+    reqs = [ServeRequest(p, m, meta=r)
+            for r, (p, m) in enumerate(zip(prompts, budgets))]
+    polls = iter(range(4))
+
+    def intake():
+        i = next(polls, None)
+        return None if i is None else reqs[2 * i:2 * i + 2]
+    cb = fresh()
+    t0 = time.perf_counter()
+    st = cb.serve_stream(intake)
+    metas = {}
+    for ev in st:
+        metas.setdefault(ev.request, ev.meta)
+    log(f"front end (e) on {card}: serve_stream over 4 polls: status "
+        f"{st.status}, tokens {[len(o) for o in st.results]} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    check(st.status == ["ok"] * n
+          and [len(o) for o in st.results] == budgets
+          and metas == {r: r for r in range(n)},
+          "serve_stream did not serve every request of its intake")
+    no_page_held(cb, "(e)")
+    del cb
+    free_card(torch)
+    return {"stream_outs": run1["outs"], "rates": rates, "firsts": firsts}
+
+
+def perturb_in_place(torch, model, seed):
+    """Add seeded noise to every weight in place (``add_``: the version
+    counters move, the addresses stay), as loading a checkpoint in place
+    does."""
+    g = torch.Generator(device=model.device).manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=g,
+                                      device=model.device, dtype=p.dtype))
+
+
 # ------------------------------------------------------------------- AOT --
 
 # the aot phase's bundles: run 1's block-table geometry, and runs 2-3's
@@ -1839,6 +2167,7 @@ def aot_phase(torch, dev, seed, layers, card, serve):
     spec = {"seed": seed, "layers": layers, "weight_sum": wsum,
             "bundles": bundles, "prompts": prompts, "reps": reps,
             "max_new": serve["max_new"],
+            "stream_outs": serve["front"]["stream_outs"],
             "result": os.path.join(root, "child.json"),
             "empty_build": os.path.join(root, "empty_build")}
     os.makedirs(spec["empty_build"])
@@ -1926,6 +2255,8 @@ def aot_f32_gate(torch, dev, seed, root, card):
           f"f32 stats: card {pred.stats} vs CPU {want_cb.stats}")
     check(eng.stats["misses"] == 0 and eng.stats["hits"] > 0,
           f"f32 warm start missed: {eng.stats}")
+    f1_gate(torch, dev, gpu, prompts, seed, "warm-started engine", pred)
+    check(eng.stats["misses"] == 0, f"the F1 gate missed: {eng.stats}")
 
 
 def aot_warm(torch, aot, model, path, card, label):
@@ -1955,6 +2286,57 @@ def aot_counted(torch, dev, aot, model, cfg, card, label, required, kw,
           f"{label}: a bucket miss or no bundle hit: {misses}")
     r.update(capture_s=eng.stats["capture_s"], loads=eng.stats["loads"])
     return r
+
+
+def aot_streams(torch, dev, aot, model, cfg, card, pred, eng, prompts,
+                max_new, eager_outs):
+    """(g): run 1's requests through replayed graphs, by generate(),
+    streamed, and streamed with the watchdog armed at 30 s
+    (``FLAGS_serve_decode_watchdog_s``: the bundle's config leaves it
+    unset), in the order g s w w s g, each from an empty prefix cache:
+    the eager stream's tokens, no bucket miss. Returns each mode's
+    decode tok/s and first-token p50s."""
+    from paddle_tpu_torch.framework import flags
+    modes = ("generate", "stream", "armed", "armed", "stream", "generate")
+    rates = {m: [] for m in modes}
+    firsts = {m: [] for m in modes}
+    for mode in modes:
+        pred.prefix_cache.clear(pred.pool)
+        aot.reset_counters()
+        flags.set_flags({"serve_decode_watchdog_s":
+                         30.0 if mode == "armed" else 0.0})
+        try:
+            if mode == "generate":
+                res = serve_run(torch, dev, model, cfg, prompts, max_new,
+                                card, "(g) run 1 through graphs",
+                                RUN1_KERNELS, RUN1, cb=pred)
+                firsts[mode].append(res["ttft_p50_ms"])
+            else:
+                res = stream_run(
+                    torch, dev, model, prompts, max_new, card,
+                    f"(g) run 1 streamed through graphs, watchdog "
+                    f"{'armed at 30 s' if mode == 'armed' else 'unarmed'}",
+                    cb=pred, required=RUN1_KERNELS)
+                firsts[mode].append(statistics.median(res["first_ms"]))
+        finally:
+            flags.set_flags({"serve_decode_watchdog_s": 0.0})
+        misses = dict(aot.counters["bucket_misses"])
+        check(res["outs"] == eager_outs,
+              f"(g) {mode} through graphs differs from the eager stream")
+        check(not misses, f"(g) {mode} through graphs missed: {misses}")
+        check((pred._wd_cur == 30.0) == (mode == "armed"),
+              f"the watchdog flag did not arm the serve: {pred._wd_cur}")
+        rates[mode].append(res["tok_s"])
+    mean = {m: statistics.mean(v) for m, v in rates.items()}
+    log(f"aot child (g) on {card}: run 1 through graphs, the eager "
+        f"stream's tokens in every run, no bucket miss; decode tok/s "
+        f"generate() {rates['generate']}, streamed {rates['stream']}, "
+        f"streamed with the watchdog armed at 30 s {rates['armed']} (means "
+        f"{mean['generate']:.1f} / {mean['stream']:.1f} / "
+        f"{mean['armed']:.1f}); TTFT p50 of generate() {firsts['generate']}"
+        f" ms, first-event p50 streamed {firsts['stream']} and armed "
+        f"{firsts['armed']} ms")
+    return {"g_rates": rates, "g_firsts": firsts}
 
 
 def aot_child(torch, dev, spec_path, card):
@@ -1988,6 +2370,8 @@ def aot_child(torch, dev, spec_path, card):
     r.update(serve_profile(torch, dev, model, prompts[:4], card, RUN1,
                            cb=pred))
     r["tick"] = tick_launches(torch, dev, pred, card, "run 1 (graphs)")
+    r.update(aot_streams(torch, dev, aot, model, cfg, card, pred, eng,
+                         prompts, max_new, spec["stream_outs"]))
     keep(r)
     gen = torch.Generator().manual_seed(spec["seed"] + 4)
     miss = [torch.randint(1, cfg.vocab_size, (AOT_MISS_LEN,),
@@ -2626,6 +3010,10 @@ def main(argv=None):
     serve = serve_phase(torch, dev, args.seed, args.layers, card)
     counts1, counts2, counts_s = (r["counts"] for r in serve["runs"])
     log(f"serve phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serve["front"] = frontend_phase(torch, dev, args.seed, card, serve)
+    log(f"front-end phase took {time.perf_counter() - t0:.1f} s")
+    free_card(torch)
     t0 = time.perf_counter()
     aot_phase(torch, dev, args.seed, args.layers, card, serve)
     del serve

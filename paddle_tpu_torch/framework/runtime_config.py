@@ -5,7 +5,11 @@ Counterpart of ``paddle_tpu/framework/runtime_config.py`` ``RuntimeConfig``
 the reference's. ``to_dict`` / ``from_dict`` round-trip it as plain JSON
 and ``config_hash`` is the reference's SHA-256 over the canonical form:
 the AOT engine records both in its bundle manifest, and a disagreement on
-a ``COMPILED_FIELDS`` field invalidates the bundle at warm start.
+a ``COMPILED_FIELDS`` field invalidates the bundle at warm start. The
+serving front end's fields (``max_queue``, ``shed_policy``,
+``decode_watchdog_s``, ``wfs_quantum``) are runtime-only: they never
+invalidate a bundle. ``from_flags()`` is the config the predictor takes
+when it is given none: the serving fields that have a flag read it.
 
 ``tp_degree`` and ``serve_role`` exist at the reference's defaults only
 (one device, the unified role): any other value raises, since the port
@@ -59,12 +63,21 @@ class RuntimeConfig:
     sampling_enabled: bool = False
     tp_degree: int = 1                     # one device
     serve_role: str = "unified"
+    # serving robustness and fairness (runtime-only)
+    max_queue: Optional[int] = None        # None = unbounded backlog
+    shed_policy: str = "newest"
+    decode_watchdog_s: float = 0.0         # 0 = disabled
+    wfs_quantum: float = 64.0              # WeightedFairScheduler grant
 
     def __post_init__(self):
         if self.version != CONFIG_VERSION:
             raise ValueError(
                 f"RuntimeConfig schema version {self.version} is not "
                 f"supported (this build speaks version {CONFIG_VERSION})")
+        if self.shed_policy not in ("newest", "oldest"):
+            raise ValueError(
+                f"shed_policy must be 'newest' or 'oldest', got "
+                f"{self.shed_policy!r}")
         if self.page_size <= 0 or self.max_batch_size <= 0 \
                 or self.max_seq_len <= 0:
             raise ValueError("geometry fields must be positive")
@@ -78,6 +91,22 @@ class RuntimeConfig:
         object.__setattr__(
             self, "prompt_buckets",
             tuple(sorted({int(b) for b in self.prompt_buckets})))
+
+    @classmethod
+    def from_flags(cls) -> "RuntimeConfig":
+        """The config whose flag-backed fields come from the flag
+        registry (``framework.flags``): chunked prefill, the watchdog,
+        speculation and sampling; every other field keeps its
+        default."""
+        from .flags import flag_value
+        return cls(
+            prefill_chunk_tokens=int(
+                flag_value("serve_prefill_chunk_tokens")),
+            decode_watchdog_s=float(flag_value("serve_decode_watchdog_s")),
+            spec_draft_tokens=int(flag_value("serve_spec_draft_tokens")),
+            spec_ngram_max=int(flag_value("serve_spec_ngram_max")),
+            sampling_enabled=bool(flag_value("serve_sampling")),
+        )
 
     def to_dict(self) -> Dict:
         d = dataclasses.asdict(self)

@@ -45,6 +45,15 @@ Operands keep static shapes for that: the span index is padded to
 B * Qb entries and suffix prefill's prefix and suffix lengths are 0-d
 device tensors.
 
+The front end is the reference's: ``generate`` drains
+``generate_stream``, whose serve loop is a generator of
+``serving.StreamEvent``s; ``serve_stream`` polls an intake for new
+requests. Requests queue FIFO or, with tiers, under weighted deficit
+round robin (``serving.scheduler``); a bounded queue sheds, deadlines
+evict, consumers cancel, and an armed decode watchdog fails the pending
+requests with ``DecodeWedgedError`` inside instead of hanging. A weight
+change between two serve calls flushes the prefix cache.
+
 Decode and mixed steps are double-buffered as in the reference: step
 t+1 is dispatched (chaining step t's device-resident token) before step
 t's token is fetched. On CUDA the fetch is an asynchronous copy into
@@ -58,12 +67,14 @@ from __future__ import annotations
 
 import collections
 import math
+import sys
 import time
 from typing import List
 
 import numpy as np
 import torch
 
+from ..framework import faults as _faults
 from ..framework import resolve_device
 from ..framework.runtime_config import RuntimeConfig, check_servable
 from ..generation import sampling
@@ -73,6 +84,22 @@ from ..generation.kv_cache import (PagedCacheEntry, PagedKVCache,
                                    decode_index, span_index)
 from ..kernels import NEG_INF
 from ..kernels.paged_attention import RaggedMetaBuilder
+from ..serving.scheduler import (FifoQueue, WeightedFairScheduler,
+                                 stage_cost)
+from ..serving.streaming import ServeRequest, StreamEvent, TokenStream
+
+# the armed watchdog's wait on a dispatched step: poll the step's event
+# back to back for _SPIN_S, then between sleeps of _POLL_S (a graph
+# replayed decode tick takes ~10 ms, so a 2 ms sleep would cost up to a
+# fifth of the rate)
+_SPIN_S = 200e-6
+_POLL_S = 20e-6
+
+
+class DecodeWedgedError(RuntimeError):
+    """The decode watchdog tripped: a dispatched step's result did not
+    resolve within the deadline. ContinuousBatchingPredictor fails the
+    pending requests (last_status 'watchdog') instead of hanging."""
 
 
 def _pow2_bucket(n):
@@ -100,7 +127,15 @@ class ContinuousBatchingPredictor:
     that many drafted tokens per step; 0 disables. ``sampling_enabled``:
     serve sampled requests (``generate(sampling=...)``) through the
     sampling decode and verify steps. Unset values come from
-    ``runtime_config``.
+    ``runtime_config`` (default ``RuntimeConfig.from_flags()``).
+
+    ``max_queue`` bounds the admission backlog (None: unbounded) and
+    ``shed_policy`` ('newest' / 'oldest') picks what overflow sheds;
+    ``decode_watchdog_s`` arms the decode watchdog (None defers to the
+    runtime config and ``FLAGS_serve_decode_watchdog_s`` at serve time;
+    <= 0 disarms). ``name`` names the predictor (a replica of a pool).
+    ``devices`` is the reference's device group of a tensor-parallel
+    replica: at ``tp_degree`` 1 it is accepted and unused, as there.
 
     ``engine``: an ``inference.aot.InferenceEngine`` whose programs serve
     the steps (``aot.warm_start`` builds both); attaching it captures
@@ -114,14 +149,17 @@ class ContinuousBatchingPredictor:
                  enable_prefix_cache=True, prefill_chunk_tokens=None,
                  runtime_config=None, spec_draft_tokens=None,
                  spec_ngram_max=None, sampling_enabled=None, device=None,
-                 engine=None, tp_degree=None, role=None):
+                 engine=None, tp_degree=None, role=None, max_queue=None,
+                 shed_policy=None, decode_watchdog_s=None, name=None,
+                 devices=None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, predictor "
                              f"device is {self.device}")
         model.eval()
+        self._rc = runtime_config
         rc = runtime_config if runtime_config is not None \
-            else RuntimeConfig()
+            else RuntimeConfig.from_flags()
         if max_batch_size is None:
             max_batch_size = rc.max_batch_size
         if page_size is None:
@@ -130,6 +168,18 @@ class ContinuousBatchingPredictor:
             num_pages = rc.num_pages
         if max_seq_len is None:
             max_seq_len = rc.max_seq_len
+        if max_queue is None:
+            max_queue = rc.max_queue
+        if shed_policy is None:
+            shed_policy = rc.shed_policy
+        if shed_policy not in ("newest", "oldest"):
+            raise ValueError(f"shed_policy must be 'newest' or 'oldest', "
+                             f"got {shed_policy!r}")
+        self.max_queue = None if max_queue is None else int(max_queue)
+        self.shed_policy = shed_policy
+        self._watchdog_s = decode_watchdog_s
+        self._wd_cur = None
+        self.name = name
         self.tp = int(rc.tp_degree if tp_degree is None else tp_degree)
         self.role = rc.serve_role if role is None else role
         check_servable(self.tp, self.role)
@@ -191,6 +241,8 @@ class ContinuousBatchingPredictor:
                       "max_in_flight": 0, "prefix_hits": 0,
                       "prefix_partial_hits": 0, "prefix_misses": 0,
                       "pages_reused": 0, "hol_skips": 0,
+                      "deadline_evictions": 0, "shed_requests": 0,
+                      "watchdog_trips": 0, "cancelled_requests": 0,
                       "spec_ticks": 0, "spec_proposed": 0,
                       "spec_accepted": 0, "prefill_chunks": 0,
                       "chunked_requests": 0, "mixed_steps": 0}
@@ -200,11 +252,25 @@ class ContinuousBatchingPredictor:
         self.sampling_stats = {"sampled_requests": 0, "paused_slots": 0,
                                "sampled_spec_proposed": 0}
         self.last_status: List[str] = []
-        # seconds from the generate() call to each request's first token
+        # seconds from each request's arrival at the serve loop to its
+        # first token
         self.last_ttft_s: List[float] = []
+        # the weights' identity snapshot (``_ensure_ready``) and the live
+        # tiered scheduler (``set_tier_weight``)
+        self._w_snap = None
+        self._live_sched = None
         self._engine = engine
         if engine is not None:
             engine.attach(self)
+
+    @property
+    def runtime_config(self):
+        """The effective RuntimeConfig: the constructor's, else a fresh
+        flag-sourced one (read at every serve, so the watchdog flag takes
+        effect between calls)."""
+        if self._rc is not None:
+            return self._rc
+        return RuntimeConfig.from_flags()
 
     def _bucket_len(self, n):
         """Admission prompt bucket: the smallest tuned-table entry
@@ -230,20 +296,44 @@ class ContinuousBatchingPredictor:
 
     def _fetch_async(self, *tensors):
         """Start copying small device tensors to the host; returns a
-        callable that waits for exactly those copies and gives numpy."""
+        ``_Fetch`` that waits for exactly those copies."""
         if self.device.type != "cuda":
-            return lambda: tuple(t.numpy() for t in tensors)
+            return _Fetch(tensors, None)
         outs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 for t in tensors]
         for o, t in zip(outs, tensors):
             o.copy_(t, non_blocking=True)
         ev = torch.cuda.Event()
         ev.record(torch.cuda.current_stream(self.device))
+        return _Fetch(outs, ev)
 
-        def wait():
-            ev.synchronize()
-            return tuple(o.numpy() for o in outs)
-        return wait
+    def _await_step(self, step):
+        """The watchdog's wait for a dispatched step's fetch. Armed
+        (``_wd_cur``), it polls the fetch's event against the deadline
+        (never ``synchronize()``) and raises ``DecodeWedgedError`` past
+        it; the ``decode_wedge`` fault holds "ready" false for its
+        ``sleep=``. On the CPU a step is ready when it returns, so the
+        fault alone trips it. Unarmed it returns at once: the fetch then
+        blocks on the event."""
+        wd = self._wd_cur
+        if not wd:
+            return
+        fa = _faults.check("decode_wedge")
+        now = time.perf_counter()
+        wedged_until = now + float(fa.params.get("sleep", 2 * wd)) \
+            if fa is not None else 0.0
+        deadline = now + wd
+        spin_until = now + _SPIN_S
+        ready = step["fetch"].ready
+        while True:
+            now = time.perf_counter()
+            if now >= wedged_until and ready():
+                return
+            if now >= deadline:
+                raise DecodeWedgedError(
+                    f"decode step did not resolve within {wd}s")
+            if now >= spin_until:
+                time.sleep(min(_POLL_S, wd / 100.0))
 
     # -------------------------------------------------------- device steps
     def _jit_call(self, sig, fn, *args):
@@ -516,12 +606,12 @@ class ContinuousBatchingPredictor:
 
     # -------------------------------------------------------------- serve
     def generate(self, prompts, max_new_tokens=32, strict=True,
+                 deadline_s=None, tiers=None, tier_weights=None,
                  sampling=None):
         """Continuous batching over a list of prompts: List[List[int]] ->
         List[List[int]] (new tokens per prompt, eos stripped, in request
-        order). ``max_new_tokens`` is one budget for every request or a
-        list of per-request budgets (the reference's ``ServeRequest``
-        carries one per request the same way).
+        order): ``generate_stream(...).drain()``. ``max_new_tokens`` is
+        one budget for every request or a list of per-request budgets.
 
         ``sampling``: a ``SamplingParams`` for every request, or a list
         with one per request (None = greedy). A request whose temperature
@@ -534,7 +624,50 @@ class ContinuousBatchingPredictor:
         ``strict``; otherwise its result is [] and ``last_status[r]``
         names the reason ('rejected_over_max_seq_len' /
         'rejected_over_pool_capacity' / 'rejected_sampling_disabled'; 'ok'
-        for served requests)."""
+        for served requests).
+
+        Robustness, as in the reference:
+
+        - ``deadline_s`` (scalar or per-request list, seconds from the
+          request's arrival): an expired request is evicted, from the
+          queue with result [] or mid-decode with its partial tokens, and
+          ``last_status[r] == "deadline"``. Expired queued requests are
+          evicted before any shed decision.
+        - the constructor's ``max_queue`` bounds the admission backlog;
+          the excess is shed at entry per ``shed_policy`` ('newest' sheds
+          the latest arrivals, 'oldest' the stalest) with ``last_status
+          "shed"``. With tiers the lowest-weight tier over its weight
+          share of ``max_queue`` sheds first, and a tier within its share
+          is never shed (``serving.scheduler``).
+        - the decode watchdog (constructor ``decode_watchdog_s``, else
+          ``FLAGS_serve_decode_watchdog_s``) fails the pending requests
+          with ``last_status "watchdog"`` when a dispatched step does not
+          resolve in time, instead of hanging. The pages of a wedged step
+          are not reclaimed: rebuild the predictor.
+
+        ``tiers`` (a tier name per request) and ``tier_weights`` ({tier:
+        weight}) switch the admission queue to weighted deficit round
+        robin: each tier's admission share converges to its weight over
+        the sum of the weights."""
+        return self.generate_stream(
+            prompts, max_new_tokens=max_new_tokens, strict=strict,
+            deadline_s=deadline_s, tiers=tiers, tier_weights=tier_weights,
+            sampling=sampling).drain()
+
+    def generate_stream(self, prompts, max_new_tokens=32, strict=True,
+                        deadline_s=None, tiers=None, tier_weights=None,
+                        sampling=None):
+        """Streaming ``generate``: the same admission, fairness and
+        robustness, but returns a ``serving.TokenStream`` that yields
+        ``StreamEvent``s as decode ticks complete: one "token" event per
+        tick and request, whose ``span`` holds every token the tick
+        committed (a speculative tick commits several), and one "end"
+        event per request with its final status. ``results`` and
+        ``last_status`` fill in place as requests finish.
+
+        ``stream.cancel(r)`` evicts request r at the next loop iteration
+        (pages released, ``last_status[r] == "cancelled"``); closing the
+        stream cancels every pending request the same way."""
         n = len(prompts)
         if sampling is None:
             per_sp = [None] * n
@@ -553,13 +686,25 @@ class ContinuousBatchingPredictor:
                     "sampling_enabled=False (pass sampling_enabled=True, "
                     "or strict=False to reject those requests and serve "
                     "the rest)")
+        if deadline_s is None:
+            per_dl = [None] * n
+        else:
+            per_req = deadline_s if isinstance(deadline_s, (list, tuple)) \
+                else [deadline_s] * n
+            if len(per_req) != n:
+                raise ValueError(f"deadline_s has {len(per_req)} entries "
+                                 f"for {n} prompts")
+            per_dl = [None if d is None else float(d) for d in per_req]
+        if tiers is not None and len(tiers) != n:
+            raise ValueError(f"tiers has {len(tiers)} entries for {n} "
+                             "prompts")
         if isinstance(max_new_tokens, int):
-            max_new = [max_new_tokens] * len(prompts)
+            max_new = [max_new_tokens] * n
         else:
             max_new = [int(m) for m in max_new_tokens]
-            if len(max_new) != len(prompts):
+            if len(max_new) != n:
                 raise ValueError(f"max_new_tokens has {len(max_new)} "
-                                 f"entries for {len(prompts)} prompts")
+                                 f"entries for {n} prompts")
         if strict:
             for r, p in enumerate(prompts):
                 uns = self._unservable(p, max_new[r])
@@ -569,7 +714,34 @@ class ContinuousBatchingPredictor:
                         "Raise max_seq_len/num_pages, shorten the prompt, "
                         "or pass strict=False to reject it and serve the "
                         "rest.")
-        return self._serve([list(p) for p in prompts], max_new, per_sp)
+        reqs = [ServeRequest(list(p), max_new[r],
+                             tiers[r] if tiers is not None else None,
+                             per_dl[r], None, per_sp[r])
+                for r, p in enumerate(prompts)]
+        results, status, cancel = [None] * n, ["queued"] * n, set()
+        gen = self._serve(reqs, None, results, status, cancel,
+                          tier_weights)
+        return TokenStream(gen, results, status, cancel)
+
+    def serve_stream(self, intake, tier_weights=None):
+        """Open-ended continuous serving: ``intake()`` is polled every
+        loop iteration and returns a list (possibly empty) of new
+        ``serving.ServeRequest``s, or None to close the stream (the loop
+        then serves what it holds and ends). Requests join the running
+        batch as slots free up. ``intake`` may block briefly while the
+        loop is idle. Returns a ``serving.TokenStream``; ``results`` and
+        ``last_status`` grow as requests arrive, and every event carries
+        its request's ``meta``."""
+        results, status, cancel = [], [], set()
+        gen = self._serve([], intake, results, status, cancel,
+                          tier_weights)
+        return TokenStream(gen, results, status, cancel)
+
+    def set_tier_weight(self, tier, weight):
+        """Shift the live fair-queueing share of ``tier``. A no-op until
+        a tiered serve loop is running."""
+        if self._live_sched is not None:
+            self._live_sched.set_weight(tier, weight)
 
     @staticmethod
     def _wants_sampling(sp):
@@ -593,27 +765,137 @@ class ContinuousBatchingPredictor:
                     f"{self.capacity}")
         return None
 
-    def _serve(self, prompts, max_new, samp_of):
+    def _ensure_ready(self):
+        """Flush the prefix cache when a weight changed since the last
+        serve: its pages hold K/V computed with the old weights. A
+        parameter or buffer that is another object, or whose storage
+        (``data_ptr``, a ``p.data =`` rebind) or version counter (an
+        in-place ``copy_``) moved, is a change. The first call only
+        takes the snapshot."""
+        m = self.model
+        snap = [(t, t.data_ptr(), t._version)
+                for t in (*m.parameters(), *m.buffers())]
+        prev, self._w_snap = self._w_snap, snap
+        if prev is None or self.prefix_cache is None:
+            return
+        if len(prev) != len(snap) or any(
+                a is not b or pa != pb or va != vb
+                for (a, pa, va), (b, pb, vb) in zip(prev, snap)):
+            self.prefix_cache.clear(self.pool)
+
+    def _serve(self, initial, intake, results, status, cancel,
+               tier_weights):
+        """The serve loop, a generator of ``StreamEvent``s.
+        ``generate_stream`` seeds ``initial`` with intake None;
+        ``serve_stream`` starts empty and polls ``intake``. Admission,
+        fairness, shedding, deadlines, cancellation, decode and the
+        watchdog live here once."""
         if self._engine is not None:
             self._engine.check_bindings()
-        n = len(prompts)
-        t_start = time.perf_counter()
-        results = [None] * n
-        status = ["queued"] * n
-        ttft = [None] * n
+        self._ensure_ready()
+        rc = self.runtime_config
+        wd = self._watchdog_s
+        if wd is None:
+            wd = float(rc.decode_watchdog_s)
+            if not wd and self._rc is not None:
+                # 0 in an explicit config means "unset": the flag still
+                # arms the watchdog (decode_watchdog_s=0 forces it off)
+                wd = float(RuntimeConfig.from_flags().decode_watchdog_s)
+        self._wd_cur = wd if wd and wd > 0 else None
         self.last_status = status
+        ttft = [None] * len(results)
         self.last_ttft_s = ttft
-        queue = collections.deque()
-        for r, p in enumerate(prompts):
-            uns = self._unservable(p, max_new[r])
+        use_tiers = tier_weights is not None or any(
+            r.tier is not None for r in initial)
+        q = WeightedFairScheduler(tier_weights,
+                                  quantum=float(rc.wfs_quantum)) \
+            if use_tiers else FifoQueue()
+        self._live_sched = q if use_tiers else None
+
+        # per-request state (grows under dynamic intake)
+        prompts, max_new, metas = [], [], []
+        deadlines, arrival, samp_of = [], [], []
+        has_deadlines = False
+        out = collections.deque()        # events awaiting the consumer
+        closed = intake is None
+
+        def emit(r, kind, token=None, index=0, st=None, span=None):
+            if span is None and token is not None:
+                span = (token,)
+            out.append(StreamEvent(r, kind, token, index, time.time(), st,
+                                   metas[r], tuple(span or ())))
+
+        def add_request(sreq):
+            nonlocal has_deadlines
+            r = len(prompts)
+            p = list(sreq.prompt)
+            mn = int(32 if sreq.max_new_tokens is None
+                     else sreq.max_new_tokens)
+            prompts.append(p)
+            max_new.append(mn)
+            metas.append(sreq.meta)
+            samp_of.append(sreq.sampling)
+            now = time.perf_counter()
+            arrival.append(now)
+            deadlines.append(None if sreq.deadline_s is None
+                             else now + float(sreq.deadline_s))
+            has_deadlines = has_deadlines or sreq.deadline_s is not None
+            if r >= len(results):
+                results.append(None)
+                status.append("queued")
+            if r >= len(ttft):
+                ttft.append(None)
+            uns = self._unservable(p, mn)
             if uns is None and not self.sampling_enabled \
                     and self._wants_sampling(samp_of[r]):
                 uns = ("sampling_disabled", "")
             if uns is not None:
                 results[r] = []
                 status[r] = "rejected_" + uns[0]
-            else:
-                queue.append(r)
+                emit(r, "end", st=status[r])
+                return
+            q.push(r, tier=sreq.tier, cost=stage_cost(len(p), mn, None))
+
+        def finish_queued(r, st):
+            """Terminal outcome of a request that never held a slot."""
+            results[r] = []
+            status[r] = st
+            emit(r, "end", st=st)
+
+        def expire_queued():
+            """Evict deadline-expired queued requests, before any shed
+            decision (an expired entry must never shed a live one)."""
+            if not has_deadlines:
+                return
+            now = time.perf_counter()
+            for r in q.ids():
+                dl = deadlines[r]
+                if dl is not None and now >= dl:
+                    q.remove(r)
+                    self.stats["deadline_evictions"] += 1
+                    finish_queued(r, "deadline")
+
+        def shed_overflow():
+            """Bounded admission queue: shed the overflow (lowest tier
+            first under tiers). The ``serve_flood`` fault inflates the
+            apparent depth."""
+            if self.max_queue is None:
+                return
+            flood = 0
+            ff = _faults.check("serve_flood")
+            if ff is not None and ff.mode == "flood":
+                flood = int(ff.params.get("n", self.B))
+            while len(q) and len(q) + flood > self.max_queue:
+                r = q.pick_shed(self.shed_policy, self.max_queue)
+                if r is None:
+                    break
+                self.stats["shed_requests"] += 1
+                finish_queued(r, "shed")
+
+        for sreq in initial:
+            add_request(sreq)
+        expire_queued()           # expired entries never count against
+        shed_overflow()           # max_queue, and never trigger sheds
 
         slot_req = [-1] * self.B                  # -1 = free
         slot_pages = [[] for _ in range(self.B)]
@@ -676,6 +958,53 @@ class ContinuousBatchingPredictor:
             if builder is not None:
                 builder.clear_slot(b)
             self.stats["evictions"] += 1
+            emit(r, "end", st=status_val)
+
+        def apply_cancels():
+            """Consumer-driven cancellation: queued requests leave the
+            queue, running ones are evicted (pages released), both with
+            'cancelled'. '*' cancels everything and closes the intake.
+            A step already in flight for an evicted slot still writes one
+            K/V row into the freed pages; it runs on the same stream
+            before the next owner's prefill, and its token is dropped at
+            resolve (the slot's request changed)."""
+            nonlocal closed
+            if not cancel:
+                return
+            # one atomic copy: TokenStream.cancel adds from other threads
+            snap = set(cancel)
+            if "*" in snap:
+                closed = True
+                targets = None
+            else:
+                targets = {r for r in snap
+                           if isinstance(r, int) and r < len(prompts)}
+                if not targets:
+                    return
+            for r in list(q.ids()):
+                if targets is None or r in targets:
+                    q.remove(r)
+                    self.stats["cancelled_requests"] += 1
+                    finish_queued(r, "cancelled")
+            for b in range(self.B):
+                r = slot_req[b]
+                if r >= 0 and (targets is None or r in targets):
+                    self.stats["cancelled_requests"] += 1
+                    evict(b, "cancelled")
+            if targets is not None:
+                cancel.difference_update(targets)
+
+        def expire_deadlines():
+            """Evict every request whose deadline passed: queued ones end
+            with [] and running ones with their partial tokens."""
+            expire_queued()
+            now = time.perf_counter()
+            for b in range(self.B):
+                r = slot_req[b]
+                if r >= 0 and deadlines[r] is not None \
+                        and now >= deadlines[r]:
+                    self.stats["deadline_evictions"] += 1
+                    evict(b, "deadline")
 
         def reserve(r):
             """Reserve pages for request r (prefix-cache lookup, retain,
@@ -758,7 +1087,7 @@ class ContinuousBatchingPredictor:
             """The step that gives the request its first generated token
             resolved (a final chunk's argmax, or a sampled request's
             replay draw)."""
-            ttft[r] = time.perf_counter() - t_start
+            ttft[r] = time.perf_counter() - arrival[r]
 
         def sampled_chunk_first(b, r):
             """A sampled request's final chunk resolved: its argmax is
@@ -801,36 +1130,43 @@ class ContinuousBatchingPredictor:
             override[b] = True
             if builder is not None:
                 builder.set_slot(b, tables[b], L + 1)
-            ttft[r] = time.perf_counter() - t_start
+            ttft[r] = time.perf_counter() - arrival[r]
             if self.eos_token_id is not None and first == self.eos_token_id:
                 slot_new[b] = []          # eos is stripped
                 evict(b)
-            elif max_new[r] <= 1:
+                return
+            emit(r, "token", token=first, index=1)
+            if max_new[r] <= 1:
                 evict(b)                  # budget met at admission
 
         def admission_round():
-            """Fill every free slot with the first admissible queued
-            requests (a request waiting for pages does not block later
-            ones), then run the round's prefills: full hits need none,
-            partial hits a suffix prefill, misses batch per bucket, and
-            chunked requests wait for the mixed step."""
+            """One pass over the queue in discipline order (FIFO, or
+            weighted deficit round robin under tiers): fill every free
+            slot with the first admissible requests (a request waiting
+            for pages does not block later ones), then run the round's
+            prefills: full hits need none, partial hits a suffix prefill,
+            misses batch per bucket, and chunked requests wait for the
+            mixed step."""
             free = [b for b in range(self.B) if slot_req[b] < 0]
-            if not free or not queue:
+            if not free or not len(q):
                 return False
             plans, skipped, seq = [], [], []
-            budget = len(queue)
-            while len(plans) < len(free) and budget > 0 and queue:
-                r = queue.popleft()
+            budget = len(q)
+            while len(plans) < len(free) and budget > 0:
+                r = q.pop()
+                if r is None:
+                    break
                 budget -= 1
                 plan = reserve(r)
                 if plan is None:
                     skipped.append(r)
                     seq.append(False)
                 else:
+                    q.consume(r)
                     plans.append(plan)
                     seq.append(True)
             for r in reversed(skipped):
-                queue.appendleft(r)
+                q.push_front(r)
             if plans and skipped:
                 last_pick = max(i for i, s in enumerate(seq) if s)
                 self.stats["hol_skips"] += sum(
@@ -866,103 +1202,190 @@ class ContinuousBatchingPredictor:
                     place(b, plan, firsts[plan["r"]])
             return True
 
+        def on_wedged():
+            """The watchdog tripped: fail everything still pending
+            instead of hanging. The wedged step's pages are not
+            reclaimed (the step may still write them): the predictor
+            should be rebuilt."""
+            self.stats["watchdog_trips"] += 1
+            for b in range(self.B):
+                r = slot_req[b]
+                if r >= 0:
+                    results[r] = slot_new[b]
+                    status[r] = "watchdog"
+                    slot_req[b] = -1
+                    emit(r, "end", st="watchdog")
+            for r in list(q.ids()):
+                q.remove(r)
+                finish_queued(r, "watchdog")
+
         def resolve(step):
-            if step.get("spec"):
-                self._resolve_spec_step(step, slot_req, slot_new, slot_hist,
-                                        last_tok_host, max_new, ctx,
-                                        override, builder, evict,
-                                        chunk_first_token)
-            else:
-                self._resolve_step(step, slot_req, slot_new, last_tok_host,
-                                   max_new, evict, chunk_first_token,
-                                   slot_hist, sampled_chunk_first)
+            """Resolve a dispatched step; False when the watchdog tripped
+            (the pending requests are failed and the loop ends)."""
+            try:
+                if step.get("spec"):
+                    self._resolve_spec_step(
+                        step, slot_req, slot_new, slot_hist, last_tok_host,
+                        max_new, ctx, override, builder, evict,
+                        chunk_first_token, emit)
+                else:
+                    self._resolve_step(
+                        step, slot_req, slot_new, last_tok_host, max_new,
+                        evict, chunk_first_token, slot_hist,
+                        sampled_chunk_first, emit)
+                return True
+            except DecodeWedgedError:
+                on_wedged()
+                return False
 
         inflight = None
-        while True:
-            if inflight is not None and (
-                    spec_mode or (self.sampling_enabled
-                                  and "chunk_mid" in inflight)):
-                # resolve BEFORE dispatching when the next dispatch needs
-                # this step's host state: in speculative mode the drafter
-                # needs the committed tokens in the histories, and ctx /
-                # the ragged meta rewound to the kept prefix; a mixed step
-                # on a sampling-enabled predictor moves sampled slots into
-                # first-token replay and un-pauses sampled decode slots,
-                # and a dispatch chained in between would take the
-                # discarded argmax or advance ctx past the replay position
-                prev, inflight = inflight, None
-                resolve(prev)
-            while admission_round():
-                pass
-            active = [b for b in range(self.B) if slot_req[b] >= 0]
-            cur = None
-            if active:
-                self.stats["max_in_flight"] = max(
-                    self.stats["max_in_flight"], len(active))
-                # a dispatch is useless when every active slot's budget
-                # is met once the in-flight step resolves
-                pend = {b for b, r in inflight["snap"]
-                        if slot_req[b] == r} if inflight else set()
-                useful = any(len(slot_new[b]) + (1 if b in pend else 0)
-                             < max_new[slot_req[b]] for b in active)
-                if any(slot_pending[b] for b in active):
-                    # a prompt is mid-ingest: this step runs the MIXED
-                    # program -- its chunk advances while the decode
-                    # slots take their normal token step. Sampled decode
-                    # slots PAUSE (the mixed step has no sampling
-                    # operands): they run their committed token again at
-                    # the same position, and resume after the ingest
-                    paused = [b for b in active if not slot_pending[b]
-                              and self._wants_sampling(
-                                  samp_of[slot_req[b]])]
-                    for b in paused:
-                        override[b] = True
-                    cur = self._dispatch_mixed_step(
-                        active, slot_req, slot_pending, tables, ctx,
-                        last_tok_host, override, builder, inflight, paused)
-                elif useful:
-                    if spec_mode:
-                        sv = samp_vec(set()) if self.sampling_enabled \
-                            else None
-                        cur = self._dispatch_spec_step(
-                            active, slot_req, slot_hist, tables, ctx,
-                            last_tok_host, override, builder, max_new,
-                            slot_new, sv, s_temp)
-                    else:
-                        sv = samp_vec(pend) if self.sampling_enabled \
-                            else None
-                        cur = self._dispatch_step(
-                            active, slot_req, tables, ctx, last_tok_host,
-                            override, builder, inflight, sv)
-            if cur is not None:
-                # slots awaiting their first sampled token draw it in this
-                # step: they ride the chunk_final first-token path of the
-                # resolver (paused slots keep waiting)
-                firsts = {b for b in active if slot_await_first[b]
-                          and b not in cur.get("chunk_mid", ())}
-                if firsts:
-                    cur["chunk_final"] = set(cur.get("chunk_final", ())) \
-                        | firsts
-                    for b in firsts:
-                        slot_await_first[b] = False
-                # sampled requests' final chunks: from the argmax
-                # first-token path to first-token replay
-                cfs = {b for b in cur.get("chunk_final", ())
-                       if b not in firsts and slot_req[b] >= 0
-                       and self._wants_sampling(samp_of[slot_req[b]])}
-                if cfs:
-                    cur["chunk_final"] = set(cur["chunk_final"]) - cfs
-                    cur["chunk_final_sampled"] = cfs
-            prev, inflight = inflight, cur
-            if prev is not None:
-                resolve(prev)
-            elif cur is None:
-                break
-        for r, res in enumerate(results):
-            if res is None:               # never placed (defensive)
-                results[r] = []
-                status[r] = "incomplete"
-        return results
+        finished = False
+        try:
+            while True:
+                apply_cancels()
+                expire_deadlines()
+                if inflight is not None and (
+                        spec_mode or (self.sampling_enabled
+                                      and "chunk_mid" in inflight)):
+                    # resolve BEFORE dispatching when the next dispatch
+                    # needs this step's host state: in speculative mode
+                    # the drafter needs the committed tokens in the
+                    # histories, and ctx / the ragged meta rewound to the
+                    # kept prefix; a mixed step on a sampling-enabled
+                    # predictor moves sampled slots into first-token
+                    # replay and un-pauses sampled decode slots, and a
+                    # dispatch chained in between would take the
+                    # discarded argmax or advance ctx past the replay
+                    # position
+                    prev, inflight = inflight, None
+                    if not resolve(prev):
+                        break
+                if not closed:
+                    batch = intake()
+                    if batch is None:
+                        closed = True
+                    elif batch:
+                        for sreq in batch:
+                            add_request(sreq)
+                        expire_queued()
+                        shed_overflow()
+                while admission_round():
+                    pass
+                active = [b for b in range(self.B) if slot_req[b] >= 0]
+                cur = None
+                if active:
+                    self.stats["max_in_flight"] = max(
+                        self.stats["max_in_flight"], len(active))
+                    # a dispatch is useless when every active slot's
+                    # budget is met once the in-flight step resolves
+                    pend = {b for b, r in inflight["snap"]
+                            if slot_req[b] == r} if inflight else set()
+                    useful = any(len(slot_new[b]) + (1 if b in pend else 0)
+                                 < max_new[slot_req[b]] for b in active)
+                    if any(slot_pending[b] for b in active):
+                        # a prompt is mid-ingest: this step runs the
+                        # MIXED program -- its chunk advances while the
+                        # decode slots take their normal token step.
+                        # Sampled decode slots PAUSE (the mixed step has
+                        # no sampling operands): they run their committed
+                        # token again at the same position, and resume
+                        # after the ingest
+                        paused = [b for b in active if not slot_pending[b]
+                                  and self._wants_sampling(
+                                      samp_of[slot_req[b]])]
+                        for b in paused:
+                            override[b] = True
+                        cur = self._dispatch_mixed_step(
+                            active, slot_req, slot_pending, tables, ctx,
+                            last_tok_host, override, builder, inflight,
+                            paused)
+                    elif useful:
+                        if spec_mode:
+                            sv = samp_vec(set()) if self.sampling_enabled \
+                                else None
+                            cur = self._dispatch_spec_step(
+                                active, slot_req, slot_hist, tables, ctx,
+                                last_tok_host, override, builder, max_new,
+                                slot_new, sv, s_temp)
+                        else:
+                            sv = samp_vec(pend) if self.sampling_enabled \
+                                else None
+                            cur = self._dispatch_step(
+                                active, slot_req, tables, ctx,
+                                last_tok_host, override, builder, inflight,
+                                sv)
+                if cur is not None:
+                    # slots awaiting their first sampled token draw it in
+                    # this step: they ride the chunk_final first-token
+                    # path of the resolver (paused slots keep waiting)
+                    firsts = {b for b in active if slot_await_first[b]
+                              and b not in cur.get("chunk_mid", ())}
+                    if firsts:
+                        cur["chunk_final"] = set(
+                            cur.get("chunk_final", ())) | firsts
+                        for b in firsts:
+                            slot_await_first[b] = False
+                    # sampled requests' final chunks: from the argmax
+                    # first-token path to first-token replay
+                    cfs = {b for b in cur.get("chunk_final", ())
+                           if b not in firsts and slot_req[b] >= 0
+                           and self._wants_sampling(samp_of[slot_req[b]])}
+                    if cfs:
+                        cur["chunk_final"] = set(cur["chunk_final"]) - cfs
+                        cur["chunk_final_sampled"] = cfs
+                prev, inflight = inflight, cur
+                if prev is not None:
+                    if not resolve(prev):
+                        break
+                elif cur is None:
+                    if closed:
+                        break
+                    # an idle open stream: intake() is expected to block
+                    # briefly itself; this only keeps the loop from
+                    # spinning
+                    if not out:
+                        time.sleep(0.0002)
+                while out:
+                    yield out.popleft()
+            for r, res in enumerate(results):
+                if res is None:           # never placed (defensive)
+                    results[r] = []
+                    if status[r] in ("queued", "running"):
+                        status[r] = "incomplete"
+                        emit(r, "end", st="incomplete")
+            while out:
+                yield out.popleft()
+            finished = True
+        finally:
+            if not finished:
+                # the consumer abandoned the generator (GeneratorExit:
+                # "cancelled") or an exception unwound out of the loop
+                # ("error", and the exception propagates). Either way the
+                # pages are released; pending events are lost.
+                exc = sys.exc_info()[1]
+                aborted = exc is not None and not isinstance(
+                    exc, GeneratorExit)
+                st = "error" if aborted else "cancelled"
+                for b in range(self.B):
+                    if slot_req[b] >= 0:
+                        if not aborted:
+                            self.stats["cancelled_requests"] += 1
+                        evict(b, st)
+                for r in list(q.ids()):
+                    q.remove(r)
+                    if not aborted:
+                        self.stats["cancelled_requests"] += 1
+                    finish_queued(r, st)
+                for r, s in enumerate(status):
+                    # popped for an admission round but not yet placed
+                    # when the loop died
+                    if s in ("queued", "running"):
+                        status[r] = st
+                        if not aborted:
+                            self.stats["cancelled_requests"] += 1
+                for r, res in enumerate(results):
+                    if res is None:
+                        results[r] = []
 
     # ------------------------------------------------------ admission ops
     def _batch_prefill(self, bucket, group):
@@ -1215,14 +1638,16 @@ class ContinuousBatchingPredictor:
 
     def _resolve_spec_step(self, step, slot_req, slot_new, slot_hist,
                            last_tok_host, max_new, ctx, override, builder,
-                           evict, first_cb):
+                           evict, first_cb, emit):
         """Sync one speculative step and commit each slot's accepted
         drafts plus the bonus token: tokens append (eos and the budget
         truncate and evict as in plain decode), ctx and the ragged meta
         rewind to the kept prefix (the rejected positions' K/V was
         already restored on the device), and the drafting history
-        extends. Slots in ``chunk_final`` draw their first (sampled)
-        token in this step: ``first_cb`` records TTFT."""
+        extends; the tick's tokens stream as one event (``emit``) whose
+        span holds them all. Slots in ``chunk_final`` draw their first
+        (sampled) token in this step: ``first_cb`` records TTFT."""
+        self._await_step(step)
         bonus, acc = step["fetch"]()
         firsts = step.get("chunk_final", ())
         accepted_total = 0
@@ -1252,12 +1677,14 @@ class ContinuousBatchingPredictor:
                 slot_hist[b].extend(span_toks)
                 last_tok_host[b] = span_toks[-1]
                 override[b] = True
+                emit(r, "token", token=span_toks[-1],
+                     index=len(slot_new[b]), span=tuple(span_toks))
             if ended or len(slot_new[b]) >= max_new[r]:
                 evict(b)
         self.stats["spec_accepted"] += accepted_total
 
     def _resolve_step(self, step, slot_req, slot_new, last_tok_host, max_new,
-                      evict, first_cb, hist, sampled_first):
+                      evict, first_cb, hist, sampled_first, emit):
         """Sync a previously dispatched step (its successor may already
         be in flight) and apply its tokens: append, detect eos / budget,
         evict. Slots recycled since the dispatch are skipped. In a mixed
@@ -1266,7 +1693,9 @@ class ContinuousBatchingPredictor:
         first token (``first_cb`` records TTFT); a sampled request's
         final chunk instead goes to ``sampled_first`` (first-token
         replay). A decode step's ``chunk_final`` slots draw their first
-        sampled token. Committed tokens extend ``hist``."""
+        sampled token. Committed tokens extend ``hist`` and stream
+        through ``emit``."""
+        self._await_step(step)
         nxt, done = step["fetch"]()
         chunk_mid = step.get("chunk_mid", ())
         chunk_final = step.get("chunk_final", ())
@@ -1291,5 +1720,26 @@ class ContinuousBatchingPredictor:
             slot_new[b].append(t)
             hist[b].append(t)
             last_tok_host[b] = t
+            emit(r, "token", token=t, index=len(slot_new[b]))
             if len(slot_new[b]) >= max_new[r]:
                 evict(b)
+
+
+class _Fetch:
+    """The host copy of a dispatched step's small outputs: ``ready()``
+    asks without blocking; calling it waits (``ev.synchronize()``) and
+    gives numpy. On the CPU the outputs are the step's own tensors and a
+    step is ready when it returns."""
+
+    __slots__ = ("_outs", "_ev")
+
+    def __init__(self, outs, ev):
+        self._outs, self._ev = outs, ev
+
+    def ready(self):
+        return self._ev is None or self._ev.query()
+
+    def __call__(self):
+        if self._ev is not None:
+            self._ev.synchronize()
+        return tuple(o.numpy() for o in self._outs)

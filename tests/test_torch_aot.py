@@ -118,7 +118,7 @@ def test_compiled_keys_equal_the_reference(models):
     with pytest.raises(ValueError, match="serve_role"):
         RuntimeConfig(serve_role="prefill")
     with pytest.raises(ValueError, match="unknown"):
-        RuntimeConfig.from_dict({**rc.to_dict(), "max_queue": 3})
+        RuntimeConfig.from_dict({**rc.to_dict(), "zero_stage": 3})
 
 
 MANIFEST_CFGS = {
@@ -424,6 +424,66 @@ def test_rebinding_a_weight_after_capture_refuses_to_serve(models, bundle,
     assert len(pred.generate(_prompts(5, (8,)), max_new_tokens=2)[0]) == 2
 
 
+def _load_in_place(model, seed):
+    """Every weight replaced in place (``copy_``) by a seeded draw of
+    the same model: the version counters move, the addresses stay."""
+    other = LlamaForCausalLM(model.config, device=model.device).init_weights(
+        torch.Generator(device=model.device).manual_seed(seed))
+    with torch.no_grad():
+        for p, q in zip(model.parameters(), other.parameters()):
+            p.copy_(q)
+
+
+def test_weight_change_flushes_prefix_cache_under_engine(models, bundle,
+                                                         tmp_path):
+    """An in-place load between two serves of a warm-started predictor
+    flushes its prefix cache: the second serve misses the cache and
+    gives a fresh predictor's tokens on the new weights."""
+    _, port = models
+    saved = {k: v.clone() for k, v in port.state_dict().items()}
+    try:
+        pred, eng = aot.warm_start(port, _copy(bundle, tmp_path),
+                                   wire_cache=False,
+                                   enable_prefix_cache=True)
+        prompts = _prompts(5, (13,))
+        pred.generate(prompts, max_new_tokens=4)
+        _load_in_place(port, 3)
+        got = pred.generate(prompts, max_new_tokens=4)
+        want = ContinuousBatchingPredictor(port, device="cpu",
+                                           **GEO).generate(prompts, 4)
+        assert got == want and pred.stats["prefix_hits"] == 0
+        assert eng.stats["misses"] == 0
+    finally:
+        port.load_state_dict(saved)
+
+
+def test_streams_through_the_engine_equal_eager(models, bundle, tmp_path):
+    """generate_stream with a cancellation and an expired deadline through
+    a warm-started predictor: the eager predictor's events, results and
+    stats, and no bucket miss."""
+    _, port = models
+    pred, eng = aot.warm_start(port, _copy(bundle, tmp_path),
+                               wire_cache=False)
+    prompts = _prompts(3, (8, 16, 5))
+
+    def run(cb):
+        st = cb.generate_stream(prompts, max_new_tokens=6,
+                                deadline_s=[None, None, 0.0])
+        evs = []
+        for ev in st:
+            evs.append((ev.request, ev.kind, ev.token, ev.index, ev.status,
+                        ev.span))
+            if ev.request == 0 and ev.index == 2:
+                st.cancel(0)
+        return evs, st.results, list(st.status)
+    eager = ContinuousBatchingPredictor(port, device="cpu", **GEO)
+    got = run(pred)
+    assert got == run(eager)
+    assert got[2] == ["cancelled", "ok", "deadline"]
+    assert pred.stats == eager.stats
+    assert eng.stats["misses"] == 0 and eng.stats["hits"] > 0
+
+
 # --------------------------------------------------------- padded spans --
 
 @pytest.mark.parametrize("ragged", [False, True], ids=["table", "ragged"])
@@ -561,3 +621,66 @@ def test_replay_adds_the_captured_launch_counts(cuda, tmp_path):
     prog(*args)
     torch.cuda.synchronize()
     assert {k: n for k, n in launch_counts.items() if n} == prog.launches
+
+
+@pytest.mark.cuda
+def test_weight_change_flushes_prefix_cache_on_the_card(cuda, tmp_path):
+    """Through replayed graphs: two prompts served (one extends the
+    other), the weights loaded in place, the prompts served again: a
+    fresh eager predictor's tokens and prefix-cache hits and misses on
+    the new weights (the graphs read the weights by address, so the
+    in-place load needs only the flush)."""
+    model = _card_model(cuda)
+    kw = CARD_CFGS["table"]
+    prompts = _card_prompts()[:2]
+    b = aot.EngineBuilder(model, prompt_buckets=(16, 32, 64), **kw)
+    b.add_traffic(prompts, max_new_tokens=2)
+    b.build(str(tmp_path / "e"))
+    pred, eng = aot.warm_start(model, str(tmp_path / "e"))
+    pred.generate(prompts, max_new_tokens=8)
+    before = dict(pred.stats)
+    _load_in_place(model, 1)
+    got = pred.generate(prompts, max_new_tokens=8)
+    fresh = ContinuousBatchingPredictor(model, device=cuda, **kw)
+    want = fresh.generate(prompts, max_new_tokens=8)
+    assert got == want
+    for k in ("prefix_hits", "prefix_partial_hits", "prefix_misses"):
+        assert pred.stats[k] - before[k] == fresh.stats[k]
+    assert eng.stats["misses"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", ["table", "chunk_spec_ragged"])
+def test_stream_evictions_through_graphs_equal_eager(cuda, tmp_path, cfg):
+    """A cancellation and an expired deadline in a stream through replayed
+    graphs: a slot freed while its next step is in flight (the step still
+    writes one K/V row into the freed pages, on the same stream, before
+    the next owner's prefill) leaves the eager events, results, stats and
+    pages (the trash page aside) bit for bit."""
+    model = _card_model(cuda)
+    kw = CARD_CFGS[cfg]
+    prompts = _card_prompts()
+    b = aot.EngineBuilder(model, prompt_buckets=(16, 32, 64), **kw)
+    b.add_traffic(prompts, max_new_tokens=2)
+    b.build(str(tmp_path / "e"))
+    pred, eng = aot.warm_start(model, str(tmp_path / "e"))
+    eager = ContinuousBatchingPredictor(model, device=cuda, **kw)
+
+    def run(cb):
+        st = cb.generate_stream(prompts, max_new_tokens=16,
+                                deadline_s=[None, None, 0.0, None, None])
+        evs = []
+        for ev in st:
+            evs.append((ev.request, ev.kind, ev.token, ev.index, ev.status,
+                        ev.span))
+            if ev.request == 0 and ev.kind == "token" and ev.index >= 3:
+                st.cancel(0)
+        return evs, st.results, list(st.status)
+    got, want = run(pred), run(eager)
+    assert got == want
+    assert got[2][0] == "cancelled" and got[2][2] == "deadline"
+    assert pred.stats == eager.stats and eng.stats["misses"] == 0
+    keep = torch.ones(pred.pool.num_pages, dtype=torch.bool)
+    keep[pred._trash] = False
+    for a, b_ in zip(pred.pool.k + pred.pool.v, eager.pool.k + eager.pool.v):
+        assert torch.equal(a[keep], b_[keep])

@@ -165,6 +165,46 @@ def test_strict_rejection():
     assert small.last_status == ["ok", "rejected_over_pool_capacity"]
 
 
+def _perturbed(ref):
+    """Every reference weight + 0.5 * N(0, 1), from one seed."""
+    rng = np.random.RandomState(7)
+    return {k: (np.asarray(v.numpy()) + 0.5 * rng.standard_normal(
+        v.shape)).astype(np.float32) for k, v in ref.state_dict().items()}
+
+
+@pytest.mark.parametrize("load", ["in_place", "rebind"])
+def test_weight_change_flushes_prefix_cache(load):
+    """A prompt served, every weight changed, the same prompt served
+    again: the cached K/V was computed with the old weights, so the
+    second serve must not hit the prefix cache and must give the
+    reference's tokens on the new weights. The port loads in place
+    (``copy_``: the version counter moves) or rebinds each parameter's
+    storage (``p.data =``: the data pointer moves)."""
+    ref, port = _predictors()
+    prompt = _prompts(2, (17,))
+    assert port.generate(prompt, max_new_tokens=8) == ref.generate(
+        prompt, max_new_tokens=8)
+    new = _perturbed(ref.model)
+    ref.model.set_state_dict(new)
+    if load == "in_place":
+        load_reference_state_dict(port.model, new)
+    else:
+        fresh = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+        load_reference_state_dict(fresh, new)
+        with torch.no_grad():
+            for p, q in zip(port.model.parameters(), fresh.parameters()):
+                p.data = q.detach().clone()
+    want = ref.generate(prompt, max_new_tokens=8)
+    assert port.generate(prompt, max_new_tokens=8) == want
+    assert port.stats["prefix_hits"] == ref.stats["prefix_hits"] == 0
+    want_s, got_s = _shared_stats(ref, port)
+    assert got_s == want_s
+    # unchanged weights keep the cache: the third serve is a full hit
+    assert port.generate(prompt, max_new_tokens=8) == ref.generate(
+        prompt, max_new_tokens=8)
+    assert port.stats["prefix_hits"] == ref.stats["prefix_hits"] == 1
+
+
 # ---------------------------------------------------------- cache units --
 
 def test_pool_refcount_and_copy_on_write():
@@ -215,7 +255,9 @@ def test_port_imports_no_jax():
             "paddle_tpu_torch.optimizer, paddle_tpu_torch.jit, "
             "paddle_tpu_torch.distributed, paddle_tpu_torch.nn, "
             "paddle_tpu_torch.models, paddle_tpu_torch.incubate.nn, "
-            "paddle_tpu_torch.examples.bert_finetune; "
+            "paddle_tpu_torch.examples.bert_finetune, "
+            "paddle_tpu_torch.serving, paddle_tpu_torch.framework.faults, "
+            "paddle_tpu_torch.framework.flags; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'paddle_tpu' or m.startswith('paddle_tpu.')"
             " for m in sys.modules), 'paddle_tpu imported'")
