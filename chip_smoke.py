@@ -26,8 +26,10 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    decode at contexts up to pps * page = 1024 (beside ragged decode on
    the same inputs, held to its plain version there too), the
    variable-query kernel at the speculative verify shape q[4, 5, 32, 128]
-   (5-row spans over 561 / 305 / 101 / 5 keys), and the f32 instances of
-   both decode kernels at their bf16 shapes. A second bf16 launch of the
+   (5-row spans over 561 / 305 / 101 / 5 keys), the forward at the
+   static route's decode shape (q[8, 1, 32, 128] against 544 cached
+   keys under a bool padding mask, beside SDPA with the same mask), and
+   the f32 instances of both decode kernels at their bf16 shapes. A second bf16 launch of the
    backward, ragged-decode and variable-query kernels must equal the
    first bit for bit. Then the fused optimizer's two CUDA kernels
    (``fused_update``, ``grad_sq_norm``) against their plain versions for
@@ -95,6 +97,31 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    with one trip and every request 'watchdog', and the device then
    synchronizes; (e) ``serve_stream`` over an intake of 2 requests a
    poll for 4 polls (run 1's prompts, 16 new tokens each) serves all 8.
+   Then the inference API on the same model (``infer_phase``): (a)
+   ``LLMPredictor`` (max_batch_size 8) over 12 prompts of 17-300 tokens
+   (two micro-batches, buckets 512 and 128), 32 new tokens greedy and
+   once sampled (temperature 0.8, top-p 0.9, a seed that replays its
+   tokens) through ``generate()``'s static-cache route: every row gets
+   its tokens, and the ``rms_norm``, ``flash_fwd`` and
+   ``categorical_rows`` launches equal the route's count (per call and
+   step 2L + 1, L and, sampled, 1); prints decode tokens/s, prefill ms
+   and peak memory; (b) ``SpeculativePredictor`` (gamma 4) with a
+   2-layer draft of the same widths and with the target as its own
+   draft: target calls, accepted / proposed, tokens/s; (c) ``jit.save``
+   of ERNIE-3.0-base (f32 and bf16 at 16 x 128 with a fixed
+   ``InputSpec``, f32 with ``[None, 128]``) and of a 2-layer full-width
+   bf16 Llama at 256 tokens; a second process (``--infer-child``) that
+   imports no model module runs each ``.pt2`` through ``Config`` /
+   ``create_predictor``: outputs within ``TOL`` of the live model's (the
+   ``None`` batch also at batch 5), every kernel launched as often as in
+   the live forward (``layer_norm`` and ``flash_fwd`` for ERNIE,
+   ``rms_norm`` and ``flash_fwd`` for Llama), ms a run beside the live
+   model's; (d) at 2 layers and full width in f32, card against CPU: the
+   static route greedy and sampled (seeds, eos, min_new_tokens,
+   repetition penalty) over a left-padded batch token for token,
+   ``LLMPredictor`` with ``weight_only_int8`` and ``weight_only_int4``,
+   and ``SpeculativePredictor`` (a 1-layer draft, and the target as its
+   own) equal to plain greedy.
 5. AOT engine (``paddle_tpu_torch/inference/aot``): two bundles built
    from the serve phase's model (``EngineBuilder``: run 1's block-table
    geometry, and runs 2-3's with sampling enabled; power-of-two prompt
@@ -353,7 +380,8 @@ def flash_phase(torch, dev, g):
                 a, b, c, sc, True, mask), sets)["median"]
             log(f"  flash_fwd float32 q[{b}, {s}, {h}, {d}] causal+mask: "
                 f"{t32:.4f} ms (median device time)")
-    main["extra"] = flash_train_row(torch, dev, g)
+    main["extra"] = {**flash_train_row(torch, dev, g),
+                     **flash_decode_row(torch, dev, g)}
     # suffix prefill: Sq < Sk, causality carried by the mask alone
     sq, sk = 128, 384
     q = torch.randn(1, sq, 32, d, device=dev, generator=g).bfloat16()
@@ -2092,6 +2120,406 @@ def frontend_phase(torch, dev, seed, card, serve):
     return {"stream_outs": run1["outs"], "rates": rates, "firsts": firsts}
 
 
+# ---------------------------------------------------------- inference API --
+
+# LLMPredictor's prompts: two micro-batches of max_batch_size 8, one padded
+# to the 512 bucket and one to the 128 bucket
+INFER_LENS = ((300, 17, 256, 40, 128, 200, 64, 90), (33, 120, 77, 25))
+INFER_NEW = 32
+INFER_DIR = os.path.join("output", "chip_smoke_infer")
+INFER_CHILD_TIMEOUT = 300
+INFER_RUNS = 10
+
+
+def flash_decode_row(torch, dev, g):
+    """The forward at the static route's decode shape: one query row per
+    sequence, q[8, 1, 32, 128] bf16 against the whole cache k, v[8, 544,
+    32, 128] (a 512-token bucket and 32 new tokens) under a bool padding
+    mask (each row's prompt and its first 8 decode slots valid), against
+    its plain version, timed beside SDPA with the same mask and the
+    bytes bound."""
+    from paddle_tpu_torch.kernels import attention as A
+    F = torch.nn.functional
+    b, h, d, s = 8, 32, 128, 512
+    ml = s + INFER_NEW
+    lens = torch.tensor(INFER_LENS[0], device=dev)
+    j = torch.arange(ml, device=dev)[None, :]
+    keep = ((j >= s - lens[:, None]) & (j < s + 8))[:, None, None, :]
+    madd = A.additive_mask(keep, b, h, 1, ml)
+    sets = [tuple(torch.randn(b, n, h, d, device=dev, generator=g).bfloat16()
+                  for n in (1, ml, ml)) for _ in range(2)]
+    sc = d ** -0.5
+    shape = (f"q[{b}, 1, {h}, {d}] k, v[{b}, {ml}, {h}, {d}] bfloat16, bool "
+             "padding mask")
+    out, lse = A.flash_attention_kernel(*sets[0], sc, False, madd)
+    err = compare(torch, f"flash_fwd static decode {shape}", out,
+                  A.flash_attention_plain(*sets[0], sc, False, madd),
+                  "bfloat16")
+    t = time_ms(torch, lambda q, k, v: A.flash_attention_kernel(
+        q, k, v, sc, False, madd), sets)
+    lib = time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=keep, scale=sc), sets)["median"]
+    pairs = int(keep.sum()) * h
+    isz = out.element_size()
+    nbytes = (sum(x.numel() for x in sets[0]) + out.numel()) * isz \
+        + madd.numel() * 4 + lse.numel() * 4
+    b_ms, by = bound(nbytes, 4 * d * pairs, "bfloat16")
+    log(f"  flash_fwd at the static decode shape, {shape}: kernel median "
+        f"{t['median']:.4f} ms (CUPTI {t['cupti']:.4f}), bound {b_ms:.4f} "
+        f"ms ({by}), SDPA (same mask) {lib:.4f} ms")
+    return {"decode_shape": shape, "decode_ms": t["median"],
+            "decode_cupti_ms": t["cupti"], "decode_bound_ms": b_ms,
+            "decode_library_ms": lib, "decode_max_abs_err": err}
+
+
+def _sync_time(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def llm_phase(torch, dev, seed, card, model):
+    """(a) LLMPredictor on the serve model through the static route,
+    greedy and sampled, with the launches the route predicts; (b)
+    SpeculativePredictor with a 2-layer draft and with the target as its
+    own draft. Returns the launch counts of the greedy run."""
+    from paddle_tpu_torch.inference import LLMPredictor, SpeculativePredictor
+    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    gen = torch.Generator().manual_seed(seed + 12)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+               for lens in INFER_LENS for n in lens]
+    pred = LLMPredictor(model, max_batch_size=8)
+    calls = len(INFER_LENS)
+    # every generate() call runs INFER_NEW forwards (the prefill and
+    # INFER_NEW - 1 cached steps): 2L + 1 RMSNorms and L flash forwards
+    # each; a sampled call draws once a step, a greedy one never
+    want = {"rms_norm": calls * INFER_NEW * (2 * layers + 1),
+            "flash_fwd": calls * INFER_NEW * layers, "categorical_rows": 0}
+    pred.generate(prompts, INFER_NEW)       # warm-up: the timed shapes
+    _, t_pre = _sync_time(torch, lambda: pred.generate(prompts, 1))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    outs, t_full = _sync_time(torch, lambda: pred.generate(prompts,
+                                                           INFER_NEW))
+    counts = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = {k: counts[k] for k in want}
+    check(len(outs) == len(prompts)
+          and all(len(o) == INFER_NEW for o in outs),
+          f"LLMPredictor: rows without their {INFER_NEW} tokens: "
+          f"{[len(o) for o in outs]}")
+    check(got == want, f"LLMPredictor greedy launches {got}, the static "
+          f"route predicts {want}")
+    tok_s = len(prompts) * (INFER_NEW - 1) / (t_full - t_pre)
+    log(f"infer (a) LLMPredictor on {card}: {len(prompts)} prompts of "
+        f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens in "
+        f"{calls} micro-batches of 8 (buckets 512, 128), {INFER_NEW} new "
+        f"greedy: decode {tok_s:.1f} tok/s, prefill (both micro-batches) "
+        f"{t_pre * 1e3:.1f} ms, whole call {t_full * 1e3:.1f} ms, peak "
+        f"{peak:.2f} GiB; launches {got} == predicted")
+    static_profile(torch, pred, prompts[:8], card)
+    sampled = dict(decode_strategy="sampling", temperature=0.8, top_p=0.9,
+                   seed=seed + 5)
+    reset_launch_counts()
+    souts, t_s = _sync_time(torch, lambda: pred.generate(
+        prompts, INFER_NEW, **sampled))
+    got_s = {k: launch_counts[k] for k in want}
+    want_s = dict(want, categorical_rows=calls * INFER_NEW)
+    again = pred.generate(prompts, INFER_NEW, **sampled)
+    check(all(len(o) == INFER_NEW for o in souts) and got_s == want_s,
+          f"sampled LLMPredictor: launches {got_s} vs {want_s}, lengths "
+          f"{[len(o) for o in souts]}")
+    check(again == souts, "a sampled call with the same seed gave other "
+          "tokens")
+    log(f"infer (a) sampled (temperature 0.8, top-p 0.9, seed {seed + 5}): "
+        f"{len(prompts) * INFER_NEW / t_s:.1f} tok/s whole call; the seed "
+        f"replays its tokens; {sum(a != b for a, b in zip(outs, souts))} of "
+        f"{len(outs)} rows differ from greedy; launches {got_s}")
+    draft = LlamaForCausalLM(
+        LlamaConfig.llama2_7b(num_hidden_layers=2, dtype="bfloat16"),
+        device=dev).init_weights(torch.Generator(device=dev).manual_seed(
+            seed + 13))
+    prompt = prompts[3]
+    for label, d in (("a 2-layer draft", draft), ("draft = target", model)):
+        spec = SpeculativePredictor(model, d, gamma=4)
+        toks, dt = _sync_time(torch, lambda: spec.generate(prompt,
+                                                           INFER_NEW))
+        st = spec.stats
+        check(len(toks) == INFER_NEW, f"speculative: {len(toks)} tokens")
+        log(f"infer (b) SpeculativePredictor, gamma 4, {label}: "
+            f"target_calls {st['target_calls']}, accepted {st['accepted']} "
+            f"/ proposed {st['proposed']}, {INFER_NEW / dt:.1f} tok/s (one "
+            f"sequence; (a)'s batched greedy {tok_s:.1f}); tokens == (a)'s "
+            f"greedy row: {toks == outs[3]} (bf16: near-ties may flip "
+            "between forwards of other shapes)")
+    del draft, pred
+    return {"counts": counts, "tok_s": tok_s}
+
+
+PROFILE_NEW = 8        # steps of the traced call: the trace's size
+
+
+def static_profile(torch, pred, prompts, card):
+    """One traced LLMPredictor call (one micro-batch of 8, the 512
+    bucket, PROFILE_NEW greedy tokens: the prefill and PROFILE_NEW - 1
+    cached steps): device busy and idle share, host ops per forward and
+    the device time by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    pred.generate(prompts, PROFILE_NEW)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = _sync_time(torch, lambda: pred.generate(prompts,
+                                                          PROFILE_NEW))
+    kern = device_kernel_ms(torch, prof)
+    busy = sum(ms for ms, _ in kern.values())
+    calls = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CPU)
+    log(f"infer (a) static route profile on {card}: {len(prompts)} rows, "
+        f"{PROFILE_NEW} forwards, wall {wall * 1e3:.1f} ms (traced), device "
+        f"busy {busy:.1f} ms, idle share {1 - busy / (wall * 1e3):.3f}, host "
+        f"ops {calls / PROFILE_NEW:.0f} per forward; top device time:")
+    for name, (ms, n) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:6]:
+        log(f"  {ms:9.2f} ms {100 * ms / busy:5.1f}% x{n:<6d} {name[:90]}")
+
+
+def _timed_runs(torch, fn, runs=INFER_RUNS):
+    """fn() once to warm up, then the median wall ms of ``runs`` calls,
+    each ending in a device synchronize."""
+    fn()
+    ts = []
+    for _ in range(runs):
+        ts.append(_sync_time(torch, fn)[1] * 1e3)
+    return statistics.median(ts)
+
+
+def predictor_phase(torch, dev, seed, card):
+    """(c) jit.save of ERNIE-3.0-base (f32 and bf16 at 16 x 128, and f32
+    with a None batch dim) and of a 2-layer full-width bf16 Llama at 256
+    tokens; a second process (``--infer-child``) that never imports the
+    models runs each artifact through Config / create_predictor: its
+    outputs within TOL of the live model's, and the launches of each
+    kernel equal to the live forward's."""
+    import numpy as np
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.models import (ErnieConfig,
+                                         ErnieForSequenceClassification,
+                                         LlamaConfig, LlamaForCausalLM)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        INFER_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    gen = torch.Generator().manual_seed(seed + 14)
+    items = []
+
+    def export(name, model, x, shape, dtype, kernels):
+        path = os.path.join(root, name)
+        t0 = time.perf_counter()
+        jit.save(model, path, input_spec=[jit.InputSpec(shape, "int64")])
+        save_s = time.perf_counter() - t0
+        check(os.path.exists(path + ".pt2"), f"{name}: export failed")
+        with torch.no_grad():
+            reset_launch_counts()
+            want = model(x.to(dev)).float().cpu()
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in launch_counts.items() if v}
+            ms = _timed_runs(torch, lambda: model(x.to(dev)).float().cpu())
+        check(all(counts.get(k, 0) > 0 for k in kernels),
+              f"{name}: the live forward launched {counts}")
+        np.save(path + ".x.npy", x.numpy())
+        np.save(path + ".want.npy", want.numpy())
+        items.append({"name": name, "path": path, "dtype": dtype,
+                      "kernels": kernels, "counts": counts, "live_ms": ms,
+                      "save_s": save_s, "dynamic": shape[0] is None})
+
+    ernie = ErnieForSequenceClassification(ErnieConfig(), device=dev)
+    ernie.init_weights(torch.Generator(device=dev).manual_seed(seed)).eval()
+    ids = torch.randint(1, ErnieConfig().vocab_size, (16, 128), generator=gen)
+    ek = ["layer_norm", "flash_fwd"]
+    export("ernie_f32", ernie, ids, [16, 128], "float32", ek)
+    export("ernie_dyn", ernie, ids, [None, 128], "float32", ek)
+    ernie.to(torch.bfloat16)
+    export("ernie_bf16", ernie, ids, [16, 128], "bfloat16", ek)
+    del ernie
+    free_card(torch)
+    llama = LlamaForCausalLM(
+        LlamaConfig.llama2_7b(num_hidden_layers=2, dtype="bfloat16"),
+        device=dev).init_weights(torch.Generator(device=dev).manual_seed(
+            seed + 16))
+    ids = torch.randint(1, llama.config.vocab_size, (1, 256), generator=gen)
+    export("llama_2l", llama.eval(), ids, [1, 256], "bfloat16",
+           ["rms_norm", "flash_fwd"])
+    del llama
+    free_card(torch)
+
+    spec = {"items": items, "result": os.path.join(root, "child.json")}
+    with open(os.path.join(root, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--infer-child",
+         os.path.join(root, "spec.json")], timeout=INFER_CHILD_TIMEOUT)
+    check(proc.returncode == 0,
+          f"the Predictor process failed (exit {proc.returncode})")
+    with open(spec["result"]) as f:
+        res = json.load(f)
+    log(f"infer (c) the Predictor process took "
+        f"{time.perf_counter() - t0:.1f} s; model modules it imported: "
+        f"{res['models_imported'] or 'none'}")
+    check(not res["models_imported"], "the Predictor process imported "
+          f"{res['models_imported']}")
+    for it in items:
+        r = res[it["name"]]
+        tol = TOL[it["dtype"]]
+        log(f"infer (c) {it['name']} on {card}: child vs live max_abs_err "
+            f"{r['err']:.3e} (atol={tol['atol']}, rtol={tol['rtol']}) "
+            f"{'ok' if r['ok'] else 'MISMATCH'}; launches child "
+            f"{r['counts']} vs live {it['counts']}; ms a run child "
+            f"{r['ms']:.3f} vs live {it['live_ms']:.3f}; jit.save "
+            f"{it['save_s']:.1f} s, load {r['load_s']:.1f} s"
+            + (f"; batch 5 of the None batch dim "
+               f"{'ok' if r['ok5'] else 'MISMATCH'}" if it["dynamic"]
+               else ""))
+        check(r["ok"] and r.get("ok5", True),
+              f"{it['name']}: the loaded program disagrees with the live "
+              "model")
+        check(r["counts"] == it["counts"],
+              f"{it['name']}: child launches {r['counts']} vs live "
+              f"{it['counts']}")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def infer_child(torch, dev, spec_path):
+    """The Predictor process of (c): imports the inference API only, runs
+    each artifact and writes its outputs' agreement, launches and time."""
+    import numpy as np
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+    with open(spec_path) as f:
+        spec = json.load(f)
+    res = {}
+    for it in spec["items"]:
+        t0 = time.perf_counter()
+        pred = create_predictor(Config(it["path"] + ".pdmodel"))
+        load_s = time.perf_counter() - t0
+        x = np.load(it["path"] + ".x.npy")
+        want = np.load(it["path"] + ".want.npy")
+        pred.run([x])                       # warm-up (Triton compile)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = pred.run([x])[0]
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in launch_counts.items() if v}
+        r = {"counts": counts, "load_s": load_s,
+             "err": float(np.abs(out - want).max()),
+             "ok": bool(np.allclose(out, want, **TOL[it["dtype"]])),
+             "ms": _timed_runs(torch, lambda: pred.run([x]))}
+        if it["dynamic"]:
+            r["ok5"] = bool(np.allclose(pred.run([x[:5]])[0], want[:5],
+                                        **TOL[it["dtype"]]))
+        res[it["name"]] = r
+        del pred
+        free_card(torch)
+    res["models_imported"] = sorted(
+        m for m in sys.modules if m.startswith("paddle_tpu_torch.models"))
+    with open(spec["result"], "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def infer_f32_gates(torch, dev, seed):
+    """(d) 2 layers at full width in f32 against the port on the CPU: the
+    static route greedy and sampled over a left-padded batch, token for
+    token; LLMPredictor with weight_only_int8 and weight_only_int4;
+    SpeculativePredictor against plain greedy."""
+    import numpy as np
+    from paddle_tpu_torch.inference import LLMPredictor, SpeculativePredictor
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=2, dtype="float32")
+    cpu = LlamaForCausalLM(cfg, device="cpu").init_weights(
+        torch.Generator().manual_seed(seed))
+    gpu = LlamaForCausalLM(cfg, device=dev)
+    state = {k: v.clone() for k, v in cpu.state_dict().items()}
+    gpu.load_state_dict(state)
+    gen = torch.Generator().manual_seed(seed + 15)
+    ids = torch.randint(1, cfg.vocab_size, (3, 40), generator=gen).numpy()
+    mask = np.ones_like(ids)
+    mask[1, :17] = 0            # left padding
+    mask[2, 31:] = 0            # right padding, left-padded by generate
+    greedy = cpu.generate(ids, attention_mask=mask, max_new_tokens=8)[0]
+    eos = int(greedy[0, 2])
+    cases = {"greedy": {},
+             "sampled (top-k, top-p, eos, min_new_tokens 2, repetition "
+             "1.2)": dict(decode_strategy="sampling", temperature=0.8,
+                          top_k=50, top_p=0.9, seed=seed + 3,
+                          eos_token_id=eos, min_new_tokens=2,
+                          repetition_penalty=1.2)}
+    for label, kw in cases.items():
+        want = cpu.generate(ids, attention_mask=mask, max_new_tokens=8, **kw)
+        got = gpu.generate(ids, attention_mask=mask, max_new_tokens=8, **kw)
+        log(f"infer (d) f32 2-layer static route, {label}: card == CPU "
+            f"{torch.equal(got[0], want[0])}; score max_abs_err "
+            f"{float((got[1] - want[1]).abs().max()):.3e}")
+        check(torch.equal(got[0], want[0]),
+              f"static route {label}: card {got[0].tolist()} vs CPU "
+              f"{want[0].tolist()}")
+    prompts = [ids[0].tolist(), ids[1, 17:].tolist(), ids[2, :31].tolist()]
+    for quant in ("weight_only_int8", "weight_only_int4"):
+        cpu.load_state_dict(state)
+        gpu.load_state_dict(state)
+        a = LLMPredictor(cpu, max_batch_size=3, quant_type=quant)
+        b = LLMPredictor(gpu, max_batch_size=3, quant_type=quant)
+        wdiff = max(float((p.detach().cpu() - q.detach()).abs().max())
+                    for p, q in zip(gpu.parameters(), cpu.parameters()))
+        want, got = a.generate(prompts, 8), b.generate(prompts, 8)
+        log(f"infer (d) f32 LLMPredictor {quant}: card == CPU {got == want}; "
+            f"quantized weights card vs CPU max_abs_diff {wdiff:.3e}")
+        check(got == want, f"{quant}: card {got} vs CPU {want}")
+    cpu.load_state_dict(state)
+    gpu.load_state_dict(state)
+    plain = LLMPredictor(gpu).generate([prompts[0]], 12)[0]
+    check(plain == LLMPredictor(cpu).generate([prompts[0]], 12)[0],
+          "f32 greedy LLMPredictor: card and CPU differ")
+    draft = LlamaForCausalLM(
+        LlamaConfig.llama2_7b(num_hidden_layers=1, dtype="float32"),
+        device=dev).init_weights(torch.Generator(device=dev).manual_seed(
+            seed + 17))
+    for label, d in (("a 1-layer draft", draft), ("draft = target", gpu)):
+        spec = SpeculativePredictor(gpu, d, gamma=4)
+        toks = spec.generate(prompts[0], 12)
+        log(f"infer (d) f32 SpeculativePredictor, {label}: == plain greedy "
+            f"{toks == plain}; stats {spec.stats}")
+        check(toks == plain, f"speculative ({label}) {toks} vs plain "
+              f"greedy {plain}")
+    del cpu, gpu, draft
+
+
+def infer_phase(torch, dev, seed, card, model):
+    """The inference-API phase on the serve model, (a) to (d); (e) runs
+    with the kernels (``flash_decode_row``). Returns (a)'s launches."""
+    t0 = time.perf_counter()
+    res = llm_phase(torch, dev, seed, card, model)
+    log(f"infer (a)-(b) took {time.perf_counter() - t0:.1f} s")
+    free_card(torch)
+    t0 = time.perf_counter()
+    predictor_phase(torch, dev, seed, card)
+    log(f"infer (c) took {time.perf_counter() - t0:.1f} s")
+    free_card(torch)
+    t0 = time.perf_counter()
+    infer_f32_gates(torch, dev, seed)
+    log(f"infer (d) took {time.perf_counter() - t0:.1f} s")
+    free_card(torch)
+    return res
+
+
 def perturb_in_place(torch, model, seed):
     """Add seeded noise to every weight in place (``add_``: the version
     counters move, the addresses stay), as loading a checkpoint in place
@@ -2929,6 +3357,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--aot-child", metavar="SPEC",
                     help=argparse.SUPPRESS)   # the aot phase's 2nd process
+    ap.add_argument("--infer-child", metavar="SPEC",
+                    help=argparse.SUPPRESS)   # the Predictor process
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2944,6 +3374,8 @@ def main(argv=None):
     if args.aot_child:
         return aot_child(torch, torch.device("cuda", 0), args.aot_child,
                          torch.cuda.get_device_name(0))
+    if args.infer_child:
+        return infer_child(torch, torch.device("cuda", 0), args.infer_child)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3014,6 +3446,11 @@ def main(argv=None):
     serve["front"] = frontend_phase(torch, dev, args.seed, card, serve)
     log(f"front-end phase took {time.perf_counter() - t0:.1f} s")
     free_card(torch)
+    t0 = time.perf_counter()
+    infer = infer_phase(torch, dev, args.seed, card, serve["model"])
+    mains["flash_fwd"]["extra"]["decode_launches"] = \
+        infer["counts"]["flash_fwd"]
+    log(f"inference-API phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     aot_phase(torch, dev, args.seed, args.layers, card, serve)
     del serve

@@ -1,8 +1,11 @@
-"""Paged KV cache for serving (counterpart of
-``paddle_tpu/generation/kv_cache.py``): the refcounted page pool, the
-prefix cache over page-aligned prompt prefixes, and the step contracts
-``paged_cache_update_attend`` (one decode token per slot) and
-``paged_cache_mixed_update_attend`` (a span of tokens per slot).
+"""KV caches (counterpart of ``paddle_tpu/generation/kv_cache.py``): the
+static cache of ``generate()`` (``StaticCacheEntry``, ``StaticKVCache``,
+``static_cache_update``: one preallocated [B, max_len, n_kv_heads,
+head_dim] buffer per layer, written in place at a position), and for
+serving the refcounted page pool, the prefix cache over page-aligned
+prompt prefixes, and the step contracts ``paged_cache_update_attend``
+(one decode token per slot) and ``paged_cache_mixed_update_attend`` (a
+span of tokens per slot).
 
 Unlike the functional JAX version, the pool's page tensors are updated
 IN PLACE on the device: the decode step's K/V write, the prefill
@@ -21,6 +24,44 @@ from ..kernels.paged_attention import (paged_attention,
                                        paged_attention_ragged,
                                        paged_attention_ragged_varq,
                                        paged_attention_varq)
+
+
+class StaticCacheEntry(NamedTuple):
+    """One layer's static cache: ``k`` and ``v`` [batch, max_len,
+    n_kv_heads, head_dim] and ``pos`` (an int), the slot where this
+    step's keys and values are written."""
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: int
+
+
+class StaticKVCache:
+    """A list of per-layer ``StaticCacheEntry``, passed as
+    ``past_key_values``."""
+
+    def __init__(self, entries: List[StaticCacheEntry]):
+        self.entries = entries
+
+    def __len__(self):
+        return len(self.entries)
+
+    def __getitem__(self, i):
+        return self.entries[i]
+
+    def __iter__(self):
+        return iter(self.entries)
+
+
+def static_cache_update(entry: StaticCacheEntry, k, v):
+    """Write K/V [B, s, H, D] into the cache at ``entry.pos`` IN PLACE
+    (the reference's ``lax.dynamic_update_slice`` returns a new buffer;
+    here the preallocated one is overwritten, on the current stream
+    before any read of it). Returns (k cache, v cache, entry)."""
+    s = k.shape[1]
+    pos = int(entry.pos)
+    entry.k[:, pos:pos + s].copy_(k)
+    entry.v[:, pos:pos + s].copy_(v)
+    return entry.k, entry.v, entry
 
 
 class PagedKVPool:

@@ -9,7 +9,11 @@ entry ``flash_attention_bshd`` (counterpart of
 ``flash_attention_bshd`` goes through ``_FlashAttention``, an autograd
 Function that saves ``(q, k, v, out, lse)`` and recomputes the
 probabilities from ``lse`` in the backward, as the reference's
-custom_vjp does; without grad it records nothing.
+custom_vjp does, when a gradient is needed or dropout is on. The
+inference entry (no gradient, no dropout) is the custom op
+``paddle_tpu_torch::flash_fwd`` (``_ops.define_op``: the plain version on
+the CPU, the kernel wrapper on CUDA, a fake for traces), so that
+``torch.export`` captures a forward that launches the kernel.
 
 Dropout follows the reference's kernel path on every device: element
 (b, h, q, k) is kept iff ``dropout_keep_mask`` says so for row b*H + h
@@ -28,6 +32,7 @@ import torch
 
 from ..framework import random as _random
 from ._build import NEG_INF, check, count_launch, load, stream_ptr
+from ._ops import define_op
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -368,6 +373,27 @@ def flash_attention_bwd_kernel(q, k, v, out, lse, dout, scale, causal=False,
     return dq, dk, dv
 
 
+def _flash_fwd_cpu(q, k, v, mask, kv_lens, scale, causal):
+    out, lse = flash_attention_plain(q, k, v, scale, causal, mask, kv_lens,
+                                     return_lse=True)
+    return out.contiguous(), lse.contiguous()
+
+
+def _flash_fwd_cuda(q, k, v, mask, kv_lens, scale, causal):
+    return flash_attention_kernel(q, k, v, scale, causal, mask, kv_lens)
+
+
+def _flash_fwd_fake(q, k, v, mask, kv_lens, scale, causal):
+    b, sq, h, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, sq), dtype=torch.float32)
+
+
+define_op("flash_fwd(Tensor q, Tensor k, Tensor v, Tensor? mask, "
+          "Tensor? kv_lens, float scale, bool causal) -> (Tensor, Tensor)",
+          cpu=_flash_fwd_cpu, cuda=_flash_fwd_cuda,
+          fake=_flash_fwd_fake)
+
+
 class _FlashAttention(torch.autograd.Function):
     """Counterpart of the reference's ``_flash_core`` custom_vjp (and its
     varlen and masked cores): forward and backward take the kernels for
@@ -427,6 +453,10 @@ def flash_attention_bshd(query, key, value, attn_mask=None, dropout_p=0.0,
                                   device=query.device)
     if query.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {query.device}")
-    return _FlashAttention.apply(
-        query.contiguous(), key.contiguous(), value.contiguous(), mask,
-        kv_lens, sc, bool(is_causal), p, seeds)
+    q, k, v = query.contiguous(), key.contiguous(), value.contiguous()
+    if p or (torch.is_grad_enabled()
+             and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        return _FlashAttention.apply(q, k, v, mask, kv_lens, sc,
+                                     bool(is_causal), p, seeds)
+    return torch.ops.paddle_tpu_torch.flash_fwd(q, k, v, mask, kv_lens,
+                                                float(sc), bool(is_causal))[0]

@@ -10,12 +10,21 @@ versions, the analytic backwards and the ``fused_rms_norm`` /
 in ``x.dtype``. The backwards are ``_rms_bwd``'s and ``_ln_bwd``'s
 formulas in plain torch ops on every device: the reference computes
 them in XLA, not in a Pallas kernel.
+
+Both forwards are also ``torch.library`` custom ops,
+``paddle_tpu_torch::rms_norm`` and ``paddle_tpu_torch::layer_norm``
+(``_ops.define_op``), so that ``torch.export`` captures a forward that
+launches them: the CPU implementation is the plain version, the CUDA one
+the kernel wrapper (which counts its launch), the fake one gives the
+shape. A call that needs no gradient goes through the op; one that does
+goes through the autograd Function, as before.
 """
 from __future__ import annotations
 
 import torch
 
 from ._build import count_launch
+from ._ops import define_op
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -92,17 +101,30 @@ class _RMSNorm(torch.autograd.Function):
         return gx, gw, None
 
 
+define_op("rms_norm(Tensor x, Tensor w, float eps) -> Tensor",
+          cpu=rms_norm_plain, cuda=rms_norm_kernel,
+          fake=lambda x, w, eps: torch.empty_like(x))
+
+
+def _needs_grad(*ts):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def fused_rms_norm(x: torch.Tensor, weight: torch.Tensor, eps=1e-6):
     """RMSNorm over the last axis of ``x``. A CPU tensor takes the plain
     version; a CUDA tensor launches the Triton kernel or raises.
-    Differentiable in ``x`` and ``weight`` when grad is enabled."""
+    Differentiable in ``x`` and ``weight`` when grad is enabled; without
+    grad it runs as the custom op ``paddle_tpu_torch::rms_norm``."""
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_rms_norm: unsupported device {x.device}")
     if x.device.type == "cuda":
         x2 = x2.contiguous()
-    return _RMSNorm.apply(x2, weight, eps).reshape(shape)
+    if _needs_grad(x2, weight):
+        return _RMSNorm.apply(x2, weight, eps).reshape(shape)
+    return torch.ops.paddle_tpu_torch.rms_norm(x2, weight,
+                                               float(eps)).reshape(shape)
 
 
 # ------------------------------------------------------------ LayerNorm --
@@ -165,16 +187,25 @@ class _LayerNorm(torch.autograd.Function):
         return gx, gw, gb, None
 
 
+define_op("layer_norm(Tensor x, Tensor w, Tensor b, float eps) -> Tensor",
+          cpu=layer_norm_plain, cuda=layer_norm_kernel,
+          fake=lambda x, w, b, eps: torch.empty_like(x))
+
+
 def fused_layer_norm(x: torch.Tensor, weight: torch.Tensor,
                      bias: torch.Tensor, eps=1e-5):
     """LayerNorm over the last axis of ``x`` with ``weight`` and ``bias``.
     A CPU tensor takes the plain version; a CUDA tensor launches the
     Triton kernel or raises. Differentiable in all three when grad is
-    enabled."""
+    enabled; without grad it runs as the custom op
+    ``paddle_tpu_torch::layer_norm``."""
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_layer_norm: unsupported device {x.device}")
     if x.device.type == "cuda":
         x2 = x2.contiguous()
-    return _LayerNorm.apply(x2, weight, bias, eps).reshape(shape)
+    if _needs_grad(x2, weight, bias):
+        return _LayerNorm.apply(x2, weight, bias, eps).reshape(shape)
+    return torch.ops.paddle_tpu_torch.layer_norm(
+        x2, weight, bias, float(eps)).reshape(shape)

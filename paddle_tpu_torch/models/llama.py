@@ -9,8 +9,10 @@ plain linear maps and embeddings, so both ``tensor_parallel`` settings
 build ``nn.Linear``/``nn.Embedding`` here; ``nn.Linear`` stores its
 weight as [out, in] where Paddle stores [in, out].
 
-The three attention branches of the reference are kept: the paged
-decode cache (write, then paged attention), a past (K, V) tuple with an
+The four attention branches of the reference are kept: the paged
+decode cache (write, then paged attention), the static cache of
+``generate()`` (an in-place write at ``pos``, then attention over the
+whole buffer under the caller's bool mask), a past (K, V) tuple with an
 additive mask (prefix-cache suffix prefill), and causal attention with
 no past (prefill).
 """
@@ -23,7 +25,9 @@ from torch import nn
 
 from ..framework import resolve_device
 from ..generation import GenerationMixin
-from ..generation.kv_cache import PagedCacheEntry, paged_cache_update_attend
+from ..generation.kv_cache import (PagedCacheEntry, StaticCacheEntry,
+                                   paged_cache_update_attend,
+                                   static_cache_update)
 from ..incubate.nn.functional import swiglu
 from ..kernels.norm import fused_rms_norm
 from ..kernels.rope import apply_rotary_emb, rope_freqs
@@ -117,10 +121,14 @@ class LlamaAttention(nn.Module):
                                                        v)
             out = out.reshape(b, s, self.num_heads * self.head_dim)
             return self.o_proj(out), new_cache
-        if past_key_value is not None:
-            k = torch.cat([past_key_value[0], k], dim=1)
-            v = torch.cat([past_key_value[1], v], dim=1)
-        new_cache = (k, v)
+        if isinstance(past_key_value, StaticCacheEntry):
+            # static cache: write this step's K/V at ``pos`` in place
+            k, v, new_cache = static_cache_update(past_key_value, k, v)
+        else:
+            if past_key_value is not None:
+                k = torch.cat([past_key_value[0], k], dim=1)
+                v = torch.cat([past_key_value[1], v], dim=1)
+            new_cache = (k, v)
         # GQA: K/V heads are not repeated; the kernel maps query heads
         # onto their KV head
         causal = past_key_value is None
@@ -211,10 +219,10 @@ class LlamaModel(nn.Module):
 class LlamaForCausalLM(nn.Module, GenerationMixin):
     """Llama with its LM head. ``device`` defaults to CUDA (raising when
     none is present); ``device="cpu"`` builds the plain-path model the
-    CPU tests use. ``generate()`` runs the eager path of
-    ``GenerationMixin`` (the static-cache path is not ported)."""
+    CPU tests use. ``generate()`` takes the static-cache route of
+    ``GenerationMixin`` unless ``use_cache=False``."""
 
-    supports_static_cache = False
+    supports_static_cache = True
 
     def __init__(self, config: LlamaConfig, device=None):
         super().__init__()
