@@ -45,7 +45,18 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    differs prints its top-2 margin in f32 ulps), and ``uniform64_rows``
    bit for bit; 20,000 draws over a 16-way distribution pass a
    chi-square test at p > 1e-3; timed beside the bound, the plain version
-   and ``torch.multinomial(softmax(l))`` (another stream).
+   and ``torch.multinomial(softmax(l))`` (another stream). Then the f16
+   and mixed-dtype instances (``dtype_phase``) at the bf16 rows' shapes,
+   each against its plain version within ``TOL["float16"]`` or, for q
+   and K/V (pages) of two dtypes, the narrower dtype's tolerance, a
+   second launch bitwise the first, timed beside its bound, its plain
+   version and the one-call PyTorch equivalent (``F.rms_norm``,
+   ``F.layer_norm``, SDPA; none for two dtypes): RMSNorm at x[2048,
+   4096] and LayerNorm at x[2048, 768] in f16; the flash forward in f16
+   at the prefill and static decode shapes and with bf16 q over f32 K/V
+   at a suffix-prefill shape (q[1, 128], 384 keys under the suffix's
+   mask); paged and ragged decode and the span kernel (both its shapes)
+   in f16, with bf16 q over f32 pages and with f32 q over bf16 pages.
 3. Full-width f32 checks: a 2-layer model at Llama-2-7B widths gives the
    same prefill logits on the card (kernels) as on the CPU (plain
    versions) and the same greedy tokens through the predictor; the
@@ -61,7 +72,18 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    CPU's eval logits within 1e-3 and, over 3 eager AdamW steps of the
    fine-tune example's loop with attention dropout 0.1 (the same host
    seeds) and hidden dropout 0, its losses within rtol 1e-4 and step-1
-   gradients within 1e-3 of each tensor's largest.
+   gradients within 1e-3 of each tensor's largest. Then the KV-dtype
+   gates at 2 layers and full width (``kv_dtype_gates``): an f32 model
+   over a bf16 KV pool, block-table (with a suffix prefill) and ragged +
+   chunked (64) + speculative (4) with a rejected draft, gives the CPU's
+   greedy tokens up to each request's first difference, which passes
+   only where the CPU's top-two margin there is within
+   ``PAGES_BF16_TOL`` (a near tie that the pages' bf16 rounding decides;
+   each printed), and the CPU's stats where no token differs; an f16
+   model (the same weights cast) gives the CPU's prefill logits within
+   ``LOGIT_TOL16`` and its block-table greedy tokens as above within
+   ``LOGIT_TOL16``, and a lookup prompt served alone sees drafts both
+   accepted and rejected over f16 pages (``draft_check``).
 4. Serve: Llama-2-7B widths in bf16 with random weights drawn on the
    card from a seeded torch.Generator. Run 1: 8 requests through
    ContinuousBatchingPredictor (max_batch_size=4, block-table decode,
@@ -97,6 +119,12 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    with one trip and every request 'watchdog', and the device then
    synchronizes; (e) ``serve_stream`` over an intake of 2 requests a
    poll for 4 polls (run 1's prompts, 16 new tokens each) serves all 8.
+   Serve run KV (after the serve phase, on its model): run 2's traffic
+   with ``kv_dtype="float32"`` and block-table decode, then run 1's
+   prompts 2-6 through ragged decode: every request ok, the pool's bytes
+   those of f32 pages, and flash_fwd (the suffix prefill), paged_decode,
+   paged_varq and ragged_decode launched with bf16 q over f32 pages
+   (``kernels.dtype_launch_counts``).
    Then the inference API on the same model (``infer_phase``): (a)
    ``LLMPredictor`` (max_batch_size 8) over 12 prompts of 17-300 tokens
    (two micro-batches, buckets 512 and 128), 32 new tokens greedy and
@@ -145,7 +173,17 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    idle share of a profiled pass, host ops per decode step, device
    activities per decode tick, peak memory (the graph pool included) and
    the capture seconds at warm start. The bundles go to
-   ``output/chip_smoke_aot`` and are deleted afterwards.
+   ``output/chip_smoke_aot`` and are deleted afterwards. Then serve run
+   F16 (``serve_f16_phase``): Llama-2-7B widths and depth in float16
+   (random weights from their own seed, the default f16 pool) in run 3's
+   configuration and traffic: every request ok, drafts proposed and
+   rejected (accepted ones: the 2-layer f16 gate; at 32 layers no lookup
+   prompt's draft is accepted, in bf16 either), rms_norm, flash_fwd,
+   ragged_decode and paged_varq launched on f16 operands and
+   categorical_rows launched; decode tokens/s, TTFT
+   p50, peak memory and a profiled pass's idle share. Then BERT-base
+   cast to float16, one eval forward of 16 x 128: 25 LayerNorm and 12
+   flash launches on f16 operands.
 6. Fine-tune, through ``paddle_tpu_torch/examples/bert_finetune.py``:
    BERT-base, 30 steps at batch 16 x 128 with row lengths 32-128 through
    ``attention_mask``, every dropout 0.1; then ERNIE-3.0-base for 6
@@ -186,15 +224,21 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS = {"bfloat16": 989e12,    # dense bf16 tensor cores
+            "float16": 989e12,     # dense fp16 tensor cores
             "float32": 67e12}      # f32 outside the tensor cores
 NEG = -1e30
 # kernel vs plain version on the card: f32 sums in another order over up
 # to 512 keys / 4096 features. bf16 outputs are rounded at other places,
 # at most one bf16 ulp apart (2^-7 relative, within rtol); atol holds the
 # small outputs of long contexts (|out| ~ 0.05 at 557 keys) to a few
-# bf16 ulps of their own size
+# bf16 ulps of their own size. f16 keeps 3 bits more (an ulp is 2^-10
+# relative at most, 2^-11 at the least): the bf16 tolerance over 5, rtol
+# 4e-3 (four f16 ulps) and atol 1e-3 (at |out| ~ 0.05, as many f16 ulps
+# of its size as bf16's atol holds bf16 ulps). q and K/V (pages) of two
+# dtypes: the narrower one's (``pair_tol``)
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
-       "bfloat16": dict(atol=5e-3, rtol=2e-2)}
+       "bfloat16": dict(atol=5e-3, rtol=2e-2),
+       "float16": dict(atol=1e-3, rtol=4e-3)}
 # full-width 2-layer f32 prefill logits, card vs CPU
 LOGIT_TOL = dict(atol=1e-3, rtol=1e-3)
 
@@ -799,20 +843,23 @@ def varq_phase(torch, dev, g):
     return main
 
 
-def varq_bound(q, q_lens, kv_lens, hkv, meta):
+def varq_bound(q, q_lens, kv_lens, hkv, meta, kv_isz=None, op_type=None):
     """The least time of a varq call: bytes (the real span rows of q read
     once, padding rows never, the whole output written once, each slot's
-    keys and values, the meta and both length vectors) or operations
-    (the (query, key) pairs the causal spans need, per head)."""
+    keys and values, of ``kv_isz`` bytes each where the pages' dtype is
+    not q's, the meta and both length vectors) or operations (the
+    (query, key) pairs the causal spans need, per head, at the peak of
+    ``op_type``, by default q's dtype)."""
     b, _, h, d = q.shape
     start = (kv_lens - q_lens).long()
     pairs = sum(int(s) * n + n * (n + 1) // 2 for s, n in
                 zip(start.tolist(), q_lens.tolist()))
     isz = q.element_size()
     nbytes = (int(q_lens.sum()) * h * d * isz + q.numel() * isz
-              + 2 * int(kv_lens.sum()) * hkv * d * isz
+              + 2 * int(kv_lens.sum()) * hkv * d * (kv_isz or isz)
               + meta.numel() * 4 + 2 * b * 4)
-    return bound(nbytes, 4 * d * h * pairs, str(q.dtype).split(".")[-1])
+    return bound(nbytes, 4 * d * h * pairs,
+                 op_type or str(q.dtype).split(".")[-1])
 
 
 def varq_verify_row(torch, dev, g, sets, tables, page, sc):
@@ -891,6 +938,218 @@ def ln_phase(torch, dev, g):
                            library_ms=lib, bound_ms=b_ms, bound_by=by,
                            shape=f"x[{n}, {d}] {dtype}")
     return rows
+
+
+# ------------------------------------------ f16 and mixed-dtype instances --
+
+# (q dtype, K/V or page dtype) of the mixed rows: a bf16 model's queries
+# over an f32 KV pool (serve run KV) and an f32 model's over a bf16 pool
+# (the 2-layer card-vs-CPU gate)
+MIXED_PAIRS = (("bfloat16", "float32"), ("float32", "bfloat16"))
+_NARROW = {"float32": 0, "float16": 1, "bfloat16": 2}
+
+
+def pair_tol(qd, kd):
+    """A kernel's tolerance on q and K/V of dtypes ``qd``, ``kd``: the
+    narrower dtype's ``TOL`` (the output is rounded to q's dtype, P to
+    V's before P.V)."""
+    return TOL[max(qd, kd, key=_NARROW.__getitem__)]
+
+
+def ops_type(qd, kd):
+    """The type whose peak bounds a row's operations: f32 where either
+    operand is f32 (the FMA instances), else the 16-bit type."""
+    return "float32" if "float32" in (qd, kd) else qd
+
+
+def row_name(kernel, qd, kd=None):
+    """A kernels-line row's name: "paged_decode (float16)" for one dtype,
+    "paged_decode (bfloat16 q, float32 kv)" for two."""
+    if kd in (None, qd):
+        return f"{kernel} ({qd})"
+    return f"{kernel} ({qd} q, {kd} kv)"
+
+
+def dtype_row(torch, name, fn, plain, sets, tol, nbytes, ops, op_type,
+              shape, lib=None, rows=None):
+    """One f16 / mixed row: ``fn`` (the kernel wrapper) against ``plain``
+    on ``sets[0]`` within ``tol``, a second launch bitwise the first,
+    then the median time of ``fn``, ``plain`` and (where one PyTorch call
+    computes the same function) ``lib`` over ``sets``, beside the bound."""
+    out = fn(*sets[0])
+    err = compare(torch, name, out, plain(*sets[0]), None, rows=rows,
+                  tol=tol)
+    check(torch.equal(out, fn(*sets[0])),
+          f"{name}: a second launch differs from the first")
+    t = time_ms(torch, fn, sets)
+    b_ms, by = bound(nbytes, ops, op_type)
+    return dict(max_abs_err=err, t=t,
+                plain_ms=time_ms(torch, plain, sets)["median"],
+                library_ms=None if lib is None
+                else time_ms(torch, lib, sets)["median"],
+                bound_ms=b_ms, bound_by=by, shape=shape)
+
+
+def dtype_phase(torch, dev, g):
+    """The f16 and mixed-dtype instances of every serving kernel at the
+    bf16 rows' shapes, each held to its plain version (``pair_tol``) with
+    a bitwise second launch, timed beside its bound, its plain version
+    and the one-call PyTorch equivalent where one exists (there is none
+    for q and K/V of two dtypes: SDPA takes one). Returns {(kernel, q
+    dtype, K/V dtype): row}."""
+    from paddle_tpu_torch.kernels import attention as A
+    from paddle_tpu_torch.kernels import norm
+    from paddle_tpu_torch.kernels import paged_attention as P
+    F = torch.nn.functional
+    rows = {}
+    f16 = torch.float16
+
+    # RMSNorm at x[2048, 4096] and LayerNorm at BERT-base's x[2048, 768]
+    x = torch.randn(2048, 4096, device=dev, generator=g).to(f16)
+    w = (1 + 0.1 * torch.randn(4096, device=dev, generator=g)).to(f16)
+    sets = [(x, w)] + [(torch.randn_like(x), w) for _ in range(3)]
+    rows["rms_norm", "float16", "float16"] = dtype_row(
+        torch, "rms_norm float16 x[2048, 4096]",
+        lambda a, b: norm.rms_norm_kernel(a, b, 1e-6),
+        lambda a, b: norm.rms_norm_plain(a, b, 1e-6), sets, TOL["float16"],
+        2 * x.numel() * 2 + w.numel() * 2, 4 * x.numel(), "float32",
+        "x[2048, 4096] float16",
+        lib=lambda a, b: F.rms_norm(a, (4096,), b, 1e-6))
+    x = (3 * torch.randn(2048, 768, device=dev, generator=g) + 1).to(f16)
+    w = (1 + 0.1 * torch.randn(768, device=dev, generator=g)).to(f16)
+    b_ = (0.1 * torch.randn(768, device=dev, generator=g)).to(f16)
+    sets = [(x, w, b_)] + [(torch.randn_like(x), w, b_) for _ in range(23)]
+    rows["layer_norm", "float16", "float16"] = dtype_row(
+        torch, "layer_norm float16 x[2048, 768]",
+        lambda a, c, e: norm.layer_norm_kernel(a, c, e, 1e-12),
+        lambda a, c, e: norm.layer_norm_plain(a, c, e, 1e-12), sets,
+        TOL["float16"], 2 * x.numel() * 2 + 2 * 768 * 2, 8 * x.numel(),
+        "float32", "x[2048, 768] float16",
+        lib=lambda a, c, e: F.layer_norm(a, (768,), c, e, 1e-12))
+
+    # flash forward: f16 at the prefill shape (and the static decode
+    # shape), q bf16 over f32 K/V at a suffix-prefill shape
+    b, s, h, d = 4, 512, 32, 128
+    sc = d ** -0.5
+    lens = torch.tensor([512, 384, 200, 64], device=dev)
+    mask, key_valid = prefill_mask(torch, dev, lens, s)
+    causal = torch.tril(torch.ones(s, s, dtype=torch.bool, device=dev))
+    full = (mask + torch.where(causal, 0.0, NEG)).to(f16)
+    sets = [tuple(torch.randn(b, s, h, d, device=dev, generator=g).to(f16)
+                  for _ in range(3)) for _ in range(2)]
+    pairs = int(((mask[:, 0] > NEG / 2) & causal).sum()) * h
+    n = sets[0][0].numel()
+    row = dtype_row(
+        torch, f"flash_fwd causal+mask float16 q[{b}, {s}, {h}, {d}]",
+        lambda q, k, v: A.flash_attention_kernel(q, k, v, sc, True, mask)[0],
+        lambda q, k, v: A.flash_attention_plain(q, k, v, sc, True, mask),
+        sets, TOL["float16"],
+        4 * n * 2 + mask.numel() * 4 + b * h * s * 4, 4 * d * pairs,
+        "float16", f"q[{b}, {s}, {h}, {d}] float16 causal+mask",
+        lib=lambda q, k, v: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=full, scale=sc), rows=key_valid)
+    row["extra"] = flash_decode_row(torch, dev, g, "float16")
+    rows["flash_fwd", "float16", "float16"] = row
+    sq, sk = 128, 384
+    jq = torch.arange(sq, device=dev)[:, None]
+    jk = torch.arange(sk, device=dev)[None, :]
+    m = torch.where((jk < 200) | ((jk >= sk - sq) & (jk - (sk - sq) <= jq)),
+                    0.0, NEG).float()[None, None]
+    qd, kd = MIXED_PAIRS[0]
+    sets = [(torch.randn(1, sq, h, d, device=dev, generator=g).to(
+        getattr(torch, qd)),) + tuple(
+        torch.randn(1, sk, h, d, device=dev, generator=g).to(
+            getattr(torch, kd)) for _ in range(2)) for _ in range(2)]
+    kept = int((m > NEG / 2).sum()) * h
+    rows["flash_fwd", qd, kd] = dtype_row(
+        torch, f"flash_fwd suffix mask-only q[1, {sq}, {h}, {d}] {qd}, k, v "
+        f"[1, {sk}, {h}, {d}] {kd}",
+        lambda q, k, v: A.flash_attention_kernel(q, k, v, sc, False, m)[0],
+        lambda q, k, v: A.flash_attention_plain(q, k, v, sc, False, m),
+        sets, pair_tol(qd, kd),
+        2 * sq * h * d * 2 + 2 * sk * h * d * 4 + m.numel() * 4
+        + h * sq * 4, 4 * d * kept, ops_type(qd, kd),
+        f"q[1, {sq}, {h}, {d}] {qd}, k, v[1, {sk}, {h}, {d}] {kd}, "
+        "suffix mask")
+
+    # the decode kernels at q[4, 32, 128], contexts 557 / 300 / 97 / 1
+    b, page, pps = 4, 16, 64
+    num_pages = b * pps + 1
+    lens = torch.tensor([557, 300, 97, 1], dtype=torch.int32, device=dev)
+    tables = torch.randperm(num_pages, device=dev, generator=g)[
+        :b * pps].reshape(b, pps).to(torch.int32).contiguous()
+    meta = _builder_meta(torch, dev, tables, lens, page)
+    toks = int(lens.sum())
+    for qd, kd in (("float16", "float16"),) + MIXED_PAIRS:
+        qt, kt = getattr(torch, qd), getattr(torch, kd)
+        q = torch.randn(b, h, d, device=dev, generator=g).to(qt)
+        sets = [tuple(torch.randn(num_pages, page, h, d, device=dev,
+                                  generator=g).to(kt) for _ in range(2))
+                for _ in range(4)]
+        nbytes = (2 * q.numel() * q.element_size()
+                  + 2 * toks * h * d * sets[0][0].element_size()
+                  + lens.numel() * 4)
+        shape = (f"q[{b}, {h}, {d}] {qd}, pages {kd} page={page} "
+                 f"ctx={lens.tolist()}")
+        rows["paged_decode", qd, kd] = dtype_row(
+            torch, f"paged_decode {shape}",
+            lambda a, c: P.paged_attention_kernel(q, a, c, tables, lens, sc),
+            lambda a, c: P.paged_attention_plain(q, a, c, tables, lens, sc),
+            sets, pair_tol(qd, kd), nbytes + tables.numel() * 4,
+            4 * d * h * toks, ops_type(qd, kd), shape)
+        rows["ragged_decode", qd, kd] = dtype_row(
+            torch, f"ragged_decode {shape} G={meta.shape[1]}",
+            lambda a, c: P.paged_attention_ragged_kernel(q, a, c, lens, meta,
+                                                         sc),
+            lambda a, c: P.paged_attention_ragged_plain(q, a, c, lens, meta,
+                                                        sc),
+            sets, pair_tol(qd, kd), nbytes + meta.numel() * 4,
+            4 * d * h * toks, ops_type(qd, kd), shape + f" G={meta.shape[1]}")
+        # the span kernel at its two shapes over the same pages
+        rows["paged_varq", qd, kd] = varq_dtype_row(
+            torch, dev, g, sets, tables, page, qt, pair_tol(qd, kd),
+            ops_type(qd, kd))
+    return rows
+
+
+def varq_dtype_row(torch, dev, g, sets, tables, page, qt, tol, op_type):
+    """paged_varq over ``sets``' pages with q of ``qt``: the mixed shape
+    q[4, 256, 32, 128] (q_lens 256 / 1 / 1 / 97) as the row and the verify
+    shape q[4, 5, 32, 128] (5-row spans) as its ``verify_*`` keys, each
+    through the meta against its plain version, a bitwise second launch."""
+    from paddle_tpu_torch.kernels import paged_attention as P
+    h, d = sets[0][0].shape[2:]
+    sc = d ** -0.5
+    out = {}
+    for key, qb, ql, kl in (("", 256, [256, 1, 1, 97], [512, 301, 98, 97]),
+                            ("verify_", 5, [5] * 4, [561, 305, 101, 5])):
+        q = torch.randn(4, qb, h, d, device=dev, generator=g).to(qt)
+        q_lens, kv_lens = (torch.tensor(x, dtype=torch.int32, device=dev)
+                           for x in (ql, kl))
+        meta = _builder_meta(torch, dev, tables, kv_lens, page)
+        kd = str(sets[0][0].dtype).split(".")[-1]
+        shape = (f"q{list(q.shape)} {str(qt).split('.')[-1]}, pages {kd} "
+                 f"page={page} q_lens={ql} kv_lens={kl}")
+        b_ms, by = varq_bound(q, q_lens, kv_lens, h, meta,
+                              kv_isz=sets[0][0].element_size(),
+                              op_type=op_type)
+        row = dtype_row(
+            torch, f"paged_varq {shape}",
+            lambda a, c: P.paged_attention_varq_kernel(
+                q, a, c, kv_lens, q_lens, sc, meta=meta),
+            lambda a, c: P.paged_attention_varq_plain(
+                q, a, c, tables, kv_lens, q_lens, sc), sets, tol, 0, 0,
+            op_type, shape)
+        row.update(bound_ms=b_ms, bound_by=by)
+        if not key:
+            out.update(row)
+            continue
+        out.setdefault("extra", {}).update(
+            verify_shape=shape, verify_ms=row["t"]["median"],
+            verify_plain_ms=row["plain_ms"], verify_bound_ms=b_ms,
+            verify_bound_by=by, verify_max_abs_err=row["max_abs_err"])
+    return out
 
 
 # fused optimizer kernels vs plain on the card. f32 buffers (masters,
@@ -1767,9 +2026,11 @@ def serve_run(torch, dev, model, cfg, prompts, max_new, card, label,
     launch counters set to 0 just before it and read just after; every
     kernel in ``required`` must have launched. Returns {"outs", "counts",
     "stats", "cb", "tok_s": decode tokens/s outside monolithic prefill,
-    "ttft_p50_ms", "peak_gib"}."""
+    "ttft_p50_ms", "peak_gib", "dtype_counts": launches per (kernel, q
+    dtype, K/V dtype)}."""
     from paddle_tpu_torch.inference import ContinuousBatchingPredictor
-    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.kernels import (dtype_launch_counts, launch_counts,
+                                          reset_launch_counts)
     if cb is None:
         cb = ContinuousBatchingPredictor(model, device=dev, **GEOM, **kw)
     prefill_s = time_prefills(cb)
@@ -1781,6 +2042,7 @@ def serve_run(torch, dev, model, cfg, prompts, max_new, card, label,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(launch_counts)
+    dtype_counts = dict(dtype_launch_counts)
     untime_prefills(cb)
     peak = torch.cuda.max_memory_allocated(dev)
     log(f"serve {label}: status {cb.last_status}; stats {cb.stats}")
@@ -1806,7 +2068,8 @@ def serve_run(torch, dev, model, cfg, prompts, max_new, card, label,
         f"monolithic prefill ({dec_tok / dec_s:.1f} tok/s, "
         f"{cb.stats['decode_steps']} steps); peak memory "
         f"{peak / 2**30:.2f} GiB")
-    return {"outs": outs, "counts": counts, "stats": dict(cb.stats),
+    return {"outs": outs, "counts": counts, "dtype_counts": dtype_counts,
+            "stats": dict(cb.stats),
             "sampling_stats": dict(cb.sampling_stats), "cb": cb,
             "tok_s": dec_tok / dec_s,
             "ttft_p50_ms": statistics.median(ttft) * 1e3,
@@ -1859,6 +2122,373 @@ def serve_profile(torch, dev, model, prompts, card, kw, sampling=None,
             f"{e.key[:60]}")
     return {"idle": 1 - busy / wall,
             "host_per_step": calls / max(st["decode_steps"], 1)}
+
+
+# ------------------------------------------- f16 and kv_dtype serving --
+
+# serve run KV: the bf16 serve model over an f32 KV pool, run 2's traffic
+# through block-table decode (then a short ragged pass), so decode, the
+# chunked mixed step, verify and the shared prefix's suffix prefill all
+# read f32 pages with bf16 queries
+RUN_KV = dict(use_ragged=False, prefill_chunk_tokens=256, spec_draft_tokens=4,
+              kv_dtype="float32")
+KV_KERNELS = ("flash_fwd", "paged_decode", "paged_varq")
+# serve run F16: Llama-2-7B widths in float16 (its own seeded init), the
+# pool in the default (the weights') dtype, run 3's traffic and
+# configuration
+F16_KERNELS = ("rms_norm", "flash_fwd", "ragged_decode", "paged_varq")
+
+
+def draft_check(torch, dev, model, toks, kw, label, tries=8):
+    """A lookup prompt (4 x 16 tokens, an 8-token lead) searched and then
+    served alone, greedy, on a predictor of ``kw``'s configuration with 4
+    drafts, up to ``tries`` prompts, until its drafts are both accepted
+    and rejected: the verify step then commits drafts and rolls rejected
+    positions back on the model's pages. A 2-layer model's continuation
+    repeats its lead; at 32 layers the search finds none that repeats
+    more than the lead's first token (serve runs 2-3 and F16: no draft
+    accepted). Returns the run's stats."""
+    from paddle_tpu_torch.inference import ContinuousBatchingPredictor
+    for attempt in range(1, tries + 1):
+        p = lookup_prompt(torch, model, dev, toks, 16, 4, 8, **kw)
+        cb = ContinuousBatchingPredictor(model, device=dev,
+                                         enable_prefix_cache=False, **kw,
+                                         spec_draft_tokens=4)
+        cb.generate([p], max_new_tokens=12)
+        st = cb.stats
+        log(f"{label}: lookup prompt {attempt} alone, drafts accepted "
+            f"{st['spec_accepted']} of {st['spec_proposed']}")
+        if 0 < st["spec_accepted"] < st["spec_proposed"]:
+            return st
+    check(False, f"{label}: no lookup prompt saw drafts both accepted and "
+          "rejected")
+
+
+def dtype_launches(counts, kernels, qd, kd):
+    """{kernel: launches of its (qd, kd) instance} from a run's
+    ``dtype_counts``."""
+    return {k: counts.get((k, qd, kd), 0) for k in kernels}
+
+
+def serve_kv_run(torch, dev, serve, card):
+    """Serve run KV on the serve phase's bf16 model with
+    ``kv_dtype="float32"``: every request ok, the pool's bytes those of
+    f32 pages, and flash_fwd (the suffix prefill: cached f32 pages
+    concatenated with the suffix's bf16 K/V promote to f32), paged_decode
+    and paged_varq launched with (bf16 q, f32 pages); then run 1's
+    prompts 2-6 (the shared prefix's extension among them) through ragged
+    decode over f32 pages, 16 new tokens each. Returns the two
+    runs' per-instance launch counts and the counted run's numbers."""
+    model, cfg = serve["model"], serve["model"].config
+    prompts = serve["prompts"] + serve["reps"]
+    max_new = serve["max_new"] + [64, 64]
+    t0 = time.perf_counter()
+    res = serve_run(torch, dev, model, cfg, prompts, max_new, card,
+                    "run KV (bf16 model, float32 KV pool, block-table "
+                    "decode, chunked prefill 256, 4 drafts)", KV_KERNELS,
+                    RUN_KV)
+    cb = res.pop("cb")
+    st, pool = cb.stats, cb.pool
+    got = dtype_launches(res["dtype_counts"], KV_KERNELS, "bfloat16",
+                         "float32")
+    want_bytes = (2 * cfg.num_hidden_layers * pool.num_pages * pool.page_size
+                  * pool.n_kv_heads * pool.head_dim * 4)
+    have = sum(t.numel() * t.element_size() for t in pool.k + pool.v)
+    log(f"serve run KV: pool {pool.dtype}, {have / 2**30:.2f} GiB (2 x "
+        f"{cfg.num_hidden_layers} layers x {pool.num_pages} pages x "
+        f"{pool.page_size} x {pool.n_kv_heads} x {pool.head_dim} x 4 bytes "
+        f"= {want_bytes / 2**30:.2f} GiB); launches with (bfloat16 q, "
+        f"float32 pages) {got}; drafts accepted {st['spec_accepted']} of "
+        f"{st['spec_proposed']}")
+    check(pool.dtype == "float32" and have == want_bytes,
+          f"the KV pool holds {have} bytes, not {want_bytes} of f32 pages")
+    check(all(n > 0 for n in got.values()),
+          f"a kernel of run KV never ran on bf16 q over f32 pages: {got}")
+    check(st["mixed_steps"] > 0 and st["spec_proposed"] > 0,
+          f"run KV ran no mixed step or drafted nothing: {st}")
+    del cb
+    free_card(torch)
+    rag = serve_run(torch, dev, model, cfg, serve["prompts"][1:6], [16] * 5,
+                    card, "run KV, ragged decode (run 1's prompts 2-6)",
+                    ("ragged_decode",), dict(RUN_KV, use_ragged=True))
+    rag.pop("cb")
+    n = rag["dtype_counts"].get(("ragged_decode", "bfloat16", "float32"), 0)
+    check(n > 0, "ragged_decode never ran on bf16 q over f32 pages")
+    log(f"serve run KV took {time.perf_counter() - t0:.1f} s")
+    free_card(torch)
+    res["dtype_counts"] = {k: res["dtype_counts"].get(k, 0)
+                           + rag["dtype_counts"].get(k, 0)
+                           for k in {*res["dtype_counts"],
+                                     *rag["dtype_counts"]}}
+    return res
+
+
+def serve_f16_phase(torch, dev, seed, layers, card):
+    """Serve run F16: Llama-2-7B widths in float16, ``layers`` layers,
+    random weights from its own seed, the default (f16) KV pool, run 3's
+    configuration (ragged decode, chunked prefill 256, 4 drafts, sampling
+    on) and traffic (run 1's prompts and two lookup prompts, 7 of 10
+    requests sampled). Gates: every request ok, drafts proposed and
+    rejected (accepted ones on f16 pages: the 2-layer f16 gate's
+    ``draft_check``); rms_norm, flash_fwd, ragged_decode and paged_varq
+    launched on f16 operands, categorical_rows launched (its logits are
+    f32, cast from the f16 model's as the reference casts them). Prints
+    decode tokens/s, TTFT p50, peak memory and, from one profiled pass,
+    the idle share. Returns the run's numbers and launch counts."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=layers, dtype="float16")
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(seed + 16))
+    gen = torch.Generator().manual_seed(seed + 2)
+
+    def toks(n):
+        return torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+    # run 1's prompts, drawn as serve_phase draws them
+    shared = toks(8 * 16 + 5)
+    prompts = [toks(512), toks(48), shared, toks(32), toks(300),
+               shared + toks(91), toks(200), toks(130)]
+    max_new = [64, 40, 48, 32, 56, 48, 36, 60, 64, 64]
+    label = (f"run F16 ({layers} layers, float16 weights and pages; ragged "
+             "decode, chunked prefill 256, 4 drafts, 3 greedy and 7 "
+             "sampled)")
+    reps = [lookup_prompt(torch, model, dev, toks, 64, 5, 16, **GEOM,
+                          **dict(RUN2, spec_draft_tokens=0))
+            for _ in range(2)]
+    res = serve_run(torch, dev, model, cfg, prompts + reps, max_new, card,
+                    label, RUN3_KERNELS, RUN3, run3_sampling())
+    cb = res.pop("cb")
+    st = res["stats"]
+    log(f"serve run F16: drafts accepted {st['spec_accepted']} of "
+        f"{st['spec_proposed']} (sampled lookup prompts)")
+    check(st["spec_accepted"] < st["spec_proposed"],
+          f"run F16 rejected no draft: {st}")
+    f16 = dtype_launches(res["dtype_counts"], F16_KERNELS, "float16",
+                         "float16")
+    log(f"serve run F16: pool {cb.pool.dtype}; launches on float16 "
+        f"operands {f16}; categorical_rows {res['counts']['categorical_rows']}"
+        f" (f32 logits)")
+    check(cb.pool.dtype == "float16", f"run F16's pool is {cb.pool.dtype}")
+    check(all(n > 0 for n in f16.values()),
+          f"a kernel of run F16 never ran on f16 operands: {f16}")
+    check(res["counts"]["categorical_rows"] > 0,
+          "run F16 drew no sampled token on the card")
+    sp = run3_sampling()
+    res.update(serve_profile(torch, dev, model,
+                             [(prompts + reps)[r] for r in RUN3_PICK], card,
+                             RUN3, [sp[r] for r in RUN3_PICK], cb=cb))
+    log(f"serve run F16 on {card}: decode {res['tok_s']:.1f} tok/s outside "
+        f"monolithic prefill, TTFT p50 {res['ttft_p50_ms']:.1f} ms, peak "
+        f"{res['peak_gib']:.2f} GiB, idle share {res['idle']:.3f} "
+        f"(profiled pass)")
+    log(f"serve run F16 took {time.perf_counter() - t0:.1f} s")
+    del cb, model
+    free_card(torch)
+    return res
+
+
+# f16 2-layer prefill logits, card vs CPU: |logit| < 4, where an f16 ulp
+# is at most 2^-9 (2e-3); the two paths round each of the 2 x 7
+# projections, the residual sums and the LM head at other places, so
+# they may differ by a few ulps: 1e-2 (five ulps at the top)
+LOGIT_TOL16 = dict(atol=1e-2, rtol=1e-2)
+# an f32 model over bf16 pages, card vs CPU: both round K/V to bf16, but
+# where the two sides' f32 K/V (within f32 rounding of each other)
+# straddle a bf16 rounding boundary the stored pages differ by one bf16
+# ulp (2^-8 relative), and the logits by up to that share of the top
+# one: 1e-3 + 4e-3 |top logit|
+PAGES_BF16_TOL = dict(atol=1e-3, rtol=4e-3)
+
+
+def split_margins(torch, cpu, prompts, got, want, tol, label):
+    """Greedy tokens of the card (``got``) and the CPU (``want``), equal
+    per request up to their first difference, where the CPU model's top
+    two logits (a plain forward of the prompt and the common tokens) must
+    lie within ``tol`` of the top one: a near tie that rounding decides.
+    Prints each difference; returns the number of requests that differ."""
+    n = 0
+    for r, (a, b) in enumerate(zip(got, want)):
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            continue
+        n += 1
+        with torch.no_grad():
+            lg = cpu(torch.tensor([prompts[r] + b[:i]]))[0, -1].float()
+        top = lg.topk(2).values
+        margin = float(top[0] - top[1])
+        lim = tol["atol"] + tol["rtol"] * float(top[0].abs())
+        log(f"{label}: request {r} leaves the CPU's tokens at token {i} "
+            f"(card {a[i]}, CPU {b[i]}); the CPU's top-two margin there "
+            f"{margin:.3e}, the tolerance {lim:.3e}")
+        check(margin <= lim, f"{label}: greedy tokens differ at request {r} "
+              f"token {i} where the CPU's margin {margin:.3e} exceeds the "
+              f"tolerance {lim:.3e}")
+    return n
+
+
+def kv_dtype_gates(torch, dev, seed):
+    """Card against CPU at 2 layers and full width. (a) An f32 model over
+    a bf16 KV pool, block-table decode with the shared prefix's suffix
+    prefill, and ragged decode with chunked prefill and drafts (one
+    rejected at least): greedy tokens equal up to each request's
+    first difference, which passes only at a near tie within
+    ``PAGES_BF16_TOL`` (``split_margins``, each printed), and equal stats
+    where no token differs. (b) An f16 model with its default pool:
+    prefill logits within ``LOGIT_TOL16``, and block-table greedy tokens
+    as (a)'s within ``LOGIT_TOL16``. Returns the card's per-instance
+    launch counts of both."""
+    from paddle_tpu_torch.inference import ContinuousBatchingPredictor
+    from paddle_tpu_torch.kernels import (dtype_launch_counts,
+                                          reset_launch_counts)
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    counts = {}
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=2, dtype="float32")
+    cpu = LlamaForCausalLM(cfg, device="cpu").init_weights(
+        torch.Generator().manual_seed(seed + 20))
+    gpu = LlamaForCausalLM(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(seed + 21)
+
+    def toks(n):
+        return torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+    geom = dict(max_batch_size=2, page_size=16, max_seq_len=256,
+                kv_dtype="bfloat16")
+
+    def served(label, kw, prompts):
+        """The prompts on the card (counted) and on the CPU."""
+        reset_launch_counts()
+        card = ContinuousBatchingPredictor(gpu, device=dev, **geom, **kw)
+        got = card.generate(prompts, max_new_tokens=12)
+        torch.cuda.synchronize()
+        host = ContinuousBatchingPredictor(cpu, device="cpu", **geom, **kw)
+        want = host.generate(prompts, max_new_tokens=12)
+        log(f"f32 model, bfloat16 KV pool, 2 layers, {label}: greedy tokens "
+            f"card == CPU: {got == want}; stats equal: "
+            f"{card.stats == host.stats}; card stats {card.stats}")
+        if not split_margins(torch, cpu, prompts, got, want, PAGES_BF16_TOL,
+                             f"f32 / bf16 pool, {label}"):
+            check(card.stats == host.stats, f"stats differ ({label})")
+        return card.stats, dict(dtype_launch_counts)
+    shared = toks(37)
+    st, counts = served("block-table", dict(use_ragged=False),
+                        [toks(40), shared, shared + toks(21)])
+    check(st["prefix_partial_hits"] >= 1,
+          f"the f32 / bf16-pool check took no suffix prefill: {st}")
+    new = dict(use_ragged=True, prefill_chunk_tokens=64, spec_draft_tokens=4)
+    # the lookup prompt is admitted third, after the chunked prompt's
+    # mixed steps (which take no drafts), so its first decode tick drafts;
+    # a rejected draft rolls its bf16 pages back (accepted drafts over
+    # another dtype's pages: serve run KV)
+    st, more = served("ragged + chunked (64) + speculative (4)", new,
+                      [toks(100), toks(30), lookup_prompt(
+                          torch, gpu, dev, toks, 16, 4, 8, use_ragged=False,
+                          **geom)])
+    check(st["spec_accepted"] < st["spec_proposed"]
+          and st["chunked_requests"] >= 1,
+          f"the f32 / bf16-pool check rejected no draft or chunked no "
+          f"prompt: {st}")
+    counts = {k: counts.get(k, 0) + more.get(k, 0) for k in {*counts, *more}}
+    pb = dtype_launches(counts, ("paged_decode", "ragged_decode",
+                                 "paged_varq"), "float32", "bfloat16")
+    check(all(n > 0 for n in pb.values()),
+          f"a decode kernel never ran on f32 q over bf16 pages: {pb}")
+    log(f"f32 / bf16-pool gate: launches with (float32 q, bfloat16 pages) "
+        f"{pb}")
+    del gpu
+    free_card(torch)
+
+    # (b) f16: the same weights cast, the default pool
+    cpu16 = cpu.to(torch.float16)
+    gpu16 = LlamaForCausalLM(LlamaConfig.llama2_7b(num_hidden_layers=2,
+                                                   dtype="float16"),
+                             device=dev)
+    gpu16.load_state_dict(cpu16.state_dict())
+    s = 32
+    ids = torch.tensor([toks(s), [0] * 7 + toks(s - 7)])
+    lens = torch.tensor([s, s - 7])
+    pos = torch.zeros(2, s, dtype=torch.long)
+    for i, L in enumerate(lens.tolist()):
+        pos[i, s - L:] = torch.arange(L)
+    mask, key_valid = prefill_mask(torch, "cpu", lens, s)
+    with torch.no_grad():
+        want = cpu16(ids, attn_mask=mask, position_ids=pos).float()
+        got = gpu16(ids.to(dev), attn_mask=mask.to(dev),
+                    position_ids=pos.to(dev)).float().cpu()
+    check(bool(torch.isfinite(got).all()), "f16 prefill logits non-finite")
+    err = float((got[key_valid] - want[key_valid]).abs().max())
+    ok = torch.allclose(got[key_valid], want[key_valid], **LOGIT_TOL16)
+    log(f"f16 2-layer full-width prefill logits, card vs CPU: max_abs_err="
+        f"{err:.3e} (atol={LOGIT_TOL16['atol']}, rtol={LOGIT_TOL16['rtol']})"
+        f", largest |logit| {float(want.abs().max()):.3f} "
+        f"{'ok' if ok else 'MISMATCH'}")
+    check(ok, "f16 prefill logits differ between the card and the CPU")
+    shared = toks(21)
+    prompts = [toks(24), shared, shared + toks(13)]
+    geom16 = dict(max_batch_size=2, page_size=16, max_seq_len=128,
+                  use_ragged=False)
+    reset_launch_counts()
+    card = ContinuousBatchingPredictor(gpu16, device=dev, **geom16)
+    got = card.generate(prompts, max_new_tokens=8)
+    torch.cuda.synchronize()
+    for k, n in dtype_launch_counts.items():
+        counts[k] = counts.get(k, 0) + n
+    check(card.pool.dtype == "float16", "the f16 model's pool is not f16")
+    want = ContinuousBatchingPredictor(cpu16, device="cpu", **geom16).generate(
+        prompts, max_new_tokens=8)
+    split_margins(torch, cpu16, prompts, got, want, LOGIT_TOL16, "f16 greedy")
+    log(f"f16 2-layer greedy tokens (block-table decode, suffix prefill): "
+        f"card == CPU for {sum(a == b for a, b in zip(got, want))} of "
+        f"{len(got)} requests; stats {card.stats}")
+    check(card.stats["prefix_partial_hits"] >= 1,
+          "the f16 gate took no suffix prefill")
+    # accepted and rejected drafts over f16 pages, on the card
+    reset_launch_counts()
+    draft_check(torch, dev, gpu16, toks, dict(
+        max_batch_size=2, page_size=16, max_seq_len=256, use_ragged=True,
+        prefill_chunk_tokens=64), "f16 2-layer drafts")
+    for k, n in dtype_launch_counts.items():
+        counts[k] = counts.get(k, 0) + n
+    return counts
+
+
+def bert_f16_eval(torch, dev, seed, card):
+    """BERT-base in float16 (its f32 init cast), one eval forward of a
+    16 x 128 batch with row lengths 32-128 through the model's
+    ``attention_mask``: finite logits near the f32 model's (logged), and
+    25 LayerNorm and 12 flash launches on f16 operands. Returns the
+    per-instance launch counts."""
+    from paddle_tpu_torch.kernels import (dtype_launch_counts,
+                                          reset_launch_counts)
+    from paddle_tpu_torch.models import (BertConfig,
+                                         BertForSequenceClassification)
+    cfg = BertConfig(num_labels=2)
+    model = BertForSequenceClassification(cfg, device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(seed + 30)).eval()
+    rng = torch.Generator(device=dev).manual_seed(seed + 31)
+    ids = torch.randint(0, cfg.vocab_size, (16, 128), device=dev,
+                        generator=rng)
+    lens = torch.randint(32, 129, (16,), device=dev, generator=rng)
+    mask = (torch.arange(128, device=dev)[None, :] < lens[:, None]).long()
+    with torch.no_grad():
+        want = model(ids, attention_mask=mask)
+        model.half()
+        reset_launch_counts()
+        got = model(ids, attention_mask=mask)
+        torch.cuda.synchronize()
+    counts = dict(dtype_launch_counts)
+    n = dtype_launches(counts, ("layer_norm", "flash_fwd"), "float16",
+                       "float16")
+    err = float((got.float() - want).abs().max())
+    log(f"BERT-base float16 eval forward on {card}: logits max |f16 - f32| "
+        f"{err:.3e} (largest |f32 logit| {float(want.abs().max()):.3e}); "
+        f"launches on f16 operands {n}")
+    check(bool(torch.isfinite(got).all()), "BERT f16 logits non-finite")
+    check(n == {"layer_norm": 2 * cfg.num_hidden_layers + 1,
+                "flash_fwd": cfg.num_hidden_layers},
+          f"BERT f16 eval launches {n}")
+    del model
+    free_card(torch)
+    return counts
 
 
 # -------------------------------------------------------------- front end --
@@ -2131,13 +2761,13 @@ INFER_CHILD_TIMEOUT = 300
 INFER_RUNS = 10
 
 
-def flash_decode_row(torch, dev, g):
+def flash_decode_row(torch, dev, g, dtype="bfloat16"):
     """The forward at the static route's decode shape: one query row per
-    sequence, q[8, 1, 32, 128] bf16 against the whole cache k, v[8, 544,
-    32, 128] (a 512-token bucket and 32 new tokens) under a bool padding
-    mask (each row's prompt and its first 8 decode slots valid), against
-    its plain version, timed beside SDPA with the same mask and the
-    bytes bound."""
+    sequence, q[8, 1, 32, 128] (bf16, or ``dtype``) against the whole
+    cache k, v[8, 544, 32, 128] (a 512-token bucket and 32 new tokens)
+    under a bool padding mask (each row's prompt and its first 8 decode
+    slots valid), against its plain version, a second launch bitwise the
+    first, timed beside SDPA with the same mask and the bytes bound."""
     from paddle_tpu_torch.kernels import attention as A
     F = torch.nn.functional
     b, h, d, s = 8, 32, 128, 512
@@ -2146,15 +2776,19 @@ def flash_decode_row(torch, dev, g):
     j = torch.arange(ml, device=dev)[None, :]
     keep = ((j >= s - lens[:, None]) & (j < s + 8))[:, None, None, :]
     madd = A.additive_mask(keep, b, h, 1, ml)
-    sets = [tuple(torch.randn(b, n, h, d, device=dev, generator=g).bfloat16()
+    dt = getattr(torch, dtype)
+    sets = [tuple(torch.randn(b, n, h, d, device=dev, generator=g).to(dt)
                   for n in (1, ml, ml)) for _ in range(2)]
     sc = d ** -0.5
-    shape = (f"q[{b}, 1, {h}, {d}] k, v[{b}, {ml}, {h}, {d}] bfloat16, bool "
+    shape = (f"q[{b}, 1, {h}, {d}] k, v[{b}, {ml}, {h}, {d}] {dtype}, bool "
              "padding mask")
     out, lse = A.flash_attention_kernel(*sets[0], sc, False, madd)
     err = compare(torch, f"flash_fwd static decode {shape}", out,
                   A.flash_attention_plain(*sets[0], sc, False, madd),
-                  "bfloat16")
+                  dtype)
+    check(torch.equal(out, A.flash_attention_kernel(*sets[0], sc, False,
+                                                    madd)[0]),
+          f"flash_fwd static decode {dtype}: a second launch differs")
     t = time_ms(torch, lambda q, k, v: A.flash_attention_kernel(
         q, k, v, sc, False, madd), sets)
     lib = time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
@@ -2164,7 +2798,7 @@ def flash_decode_row(torch, dev, g):
     isz = out.element_size()
     nbytes = (sum(x.numel() for x in sets[0]) + out.numel()) * isz \
         + madd.numel() * 4 + lse.numel() * 4
-    b_ms, by = bound(nbytes, 4 * d * pairs, "bfloat16")
+    b_ms, by = bound(nbytes, 4 * d * pairs, dtype)
     log(f"  flash_fwd at the static decode shape, {shape}: kernel median "
         f"{t['median']:.4f} ms (CUPTI {t['cupti']:.4f}), bound {b_ms:.4f} "
         f"ms ({by}), SDPA (same mask) {lib:.4f} ms")
@@ -2788,6 +3422,7 @@ def aot_child(torch, dev, spec_path, card):
 
     def keep(r):
         r.pop("cb", None)
+        r.pop("dtype_counts", None)     # tuple keys: not JSON
         runs.append(r)
 
     # run 1 on the block-table bundle, then a bucket miss there
@@ -3412,7 +4047,9 @@ def main(argv=None):
     free_card(torch)
     mains.update(optimizer_phase(torch, dev, args.seed))
     mains.update(sampling_phase(torch, dev, g))
-    for name, m in [*mains.items(), ("layer_norm (bf16)", ln["bfloat16"])]:
+    dtype_rows = dtype_phase(torch, dev, g)
+    for name, m in [*mains.items(), ("layer_norm (bf16)", ln["bfloat16"]),
+                    *((row_name(*k), m) for k, m in dtype_rows.items())]:
         lib = "n/a" if m["library_ms"] is None else f"{m['library_ms']:.4f}"
         t = m["t"]
         log(f"  {name} on {card}, {m['shape']}: kernel median "
@@ -3426,6 +4063,11 @@ def main(argv=None):
     t0 = time.perf_counter()
     f32_parity_phase(torch, dev, args.seed)
     log(f"f32 serving phase took {time.perf_counter() - t0:.1f} s")
+    free_card(torch)
+    t0 = time.perf_counter()
+    gate_counts = kv_dtype_gates(torch, dev, args.seed)
+    log(f"kv_dtype / f16 card-vs-CPU gates took "
+        f"{time.perf_counter() - t0:.1f} s")
     free_card(torch)
     t0 = time.perf_counter()
     train_f32_phase(torch, dev, args.seed)
@@ -3442,6 +4084,7 @@ def main(argv=None):
     serve = serve_phase(torch, dev, args.seed, args.layers, card)
     counts1, counts2, counts_s = (r["counts"] for r in serve["runs"])
     log(f"serve phase took {time.perf_counter() - t0:.1f} s")
+    kv = serve_kv_run(torch, dev, serve, card)
     t0 = time.perf_counter()
     serve["front"] = frontend_phase(torch, dev, args.seed, card, serve)
     log(f"front-end phase took {time.perf_counter() - t0:.1f} s")
@@ -3456,6 +4099,8 @@ def main(argv=None):
     del serve
     log(f"aot phase took {time.perf_counter() - t0:.1f} s")
     free_card(torch)
+    f16 = serve_f16_phase(torch, dev, args.seed, args.layers, card)
+    bert16 = bert_f16_eval(torch, dev, args.seed, card)
 
     t0 = time.perf_counter()
     counts_ft = finetune_run(torch, dev, card, "bert", 30)
@@ -3536,6 +4181,22 @@ def main(argv=None):
                      "library_ms": m["library_ms"], **m.get("extra", {})})
         if name == "fused_update":
             rows[-1]["bert_launches"] = counts_ft[name]
+    # the f16 and mixed instances: launches of the instance in the run that
+    # drives it on the card (serve run F16, the 2-layer gates' block-table
+    # f16 decode, the BERT-base f16 eval; serve run KV for bf16 q over f32
+    # pages; the 2-layer f32 gate for f32 q over bf16 pages)
+    for key, m in dtype_rows.items():
+        route, src, replaces = sources[key[0]]
+        n = next((c[key] for c in (f16["dtype_counts"], gate_counts, bert16,
+                                   kv["dtype_counts"]) if c.get(key)), 0)
+        check(n > 0, f"{row_name(*key)} was launched on no served path")
+        rows.append({"name": row_name(*key), "route": route, "source": src,
+                     "replaces": replaces, "launches": n,
+                     "max_abs_err": m["max_abs_err"],
+                     "ms": m["t"]["median"], "plain_ms": m["plain_ms"],
+                     "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+                     "library_ms": m["library_ms"], "shape": m["shape"],
+                     **m.get("extra", {})})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
-// The bf16 decode walk split over a thread-block cluster, shared by
-// paged_decode.cu (pages from a block-table row) and ragged_decode.cu
-// (pages from ragged meta entries), with the small helpers both sources'
-// f32 kernels use.
+// The 16-bit (bf16 or f16) decode walk split over a thread-block cluster,
+// shared by paged_decode.cu (pages from a block-table row) and
+// ragged_decode.cu (pages from ragged meta entries), with the small
+// helpers both sources' FMA kernels use (f32, and q and pages of
+// different dtypes).
 //
 // `paged_decode_split`: one launch in which each (sequence, KV head) walk
 // is split over a thread-block cluster of up to kMaxCluster CTAs. At the
@@ -15,7 +16,7 @@
 // walk can have, which the host knows without a sync (pps * page for a
 // block table, G * page for a meta); the shares come from the lengths,
 // in the kernel. Each rank walks its share in 32-key chunks: K and V
-// stay bf16 in shared memory, copied with 16-byte cp.async into a
+// stay 16-bit in shared memory, copied with 16-byte cp.async into a
 // 2-stage ring, so the next chunk's copies are in flight while the
 // current one is used; a score is a dot product split over 8 lanes and
 // reduced with shuffles; the softmax runs one warp per query head, a
@@ -40,6 +41,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cooperative_groups.h>
 #include <stdint.h>
 
@@ -56,6 +58,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
@@ -63,6 +66,9 @@ template <> __device__ __forceinline__ float from_f<float>(float x) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float x) {
   return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // 16-byte vector loads: VecIO<T>::N elements of T, unpacked to f32
@@ -76,18 +82,20 @@ template <> struct VecIO<float> {
     f[3] = __uint_as_float(u.w);
   }
 };
-template <> struct VecIO<__nv_bfloat16> {
+template <class E> struct VecIO16 {  // 8 bf16 or f16 values
   static constexpr int N = 8;
   __device__ __forceinline__ static void unpack(const uint4& u, float* f) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float2 t = __bfloat1622float2(h[i]);
+      const float2 t = tc::unpack2<E>(w[i]);
       f[2 * i] = t.x;
       f[2 * i + 1] = t.y;
     }
   }
 };
+template <> struct VecIO<__nv_bfloat16> : VecIO16<__nv_bfloat16> {};
+template <> struct VecIO<__half> : VecIO16<__half> {};
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1)
@@ -199,11 +207,9 @@ struct MetaPages {
   }
 };
 
-using bf16 = __nv_bfloat16;
-
 template <int D>
 size_t split_smem_bytes(int G) {
-  return 2 * 2 * kSplitChunk * D * sizeof(bf16)  // K | V ring, 2 stages
+  return 2 * 2 * kSplitChunk * D * 2             // K | V ring, 2 stages
          + ((size_t)2 * G                        // running max, sum
             + 2 * (size_t)G * D                  // accumulator, query
             + (size_t)G * kSplitChunk            // scores / probabilities
@@ -213,12 +219,13 @@ size_t split_smem_bytes(int G) {
 }
 
 // One cluster of CTAs per (sequence b, KV head hk): grid (cluster, Hkv, B),
-// 128 threads per CTA; q/out [B, H, D], pages [num_pages, page, Hkv, D].
-template <int D, class Pages>
+// 128 threads per CTA; q/out [B, H, D], pages [num_pages, page, Hkv, D],
+// all of the 16-bit element type E.
+template <class E, int D, class Pages>
 __global__ void __launch_bounds__(kThreads) paged_decode_split(
-    const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
-    const bf16* __restrict__ v_pages, const Pages pages,
-    const int* __restrict__ lens, bf16* __restrict__ out, int H, int Hkv,
+    const E* __restrict__ q, const E* __restrict__ k_pages,
+    const E* __restrict__ v_pages, const Pages pages,
+    const int* __restrict__ lens, E* __restrict__ out, int H, int Hkv,
     float scale) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
@@ -226,7 +233,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split(
   const int rank = (int)cluster.block_rank();
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const int G = H / Hkv;
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [stage][K | V][key][D]
+  E* ring = reinterpret_cast<E*>(smem_raw);  // [stage][K | V][key][D]
   float* m_s = reinterpret_cast<float*>(ring + 2 * 2 * kSplitChunk * D);
   float* l_s = m_s + G;
   float* acc = l_s + G;       // [G][D]
@@ -242,7 +249,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split(
   const int share = ((n + n_ranks - 1) / n_ranks + 15) & ~15;
   const int t0 = min(n, rank * share), t1 = min(n, t0 + share);
   const int n_chunks = (t1 - t0 + kSplitChunk - 1) / kSplitChunk;
-  const bf16* qb = q + ((long long)b * H + (long long)hk * G) * D;
+  const E* qb = q + ((long long)b * H + (long long)hk * G) * D;
   const long long row_stride = (long long)Hkv * D;  // between pool rows
 
   for (int i = tid; i < G * D; i += kThreads) {
@@ -260,7 +267,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split(
   static_assert((kSplitChunk * CPR) % kThreads == 0, "chunk must split");
   auto load_chunk = [&](int c, int st) {
     const uint32_t ks = tc::smem_addr(ring + st * 2 * kSplitChunk * D);
-    const uint32_t vs = ks + kSplitChunk * D * sizeof(bf16);
+    const uint32_t vs = ks + kSplitChunk * D * sizeof(E);
 #pragma unroll
     for (int j = 0; j < kSplitChunk * CPR / kThreads; ++j) {
       const int i = tid + j * kThreads, t = i / CPR, cc = i % CPR;
@@ -270,7 +277,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split(
       const bool in = state != kAbsent;
       const long long off = in ? row * row_stride + (long long)hk * D + cc * 8
                                : 0;
-      const uint32_t dst = (t * D + cc * 8) * sizeof(bf16);
+      const uint32_t dst = (t * D + cc * 8) * sizeof(E);
       tc::cp_async16(ks + dst, k_pages + off, in ? 16 : 0);
       tc::cp_async16(vs + dst, v_pages + off, in ? 16 : 0);
       if (cc == 0) kst[st * kSplitChunk + t] = state;
@@ -286,8 +293,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split(
     __syncthreads();  // chunk c landed; everyone is done with chunk c - 1
     if (c + 1 < n_chunks) load_chunk(c + 1, st ^ 1);
     tc::cp_async_commit();
-    const bf16* ks = ring + st * 2 * kSplitChunk * D;
-    const bf16* vs = ks + kSplitChunk * D;
+    const E* ks = ring + st * 2 * kSplitChunk * D;
+    const E* vs = ks + kSplitChunk * D;
     const int* kstate = kst + st * kSplitChunk;
 
     // scores: a group of 8 lanes per key, each lane D / 8 features
@@ -296,7 +303,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split(
       float kf[D / 8];
 #pragma unroll
       for (int p = 0; p < D / 64; ++p)
-        VecIO<bf16>::unpack(
+        VecIO<E>::unpack(
             *reinterpret_cast<const uint4*>(ks + t * D + 64 * p + 8 * l8),
             kf + 8 * p);
       const int state = kstate[t];
@@ -357,8 +364,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split(
       a.y *= a_s[g];
 #pragma unroll 8
       for (int t = 0; t < kSplitChunk; ++t) {
-        const float2 vv = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(vs + t * D + d));
+        const float2 vv =
+            tc::unpack2<E>(*reinterpret_cast<const uint32_t*>(vs + t * D + d));
         a.x = fmaf(pg[t], vv.x, a.x);
         a.y = fmaf(pg[t], vv.y, a.y);
       }
@@ -369,7 +376,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split(
   // combine the ranks' (max, sum, accumulator): rank r writes elements
   // [128 r, 128 r + 128) + 128 n_ranks i of the group's G x D outputs
   cluster.sync();
-  bf16* ob = out + ((long long)b * H + (long long)hk * G) * D;
+  E* ob = out + ((long long)b * H + (long long)hk * G) * D;
   for (int e = rank * kThreads + tid; e < G * D; e += n_ranks * kThreads) {
     const int g = e / D;
     float m_all = kNegInf;
@@ -381,18 +388,18 @@ __global__ void __launch_bounds__(kThreads) paged_decode_split(
       l_all = fmaf(cluster.map_shared_rank(l_s, r)[g], w, l_all);
       o = fmaf(cluster.map_shared_rank(acc, r)[e], w, o);
     }
-    ob[e] = from_f<bf16>(o / (l_all == 0.f ? 1.f : l_all));
+    ob[e] = from_f<E>(o / (l_all == 0.f ? 1.f : l_all));
   }
   cluster.sync();
 }
 
 // launches paged_decode_split over B sequences in clusters of n_ranks
-template <int D, class Pages>
+template <class E, int D, class Pages>
 int launch_split(const void* q, const void* k_pages, const void* v_pages,
                  const Pages& pages, const int* lens, void* out, int B, int H,
                  int Hkv, int n_ranks, float scale, cudaStream_t stream) {
   const size_t smem = split_smem_bytes<D>(H / Hkv);
-  auto kern = paged_decode_split<D, Pages>;
+  auto kern = paged_decode_split<E, D, Pages>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -409,9 +416,9 @@ int launch_split(const void* q, const void* k_pages, const void* v_pages,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(
-      &cfg, kern, static_cast<const bf16*>(q),
-      static_cast<const bf16*>(k_pages), static_cast<const bf16*>(v_pages),
-      pages, lens, static_cast<bf16*>(out), H, Hkv, scale);
+      &cfg, kern, static_cast<const E*>(q),
+      static_cast<const E*>(k_pages), static_cast<const E*>(v_pages),
+      pages, lens, static_cast<E*>(out), H, Hkv, scale);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -73,6 +73,26 @@
 // 12.8): 230 at D = 128 (243 with dropout, 254 with dropout and a staged
 // mask), 180 at D = 64 (at most 222), no spills.
 //
+// f16 (dtype 2): the same kernel with f16 operands (`wgmma` m64nNk16
+// .f32.f16.f16) and P as ONE f16 (kFwdSplitPF16 off). One f16 rounds the
+// unnormalised exp(s - m) where the plain version rounds the normalised
+// P, as one bf16 does, but each rounding is 2^-11 relative, so the two
+// together stay within an f16 ulp of a row's output, inside TOL[float16];
+// measured on an H100 80GB HBM3 at 700 W (tools/kernel_variants.py
+// --dtype float16): one f16 P and hi + lo parts both gave a largest error
+// of 1.95e-3 (one f16 ulp of outputs in [2, 4)) and no element outside
+// the tolerance at the prefill shape and over four training-shape draws,
+// and one P was 5 % (prefill) to 13 % (training shape) faster. P below
+// f16's smallest subnormal (2^-24) is 0 in both versions, a weight below
+// 2^-24 of the row's largest.
+//
+// Mixed dtypes (q of one of f32 / bf16 / f16, K and V of another: a
+// prefix-cache suffix prefill whose cached pages have the KV pool's dtype
+// and whose new keys the model's, concatenated, promoted as torch.cat
+// promotes): the FMA kernel below with q read as TQ and K/V as TKV, each
+// converted to f32 on load, P rounded to TKV before P.V as the plain
+// version rounds it, the output in TQ; no dropout (inference only).
+//
 // f32 (dtype 0): the FMA-unit kernel below (TF32 is off in the port):
 // one block of 256 threads per (batch*head, 64-row query tile) keeps the
 // Q tile, one K and one V tile (64 rows, f32) and the 64x64 score tile
@@ -99,9 +119,20 @@ constexpr int kBK = 64;
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
+    float x) {
+  return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // murmur3 finalizer (the reference's `_fmix32`): unsigned arithmetic, so
@@ -134,12 +165,13 @@ constexpr size_t smem_floats() {
          + 3 * kBQ;         // running max, sum, rescale factor
 }
 
-// DROP = false compiles the dropout away
-template <typename T, int D, bool DROP>
+// TQ is q's and the output's element type, TKV K's and V's (P is rounded
+// to TKV before P.V); DROP = false compiles the dropout away
+template <typename TQ, typename TKV, int D, bool DROP>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const float* __restrict__ mask,
-    const int* __restrict__ kv_lens, T* __restrict__ out,
+    const TQ* __restrict__ q, const TKV* __restrict__ k,
+    const TKV* __restrict__ v, const float* __restrict__ mask,
+    const int* __restrict__ kv_lens, TQ* __restrict__ out,
     float* __restrict__ lse, int Sq, int Sk, int H, int Hkv,
     long long msb, long long msh, long long msq, long long msk,
     float scale, int causal, uint32_t seed0, uint32_t seed1, uint32_t thresh,
@@ -163,9 +195,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 
   const long long q_stride = (long long)H * D;     // between query rows
   const long long kv_stride = (long long)Hkv * D;  // between key rows
-  const T* qb = q + ((long long)b * Sq * H + h) * D;
-  const T* kb = k + ((long long)b * Sk * Hkv + hk) * D;
-  const T* vb = v + ((long long)b * Sk * Hkv + hk) * D;
+  const TQ* qb = q + ((long long)b * Sq * H + h) * D;
+  const TKV* kb = k + ((long long)b * Sk * Hkv + hk) * D;
+  const TKV* vb = v + ((long long)b * Sk * Hkv + hk) * D;
   const float* mb = mask ? mask + b * msb + h * msh : nullptr;
   const int len = kv_lens ? kv_lens[b] : Sk;
   const uint32_t row_key = fmix32((uint32_t)bh ^ seed0);  // dropout row
@@ -251,8 +283,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
         p0 = fmix32(xq ^ k_lo ^ seed1) >= thresh ? p0 * dscale : 0.f;
         p1 = fmix32(xq ^ (k_lo + 32u) ^ seed1) >= thresh ? p1 * dscale : 0.f;
       }
-      row[lane] = to_f(from_f<T>(p0));
-      row[lane + 32] = to_f(from_f<T>(p1));
+      row[lane] = to_f(from_f<TKV>(p0));
+      row[lane + 32] = to_f(from_f<TKV>(p1));
       if (lane == 0) {
         const float alpha = expf(m_prev - m_new);
         a_s[r] = alpha;
@@ -283,7 +315,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     __syncthreads();
   }
 
-  T* ob = out + ((long long)b * Sq * H + h) * D;
+  TQ* ob = out + ((long long)b * Sq * H + h) * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i, qi = q0 + r;
@@ -292,27 +324,30 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const float safe = l == 0.f ? 1.f : l;
 #pragma unroll
     for (int j = 0; j < NC; ++j)
-      ob[qi * q_stride + tx + 16 * j] = from_f<T>(acc[i][j] / safe);
+      ob[qi * q_stride + tx + 16 * j] = from_f<TQ>(acc[i][j] / safe);
     if (tx == 0) lse[(long long)bh * Sq + qi] = m_s[r] + logf(safe);
   }
 }
 
-template <typename T, int D>
+template <typename TQ, typename TKV, int D>
 int launch(const void* q, const void* k, const void* v, const float* mask,
            const int* kv_lens, void* out, float* lse, int B, int Sq, int Sk,
            int H, int Hkv, long long msb, long long msh, long long msq,
            long long msk, float scale, int causal, int seed0, int seed1,
            unsigned thresh, float dscale, cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
-  auto kern = dscale > 0.f ? flash_fwd_kernel<T, D, true>
-                           : flash_fwd_kernel<T, D, false>;
+  constexpr bool ONE = std::is_same<TQ, TKV>::value;
+  // mixed dtypes serve inference only: no dropout instance
+  if (!ONE && dscale > 0.f) return (int)cudaErrorInvalidValue;
+  auto kern = ONE && dscale > 0.f ? flash_fwd_kernel<TQ, TKV, D, ONE>
+                                  : flash_fwd_kernel<TQ, TKV, D, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, kv_lens, static_cast<T*>(out), lse,
+      static_cast<const TQ*>(q), static_cast<const TKV*>(k),
+      static_cast<const TKV*>(v), mask, kv_lens, static_cast<TQ*>(out), lse,
       Sq, Sk, H, Hkv, msb, msh, msq, msk, scale, causal, (uint32_t)seed0,
       (uint32_t)seed1, (uint32_t)thresh, dscale);
   return (int)cudaGetLastError();
@@ -329,6 +364,7 @@ constexpr int kFwdWG = 1;       // warpgroups (64 query rows each) per CTA
 constexpr int kFwdBN = 64;      // keys per K/V tile
 constexpr int kFwdStages = 2;   // depth of the K and V cp.async rings
 constexpr bool kFwdSplitP = true;  // P as bf16 hi + lo parts, not one bf16
+constexpr bool kFwdSplitPF16 = false;  // the f16 instance: one f16 P
 
 // P of one tile in place: s holds the thread's S = Q K^T entries (rows qr
 // and qr + 8 of its warpgroup, columns 8 j + kc + {0, 1}), mv the mask's
@@ -402,15 +438,17 @@ __device__ __forceinline__ void tile_probs(
 // of BN keys stream through rings of kFwdStages stages each. STAGE copies
 // each tile's mask into shared memory (one warpgroup only: it adds a CTA
 // sync); otherwise a mask is read from L2.
-template <int D, int BN, int NWG, bool DROP, bool STAGE>
+template <class E, int D, int BN, int NWG, bool DROP, bool STAGE>
 __global__ void __launch_bounds__(128 * NWG, 1) flash_fwd_wgmma(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const float* __restrict__ mask,
-    const int* __restrict__ kv_lens, bf16* __restrict__ out,
+    const E* __restrict__ q, const E* __restrict__ k,
+    const E* __restrict__ v, const float* __restrict__ mask,
+    const int* __restrict__ kv_lens, E* __restrict__ out,
     float* __restrict__ lse, int Sq, int Sk, int H, int Hkv, long long msb,
     long long msh, long long msq, long long msk, float scale, int causal,
     uint32_t seed0, uint32_t seed1, uint32_t thresh, float dscale) {
   constexpr int BM = 64 * NWG, NT = 128 * NWG, NS = kFwdStages;
+  constexpr bool SPLIT =
+      std::is_same<E, f16>::value ? kFwdSplitPF16 : kFwdSplitP;
   static_assert(!STAGE || NWG == 1, "a staged mask needs one warpgroup");
   constexpr uint32_t Q_BYTES = BM * D * 2, KV_BYTES = BN * D * 2;
   extern __shared__ uint8_t smem_raw[];
@@ -461,15 +499,15 @@ __global__ void __launch_bounds__(128 * NWG, 1) flash_fwd_wgmma(
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float s[BN / 2], mv[BN / 2], alpha[2];
-  uint32_t pf[BN / 16][4], pl[BN / 16][4];  // P's bf16 hi and lo parts
+  uint32_t pf[BN / 16][4], pl[BN / 16][4];  // P's hi and lo parts (E)
 
   // S = Q K^T of tile i (queries x keys), A and B from shared memory
   auto start_s = [&](int i) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(s, kmajor_desc<BM>(sQ, 64 * wg, kk),
-               kmajor_desc<BN>(sK + (i % NS) * KV_BYTES, 0, kk), kk);
+      wgmma_ss<E>(s, kmajor_desc<BM>(sQ, 64 * wg, kk),
+                  kmajor_desc<BN>(sK + (i % NS) * KV_BYTES, 0, kk), kk);
     wgmma_commit();
   };
   // tile i's mask rows into the padded shared tile (BN + 4 floats a row,
@@ -519,8 +557,8 @@ __global__ void __launch_bounds__(128 * NWG, 1) flash_fwd_wgmma(
     else
       run(std::false_type{}, std::false_type{});
   };
-  // O = alpha O, then P as bf16 A fragments (the accumulator layout is
-  // the A layout): hi = bf16(P) and, with kFwdSplitP, lo = bf16(P - hi)
+  // O = alpha O, then P as A fragments of E (the accumulator layout is
+  // the A layout): hi = E(P) and, with SPLIT, lo = E(P - hi)
   auto rescale_pack = [&]() {
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
@@ -529,12 +567,10 @@ __global__ void __launch_bounds__(128 * NWG, 1) flash_fwd_wgmma(
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float a = s[8 * kk + 2 * i], c = s[8 * kk + 2 * i + 1];
-        __nv_bfloat162 h = __floats2bfloat162_rn(a, c);
-        pf[kk][i] = *reinterpret_cast<uint32_t*>(&h);
-        if constexpr (kFwdSplitP) {
-          const float2 hf = __bfloat1622float2(h);
-          __nv_bfloat162 lo = __floats2bfloat162_rn(a - hf.x, c - hf.y);
-          pl[kk][i] = *reinterpret_cast<uint32_t*>(&lo);
+        pf[kk][i] = pack2<E>(a, c);
+        if constexpr (SPLIT) {
+          const float2 hf = unpack2<E>(pf[kk][i]);
+          pl[kk][i] = pack2<E>(a - hf.x, c - hf.y);
         }
       }
   };
@@ -546,8 +582,8 @@ __global__ void __launch_bounds__(128 * NWG, 1) flash_fwd_wgmma(
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
       const uint64_t vd = mnmajor_desc<BN>(sV + (i % NS) * KV_BYTES, kk);
-      wgmma_rs_tb(acc, pf[kk], vd);
-      if constexpr (kFwdSplitP) wgmma_rs_tb(acc, pl[kk], vd);
+      wgmma_rs_tb<E>(acc, pf[kk], vd);
+      if constexpr (SPLIT) wgmma_rs_tb<E>(acc, pl[kk], vd);
     }
     wgmma_commit();
   };
@@ -586,7 +622,7 @@ __global__ void __launch_bounds__(128 * NWG, 1) flash_fwd_wgmma(
     wgmma_wait<0>();
     fence_regs(acc);
     fence_regs(pf);
-    if constexpr (kFwdSplitP) fence_regs(pl);
+    if constexpr (SPLIT) fence_regs(pl);
   }
 
   if (qw >= Sq) return;
@@ -597,19 +633,19 @@ __global__ void __launch_bounds__(128 * NWG, 1) flash_fwd_wgmma(
     const int qi = qw + qr + 8 * rr;
     if (qi >= Sq) continue;
     const float safe = l[rr] == 0.f ? 1.f : l[rr];
-    bf16* orow = out + q_off + qi * q_stride + kc;
+    E* orow = out + q_off + qi * q_stride + kc;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int i = 4 * j + 2 * rr;
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
-          __floats2bfloat162_rn(acc[i] / safe, acc[i + 1] / safe);
+      *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+          pack2<E>(acc[i] / safe, acc[i + 1] / safe);
     }
     if ((lane & 3) == 0)
       lse[(long long)blockIdx.x * Sq + qi] = m[rr] + logf(safe);
   }
 }
 
-template <int D>
+template <class E, int D>
 int launch_wgmma(const void* q, const void* k, const void* v,
                  const float* mask, const int* kv_lens, void* out, float* lse,
                  int B, int Sq, int Sk, int H, int Hkv, long long msb,
@@ -625,18 +661,19 @@ int launch_wgmma(const void* q, const void* k, const void* v,
                     msq % 4 == 0 && msb % 4 == 0 && msh % 4 == 0 &&
                     ((uintptr_t)mask & 15) == 0;
   constexpr bool ONE = kFwdWG == 1;
-  auto kern = dscale > 0.f
-                  ? (stage ? flash_fwd_wgmma<D, kFwdBN, kFwdWG, true, ONE>
-                           : flash_fwd_wgmma<D, kFwdBN, kFwdWG, true, false>)
-                  : (stage ? flash_fwd_wgmma<D, kFwdBN, kFwdWG, false, ONE>
-                           : flash_fwd_wgmma<D, kFwdBN, kFwdWG, false, false>);
+  auto kern =
+      dscale > 0.f
+          ? (stage ? flash_fwd_wgmma<E, D, kFwdBN, kFwdWG, true, ONE>
+                   : flash_fwd_wgmma<E, D, kFwdBN, kFwdWG, true, false>)
+          : (stage ? flash_fwd_wgmma<E, D, kFwdBN, kFwdWG, false, ONE>
+                   : flash_fwd_wgmma<E, D, kFwdBN, kFwdWG, false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem + mask_smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (Sq + BM - 1) / BM);
   kern<<<grid, 128 * kFwdWG, smem + (stage ? mask_smem : 0), stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), mask, kv_lens, static_cast<bf16*>(out),
+      static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), mask, kv_lens, static_cast<E*>(out),
       lse, Sq, Sk, H, Hkv, msb, msh, msq, msk, scale, causal, (uint32_t)seed0,
       (uint32_t)seed1, (uint32_t)thresh, dscale);
   return (int)cudaGetLastError();
@@ -646,43 +683,52 @@ int launch_wgmma(const void* q, const void* k, const void* v,
 
 namespace {
 
-// the bf16 kernel copies 16 bytes at a time and stores bf16 pairs
+// the 16-bit kernels copy 16 bytes at a time and store element pairs
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Layouts: q/out [B, Sq, H, D],
+// dtype: q's and the output's element type, kv_dtype: K's and V's (0 =
+// float32, 1 = bfloat16, 2 = float16). One 16-bit dtype throughout runs the
+// wgmma kernel; float32, or q of one dtype with K/V of another, the FMA
+// kernel (mixed dtypes without dropout). Layouts: q/out [B, Sq, H, D],
 // k/v [B, Sk, Hkv, D], lse [B, H, Sq], all contiguous; mask (may be
 // null) is f32 addressed as mask[b*msb + h*msh + q*msq + k*msk];
 // kv_lens (may be null) is int32 [B]. Dropout: dscale = 1 / (1 - p) as
 // f32, 0 for none; thresh = min(2^32 - 1, round(p * 2^32)); seed0 and
 // seed1 the call's two int32 seeds. Returns cudaGetLastError().
-extern "C" int flash_fwd(int dtype, int head_dim, const void* q,
-                         const void* k, const void* v, const float* mask,
-                         const int* kv_lens, void* out, float* lse, int B,
-                         int Sq, int Sk, int H, int Hkv, long long msb,
-                         long long msh, long long msq, long long msk,
-                         float scale, int causal, int seed0, int seed1,
-                         unsigned thresh, float dscale, cudaStream_t stream) {
-  if (H <= 0 || Hkv <= 0 || H % Hkv != 0 || B <= 0 || Sq <= 0 || Sk <= 0)
+extern "C" int flash_fwd(int dtype, int kv_dtype, int head_dim,
+                         const void* q, const void* k, const void* v,
+                         const float* mask, const int* kv_lens, void* out,
+                         float* lse, int B, int Sq, int Sk, int H, int Hkv,
+                         long long msb, long long msh, long long msq,
+                         long long msk, float scale, int causal, int seed0,
+                         int seed1, unsigned thresh, float dscale,
+                         cudaStream_t stream) {
+  if (H <= 0 || Hkv <= 0 || H % Hkv != 0 || B <= 0 || Sq <= 0 || Sk <= 0 ||
+      (head_dim != 64 && head_dim != 128))
     return (int)cudaErrorInvalidValue;
-#define FLASH_CASE(T, D)                                                  \
-  return launch<T, D>(q, k, v, mask, kv_lens, out, lse, B, Sq, Sk, H, Hkv, \
-                      msb, msh, msq, msk, scale, causal, seed0, seed1,  \
-                      thresh, dscale, stream)
-  if (dtype == 0 && head_dim == 64) FLASH_CASE(float, 64);
-  if (dtype == 0 && head_dim == 128) FLASH_CASE(float, 128);
-#undef FLASH_CASE
-  if (dtype == 1 && (head_dim == 64 || head_dim == 128)) {
-    if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
-      return (int)cudaErrorMisalignedAddress;
-#define FLASH_WGMMA(D)                                                    \
-  return tc::launch_wgmma<D>(q, k, v, mask, kv_lens, out, lse, B, Sq, Sk, \
-                             H, Hkv, msb, msh, msq, msk, scale, causal,  \
-                             seed0, seed1, thresh, dscale, stream)
-    if (head_dim == 64) FLASH_WGMMA(64);
-    FLASH_WGMMA(128);
-#undef FLASH_WGMMA
-  }
-  return (int)cudaErrorInvalidValue;
+  return tc::with_dtype(dtype, [&](auto tq) {
+    return tc::with_dtype(kv_dtype, [&](auto tkv) {
+      using TQ = typename decltype(tq)::type;
+      using TKV = typename decltype(tkv)::type;
+      if constexpr (std::is_same<TQ, TKV>::value &&
+                    !std::is_same<TQ, float>::value) {
+        if (!aligned16(q) || !aligned16(k) || !aligned16(v) ||
+            !aligned16(out))
+          return (int)cudaErrorMisalignedAddress;
+        auto run = head_dim == 64 ? tc::launch_wgmma<TQ, 64>
+                                  : tc::launch_wgmma<TQ, 128>;
+        return run(q, k, v, mask, kv_lens, out, lse, B, Sq, Sk, H, Hkv, msb,
+                   msh, msq, msk, scale, causal, seed0, seed1, thresh,
+                   dscale, stream);
+      } else {
+        auto run = head_dim == 64 ? launch<TQ, TKV, 64>
+                                  : launch<TQ, TKV, 128>;
+        return run(q, k, v, mask, kv_lens, out, lse, B, Sq, Sk, H, Hkv, msb,
+                   msh, msq, msk, scale, causal, seed0, seed1, thresh,
+                   dscale, stream);
+      }
+    });
+  });
 }

@@ -21,7 +21,8 @@
 // kv_lens == 0 are written as zeros by this kernel.
 //
 // Scores are f32. The f32 kernel keeps P in f32, as the Pallas kernel;
-// the bf16 kernel keeps it to 16 bits (bf16 hi + lo). The XLA reference
+// the bf16 kernel keeps it to 16 bits (bf16 hi + lo), the f16 kernel to 11
+// (one f16). The XLA reference
 // (`_paged_attention_varq_xla`) rounds P to the value dtype before P.V,
 // so in bf16 the two differ by that rounding (within the bf16
 // tolerance). The f32 kernel's masked scores are exactly -1e30, never
@@ -71,6 +72,20 @@
 // card tolerance there, but is not shipped: flash_fwd.cu's one bf16 P
 // failed it on rare few-key rows (1 element in 67 M).
 //
+// f16 (dtype 2): the same wgmma kernel with f16 operands and P as one f16
+// (kVarqSplitPF16 off, as flash_fwd.cu decides for f16: at both shapes one
+// f16 P and hi + lo parts gave the same largest error, 1.95e-3, none
+// outside TOL[float16], and one P was 3-5 % faster; H100 80GB HBM3, 700
+// W, tools/kernel_variants.py --dtype float16).
+//
+// q and pages of different dtypes (q in the model's dtype, pages in the
+// KV pool's `kv_dtype`; each of f32 / bf16 / f16): the FMA kernel below
+// with q read as TQ and pages as TKV, converted to f32 on load and the
+// output in TQ. With 16-bit pages the walk runs twice, as paged_decode.cu's
+// FMA kernel: the rows' max and sum first, then P = TKV(exp(s - m) / l)
+// times V, so that P is rounded where the plain version rounds it (after
+// normalising); f32 pages take one online pass.
+//
 // f32 (dtype 0): the FMA-unit kernel below (TF32 is off in the port):
 // one block of 256 threads per (64-row query tile, KV head, slot) walks
 // the slot's pages in order in 64-key tiles, up to min(kv_lens, last
@@ -96,12 +111,35 @@ constexpr int kBK = 64;
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
 }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
+    float x) {
+  return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
+}
 
-template <typename T> struct VecIO;
+// 16-byte vector loads: VecIO<T>::N elements of T, unpacked to f32
+template <typename T> struct VecIO {  // bf16 or f16: 8 values
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void unpack(const uint4& u, float* f) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 t = tc::unpack2<T>(w[i]);
+      f[2 * i] = t.x;
+      f[2 * i + 1] = t.y;
+    }
+  }
+};
 template <> struct VecIO<float> {
   static constexpr int N = 4;
   __device__ __forceinline__ static void unpack(const uint4& u, float* f) {
@@ -131,12 +169,14 @@ constexpr size_t smem_floats() {
          + 3 * kBQ;         // running max, sum, rescale factor
 }
 
-template <typename T, int D>
+// TQ is q's and the output's element type, TKV the pages' (with 16-bit
+// pages two passes: P normalised, then rounded to TKV before P.V)
+template <typename TQ, typename TKV, int D>
 __global__ void __launch_bounds__(kThreads) paged_varq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pages,
-    const T* __restrict__ v_pages, const int* __restrict__ tables,
+    const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
+    const TKV* __restrict__ v_pages, const int* __restrict__ tables,
     const int* __restrict__ meta, const int* __restrict__ kv_lens,
-    const int* __restrict__ q_lens, T* __restrict__ out, int Qb, int H,
+    const int* __restrict__ q_lens, TQ* __restrict__ out, int Qb, int H,
     int Hkv, int page, int pps, int num_pages, int G, float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -153,21 +193,21 @@ __global__ void __launch_bounds__(kThreads) paged_varq_kernel(
   const int warp = tid / 32, lane = tid % 32;
   const int hk = blockIdx.y, b = blockIdx.z;
   const int Gq = H / Hkv;
-  const int TQ = kBQ / Gq;          // span rows per tile
-  const int nrows = TQ * Gq;        // tile rows in use
-  const int i0 = blockIdx.x * TQ;
+  const int SR = kBQ / Gq;          // span rows per tile
+  const int nrows = SR * Gq;        // tile rows in use
+  const int i0 = blockIdx.x * SR;
   const int ql = min(max(q_lens[b], 0), Qb);
   const int kl = kv_lens[b];
   const long long q_stride = (long long)H * D;     // between span rows
   const long long kv_stride = (long long)Hkv * D;  // between key rows
-  const T* qb = q + (long long)b * Qb * q_stride + (long long)hk * Gq * D;
-  T* ob = out + (long long)b * Qb * q_stride + (long long)hk * Gq * D;
+  const TQ* qb = q + (long long)b * Qb * q_stride + (long long)hk * Gq * D;
+  TQ* ob = out + (long long)b * Qb * q_stride + (long long)hk * Gq * D;
 
   if (i0 >= ql || kl <= 0) {
     // padding span rows only: zeros
     for (int e = tid; e < nrows * D; e += kThreads) {
       const int r = e / D, c = e % D, i = i0 + r / Gq;
-      if (i < Qb) ob[i * q_stride + (r % Gq) * D + c] = from_f<T>(0.f);
+      if (i < Qb) ob[i * q_stride + (r % Gq) * D + c] = from_f<TQ>(0.f);
     }
     return;
   }
@@ -202,7 +242,7 @@ __global__ void __launch_bounds__(kThreads) paged_varq_kernel(
     npages = pps;
   }
   const int kbound = min(kl, npages * page);
-  const int i_last = min(i0 + TQ, ql) - 1;
+  const int i_last = min(i0 + SR, ql) - 1;
   const int k_end = min(kbound, kl - ql + i_last + 1);
 
   for (int e = tid; e < kBQ * D; e += kThreads) {
@@ -232,8 +272,11 @@ __global__ void __launch_bounds__(kThreads) paged_varq_kernel(
   }
   __syncthreads();
 
-  constexpr int VN = VecIO<T>::N;
+  constexpr int VN = VecIO<TKV>::N;
   constexpr int VPR = D / VN;
+  constexpr bool NORM = !std::is_same<TKV, float>::value;
+  // pass 0 (NORM only): the rows' max and sum; pass 1: P.V
+  for (int pass = NORM ? 0 : 1; pass < 2; ++pass)
   for (int k0 = 0; k0 < k_end; k0 += kBK) {
     for (int e = tid; e < kBK * VPR; e += kThreads) {
       const int t = e / VPR, c = (e % VPR) * VN, pos = k0 + t;
@@ -247,8 +290,8 @@ __global__ void __launch_bounds__(kThreads) paged_varq_kernel(
         vu = *reinterpret_cast<const uint4*>(v_pages + off);
       }
       float kf[VN], vf[VN];
-      VecIO<T>::unpack(ku, kf);
-      VecIO<T>::unpack(vu, vf);
+      VecIO<TKV>::unpack(ku, kf);
+      VecIO<TKV>::unpack(vu, vf);
 #pragma unroll
       for (int x = 0; x < VN; ++x) {
         Ks[t * (D + 1) + c + x] = kf[x];
@@ -287,9 +330,18 @@ __global__ void __launch_bounds__(kThreads) paged_varq_kernel(
     __syncthreads();
 
     // online softmax: one warp per row, two columns per lane; P stays f32
+    // (f32 pages), or is normalised and rounded to TKV in pass 1
     for (int r = warp; r < kBQ; r += kThreads / 32) {
       float* row = Ss + r * (kBK + 1);
       const float s0 = row[lane], s1 = row[lane + 32];
+      if (NORM && pass == 1) {
+        const float m = m_s[r], l = l_s[r];
+        const float inv = 1.f / (l == 0.f ? 1.f : l);
+        row[lane] = to_f(from_f<TKV>(expf(s0 - m) * inv));
+        row[lane + 32] = to_f(from_f<TKV>(expf(s1 - m) * inv));
+        if (lane == 0) a_s[r] = 1.f;
+        continue;
+      }
       const float m_prev = m_s[r];
       const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
       const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
@@ -304,6 +356,7 @@ __global__ void __launch_bounds__(kThreads) paged_varq_kernel(
       }
     }
     __syncthreads();
+    if (pass == 0) continue;
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -330,32 +383,32 @@ __global__ void __launch_bounds__(kThreads) paged_varq_kernel(
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i, si = i0 + r / Gq;
     if (r >= nrows || si >= Qb) continue;
-    const float l = l_s[r];
+    const float l = NORM ? 1.f : l_s[r];
     const float inv = 1.f / (l == 0.f ? 1.f : l);
-    T* orow = ob + si * q_stride + (r % Gq) * D;
+    TQ* orow = ob + si * q_stride + (r % Gq) * D;
 #pragma unroll
     for (int j = 0; j < NC; ++j)
-      orow[tx + 16 * j] = from_f<T>(si < ql ? acc[i][j] * inv : 0.f);
+      orow[tx + 16 * j] = from_f<TQ>(si < ql ? acc[i][j] * inv : 0.f);
   }
 }
 
-template <typename T, int D>
+template <typename TQ, typename TKV, int D>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const int* tables, const int* meta, const int* kv_lens,
            const int* q_lens, void* out, int B, int Qb, int H, int Hkv,
            int page, int pps, int num_pages, int G, float scale,
            cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
-  auto kern = paged_varq_kernel<T, D>;
+  auto kern = paged_varq_kernel<TQ, TKV, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int rows = kBQ / (H / Hkv);
   dim3 grid((Qb + rows - 1) / rows, Hkv, B);
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), tables, meta, kv_lens, q_lens,
-      static_cast<T*>(out), Qb, H, Hkv, page, pps, num_pages, G, scale);
+      static_cast<const TQ*>(q), static_cast<const TKV*>(k_pages),
+      static_cast<const TKV*>(v_pages), tables, meta, kv_lens, q_lens,
+      static_cast<TQ*>(out), Qb, H, Hkv, page, pps, num_pages, G, scale);
   return (int)cudaGetLastError();
 }
 
@@ -369,6 +422,7 @@ namespace tc {
 constexpr int kVarqBN = 64;            // keys per K/V tile
 constexpr int kVarqStages = 2;         // depth of the K/V cp.async ring
 constexpr bool kVarqSplitP = true;     // P as bf16 hi + lo parts, not one bf16
+constexpr bool kVarqSplitPF16 = false;  // the f16 instance: one f16 P
 constexpr int kVarqMaxCluster = 2;     // CTAs per one-tile span walk, at most
 constexpr int kVarqMinShare = 128;     // keys per rank that warrant one more
 
@@ -424,19 +478,22 @@ __device__ __forceinline__ void varq_probs(float (&s)[kVarqBN / 2],
 }
 
 // One cluster of CTAs, each one warpgroup, per (query tile, KV head hk,
-// slot b): grid (tiles * cluster, Hkv, B). See the note at the top.
-template <int D>
+// slot b): grid (tiles * cluster, Hkv, B), every tensor of the 16-bit
+// element type E. See the note at the top.
+template <class E, int D>
 __global__ void __launch_bounds__(128, 1) paged_varq_wgmma(
-    const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
-    const bf16* __restrict__ v_pages, const int* __restrict__ tables,
+    const E* __restrict__ q, const E* __restrict__ k_pages,
+    const E* __restrict__ v_pages, const int* __restrict__ tables,
     const int* __restrict__ meta, const int* __restrict__ kv_lens,
-    const int* __restrict__ q_lens, bf16* __restrict__ out, int Qb, int H,
+    const int* __restrict__ q_lens, E* __restrict__ out, int Qb, int H,
     int Hkv, int page, int pps, int num_pages, int G, float scale) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int n_ranks = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   constexpr int BN = kVarqBN, NT = 128, NS = kVarqStages;
+  constexpr bool SPLIT =
+      std::is_same<E, f16>::value ? kVarqSplitPF16 : kVarqSplitP;
   constexpr uint32_t Q_BYTES = 64 * D * 2, KV_BYTES = BN * D * 2;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = smem_addr(smem_raw);
@@ -456,7 +513,7 @@ __global__ void __launch_bounds__(128, 1) paged_varq_wgmma(
   const long long kv_stride = (long long)Hkv * D;  // between pool rows
   // span row 0 of slot b at the KV head's first query head
   const long long qo = (long long)b * Qb * q_stride + (long long)hk * Gq * D;
-  bf16* ob = out + qo;
+  E* ob = out + qo;
 
   if (i0 >= ql || kl <= 0) {
     // padding span rows only: zeros (written by rank 0)
@@ -464,7 +521,7 @@ __global__ void __launch_bounds__(128, 1) paged_varq_wgmma(
       for (int e = tid; e < nrows * D; e += NT) {
         const int r = e / D, i = i0 + r / Gq;
         if (i < Qb)
-          ob[i * q_stride + (r % Gq) * D + e % D] = __float2bfloat16(0.f);
+          ob[i * q_stride + (r % Gq) * D + e % D] = from_f<E>(0.f);
       }
     return;
   }
@@ -544,7 +601,7 @@ __global__ void __launch_bounds__(128, 1) paged_varq_wgmma(
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float s[BN / 2], alpha[2];
-  uint32_t pf[BN / 16][4], pl[BN / 16][4];  // P's bf16 hi and lo parts
+  uint32_t pf[BN / 16][4], pl[BN / 16][4];  // P's hi and lo parts (E)
 
   // groups: {Q, K 0, V 0}, {K 1, V 1}, .. up to tile NS - 2, then one
   // {K, V} per tile, NS - 1 tiles ahead; the next tile's gathers are
@@ -573,8 +630,8 @@ __global__ void __launch_bounds__(128, 1) paged_varq_wgmma(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(s, kmajor_desc<64>(sQ, 0, kk), kmajor_desc<BN>(sK + st, 0, kk),
-               kk);
+      wgmma_ss<E>(s, kmajor_desc<64>(sQ, 0, kk),
+                  kmajor_desc<BN>(sK + st, 0, kk), kk);
     wgmma_commit();
     load_kv(it + NS - 1);
     cp_async_commit();
@@ -587,8 +644,8 @@ __global__ void __launch_bounds__(128, 1) paged_varq_wgmma(
     else
       varq_probs<true>(s, m, l, alpha, qpos, k0 + kc, k_end, scale);
 
-    // O = alpha O, then P as bf16 A fragments (the accumulator layout is
-    // the A layout): hi = bf16(P) and, with kVarqSplitP, lo = bf16(P - hi)
+    // O = alpha O, then P as A fragments of E (the accumulator layout is
+    // the A layout): hi = E(P) and, with SPLIT, lo = E(P - hi)
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 #pragma unroll
@@ -596,12 +653,10 @@ __global__ void __launch_bounds__(128, 1) paged_varq_wgmma(
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float a = s[8 * kk + 2 * i], c = s[8 * kk + 2 * i + 1];
-        __nv_bfloat162 h = __floats2bfloat162_rn(a, c);
-        pf[kk][i] = *reinterpret_cast<uint32_t*>(&h);
-        if constexpr (kVarqSplitP) {
-          const float2 hf = __bfloat1622float2(h);
-          __nv_bfloat162 lo = __floats2bfloat162_rn(a - hf.x, c - hf.y);
-          pl[kk][i] = *reinterpret_cast<uint32_t*>(&lo);
+        pf[kk][i] = pack2<E>(a, c);
+        if constexpr (SPLIT) {
+          const float2 hf = unpack2<E>(pf[kk][i]);
+          pl[kk][i] = pack2<E>(a - hf.x, c - hf.y);
         }
       }
 
@@ -611,14 +666,14 @@ __global__ void __launch_bounds__(128, 1) paged_varq_wgmma(
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
       const uint64_t vd = mnmajor_desc<BN>(sV + st, kk);
-      wgmma_rs_tb(acc, pf[kk], vd);
-      if constexpr (kVarqSplitP) wgmma_rs_tb(acc, pl[kk], vd);
+      wgmma_rs_tb<E>(acc, pf[kk], vd);
+      if constexpr (SPLIT) wgmma_rs_tb<E>(acc, pl[kk], vd);
     }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
     fence_regs(pf);
-    if constexpr (kVarqSplitP) fence_regs(pl);
+    if constexpr (SPLIT) fence_regs(pl);
   }
 
 #pragma unroll
@@ -633,13 +688,13 @@ __global__ void __launch_bounds__(128, 1) paged_varq_wgmma(
       if (r >= nrows || si >= Qb) continue;
       const bool real = si < ql;
       const float safe = l[rr] == 0.f ? 1.f : l[rr];
-      bf16* orow = ob + si * q_stride + (long long)(r % Gq) * D + kc;
+      E* orow = ob + si * q_stride + (long long)(r % Gq) * D + kc;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         const int i = 4 * j + 2 * rr;
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
-            real ? __floats2bfloat162_rn(acc[i] / safe, acc[i + 1] / safe)
-                 : __floats2bfloat162_rn(0.f, 0.f);
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+            real ? pack2<E>(acc[i] / safe, acc[i + 1] / safe)
+                 : pack2<E>(0.f, 0.f);
       }
     }
     return;
@@ -683,12 +738,12 @@ __global__ void __launch_bounds__(128, 1) paged_varq_wgmma(
       }
       o /= l_all == 0.f ? 1.f : l_all;
     }
-    ob[si * q_stride + (long long)(r % Gq) * D + e % D] = __float2bfloat16(o);
+    ob[si * q_stride + (long long)(r % Gq) * D + e % D] = from_f<E>(o);
   }
   cluster.sync();
 }
 
-template <int D>
+template <class E, int D>
 int launch_wgmma(const void* q, const void* k_pages, const void* v_pages,
                  const int* tables, const int* meta, const int* kv_lens,
                  const int* q_lens, void* out, int B, int Qb, int H, int Hkv,
@@ -697,7 +752,7 @@ int launch_wgmma(const void* q, const void* k_pages, const void* v_pages,
   constexpr int smem = 1024 + 64 * D * 2 + kVarqStages * 2 * kVarqBN * D * 2;
   static_assert(64 * D * 4 + 2 * 64 * 4 <= kVarqStages * 2 * kVarqBN * D * 2,
                 "the combine's staging must fit the rings");
-  auto kern = paged_varq_wgmma<D>;
+  auto kern = paged_varq_wgmma<E, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -723,9 +778,9 @@ int launch_wgmma(const void* q, const void* k_pages, const void* v_pages,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(
-      &cfg, kern, static_cast<const bf16*>(q),
-      static_cast<const bf16*>(k_pages), static_cast<const bf16*>(v_pages),
-      tables, meta, kv_lens, q_lens, static_cast<bf16*>(out), Qb, H, Hkv,
+      &cfg, kern, static_cast<const E*>(q),
+      static_cast<const E*>(k_pages), static_cast<const E*>(v_pages),
+      tables, meta, kv_lens, q_lens, static_cast<E*>(out), Qb, H, Hkv,
       page, pps, num_pages, G, scale);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -735,46 +790,49 @@ int launch_wgmma(const void* q, const void* k_pages, const void* v_pages,
 
 namespace {
 
-// the bf16 kernel copies 16 bytes at a time and stores bf16 pairs
+// the 16-bit kernels copy 16 bytes at a time and store element pairs
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Layouts (contiguous): q/out
-// [B, Qb, H, D], k_pages/v_pages [num_pages, page, Hkv, D] (16-byte
-// aligned), kv_lens/q_lens int32 [B], and exactly one page source:
-// tables int32 [B, pps] (meta null) or meta int32 [6, G] (tables null).
-// H / Hkv <= 64. Returns cudaGetLastError().
-extern "C" int paged_varq(int dtype, int head_dim, const void* q,
-                          const void* k_pages, const void* v_pages,
-                          const int* tables, const int* meta,
-                          const int* kv_lens, const int* q_lens, void* out,
-                          int B, int Qb, int H, int Hkv, int page, int pps,
-                          int num_pages, int G, float scale,
-                          cudaStream_t stream) {
+// dtype: q's and the output's element type, kv_dtype: the pages' (0 =
+// float32, 1 = bfloat16, 2 = float16). One 16-bit dtype runs the wgmma
+// kernel; float32, or q and pages of different dtypes, the FMA kernel.
+// Layouts (contiguous): q/out [B, Qb, H, D], k_pages/v_pages [num_pages,
+// page, Hkv, D] (16-byte aligned), kv_lens/q_lens int32 [B], and exactly
+// one page source: tables int32 [B, pps] (meta null) or meta int32 [6, G]
+// (tables null). H / Hkv <= 64. Returns cudaGetLastError().
+extern "C" int paged_varq(int dtype, int kv_dtype, int head_dim,
+                          const void* q, const void* k_pages,
+                          const void* v_pages, const int* tables,
+                          const int* meta, const int* kv_lens,
+                          const int* q_lens, void* out, int B, int Qb, int H,
+                          int Hkv, int page, int pps, int num_pages, int G,
+                          float scale, cudaStream_t stream) {
   if (B <= 0 || Qb <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 ||
       H / Hkv > kBQ || page <= 0 || num_pages <= 0 ||
       (tables == nullptr) == (meta == nullptr) ||
-      (tables != nullptr && pps <= 0) || (meta != nullptr && G <= 0))
+      (tables != nullptr && pps <= 0) || (meta != nullptr && G <= 0) ||
+      (head_dim != 64 && head_dim != 128))
     return (int)cudaErrorInvalidValue;
-#define VARQ_CASE(T, D)                                                      \
-  return launch<T, D>(q, k_pages, v_pages, tables, meta, kv_lens, q_lens,   \
-                      out, B, Qb, H, Hkv, page, pps, num_pages, G, scale,   \
-                      stream)
-  if (dtype == 0 && head_dim == 64) VARQ_CASE(float, 64);
-  if (dtype == 0 && head_dim == 128) VARQ_CASE(float, 128);
-#undef VARQ_CASE
-  if (dtype == 1 && (head_dim == 64 || head_dim == 128)) {
-    if (!aligned16(q) || !aligned16(k_pages) || !aligned16(v_pages) ||
-        !aligned16(out))
-      return (int)cudaErrorMisalignedAddress;
-#define VARQ_WGMMA(D)                                                       \
-  return tc::launch_wgmma<D>(q, k_pages, v_pages, tables, meta, kv_lens,   \
-                             q_lens, out, B, Qb, H, Hkv, page, pps,        \
-                             num_pages, G, scale, stream)
-    if (head_dim == 64) VARQ_WGMMA(64);
-    VARQ_WGMMA(128);
-#undef VARQ_WGMMA
-  }
-  return (int)cudaErrorInvalidValue;
+  return tc::with_dtype(dtype, [&](auto tq) {
+    return tc::with_dtype(kv_dtype, [&](auto tkv) {
+      using TQ = typename decltype(tq)::type;
+      using TKV = typename decltype(tkv)::type;
+      if constexpr (std::is_same<TQ, TKV>::value &&
+                    !std::is_same<TQ, float>::value) {
+        if (!aligned16(q) || !aligned16(k_pages) || !aligned16(v_pages) ||
+            !aligned16(out))
+          return (int)cudaErrorMisalignedAddress;
+        auto run = head_dim == 64 ? tc::launch_wgmma<TQ, 64>
+                                  : tc::launch_wgmma<TQ, 128>;
+        return run(q, k_pages, v_pages, tables, meta, kv_lens, q_lens, out, B,
+                   Qb, H, Hkv, page, pps, num_pages, G, scale, stream);
+      } else {
+        auto run = head_dim == 64 ? launch<TQ, TKV, 64> : launch<TQ, TKV, 128>;
+        return run(q, k_pages, v_pages, tables, meta, kv_lens, q_lens, out, B,
+                   Qb, H, Hkv, page, pps, num_pages, G, scale, stream);
+      }
+    });
+  });
 }

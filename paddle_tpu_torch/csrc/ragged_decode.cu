@@ -37,6 +37,13 @@
 // (0.0443 ms against the split walk's 0.0210 on paged_decode's inputs,
 // H100 80GB HBM3, 700 W).
 //
+// f16 (dtype 2): the same split walk with f16 pages and queries.
+//
+// q and pages of different dtypes (q in the model's dtype, pages in the
+// KV pool's `kv_dtype`): the two passes below with q read as TQ and pages
+// as TKV, converted to f32 on load, P kept in f32 (as the plain version
+// keeps it) and the output in TQ; they take the f32 workspace.
+//
 // f32 (dtype 0): flash-decoding over the work list in two passes:
 //   1. one block per (entry g, KV head): the page's keys against the
 //      KV head's whole query-head group, the partial max m, sum l and
@@ -61,11 +68,11 @@ size_t partial_smem_floats(int Gq, int page) {
          + (size_t)Gq * page;      // scores / probabilities
 }
 
-// pass 1: one block per (entry g, KV head hk)
-template <typename T, int D>
+// pass 1: one block per (entry g, KV head hk); q of TQ, pages of TKV
+template <typename TQ, typename TKV, int D>
 __global__ void __launch_bounds__(kThreads) ragged_partial_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pages,
-    const T* __restrict__ v_pages, const int* __restrict__ meta,
+    const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
+    const TKV* __restrict__ v_pages, const int* __restrict__ meta,
     const int* __restrict__ lens, float* __restrict__ ws, int B, int H,
     int Hkv, int page, int num_pages, int G, float scale) {
   const int g = blockIdx.x, hk = blockIdx.y;
@@ -87,12 +94,12 @@ __global__ void __launch_bounds__(kThreads) ragged_partial_kernel(
   const int pid = min(max(page_a[g], 0), num_pages - 1);
   const int ctx = lens[b];
   const int tok0 = ord_a[g] * page;
-  const T* qb = q + ((long long)b * H + (long long)hk * Gq) * D;
+  const TQ* qb = q + ((long long)b * H + (long long)hk * Gq) * D;
   const long long row_stride = (long long)Hkv * D;  // between tokens
   const long long base = (long long)pid * page * row_stride + (long long)hk * D;
 
   for (int i = tid; i < Gq * D; i += kThreads) qs[i] = to_f(qb[i]);
-  constexpr int VN = VecIO<T>::N;    // elements per 16-byte vector
+  constexpr int VN = VecIO<TKV>::N;  // elements per 16-byte vector
   constexpr int VPR = D / VN;         // vectors per token row
   for (int i = tid; i < page * VPR; i += kThreads) {
     const int t = i / VPR, c = (i % VPR) * VN;
@@ -100,8 +107,8 @@ __global__ void __launch_bounds__(kThreads) ragged_partial_kernel(
     const uint4 ku = *reinterpret_cast<const uint4*>(k_pages + off);
     const uint4 vu = *reinterpret_cast<const uint4*>(v_pages + off);
     float kf[VN], vf[VN];
-    VecIO<T>::unpack(ku, kf);
-    VecIO<T>::unpack(vu, vf);
+    VecIO<TKV>::unpack(ku, kf);
+    VecIO<TKV>::unpack(vu, vf);
 #pragma unroll
     for (int e = 0; e < VN; ++e) {
       ks[t * (D + 1) + c + e] = kf[e];
@@ -201,56 +208,63 @@ __global__ void __launch_bounds__(kThreads) ragged_combine_kernel(
   }
 }
 
-template <typename T, int D>
+template <typename TQ, typename TKV, int D>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const int* meta, const int* lens, void* out, float* ws, int B,
            int H, int Hkv, int page, int num_pages, int G, float scale,
            cudaStream_t stream) {
   const size_t smem = partial_smem_floats<D>(H / Hkv, page) * sizeof(float);
-  auto partial = ragged_partial_kernel<T, D>;
+  auto partial = ragged_partial_kernel<TQ, TKV, D>;
   cudaError_t err = cudaFuncSetAttribute(
       partial, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   partial<<<dim3(G, Hkv), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), meta, lens, ws, B, H, Hkv, page,
+      static_cast<const TQ*>(q), static_cast<const TKV*>(k_pages),
+      static_cast<const TKV*>(v_pages), meta, lens, ws, B, H, Hkv, page,
       num_pages, G, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  ragged_combine_kernel<T, D><<<dim3(H, B), kThreads, 0, stream>>>(
-      meta, lens, ws, static_cast<T*>(out), H, G);
+  ragged_combine_kernel<TQ, D><<<dim3(H, B), kThreads, 0, stream>>>(
+      meta, lens, ws, static_cast<TQ*>(out), H, G);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Layouts (contiguous): q/out
-// [B, H, D], k_pages/v_pages [num_pages, page, Hkv, D] (16-byte
+// dtype: q's and the output's element type, kv_dtype: the pages' (0 =
+// float32, 1 = bfloat16, 2 = float16). One 16-bit dtype runs the
+// cluster-split walk (ws may be null); float32, or q and pages of
+// different dtypes, the two passes, which need ws. Layouts (contiguous):
+// q/out [B, H, D], k_pages/v_pages [num_pages, page, Hkv, D] (16-byte
 // aligned), meta int32 [6, G], lens int32 [B] (post-write context
-// lengths), ws f32 [G * H * (D + 2)] scratch for float32 (bfloat16 takes
-// none: ws may be null). Returns cudaGetLastError().
-extern "C" int ragged_decode(int dtype, int head_dim, const void* q,
-                             const void* k_pages, const void* v_pages,
-                             const int* meta, const int* lens, void* out,
-                             float* ws, int B, int H, int Hkv, int page,
-                             int num_pages, int G, float scale,
-                             cudaStream_t stream) {
+// lengths), ws f32 [G * H * (D + 2)] scratch. Returns cudaGetLastError().
+extern "C" int ragged_decode(int dtype, int kv_dtype, int head_dim,
+                             const void* q, const void* k_pages,
+                             const void* v_pages, const int* meta,
+                             const int* lens, void* out, float* ws, int B,
+                             int H, int Hkv, int page, int num_pages, int G,
+                             float scale, cudaStream_t stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || page <= 0 ||
-      num_pages <= 0 || G <= 0 || (dtype == 0 && ws == nullptr))
+      num_pages <= 0 || G <= 0 || (head_dim != 64 && head_dim != 128))
     return (int)cudaErrorInvalidValue;
-#define RAGGED_CASE(T, D)                                                 \
-  return launch<T, D>(q, k_pages, v_pages, meta, lens, out, ws, B, H, Hkv, \
-                      page, num_pages, G, scale, stream)
-  if (dtype == 0 && head_dim == 64) RAGGED_CASE(float, 64);
-  if (dtype == 0 && head_dim == 128) RAGGED_CASE(float, 128);
-#undef RAGGED_CASE
-#define RAGGED_SPLIT(D)                                                   \
-  return dec::launch_split<D>(                                            \
-      q, k_pages, v_pages,                                                \
-      dec::MetaPages{meta, G, page, num_pages, 0, 0, 0, 0}, lens, out, B,  \
-      H, Hkv, dec::split_ranks((long long)G * page), scale, stream)
-  if (dtype == 1 && head_dim == 64) RAGGED_SPLIT(64);
-  if (dtype == 1 && head_dim == 128) RAGGED_SPLIT(128);
-#undef RAGGED_SPLIT
-  return (int)cudaErrorInvalidValue;
+  return tc::with_dtype(dtype, [&](auto tq) {
+    return tc::with_dtype(kv_dtype, [&](auto tkv) {
+      using TQ = typename decltype(tq)::type;
+      using TKV = typename decltype(tkv)::type;
+      if constexpr (std::is_same<TQ, TKV>::value &&
+                    !std::is_same<TQ, float>::value) {
+        auto run = head_dim == 64 ? dec::launch_split<TQ, 64, dec::MetaPages>
+                                  : dec::launch_split<TQ, 128, dec::MetaPages>;
+        return run(q, k_pages, v_pages,
+                   dec::MetaPages{meta, G, page, num_pages, 0, 0, 0, 0}, lens,
+                   out, B, H, Hkv, dec::split_ranks((long long)G * page),
+                   scale, stream);
+      } else {
+        if (ws == nullptr) return (int)cudaErrorInvalidValue;
+        auto run = head_dim == 64 ? launch<TQ, TKV, 64> : launch<TQ, TKV, 128>;
+        return run(q, k_pages, v_pages, meta, lens, out, ws, B, H, Hkv, page,
+                   num_pages, G, scale, stream);
+      }
+    });
+  });
 }

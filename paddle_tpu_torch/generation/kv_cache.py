@@ -64,6 +64,20 @@ def static_cache_update(entry: StaticCacheEntry, k, v):
     return entry.k, entry.v, entry
 
 
+_KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "float16": torch.float16}
+
+
+def kv_dtype_name(dtype) -> str:
+    """The pool dtype's name ("float32", "bfloat16" or "float16") from
+    a name or a torch dtype; raises on another."""
+    name = str(dtype).rsplit(".", 1)[-1]
+    if name not in _KV_DTYPES:
+        raise ValueError(f"KV pages take one of {sorted(_KV_DTYPES)}, got "
+                         f"{dtype!r}")
+    return name
+
+
 class PagedKVPool:
     """Host-side page allocator over device-resident paged K/V tensors
     (one [num_pages, page_size, n_kv_heads, head_dim] tensor per layer
@@ -75,19 +89,25 @@ class PagedKVPool:
     ``copy_into`` is the write half of copy-on-write. An optional
     ``reclaimer`` (the PrefixCache) drops cached-but-unused pages when
     ``alloc`` runs short; ``free_count`` counts them as available.
+
+    ``dtype`` is the pages' dtype, a name as the reference takes it
+    ("float32", "bfloat16", "float16") or a torch dtype; ``.dtype`` keeps
+    the name. Every write into the pages casts to it.
     """
 
     def __init__(self, n_layers, num_pages, page_size, n_kv_heads,
-                 head_dim, dtype=torch.float32, device="cpu"):
+                 head_dim, dtype="float32", device="cpu"):
         self.page_size = int(page_size)
         self.num_pages = int(num_pages)
         self.n_kv_heads = int(n_kv_heads)
         self.head_dim = int(head_dim)
+        self.dtype = kv_dtype_name(dtype)
         shape = (self.num_pages, self.page_size, self.n_kv_heads,
                  self.head_dim)
-        self.k = [torch.zeros(shape, dtype=dtype, device=device)
+        tdt = _KV_DTYPES[self.dtype]
+        self.k = [torch.zeros(shape, dtype=tdt, device=device)
                   for _ in range(n_layers)]
-        self.v = [torch.zeros(shape, dtype=dtype, device=device)
+        self.v = [torch.zeros(shape, dtype=tdt, device=device)
                   for _ in range(n_layers)]
         self._free = list(range(self.num_pages))
         self._refs = {}
@@ -134,6 +154,14 @@ class PagedKVPool:
             k[dst].copy_(k[src])
         for v in self.v:
             v[dst].copy_(v[src])
+
+    def write(self, layer, page, off, k, v):
+        """Write K/V rows into layer ``layer``'s pages at (``page``,
+        ``off``), cast to the pool's dtype (indexed assignment refuses a
+        source of another dtype)."""
+        kp, vp = self.k[layer], self.v[layer]
+        kp[page, off] = k.to(kp.dtype)
+        vp[page, off] = v.to(vp.dtype)
 
 
 def prefix_page_keys(prompt, page_size):
@@ -429,8 +457,8 @@ def paged_cache_update_attend(entry: PagedCacheEntry, q, k, v, scale=None):
     if entry.q_lens is not None:
         return paged_cache_mixed_update_attend(entry, q, k, v, scale)
     kp, vp, bt, _, step, meta, _ = entry
-    kp[step.write_page, step.write_off] = k[:, 0]
-    vp[step.write_page, step.write_off] = v[:, 0]
+    kp[step.write_page, step.write_off] = k[:, 0].to(kp.dtype)
+    vp[step.write_page, step.write_off] = v[:, 0].to(vp.dtype)
     if meta is not None:
         out = paged_attention_ragged(q[:, 0], kp, vp, step.attend_lens,
                                      meta, scale)
@@ -452,8 +480,8 @@ def paged_cache_mixed_update_attend(entry: PagedCacheEntry, q, k, v,
     page when the index is padded, and read back zeros."""
     kp, vp, bt, _, step, meta, ql = entry
     src_b, src_i, page, off = step.rows
-    kp[page, off] = k[src_b, src_i]
-    vp[page, off] = v[src_b, src_i]
+    kp[page, off] = k[src_b, src_i].to(kp.dtype)
+    vp[page, off] = v[src_b, src_i].to(vp.dtype)
     if meta is not None:
         out = paged_attention_ragged_varq(q, kp, vp, step.kv_lens, ql, meta,
                                           scale)

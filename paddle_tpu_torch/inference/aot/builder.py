@@ -36,7 +36,8 @@ import numpy as np
 
 from ...kernels import _build
 from .bundle import EngineBundle, model_fingerprint
-from .engine import InferenceEngine, _serve_topology, wire_kernel_cache
+from .engine import (InferenceEngine, _named_kv_dtype, _serve_topology,
+                     wire_kernel_cache)
 
 __all__ = ["EngineBuilder", "build_engine"]
 
@@ -62,7 +63,7 @@ class EngineBuilder:
         if prompt_buckets is None:
             prompt_buckets = self._rc.prompt_buckets or (8, 16)
         self.prompt_buckets = sorted(set(int(b) for b in prompt_buckets))
-        self.cb_kwargs = dict(cb_kwargs)
+        self.cb_kwargs = _named_kv_dtype(cb_kwargs)
         self.max_new_tokens = int(max_new_tokens)
         self.capture_forward = bool(capture_forward)
         bmax = int(self.cb_kwargs.get("max_batch_size",

@@ -184,14 +184,15 @@ class _GraphProgram:
     """One step captured into a CUDA graph over static input buffers.
 
     ``launches`` is the change of ``kernels.launch_counts`` over the
-    capture; the capture launched nothing, so the counters are put back
-    and every replay adds it."""
+    capture and ``dtype_launches`` that of the per-instance counts
+    (``_build.dtype_launch_counts``); the capture launched nothing, so
+    the counters are put back and every replay adds both."""
 
     def __init__(self, fn, args, pool, stream):
         self._structure = _structure(args)
         self._inputs = [t.clone() for t in _leaves(args, [])]
         static_args = _rebuild(args, iter(self._inputs))
-        before = dict(_build.launch_counts)
+        before = _build.snapshot_launch_counts()
         self.graph = torch.cuda.CUDAGraph()
         # no cyclic garbage collection while capturing: a collected graph
         # (an engine and its predictor form a cycle) frees its pool, and a
@@ -204,8 +205,9 @@ class _GraphProgram:
         finally:
             if gc_was:
                 gc.enable()
-            self.launches = _build.launch_counts_since(before)
-            _build.launch_counts.update(before)
+            self.launches, self.dtype_launches = \
+                _build.launch_counts_since(before)
+            _build.restore_launch_counts(before)
         self._out = out
         self._outputs = _leaves(out, [])
 
@@ -218,7 +220,7 @@ class _GraphProgram:
         for dst, src in zip(self._inputs, leaves):
             dst.copy_(src, non_blocking=True)
         self.graph.replay()
-        _build.add_launch_counts(self.launches)
+        _build.add_launch_counts((self.launches, self.dtype_launches))
         return _rebuild(self._out, (t.clone() for t in self._outputs))
 
 
@@ -390,6 +392,17 @@ def load_engine(path: str, model=None, write_back: bool = True,
     return InferenceEngine(bundle, write_back=write_back)
 
 
+def _named_kv_dtype(cb_kwargs: Dict) -> Dict:
+    """``cb_kwargs`` with a ``kv_dtype`` given as a torch dtype named as
+    the manifest records it ("bfloat16"), so that it is written and
+    compared as the reference's string."""
+    from ...generation.kv_cache import kv_dtype_name
+    out = dict(cb_kwargs)
+    if out.get("kv_dtype") is not None:
+        out["kv_dtype"] = kv_dtype_name(out["kv_dtype"])
+    return out
+
+
 def warm_start(model, path: Optional[str] = None, strict: bool = False,
                wire_cache: bool = True, runtime_config=None,
                **cb_kwargs):
@@ -415,6 +428,7 @@ def warm_start(model, path: Optional[str] = None, strict: bool = False,
     Returns ``(predictor, engine)``."""
     from ..predictor import ContinuousBatchingPredictor
     from ...framework.runtime_config import RuntimeConfig, COMPILED_FIELDS
+    cb_kwargs = _named_kv_dtype(cb_kwargs)
     path = path or default_engine_dir()
     if not path:
         raise ValueError("warm_start needs an engine path (argument or "

@@ -81,7 +81,7 @@ from ..generation import sampling
 from ..generation.sampling import SamplingParams
 from ..generation.kv_cache import (PagedCacheEntry, PagedKVCache,
                                    PagedKVPool, PrefixCache, SpanIndex,
-                                   decode_index, span_index)
+                                   decode_index, kv_dtype_name, span_index)
 from ..kernels import NEG_INF
 from ..kernels.paged_attention import RaggedMetaBuilder
 from ..serving.scheduler import (FifoQueue, WeightedFairScheduler,
@@ -118,6 +118,13 @@ class ContinuousBatchingPredictor:
     ``device`` defaults to CUDA and must be where the model lives;
     ``device="cpu"`` runs the plain PyTorch path.
 
+    ``kv_dtype``: the KV pages' dtype ("float32", "bfloat16", "float16"
+    or a torch dtype), by default the weights' dtype. Pages of another
+    dtype than the model's are written cast to it and read by the kernels
+    as they are (queries in the model's dtype); a prefix-cache suffix
+    prefill concatenates the cached pages with the suffix's K/V, promoted
+    as the reference's concat promotes.
+
     ``use_ragged``: decode over the ragged (slot, page) work list;
     "auto" turns it on on CUDA and off on the CPU (the reference's rule
     without its TPU tiling terms). ``prefill_chunk_tokens``: prompts
@@ -145,7 +152,7 @@ class ContinuousBatchingPredictor:
 
     def __init__(self, model, max_batch_size=None, page_size=None,
                  num_pages=None, max_seq_len=None, pad_token_id=0,
-                 eos_token_id=None, use_ragged="auto",
+                 eos_token_id=None, kv_dtype=None, use_ragged="auto",
                  enable_prefix_cache=True, prefill_chunk_tokens=None,
                  runtime_config=None, spec_draft_tokens=None,
                  spec_ngram_max=None, sampling_enabled=None, device=None,
@@ -197,10 +204,14 @@ class ContinuousBatchingPredictor:
         self.pad_token_id = pad_token_id
         self.eos_token_id = eos_token_id
         head_dim = cfg.hidden_size // cfg.num_attention_heads
+        if kv_dtype is None:
+            # pages in the weights' dtype (a 16-bit model does not pay
+            # f32 page bandwidth), as the reference
+            kv_dtype = next(model.parameters()).dtype
+        self.kv_dtype = kv_dtype_name(kv_dtype)
         self.pool = PagedKVPool(cfg.num_hidden_layers, num_pages + 1,
                                 page_size, cfg.num_key_value_heads,
-                                head_dim,
-                                dtype=next(model.parameters()).dtype,
+                                head_dim, dtype=self.kv_dtype,
                                 device=self.device)
         # inactive slots point their block table at a trash page: the
         # decode step writes one K/V row for EVERY slot
@@ -447,8 +458,7 @@ class ContinuousBatchingPredictor:
                                self._trash)
         dst_off = torch.where(key_valid, tokpos % self.page, 0)
         for li, (ka, va) in enumerate(caches):
-            self.pool.k[li][dst_page, dst_off] = ka
-            self.pool.v[li][dst_page, dst_off] = va
+            self.pool.write(li, dst_page, dst_off, ka, va)
         return nexts
 
     @torch.no_grad()
@@ -487,9 +497,8 @@ class ContinuousBatchingPredictor:
         dst_page = torch.where(key_valid, page_rows[pidx], self._trash)[None]
         dst_off = torch.where(key_valid, apos % page, 0)[None]
         for li, (ck, cv) in enumerate(caches):
-            kp, vp = self.pool.k[li], self.pool.v[li]
-            kp[dst_page, dst_off] = ck[:, past_len:]
-            vp[dst_page, dst_off] = cv[:, past_len:]
+            self.pool.write(li, dst_page, dst_off, ck[:, past_len:],
+                            cv[:, past_len:])
         return nexts
 
     def _done(self, tok):

@@ -18,14 +18,17 @@ returns ``cudaGetLastError()`` and :func:`check` raises when that is
 not 0.
 
 Also here: the shared ``NEG_INF`` constant and the per-kernel launch
-counters that show a run really went through the kernels. A captured
-CUDA graph runs no Python when it is replayed, so the AOT engine records
-the counters' change over each capture (``launch_counts_since``), puts
-them back (a capture launches nothing) and adds that change at every
-replay (``add_launch_counts``).
+counters that show a run really went through the kernels, with beside
+them the launches per (kernel, q dtype, KV dtype) instance
+(``dtype_launch_counts``: which instance a run went through). A
+captured CUDA graph runs no Python when it is replayed, so the AOT
+engine records the counters' change over each capture
+(``launch_counts_since``), puts them back (a capture launches nothing)
+and adds that change at every replay (``add_launch_counts``).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -56,25 +59,59 @@ launch_counts = {"rms_norm": 0, "layer_norm": 0, "flash_fwd": 0,
                  "uniform64_rows": 0}
 
 
-def count_launch(name: str) -> None:
+# launches per (kernel, q dtype, KV dtype), the dtypes' names as
+# "bfloat16"; a kernel with one operand dtype counts it twice
+dtype_launch_counts = collections.Counter()
+
+
+def _dtype_name(dt) -> str:
+    return str(dt).rsplit(".", 1)[-1]
+
+
+def count_launch(name: str, dtype=None, kv_dtype=None) -> None:
+    """One launch of kernel ``name``; with ``dtype`` (q's torch dtype)
+    also one of its (``dtype``, ``kv_dtype`` or ``dtype``) instance."""
     launch_counts[name] += 1
+    if dtype is not None:
+        kv = dtype if kv_dtype is None else kv_dtype
+        dtype_launch_counts[(name, _dtype_name(dtype), _dtype_name(kv))] += 1
 
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+    dtype_launch_counts.clear()
 
 
-def launch_counts_since(before: dict) -> dict:
-    """The launches counted since ``before`` (a copy of
-    ``launch_counts``), by kernel; zeros left out."""
-    return {k: n - before[k] for k, n in launch_counts.items()
-            if n != before[k]}
+def snapshot_launch_counts() -> tuple:
+    """Copies of both counters, for ``launch_counts_since`` and
+    ``restore_launch_counts``."""
+    return dict(launch_counts), dict(dtype_launch_counts)
 
 
-def add_launch_counts(delta: dict) -> None:
-    for k, n in delta.items():
+def launch_counts_since(before: tuple) -> tuple:
+    """The launches counted since ``before`` (a
+    ``snapshot_launch_counts()``): ({kernel: n}, {(kernel, q dtype, KV
+    dtype): n}), zeros left out."""
+    names, dts = before
+    return ({k: n - names[k] for k, n in launch_counts.items()
+             if n != names[k]},
+            {k: n - dts.get(k, 0) for k, n in dtype_launch_counts.items()
+             if n != dts.get(k, 0)})
+
+
+def restore_launch_counts(before: tuple) -> None:
+    launch_counts.update(before[0])
+    dtype_launch_counts.clear()
+    dtype_launch_counts.update(before[1])
+
+
+def add_launch_counts(delta: tuple) -> None:
+    """Add a ``launch_counts_since`` result to both counters."""
+    for k, n in delta[0].items():
         launch_counts[k] += n
+    for k, n in delta[1].items():
+        dtype_launch_counts[k] += n
 
 
 # nvcc runs of this process (a warm start from a bundle runs none)

@@ -34,7 +34,9 @@ from ..framework import random as _random
 from ._build import NEG_INF, check, count_launch, load, stream_ptr
 from ._ops import define_op
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the backward kernels' dtypes (one for q, k, v and dout)
+_BWD_DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _DIMS = [_I, _I, _I, _I, _I,                # B, Sq, Sk, H, Hkv
@@ -43,7 +45,8 @@ _DIMS = [_I, _I, _I, _I, _I,                # B, Sq, Sk, H, Hkv
          _I, _I, ctypes.c_uint, ctypes.c_float,  # seed0, seed1, thresh, dscale
          _P]                                # stream
 _SIGNATURES = {"flash_fwd": [
-    _I, _I, _P, _P, _P, _P, _P, _P, _P,     # dtype, head_dim, pointers
+    _I, _I, _I,                             # dtype, kv_dtype, head_dim
+    _P, _P, _P, _P, _P, _P, _P,             # pointers
     *_DIMS]}
 _BWD_SIGNATURES = {
     # dtype, head_dim, q, k, v, dout, lse, delta, mask, kv_lens, dk, dv
@@ -226,9 +229,11 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, scale, causal=False,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check(what, q, k, v, mask, kv_lens):
-    """Validate kernel inputs (see ``flash_attention_kernel``); returns
-    (B, Sq, H, D, Sk, Hkv)."""
+def _check(what, q, k, v, mask, kv_lens, dtypes=tuple(_DTYPE_CODE),
+           mixed=True):
+    """Validate kernel inputs (see ``flash_attention_kernel``): q, k and
+    v of ``dtypes``, k and v of one dtype, q of another only where
+    ``mixed``; returns (B, Sq, H, D, Sk, Hkv)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"{what}: want q [B, Sq, H, D], k = v [B, Sk, "
                          f"Hkv, D]; got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -241,10 +246,12 @@ def _check(what, q, k, v, mask, kv_lens):
                          "H not a multiple of Hkv)")
     if d not in _HEAD_DIMS:
         raise ValueError(f"{what}: head_dim {d} not in {_HEAD_DIMS}")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
+    if q.dtype not in dtypes or k.dtype not in dtypes \
+            or v.dtype != k.dtype or (not mixed and k.dtype != q.dtype):
+        names = ", ".join(str(d).rsplit(".", 1)[-1] for d in dtypes)
         raise TypeError(f"{what}: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
-                        "the kernel takes one of float32, bfloat16")
+                        f"the kernel takes q of one of {names} and k, v of "
+                        + ("one of them" if mixed else "q's"))
     tensors = [q, k, v]
     if mask is not None:
         if mask.dtype != torch.float32 or mask.dim() != 4:
@@ -283,29 +290,34 @@ def _mask_args(mask, sk):
 def flash_attention_kernel(q, k, v, scale, causal=False, mask=None,
                            kv_lens=None, dropout_p=0.0, seeds=None):
     """Launch ``csrc/flash_fwd.cu`` on CUDA tensors. q [B, Sq, H, D], k/v
-    [B, Sk, Hkv, D] (contiguous, one dtype of float32/bfloat16, D 64 or
-    128, H % Hkv == 0); mask additive f32 [Bm, Hm, Sq|1, Sk|1] or None;
-    kv_lens int32 [B] or None; ``dropout_p`` in [0, 1) with ``seeds``
-    (two int32) when it is not 0. Returns (out [B, Sq, H, D], lse
-    [B, H, Sq] f32)."""
+    [B, Sk, Hkv, D] (contiguous, each of float32/bfloat16/float16, k and
+    v of one dtype, q of that dtype or, without dropout, of another; D 64
+    or 128, H % Hkv == 0); mask additive f32 [Bm, Hm, Sq|1, Sk|1] or
+    None; kv_lens int32 [B] or None; ``dropout_p`` in [0, 1) with
+    ``seeds`` (two int32) when it is not 0. Returns (out [B, Sq, H, D] in
+    q's dtype, lse [B, H, Sq] f32)."""
     b, sq, h, d, sk, hkv = _check("flash_fwd", q, k, v, mask, kv_lens)
+    if dropout_p and k.dtype != q.dtype:
+        raise TypeError("flash_fwd: dropout takes q, k and v of one dtype")
     m_ptr, *strides = _mask_args(mask, sk)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = load("flash_fwd", _SIGNATURES)
     err = lib.flash_fwd(
-        _DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], d, q.data_ptr(),
+        k.data_ptr(), v.data_ptr(),
         m_ptr, kv_lens.data_ptr() if kv_lens is not None else None,
         out.data_ptr(), lse.data_ptr(), b, sq, sk, h, hkv, *strides,
         float(scale), int(bool(causal)), *_dropout_args(dropout_p, seeds),
         stream_ptr(q.device))
     check(err, "flash_fwd")
-    count_launch("flash_fwd")
+    count_launch("flash_fwd", q.dtype, k.dtype)
     return out, lse
 
 
 def _bwd_args(what, q, k, v, dout, lse, delta, mask, kv_lens):
-    b, sq, h, d, sk, hkv = _check(what, q, k, v, mask, kv_lens)
+    b, sq, h, d, sk, hkv = _check(what, q, k, v, mask, kv_lens,
+                                  dtypes=_BWD_DTYPES, mixed=False)
     if dout.shape != q.shape or dout.dtype != q.dtype \
             or dout.device != q.device or not dout.is_contiguous():
         raise ValueError(f"{what}: dout must be a contiguous tensor of q's "
@@ -339,7 +351,7 @@ def flash_bwd_dkdv_kernel(q, k, v, dout, lse, delta, scale, causal=False,
                              *_dropout_args(dropout_p, seeds),
                              stream_ptr(q.device))
     check(err, "flash_bwd_dkdv")
-    count_launch("flash_bwd_dkdv")
+    count_launch("flash_bwd_dkdv", q.dtype)
     return dk, dv
 
 
@@ -355,7 +367,7 @@ def flash_bwd_dq_kernel(q, k, v, dout, lse, delta, scale, causal=False,
                            int(bool(causal)), *_dropout_args(dropout_p, seeds),
                            stream_ptr(q.device))
     check(err, "flash_bwd_dq")
-    count_launch("flash_bwd_dq")
+    count_launch("flash_bwd_dq", q.dtype)
     return dq
 
 

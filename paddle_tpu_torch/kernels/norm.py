@@ -26,12 +26,12 @@ import torch
 from ._build import count_launch
 from ._ops import define_op
 
-_DTYPES = (torch.float32, torch.bfloat16)
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _check_rows(what, x2d, *vecs):
     """Validate kernel inputs: x [N, D] and vectors [D], one CUDA device,
-    contiguous, float32/bfloat16."""
+    contiguous, float32/bfloat16/float16."""
     d = x2d.shape[-1] if x2d.dim() == 2 else None
     if d is None or any(v.shape != (d,) for v in vecs):
         raise ValueError(f"{what}: want x [N, D] and vectors [D], got "
@@ -40,7 +40,7 @@ def _check_rows(what, x2d, *vecs):
     if x2d.dtype not in _DTYPES or any(v.dtype not in _DTYPES for v in vecs):
         raise TypeError(f"{what}: unsupported dtypes {x2d.dtype}, "
                         f"{[v.dtype for v in vecs]} (kernel takes "
-                        "float32/bfloat16)")
+                        "float32/bfloat16/float16)")
     if not all(t.is_contiguous() for t in (x2d, *vecs)):
         raise ValueError(f"{what}: inputs must be contiguous")
     if x2d.device.type != "cuda" or any(v.device != x2d.device
@@ -65,7 +65,7 @@ def rms_norm_kernel(x2d: torch.Tensor, w: torch.Tensor, eps: float):
     y = torch.empty_like(x2d)
     if n:
         launch(x2d, w, y, float(eps))
-        count_launch("rms_norm")
+        count_launch("rms_norm", x2d.dtype)
     return y
 
 
@@ -148,7 +148,7 @@ def layer_norm_kernel(x2d, w, b, eps):
     y = torch.empty_like(x2d)
     if x2d.shape[0]:
         launch(x2d, w, b, y, float(eps))
-        count_launch("layer_norm")
+        count_launch("layer_norm", x2d.dtype)
     return y
 
 

@@ -13,6 +13,12 @@ back to the plain version on a CUDA tensor.
 
 Ragged metadata travels as one int32 ``[6, G]`` tensor whose rows are
 ``RaggedMetaBuilder.FIELDS`` (seq, page, ordinal, first, last, valid).
+
+Each kernel takes q and pages in float32, bfloat16 or float16, the pages
+in the KV pool's dtype and q in the model's, which may differ (the C
+entries take both dtype codes): one 16-bit dtype runs the tensor-core or
+cluster-split instance, f32 or two dtypes the FMA instance. The plain
+versions compute in f32 whatever the dtypes and return q's dtype.
 """
 from __future__ import annotations
 
@@ -24,20 +30,23 @@ import torch
 
 from ._build import NEG_INF, check, count_launch, load, stream_ptr
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (64, 128)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "paged_decode": {"paged_decode": [
-        _I, _I, _P, _P, _P, _P, _P, _P,     # dtype, head_dim, pointers
+        _I, _I, _I,                         # dtype, kv_dtype, head_dim
+        _P, _P, _P, _P, _P, _P,             # pointers
         _I, _I, _I, _I, _I, _I,             # B, H, Hkv, page, pps, pages
         ctypes.c_float, _P]},               # scale, stream
     "ragged_decode": {"ragged_decode": [
-        _I, _I, _P, _P, _P, _P, _P, _P, _P,  # dtype, head_dim, pointers
+        _I, _I, _I,                          # dtype, kv_dtype, head_dim
+        _P, _P, _P, _P, _P, _P, _P,          # pointers
         _I, _I, _I, _I, _I, _I,              # B, H, Hkv, page, pages, G
         ctypes.c_float, _P]},                # scale, stream
     "paged_varq": {"paged_varq": [
-        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,  # dtype, head_dim, pointers
+        _I, _I, _I,                              # dtype, kv_dtype, head_dim
+        _P, _P, _P, _P, _P, _P, _P, _P,          # pointers
         _I, _I, _I, _I, _I, _I, _I, _I,          # B, Qb, H, Hkv, page,
         ctypes.c_float, _P]},                    # pps, pages, G; scale
 }
@@ -323,8 +332,9 @@ def paged_attention_ragged_varq_plain(q, k_pages, v_pages, kv_lens, q_lens,
 
 def _check_paged(name, q, k_pages, v_pages, q_dims, ints):
     """Shared argument checks of the paged kernels: q has ``q_dims``
-    dims ending in [H, D]; pages [P, page, Hkv, D] of q's dtype; ``ints``
-    are int32 tensors; everything contiguous on q's CUDA device."""
+    dims ending in [H, D]; pages [P, page, Hkv, D], K and V of one dtype
+    (q's or another of float32/bfloat16/float16); ``ints`` are int32
+    tensors; everything contiguous on q's CUDA device."""
     if q.dim() != q_dims or k_pages.dim() != 4 \
             or k_pages.shape != v_pages.shape:
         raise ValueError(f"{name}: want q of {q_dims} dims [..., H, D] and "
@@ -337,11 +347,12 @@ def _check_paged(name, q, k_pages, v_pages, q_dims, ints):
                          f"{tuple(k_pages.shape)} disagree")
     if d not in _HEAD_DIMS:
         raise ValueError(f"{name}: head_dim {d} not in {_HEAD_DIMS}")
-    if q.dtype not in _DTYPE_CODE or k_pages.dtype != q.dtype \
-            or v_pages.dtype != q.dtype:
+    if q.dtype not in _DTYPE_CODE or k_pages.dtype not in _DTYPE_CODE \
+            or v_pages.dtype != k_pages.dtype:
         raise TypeError(f"{name}: dtypes {q.dtype}/{k_pages.dtype}/"
-                        f"{v_pages.dtype}; the kernel takes one of float32, "
-                        "bfloat16")
+                        f"{v_pages.dtype}; the kernel takes q and pages "
+                        "each of float32, bfloat16, float16, K and V pages "
+                        "of one dtype")
     for t in ints:
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: index tensors must be int32, got "
@@ -362,8 +373,9 @@ def _check_paged(name, q, k_pages, v_pages, q_dims, ints):
 def paged_attention_kernel(q, k_pages, v_pages, block_tables, context_lens,
                            scale):
     """Launch ``csrc/paged_decode.cu`` on CUDA tensors: q [B, H, D],
-    pages [P, page, Hkv, D] (one dtype of float32/bfloat16, D 64 or 128,
-    H % Hkv == 0), block_tables int32 [B, pps], context_lens int32 [B]."""
+    pages [P, page, Hkv, D] (each of float32/bfloat16/float16, D 64 or
+    128, H % Hkv == 0), block_tables int32 [B, pps], context_lens int32
+    [B]. Returns [B, H, D] in q's dtype."""
     _check_paged("paged_decode", q, k_pages, v_pages, 3,
                  (block_tables, context_lens))
     b, h, d = q.shape
@@ -375,12 +387,13 @@ def paged_attention_kernel(q, k_pages, v_pages, block_tables, context_lens,
     out = torch.empty_like(q)
     lib = load("paged_decode", _SIGNATURES["paged_decode"])
     err = lib.paged_decode(
-        _DTYPE_CODE[q.dtype], d, q.data_ptr(), k_pages.data_ptr(),
-        v_pages.data_ptr(), block_tables.data_ptr(), context_lens.data_ptr(),
+        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype], d, q.data_ptr(),
+        k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
+        context_lens.data_ptr(),
         out.data_ptr(), b, h, hkv, page, block_tables.shape[1], num_pages,
         float(scale), stream_ptr(q.device))
     check(err, "paged_decode")
-    count_launch("paged_decode")
+    count_launch("paged_decode", q.dtype, k_pages.dtype)
     return out
 
 
@@ -388,10 +401,11 @@ def paged_attention_ragged_kernel(q, k_pages, v_pages, context_lens, meta,
                                   scale):
     """Launch ``csrc/ragged_decode.cu`` on CUDA tensors: q [B, H, D],
     pages [P, page, Hkv, D], context_lens int32 [B] (post-write lengths),
-    meta int32 [6, G]. bf16: one launch, each (sequence, KV head) walk
-    split over a thread-block cluster. f32: two passes, a per-entry
-    partial softmax into an f32 workspace [G, H, D + 2], then one combine
-    per (sequence, head)."""
+    meta int32 [6, G]. q and pages of one 16-bit dtype: one launch, each
+    (sequence, KV head) walk split over a thread-block cluster. f32, or q
+    and pages of different dtypes: two passes, a per-entry partial
+    softmax into an f32 workspace [G, H, D + 2], then one combine per
+    (sequence, head)."""
     _check_meta("ragged_decode", meta)
     _check_paged("ragged_decode", q, k_pages, v_pages, 3,
                  (context_lens, meta))
@@ -403,16 +417,18 @@ def paged_attention_ragged_kernel(q, k_pages, v_pages, context_lens, meta,
     if g * page > 2**31 - 1 or hkv > 65535:
         raise ValueError("ragged_decode: grid too large")
     out = torch.empty_like(q)
-    ws = None if q.dtype == torch.bfloat16 else torch.empty(
+    split = q.dtype == k_pages.dtype and q.dtype != torch.float32
+    ws = None if split else torch.empty(
         g * h * (d + 2), dtype=torch.float32, device=q.device)
     lib = load("ragged_decode", _SIGNATURES["ragged_decode"])
     err = lib.ragged_decode(
-        _DTYPE_CODE[q.dtype], d, q.data_ptr(), k_pages.data_ptr(),
-        v_pages.data_ptr(), meta.data_ptr(), context_lens.data_ptr(),
+        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype], d, q.data_ptr(),
+        k_pages.data_ptr(), v_pages.data_ptr(), meta.data_ptr(),
+        context_lens.data_ptr(),
         out.data_ptr(), None if ws is None else ws.data_ptr(), b, h, hkv,
         page, num_pages, g, float(scale), stream_ptr(q.device))
     check(err, "ragged_decode")
-    count_launch("ragged_decode")
+    count_launch("ragged_decode", q.dtype, k_pages.dtype)
     return out
 
 
@@ -449,13 +465,14 @@ def paged_attention_varq_kernel(q, k_pages, v_pages, kv_lens, q_lens, scale,
     out = torch.empty_like(q)
     lib = load("paged_varq", _SIGNATURES["paged_varq"])
     err = lib.paged_varq(
-        _DTYPE_CODE[q.dtype], d, q.data_ptr(), k_pages.data_ptr(),
-        v_pages.data_ptr(), 0 if meta is not None else block_tables.data_ptr(),
+        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype], d, q.data_ptr(),
+        k_pages.data_ptr(), v_pages.data_ptr(),
+        0 if meta is not None else block_tables.data_ptr(),
         0 if meta is None else meta.data_ptr(), kv_lens.data_ptr(),
         q_lens.data_ptr(), out.data_ptr(), b, qb, h, hkv, page, pps,
         num_pages, g, float(scale), stream_ptr(q.device))
     check(err, "paged_varq")
-    count_launch("paged_varq")
+    count_launch("paged_varq", q.dtype, k_pages.dtype)
     return out
 
 

@@ -33,7 +33,8 @@ from ..kernels.norm import fused_rms_norm
 from ..kernels.rope import apply_rotary_emb, rope_freqs
 from ..nn import functional as PF
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
 
 
 @dataclass

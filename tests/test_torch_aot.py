@@ -684,3 +684,42 @@ def test_stream_evictions_through_graphs_equal_eager(cuda, tmp_path, cfg):
     keep[pred._trash] = False
     for a, b_ in zip(pred.pool.k + pred.pool.v, eager.pool.k + eager.pool.v):
         assert torch.equal(a[keep], b_[keep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kv", [("float16", None),
+                                      ("bfloat16", "float32")],
+                         ids=["f16", "bf16_kv_f32"])
+def test_capture_f16_and_mixed_pool_equal_eager(cuda, tmp_path, dtype, kv):
+    """An f16 model with its default pool, and a bf16 model over f32
+    pages (block-table decode, chunked + speculative steps, a suffix
+    prefill): replayed graphs give eager's tokens, stats and pages bit
+    for bit, and replay eager's launches kernel by kernel and instance
+    by instance (q dtype, page dtype)."""
+    from paddle_tpu_torch.kernels import dtype_launch_counts
+    model = _card_model(cuda, dtype)
+    kw = dict(CARD_CFGS["table"], prefill_chunk_tokens=32,
+              spec_draft_tokens=3, kv_dtype=kv)
+    prompts = _card_prompts()
+    b = aot.EngineBuilder(model, prompt_buckets=(16, 32, 64), **kw)
+    b.add_traffic(prompts, max_new_tokens=2)
+    b.build(str(tmp_path / "e"))
+    pred, eng = aot.warm_start(model, str(tmp_path / "e"))
+    eager = ContinuousBatchingPredictor(model, device=cuda, **kw)
+    assert pred.pool.dtype == eager.pool.dtype == (kv or dtype)
+    counts = []
+    for cb in (eager, pred):
+        reset_launch_counts()
+        out = cb.generate(prompts, max_new_tokens=16)
+        torch.cuda.synchronize()
+        counts.append((out, dict(launch_counts), dict(dtype_launch_counts)))
+    assert counts[1] == counts[0]
+    assert pred.stats == eager.stats and eng.stats["misses"] == 0
+    pages = kv or dtype
+    assert counts[0][2][("paged_varq", dtype, pages)] > 0
+    assert all((q, p) == (dtype, pages) for (name, q, p) in counts[0][2]
+               if name in ("paged_decode", "paged_varq"))
+    keep = torch.ones(pred.pool.num_pages, dtype=torch.bool)
+    keep[pred._trash] = False
+    for a, b_ in zip(pred.pool.k + pred.pool.v, eager.pool.k + eager.pool.v):
+        assert torch.equal(a[keep], b_[keep])

@@ -327,13 +327,30 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 # bf16 tolerance on the card: the kernel and its plain version round the
 # output to bf16 at different places, one bf16 ulp apart at most (2^-7
 # relative: rtol); atol covers small outputs, where the largest error
-# measured at serving shapes is 3.9e-3
+# measured at serving shapes is 3.9e-3. f16 keeps 3 more bits (2^-10
+# relative): the bf16 tolerance over 5 (rtol 4e-3, atol 1e-3)
 CARD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
-            torch.bfloat16: dict(atol=5e-3, rtol=2e-2)}
+            torch.bfloat16: dict(atol=5e-3, rtol=2e-2),
+            torch.float16: dict(atol=1e-3, rtol=4e-3)}
+# q (and the output) of one dtype, K/V or pages of another: the FMA
+# instances; held to the narrower dtype's tolerance (P is rounded to the
+# pages' dtype before P.V, the output to q's)
+MIXED = [(torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16),
+         (torch.float16, torch.float32), (torch.float32, torch.float16),
+         (torch.bfloat16, torch.float16), (torch.float16, torch.bfloat16)]
+CARD_DTYPES = [torch.float32, torch.bfloat16, torch.float16, *MIXED]
+_WIDTH = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+
+def _dtypes(dtype):
+    """(q dtype, K/V dtype, tolerance) of a ``CARD_DTYPES`` entry."""
+    qd, kd = dtype if isinstance(dtype, tuple) else (dtype, dtype)
+    return qd, kd, CARD_TOL[max(qd, kd, key=_WIDTH.__getitem__)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_rms_norm_kernel_matches_plain(cuda, dtype):
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(37, 4096, device=cuda, generator=g).to(dtype)
@@ -350,28 +367,35 @@ CARD_FLASH_CASES = FLASH_CASES + [
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", CARD_DTYPES)
 @pytest.mark.parametrize("case", CARD_FLASH_CASES)
 def test_flash_kernel_matches_plain(cuda, dtype, case):
     """Output on the rows with a valid key within the card tolerance, lse
-    there within the f32 one (scores are f32 in both dtypes), lse exactly
+    there within the f32 one (scores are f32 in every dtype), lse exactly
     -1e30 on rows with none (the backward kernels rebuild P from it), and
-    a second launch bitwise equal to the first."""
+    a second launch bitwise equal to the first. q and K/V of different
+    dtypes refuse dropout."""
+    qd, kd, tol = _dtypes(dtype)
     rng = np.random.RandomState(5)
     q, k, v, causal, mask, lens, valid = _flash_case(case, rng)
-    q, k, v = (torch.from_numpy(a).to(cuda, dtype) for a in (q, k, v))
+    q = torch.from_numpy(q).to(cuda, qd)
+    k, v = (torch.from_numpy(a).to(cuda, kd) for a in (k, v))
     m = None if mask is None else torch.from_numpy(mask).to(cuda)
     kl = None if lens is None else torch.from_numpy(lens).to(cuda)
     drop = dict(dropout_p=0.1, seeds=(-5, 2 ** 31 - 3)) \
         if case == "dropout_key_mask" else {}
     args = (q, k, v, 0.125, causal, m, kl)
+    if drop and qd != kd:
+        with pytest.raises(TypeError, match="dropout"):
+            flash_attention_kernel(*args, **drop)
+        return
     out, lse = flash_attention_kernel(*args, **drop)
+    assert out.dtype == qd
     want, want_lse = flash_attention_plain(*args, return_lse=True, **drop)
     assert torch.isfinite(out.float()).all() and lse.shape == q.shape[:1] + (
         q.shape[2], q.shape[1])
     vm = torch.from_numpy(valid).to(cuda)
-    torch.testing.assert_close(out[vm].float(), want[vm].float(),
-                               **CARD_TOL[dtype])
+    torch.testing.assert_close(out[vm].float(), want[vm].float(), **tol)
     lse_rows = lse.transpose(1, 2)                # [B, Sq, H]
     torch.testing.assert_close(lse_rows[vm],
                                want_lse.transpose(1, 2)[vm],
@@ -391,7 +415,7 @@ PAGED_GEOMETRIES = [(4, 4, [5, 16, 1, 0, 23], 20),
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", CARD_DTYPES)
 @pytest.mark.parametrize("h,hkv,d", [(8, 8, 128), (4, 2, 64), (32, 8, 128),
                                      (4, 4, 64), (16, 4, 64), (8, 1, 64),
                                      (16, 2, 128)],
@@ -399,17 +423,21 @@ PAGED_GEOMETRIES = [(4, 4, [5, 16, 1, 0, 23], 20),
                               "g4_d64", "g8_d64", "g8_d128"])
 def test_paged_kernel_matches_plain(cuda, dtype, h, hkv, d):
     """Each geometry within the card tolerance of the plain version, and
-    a second launch bitwise equal to the first."""
+    a second launch bitwise equal to the first; q of one dtype, pages of
+    another for the mixed entries."""
+    qd, kd, tol = _dtypes(dtype)
     rng = np.random.RandomState(6)
     for page, pps, ctx, num_pages in PAGED_GEOMETRIES:
         arrs = _paged_case(rng, h, hkv, d, ctx, page=page, pps=pps,
                            num_pages=num_pages)
-        q, kp, vp = (torch.from_numpy(a).to(cuda, dtype) for a in arrs[:3])
+        q = torch.from_numpy(arrs[0]).to(cuda, qd)
+        kp, vp = (torch.from_numpy(a).to(cuda, kd) for a in arrs[1:3])
         tables, lens = (torch.from_numpy(a).to(cuda) for a in arrs[3:])
         out = paged_attention_kernel(q, kp, vp, tables, lens, 0.1)
+        assert out.dtype == qd
         torch.testing.assert_close(
             out.float(),
             paged_attention_plain(q, kp, vp, tables, lens, 0.1).float(),
-            **CARD_TOL[dtype])
+            **tol)
         assert torch.equal(out, paged_attention_kernel(q, kp, vp, tables,
                                                        lens, 0.1))

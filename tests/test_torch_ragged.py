@@ -25,6 +25,7 @@ from paddle_tpu_torch.kernels.paged_attention import (
     paged_attention_ragged_varq, paged_attention_ragged_varq_plain,
     paged_attention_varq, paged_attention_varq_kernel,
     paged_attention_varq_plain)
+from test_torch_kernels import CARD_DTYPES, _dtypes
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 FIELDS = RaggedMetaBuilder.FIELDS
@@ -389,10 +390,10 @@ def test_wrappers_refuse_cpu_tensors():
 
 # ------------------------------------------------------------ on the card --
 
-# chip_smoke.py's TOL: f32 sums in another order; bf16 outputs rounded at
-# other places (and P rounded before P.V in the varq plain version only)
-CARD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
-            torch.bfloat16: dict(atol=5e-3, rtol=2e-2)}
+# the card tolerances are test_torch_kernels.py's (chip_smoke.py's TOL):
+# f32 sums in another order; bf16 and f16 outputs rounded at other places
+# (and P rounded before P.V in the varq plain version only); q of one
+# dtype and pages of another take the narrower dtype's (``_dtypes``)
 
 
 # GQA groups 1, 4 and 8 at head_dim 64 and 128
@@ -411,18 +412,18 @@ def _card_pool(rs, h, hkv, d, dtype, dev, page=8, pps=6, b=3):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", CARD_DTYPES)
 @pytest.mark.parametrize("page", [8, 16])
 @pytest.mark.parametrize("h,hkv,d", CARD_GEOMS)
 def test_ragged_kernel_matches_plain(cuda, dtype, page, h, hkv, d):
     """Contexts over several cluster ranks ending mid-page, a zero row,
     a sequence whose one valid key opens its last page, and a single key;
     builder, compact-bucketed and interleaved metas; a second launch is
-    bitwise the first."""
+    bitwise the first. Mixed entries: q of one dtype, pages of another."""
+    qd, kd, tol = _dtypes(dtype)
     rs = np.random.RandomState(5)
-    kp, vp, tables = _card_pool(rs, h, hkv, d, dtype, cuda, page, 48, 4)
-    q = torch.from_numpy(rs.randn(4, h, d).astype(np.float32)).to(cuda,
-                                                                 dtype)
+    kp, vp, tables = _card_pool(rs, h, hkv, d, kd, cuda, page, 48, 4)
+    q = torch.from_numpy(rs.randn(4, h, d).astype(np.float32)).to(cuda, qd)
     lens = np.asarray([323, 0, 2 * page + 1, 1], np.int32)
     cl = torch.from_numpy(lens).to(cuda)
     for meta in (_builder_meta(tables, lens, page),
@@ -431,14 +432,14 @@ def test_ragged_kernel_matches_plain(cuda, dtype, page, h, hkv, d):
         m = _m(meta, cuda)
         got = paged_attention_ragged_kernel(q, kp, vp, cl, m, 0.1)
         want = paged_attention_ragged_plain(q, kp, vp, cl, m, 0.1)
-        torch.testing.assert_close(got.float(), want.float(),
-                                   **CARD_TOL[dtype])
+        assert got.dtype == qd
+        torch.testing.assert_close(got.float(), want.float(), **tol)
         assert not got[1].any()
         assert torch.equal(paged_attention_ragged_kernel(q, kp, vp, cl, m,
                                                          0.1), got)
 
 
-def _varq_card_check(q, kp, vp, kl, ql, tables, page, dtype):
+def _varq_card_check(q, kp, vp, kl, ql, tables, page, tol):
     """The kernel against its plain version through the block table and
     through the meta, padding rows zero, a second launch bitwise equal;
     returns the meta."""
@@ -452,8 +453,8 @@ def _varq_card_check(q, kp, vp, kl, ql, tables, page, dtype):
                         lambda: paged_attention_ragged_varq_plain(
                             q, kp, vp, kl, ql, m, 0.1))):
         got = paged_attention_varq_kernel(q, kp, vp, kl, ql, 0.1, **src)
-        torch.testing.assert_close(got.float(), plain().float(),
-                                   **CARD_TOL[dtype])
+        assert got.dtype == q.dtype
+        torch.testing.assert_close(got.float(), plain().float(), **tol)
         assert not got[pad].any() and not got[kl <= 0].any()
         assert torch.equal(
             paged_attention_varq_kernel(q, kp, vp, kl, ql, 0.1, **src), got)
@@ -461,24 +462,26 @@ def _varq_card_check(q, kp, vp, kl, ql, tables, page, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", CARD_DTYPES)
 @pytest.mark.parametrize("page", [8, 16])
 @pytest.mark.parametrize("h,hkv,d", CARD_GEOMS)
 def test_varq_kernel_matches_plain(cuda, dtype, page, h, hkv, d):
     """Mixed spans (one crossing 64-row tiles and starting mid key tile,
     a short chunk, a decode row, a kv_lens == 0 slot), then 5-row verify
     spans (one query tile per slot: the cluster-split walk), then
-    single-token spans against the ragged decode kernel."""
+    single-token spans against the ragged decode kernel. Mixed entries:
+    q of one dtype, pages of another."""
+    qd, kd, tol = _dtypes(dtype)
     rs = np.random.RandomState(6)
-    kp, vp, tables = _card_pool(rs, h, hkv, d, dtype, cuda, page, 48, 4)
+    kp, vp, tables = _card_pool(rs, h, hkv, d, kd, cuda, page, 48, 4)
 
     def span_case(qb, q_lens, kv_lens):
         q = torch.from_numpy(rs.randn(4, qb, h, d).astype(np.float32)).to(
-            cuda, dtype)
+            cuda, qd)
         kl, ql = (torch.tensor(x, dtype=torch.int32, device=cuda)
                   for x in (kv_lens, q_lens))
         return q, kl, ql, _varq_card_check(q, kp, vp, kl, ql, tables, page,
-                                           dtype)
+                                           tol)
     span_case(96, [80, 20, 1, 3], [117, 83, 130, 0])
     q, kl, _, m = span_case(5, [5, 5, 5, 5], [301, 150, 37, 5])
     ones = torch.ones_like(kl)
@@ -486,5 +489,4 @@ def test_varq_kernel_matches_plain(cuda, dtype, page, h, hkv, d):
                                         0.1)
     span = paged_attention_varq_kernel(q[:, :1].contiguous(), kp, vp, kl,
                                        ones, 0.1, meta=m)
-    torch.testing.assert_close(span[:, 0].float(), dec.float(),
-                               **CARD_TOL[dtype])
+    torch.testing.assert_close(span[:, 0].float(), dec.float(), **tol)

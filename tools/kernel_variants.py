@@ -7,22 +7,28 @@ walk of ``csrc/decode_split.cuh``) and the variable-query span kernel
 (``csrc/paged_varq.cu``).
 
     python3 tools/kernel_variants.py [--iters 24] [--only NAME,...]
-                                     [--parent DIR]
+                                     [--parent DIR] [--dtype float16]
 
 ``--only`` picks sections (flash_fwd, paged_decode, ragged_decode,
 paged_varq; default all). ``--parent`` names a checkout of another
 commit (``git archive`` of it unpacked anywhere): its ragged decode and
-span kernels are built and timed beside these as ``parent``. Each
-variant is the shipped source with one choice changed:
+span kernels are built and timed beside these as ``parent`` (a parent
+whose C entries take one dtype code is called with one). ``--dtype``
+runs every section on that 16-bit dtype's inputs (default bfloat16),
+held to its tolerance (``chip_smoke.TOL``). Each variant is the shipped
+source with one choice changed:
 
 - ``flash_fwd wgW_bnN``: W warpgroups (64 query rows each) per CTA and
   key tiles of N keys (``kFwdWG``, ``kFwdBN``), W in {1, 2}, N in
   {64, 128}; ``wg1_bn64`` is the shipped choice. ``wg1_bn64_3stages``:
   3-stage K/V rings (``kFwdStages``), two tiles of copies ahead.
   ``wg1_bn64_single_bf16_p``: P enters P V as one bf16 (``kFwdSplitP``
-  off) instead of bf16 hi + lo parts. ``wg1_bn64_l2_mask``: the mask read
-  from L2 into registers in the accumulator layout where the shipped
-  kernel stages it through shared memory by cp.async.
+  off) instead of bf16 hi + lo parts; ``wg1_bn64_split_f16_p`` the
+  other way for the f16 instance, which ships one f16 P: f16 hi + lo
+  parts (``kFwdSplitPF16`` on; read with ``--dtype float16``).
+  ``wg1_bn64_l2_mask``: the mask read from L2 into registers in the
+  accumulator layout where the shipped kernel stages it through shared
+  memory by cp.async.
 - ``paged_decode clusterC`` and ``ragged_decode clusterC``: each
   (sequence, KV head) walk split over at most C CTAs (``kMaxCluster``),
   C in {1, 2, 4} (and 8 for paged decode); 1 is one CTA walking the
@@ -30,14 +36,15 @@ variant is the shipped source with one choice changed:
   (``kSplitChunk``) instead of 32.
 - ``paged_varq``: ``shipped`` (P as bf16 hi + lo, a 2-stage K/V ring,
   one-tile spans split over up to 2 CTAs), ``single_bf16_p``
-  (``kVarqSplitP`` off), ``stages3`` (``kVarqStages`` 3: two tiles of
-  gathers in flight) and ``clusterC``, C in {1, 4} (``kVarqMaxCluster``:
+  (``kVarqSplitP`` off), ``split_f16_p`` (``kVarqSplitPF16`` on),
+  ``stages3`` (``kVarqStages`` 3: two tiles of gathers in flight) and
+  ``clusterC``, C in {1, 4} (``kVarqMaxCluster``:
   1 walks a one-tile span's whole context in one CTA).
 
 Every variant is compiled with the same nvcc flags as the package and
 called through the same C entries. Prints, per variant, the largest
-error against the plain version with the card tolerance's verdict (atol
-5e-3, rtol 2e-2), and the median device time (``chip_smoke.time_ms``:
+error against the plain version with the card tolerance's verdict (bf16:
+atol 5e-3, rtol 2e-2), and the median device time (``chip_smoke.time_ms``:
 events around each call, inputs rotating past the 50 MB L2) at the
 shapes of ``chip_smoke.py``: flash at q[4, 512, 32, 128] causal + a
 prefill mask and at the training shape q[2, 2048, 32, 128] causal (its
@@ -65,8 +72,10 @@ import tempfile
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-TOL = dict(atol=5e-3, rtol=2e-2)
 NEG = -1e30
+# the dtype every section runs in (``--dtype``) and its code
+DT = {"name": "bfloat16", "code": 1}
+CODES = {"bfloat16": 1, "float16": 2}
 
 
 def variants(csrc, target, consts):
@@ -95,7 +104,9 @@ def variants(csrc, target, consts):
 def build(sources, out_dir, signatures, include):
     """Compile every variant in parallel, each in a directory of its own
     holding its changed files (they shadow those of ``include``, a
-    ``csrc`` directory); returns {name: ctypes library}."""
+    ``csrc`` directory); returns {name: ctypes library}. A library whose
+    entry takes one dtype code (a parent before the KV dtype code) gets
+    ``signatures`` without the second code, and ``codes`` of one."""
     from paddle_tpu_torch.kernels import _build
     procs = {}
     for name, files in sources.items():
@@ -105,12 +116,13 @@ def build(sources, out_dir, signatures, include):
             with open(os.path.join(vdir, fname), "w") as f:
                 f.write(text)
         cu = os.path.join(vdir, next(f for f in files if f.endswith(".cu")))
+        two = "int kv_dtype" in files[os.path.basename(cu)]
         procs[name] = subprocess.Popen(
             [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", vdir, "-I",
              str(include), "-o", os.path.join(vdir, "lib.so"), cu],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), two
     libs = {}
-    for name, proc in procs.items():
+    for name, (proc, two) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode:
             print(f"{name}: nvcc failed, skipped:\n{out}", flush=True)
@@ -119,7 +131,9 @@ def build(sources, out_dir, signatures, include):
                                        "lib.so"))
         for fn, argtypes in signatures.items():
             f = getattr(lib, fn)
-            f.argtypes, f.restype = list(argtypes), ctypes.c_int
+            args = list(argtypes) if two else [argtypes[0], *argtypes[2:]]
+            f.argtypes, f.restype = args, ctypes.c_int
+        lib.codes = (DT["code"],) * (2 if two else 1)
         libs[name] = lib
     return libs
 
@@ -135,7 +149,10 @@ def main(argv=None):
     ap.add_argument("--parent", default=None,
                     help="a checkout whose ragged decode and span kernels "
                          "are timed beside these")
+    ap.add_argument("--dtype", default="bfloat16", choices=sorted(CODES),
+                    help="the inputs' dtype in every section")
     args = ap.parse_args(argv)
+    DT.update(name=args.dtype, code=CODES[args.dtype])
     only = set(args.only.split(","))
     if only - set(SECTIONS):
         ap.error(f"unknown sections {sorted(only - set(SECTIONS))}")
@@ -149,7 +166,9 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    print(f"card: {smi}", flush=True)
+    print(f"card: {smi}; inputs in {args.dtype}", flush=True)
+    dt = getattr(torch, args.dtype)
+    tol = S.TOL[args.dtype]
     csrc = os.path.join(REPO, "paddle_tpu_torch", "csrc")
     wg, bn = "constexpr int kFwdWG = 1;", "constexpr int kFwdBN = 64;"
     st = "constexpr int kFwdStages = 2;"
@@ -162,6 +181,9 @@ def main(argv=None):
     fwd_consts["wg1_bn64_single_bf16_p"] = [(
         fwd, "constexpr bool kFwdSplitP = true;",
         "constexpr bool kFwdSplitP = false;")]
+    fwd_consts["wg1_bn64_split_f16_p"] = [(
+        fwd, "constexpr bool kFwdSplitPF16 = false;",
+        "constexpr bool kFwdSplitPF16 = true;")]
     fwd_consts["wg1_bn64_l2_mask"] = [(
         fwd, "  const int stage = kFwdWG == 1 && mask",
         "  const int stage = false && mask")]
@@ -180,7 +202,9 @@ def main(argv=None):
     vq = "paged_varq.cu"
     varq_consts = {"shipped": [], "single_bf16_p": [(
         vq, "constexpr bool kVarqSplitP = true;",
-        "constexpr bool kVarqSplitP = false;")]}
+        "constexpr bool kVarqSplitP = false;")], "split_f16_p": [(
+            vq, "constexpr bool kVarqSplitPF16 = false;",
+            "constexpr bool kVarqSplitPF16 = true;")]}
     varq_consts["stages3"] = [(vq, "constexpr int kVarqStages = 2;",
                                "constexpr int kVarqStages = 3;")]
     for c in (1, 4):
@@ -219,7 +243,7 @@ def main(argv=None):
         got, want = got.float(), want.float()
         if rows is not None:
             got, want = got[rows], want[rows]
-        bad = ~torch.isclose(got, want, **TOL)
+        bad = ~torch.isclose(got, want, **tol)
         where = [(tuple(i.tolist()), round(float(got[tuple(i)]), 5),
                   round(float(want[tuple(i)]), 5))
                  for i in bad.nonzero()[:4]]
@@ -227,19 +251,21 @@ def main(argv=None):
                f"{int(bad.sum())} outside tolerance {where or ''}"
 
     if "flash_fwd" in libs:
-        flash_section(torch, S, A, libs["flash_fwd"], dev, g, med, verdict)
+        flash_section(torch, S, A, libs["flash_fwd"], dev, g, med, verdict,
+                      dt)
     if only & {"paged_decode", "ragged_decode", "paged_varq"}:
-        decode_sections(torch, S, A, P, libs, dev, g, med, verdict)
+        decode_sections(torch, S, A, P, libs, dev, g, med, verdict, dt)
     return 0
 
 
-def flash_section(torch, S, A, fwd_libs, dev, g, med, verdict):
+def flash_section(torch, S, A, fwd_libs, dev, g, med, verdict, dt):
     def fwd(lib, q, k, v, mask, causal):
         b, sq, h, d = q.shape
         m_ptr, *strides = A._mask_args(mask, k.shape[1])
         out = torch.empty_like(q)
         lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
-        err = lib.flash_fwd(1, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        err = lib.flash_fwd(*lib.codes, d, q.data_ptr(), k.data_ptr(),
+                            v.data_ptr(),
                             m_ptr, None, out.data_ptr(), lse.data_ptr(), b,
                             sq, k.shape[1], h, k.shape[2], *strides,
                             float(d ** -0.5), int(causal), 0, 0, 0, 0.0,
@@ -250,7 +276,7 @@ def flash_section(torch, S, A, fwd_libs, dev, g, med, verdict):
 
     def qkv(b, s, h):
         return [tuple(torch.randn(b, s, h, 128, device=dev,
-                                  generator=g).bfloat16() for _ in range(3))
+                                  generator=g).to(dt) for _ in range(3))
                 for _ in range(2)]
 
     lens = torch.tensor([512, 384, 200, 64], device=dev)
@@ -262,7 +288,7 @@ def flash_section(torch, S, A, fwd_libs, dev, g, med, verdict):
     want_t = [A.flash_attention_plain(*d, 128 ** -0.5, True) for d in draws]
     F = torch.nn.functional
     causal = torch.tril(torch.ones(512, 512, dtype=torch.bool, device=dev))
-    full = (mask + torch.where(causal, 0.0, NEG)).bfloat16()
+    full = (mask + torch.where(causal, 0.0, NEG)).to(dt)
 
     def sdpa(a, b, c, m=None):
         return F.scaled_dot_product_attention(
@@ -285,15 +311,15 @@ def flash_section(torch, S, A, fwd_libs, dev, g, med, verdict):
         print(f"  serve shape {e_s}; training shape {e_t}", flush=True)
 
 
-def decode_sections(torch, S, A, P, libs, dev, g, med, verdict):
+def decode_sections(torch, S, A, P, libs, dev, g, med, verdict, dt):
     b, d, page, pps, h, hkv = 4, 128, 16, 64, 32, 32
     num_pages = b * pps + 1
     sc = d ** -0.5
     tables = torch.randperm(num_pages, device=dev, generator=g)[
         :b * pps].reshape(b, pps).to(torch.int32).contiguous()
-    q = torch.randn(b, h, d, device=dev, generator=g).bfloat16()
+    q = torch.randn(b, h, d, device=dev, generator=g).to(dt)
     sets = [tuple(torch.randn(num_pages, page, hkv, d, device=dev,
-                              generator=g).bfloat16() for _ in range(2))
+                              generator=g).to(dt) for _ in range(2))
             for _ in range(4)]
 
     def call(lib, fn, *args):
@@ -303,14 +329,14 @@ def decode_sections(torch, S, A, P, libs, dev, g, med, verdict):
 
     def paged(lib, kp, vp, ctx):
         out = torch.empty_like(q)
-        call(lib, "paged_decode", 1, d, q.data_ptr(), kp.data_ptr(),
+        call(lib, "paged_decode", *lib.codes, d, q.data_ptr(), kp.data_ptr(),
              vp.data_ptr(), tables.data_ptr(), ctx.data_ptr(),
              out.data_ptr(), b, h, hkv, page, pps, num_pages, sc)
         return out
 
     def ragged(lib, kp, vp, ctx, meta, ws):
         out = torch.empty_like(q)
-        call(lib, "ragged_decode", 1, d, q.data_ptr(), kp.data_ptr(),
+        call(lib, "ragged_decode", *lib.codes, d, q.data_ptr(), kp.data_ptr(),
              vp.data_ptr(), meta.data_ptr(), ctx.data_ptr(), out.data_ptr(),
              ws.data_ptr(), b, h, hkv, page, num_pages, meta.shape[1], sc)
         return out
@@ -337,17 +363,17 @@ def decode_sections(torch, S, A, P, libs, dev, g, med, verdict):
                   flush=True)
     if "paged_varq" in libs:
         varq_section(torch, S, A, P, libs["paged_varq"], dev, g, med,
-                     verdict, tables, sets, page)
+                     verdict, tables, sets, page, dt)
 
 
 def varq_section(torch, S, A, P, libs, dev, g, med, verdict, tables, sets,
-                 page):
+                 page, dt):
     b, pps = tables.shape
     num_pages, _, hkv, d = sets[0][0].shape
     h, sc = 32, d ** -0.5
     for qb, q_lens, kv_lens in ((256, [256, 1, 1, 97], [512, 301, 98, 97]),
                                 (5, [5, 5, 5, 5], [561, 305, 101, 5])):
-        q = torch.randn(b, qb, h, d, device=dev, generator=g).bfloat16()
+        q = torch.randn(b, qb, h, d, device=dev, generator=g).to(dt)
         ql, kl = (torch.tensor(x, dtype=torch.int32, device=dev)
                   for x in (q_lens, kv_lens))
         meta = S._builder_meta(torch, dev, tables, kl, page)
@@ -357,7 +383,7 @@ def varq_section(torch, S, A, P, libs, dev, g, med, verdict, tables, sets,
 
         def run(lib, kp, vp):
             out = torch.empty_like(q)
-            err = lib.paged_varq(1, d, q.data_ptr(), kp.data_ptr(),
+            err = lib.paged_varq(*lib.codes, d, q.data_ptr(), kp.data_ptr(),
                                  vp.data_ptr(), None, meta.data_ptr(),
                                  kl.data_ptr(), ql.data_ptr(), out.data_ptr(),
                                  b, qb, h, hkv, page, pps, num_pages,
