@@ -57,6 +57,12 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    at a suffix-prefill shape (q[1, 128], 384 keys under the suffix's
    mask); paged and ragged decode and the span kernel (both its shapes)
    in f16, with bf16 q over f32 pages and with f32 q over bf16 pages.
+   Then GPT-2 XL's two shapes (``gpt_kernel_rows``): LayerNorm at
+   x[1200, 1600] bf16 (the 4 x 300-token prefill) and the flash forward
+   at the beam route's static decode shape, q[16, 1, 25, 64] against k,
+   v[16, 332, 25, 64] bf16 under a bool padding mask, each against its
+   plain version, a second launch bitwise the first, timed beside its
+   bound, its plain version and ``F.layer_norm`` / SDPA.
 3. Full-width f32 checks: a 2-layer model at Llama-2-7B widths gives the
    same prefill logits on the card (kernels) as on the CPU (plain
    versions) and the same greedy tokens through the predictor; the
@@ -129,11 +135,16 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    ``LLMPredictor`` (max_batch_size 8) over 12 prompts of 17-300 tokens
    (two micro-batches, buckets 512 and 128), 32 new tokens greedy and
    once sampled (temperature 0.8, top-p 0.9, a seed that replays its
-   tokens) through ``generate()``'s static-cache route: every row gets
-   its tokens, and the ``rms_norm``, ``flash_fwd`` and
-   ``categorical_rows`` launches equal the route's count (per call and
-   step 2L + 1, L and, sampled, 1); prints decode tokens/s, prefill ms
-   and peak memory; (b) ``SpeculativePredictor`` (gamma 4) with a
+   tokens) through ``generate()``'s static-cache route, one CUDA graph
+   per signature: each signature's eager first call captures it, and
+   three replays equal that call bit for bit (``graph_run``); every row
+   gets its tokens, and the ``rms_norm``, ``flash_fwd`` and
+   ``categorical_rows`` launches of the eager call and of each replay
+   equal the route's count (per call and step 2L + 1, L and, sampled,
+   1); then beam search (4 beams, length penalty 0.6) on 4 of the
+   prompts (17-300 tokens, 32 new) the same way; prints decode tokens/s
+   eager and replayed, prefill ms, capture seconds and peak memory;
+   (b) ``SpeculativePredictor`` (gamma 4) with a
    2-layer draft of the same widths and with the target as its own
    draft: target calls, accepted / proposed, tokens/s; (c) ``jit.save``
    of ERNIE-3.0-base (f32 and bf16 at 16 x 128 with a fixed
@@ -146,10 +157,14 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    ``rms_norm`` and ``flash_fwd`` for Llama), ms a run beside the live
    model's; (d) at 2 layers and full width in f32, card against CPU: the
    static route greedy and sampled (seeds, eos, min_new_tokens,
-   repetition penalty) over a left-padded batch token for token,
-   ``LLMPredictor`` with ``weight_only_int8`` and ``weight_only_int4``,
-   and ``SpeculativePredictor`` (a 1-layer draft, and the target as its
-   own) equal to plain greedy.
+   repetition penalty) and beam search on the static route (with eos and
+   min_new_tokens too) and on the eager route over a left-padded batch
+   token for token, ``LLMPredictor`` with ``weight_only_int8`` and
+   ``weight_only_int4`` (quantized in place, so int4 replays int8's
+   graph), and ``SpeculativePredictor`` (a 1-layer draft, and the target
+   as its own) equal to plain greedy; and GPT at GPT-2 XL's widths (2
+   layers, f32): greedy, sampled and beam on both routes, token for
+   token.
 5. AOT engine (``paddle_tpu_torch/inference/aot``): two bundles built
    from the serve phase's model (``EngineBuilder``: run 1's block-table
    geometry, and runs 2-3's with sampling enabled; power-of-two prompt
@@ -184,6 +199,17 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    p50, peak memory and a profiled pass's idle share. Then BERT-base
    cast to float16, one eval forward of 16 x 128: 25 LayerNorm and 12
    flash launches on f16 operands.
+   Then GPT (``gpt_phase``): GPT-2 XL's published widths (hidden 1600,
+   25 heads of 64, inner 6400, vocab 50257), all 48 layers, bf16, random
+   weights from a seed: greedy, sampled (temperature 0.8, top-p 0.9) and
+   beam search (4 beams) over 4 left-padded prompts of 17-300 tokens, 32
+   new tokens, through the static route's graphs (eager first call,
+   three bitwise replays, launches 2L + 1 ``layer_norm`` and L
+   ``flash_fwd`` a forward and one ``categorical_rows`` a sampled step);
+   prints decode tokens/s eager and replayed, capture seconds and peak
+   memory. Then ``paddle_tpu_torch/examples/llm_serve.py`` on the card
+   (it ends ``OK``; its exported program's logits within f32 ``TOL`` of
+   the live model's).
 6. Fine-tune, through ``paddle_tpu_torch/examples/bert_finetune.py``:
    BERT-base, 30 steps at batch 16 x 128 with row lengths 32-128 through
    ``attention_mask``, every dropout 0.1; then ERNIE-3.0-base for 6
@@ -1733,6 +1759,10 @@ TRAIN_KERNELS = ("rms_norm", "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
 # decoder layers of the trained model, of 32: AdamW with f32 master
 # weights keeps 16 bytes per parameter, 108 GB for all 32 layers
 TRAIN_LAYERS = 8
+# decoder layers of serve run F16, of 32: its eager run is host-bound,
+# so its time grows with the depth; 16 keeps the whole script well
+# inside its time limit
+F16_LAYERS = 16
 
 
 def free_card(torch):
@@ -2796,7 +2826,9 @@ def flash_decode_row(torch, dev, g, dtype="bfloat16"):
         attn_mask=keep, scale=sc), sets)["median"]
     pairs = int(keep.sum()) * h
     isz = out.element_size()
-    nbytes = (sum(x.numel() for x in sets[0]) + out.numel()) * isz \
+    # K and V only at the key slots the mask keeps: a masked key adds
+    # nothing to the output, so the function need not read it
+    nbytes = (2 * out.numel() + 2 * d * pairs) * isz \
         + madd.numel() * 4 + lse.numel() * 4
     b_ms, by = bound(nbytes, 4 * d * pairs, dtype)
     log(f"  flash_fwd at the static decode shape, {shape}: kernel median "
@@ -2815,13 +2847,104 @@ def _sync_time(torch, fn):
     return out, time.perf_counter() - t0
 
 
+def _same(a, b):
+    """Equal bit for bit: generate()'s (tokens, scores) or token lists."""
+    if isinstance(a, tuple):
+        return all(x.shape == y.shape and bool((x == y).all())
+                   for x, y in zip(a, b))
+    return a == b
+
+
+GRAPH_KERNELS = ("rms_norm", "layer_norm", "flash_fwd", "categorical_rows")
+
+
+class eager_static_route:
+    """``generate()``'s static route run eagerly, without its CUDA
+    graphs: the step loop of a signature is built and run at every call
+    (only the dispatch is replaced; ``_run_program`` keeps its eval and
+    ``no_grad``). For timing the eager loop beside the replays; outside
+    the ``with`` every signature replays as before."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.generation import GenerationMixin
+        self._real = GenerationMixin._dispatch
+        GenerationMixin._dispatch = \
+            lambda self, cache, sig, build, args: build()(*args)
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.generation import GenerationMixin
+        GenerationMixin._dispatch = self._real
+
+
+def graph_run(torch, fn, label, want=None, reps=3):
+    """``fn()`` on static-route signatures this process has not seen: the
+    first call runs the loop eagerly and captures each signature's CUDA
+    graph; ``reps`` replays each equal it bit for bit and launch what it
+    launched; then ``reps`` eager runs of the same loop without graphs
+    (``eager_static_route``) equal it too. With ``want``, the first
+    call's launches must equal it. Returns (output, median eager s,
+    median replay s, capture s, the first call's launches)."""
+    from paddle_tpu_torch.generation import graph_stats
+    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+    cap0, n0 = graph_stats["capture_s"], graph_stats["captures"]
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    cap = graph_stats["capture_s"] - cap0
+    check(graph_stats["captures"] > n0,
+          f"{label}: the first call captured no graph")
+    got = {k: counts.get(k, 0) for k in (want or GRAPH_KERNELS)}
+    if want is not None:
+        check(got == want, f"{label}: launches {got}, the route predicts "
+              f"{want}")
+    n1, r0 = graph_stats["captures"], graph_stats["replays"]
+    times = {"replay": [], "eager": []}
+    for mode in ("replay", "eager"):
+        for _ in range(reps):
+            reset_launch_counts()
+            if mode == "replay":
+                again, t = _sync_time(torch, fn)
+            else:
+                with eager_static_route():
+                    again, t = _sync_time(torch, fn)
+            times[mode].append(t)
+            check(_same(again, out), f"{label}: a {mode} run differs from "
+                  "the first call")
+            check({k: launch_counts[k] for k in got} == got,
+                  f"{label}: a {mode} run launched {dict(launch_counts)}, "
+                  f"the first call {got}")
+    # each call runs the n1 - n0 signatures the first call captured
+    check(graph_stats["replays"] == r0 + reps * (n1 - n0)
+          and graph_stats["captures"] == n1,
+          f"{label}: the later calls did not replay ({graph_stats})")
+    return (out, statistics.median(times["eager"]),
+            statistics.median(times["replay"]), cap, counts)
+
+
+def left_padded(torch, vocab, lens, gen):
+    """[B, max(lens)] ids and mask of prompts of ``lens`` tokens, padding
+    on the left."""
+    import numpy as np
+    s = max(lens)
+    ids = np.zeros((len(lens), s), np.int64)
+    mask = np.zeros((len(lens), s), np.int32)
+    for r, n in enumerate(lens):
+        ids[r, s - n:] = torch.randint(1, vocab, (n,), generator=gen).numpy()
+        mask[r, s - n:] = 1
+    return ids, mask
+
+
 def llm_phase(torch, dev, seed, card, model):
     """(a) LLMPredictor on the serve model through the static route,
-    greedy and sampled, with the launches the route predicts; (b)
-    SpeculativePredictor with a 2-layer draft and with the target as its
-    own draft. Returns the launch counts of the greedy run."""
+    greedy and sampled, and beam search on 4 of its prompts: each
+    signature's eager first call (captured into a CUDA graph) and its
+    replays, bit for bit equal, with the launches the route predicts;
+    (b) SpeculativePredictor with a 2-layer draft and with the target as
+    its own draft. Returns the launch counts of the greedy run."""
+    from paddle_tpu_torch.generation import graph_stats
     from paddle_tpu_torch.inference import LLMPredictor, SpeculativePredictor
-    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     cfg = model.config
     layers = cfg.num_hidden_layers
@@ -2835,46 +2958,76 @@ def llm_phase(torch, dev, seed, card, model):
     # each; a sampled call draws once a step, a greedy one never
     want = {"rms_norm": calls * INFER_NEW * (2 * layers + 1),
             "flash_fwd": calls * INFER_NEW * layers, "categorical_rows": 0}
-    pred.generate(prompts, INFER_NEW)       # warm-up: the timed shapes
-    _, t_pre = _sync_time(torch, lambda: pred.generate(prompts, 1))
+    _, pre_e, pre_r, cap_pre, _ = graph_run(
+        torch, lambda: pred.generate(prompts, 1), "LLMPredictor prefill")
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    outs, t_full = _sync_time(torch, lambda: pred.generate(prompts,
-                                                           INFER_NEW))
-    counts = dict(launch_counts)
+    outs, full_e, full_r, cap, counts = graph_run(
+        torch, lambda: pred.generate(prompts, INFER_NEW),
+        "LLMPredictor greedy", want)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    got = {k: counts[k] for k in want}
     check(len(outs) == len(prompts)
           and all(len(o) == INFER_NEW for o in outs),
           f"LLMPredictor: rows without their {INFER_NEW} tokens: "
           f"{[len(o) for o in outs]}")
-    check(got == want, f"LLMPredictor greedy launches {got}, the static "
-          f"route predicts {want}")
-    tok_s = len(prompts) * (INFER_NEW - 1) / (t_full - t_pre)
+    rows = len(prompts) * (INFER_NEW - 1)
+    tok_e, tok_s = rows / (full_e - pre_e), rows / (full_r - pre_r)
     log(f"infer (a) LLMPredictor on {card}: {len(prompts)} prompts of "
         f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens in "
         f"{calls} micro-batches of 8 (buckets 512, 128), {INFER_NEW} new "
-        f"greedy: decode {tok_s:.1f} tok/s, prefill (both micro-batches) "
-        f"{t_pre * 1e3:.1f} ms, whole call {t_full * 1e3:.1f} ms, peak "
-        f"{peak:.2f} GiB; launches {got} == predicted")
+        f"greedy: decode eager {tok_e:.1f} | replayed graphs "
+        f"{tok_s:.1f} tok/s; prefill {pre_e * 1e3:.1f} | {pre_r * 1e3:.1f} "
+        f"ms, whole call {full_e * 1e3:.1f} | {full_r * 1e3:.1f} ms; "
+        f"capture {cap_pre + cap:.2f} s (2 + 2 signatures); peak "
+        f"{peak:.2f} GiB; replays and eager runs equal the first call bit for bit; "
+        f"launches {want} == predicted")
     static_profile(torch, pred, prompts[:8], card)
     sampled = dict(decode_strategy="sampling", temperature=0.8, top_p=0.9,
                    seed=seed + 5)
-    reset_launch_counts()
-    souts, t_s = _sync_time(torch, lambda: pred.generate(
-        prompts, INFER_NEW, **sampled))
-    got_s = {k: launch_counts[k] for k in want}
     want_s = dict(want, categorical_rows=calls * INFER_NEW)
-    again = pred.generate(prompts, INFER_NEW, **sampled)
-    check(all(len(o) == INFER_NEW for o in souts) and got_s == want_s,
-          f"sampled LLMPredictor: launches {got_s} vs {want_s}, lengths "
-          f"{[len(o) for o in souts]}")
-    check(again == souts, "a sampled call with the same seed gave other "
-          "tokens")
+    souts, s_e, s_r, _, _ = graph_run(
+        torch, lambda: pred.generate(prompts, INFER_NEW, **sampled),
+        "sampled LLMPredictor", want_s)
+    check(all(len(o) == INFER_NEW for o in souts),
+          f"sampled LLMPredictor: lengths {[len(o) for o in souts]}")
+    n_tok = len(prompts) * INFER_NEW
     log(f"infer (a) sampled (temperature 0.8, top-p 0.9, seed {seed + 5}): "
-        f"{len(prompts) * INFER_NEW / t_s:.1f} tok/s whole call; the seed "
-        f"replays its tokens; {sum(a != b for a, b in zip(outs, souts))} of "
-        f"{len(outs)} rows differ from greedy; launches {got_s}")
+        f"eager {n_tok / s_e:.1f} | replayed {n_tok / s_r:.1f} tok/s whole "
+        f"call; the seed replays its tokens; "
+        f"{sum(a != b for a, b in zip(outs, souts))} of {len(outs)} rows "
+        f"differ from greedy; launches {want_s}")
+    # beam search on the 32-layer model: 4 prompts of 17-300 tokens
+    import numpy as np
+    ids = np.zeros((4, max(INFER_LENS[0][:4])), np.int64)
+    mask = np.zeros_like(ids, dtype=np.int32)
+    for r, p in enumerate(prompts[:4]):
+        ids[r, ids.shape[1] - len(p):] = p
+        mask[r, ids.shape[1] - len(p):] = 1
+    beam = dict(decode_strategy="beam_search", num_beams=4,
+                length_penalty=0.6)
+    want_b = {"rms_norm": INFER_NEW * (2 * layers + 1),
+              "flash_fwd": INFER_NEW * layers, "categorical_rows": 0}
+    _, bp_e, bp_r, bcap_p, _ = graph_run(
+        torch, lambda: model.generate(ids, attention_mask=mask,
+                                      max_new_tokens=1, **beam),
+        "beam search prefill")
+    torch.cuda.reset_peak_memory_stats()
+    (btok, bsc), b_e, b_r, bcap, _ = graph_run(
+        torch, lambda: model.generate(ids, attention_mask=mask,
+                                      max_new_tokens=INFER_NEW, **beam),
+        "beam search", want_b)
+    bpeak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(tuple(btok.shape) == (4, INFER_NEW)
+          and bool(torch.isfinite(bsc).all()),
+          f"beam search: tokens {tuple(btok.shape)}, scores {bsc.tolist()}")
+    b_rows = 4 * (INFER_NEW - 1)
+    log(f"infer (a) beam search (4 beams, length penalty 0.6) on {card}: 4 "
+        f"prompts of {sorted(INFER_LENS[0][:4])} tokens, {INFER_NEW} new: "
+        f"decode eager {b_rows / (b_e - bp_e):.1f} | replayed "
+        f"{b_rows / (b_r - bp_r):.1f} tok/s (output tokens; 16 beam rows), "
+        f"whole call {b_e * 1e3:.1f} | {b_r * 1e3:.1f} ms; capture "
+        f"{bcap_p + bcap:.2f} s; peak {bpeak:.2f} GiB; scores "
+        f"{[round(float(x), 3) for x in bsc]}; launches {want_b}")
+    model._gen_cache.clear()
     draft = LlamaForCausalLM(
         LlamaConfig.llama2_7b(num_hidden_layers=2, dtype="bfloat16"),
         device=dev).init_weights(torch.Generator(device=dev).manual_seed(
@@ -2893,7 +3046,8 @@ def llm_phase(torch, dev, seed, card, model):
             f"greedy row: {toks == outs[3]} (bf16: near-ties may flip "
             "between forwards of other shapes)")
     del draft, pred
-    return {"counts": counts, "tok_s": tok_s}
+    log(f"infer (a) graphs so far: {graph_stats}")
+    return {"counts": counts, "tok_s": tok_s, "tok_s_eager": tok_e}
 
 
 PROFILE_NEW = 8        # steps of the traced call: the trace's size
@@ -3071,10 +3225,13 @@ def infer_child(torch, dev, spec_path):
 
 def infer_f32_gates(torch, dev, seed):
     """(d) 2 layers at full width in f32 against the port on the CPU: the
-    static route greedy and sampled over a left-padded batch, token for
-    token; LLMPredictor with weight_only_int8 and weight_only_int4;
+    static route greedy and sampled and beam search on the static and the
+    eager route over a left-padded batch, token for token (the card's
+    static route through CUDA graphs); LLMPredictor with weight_only_int8
+    and weight_only_int4 (quantized in place: int4 replays int8's graph);
     SpeculativePredictor against plain greedy."""
     import numpy as np
+    from paddle_tpu_torch.generation import graph_stats
     from paddle_tpu_torch.inference import LLMPredictor, SpeculativePredictor
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     cfg = LlamaConfig.llama2_7b(num_hidden_layers=2, dtype="float32")
@@ -3089,23 +3246,10 @@ def infer_f32_gates(torch, dev, seed):
     mask[1, :17] = 0            # left padding
     mask[2, 31:] = 0            # right padding, left-padded by generate
     greedy = cpu.generate(ids, attention_mask=mask, max_new_tokens=8)[0]
-    eos = int(greedy[0, 2])
-    cases = {"greedy": {},
-             "sampled (top-k, top-p, eos, min_new_tokens 2, repetition "
-             "1.2)": dict(decode_strategy="sampling", temperature=0.8,
-                          top_k=50, top_p=0.9, seed=seed + 3,
-                          eos_token_id=eos, min_new_tokens=2,
-                          repetition_penalty=1.2)}
-    for label, kw in cases.items():
-        want = cpu.generate(ids, attention_mask=mask, max_new_tokens=8, **kw)
-        got = gpu.generate(ids, attention_mask=mask, max_new_tokens=8, **kw)
-        log(f"infer (d) f32 2-layer static route, {label}: card == CPU "
-            f"{torch.equal(got[0], want[0])}; score max_abs_err "
-            f"{float((got[1] - want[1]).abs().max()):.3e}")
-        check(torch.equal(got[0], want[0]),
-              f"static route {label}: card {got[0].tolist()} vs CPU "
-              f"{want[0].tolist()}")
+    f32_token_gate(torch, "Llama-2-7B widths", cpu, gpu, ids, mask, seed,
+                   eos=int(greedy[0, 2]))
     prompts = [ids[0].tolist(), ids[1, 17:].tolist(), ids[2, :31].tolist()]
+    before = dict(graph_stats)
     for quant in ("weight_only_int8", "weight_only_int4"):
         cpu.load_state_dict(state)
         gpu.load_state_dict(state)
@@ -3117,6 +3261,10 @@ def infer_f32_gates(torch, dev, seed):
         log(f"infer (d) f32 LLMPredictor {quant}: card == CPU {got == want}; "
             f"quantized weights card vs CPU max_abs_diff {wdiff:.3e}")
         check(got == want, f"{quant}: card {got} vs CPU {want}")
+    check(graph_stats["captures"] == before["captures"] + 1
+          and graph_stats["replays"] == before["replays"] + 1,
+          f"LLMPredictor int8 then int4: graphs {before} -> {graph_stats}; "
+          "the in-place quantization should replay one capture")
     cpu.load_state_dict(state)
     gpu.load_state_dict(state)
     plain = LLMPredictor(gpu).generate([prompts[0]], 12)[0]
@@ -3149,9 +3297,204 @@ def infer_phase(torch, dev, seed, card, model):
     free_card(torch)
     t0 = time.perf_counter()
     infer_f32_gates(torch, dev, seed)
+    free_card(torch)
+    t1 = time.perf_counter()
+    gpt_f32_gate(torch, dev, seed)
+    log(f"infer (d) GPT gate took {time.perf_counter() - t1:.1f} s")
     log(f"infer (d) took {time.perf_counter() - t0:.1f} s")
     free_card(torch)
     return res
+
+
+# ------------------------------------------------------ GPT (GPT-2 XL) --
+
+GPT_LENS = (300, 17, 256, 40)     # 4 left-padded prompts of 17-300 tokens
+GPT_NEW = 32
+GPT_BEAMS = 4
+
+
+def gpt_kernel_rows(torch, dev, g):
+    """The shapes GPT-2 XL gives two kernels that no other row times:
+    LayerNorm at x[1200, 1600] bf16 (the prefill of the 4 x 300 tokens;
+    D = 1600 is one block of 2048), and the flash forward at the beam
+    route's static decode shape, q[16, 1, 25, 64] (4 sequences x 4
+    beams, 25 heads of 64) against k, v[16, 332, 25, 64] bf16 under a
+    bool padding mask (each row's prompt and its first 8 decode slots
+    valid). Each against its plain version, a second launch bitwise the
+    first, timed beside its bound, its plain version and ``F.layer_norm``
+    / SDPA with the same mask. Returns {name: row}."""
+    from paddle_tpu_torch.kernels import attention as A
+    from paddle_tpu_torch.kernels import norm
+    F = torch.nn.functional
+    rows = {}
+    n, d = len(GPT_LENS) * max(GPT_LENS), 1600
+    x = (3 * torch.randn(n, d, device=dev, generator=g) + 1).bfloat16()
+    w = (1 + 0.1 * torch.randn(d, device=dev, generator=g)).bfloat16()
+    b = (0.1 * torch.randn(d, device=dev, generator=g)).bfloat16()
+    # 16 sets of 3.8 MB: 61 MB of x rotate past the 50 MB L2
+    sets = [(x, w, b)] + [(torch.randn_like(x), w, b) for _ in range(15)]
+    shape = f"x[{n}, {d}] bfloat16"
+    rows["layer_norm"] = dtype_row(
+        torch, f"layer_norm GPT-2 XL {shape}",
+        lambda a, c, e: norm.layer_norm_kernel(a, c, e, 1e-5),
+        lambda a, c, e: norm.layer_norm_plain(a, c, e, 1e-5), sets,
+        TOL["bfloat16"], 2 * x.numel() * 2 + 2 * d * 2, 8 * x.numel(),
+        "float32", shape,
+        lib=lambda a, c, e: F.layer_norm(a, (d,), c, e, 1e-5))
+    bk, h, hd, s = len(GPT_LENS) * GPT_BEAMS, 25, 64, max(GPT_LENS)
+    ml = s + GPT_NEW
+    lens = torch.tensor(GPT_LENS, device=dev).repeat_interleave(GPT_BEAMS)
+    j = torch.arange(ml, device=dev)[None, :]
+    keep = ((j >= s - lens[:, None]) & (j < s + 8))[:, None, None, :]
+    madd = A.additive_mask(keep, bk, h, 1, ml)
+    sets = [tuple(torch.randn(bk, m, h, hd, device=dev, generator=g).bfloat16()
+                  for m in (1, ml, ml)) for _ in range(3)]
+    sc = hd ** -0.5
+    shape = (f"q[{bk}, 1, {h}, {hd}] k, v[{bk}, {ml}, {h}, {hd}] bfloat16, "
+             "bool padding mask")
+    # q and out, K and V only at the key slots the mask keeps (a masked
+    # key adds nothing to the output), the mask and lse
+    pairs = int(keep.sum()) * h
+    nbytes = (2 * sets[0][0].numel() + 2 * hd * pairs) * 2 \
+        + madd.numel() * 4 + bk * h * 4
+    rows["flash_fwd"] = dtype_row(
+        torch, f"flash_fwd GPT-2 XL static decode {shape}",
+        lambda q, k, v: A.flash_attention_kernel(q, k, v, sc, False,
+                                                 madd)[0],
+        lambda q, k, v: A.flash_attention_plain(q, k, v, sc, False, madd),
+        sets, TOL["bfloat16"], nbytes, 4 * hd * pairs,
+        "bfloat16", shape,
+        lib=lambda q, k, v: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=keep, scale=sc))
+    return rows
+
+
+def gpt_phase(torch, dev, seed, card, layers=48):
+    """GPT at GPT-2 XL's published widths (48 layers, bf16, random
+    weights from a seed): greedy, sampled and beam search over 4
+    left-padded prompts of 17-300 tokens, 32 new tokens, through
+    ``generate()``'s static route. Each signature's eager first call is
+    captured and replayed bit for bit; the launches are the route's
+    (2L + 1 ``layer_norm`` and L ``flash_fwd`` a forward, one
+    ``categorical_rows`` a sampled step). Then ``examples/llm_serve.py``
+    on the card. Returns each route's launches."""
+    from paddle_tpu_torch.examples import llm_serve
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig.gpt2_xl(num_hidden_layers=layers, dtype="bfloat16")
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(cfg, device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(seed + 21)).eval()
+    torch.cuda.synchronize()
+    log(f"gpt: GPT-2 XL widths (hidden {cfg.hidden_size}, "
+        f"{cfg.num_attention_heads} heads of 64, inner "
+        f"{cfg.intermediate_size}, vocab {cfg.vocab_size}), {layers} of 48 "
+        f"layers, bf16, random weights (seed {seed + 21}) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ids, mask = left_padded(torch, cfg.vocab_size, GPT_LENS,
+                            torch.Generator().manual_seed(seed + 22))
+    b = len(GPT_LENS)
+    routes = {"greedy": {},
+              "sampled": dict(decode_strategy="sampling", temperature=0.8,
+                              top_p=0.9, seed=seed + 7),
+              "beam": dict(decode_strategy="beam_search",
+                           num_beams=GPT_BEAMS, length_penalty=0.6)}
+    res = {}
+    for name, kw in routes.items():
+        want = {"layer_norm": GPT_NEW * (2 * layers + 1),
+                "flash_fwd": GPT_NEW * layers,
+                "categorical_rows": GPT_NEW if name == "sampled" else 0}
+        _, pre_e, pre_r, cap_pre, _ = graph_run(
+            torch, lambda: model.generate(ids, attention_mask=mask,
+                                          max_new_tokens=1, **kw),
+            f"GPT {name} prefill")
+        torch.cuda.reset_peak_memory_stats()
+        (toks, scores), t_e, t_r, cap, counts = graph_run(
+            torch, lambda: model.generate(ids, attention_mask=mask,
+                                          max_new_tokens=GPT_NEW, **kw),
+            f"GPT {name}", want)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(tuple(toks.shape) == (b, GPT_NEW)
+              and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+              and bool(torch.isfinite(scores).all()),
+              f"GPT {name}: tokens {tuple(toks.shape)}, scores "
+              f"{scores.tolist()}")
+        rows = b * (GPT_NEW - 1)
+        res[name] = dict(counts=counts, toks=toks,
+                         tok_s_eager=rows / (t_e - pre_e),
+                         tok_s=rows / (t_r - pre_r), capture_s=cap_pre + cap,
+                         peak=peak)
+        log(f"gpt {name} on {card}: decode eager "
+            f"{res[name]['tok_s_eager']:.1f} | replayed "
+            f"{res[name]['tok_s']:.1f} tok/s; whole call {t_e * 1e3:.1f} | "
+            f"{t_r * 1e3:.1f} ms (prefill {pre_e * 1e3:.1f} | "
+            f"{pre_r * 1e3:.1f}); capture {cap_pre + cap:.2f} s; peak "
+            f"{peak:.2f} GiB; replays and eager runs equal the first call bit for bit; "
+            f"launches {want}")
+    check(not torch.equal(res["greedy"]["toks"], res["sampled"]["toks"]),
+          "GPT: the sampled tokens equal the greedy ones")
+    model._gen_cache.clear()
+    del model
+    free_card(torch)
+    t0 = time.perf_counter()
+    out = llm_serve.main([])
+    check(out["predictor_err"] <= TOL["float32"]["atol"],
+          f"llm_serve: the exported program's logits differ from the live "
+          f"model's by {out['predictor_err']:.3e}")
+    log(f"examples/llm_serve.py on {card} ended OK in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def gpt_f32_gate(torch, dev, seed):
+    """GPT-2 XL widths at 2 layers in f32, card against CPU: the static
+    route greedy and sampled, and beam search on the static and the
+    eager route, over a left-padded batch, token for token."""
+    import numpy as np
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig.gpt2_xl(num_hidden_layers=2)
+    # eval: GPT's dropout (0.1) would draw on the eager route otherwise
+    cpu = GPTForCausalLM(cfg, device="cpu").init_weights(
+        torch.Generator().manual_seed(seed + 23)).eval()
+    gpu = GPTForCausalLM(cfg, device=dev).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    ids = torch.randint(1, cfg.vocab_size, (3, 40),
+                        generator=torch.Generator().manual_seed(
+                            seed + 24)).numpy()
+    mask = np.ones_like(ids)
+    mask[1, :17] = 0
+    mask[2, 31:] = 0
+    f32_token_gate(torch, "GPT-2 XL widths", cpu, gpu, ids, mask, seed)
+    gpu._gen_cache.clear()
+    del cpu, gpu
+
+
+def f32_token_gate(torch, label, cpu, gpu, ids, mask, seed, eos=None):
+    """Card against CPU on one batch: greedy, sampled (and with ``eos``
+    eos, min_new_tokens and a repetition penalty), beam search on the
+    static route and on the eager route; tokens equal."""
+    beam = dict(decode_strategy="beam_search", num_beams=4,
+                length_penalty=0.6)
+    sampled = dict(decode_strategy="sampling", temperature=0.8, top_k=50,
+                   top_p=0.9, seed=seed + 3)
+    cases = {"greedy": {}, "sampled (top-k, top-p)": sampled,
+             "beam, static route": beam,
+             "beam, eager route": dict(beam, use_cache=False)}
+    if eos is not None:
+        cases["sampled (top-k, top-p, eos, min_new_tokens 2, repetition "
+              "1.2)"] = dict(sampled, eos_token_id=eos, min_new_tokens=2,
+                             repetition_penalty=1.2)
+        cases["beam with eos and min_new_tokens 2"] = dict(
+            beam, eos_token_id=eos, min_new_tokens=2)
+    for name, kw in cases.items():
+        want = cpu.generate(ids, attention_mask=mask, max_new_tokens=8, **kw)
+        got = gpu.generate(ids, attention_mask=mask, max_new_tokens=8, **kw)
+        log(f"infer (d) f32 2-layer {label}, {name}: card == CPU "
+            f"{torch.equal(got[0], want[0])}; score max_abs_err "
+            f"{float((got[1] - want[1]).abs().max()):.3e}")
+        check(torch.equal(got[0], want[0]),
+              f"{label} {name}: card {got[0].tolist()} vs CPU "
+              f"{want[0].tolist()}")
 
 
 def perturb_in_place(torch, model, seed):
@@ -4048,8 +4391,10 @@ def main(argv=None):
     mains.update(optimizer_phase(torch, dev, args.seed))
     mains.update(sampling_phase(torch, dev, g))
     dtype_rows = dtype_phase(torch, dev, g)
+    gpt_rows = gpt_kernel_rows(torch, dev, g)
     for name, m in [*mains.items(), ("layer_norm (bf16)", ln["bfloat16"]),
-                    *((row_name(*k), m) for k, m in dtype_rows.items())]:
+                    *((row_name(*k), m) for k, m in dtype_rows.items()),
+                    *((f"{k} (GPT-2 XL)", m) for k, m in gpt_rows.items())]:
         lib = "n/a" if m["library_ms"] is None else f"{m['library_ms']:.4f}"
         t = m["t"]
         log(f"  {name} on {card}, {m['shape']}: kernel median "
@@ -4099,7 +4444,12 @@ def main(argv=None):
     del serve
     log(f"aot phase took {time.perf_counter() - t0:.1f} s")
     free_card(torch)
-    f16 = serve_f16_phase(torch, dev, args.seed, args.layers, card)
+    t0 = time.perf_counter()
+    gpt = gpt_phase(torch, dev, args.seed, card)
+    log(f"gpt phase took {time.perf_counter() - t0:.1f} s")
+    free_card(torch)
+    f16 = serve_f16_phase(torch, dev, args.seed,
+                          min(args.layers, F16_LAYERS), card)
     bert16 = bert_f16_eval(torch, dev, args.seed, card)
 
     t0 = time.perf_counter()
@@ -4197,6 +4547,20 @@ def main(argv=None):
                      "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
                      "library_ms": m["library_ms"], "shape": m["shape"],
                      **m.get("extra", {})})
+    # GPT-2 XL's LayerNorm width and static-decode flash shape: launches
+    # in the GPT phase's greedy and beam runs
+    for name, run in (("layer_norm", "greedy"), ("flash_fwd", "beam")):
+        m = gpt_rows[name]
+        route, src, replaces = sources[name]
+        rows.append({"name": f"{name} (bfloat16, GPT-2 XL)", "route": route,
+                     "source": src, "replaces": replaces,
+                     "launches": gpt[run]["counts"][name],
+                     "max_abs_err": m["max_abs_err"], "ms": m["t"]["median"],
+                     "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                     "bound_by": m["bound_by"],
+                     "library_ms": m["library_ms"], "shape": m["shape"],
+                     "cupti_ms": m["t"]["cupti"],
+                     "queue_ms": m["t"]["queue"]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,10 @@ model of the same config, so that both packages compute the same thing.
 Paddle's ``Linear`` stores its weight as [in, out] and ``nn.Linear`` as
 [out, in], so those are transposed; embeddings are [V, D] in both.
 Non-persistable buffers (the RoPE tables) are recomputed by the port's
-model, never copied. ``export_reference_state_dict`` is the inverse:
+model, never copied. GPT's fused ``qkv`` projection is one linear (its
+[in, 3 * hidden] weight transposed whole), and its LM head is ``wte``
+itself: the state dict names it once, so it is written once.
+``export_reference_state_dict`` is the inverse:
 the port's weights in the reference's names and [in, out] layout. Both
 cover the state dict: parameters and persistent buffers.
 """

@@ -38,7 +38,10 @@ def repetition_penalty(logits, token_counts, penalty):
     """Divide (positive) / multiply (negative) the logits of seen tokens;
     ``token_counts`` [B, V] occurrences of each token so far."""
     seen = torch.as_tensor(token_counts, device=logits.device) > 0
-    pen = torch.as_tensor(penalty, dtype=logits.dtype, device=logits.device)
+    # a fill on the device, not a copy from the host: the static route
+    # runs inside a CUDA graph capture
+    pen = torch.full((), float(penalty), dtype=logits.dtype,
+                     device=logits.device)
     penalized = torch.where(logits > 0, logits / pen, logits * pen)
     return torch.where(seen, penalized, logits)
 

@@ -504,8 +504,13 @@ def test_generate_matches_reference_and_serve_loop(models):
                                    seed=7))[0]
     eager = port_m.generate(np.asarray([prompt]), **GEN_KW)[0][0].tolist()
     assert serve == eager
-    with pytest.raises(NotImplementedError, match="beam search"):
-        port_m.generate(ids, decode_strategy="beam_search", num_beams=2)
+    # beam search no longer raises: it gives the reference's beams
+    beam = dict(decode_strategy="beam_search", num_beams=2, max_new_tokens=4)
+    want, want_s = ref_m.generate(ids, attention_mask=ragged, **beam)
+    got, got_s = port_m.generate(ids, attention_mask=ragged, **beam)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want.numpy()))
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s.numpy()),
+                               rtol=1e-4, atol=1e-4)
 
 
 def test_generate_without_seed_draws_from_the_generation_stream(models):

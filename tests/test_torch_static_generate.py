@@ -123,15 +123,6 @@ def test_routes_follow_use_cache(models, monkeypatch):
     assert LlamaForCausalLM.supports_static_cache
 
 
-def test_beam_search_raises(models):
-    _, port = models
-    ids, _ = _batch(0)
-    with pytest.raises(NotImplementedError, match="beam search"):
-        port.generate(ids, decode_strategy="beam_search", num_beams=2)
-    with pytest.raises(ValueError, match="num_beams"):
-        port.generate(ids, num_beams=2)
-
-
 def test_ragged_batch_equals_solo_runs(models):
     _, port = models
     ids = np.array([[7, 8, 9, 10, 11], [3, 4, 5, 0, 0]])
