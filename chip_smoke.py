@@ -122,8 +122,9 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    a prefix of its run 1 tokens, a stream closed after 3 events cancels
    every request, and no slot holds a page after any of them; (d)
    ``decode_wedge:sleep=5`` under a 0.5 s watchdog returns within 5 s
-   with one trip and every request 'watchdog', and the device then
-   synchronizes; (e) ``serve_stream`` over an intake of 2 requests a
+   with one trip and every request 'watchdog', the device then
+   synchronizes, and the flight recorder's dump at the trip names every
+   wedged request's ``serve.request`` span; (e) ``serve_stream`` over an intake of 2 requests a
    poll for 4 polls (run 1's prompts, 16 new tokens each) serves all 8.
    Serve run KV (after the serve phase, on its model): run 2's traffic
    with ``kv_dtype="float32"`` and block-table decode, then run 1's
@@ -151,11 +152,14 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    ``InputSpec``, f32 with ``[None, 128]``) and of a 2-layer full-width
    bf16 Llama at 256 tokens; a second process (``--infer-child``) that
    imports no model module runs each ``.pt2`` through ``Config`` /
-   ``create_predictor``: outputs within ``TOL`` of the live model's (the
-   ``None`` batch also at batch 5), every kernel launched as often as in
-   the live forward (``layer_norm`` and ``flash_fwd`` for ERNIE,
-   ``rms_norm`` and ``flash_fwd`` for Llama), ms a run beside the live
-   model's; (d) at 2 layers and full width in f32, card against CPU: the
+   ``create_predictor``, one CUDA graph per input signature (the ``None``
+   batch at batch 16 and 5 is two): the first call (eager, then
+   captured) within ``TOL`` of the live model's outputs, three replays
+   bitwise the first call, every kernel launched by the first call and by
+   each replay as often as in the live forward (``layer_norm`` and
+   ``flash_fwd`` for ERNIE, ``rms_norm`` and ``flash_fwd`` for Llama),
+   one capture per signature; prints ms a run eager and replayed beside
+   the live model's, and the capture seconds; (d) at 2 layers and full width in f32, card against CPU: the
    static route greedy and sampled (seeds, eos, min_new_tokens,
    repetition penalty) and beam search on the static route (with eos and
    min_new_tokens too) and on the eager route over a left-padded batch
@@ -181,7 +185,17 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    nothing; a sampled decode tick draws once; run 1's requests streamed
    through graphs give the eager stream's tokens with no miss, unarmed
    and with the watchdog armed at 30 s (their tokens/s beside
-   ``generate()``'s). A 600-token prompt (bucket
+   ``generate()``'s). Each counted run is held to its telemetry
+   (``telemetry_gate``, ``observability`` on as by default): every
+   registry counter equal to its ``stats`` twin, completed requests by
+   status equal to the statuses, one ended ``serve.request`` span per
+   request with its events, the ``aot.bundle_hits`` /
+   ``aot.bucket_misses`` series equal to the engine's counters, and
+   ``serve.cold_start_seconds`` labelled ``warm``; runs 1 and 2 run
+   again with telemetry on, off, off, on (``telemetry_ab``: decode
+   tokens/s, TTFT p50 and host microseconds per decode tick, printed,
+   not gated), and the process's JSONL sink and Prometheus text are
+   counted. A 600-token prompt (bucket
    1024, uncalibrated) misses once, is served with the eager tokens and
    written back, and a second warm start hits it. No nvcc runs in that
    process. Prints, beside eager, each run's decode tokens/s, TTFT p50,
@@ -2599,6 +2613,7 @@ def frontend_phase(torch, dev, seed, card, serve):
     (c) deadlines and cancellation, (d) a wedged decode under a 0.5 s
     watchdog, (e) ``serve_stream``. Returns the streamed tokens (run
     1's) and (a)'s rates."""
+    from paddle_tpu_torch import observability as obs
     from paddle_tpu_torch.framework import flags
     from paddle_tpu_torch.inference import ContinuousBatchingPredictor
     from paddle_tpu_torch.serving import ServeRequest
@@ -2732,6 +2747,13 @@ def frontend_phase(torch, dev, seed, card, serve):
 
     # (d) a wedged decode: the first resolve's "ready" is held false for
     # 5 s; the 0.5 s watchdog fails every request instead of hanging
+    # the trip dumps the flight recorder, which must name the wedged
+    # requests' serve.request spans
+    flight = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "output", "chip_smoke_flight")
+    shutil.rmtree(flight, ignore_errors=True)
+    obs.set_flight_dir(flight)
+    telemetry_reset()
     flags.set_flags({"fault_injection": "decode_wedge:sleep=5"})
     try:
         cb = fresh(decode_watchdog_s=0.5)
@@ -2740,6 +2762,7 @@ def frontend_phase(torch, dev, seed, card, serve):
         took = time.perf_counter() - t0
     finally:
         flags.set_flags({"fault_injection": ""})
+        obs.set_flight_dir(None)
     t0 = time.perf_counter()
     torch.cuda.synchronize()
     log(f"front end (d) on {card}: decode_wedge:sleep=5 under a 0.5 s "
@@ -2749,6 +2772,20 @@ def frontend_phase(torch, dev, seed, card, serve):
     check(took < 5 and cb.stats["watchdog_trips"] == 1
           and cb.last_status == ["watchdog"] * n,
           "the watchdog did not fail the wedged call")
+    dump = obs.flight_recorder().last_dump
+    with open(dump) as f:
+        fd = json.load(f)
+    wedged = sorted(s["labels"]["idx"] for s in fd["spans"]
+                    if s["name"] == "serve.request"
+                    and s["status"] == "watchdog"
+                    and s["events"][-1]["name"] == "watchdog")
+    log(f"front end (d): flight dump {os.path.relpath(dump)} (reason "
+        f"{fd['reason']}): {len(fd['spans'])} spans, the wedged requests' "
+        f"serve.request spans {wedged}, fault events "
+        f"{[e['site'] for e in fd.get('fault_events', [])]}")
+    check(fd["reason"] == "decode_wedged" and wedged == list(range(n)),
+          f"the flight dump does not name every wedged request: {wedged}")
+    shutil.rmtree(flight, ignore_errors=True)
     del cb
     free_card(torch)
 
@@ -3092,9 +3129,12 @@ def predictor_phase(torch, dev, seed, card):
     """(c) jit.save of ERNIE-3.0-base (f32 and bf16 at 16 x 128, and f32
     with a None batch dim) and of a 2-layer full-width bf16 Llama at 256
     tokens; a second process (``--infer-child``) that never imports the
-    models runs each artifact through Config / create_predictor: its
-    outputs within TOL of the live model's, and the launches of each
-    kernel equal to the live forward's."""
+    models runs each artifact through Config / create_predictor, one CUDA
+    graph per input signature (the None batch dim at batch 16 and 5: two
+    signatures): the first call's outputs within TOL of the live model's,
+    every replay bitwise the first call, the launches of each kernel of
+    the first call and of every replay equal to the live forward's, and
+    one capture per signature."""
     import numpy as np
     from paddle_tpu_torch import jit
     from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -3167,52 +3207,88 @@ def predictor_phase(torch, dev, seed, card):
     for it in items:
         r = res[it["name"]]
         tol = TOL[it["dtype"]]
-        log(f"infer (c) {it['name']} on {card}: child vs live max_abs_err "
-            f"{r['err']:.3e} (atol={tol['atol']}, rtol={tol['rtol']}) "
-            f"{'ok' if r['ok'] else 'MISMATCH'}; launches child "
-            f"{r['counts']} vs live {it['counts']}; ms a run child "
-            f"{r['ms']:.3f} vs live {it['live_ms']:.3f}; jit.save "
-            f"{it['save_s']:.1f} s, load {r['load_s']:.1f} s"
-            + (f"; batch 5 of the None batch dim "
-               f"{'ok' if r['ok5'] else 'MISMATCH'}" if it["dynamic"]
-               else ""))
-        check(r["ok"] and r.get("ok5", True),
-              f"{it['name']}: the loaded program disagrees with the live "
-              "model")
-        check(r["counts"] == it["counts"],
-              f"{it['name']}: child launches {r['counts']} vs live "
-              f"{it['counts']}")
+        sfxs = ("", "5") if it["dynamic"] else ("",)
+        gs = r["graph_stats"]
+        for sfx in sfxs:
+            batch = 5 if sfx else 16 if it["name"].startswith("ernie") else 1
+            log(f"infer (c) {it['name']} batch {batch} on {card}: first "
+                f"call vs live max_abs_err {r['err' + sfx]:.3e} (atol="
+                f"{tol['atol']}, rtol={tol['rtol']}) "
+                f"{'ok' if r['ok' + sfx] else 'MISMATCH'}; "
+                f"{PREDICTOR_REPLAYS} replays bitwise the first call: "
+                f"{r['bitwise' + sfx]}; launches first call "
+                f"{r['counts' + sfx]}, each replay "
+                f"{r['replay_counts' + sfx]}, live {it['counts']}; ms a run "
+                f"eager {r['ms_eager' + sfx]:.3f} | replayed "
+                f"{r['ms' + sfx]:.3f} (live model {it['live_ms']:.3f})")
+            check(r["ok" + sfx], f"{it['name']} batch {batch}: the loaded "
+                  "program disagrees with the live model")
+            check(r["bitwise" + sfx], f"{it['name']} batch {batch}: a "
+                  "replay differs from the first call")
+            check(r["counts" + sfx] == it["counts"]
+                  and all(c == it["counts"]
+                          for c in r["replay_counts" + sfx]),
+                  f"{it['name']} batch {batch}: launches first "
+                  f"{r['counts' + sfx]}, replays "
+                  f"{r['replay_counts' + sfx]} vs live {it['counts']}")
+        log(f"infer (c) {it['name']}: graphs {gs} (capture "
+            f"{gs['capture_s']:.2f} s); jit.save {it['save_s']:.1f} s, load "
+            f"{r['load_s']:.1f} s")
+        check(gs["captures"] == len(sfxs) and gs["recaptures"] == 0,
+              f"{it['name']}: not one capture per signature: {gs}")
     shutil.rmtree(root, ignore_errors=True)
 
 
+PREDICTOR_REPLAYS = 3
+
+
 def infer_child(torch, dev, spec_path):
-    """The Predictor process of (c): imports the inference API only, runs
-    each artifact and writes its outputs' agreement, launches and time."""
+    """The Predictor process of (c): imports the inference API only and
+    runs each artifact per input signature: the first call (eager, then
+    captured into the signature's CUDA graph), then ``PREDICTOR_REPLAYS``
+    replays; writes the first call's agreement with the live model, its
+    launches and each replay's, whether every replay equals the first
+    call bit for bit, the graph counts, and ms a run eager (the loaded
+    program called without graphs) and replayed."""
     import numpy as np
     from paddle_tpu_torch.inference import Config, create_predictor
     from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
     with open(spec_path) as f:
         spec = json.load(f)
     res = {}
+
+    def counted(fn):
+        reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v for k, v in launch_counts.items() if v}
     for it in spec["items"]:
         t0 = time.perf_counter()
         pred = create_predictor(Config(it["path"] + ".pdmodel"))
         load_s = time.perf_counter() - t0
         x = np.load(it["path"] + ".x.npy")
         want = np.load(it["path"] + ".want.npy")
-        pred.run([x])                       # warm-up (Triton compile)
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        out = pred.run([x])[0]
-        torch.cuda.synchronize()
-        counts = {k: v for k, v in launch_counts.items() if v}
-        r = {"counts": counts, "load_s": load_s,
-             "err": float(np.abs(out - want).max()),
-             "ok": bool(np.allclose(out, want, **TOL[it["dtype"]])),
-             "ms": _timed_runs(torch, lambda: pred.run([x]))}
-        if it["dynamic"]:
-            r["ok5"] = bool(np.allclose(pred.run([x[:5]])[0], want[:5],
-                                        **TOL[it["dtype"]]))
+        r = {"load_s": load_s}
+        sigs = [("", len(x))] + ([("5", 5)] if it["dynamic"] else [])
+        for sfx, n in sigs:
+            xb, wb = x[:n], want[:n]
+            first, counts = counted(lambda: pred.run([xb])[0])
+            reps = [counted(lambda: pred.run([xb])[0])
+                    for _ in range(PREDICTOR_REPLAYS)]
+
+            def eager():
+                with torch.no_grad():
+                    return pred._layer(pred._to_device(xb)).float().cpu()
+            r.update({
+                "counts" + sfx: counts,
+                "replay_counts" + sfx: [c for _, c in reps],
+                "bitwise" + sfx: all(np.array_equal(o, first)
+                                     for o, _ in reps),
+                "err" + sfx: float(np.abs(first - wb).max()),
+                "ok" + sfx: bool(np.allclose(first, wb, **TOL[it["dtype"]])),
+                "ms_eager" + sfx: _timed_runs(torch, eager),
+                "ms" + sfx: _timed_runs(torch, lambda: pred.run([xb]))})
+        r["graph_stats"] = dict(pred.graph_stats)
         res[it["name"]] = r
         del pred
         free_card(torch)
@@ -3676,11 +3752,106 @@ def aot_warm(torch, aot, model, path, card, label):
     return pred, eng
 
 
+def telemetry_reset():
+    """Empty the observability registry and flight ring before a serve
+    whose telemetry a gate reads."""
+    from paddle_tpu_torch import observability as obs
+    obs.get_registry().reset()
+    obs.flight_recorder().clear()
+
+
+def telemetry_gate(cb, label, stats0, aot_counters=None):
+    """After one serve on a registry emptied just before it
+    (``telemetry_reset``): every registry counter equals its ``stats``
+    twin (the change of ``stats`` over the serve), completed requests by
+    status equal ``last_status``, the flight ring holds one
+    ``serve.request`` span per request, ended with its status and with
+    its events; with ``aot_counters`` the ``aot.bundle_hits`` and
+    ``aot.bucket_misses`` series equal the engine's counters and
+    ``serve.cold_start_seconds`` reads ``mode="warm"``."""
+    import collections
+    from paddle_tpu_torch import observability as obs
+    reg = obs.get_registry()
+
+    def total(name, unlabelled=False, **want):
+        m = reg.get(name)
+        return 0.0 if m is None else sum(
+            s._value for s in m.series()
+            if all(s._labels.get(k) == v for k, v in want.items())
+            and not (unlabelled and "kind" in s._labels))
+    d = {k: cb.stats[k] - stats0[k] for k in stats0}
+    twins = {
+        "decode_steps": (total("serving.decode_steps"), d["decode_steps"]),
+        "admissions": (total("serving.admissions"), d["prefills"]
+                       + d["prefix_hits"] + d["chunked_requests"]),
+        "prefix_hits": (total("serving.prefix_cache_hits",
+                              unlabelled=True), d["prefix_hits"]),
+        "prefix_partial_hits": (total("serving.prefix_cache_hits",
+                                      kind="partial"),
+                                d["prefix_partial_hits"]),
+        "prefix_misses": (total("serving.prefix_cache_misses"),
+                          d["prefix_misses"]),
+        "spec_proposed": (total("serving.spec.proposed_tokens"),
+                          d["spec_proposed"]),
+        "spec_accepted": (total("serving.spec.accepted_tokens"),
+                          d["spec_accepted"]),
+        "prefill_chunks": (total("serving.chunked_prefill.chunks"),
+                           d["prefill_chunks"]),
+        "chunked_requests": (total("serving.chunked_prefill.requests"),
+                             d["chunked_requests"]),
+        "evictions": (total("serving.evictions"), d["evictions"])}
+    for st, n in collections.Counter(cb.last_status).items():
+        twins[f"completed {st}"] = (
+            total("serving.completed_requests", status=st), n)
+    bad = {k: v for k, v in twins.items() if v[0] != v[1]}
+    spans = [s for s in obs.flight_recorder().spans()
+             if s["name"] == "serve.request"]
+    by_idx = {s["labels"]["idx"]: s for s in spans}
+    n = len(cb.last_status)
+    span_ok = (len(spans) == n and sorted(by_idx) == list(range(n))
+               and all(by_idx[r]["status"] == cb.last_status[r]
+                       and by_idx[r]["events"][0]["name"] == "queued"
+                       and by_idx[r]["events"][-1]["name"]
+                       == ("finish" if cb.last_status[r] == "ok"
+                           else cb.last_status[r]) for r in range(n)))
+    events = sum(len(s["events"]) for s in spans)
+    log(f"telemetry {label}: {len(twins)} registry counters vs their stats "
+        f"twins, {len(bad)} differ {bad or ''}; {len(spans)} serve.request "
+        f"spans for {n} requests ({events} events)")
+    check(not bad, f"{label}: registry counters differ from stats: {bad}")
+    check(span_ok, f"{label}: not one ended serve.request span with its "
+          f"events per request ({len(spans)} spans)")
+    if aot_counters is not None:
+        def series(name):
+            m = reg.get(name)
+            return {} if m is None else {s._labels["kind"]: s._value
+                                         for s in m.series()}
+        hits, miss = series("aot.bundle_hits"), series("aot.bucket_misses")
+        cold = reg.get("serve.cold_start_seconds")
+        modes = [] if cold is None else [s._labels.get("mode")
+                                         for s in cold.series()]
+        log(f"telemetry {label}: aot.bundle_hits {hits}, aot.bucket_misses "
+            f"{miss}; serve.cold_start_seconds modes {modes} "
+            f"({[round(s._value, 3) for s in cold.series()] if cold else []}"
+            f" s)")
+        check(hits == dict(aot_counters["bundle_hits"])
+              and miss == dict(aot_counters["bucket_misses"]),
+              f"{label}: aot series {hits} / {miss} vs the engine's "
+              f"counters {dict(aot_counters['bundle_hits'])} / "
+              f"{dict(aot_counters['bucket_misses'])}")
+        check(modes == ["warm"], f"{label}: serve.cold_start_seconds "
+              f"modes {modes}")
+
+
 def aot_counted(torch, dev, aot, model, cfg, card, label, required, kw,
                 pred, eng, prompts, max_new, sampling=None):
     """One counted run through graphs: no bucket miss, bundle hits,
-    every required kernel counted by replay."""
+    every required kernel counted by replay; its telemetry held to its
+    stats and to the engine's counters (``telemetry_gate``)."""
+    from paddle_tpu_torch import observability as obs
     aot.reset_counters()
+    telemetry_reset()
+    stats0 = dict(pred.stats)
     hits0 = eng.stats["hits"]
     r = serve_run(torch, dev, model, cfg, prompts, max_new, card, label,
                   required, kw, sampling, cb=pred)
@@ -3689,8 +3860,70 @@ def aot_counted(torch, dev, aot, model, cfg, card, label, required, kw,
         f"{dict(aot.counters['bundle_hits'])}, bucket misses {misses}")
     check(not misses and eng.stats["hits"] > hits0,
           f"{label}: a bucket miss or no bundle hit: {misses}")
+    telemetry_gate(pred, label, stats0, aot.counters)
+    obs.maybe_export()
     r.update(capture_s=eng.stats["capture_s"], loads=eng.stats["loads"])
     return r
+
+
+def telemetry_ab(torch, pred, prompts, max_new, want, card, label,
+                 sampling=None):
+    """The telemetry's cost on a replayed run: the run with telemetry on,
+    off, off, on (``observability.scoped``), each from an empty prefix
+    cache and giving ``want``'s tokens. Per run: decode tokens/s outside
+    monolithic prefill, TTFT p50, and host microseconds per decode tick
+    (the wall time outside prefill less the time spent waiting for the
+    steps' results, over the decode steps). Printed, not gated."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.inference import predictor as P
+    real = P._Fetch.__call__
+    res = {True: [], False: []}
+    sink = obs.telemetry_path()
+    obs.configure(None)       # as served by default: no JSONL sink
+    for on in (True, False, False, True):
+        wait = [0.0]
+
+        def timed(self):
+            t = time.perf_counter()
+            try:
+                return real(self)
+            finally:
+                wait[0] += time.perf_counter() - t
+        pred.prefix_cache.clear(pred.pool)
+        prefill_s = time_prefills(pred)
+        steps0 = pred.stats["decode_steps"]
+        P._Fetch.__call__ = timed
+        try:
+            with obs.scoped(on):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs = pred.generate(prompts, max_new_tokens=max_new,
+                                     sampling=sampling)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            P._Fetch.__call__ = real
+            untime_prefills(pred)
+        check(outs == want, f"{label} with telemetry "
+              f"{'on' if on else 'off'}: other tokens")
+        steps = pred.stats["decode_steps"] - steps0
+        dec_s = max(wall - prefill_s[0], 1e-9)
+        dec_tok = sum(len(o) for o in outs) - len(outs)
+        res[on].append({"tok_s": dec_tok / dec_s,
+                        "ttft_p50_ms": statistics.median(
+                            pred.last_ttft_s) * 1e3,
+                        "host_us": (dec_s - wait[0]) / max(steps, 1) * 1e6})
+    obs.configure(sink)
+
+    def fmt(k, f):
+        return " | ".join(f"{statistics.mean(r[k] for r in res[on]):{f}} "
+                          f"({', '.join(format(r[k], f) for r in res[on])})"
+                          for on in (True, False))
+    log(f"telemetry A/B {label} on {card}, on | off (mean (each run), order "
+        f"on off off on): decode {fmt('tok_s', '.1f')} tok/s; TTFT p50 "
+        f"{fmt('ttft_p50_ms', '.1f')} ms; host {fmt('host_us', '.0f')} us "
+        f"per decode tick")
+    return {on: res[on] for on in (True, False)}
 
 
 def aot_streams(torch, dev, aot, model, cfg, card, pred, eng, prompts,
@@ -3749,11 +3982,17 @@ def aot_child(torch, dev, spec_path, card):
     (the default kernel build directory empty), serves runs 1-3 through
     graphs with their profiled passes and ticks, a bucket miss and a
     second warm start, and writes the results for the first process."""
+    import collections
+    from paddle_tpu_torch import observability as obs
     from paddle_tpu_torch.inference import ContinuousBatchingPredictor, aot
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     with open(spec_path) as f:
         spec = json.load(f)
+    # spans and one registry snapshot per counted run go to a JSONL sink
+    tel_path = os.path.join(os.path.dirname(spec["result"]),
+                            "telemetry.jsonl")
+    obs.configure(tel_path)
     cfg = LlamaConfig.llama2_7b(num_hidden_layers=spec["layers"],
                                 dtype="bfloat16")
     model = LlamaForCausalLM(cfg, device=dev).init_weights(
@@ -3778,6 +4017,8 @@ def aot_child(torch, dev, spec_path, card):
     r["tick"] = tick_launches(torch, dev, pred, card, "run 1 (graphs)")
     r.update(aot_streams(torch, dev, aot, model, cfg, card, pred, eng,
                          prompts, max_new, spec["stream_outs"]))
+    r["ab"] = telemetry_ab(torch, pred, prompts, max_new, r["outs"], card,
+                           "run 1 (graphs)")
     keep(r)
     gen = torch.Generator().manual_seed(spec["seed"] + 4)
     miss = [torch.randint(1, cfg.vocab_size, (AOT_MISS_LEN,),
@@ -3824,6 +4065,9 @@ def aot_child(torch, dev, spec_path, card):
                         kw, pred, eng, prompts + reps, max_new + [64, 64],
                         sampling)
         if sampling is None:
+            r["ab"] = telemetry_ab(torch, pred, prompts + reps,
+                                   max_new + [64, 64], r["outs"], card,
+                                   label)
             r.update(serve_profile(torch, dev, model,
                                    [prompts[0], prompts[1], reps[0],
                                     prompts[3]], card, kw, cb=pred))
@@ -3837,6 +4081,16 @@ def aot_child(torch, dev, spec_path, card):
         keep(r)
         del pred, eng
         free_card(torch)
+    obs.configure(None)
+    with open(tel_path) as f:
+        recs = [json.loads(x) for x in f]
+    kinds = collections.Counter(r.get("kind") for r in recs)
+    prom = obs.PrometheusExporter().render().splitlines()
+    log(f"aot child telemetry: {len(recs)} JSONL records ({kinds['span']} "
+        f"spans, {len(recs) - kinds['span']} samples); "
+        f"PrometheusExporter().render(): {len(prom)} lines")
+    check(kinds["span"] > 0 and len(recs) > kinds["span"] and prom,
+          "the JSONL sink or the Prometheus text is empty")
     left = os.listdir(spec["empty_build"])
     log(f"aot child: nvcc runs in this process: {_build.build_stats['nvcc']}"
         f"; files in the default build directory: {len(left)}")

@@ -21,6 +21,9 @@ optimizer step (``optimizer.fused``: SGD, Momentum, Adam, AdamW under
 the eager ``step()`` and ``TrainStep``) over the ``grad_sq_norm`` and
 ``fused_update`` kernels.
 
+Runtime telemetry (metrics, spans, the flight recorder, exporters) is
+``observability``, the reference's package.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 import torch
@@ -32,5 +35,6 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from .framework import resolve_device  # noqa: E402
+from . import observability  # noqa: E402,F401
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "observability"]

@@ -37,8 +37,9 @@ The port's sites: ``serve_flood`` and ``decode_wedge`` (in
 ``inference.ContinuousBatchingPredictor``). The spec grammar, the
 default mode of each site, the hit counting and the ``prob`` coin are
 the reference's, so one spec fires at the same checks in both. Every
-fired fault is recorded in :func:`events` (the reference also counts it
-in a metrics registry, which the port does not have yet).
+fired fault is recorded in :func:`events` and counted in the
+``robustness.faults_injected`` series (by site and mode) of
+``observability``.
 """
 from __future__ import annotations
 
@@ -209,6 +210,10 @@ class FaultRegistry:
                 break
             else:
                 return None
+        # record outside the lock: the metrics layer has its own
+        from ..observability import metrics as _obsm
+        _obsm.counter("robustness.faults_injected").inc(
+            site=site, mode=act.mode)
         return act
 
     def events(self) -> List[dict]:

@@ -1,22 +1,28 @@
-"""CUDA-graph capture shared by the AOT engine (``inference/aot``) and
-``generate()``'s static route (``generation``): the port's counterpart
-of running a compiled XLA program.
+"""CUDA-graph capture shared by the AOT engine (``inference/aot``),
+``generate()``'s static route (``generation``) and the inference API's
+``Predictor`` (``inference/api.py``): the port's counterpart of running
+a compiled XLA program.
 
 - ``capture_stream(device)``: the stream every capture on a device runs
   on, its cuBLAS and cuBLASLt workspaces allocated before any capture.
+- ``graph_pool(device, owner)``: the graph memory pool an owner's
+  programs on a device share.
 - ``GraphProgram``: one function captured into a CUDA graph over static
   input buffers; a call copies its operands in, replays, adds the
   launch counts its capture recorded and returns clones of the outputs.
+- ``Captured``: a program with the weights it reads by address, for
+  the per-signature caches that re-capture when a weight is rebound.
 """
 from __future__ import annotations
 
 import gc
+import weakref
 
 import torch
 
 from ..kernels import _build
 
-__all__ = ["GraphProgram", "capture_stream"]
+__all__ = ["GraphProgram", "Captured", "capture_stream", "graph_pool"]
 
 
 def _leaves(x, out):
@@ -73,6 +79,41 @@ def capture_stream(device):
         torch.cuda.current_stream(device).wait_stream(s)
         _capture_streams[idx] = s
     return s
+
+
+_pools = {}      # (owner, device index) -> graph memory pool
+
+
+def graph_pool(device, owner):
+    """The graph memory pool that ``owner``'s programs on ``device``
+    share (they run one at a time on one stream, and every output is
+    cloned out of it). Owners keep pools apart because a pool's memory
+    goes back to the allocator only once every graph captured into it is
+    freed (the AOT engine keeps a pool of its own, freed with it)."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    pool = _pools.get((owner, idx))
+    if pool is None:
+        pool = _pools[(owner, idx)] = torch.cuda.graph_pool_handle()
+    return pool
+
+
+class Captured:
+    """A signature's CUDA graph and the weights it reads by address. It
+    keeps weak references: a rebound weight is another tensor, so a dead
+    reference is a rebind too, and the old weights are freed with their
+    last other owner, not held by every signature captured against them.
+    A load in place keeps the tensors and their storage: ``reads`` holds
+    and the graph replays on the new values."""
+
+    def __init__(self, program, baked):
+        self.program = program
+        self.bound = [(weakref.ref(t), t.data_ptr()) for t in baked]
+
+    def reads(self, baked):
+        return len(baked) == len(self.bound) and all(
+            r() is t and t.data_ptr() == p
+            for t, (r, p) in zip(baked, self.bound))
 
 
 class GraphProgram:

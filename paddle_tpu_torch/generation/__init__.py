@@ -38,7 +38,6 @@ from __future__ import annotations
 
 import dataclasses
 import time
-import weakref
 from dataclasses import dataclass
 from typing import Optional
 
@@ -139,39 +138,6 @@ def _length_norm(lens, lp_exp):
     return ((5.0 + torch.clamp(lens, min=1).float()) / 6.0) ** lp_exp
 
 
-class _Captured:
-    """A signature's CUDA graph and the weights it reads by address. It
-    keeps weak references: a rebound weight is another tensor, so a dead
-    reference is a rebind too, and the old weights are freed with their
-    last other owner, not held by every signature captured against them."""
-
-    def __init__(self, program, baked):
-        self.program = program
-        self.bound = [(weakref.ref(t), t.data_ptr()) for t in baked]
-
-    def reads(self, baked):
-        return len(baked) == len(self.bound) and all(
-            r() is t and t.data_ptr() == p
-            for t, (r, p) in zip(baked, self.bound))
-
-
-_pools = {}       # device index -> the graph memory pool of generate()
-
-
-def _graph_pool(device):
-    """The graph memory pool that ``generate()``'s programs on ``device``
-    share (they run one at a time on one stream, and every output is
-    cloned out of it). The AOT engine keeps a pool of its own: a pool's
-    memory goes back to the allocator only once every graph captured
-    into it is freed, and an engine's goes with the engine."""
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    pool = _pools.get(idx)
-    if pool is None:
-        pool = _pools[idx] = torch.cuda.graph_pool_handle()
-    return pool
-
-
 class GenerationMixin:
     """Adds ``.generate()`` to causal-LM modules whose ``forward(ids)``
     returns [B, S, V] logits; a model that sets ``supports_static_cache``
@@ -264,30 +230,31 @@ class GenerationMixin:
                 self.train()
 
     def _dispatch(self, cache, sig, build, args):
-        from ..framework.graphs import GraphProgram, capture_stream
+        from ..framework.graphs import (Captured, GraphProgram,
+                                        capture_stream, graph_pool)
         dev = args[0].device
         entry = cache.get(sig)
         if dev.type != "cuda":
-            if entry is None or isinstance(entry, _Captured):
+            if entry is None or isinstance(entry, Captured):
                 entry = cache[sig] = build()
             return entry(*args)
         baked = [*self.parameters(), *self.buffers()]
-        if isinstance(entry, _Captured) and not entry.reads(baked):
+        if isinstance(entry, Captured) and not entry.reads(baked):
             # the graph would read the old storage: capture again
             del cache[sig]
             entry = None
             graph_stats["recaptures"] += 1
-        if isinstance(entry, _Captured):
+        if isinstance(entry, Captured):
             graph_stats["replays"] += 1
             return entry.program(*args)
         raw = build()
         out = raw(*args)
         t0 = time.perf_counter()
-        program = GraphProgram(raw, args, _graph_pool(dev),
+        program = GraphProgram(raw, args, graph_pool(dev, "generate"),
                                capture_stream(dev))
         graph_stats["capture_s"] += time.perf_counter() - t0
         graph_stats["captures"] += 1
-        cache[sig] = _Captured(program, baked)
+        cache[sig] = Captured(program, baked)
         return out
 
     # -- static-cache route ----------------------------------------------

@@ -20,6 +20,7 @@ from typing import List, NamedTuple
 
 import torch
 
+from ..observability import metrics as _obsm
 from ..kernels.paged_attention import (paged_attention,
                                        paged_attention_ragged,
                                        paged_attention_ragged_varq,
@@ -305,7 +306,9 @@ class PrefixCache:
 
     def reclaim(self, pool, need):
         """Drop least-recently-used unpinned leaves until ``need`` pages
-        were freed or nothing droppable remains. Returns pages freed."""
+        were freed or nothing droppable remains. Returns pages freed
+        (counted in ``serving.page_evictions``: cached-but-idle pages
+        dropped under allocation pressure)."""
         freed = 0
         while freed < need:
             cands = self._droppable(pool)
@@ -322,6 +325,8 @@ class PrefixCache:
                 freed += 1
                 if freed >= need:
                     break
+        if freed:
+            _obsm.counter("serving.page_evictions").inc(freed)
         return freed
 
     def clear(self, pool):

@@ -35,6 +35,8 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 
 from ...kernels import _build
+from ...observability import metrics as _obsm
+from ...observability import tracing as _obstr
 from .bundle import EngineBundle, model_fingerprint
 from .engine import (InferenceEngine, _named_kv_dtype, _serve_topology,
                      wire_kernel_cache)
@@ -131,7 +133,8 @@ class EngineBuilder:
     def build(self, path: str, wire_cache: bool = True,
               seed: int = 0) -> Dict:
         """Calibrate, capture, record; returns the bundle manifest (the
-        builder keeps ``build_seconds``)."""
+        builder keeps ``build_seconds``, also the ``aot.build_seconds``
+        gauge; the work runs inside an ``aot.build`` span)."""
         geometry = self._geometry()
         eff_rc = self.effective_runtime_config()
         buckets = {"prompt_buckets": self.prompt_buckets,
@@ -139,24 +142,31 @@ class EngineBuilder:
                    "max_new_tokens": self.max_new_tokens}
         t0 = time.perf_counter()
         device = self.model.device
-        bundle = EngineBundle.create(
-            path, model_fingerprint(self.model), geometry, buckets,
-            runtime_config=eff_rc.to_dict(), device=device)
-        prev = wire_kernel_cache(bundle.kernel_dir, device) \
-            if wire_cache else None
-        try:
-            self._calibrate(bundle, geometry, eff_rc, seed)
-            if wire_cache:
-                bundle.add_kernels(_build.loaded_libraries(), prev[1]
-                                   or str(Path(prev[0]) / "triton"))
-        finally:
-            if wire_cache:
-                _build.restore_build_dir(prev)
-        manifest = bundle.manifest(refresh=True)
+        with _obstr.span("aot.build", parent=None, path=path,
+                         prompt_buckets=str(self.prompt_buckets),
+                         batch_sizes=str(self.batch_sizes),
+                         config_hash=eff_rc.config_hash()[:12]) as sp:
+            bundle = EngineBundle.create(
+                path, model_fingerprint(self.model), geometry, buckets,
+                runtime_config=eff_rc.to_dict(), device=device)
+            prev = wire_kernel_cache(bundle.kernel_dir, device) \
+                if wire_cache else None
+            try:
+                self._calibrate(bundle, geometry, eff_rc, seed, sp)
+                if wire_cache:
+                    bundle.add_kernels(_build.loaded_libraries(), prev[1]
+                                       or str(Path(prev[0]) / "triton"))
+            finally:
+                if wire_cache:
+                    _build.restore_build_dir(prev)
+            manifest = bundle.manifest(refresh=True)
+            sp.set_label(artifacts=len(manifest.get("artifacts", {})),
+                         build_s=round(time.perf_counter() - t0, 3))
         self.build_seconds = time.perf_counter() - t0
+        _obsm.gauge("aot.build_seconds", unit="s").set(self.build_seconds)
         return manifest
 
-    def _calibrate(self, bundle, geometry, eff_rc, seed):
+    def _calibrate(self, bundle, geometry, eff_rc, seed, sp):
         from ..predictor import ContinuousBatchingPredictor
         engine = InferenceEngine(bundle, write_back=True, recording=True)
         # the calibration predictor runs the config the manifest records
@@ -173,10 +183,12 @@ class EngineBuilder:
                 prompts = [rng.randint(2, vocab, (pb,)).tolist()
                            for _ in range(n)]
                 cb.generate(prompts, max_new_tokens=self.max_new_tokens)
+                sp.event("bucket", prompt_bucket=pb, batch=n)
         if geometry.get("prefill_chunk_tokens"):
-            self._capture_mixed(cb, rng, vocab)
+            self._capture_mixed(cb, rng, vocab, sp)
         if geometry.get("spec_draft_tokens"):
             self._compile_spec_sig(cb)
+            sp.event("spec", draft_tokens=int(geometry["spec_draft_tokens"]))
         for prompts, max_new, sampling in self._traffic:
             # served as by a fresh predictor: the calibration prompts'
             # cached pages would change which prefix hits it sees
@@ -184,12 +196,13 @@ class EngineBuilder:
                 cb.prefix_cache.clear(cb.pool)
             cb.generate(prompts, max_new_tokens=max_new, sampling=sampling)
         if self.capture_forward:
-            self._capture_forward(cb, engine, rng, vocab)
+            self._capture_forward(cb, engine, rng, vocab, sp)
         for name, fn, args in self._extra:
             engine.compile_fallback(("custom", name), fn, args)
+            sp.event("custom", name=name)
 
     # ---------------------------------------------------------- capture --
-    def _capture_mixed(self, cb, rng, vocab):
+    def _capture_mixed(self, cb, rng, vocab, sp):
         """Capture every ("mixed", Qb, ...) signature the serve loop can
         dispatch, one long synthetic prompt per chunk bucket Qb in
         {page * 2^k <= chunk_max}: a prompt of length chunk_max + Qb/2 + 1
@@ -208,10 +221,12 @@ class EngineBuilder:
             length = cm + tail
             if length + self.max_new_tokens > cb.max_seq_len:
                 self._capture_idle(cb, "mixed", qb)
+                sp.event("mixed_bucket", q_bucket=qb, direct=True)
             elif length not in driven:   # page and cm share a prompt
                 driven.add(length)
                 prompt = rng.randint(2, vocab, (length,)).tolist()
                 cb.generate([prompt], max_new_tokens=self.max_new_tokens)
+                sp.event("mixed_bucket", q_bucket=qb, prompt_len=length)
 
     @staticmethod
     def _capture_idle(cb, kind, qb):
@@ -230,13 +245,14 @@ class EngineBuilder:
         dispatch ("decode_sample", ...).)"""
         self._capture_idle(cb, "spec", cb._spec_k + 1)
 
-    def _capture_forward(self, cb, engine, rng, vocab):
+    def _capture_forward(self, cb, engine, rng, vocab, sp):
         """Capture the model's plain forward (logits) per prompt bucket:
         the surface a captured-vs-eager parity check reads."""
         for pb in self.prompt_buckets:
             ids = rng.randint(2, vocab, (1, pb)).astype(np.int64)
             engine.compile_fallback(("forward", (1, pb)), cb._raw_forward,
                                     (cb._put(ids),))
+            sp.event("forward", prompt_bucket=pb)
 
 
 def build_engine(model, path: str, prompt_buckets=None,

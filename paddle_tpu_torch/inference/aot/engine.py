@@ -15,11 +15,14 @@ table that ``ContinuousBatchingPredictor._jit_call`` consults:
 - a hit copies the operands into the program's static input buffers,
   replays the graph, adds the launch counts its capture recorded
   (``kernels.launch_counts``: a replay runs no Python) and returns clones
-  of its outputs (``aot.counters["bundle_hits"]``).
+  of its outputs (``aot.counters["bundle_hits"]`` and the reference's
+  ``aot.bundle_hits`` series, by program kind).
 - a miss (``compile_fallback``) runs the step eagerly once and serves
   that result, then captures the program and writes its signature back
   into the bundle, so the next process hits it
-  (``aot.counters["bucket_misses"]``).
+  (``aot.counters["bucket_misses"]`` / ``aot.bucket_misses``, inside an
+  ``aot.compile_fallback`` span; the builder's misses are
+  ``aot.build_program`` spans and count nowhere).
 
 On a CPU predictor a program is the eager function, the CPU route, as a
 kernel's plain version is. On CUDA a program is a graph: a capture or a
@@ -29,7 +32,8 @@ the counted bucket miss.
 Invalidation is the reference's: a bundle whose runtime fingerprint,
 model hash, kernel digests, compiled-in geometry, runtime config,
 topology or role disagrees is rejected (``aot.counters
-["invalidations"]``, by reason), re-created empty and refilled by
+["invalidations"]`` by reason, ``aot.invalidations`` by reason and
+tier), re-created empty and refilled by
 write-back; ``strict=True`` raises instead. Weights and pages are baked
 into every graph by address: the engine records them at attach and
 refuses to serve once one was rebound (loading a checkpoint in place
@@ -50,6 +54,8 @@ import torch
 from ...framework import integrity as _integrity
 from ...framework.graphs import GraphProgram, capture_stream
 from ...kernels import _build
+from ...observability import metrics as _obsm
+from ...observability import tracing as _obstr
 from .bundle import (EngineBundle, BundleInvalid, runtime_fingerprint,
                      model_fingerprint, sig_key)
 
@@ -96,6 +102,7 @@ def default_engine_dir() -> Optional[str]:
 
 def _invalidate(reason: str, detail: str = "", tier: str = "bundle"):
     counters["invalidations"][reason] += 1
+    _obsm.counter("aot.invalidations").inc(reason=reason, tier=tier)
     _logger.warning("aot %s invalidated (%s)%s", tier, reason,
                     f": {detail}" if detail else "")
 
@@ -148,6 +155,8 @@ class InferenceEngine:
         self._origin: Dict[tuple, str] = {}     # sig -> bundle|fallback
         self.stats = {"hits": 0, "misses": 0, "loads": 0,
                       "write_backs": 0, "capture_s": 0.0}
+        self._m_hit = _obsm.counter("aot.bundle_hits")
+        self._m_miss = _obsm.counter("aot.bucket_misses")
         self.predictor = None
         self._pool = None
         self._bound = []
@@ -237,32 +246,49 @@ class InferenceEngine:
             # a fallback re-dispatching from the table does not
             self.stats["hits"] += 1
             counters["bundle_hits"][str(sig[0])] += 1
+            self._m_hit.inc(kind=str(sig[0]))
         return hit
 
     def compile_fallback(self, sig, fn, args):
         """Bucket miss: run the step eagerly once and serve that result,
         then capture the program, keep it and record its signature in
         the bundle."""
+        key = sig_key(sig)
         kind = str(sig[0]) if isinstance(sig, tuple) and sig else "?"
         self.stats["misses"] += 1
-        if not self.recording:
+        if self.recording:
+            sp = _obstr.start_span("aot.build_program", parent=None,
+                                   kind=kind, sig=key[:160])
+        else:
             counters["bucket_misses"][kind] += 1
-            _logger.warning("aot bucket miss: %s", sig_key(sig)[:160])
-        out = fn(*args)
-        t0 = time.perf_counter()
-        prog = self._capture(fn, args, warm_up=False)
-        self.stats["capture_s"] += time.perf_counter() - t0
-        with self._lock:
-            self._table[sig] = prog
-            self._origin[sig] = "fallback"
-        if self.write_back and self.bundle is not None:
-            try:
-                self.bundle.add_artifact(sig)
-                self.stats["write_backs"] += 1
-            except (OSError, BundleInvalid) as e:
-                # persistence is best-effort: serving never dies of it
-                _logger.warning("aot write-back of %s failed: %s",
-                                sig_key(sig)[:160], e)
+            self._m_miss.inc(kind=kind)
+            _logger.warning("aot bucket miss: %s", key[:160])
+            sp = _obstr.start_span("aot.compile_fallback", parent=None,
+                                   kind=kind, sig=key[:160])
+        try:
+            out = fn(*args)
+            t0 = time.perf_counter()
+            prog = self._capture(fn, args, warm_up=False)
+            self.stats["capture_s"] += time.perf_counter() - t0
+            with self._lock:
+                self._table[sig] = prog
+                self._origin[sig] = "fallback"
+            if self.write_back and self.bundle is not None:
+                try:
+                    rec = self.bundle.add_artifact(sig)
+                    self.stats["write_backs"] += 1
+                    sp.event("write_back", file=rec["file"],
+                             bytes=rec["bytes"])
+                except (OSError, BundleInvalid) as e:
+                    # persistence is best-effort: serving never dies of it
+                    _logger.warning("aot write-back of %s failed: %s",
+                                    key[:160], e)
+                    sp.event("write_back_failed",
+                             error=f"{type(e).__name__}: {e}"[:160])
+            sp.end(status="ok")
+        except BaseException as e:
+            sp.end(status=f"error:{type(e).__name__}")
+            raise
         return out
 
     def program(self, sig):
@@ -283,15 +309,19 @@ def load_engine(path: str, model=None, write_back: bool = True,
     ``wire_cache`` the kernel build directory points at the bundle's."""
     bundle = EngineBundle(path)
     device = model.device if model is not None else None
-    try:
-        bundle.validate(model_fingerprint(model)
-                        if model is not None else None, device)
-    except BundleInvalid as e:
-        _invalidate(e.reason, e.detail)
-        raise
-    if wire_cache:
-        wire_kernel_cache(bundle.kernel_dir, device)
-    return InferenceEngine(bundle, write_back=write_back)
+    with _obstr.span("aot.load", parent=None, path=path) as sp:
+        try:
+            m = bundle.validate(model_fingerprint(model)
+                                if model is not None else None, device)
+        except BundleInvalid as e:
+            _invalidate(e.reason, e.detail)
+            sp.event("invalidated", reason=e.reason)
+            raise
+        if wire_cache:
+            wire_kernel_cache(bundle.kernel_dir, device)
+        eng = InferenceEngine(bundle, write_back=write_back)
+        sp.set_label(artifacts=len(m.get("artifacts", {})))
+    return eng
 
 
 def _named_kv_dtype(cb_kwargs: Dict) -> Dict:

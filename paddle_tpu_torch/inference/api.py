@@ -12,11 +12,24 @@ the ``bf16_keys`` of the ``.pdmodel`` beside it). Inputs are named
 ``x0`` ... ``x7`` and outputs ``out0`` ...; bf16 and half precision cast
 the layer to bf16, as the reference does. It runs on ``cuda`` unless
 ``Config.disable_gpu()``, and raises without a GPU.
+
+Where the reference compiles one program per input signature
+(``tuple((tuple(shape), str(dtype)) for each feed)``), the port keeps one
+CUDA graph per signature, on either route: the first call of a
+signature runs eagerly (its result is returned) and is captured
+(``framework.graphs``, on the device's capture stream, over the
+Predictors' graph pool); later calls copy the feeds into the graph's
+static inputs and replay it. A graph reads the weights by address, so a
+weight loaded in place is served by the next replay, and a rebound
+weight (another tensor or storage) re-captures the signature. On the CPU
+every call runs eagerly. ``Predictor.graph_stats`` counts captures,
+replays, re-captures and capture seconds.
 """
 from __future__ import annotations
 
 import os
 import pickle
+import time
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -147,8 +160,8 @@ def _load_params(layer, params_file):
 
 class Predictor:
     """Runs a loaded model per call (``run(inputs)`` or through the
-    handles); the port runs eagerly, so there is no program per input
-    signature to compile."""
+    handles), one CUDA graph per input signature on the card (see the
+    module's docstring)."""
 
     def __init__(self, config: Config):
         self._config = config
@@ -156,6 +169,9 @@ class Predictor:
         self._outputs = {}
         self._layer = None
         self._aot = None
+        self._graphs = {}     # input signature -> graphs.Captured
+        self.graph_stats = {"captures": 0, "replays": 0, "recaptures": 0,
+                            "capture_s": 0.0}
         dev = None if config._device == PlaceType.GPU else "cpu"
         if dev is None and config._device_id:
             dev = f"cuda:{config._device_id}"
@@ -209,16 +225,57 @@ class Predictor:
     def get_output_handle(self, name) -> _IOHandle:
         return _IOHandle(self, name, False)
 
+    def _baked(self):
+        """The tensors a captured graph reads by address: the layer's
+        parameters and buffers (for an exported program, its weight
+        list and its module's own tensors)."""
+        lay = self._layer
+        if isinstance(lay, torch.nn.Module):
+            return [*lay.parameters(), *lay.buffers()]
+        m = lay._module
+        return [*lay._weights, *m.parameters(), *m.buffers()]
+
+    def _call(self, feeds):
+        """The layer on ``feeds`` (device tensors): eager on the CPU; on
+        CUDA the signature's graph, captured at its first call (which runs
+        eagerly) and re-captured when a weight was rebound."""
+        from ..framework.graphs import (Captured, GraphProgram,
+                                        capture_stream, graph_pool)
+        dev = self.device
+        with torch.no_grad():
+            if dev.type != "cuda":
+                return self._layer(*feeds)
+            sig = tuple((tuple(a.shape), str(a.dtype)) for a in feeds)
+            baked = self._baked()
+            entry = self._graphs.get(sig)
+            if entry is not None and not entry.reads(baked):
+                # the graph would read the old storage: capture again
+                del self._graphs[sig]
+                entry = None
+                self.graph_stats["recaptures"] += 1
+            if entry is not None:
+                self.graph_stats["replays"] += 1
+                return entry.program(*feeds)
+            out = self._layer(*feeds)
+            t0 = time.perf_counter()
+            program = GraphProgram(self._layer, tuple(feeds),
+                                   graph_pool(dev, "predictor"),
+                                   capture_stream(dev))
+            self.graph_stats["capture_s"] += time.perf_counter() - t0
+            self.graph_stats["captures"] += 1
+            self._graphs[sig] = Captured(program, baked)
+            return out
+
     def run(self, inputs: Optional[List[np.ndarray]] = None):
         """With ``inputs``, returns the outputs as numpy arrays; without,
-        runs on the handles' feeds and returns True."""
+        runs on the handles' feeds and returns True. Both reach the same
+        per-signature graphs."""
         if inputs is not None:
             feeds = [self._to_device(a) for a in inputs]
         else:
             feeds = [self._feeds[k] for k in
                      sorted(self._feeds, key=self._input_names.index)]
-        with torch.no_grad():
-            out = self._layer(*feeds)
+        out = self._call(feeds)
         outs = out if isinstance(out, (tuple, list)) else (out,)
         self._outputs = {f"out{i}": o for i, o in enumerate(outs)}
         if inputs is not None:

@@ -54,6 +54,17 @@ evict, consumers cancel, and an armed decode watchdog fails the pending
 requests with ``DecodeWedgedError`` inside instead of hanging. A weight
 change between two serve calls flushes the prefix cache.
 
+Telemetry is the reference's (``observability``): the constructor
+registers its ``serving.*`` / ``robustness.*`` series (labelled
+``replica=<name>`` when named, and by tier), the serve loop records them
+beside ``stats`` at the same events, and every serve call opens a
+``serve.generate`` span with one ``serve.request`` span per request
+(parented on ``ServeRequest.trace`` when given) and a ``serve.prefill``
+span per admission round. A stream event's ``ts`` is its request span's
+last event's. A decode-watchdog trip dumps the flight recorder. Every
+record is host code around a device step, on values the host already
+holds: none sits inside a captured program and none reads the device.
+
 Decode and mixed steps are double-buffered as in the reference: step
 t+1 is dispatched (chaining step t's device-resident token) before step
 t's token is fetched. On CUDA the fetch is an asynchronous copy into
@@ -84,6 +95,8 @@ from ..generation.kv_cache import (PagedCacheEntry, PagedKVCache,
                                    decode_index, kv_dtype_name, span_index)
 from ..kernels import NEG_INF
 from ..kernels.paged_attention import RaggedMetaBuilder
+from ..observability import metrics as _obsm
+from ..observability import tracing as _obstr
 from ..serving.scheduler import (FifoQueue, WeightedFairScheduler,
                                  stage_cost)
 from ..serving.streaming import ServeRequest, StreamEvent, TokenStream
@@ -159,6 +172,9 @@ class ContinuousBatchingPredictor:
                  engine=None, tp_degree=None, role=None, max_queue=None,
                  shed_policy=None, decode_watchdog_s=None, name=None,
                  devices=None):
+        # serve.cold_start_seconds: construction -> first token
+        self._t_ctor = time.perf_counter()
+        self._cold_start_pending = True
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, predictor "
@@ -187,6 +203,9 @@ class ContinuousBatchingPredictor:
         self._watchdog_s = decode_watchdog_s
         self._wd_cur = None
         self.name = name
+        # a named predictor is one replica of a pool: every serving.*
+        # series and serve.* span carries replica=<name>
+        self._mlbl = {"replica": name} if name else {}
         self.tp = int(rc.tp_degree if tp_degree is None else tp_degree)
         self.role = rc.serve_role if role is None else role
         check_servable(self.tp, self.role)
@@ -264,8 +283,49 @@ class ContinuousBatchingPredictor:
                                "sampled_spec_proposed": 0}
         self.last_status: List[str] = []
         # seconds from each request's arrival at the serve loop to its
-        # first token
+        # first token (the serving.ttft_seconds observations)
         self.last_ttft_s: List[float] = []
+        # the reference's serving telemetry; recording is a no-op under
+        # observability.enabled(False)
+        self._m_queue = _obsm.gauge("serving.queue_depth")
+        self._m_util = _obsm.gauge("serving.page_utilization")
+        self._m_flight = _obsm.gauge("serving.in_flight")
+        self._m_adm = _obsm.counter("serving.admissions")
+        self._m_evt = _obsm.counter("serving.evictions")
+        self._m_rej = _obsm.counter("serving.rejected_requests")
+        self._m_done = _obsm.counter("serving.completed_requests")
+        self._m_steps = _obsm.counter("serving.decode_steps")
+        self._m_ttft = _obsm.histogram("serving.ttft_seconds", unit="s")
+        self._m_tok = _obsm.histogram("serving.token_latency_seconds",
+                                      unit="s")
+        self._m_prefill = _obsm.histogram("serving.prefill_seconds",
+                                          unit="s")
+        self._m_pfx_hit = _obsm.counter("serving.prefix_cache_hits")
+        self._m_pfx_miss = _obsm.counter("serving.prefix_cache_misses")
+        self._m_pfx_pages = _obsm.counter(
+            "serving.prefix_cache_pages_reused")
+        self._m_hol = _obsm.counter("serving.hol_skips")
+        self._m_deadline = _obsm.counter("robustness.deadline_evictions")
+        self._m_shed = _obsm.counter("robustness.shed_requests")
+        self._m_wedge = _obsm.counter("robustness.watchdog_trips")
+        self._m_tier_q = _obsm.gauge("serving.tier.queue_depth")
+        self._m_tier_adm = _obsm.counter("serving.tier.admissions")
+        self._m_tier_shed = _obsm.counter("serving.tier.shed_requests")
+        self._m_cancel = _obsm.counter("serving.cancelled_requests")
+        self._m_spec_prop = _obsm.counter("serving.spec.proposed_tokens")
+        self._m_spec_acc = _obsm.counter("serving.spec.accepted_tokens")
+        self._m_spec_rate = _obsm.gauge("serve.spec.accept_rate")
+        self._m_chunks = _obsm.counter("serving.chunked_prefill.chunks")
+        self._m_chunk_reqs = _obsm.counter(
+            "serving.chunked_prefill.requests")
+        self._m_chunk_tok = _obsm.counter(
+            "serving.chunked_prefill.tokens")
+        self._m_mixed = _obsm.histogram("serve.mixed_step_seconds",
+                                        unit="s")
+        # static capacity: a registry-only autoscaler normalizes
+        # serving.in_flight by it
+        _obsm.gauge("serving.slots").set(self.B, **self._mlbl)
+        self._req_seq = 0   # process-unique request ids across calls
         # the weights' identity snapshot (``_ensure_ready``) and the live
         # tiered scheduler (``set_tier_weight``)
         self._w_snap = None
@@ -814,6 +874,10 @@ class ContinuousBatchingPredictor:
         self.last_status = status
         ttft = [None] * len(results)
         self.last_ttft_s = ttft
+        mlbl = self._mlbl
+        # refreshed every serve: a registry reset() between calls must
+        # not leave the autoscaler without the capacity
+        _obsm.gauge("serving.slots").set(self.B, **mlbl)
         use_tiers = tier_weights is not None or any(
             r.tier is not None for r in initial)
         q = WeightedFairScheduler(tier_weights,
@@ -822,17 +886,33 @@ class ContinuousBatchingPredictor:
         self._live_sched = q if use_tiers else None
 
         # per-request state (grows under dynamic intake)
-        prompts, max_new, metas = [], [], []
-        deadlines, arrival, samp_of = [], [], []
+        prompts, max_new, metas, tier_of = [], [], [], []
+        deadlines, arrival, samp_of, req_sp = [], [], [], []
         has_deadlines = False
         out = collections.deque()        # events awaiting the consumer
         closed = intake is None
+        tiers_seen = set()
+
+        gen_sp = _obstr.start_span("serve.generate", parent=None,
+                                   n_prompts=len(initial),
+                                   dynamic=bool(intake), **mlbl)
+
+        def _ts(r):
+            # the request span's last event times its stream event; past
+            # the span's event cap that event is stale: the wall clock
+            evs = getattr(req_sp[r], "events", None)
+            if evs and len(evs) < _obstr._MAX_EVENTS:
+                return evs[-1]["ts"]
+            return time.time()
 
         def emit(r, kind, token=None, index=0, st=None, span=None):
             if span is None and token is not None:
                 span = (token,)
-            out.append(StreamEvent(r, kind, token, index, time.time(), st,
+            out.append(StreamEvent(r, kind, token, index, _ts(r), st,
                                    metas[r], tuple(span or ())))
+
+        def tier_lbl(r):
+            return {"tier": tier_of[r]} if tier_of[r] is not None else {}
 
         def add_request(sreq):
             nonlocal has_deadlines
@@ -843,6 +923,7 @@ class ContinuousBatchingPredictor:
             prompts.append(p)
             max_new.append(mn)
             metas.append(sreq.meta)
+            tier_of.append(sreq.tier)
             samp_of.append(sreq.sampling)
             now = time.perf_counter()
             arrival.append(now)
@@ -854,6 +935,15 @@ class ContinuousBatchingPredictor:
                 status.append("queued")
             if r >= len(ttft):
                 ttft.append(None)
+            self._req_seq += 1
+            # a ServeRequest carrying a TraceContext parents its span
+            # there (the submitter's trace); else it roots under this
+            # call's serve.generate span
+            req_sp.append(_obstr.start_span(
+                "serve.request", parent=(sreq.trace if sreq.trace
+                                         is not None else gen_sp),
+                request_id=f"req{self._req_seq}", idx=r, prompt_len=len(p),
+                **tier_lbl(r), **mlbl))
             uns = self._unservable(p, mn)
             if uns is None and not self.sampling_enabled \
                     and self._wants_sampling(samp_of[r]):
@@ -861,14 +951,22 @@ class ContinuousBatchingPredictor:
             if uns is not None:
                 results[r] = []
                 status[r] = "rejected_" + uns[0]
+                req_sp[r].event("rejected", reason=uns[0])
+                req_sp[r].end(status=status[r])
+                self._m_rej.inc(reason=uns[0], **mlbl)
+                self._m_done.inc(status=status[r], **mlbl)
                 emit(r, "end", st=status[r])
                 return
             q.push(r, tier=sreq.tier, cost=stage_cost(len(p), mn, None))
+            req_sp[r].event("queued")
 
-        def finish_queued(r, st):
+        def finish_queued(r, st, span_event_kw=None):
             """Terminal outcome of a request that never held a slot."""
             results[r] = []
             status[r] = st
+            req_sp[r].event(st, **(span_event_kw or {}))
+            req_sp[r].end(status=st)
+            self._m_done.inc(status=st, **mlbl)
             emit(r, "end", st=st)
 
         def expire_queued():
@@ -882,7 +980,8 @@ class ContinuousBatchingPredictor:
                 if dl is not None and now >= dl:
                     q.remove(r)
                     self.stats["deadline_evictions"] += 1
-                    finish_queued(r, "deadline")
+                    self._m_deadline.inc(stage="queued", **mlbl)
+                    finish_queued(r, "deadline", {"stage": "queued"})
 
         def shed_overflow():
             """Bounded admission queue: shed the overflow (lowest tier
@@ -899,7 +998,10 @@ class ContinuousBatchingPredictor:
                 if r is None:
                     break
                 self.stats["shed_requests"] += 1
-                finish_queued(r, "shed")
+                self._m_shed.inc(policy=self.shed_policy, **mlbl)
+                if tier_of[r] is not None:
+                    self._m_tier_shed.inc(tier=tier_of[r], **mlbl)
+                finish_queued(r, "shed", {"policy": self.shed_policy})
 
         for sreq in initial:
             add_request(sreq)
@@ -957,6 +1059,9 @@ class ContinuousBatchingPredictor:
             r = slot_req[b]
             results[r] = slot_new[b]
             status[r] = status_val
+            req_sp[r].event("finish" if status_val == "ok" else status_val,
+                            tokens=len(slot_new[b]))
+            req_sp[r].end(status=status_val)
             self.pool.release(slot_pages[b])
             slot_req[b], slot_pages[b], slot_new[b] = -1, [], []
             slot_pending[b], slot_hist[b] = [], []
@@ -967,6 +1072,8 @@ class ContinuousBatchingPredictor:
             if builder is not None:
                 builder.clear_slot(b)
             self.stats["evictions"] += 1
+            self._m_evt.inc(**mlbl)
+            self._m_done.inc(status=status_val, **mlbl)
             emit(r, "end", st=status_val)
 
         def apply_cancels():
@@ -994,11 +1101,13 @@ class ContinuousBatchingPredictor:
                 if targets is None or r in targets:
                     q.remove(r)
                     self.stats["cancelled_requests"] += 1
-                    finish_queued(r, "cancelled")
+                    self._m_cancel.inc(stage="queued", **mlbl)
+                    finish_queued(r, "cancelled", {"stage": "queued"})
             for b in range(self.B):
                 r = slot_req[b]
                 if r >= 0 and (targets is None or r in targets):
                     self.stats["cancelled_requests"] += 1
+                    self._m_cancel.inc(stage="decoding", **mlbl)
                     evict(b, "cancelled")
             if targets is not None:
                 cancel.difference_update(targets)
@@ -1013,6 +1122,7 @@ class ContinuousBatchingPredictor:
                 if r >= 0 and deadlines[r] is not None \
                         and now >= deadlines[r]:
                     self.stats["deadline_evictions"] += 1
+                    self._m_deadline.inc(stage="decoding", **mlbl)
                     evict(b, "deadline")
 
         def reserve(r):
@@ -1070,6 +1180,24 @@ class ContinuousBatchingPredictor:
                     "next": cached_next if covered == L else None,
                     "chunked": chunked, "no_cache": sampled}
 
+        def note_cold_start():
+            # serve.cold_start_seconds, once per predictor: construction
+            # to first token, labelled warm (a bundle held programs) or
+            # cold. The builder's recording engine is not serving.
+            if not self._cold_start_pending:
+                return
+            self._cold_start_pending = False
+            eng = self._engine
+            if not (eng is not None and eng.recording):
+                _obsm.gauge("serve.cold_start_seconds", unit="s").set(
+                    time.perf_counter() - self._t_ctor,
+                    mode=("warm" if eng is not None and eng.warm
+                          else "cold"), **mlbl)
+
+        def observe_ttft(r):
+            ttft[r] = time.perf_counter() - arrival[r]
+            self._m_ttft.observe(ttft[r], **tier_lbl(r), **mlbl)
+
         def place_chunked(b, plan):
             """Install a chunked admission: pages reserved, no forward
             yet -- the prompt ingests chunk by chunk through the mixed
@@ -1088,7 +1216,12 @@ class ContinuousBatchingPredictor:
             if builder is not None:
                 builder.set_slot(b, tables[b], 1)
             status[r] = "running"
+            req_sp[r].event("admitted", slot=b, chunked=True)
             self.stats["chunked_requests"] += 1
+            self._m_chunk_reqs.inc(**mlbl)
+            self._m_adm.inc(**mlbl)
+            if tier_of[r] is not None:
+                self._m_tier_adm.inc(tier=tier_of[r], **mlbl)
             if self._wants_sampling(samp_of[r]):
                 self.sampling_stats["sampled_requests"] += 1
 
@@ -1096,7 +1229,9 @@ class ContinuousBatchingPredictor:
             """The step that gives the request its first generated token
             resolved (a final chunk's argmax, or a sampled request's
             replay draw)."""
-            ttft[r] = time.perf_counter() - arrival[r]
+            req_sp[r].event("first_token")
+            note_cold_start()
+            observe_ttft(r)
 
         def sampled_chunk_first(b, r):
             """A sampled request's final chunk resolved: its argmax is
@@ -1130,6 +1265,10 @@ class ContinuousBatchingPredictor:
                 slot_await_first[b] = True
                 if builder is not None:
                     builder.set_slot(b, tables[b], L)
+                req_sp[r].event("admitted", slot=b, sampled=True)
+                self._m_adm.inc(**mlbl)
+                if tier_of[r] is not None:
+                    self._m_tier_adm.inc(tier=tier_of[r], **mlbl)
                 self.sampling_stats["sampled_requests"] += 1
                 return
             slot_new[b] = [first]
@@ -1139,7 +1278,13 @@ class ContinuousBatchingPredictor:
             override[b] = True
             if builder is not None:
                 builder.set_slot(b, tables[b], L + 1)
-            ttft[r] = time.perf_counter() - arrival[r]
+            req_sp[r].event("admitted", slot=b)
+            req_sp[r].event("first_token")
+            note_cold_start()
+            self._m_adm.inc(**mlbl)
+            if tier_of[r] is not None:
+                self._m_tier_adm.inc(tier=tier_of[r], **mlbl)
+            observe_ttft(r)
             if self.eos_token_id is not None and first == self.eos_token_id:
                 slot_new[b] = []          # eos is stripped
                 evict(b)
@@ -1178,32 +1323,52 @@ class ContinuousBatchingPredictor:
                 q.push_front(r)
             if plans and skipped:
                 last_pick = max(i for i, s in enumerate(seq) if s)
-                self.stats["hol_skips"] += sum(
-                    1 for i, s in enumerate(seq) if not s and i < last_pick)
+                n_hol = sum(1 for i, s in enumerate(seq)
+                            if not s and i < last_pick)
+                if n_hol:
+                    self.stats["hol_skips"] += n_hol
+                    self._m_hol.inc(n_hol, **mlbl)
             if not plans:
                 return False
+            t0 = time.perf_counter()
             now_plans = [p for p in plans if not p["chunked"]]
             hits = [p for p in now_plans if p["next"] is not None]
             partials = [p for p in now_plans
                         if p["next"] is None and p["covered"] > 0]
             misses = [p for p in now_plans
                       if p["next"] is None and p["covered"] == 0]
+            pf_sp = _obstr.start_span(
+                "serve.prefill", parent=gen_sp, n=len(plans),
+                hits=len(hits), partial=len(partials), misses=len(misses),
+                chunked=len(plans) - len(now_plans))
+            for plan in now_plans:
+                req_sp[plan["r"]].event("prefill", covered=plan["covered"],
+                                        reused=plan["reused"])
             firsts = {}
             for plan in hits:
                 firsts[plan["r"]] = int(plan["next"])
                 self.stats["prefix_hits"] += 1
                 self.stats["pages_reused"] += plan["reused"]
+                self._m_pfx_hit.inc(**mlbl)
+                self._m_pfx_pages.inc(plan["reused"], **mlbl)
             for plan in partials:
                 firsts[plan["r"]] = self._suffix_prefill(plan)
                 self.stats["prefix_partial_hits"] += 1
                 self.stats["pages_reused"] += plan["reused"]
+                self._m_pfx_hit.inc(kind="partial", **mlbl)
+                self._m_pfx_pages.inc(plan["reused"], **mlbl)
             by_bucket = {}
             for plan in misses:
                 by_bucket.setdefault(self._bucket_len(len(plan["prompt"])),
                                      []).append(plan)
                 self.stats["prefix_misses"] += 1
+                self._m_pfx_miss.inc(**mlbl)
             for bucket, group in sorted(by_bucket.items()):
                 firsts.update(self._batch_prefill(bucket, group))
+            if now_plans:
+                # the prefills' host time: each one downloads its tokens
+                self._m_prefill.observe(time.perf_counter() - t0, **mlbl)
+            pf_sp.end()
             for b, plan in zip(free, plans):
                 if plan["chunked"]:
                     place_chunked(b, plan)
@@ -1215,18 +1380,27 @@ class ContinuousBatchingPredictor:
             """The watchdog tripped: fail everything still pending
             instead of hanging. The wedged step's pages are not
             reclaimed (the step may still write them): the predictor
-            should be rebuilt."""
+            should be rebuilt. The flight dump carries the wedged
+            requests' spans."""
             self.stats["watchdog_trips"] += 1
+            self._m_wedge.inc(**mlbl)
             for b in range(self.B):
                 r = slot_req[b]
                 if r >= 0:
                     results[r] = slot_new[b]
                     status[r] = "watchdog"
                     slot_req[b] = -1
+                    req_sp[r].event("watchdog", stage="decoding",
+                                    tokens=len(slot_new[b]))
+                    req_sp[r].end(status="watchdog")
+                    self._m_done.inc(status="watchdog", **mlbl)
                     emit(r, "end", st="watchdog")
             for r in list(q.ids()):
                 q.remove(r)
-                finish_queued(r, "watchdog")
+                finish_queued(r, "watchdog", {"stage": "queued"})
+            gen_sp.event("decode_wedged")
+            gen_sp.end(status="watchdog")
+            _obstr.flight_dump(reason="decode_wedged")
 
         def resolve(step):
             """Resolve a dispatched step; False when the watchdog tripped
@@ -1236,18 +1410,19 @@ class ContinuousBatchingPredictor:
                     self._resolve_spec_step(
                         step, slot_req, slot_new, slot_hist, last_tok_host,
                         max_new, ctx, override, builder, evict,
-                        chunk_first_token, emit)
+                        chunk_first_token, emit, req_sp)
                 else:
                     self._resolve_step(
                         step, slot_req, slot_new, last_tok_host, max_new,
                         evict, chunk_first_token, slot_hist,
-                        sampled_chunk_first, emit)
+                        sampled_chunk_first, emit, req_sp)
                 return True
             except DecodeWedgedError:
                 on_wedged()
                 return False
 
         inflight = None
+        evictions_seen = -1
         finished = False
         try:
             while True:
@@ -1278,9 +1453,25 @@ class ContinuousBatchingPredictor:
                             add_request(sreq)
                         expire_queued()
                         shed_overflow()
+                admitted = False
                 while admission_round():
-                    pass
+                    admitted = True
                 active = [b for b in range(self.B) if slot_req[b] >= 0]
+                self._m_queue.set(len(q), **mlbl)
+                self._m_flight.set(len(active), **mlbl)
+                if use_tiers:
+                    depths = q.depths()
+                    for t_name in tiers_seen - set(depths):
+                        self._m_tier_q.set(0, tier=t_name, **mlbl)
+                    for t_name, d in depths.items():
+                        tiers_seen.add(t_name)
+                        self._m_tier_q.set(d, tier=t_name, **mlbl)
+                if admitted or self.stats["evictions"] != evictions_seen:
+                    # free_count walks the prefix trie: refresh only when
+                    # pages moved, not every decode step
+                    evictions_seen = self.stats["evictions"]
+                    self._m_util.set((self.capacity - self.pool.free_count)
+                                     / max(self.capacity, 1), **mlbl)
                 cur = None
                 if active:
                     self.stats["max_in_flight"] = max(
@@ -1307,7 +1498,7 @@ class ContinuousBatchingPredictor:
                         cur = self._dispatch_mixed_step(
                             active, slot_req, slot_pending, tables, ctx,
                             last_tok_host, override, builder, inflight,
-                            paused)
+                            req_sp, paused)
                     elif useful:
                         if spec_mode:
                             sv = samp_vec(set()) if self.sampling_enabled \
@@ -1361,7 +1552,12 @@ class ContinuousBatchingPredictor:
                     results[r] = []
                     if status[r] in ("queued", "running"):
                         status[r] = "incomplete"
+                        self._m_done.inc(status="incomplete", **mlbl)
                         emit(r, "end", st="incomplete")
+            for r, sp in enumerate(req_sp):
+                if not sp.ended:          # stragglers (defensive path)
+                    sp.end(status=status[r])
+            gen_sp.end()
             while out:
                 yield out.popleft()
             finished = True
@@ -1379,12 +1575,14 @@ class ContinuousBatchingPredictor:
                     if slot_req[b] >= 0:
                         if not aborted:
                             self.stats["cancelled_requests"] += 1
+                            self._m_cancel.inc(stage="decoding", **mlbl)
                         evict(b, st)
                 for r in list(q.ids()):
                     q.remove(r)
                     if not aborted:
                         self.stats["cancelled_requests"] += 1
-                    finish_queued(r, st)
+                        self._m_cancel.inc(stage="queued", **mlbl)
+                    finish_queued(r, st, {"stage": "queued"})
                 for r, s in enumerate(status):
                     # popped for an admission round but not yet placed
                     # when the loop died
@@ -1392,9 +1590,16 @@ class ContinuousBatchingPredictor:
                         status[r] = st
                         if not aborted:
                             self.stats["cancelled_requests"] += 1
+                            self._m_cancel.inc(stage="queued", **mlbl)
+                        self._m_done.inc(status=st, **mlbl)
                 for r, res in enumerate(results):
                     if res is None:
                         results[r] = []
+                for r, sp in enumerate(req_sp):
+                    if not sp.ended:
+                        sp.end(status=status[r])
+                if not gen_sp.ended:
+                    gen_sp.end(status=st)
 
     # ------------------------------------------------------ admission ops
     def _batch_prefill(self, bucket, group):
@@ -1525,6 +1730,7 @@ class ContinuousBatchingPredictor:
         snap = [(b, slot_req[b]) for b in active]
         ctx[active] += 1
         self.stats["decode_steps"] += 1
+        self._m_steps.inc(**self._mlbl)
         return {"tok": nxt, "fetch": fetch, "snap": snap, "t": t0}
 
     def _chunk_bucket(self, remaining, n_decode):
@@ -1542,7 +1748,7 @@ class ContinuousBatchingPredictor:
 
     def _dispatch_mixed_step(self, active, slot_req, slot_pending, tables,
                              ctx, last_tok_host, override, builder,
-                             inflight, paused=()):
+                             inflight, req_sp, paused=()):
         """Dispatch one MIXED prefill+decode step: every slot with a
         pending prompt tail ingests its next chunk while the decode
         slots take their normal single-token step, chained off the
@@ -1553,8 +1759,10 @@ class ContinuousBatchingPredictor:
         the wrong token for them) run their committed token again at
         their position without advancing: the K/V written there is
         written again by their next sampling step, and their output is
-        dropped like a mid-prompt chunk's."""
+        dropped like a mid-prompt chunk's. Each chunk is a
+        ``prefill_chunk`` event of its request's span (``req_sp``)."""
         t0 = time.perf_counter()
+        mlbl = self._mlbl
         chunk_slots = [b for b in active if slot_pending[b]]
         qb = self._chunk_bucket(max(len(slot_pending[b])
                                     for b in chunk_slots),
@@ -1574,6 +1782,11 @@ class ContinuousBatchingPredictor:
             del slot_pending[b][:take]
             (final if not slot_pending[b] else mid).add(b)
             self.stats["prefill_chunks"] += 1
+            self._m_chunks.inc(**mlbl)
+            self._m_chunk_tok.inc(take, **mlbl)
+            # ctx holds what the slot ingested before this chunk
+            req_sp[slot_req[b]].event("prefill_chunk", tokens=take,
+                                      covered=int(ctx[b]) + take)
         adv = [b for b in active if b not in paused]
         meta = self._meta(builder, adv, ctx + q_lens)
         tok_in = self._tok_in(last_tok_host, override, inflight)
@@ -1587,6 +1800,7 @@ class ContinuousBatchingPredictor:
         ctx[adv] += q_lens[adv]
         self.stats["decode_steps"] += 1
         self.stats["mixed_steps"] += 1
+        self._m_steps.inc(**mlbl)
         self.sampling_stats["paused_slots"] += len(paused)
         return {"tok": nxt, "fetch": fetch, "snap": snap, "t": t0,
                 "chunk_mid": mid, "chunk_final": final}
@@ -1635,9 +1849,12 @@ class ContinuousBatchingPredictor:
         snap = [(b, slot_req[b]) for b in active]
         ctx0 = {b: int(ctx[b]) for b in active}
         ctx[active] += q_lens[active]       # optimistic; resolve rewinds
+        proposed = sum(len(d) for d in drafts.values())
         self.stats["decode_steps"] += 1
         self.stats["spec_ticks"] += 1
-        self.stats["spec_proposed"] += sum(len(d) for d in drafts.values())
+        self.stats["spec_proposed"] += proposed
+        self._m_steps.inc(**self._mlbl)
+        self._m_spec_prop.inc(proposed, **self._mlbl)
         if s_temp is not None:
             self.sampling_stats["sampled_spec_proposed"] += sum(
                 len(d) for b, d in drafts.items() if s_temp[b] > 0)
@@ -1647,7 +1864,7 @@ class ContinuousBatchingPredictor:
 
     def _resolve_spec_step(self, step, slot_req, slot_new, slot_hist,
                            last_tok_host, max_new, ctx, override, builder,
-                           evict, first_cb, emit):
+                           evict, first_cb, emit, req_sp):
         """Sync one speculative step and commit each slot's accepted
         drafts plus the bonus token: tokens append (eos and the budget
         truncate and evict as in plain decode), ctx and the ragged meta
@@ -1655,9 +1872,12 @@ class ContinuousBatchingPredictor:
         already restored on the device), and the drafting history
         extends; the tick's tokens stream as one event (``emit``) whose
         span holds them all. Slots in ``chunk_final`` draw their first
-        (sampled) token in this step: ``first_cb`` records TTFT."""
+        (sampled) token in this step: ``first_cb`` records TTFT. A slot
+        with drafts adds a ``spec`` event to its request span
+        (``req_sp``), every committed token a ``token`` event."""
         self._await_step(step)
         bonus, acc = step["fetch"]()
+        self._m_tok.observe(time.perf_counter() - step["t"], **self._mlbl)
         firsts = step.get("chunk_final", ())
         accepted_total = 0
         for b, r in step["snap"]:
@@ -1669,7 +1889,9 @@ class ContinuousBatchingPredictor:
             ctx[b] = new_ctx
             if builder is not None and a + 1 < step["qlen"][b]:
                 builder.rollback_slot(b, new_ctx)
-            accepted_total += a
+            if drafts:
+                accepted_total += a
+                req_sp[r].event("spec", proposed=len(drafts), accepted=a)
             if b in firsts:
                 first_cb(b, r)
             span_toks = []
@@ -1680,6 +1902,7 @@ class ContinuousBatchingPredictor:
                     break
                 slot_new[b].append(t)
                 span_toks.append(t)
+                req_sp[r].event("token", i=len(slot_new[b]))
                 if len(slot_new[b]) >= max_new[r]:
                     break
             if span_toks:
@@ -1691,9 +1914,15 @@ class ContinuousBatchingPredictor:
             if ended or len(slot_new[b]) >= max_new[r]:
                 evict(b)
         self.stats["spec_accepted"] += accepted_total
+        if accepted_total:
+            self._m_spec_acc.inc(accepted_total, **self._mlbl)
+        if self.stats["spec_proposed"]:
+            self._m_spec_rate.set(
+                self.stats["spec_accepted"] / self.stats["spec_proposed"],
+                **self._mlbl)
 
     def _resolve_step(self, step, slot_req, slot_new, last_tok_host, max_new,
-                      evict, first_cb, hist, sampled_first, emit):
+                      evict, first_cb, hist, sampled_first, emit, req_sp):
         """Sync a previously dispatched step (its successor may already
         be in flight) and apply its tokens: append, detect eos / budget,
         evict. Slots recycled since the dispatch are skipped. In a mixed
@@ -1702,10 +1931,15 @@ class ContinuousBatchingPredictor:
         first token (``first_cb`` records TTFT); a sampled request's
         final chunk instead goes to ``sampled_first`` (first-token
         replay). A decode step's ``chunk_final`` slots draw their first
-        sampled token. Committed tokens extend ``hist`` and stream
-        through ``emit``."""
+        sampled token. Committed tokens extend ``hist``, add a ``token``
+        event to their request span (``req_sp``; the reference's, an eos
+        computed on the device included) and stream through ``emit``."""
         self._await_step(step)
         nxt, done = step["fetch"]()
+        self._m_tok.observe(time.perf_counter() - step["t"], **self._mlbl)
+        if "chunk_mid" in step:
+            self._m_mixed.observe(time.perf_counter() - step["t"],
+                                  **self._mlbl)
         chunk_mid = step.get("chunk_mid", ())
         chunk_final = step.get("chunk_final", ())
         chunk_final_sampled = step.get("chunk_final_sampled", ())
@@ -1724,11 +1958,14 @@ class ContinuousBatchingPredictor:
                 continue                  # token of a post-budget step
             t = int(nxt[b])
             if bool(done[b]):             # eos computed on the device
+                if not first:
+                    req_sp[r].event("token", i=len(slot_new[b]) + 1)
                 evict(b)                  # eos is stripped
                 continue
             slot_new[b].append(t)
             hist[b].append(t)
             last_tok_host[b] = t
+            req_sp[r].event("token", i=len(slot_new[b]))
             emit(r, "token", token=t, index=len(slot_new[b]))
             if len(slot_new[b]) >= max_new[r]:
                 evict(b)

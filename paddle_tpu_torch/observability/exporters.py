@@ -1,0 +1,291 @@
+"""Pluggable exporters over MetricRegistry.collect() (counterpart of
+``paddle_tpu/observability/exporters.py``).
+
+Three sinks, one schema:
+- JsonlExporter      — append-only JSONL file, one sample per line; the
+                       reference's schema, so its readers
+                       (tools/metrics_report.py) read the port's files.
+- PrometheusExporter — text-format snapshot (/metrics style) for pull
+                       scrapers.
+- TensorBoardExporter— scalars through utils/tbwriter.LogWriter (the
+                       repo's zero-dep TensorBoard event writer).
+
+Exporters PULL: recording a metric never touches a file descriptor; the
+training/serving loop (or the auto-sink in __init__) decides when to
+flush a snapshot.
+"""
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+from typing import Optional
+
+from .metrics import MetricRegistry, Sample, get_registry
+
+__all__ = ["JsonlExporter", "PrometheusExporter", "TensorBoardExporter"]
+
+
+class JsonlExporter:
+    """Append registry snapshots to a JSONL file.
+
+    Line schema (one sample per line):
+        {"ts": <unix s>, "step": <int|None>, "name": "train.step_time",
+         "kind": "histogram", "labels": {...}, "value": <float>,
+         ... histogram extras: count/sum/min/max/p50/p99}
+
+    Size-based rotation: with ``max_bytes`` set (ctor arg, env default
+    ``PADDLE_TPU_TELEMETRY_MAX_BYTES``; 0/unset disables), a file that
+    reaches the bound is atomically renamed to ``<path>.1`` (one
+    os.replace — a concurrent reader sees the old file or the new one,
+    never a torn mix) and a fresh file continues at ``path``. Long
+    serve runs stop growing the telemetry file unbounded; the readers
+    (tools/{trace_report,metrics_report,autotune}.py) fold the rotated
+    sibling back in. Rotation happens on whole-line boundaries only —
+    every write here is a complete line.
+
+    Fleet identity: every line additionally carries the process's
+    ``rank`` / ``world_size`` / ``topology`` (``runtime.rank_identity``,
+    sourced from the launcher env; override per-exporter with the
+    ``identity`` ctor arg). Outside a launcher the identity is empty and
+    the line schema is unchanged. Identity fields never overwrite keys a
+    record already carries.
+    """
+
+    def __init__(self, path: str, registry: Optional[MetricRegistry] = None,
+                 max_bytes: Optional[int] = None,
+                 identity: Optional[dict] = None):
+        self.path = path
+        self._registry = registry or get_registry()
+        if identity is None:
+            from .runtime import export_identity
+            identity = export_identity()
+        self.identity = dict(identity)
+        self._lock = threading.Lock()  # span ends vs step exports race
+        if max_bytes is None:
+            max_bytes = int(os.environ.get(
+                "PADDLE_TPU_TELEMETRY_MAX_BYTES") or 0)
+        self.max_bytes = max(int(max_bytes), 0)
+        d = os.path.dirname(os.path.abspath(path))
+        os.makedirs(d, exist_ok=True)
+        self._f = open(path, "a", buffering=1)
+
+    def _maybe_rotate_locked(self):
+        """Rotate when the live file crossed the bound (caller holds
+        the lock). Best-effort: a failed rename keeps appending to the
+        current file rather than dropping telemetry."""
+        if not self.max_bytes or self._f is None:
+            return
+        try:
+            if self._f.tell() < self.max_bytes:
+                return
+            f, self._f = self._f, None
+            f.flush()
+            f.close()
+            try:
+                os.replace(self.path, self.path + ".1")
+            finally:
+                self._f = open(self.path, "a", buffering=1)
+        except OSError:
+            if self._f is None:
+                try:
+                    self._f = open(self.path, "a", buffering=1)
+                except OSError:
+                    pass
+
+    def export(self, step: Optional[int] = None, extra: Optional[dict] = None):
+        ts = time.time()
+        ident = self.identity
+        lines = []
+        for s in self._registry.collect():
+            rec = {"ts": round(ts, 6), "step": step}
+            if ident:
+                rec.update(ident)
+            rec.update(s.as_dict())
+            if extra:
+                rec.update(extra)
+            lines.append(json.dumps(rec))
+        with self._lock:
+            if self._f is None:
+                return
+            self._f.write("\n".join(lines) + "\n" if lines else "")
+            self._maybe_rotate_locked()
+
+    def write_record(self, rec: dict):
+        """Escape hatch for one-off records (run metadata,
+        tracing span lines) that share the telemetry file but aren't
+        registry series. Silent no-op once closed — late writers at
+        interpreter teardown must not explode."""
+        ident = self.identity
+        if ident:
+            rec = {**{k: v for k, v in ident.items() if k not in rec},
+                   **rec}
+        line = json.dumps(rec) + "\n"
+        with self._lock:
+            if self._f is None:
+                return
+            self._f.write(line)
+            self._maybe_rotate_locked()
+
+    def flush(self):
+        with self._lock:
+            if self._f is not None:
+                self._f.flush()
+
+    def close(self):
+        """Flush and close the file; idempotent (second close and any
+        subsequent export/write_record are no-ops), so the atexit hook
+        and an explicit configure(None) can both run."""
+        with self._lock:
+            f, self._f = self._f, None
+        if f is None:
+            return
+        try:
+            f.flush()
+            f.close()
+        except Exception:
+            pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def _prom_name(name: str) -> str:
+    out = []
+    for ch in name:
+        out.append(ch if ch.isalnum() or ch == "_" else "_")
+    s = "".join(out)
+    return ("_" + s) if s and s[0].isdigit() else s
+
+
+def _prom_escape(value) -> str:
+    """Escape one label VALUE for the exposition format: backslash,
+    double-quote, and newline (a raw newline inside the quotes tears the
+    exposition line in half — topology/rank strings from env must not be
+    able to corrupt a scrape)."""
+    return (str(value).replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def _prom_labels(labels: dict, extra: Optional[dict] = None) -> str:
+    items = dict(labels)
+    if extra:
+        items.update(extra)
+    if not items:
+        return ""
+    body = ",".join('%s="%s"' % (_prom_name(str(k)), _prom_escape(v))
+                    for k, v in sorted(items.items()))
+    return "{" + body + "}"
+
+
+class PrometheusExporter:
+    """Render the registry in the Prometheus text exposition format.
+
+    Under a launcher every sample line carries the process's fleet
+    identity as `rank` / `world_size` / `topology` labels
+    (`runtime.rank_identity`; override with ``const_labels``), so a
+    fleet-wide scrape can tell the ranks apart. Label values are escaped
+    per the exposition spec — a topology like ``data=4,model=2`` (or a
+    value with quotes/newlines) renders as one well-formed line."""
+
+    def __init__(self, registry: Optional[MetricRegistry] = None,
+                 const_labels: Optional[dict] = None):
+        self._registry = registry or get_registry()
+        if const_labels is None:
+            from .runtime import export_identity
+            const_labels = export_identity()
+        self._const = {str(k): v for k, v in (const_labels or {}).items()}
+
+    def _labels(self, labels: dict, extra: Optional[dict] = None) -> str:
+        items = dict(self._const)
+        items.update(labels)
+        if extra:
+            items.update(extra)
+        return _prom_labels(items)
+
+    def render(self) -> str:
+        lines = []
+        for m in self._registry.metrics():
+            pname = _prom_name(m.name)
+            if m.help:
+                lines.append(f"# HELP {pname} {m.help}")
+            lines.append(f"# TYPE {pname} {m.kind}")
+            if m.kind == "histogram":
+                for s in m.series():
+                    cum = 0
+                    for b, c in zip(m.buckets, s._counts):
+                        cum += c
+                        lines.append(
+                            f"{pname}_bucket"
+                            f"{self._labels(s._labels, {'le': b})} {cum}")
+                    lines.append(
+                        f"{pname}_bucket"
+                        f"{self._labels(s._labels, {'le': '+Inf'})} "
+                        f"{s._count}")
+                    lines.append(
+                        f"{pname}_sum{self._labels(s._labels)} {s._sum}")
+                    lines.append(
+                        f"{pname}_count{self._labels(s._labels)} "
+                        f"{s._count}")
+            else:
+                for s in m.series():
+                    lines.append(
+                        f"{pname}{self._labels(s._labels)} {s._value}")
+        return "\n".join(lines) + ("\n" if lines else "")
+
+    def write(self, path: str) -> str:
+        d = os.path.dirname(os.path.abspath(path))
+        os.makedirs(d, exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(self.render())
+        os.replace(tmp, path)  # scrape never sees a torn file
+        return path
+
+
+class TensorBoardExporter:
+    """Write registry scalars as TensorBoard events via the repo's
+    zero-dependency utils/tbwriter.LogWriter. Histograms export their
+    mean/p50/p99 as three scalar tags (TB's native histogram proto is
+    out of scope for the wire writer)."""
+
+    def __init__(self, logdir: str,
+                 registry: Optional[MetricRegistry] = None):
+        from ..utils.tbwriter import LogWriter
+        self._registry = registry or get_registry()
+        self._w = LogWriter(logdir=logdir)
+
+    @staticmethod
+    def _tag(s: Sample) -> str:
+        if not s.labels:
+            return s.name
+        lab = ".".join(f"{k}={v}" for k, v in sorted(s.labels.items()))
+        return f"{s.name}/{lab}"
+
+    def export(self, step: int = 0):
+        for s in self._registry.collect():
+            tag = self._tag(s)
+            if s.kind == "histogram":
+                if not s.extra.get("count"):
+                    continue
+                self._w.add_scalar(tag + "/mean", s.value, step)
+                self._w.add_scalar(tag + "/p50", s.extra["p50"], step)
+                self._w.add_scalar(tag + "/p99", s.extra["p99"], step)
+            else:
+                self._w.add_scalar(tag, s.value, step)
+
+    def flush(self):
+        self._w.flush()
+
+    def close(self):
+        self._w.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -1,0 +1,448 @@
+"""Metric primitives: Counter / Gauge / Histogram with labeled series
+(counterpart of ``paddle_tpu/observability/metrics.py``, the same names,
+semantics and environment switch).
+
+One process-wide registry in the Prometheus data model. Design
+constraints:
+
+- Always-on and low-overhead: recording a sample is a dict lookup plus a
+  float add under a lock; no device work, no sync, ever.
+- Disable-able to literal no-ops: with ``enabled(False)`` every
+  recording method returns before touching state, and the device helper
+  (`runtime.jit_callback`) copies nothing off the device.
+- Exporters (exporters.py) pull from `collect()`; recording never
+  blocks on I/O.
+"""
+from __future__ import annotations
+
+import bisect
+import contextlib
+import math
+import os
+import threading
+import time
+from typing import Dict, Iterable, List, Optional, Tuple
+
+__all__ = [
+    "Counter", "Gauge", "Histogram", "MetricRegistry", "Sample",
+    "enabled", "scoped", "get_registry", "counter", "gauge", "histogram",
+    "DEFAULT_BUCKETS",
+]
+
+# Latency-shaped default buckets (seconds): 100us .. 60s.
+DEFAULT_BUCKETS = (
+    1e-4, 2.5e-4, 5e-4, 1e-3, 2.5e-3, 5e-3, 1e-2, 2.5e-2, 5e-2,
+    0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+)
+
+_RAW_CAP = 2048  # per-series reservoir for exact quantiles
+_EXEMPLAR_CAP = 4  # per-series tail exemplars (largest observations)
+
+
+class _State:
+    enabled = os.environ.get("PADDLE_TPU_TELEMETRY", "1").lower() \
+        not in ("0", "false", "off")
+
+
+_state = _State()
+
+
+def enabled(value: Optional[bool] = None) -> bool:
+    """Get (no arg) or set the process-wide telemetry switch.
+
+    ``enabled(False)`` turns every metric method into an early-return
+    and makes `jit_callback` a no-op, so a disabled run copies nothing
+    off the device for telemetry."""
+    if value is not None:
+        _state.enabled = bool(value)
+    return _state.enabled
+
+
+@contextlib.contextmanager
+def scoped(value: bool):
+    """Temporarily set the telemetry switch (tests, overhead-sensitive
+    sections)."""
+    prev = _state.enabled
+    _state.enabled = bool(value)
+    try:
+        yield
+    finally:
+        _state.enabled = prev
+
+
+class Sample:
+    """One exported data point: (name, kind, labels, value, extra)."""
+
+    __slots__ = ("name", "kind", "labels", "value", "extra")
+
+    def __init__(self, name, kind, labels, value, extra=None):
+        self.name = name
+        self.kind = kind
+        self.labels = labels
+        self.value = value
+        self.extra = extra or {}
+
+    def as_dict(self):
+        d = {"name": self.name, "kind": self.kind,
+             "labels": dict(self.labels), "value": self.value}
+        d.update(self.extra)
+        return d
+
+
+def _label_key(labels: Dict[str, str]) -> Tuple[Tuple[str, str], ...]:
+    return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
+
+
+class _Metric:
+    """Base: a named family of labeled series."""
+
+    kind = "untyped"
+
+    def __init__(self, name: str, help: str = "", unit: str = "",
+                 registry: Optional["MetricRegistry"] = None):
+        self.name = name
+        self.help = help
+        self.unit = unit
+        self._lock = threading.Lock()
+        self._series: Dict[Tuple, object] = {}
+        if registry is not None:
+            registry._register(self)
+
+    def _new_series(self):
+        raise NotImplementedError
+
+    def labels(self, **labels):
+        key = _label_key(labels)
+        with self._lock:
+            s = self._series.get(key)
+            if s is None:
+                s = self._series[key] = self._new_series()
+                s._labels = dict(labels)  # type: ignore[attr-defined]
+            return s
+
+    def _peek(self, labels):
+        """Read-only lookup: never creates the series (reading a metric
+        must not pollute exports with zero-valued series)."""
+        with self._lock:
+            return self._series.get(_label_key(labels))
+
+    def series(self) -> List:
+        with self._lock:
+            return list(self._series.values())
+
+    def reset(self):
+        with self._lock:
+            self._series.clear()
+
+    def samples(self) -> Iterable[Sample]:
+        raise NotImplementedError
+
+
+class _CounterSeries:
+    __slots__ = ("_value", "_labels", "_lock")
+
+    def __init__(self):
+        self._value = 0.0
+        self._labels = {}
+        self._lock = threading.Lock()
+
+    def inc(self, amount: float = 1.0):
+        if not _state.enabled:
+            return
+        with self._lock:
+            self._value += float(amount)
+
+    @property
+    def value(self):
+        return self._value
+
+
+class Counter(_Metric):
+    """Monotonically increasing count (calls, bytes, tokens, requests)."""
+
+    kind = "counter"
+
+    def _new_series(self):
+        return _CounterSeries()
+
+    def inc(self, amount: float = 1.0, **labels):
+        if not _state.enabled:
+            return
+        self.labels(**labels).inc(amount)
+
+    def value(self, **labels) -> float:
+        s = self._peek(labels)
+        return s.value if s is not None else 0.0
+
+    def samples(self):
+        for s in self.series():
+            yield Sample(self.name, self.kind, s._labels, s._value)
+
+
+class _GaugeSeries:
+    __slots__ = ("_value", "_labels", "_lock")
+
+    def __init__(self):
+        self._value = 0.0
+        self._labels = {}
+        self._lock = threading.Lock()
+
+    def set(self, value: float):
+        if not _state.enabled:
+            return
+        self._value = float(value)  # single store: atomic under the GIL
+
+    def inc(self, amount: float = 1.0):
+        if not _state.enabled:
+            return
+        with self._lock:
+            self._value += float(amount)
+
+    def dec(self, amount: float = 1.0):
+        self.inc(-amount)
+
+    @property
+    def value(self):
+        return self._value
+
+
+class Gauge(_Metric):
+    """Point-in-time value (queue depth, memory bytes, MFU)."""
+
+    kind = "gauge"
+
+    def _new_series(self):
+        return _GaugeSeries()
+
+    def set(self, value: float, **labels):
+        if not _state.enabled:
+            return
+        self.labels(**labels).set(value)
+
+    def value(self, **labels) -> float:
+        s = self._peek(labels)
+        return s.value if s is not None else 0.0
+
+    def samples(self):
+        for s in self.series():
+            yield Sample(self.name, self.kind, s._labels, s._value)
+
+
+class _HistogramSeries:
+    __slots__ = ("_buckets", "_counts", "_count", "_sum", "_min", "_max",
+                 "_raw", "_exemplars", "_labels", "_lock")
+
+    def __init__(self, buckets):
+        self._buckets = buckets
+        self._counts = [0] * (len(buckets) + 1)  # +inf bucket
+        self._count = 0
+        self._sum = 0.0
+        self._min = math.inf
+        self._max = -math.inf
+        self._raw: List[float] = []
+        # tail exemplars: the _EXEMPLAR_CAP largest observations that
+        # carried a trace id — the forensic bridge from an aggregate
+        # upper quantile to the exact requests behind it
+        self._exemplars: List[Tuple[float, str]] = []
+        self._lock = threading.Lock()
+
+    def observe(self, value: float, exemplar: Optional[str] = None):
+        if not _state.enabled:
+            return
+        v = float(value)
+        with self._lock:
+            self._counts[bisect.bisect_left(self._buckets, v)] += 1
+            self._count += 1
+            self._sum += v
+            if v < self._min:
+                self._min = v
+            if v > self._max:
+                self._max = v
+            raw = self._raw
+            if len(raw) >= _RAW_CAP:
+                # decimate rather than slide: old+new samples both survive
+                del raw[::2]
+            raw.append(v)
+            if exemplar is not None:
+                ex = self._exemplars
+                if len(ex) < _EXEMPLAR_CAP or v > ex[-1][0]:
+                    ex.append((v, str(exemplar)))
+                    ex.sort(key=lambda p: -p[0])
+                    del ex[_EXEMPLAR_CAP:]
+
+    def exemplars(self) -> List[Tuple[float, str]]:
+        """(value, trace_id) pairs for the retained tail, largest
+        first."""
+        with self._lock:
+            return list(self._exemplars)
+
+    @property
+    def count(self):
+        return self._count
+
+    @property
+    def sum(self):
+        return self._sum
+
+    @property
+    def mean(self):
+        return self._sum / self._count if self._count else 0.0
+
+    def quantile(self, q: float) -> float:
+        """Exact quantile over the retained reservoir (all samples until
+        _RAW_CAP, decimated beyond)."""
+        if not self._raw:
+            return 0.0
+        xs = sorted(self._raw)
+        if q <= 0:
+            return xs[0]
+        if q >= 1:
+            return xs[-1]
+        pos = q * (len(xs) - 1)
+        lo = int(pos)
+        hi = min(lo + 1, len(xs) - 1)
+        frac = pos - lo
+        return xs[lo] * (1 - frac) + xs[hi] * frac
+
+
+class Histogram(_Metric):
+    """Distribution of observations (step time, latency) with bucket
+    counts for Prometheus export and a reservoir for exact quantiles."""
+
+    kind = "histogram"
+
+    def __init__(self, name, help="", unit="", registry=None, buckets=None):
+        self.buckets = tuple(sorted(buckets or DEFAULT_BUCKETS))
+        super().__init__(name, help=help, unit=unit, registry=registry)
+
+    def _new_series(self):
+        return _HistogramSeries(self.buckets)
+
+    def observe(self, value: float, exemplar: Optional[str] = None,
+                **labels):
+        if not _state.enabled:
+            return
+        self.labels(**labels).observe(value, exemplar=exemplar)
+
+    def quantile(self, q: float, **labels) -> float:
+        s = self._peek(labels)
+        return s.quantile(q) if s is not None else 0.0
+
+    def exemplars(self, **labels) -> List[Tuple[float, str]]:
+        """Tail exemplars of one series (largest first); every series'
+        pooled tail when no labels are given."""
+        if labels:
+            s = self._peek(labels)
+            return s.exemplars() if s is not None else []
+        out: List[Tuple[float, str]] = []
+        for s in self.series():
+            out.extend(s.exemplars())
+        out.sort(key=lambda p: -p[0])
+        return out[:_EXEMPLAR_CAP]
+
+    def samples(self):
+        for s in self.series():
+            extra = {"count": s._count, "sum": s._sum,
+                     "min": None if s._count == 0 else s._min,
+                     "max": None if s._count == 0 else s._max,
+                     "p50": s.quantile(0.5), "p99": s.quantile(0.99)}
+            ex = s.exemplars()
+            if ex:
+                extra["exemplars"] = [
+                    {"value": round(v, 6), "trace": t} for v, t in ex]
+            yield Sample(self.name, self.kind, s._labels, s.mean,
+                         extra=extra)
+
+
+class MetricRegistry:
+    """Process-wide metric collection: create-or-get by name, collect
+    for exporters, reset between runs."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._metrics: Dict[str, _Metric] = {}
+
+    def _register(self, metric: _Metric):
+        with self._lock:
+            cur = self._metrics.get(metric.name)
+            if cur is not None and type(cur) is not type(metric):
+                raise ValueError(
+                    f"metric {metric.name!r} already registered as "
+                    f"{cur.kind}")
+            self._metrics[metric.name] = metric
+
+    def _get_or_make(self, cls, name, help, unit, **kw):
+        # create-and-insert under ONE lock hold: two threads racing on
+        # the first use must not each build a metric (the loser's would
+        # be orphaned and its recordings invisible to collect())
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is not None:
+                if not isinstance(m, cls):
+                    raise ValueError(
+                        f"metric {name!r} already registered as {m.kind}")
+                return m
+            m = cls(name, help=help, unit=unit, **kw)  # registry=None:
+            self._metrics[name] = m                    # we insert here
+            return m
+
+    def counter(self, name, help="", unit="") -> Counter:
+        return self._get_or_make(Counter, name, help, unit)
+
+    def gauge(self, name, help="", unit="") -> Gauge:
+        return self._get_or_make(Gauge, name, help, unit)
+
+    def histogram(self, name, help="", unit="", buckets=None) -> Histogram:
+        return self._get_or_make(Histogram, name, help, unit,
+                                 buckets=buckets)
+
+    def get(self, name) -> Optional[_Metric]:
+        with self._lock:
+            return self._metrics.get(name)
+
+    def metrics(self) -> List[_Metric]:
+        with self._lock:
+            return list(self._metrics.values())
+
+    def collect(self) -> List[Sample]:
+        out: List[Sample] = []
+        for m in self.metrics():
+            out.extend(m.samples())
+        return out
+
+    def snapshot(self) -> Dict[str, List[dict]]:
+        """{metric_name: [sample dicts]} — a JSON-able registry image."""
+        out: Dict[str, List[dict]] = {}
+        for s in self.collect():
+            out.setdefault(s.name, []).append(s.as_dict())
+        return out
+
+    def reset(self):
+        """Drop every series (metric FAMILIES stay registered so held
+        references keep working and repopulate on next record)."""
+        for m in self.metrics():
+            m.reset()
+
+
+_default_registry = MetricRegistry()
+
+
+def get_registry() -> MetricRegistry:
+    return _default_registry
+
+
+def counter(name, help="", unit="") -> Counter:
+    return _default_registry.counter(name, help=help, unit=unit)
+
+
+def gauge(name, help="", unit="") -> Gauge:
+    return _default_registry.gauge(name, help=help, unit=unit)
+
+
+def histogram(name, help="", unit="", buckets=None) -> Histogram:
+    return _default_registry.histogram(name, help=help, unit=unit,
+                                       buckets=buckets)
+
+
+def now() -> float:
+    return time.time()

@@ -1,0 +1,538 @@
+"""Structured tracing + the flight recorder (counterpart of
+``paddle_tpu/observability/tracing.py``).
+
+The metrics layer (metrics.py) answers *what is the system doing*;
+this module answers *what happened to THIS request / THIS step / THIS
+crashed run*. Two pieces:
+
+- **Spans.** A span is one timed operation with identity: trace_id
+  (shared by every span of one request/step/run), span_id, parent span,
+  labels, and timestamped events. Spans nest through a thread-local
+  context stack (``with span("train.dispatch"): ...``) or explicitly
+  (``start_span(..., parent=...)``) for lifecycles that interleave on
+  one thread, like serving requests in the continuous-batching loop.
+  Finished spans export through the process JSONL sink (runtime.py) as
+  ``{"kind": "span", ...}`` lines — same file as the metric samples —
+  and convert to Chrome-trace/Perfetto JSON (:func:`to_chrome_trace`).
+
+- **Flight recorder.** Every finished span also lands in a bounded
+  in-memory ring; still-open spans are tracked separately. On crash
+  paths — the uncaught-exception hook installed here,
+  ``AnomalousTrainingError``, ``DecodeWedgedError``/decode-watchdog —
+  :func:`flight_dump` writes the ring, the open spans (*which phase was
+  in progress*), armed-fault events, and a registry snapshot to
+  ``flight_<pid>.json``.
+
+Cost contract (same bar as the metrics layer): spans are pure host-side
+bookkeeping — they launch nothing on the device and are never opened
+inside a captured CUDA graph — and with ``enabled(False)`` every tracing
+entry point returns the shared no-op span after one flag check.
+"""
+from __future__ import annotations
+
+import collections
+import json
+import os
+import random
+import sys
+import threading
+import time
+from typing import Dict, List, Optional
+
+from .metrics import enabled, get_registry
+
+__all__ = [
+    "Span", "TraceContext", "NULL_SPAN", "span", "start_span", "traced",
+    "current_span", "FlightRecorder", "flight_recorder", "flight_dump",
+    "flight_dir", "set_flight_dir", "to_chrome_trace",
+    "write_chrome_trace",
+]
+
+# own RNG: span ids must not perturb (or be perturbed by) user-level
+# random seeding (paddle.seed seeds the global streams)
+_rand = random.Random(int.from_bytes(os.urandom(8), "big"))
+_rand_lock = threading.Lock()
+
+_MAX_EVENTS = 256          # per-span event cap (decode ticks, retries)
+_DEFAULT_CAPACITY = 2048   # flight ring length (finished spans)
+
+_UNSET = object()
+
+
+def _new_id() -> str:
+    with _rand_lock:
+        return f"{_rand.getrandbits(64):016x}"
+
+
+class _TLS(threading.local):
+    def __init__(self):
+        self.stack: List["Span"] = []
+
+
+_tls = _TLS()
+
+
+def current_span() -> Optional["Span"]:
+    """The innermost active context-manager span on this thread (or
+    None). Explicit `start_span(...)` spans do NOT enter the stack —
+    they are addressed by reference."""
+    s = _tls.stack
+    return s[-1] if s else None
+
+
+class _NullSpan:
+    """Shared do-nothing span: every tracing entry point returns this
+    when telemetry is disabled, so instrumented code needs no
+    conditionals and the disabled cost is one flag check + method
+    dispatch."""
+
+    __slots__ = ()
+    name = ""
+    trace_id = span_id = parent_id = None
+    recording = False
+    ended = True
+
+    def event(self, name, **attrs):
+        return self
+
+    def set_label(self, **labels):
+        return self
+
+    def end(self, status=None, **labels):
+        return self
+
+    def context(self, **baggage):
+        return None   # disabled: nothing to propagate
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def __bool__(self):
+        return False
+
+
+NULL_SPAN = _NullSpan()
+
+
+class TraceContext:
+    """Serializable trace identity for crossing a boundary the span
+    object itself cannot cross (another thread's serve loop, a queue, a
+    KV page-span handoff record, another process).
+
+    A context names a parent: a span created with ``parent=ctx`` joins
+    ``ctx.trace_id`` with ``parent_id = ctx.span_id``, so the receiving
+    side's spans chain under the sender's without sharing memory.
+    ``baggage`` carries request-scoped attribution (tenant/tier/role)
+    that boundaries may stamp onto their own spans' labels.
+
+    The dict form (:meth:`to_dict`/:meth:`from_dict`) is plain JSON
+    and is what rides records like the serving handoff payload."""
+
+    __slots__ = ("trace_id", "span_id", "baggage")
+
+    def __init__(self, trace_id: str, span_id: str,
+                 baggage: Optional[Dict] = None):
+        self.trace_id = str(trace_id)
+        self.span_id = str(span_id)
+        self.baggage = dict(baggage) if baggage else {}
+
+    def to_dict(self) -> dict:
+        d = {"trace": self.trace_id, "span": self.span_id}
+        if self.baggage:
+            d["baggage"] = dict(self.baggage)
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Optional[dict]) -> "Optional[TraceContext]":
+        """None-tolerant: a record without a context decodes to None
+        (the receiver then falls back to its local root)."""
+        if not d or "trace" not in d or "span" not in d:
+            return None
+        return cls(d["trace"], d["span"], d.get("baggage"))
+
+    def __repr__(self):
+        return (f"TraceContext(trace={self.trace_id!r}, "
+                f"span={self.span_id!r}, baggage={self.baggage!r})")
+
+    def __eq__(self, other):
+        return (isinstance(other, TraceContext)
+                and other.trace_id == self.trace_id
+                and other.span_id == self.span_id
+                and other.baggage == self.baggage)
+
+
+class Span:
+    """One timed operation. Create via :func:`span` (context manager,
+    joins the thread-local stack) or :func:`start_span` (explicit
+    lifetime; call ``.end()``)."""
+
+    __slots__ = ("name", "trace_id", "span_id", "parent_id", "labels",
+                 "events", "status", "start", "dur", "dropped_events",
+                 "_t0", "_ended", "_on_stack")
+
+    recording = True
+
+    def __init__(self, name: str,
+                 parent: "Optional[Span | TraceContext]" = None,
+                 trace_id: Optional[str] = None,
+                 labels: Optional[Dict] = None):
+        self.name = name
+        # `parent` may be a live Span (same thread) or a TraceContext
+        # carried across a boundary — either way the child joins the
+        # parent's trace with a resolvable parent_id
+        self.parent_id = parent.span_id if parent else None
+        self.trace_id = trace_id or (parent.trace_id if parent
+                                     else _new_id())
+        self.span_id = _new_id()
+        self.labels = dict(labels) if labels else {}
+        self.events: List[dict] = []
+        self.status = "ok"
+        self.dropped_events = 0
+        self.start = time.time()
+        self._t0 = time.perf_counter()
+        self._ended = False
+        self._on_stack = False
+        _ensure_excepthook()
+        _recorder._open_span(self)
+
+    # ------------------------------------------------------------------
+    @property
+    def ended(self) -> bool:
+        return self._ended
+
+    def _now(self) -> float:
+        # wall-clock anchored, monotonic-advanced: event timestamps sort
+        # correctly within a span even across NTP steps
+        return self.start + (time.perf_counter() - self._t0)
+
+    def event(self, name: str, **attrs):
+        """Append a timestamped event; capped at _MAX_EVENTS per span
+        (decode ticks on a long generation), overflow counted."""
+        if self._ended:
+            return self
+        if len(self.events) >= _MAX_EVENTS:
+            self.dropped_events += 1
+            return self
+        ev = {"ts": round(self._now(), 6), "name": name}
+        if attrs:
+            ev.update(attrs)
+        self.events.append(ev)
+        return self
+
+    def set_label(self, **labels):
+        self.labels.update(labels)
+        return self
+
+    def context(self, **baggage) -> "TraceContext":
+        """Mint a :class:`TraceContext` naming this span as the parent
+        for spans created across a boundary (thread, queue, handoff
+        record, process)."""
+        return TraceContext(self.trace_id, self.span_id, baggage)
+
+    def end(self, status: Optional[str] = None, **labels):
+        """Finish the span (idempotent): records duration, moves it from
+        the open set into the flight ring, exports it through the
+        process JSONL sink if one is configured."""
+        if self._ended:
+            return self
+        self._ended = True
+        self.dur = time.perf_counter() - self._t0
+        if status is not None:
+            self.status = status
+        if labels:
+            self.labels.update(labels)
+        _recorder._close_span(self)
+        if enabled():
+            from .runtime import export_record
+            export_record(self.as_dict())
+        return self
+
+    def as_dict(self, open: bool = False) -> dict:
+        d = {"ts": round(time.time(), 6), "kind": "span",
+             "name": self.name, "trace": self.trace_id,
+             "span": self.span_id, "parent": self.parent_id,
+             "start": round(self.start, 6),
+             "dur": round(self.dur if self._ended
+                          else time.perf_counter() - self._t0, 6),
+             "labels": dict(self.labels), "events": list(self.events),
+             "status": self.status}
+        if open:
+            d["open"] = True
+        if self.dropped_events:
+            d["dropped_events"] = self.dropped_events
+        return d
+
+    # ------------------------------------------------- context manager --
+    def __enter__(self):
+        _tls.stack.append(self)
+        self._on_stack = True
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if self._on_stack:
+            self._on_stack = False
+            stack = _tls.stack
+            if stack and stack[-1] is self:
+                stack.pop()
+            elif self in stack:       # mismatched exits: still unwind
+                stack.remove(self)
+        if exc_type is not None and self.status == "ok":
+            self.event("exception", type=exc_type.__name__,
+                       message=str(exc)[:200])
+            self.end(status=f"error:{exc_type.__name__}")
+        else:
+            self.end()
+        return False
+
+
+def span(name: str, parent=_UNSET, trace_id: Optional[str] = None,
+         **labels) -> "Span | _NullSpan":
+    """Context-manager span: nests under the current thread-local span
+    unless an explicit ``parent`` (a Span, a :class:`TraceContext`
+    carried across a boundary, or ``parent=None`` for a root) is
+    given. No-op when telemetry is disabled."""
+    if not enabled():
+        return NULL_SPAN
+    if parent is _UNSET:
+        parent = current_span()
+    elif isinstance(parent, _NullSpan):
+        parent = None
+    return Span(name, parent=parent, trace_id=trace_id, labels=labels)
+
+
+def start_span(name: str, parent=_UNSET, trace_id: Optional[str] = None,
+               **labels) -> "Span | _NullSpan":
+    """Explicit-lifetime span (caller must ``.end()``): for lifecycles
+    that interleave on one thread, e.g. one span per serving request
+    while the decode loop round-robins the batch."""
+    return span(name, parent=parent, trace_id=trace_id, **labels)
+
+
+def traced(name=None, **labels):
+    """Decorator: run the function inside a span (named after the
+    function unless given). ``@traced`` and ``@traced("x", k=v)`` both
+    work; disabled telemetry bypasses straight to the function."""
+    import functools
+
+    def deco(fn):
+        sname = name if isinstance(name, str) and name else fn.__qualname__
+
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if not enabled():
+                return fn(*args, **kwargs)
+            with span(sname, **labels):
+                return fn(*args, **kwargs)
+        return wrapper
+
+    if callable(name):              # bare @traced
+        fn, name = name, None
+        return deco(fn)
+    return deco
+
+
+# ---------------------------------------------------------------------------
+# flight recorder
+# ---------------------------------------------------------------------------
+class FlightRecorder:
+    """Bounded ring of finished spans + the set of still-open ones,
+    dumpable to JSON on crash paths. One process-wide instance
+    (:func:`flight_recorder`); capacity via constructor or
+    ``PADDLE_TPU_FLIGHT_CAPACITY``."""
+
+    def __init__(self, capacity: int = _DEFAULT_CAPACITY):
+        self.capacity = int(capacity)
+        self._lock = threading.Lock()
+        self._ring: collections.deque = collections.deque(
+            maxlen=self.capacity)
+        self._open: Dict[str, Span] = {}
+        self.last_dump: Optional[str] = None
+
+    # ------------------------------------------------- span lifecycle --
+    def _open_span(self, s: Span):
+        with self._lock:
+            if len(self._open) >= 4 * self.capacity:
+                # leak guard: a caller that never ends its spans must
+                # not grow the open set without bound
+                self._open.pop(next(iter(self._open)))
+            self._open[s.span_id] = s
+
+    def _close_span(self, s: Span):
+        with self._lock:
+            self._open.pop(s.span_id, None)
+            self._ring.append(s.as_dict())
+
+    # ------------------------------------------------------- inspection --
+    def spans(self) -> List[dict]:
+        with self._lock:
+            return list(self._ring)
+
+    def open_spans(self) -> List[dict]:
+        with self._lock:
+            live = list(self._open.values())
+        return [s.as_dict(open=True) for s in live]
+
+    def clear(self):
+        with self._lock:
+            self._ring.clear()
+            self._open.clear()
+
+    # ------------------------------------------------------------ dump --
+    def dump(self, path: Optional[str] = None, reason: str = "",
+             extra: Optional[dict] = None,
+             force: bool = False) -> Optional[str]:
+        """Write the flight file and return its path. Skips (returns
+        None) when there is nothing recorded and not ``force`` — crash
+        hooks can call this unconditionally. NEVER raises: this runs on
+        paths where a second failure would mask the first."""
+        try:
+            finished, open_ = self.spans(), self.open_spans()
+            if not finished and not open_ and not force:
+                return None
+            payload = {"ts": round(time.time(), 6), "pid": os.getpid(),
+                       "reason": reason, "capacity": self.capacity,
+                       "spans": finished, "open_spans": open_}
+            try:  # armed-fault forensics (which injected fault fired)
+                from ..framework import faults as _faults
+                payload["fault_events"] = _faults.events()
+            except Exception:
+                pass
+            try:
+                payload["metrics"] = get_registry().snapshot()
+            except Exception:
+                pass
+            if extra:
+                payload["extra"] = extra
+            if path is None:
+                path = os.path.join(flight_dir(),
+                                    f"flight_{os.getpid()}.json")
+            d = os.path.dirname(os.path.abspath(path))
+            os.makedirs(d, exist_ok=True)
+            tmp = path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(payload, f)
+            os.replace(tmp, path)   # readers never see a torn dump
+            self.last_dump = path
+            return path
+        except Exception:
+            return None
+
+
+_recorder = FlightRecorder(
+    capacity=int(os.environ.get("PADDLE_TPU_FLIGHT_CAPACITY",
+                                _DEFAULT_CAPACITY)))
+
+
+def flight_recorder() -> FlightRecorder:
+    return _recorder
+
+
+def flight_dump(path: Optional[str] = None, reason: str = "",
+                extra: Optional[dict] = None,
+                force: bool = False) -> Optional[str]:
+    """Dump the process flight recorder (see FlightRecorder.dump)."""
+    return _recorder.dump(path=path, reason=reason, extra=extra,
+                          force=force)
+
+
+_flight_dir: Optional[str] = None
+
+
+def set_flight_dir(path: Optional[str]):
+    """Where crash dumps land when no explicit path is given."""
+    global _flight_dir
+    _flight_dir = path
+
+
+def flight_dir() -> str:
+    """Dump directory resolution: set_flight_dir > env
+    PADDLE_TPU_FLIGHT_DIR > the telemetry sink's directory >
+    ``output/`` under the cwd (created on demand by dump()), never the
+    cwd itself."""
+    if _flight_dir:
+        return _flight_dir
+    env = os.environ.get("PADDLE_TPU_FLIGHT_DIR")
+    if env:
+        return env
+    from .runtime import telemetry_path
+    tp = telemetry_path()
+    if tp:
+        return os.path.dirname(os.path.abspath(tp))
+    return os.path.join(os.getcwd(), "output")
+
+
+# ------------------------------------------------- uncaught-exception hook --
+_hook_lock = threading.Lock()
+_hook_installed = False
+
+
+def _ensure_excepthook():
+    """Chain a crash dump into sys.excepthook, once, lazily (first real
+    span): an uncaught exception leaves flight_<pid>.json naming what
+    was in flight, then the previous hook (traceback printing) runs."""
+    global _hook_installed
+    if _hook_installed:
+        return
+    with _hook_lock:
+        if _hook_installed:
+            return
+        _hook_installed = True
+        prev = sys.excepthook
+
+        def hook(exc_type, exc, tb):
+            try:
+                _recorder.dump(reason=f"uncaught:{exc_type.__name__}")
+            except Exception:
+                pass
+            prev(exc_type, exc, tb)
+
+        sys.excepthook = hook
+
+
+# ---------------------------------------------------------------------------
+# Chrome-trace / Perfetto export
+# ---------------------------------------------------------------------------
+def to_chrome_trace(spans: List[dict]) -> dict:
+    """Span dicts -> Chrome-trace JSON (chrome://tracing / Perfetto):
+    one complete ("X") event per span, one instant ("i") event per span
+    event. Spans of one trace share a tid so a request/step reads as one
+    row."""
+    pid = os.getpid()
+    tids: Dict[str, int] = {}
+    out = []
+    for s in spans:
+        key = s.get("trace") or s.get("span") or s.get("name", "?")
+        tid = tids.setdefault(key, len(tids) + 1)
+        args = dict(s.get("labels") or {})
+        args["status"] = s.get("status", "ok")
+        args["trace"] = s.get("trace")
+        if s.get("open"):
+            args["open"] = True
+        out.append({"ph": "X", "cat": "span", "name": s.get("name", "?"),
+                    "ts": float(s.get("start", 0.0)) * 1e6,
+                    "dur": max(float(s.get("dur") or 0.0), 0.0) * 1e6,
+                    "pid": pid, "tid": tid, "args": args})
+        for e in s.get("events") or []:
+            out.append({"ph": "i", "s": "t",
+                        "name": f"{s.get('name', '?')}:{e.get('name')}",
+                        "ts": float(e.get("ts", 0.0)) * 1e6,
+                        "pid": pid, "tid": tid,
+                        "args": {k: v for k, v in e.items()
+                                 if k not in ("ts", "name")}})
+    return {"traceEvents": out, "displayTimeUnit": "ms"}
+
+
+def write_chrome_trace(path: str, spans: Optional[List[dict]] = None) \
+        -> str:
+    """Write Chrome-trace JSON for `spans` (default: the flight ring,
+    finished + open)."""
+    if spans is None:
+        spans = _recorder.spans() + _recorder.open_spans()
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(to_chrome_trace(spans), f)
+    return path

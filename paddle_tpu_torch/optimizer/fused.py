@@ -38,6 +38,7 @@ import torch
 
 from ..framework.flags import flag_value
 from ..kernels import fused_optimizer as fk
+from ..observability import metrics as _obsm
 
 __all__ = ["try_fused_step", "fused_plan", "FusedPlan", "bucket_coeffs",
            "fused_bucket_update", "dispatch_counts"]
@@ -46,9 +47,21 @@ __all__ = ["try_fused_step", "fused_plan", "FusedPlan", "bucket_coeffs",
 # per step on the fused path, one per parameter on the per-parameter path
 dispatch_counts = {"fused": 0, "per_param": 0}
 
+_opt_dispatches = None
+
 
 def _count_dispatch(n: int, path: str):
+    """``dispatch_counts`` and the reference's ``train.opt_dispatches``
+    counter (by path)."""
+    global _opt_dispatches
     dispatch_counts[path] += n
+    if not _obsm.enabled():
+        return
+    if _opt_dispatches is None:
+        _opt_dispatches = _obsm.counter(
+            "train.opt_dispatches",
+            help="eager optimizer update programs dispatched")
+    _opt_dispatches.inc(n, path=path)
 
 
 # ---------------------------------------------------------------------------

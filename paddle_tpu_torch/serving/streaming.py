@@ -27,8 +27,11 @@ class StreamEvent(NamedTuple):
 
     `request` is the index within the originating call (or the running
     intake index for `serve_stream`); `index` is the 1-based ordinal of
-    the token within its request (0 on "end"); `ts` is time.time() at
-    emission (the reference's value with tracing off); `status` is the terminal status on "end" events (ok /
+    the token within its request (0 on "end"); `ts` is the wall-clock
+    time of the request span's last event (its `serve.request` span's
+    clock, so stream and trace agree), or time.time() at emission past
+    the span's event cap or with telemetry off; `status` is the terminal
+    status on "end" events (ok /
     deadline / shed / cancelled / watchdog / rejected_*); `meta` is the
     ServeRequest.meta passthrough (None for the list-based API).
 
@@ -58,8 +61,10 @@ class ServeRequest(NamedTuple):
     per-request temperature/top-k/top-p/seed served as batched operands
     by the on-device sampling decode program (the predictor must be
     constructed with ``sampling_enabled=True``; None = greedy).
-    `trace` is the reference's tracing context; the port has no tracing
-    yet and ignores it."""
+    `trace` is an optional `observability.TraceContext` (the router's
+    admission-minted identity): the request's `serve.request` span
+    parents on it and joins the submitter's trace instead of rooting
+    under the serve call's `serve.generate` span."""
     prompt: List[int]
     max_new_tokens: int = 32
     tier: Optional[str] = None

@@ -5,9 +5,18 @@ batch, check each loss for anomalies (NaN/Inf, or a spike against the
 rolling mean of recent good losses) one step late so the host does not
 wait on the device every step, checkpoint every ``save_steps`` (never an
 anomalous step: the save is owed to the next good one), and on SIGTERM or
-SIGINT checkpoint and return at the next step boundary. Telemetry spans,
-fault-injection sites, the rank heartbeat and the distributed steps
-(DistTrainStep, fleet) are not ported.
+SIGINT checkpoint and return at the next step boundary.
+
+Telemetry is the reference's (``observability``): one ``train.step``
+span per step with ``train.data``, ``train.dispatch`` and
+``train.loss_sync`` children, a ``train.anomaly_skip`` span and the
+``robustness.anomalies_skipped`` counter per anomalous step, the
+``train.loss`` and ``robustness.goodput`` gauges at log boundaries, a
+registry snapshot to the JSONL sink per logged step (``maybe_export``),
+a flight dump when anomalies abort the run or a signal preempts it, and
+a ``RankHeartbeat`` when ``PADDLE_RANK_HEARTBEAT`` names its file. The
+fault-injection sites and the distributed steps (DistTrainStep, fleet)
+are not ported.
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ from typing import Callable, Optional
 
 import torch
 
+from .. import observability as _obs
 from ..framework.flags import flag_value as _fv
 
 __all__ = ["TrainingArguments", "Trainer", "SpeedMeter",
@@ -211,12 +221,13 @@ class Trainer:
         self._prev_handlers = {}
 
     # -------------------------------------------------------- anomaly guard --
-    def _guard_check(self, step: int, loss) -> bool:
+    def _guard_check(self, step: int, loss, parent=None) -> bool:
         """Read one step's loss and classify it: True when it is anomalous
         (NaN/Inf, or a spike against the rolling mean of recent good
         losses). Too many consecutive anomalies raise
         AnomalousTrainingError."""
-        lv = float(loss)
+        with _obs.span("train.loss_sync", parent=parent, step=step + 1):
+            lv = float(loss)
         anomalous, reason = not math.isfinite(lv), "nonfinite"
         spike = float(_fv("loss_spike_factor"))
         window = self._good_losses
@@ -227,9 +238,14 @@ class Trainer:
         if anomalous:
             self._anom_consec += 1
             self._anom_total += 1
+            _obs.counter("robustness.anomalies_skipped").inc(reason=reason)
+            _obs.start_span("train.anomaly_skip", parent=None,
+                            step=step + 1, reason=reason,
+                            consecutive=self._anom_consec).end()
             self._log({"anomalous_step": step + 1, "loss": lv,
                        "reason": reason, "consecutive": self._anom_consec})
             if self._anom_consec >= int(_fv("max_anomalous_steps")):
+                _obs.flight_dump(reason="anomalous_training")
                 raise AnomalousTrainingError(
                     f"aborting after {self._anom_consec} consecutive "
                     f"anomalous steps (last loss {lv!r} at step {step + 1}, "
@@ -246,14 +262,30 @@ class Trainer:
     def train(self, resume: bool = True):
         os.makedirs(self.args.output_dir, exist_ok=True)
         self._install_preemption_hook()
+        # per-rank liveness: a launcher names each worker's heartbeat
+        # file; silence there reads as a wedged rank
+        self._hb = None
+        hb_path = os.environ.get("PADDLE_RANK_HEARTBEAT")
+        if hb_path:
+            self._hb = _obs.RankHeartbeat(hb_path, interval=float(
+                os.environ.get("PADDLE_RANK_HEARTBEAT_INTERVAL", "1.0")))
+            self._hb_rank = os.environ.get(
+                "RANK", os.environ.get("PADDLE_TRAINER_ID", "0"))
+            self._hb.beat(phase="init", rank=self._hb_rank)
         try:
             return self._train_loop(resume)
         finally:
+            if self._hb is not None:
+                self._hb.close()
             self._restore_preemption_hook()
 
     def _train_loop(self, resume: bool):
         args = self.args
         start_step = self._try_resume() if resume else 0
+        if self._hb is not None:
+            # the resume marker
+            self._hb.beat(force=True, phase="resumed", step=start_step,
+                          rank=self._hb_rank)
         guard = bool(_fv("anomaly_guard"))
         self._anom_consec = 0
         self._anom_total = 0
@@ -270,10 +302,19 @@ class Trainer:
         data = self.data_iter_fn(start_step)
         t_start = time.perf_counter()
         for step in range(start_step, args.max_steps):
-            batch = next(data)
+            # one trace per step: data / dispatch / loss-sync phases (all
+            # host code around the step; no-ops with telemetry off)
+            st_sp = _obs.start_span("train.step", parent=None,
+                                    step=step + 1)
+            if self._hb is not None:
+                self._hb.beat(phase="step", step=step + 1,
+                              rank=self._hb_rank)
+            with _obs.span("train.data", parent=st_sp, step=step + 1):
+                batch = next(data)
             if not isinstance(batch, (tuple, list)):
                 batch = (batch,)
-            loss = self._step_obj(*batch)
+            with _obs.span("train.dispatch", parent=st_sp, step=step + 1):
+                loss = self._step_obj(*batch)
             if self.tokens_per_batch:
                 meter.update(self.tokens_per_batch)
             log_b = (step + 1) % args.logging_steps == 0 or self._preempted
@@ -286,18 +327,31 @@ class Trainer:
                 if pending is not None:
                     ps, pl = pending
                     pending = None
-                    self._guard_check(ps, pl)
+                    self._guard_check(ps, pl, parent=st_sp)
                 if log_b or save_b or last_b:
-                    step_anom = self._guard_check(step, loss)
+                    step_anom = self._guard_check(step, loss, parent=st_sp)
                 else:
                     pending = (step, loss)
             if log_b:
-                loss_val = float(loss)
+                if guard:
+                    # the boundary check above already read this loss
+                    loss_val = float(loss)
+                else:
+                    with _obs.span("train.loss_sync", parent=st_sp,
+                                   step=step + 1):
+                        loss_val = float(loss)
                 rec = {"step": step + 1, "loss": round(loss_val, 6),
                        "tokens_per_sec": round(meter.tokens_per_sec, 2),
                        "mfu": round(meter.mfu, 4)}
                 logs.append(rec)
                 self._log(rec)
+                if _obs.enabled():
+                    if math.isfinite(loss_val):
+                        _obs.gauge("train.loss").set(loss_val)
+                    executed = step + 1 - start_step
+                    _obs.gauge("robustness.goodput").set(
+                        (executed - self._anom_total) / max(executed, 1))
+                    _obs.maybe_export(step=step + 1)
             if step_anom and save_b:
                 # never checkpoint an anomalous step: the save is owed to
                 # the next verified-good step
@@ -308,7 +362,9 @@ class Trainer:
                             and pending is None):
                 self._save(step + 1)
                 save_owed = False
+            st_sp.end(anomalous=step_anom)
             if self._preempted:
+                _obs.flight_dump(reason="preempted")
                 self._log({"preempted_at": step + 1})
                 break
         else:

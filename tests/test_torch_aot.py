@@ -386,6 +386,35 @@ def test_bucket_miss_writes_back_then_hits(models, bundle, tmp_path):
     assert aot.counters["bundle_hits"]["prefill"] >= 1
 
 
+def test_reference_report_tool_verifies_a_port_bundle(bundle, tmp_path):
+    """``tools/aot_report.py --verify --json`` (the reference's stdlib
+    inspector, unedited) reads a bundle the port wrote: every program
+    record re-hashes, the runtime config hash verifies; a corrupted
+    record fails the check."""
+    import subprocess
+    import sys
+    tool = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "aot_report.py")
+    path = _copy(bundle, tmp_path)
+
+    def report():
+        r = subprocess.run([sys.executable, "-I", tool, path, "--verify",
+                            "--json"], capture_output=True, text=True,
+                           timeout=120)
+        return r.returncode, json.loads(r.stdout)
+    rc, out = report()
+    assert rc == 0 and out["verify_failures"] == []
+    m = _manifest(path)
+    assert out["artifacts"].keys() == m["artifacts"].keys() != set()
+    assert out["geometry"] == m["geometry"]
+    assert out["runtime_config_hash"] == m["runtime_config_hash"]
+    key, rec = sorted(m["artifacts"].items())[0]
+    with open(os.path.join(path, rec["file"]), "ab") as f:
+        f.write(b"x")
+    rc, out = report()
+    assert rc == 1 and out["verify_failures"] == [[key, "digest mismatch"]]
+
+
 def test_wire_kernel_cache_redirects_builds(tmp_path, monkeypatch):
     """The bundle's kernel directory becomes the build directory (the
     libraries' paths) and Triton's cache; a directory written by another

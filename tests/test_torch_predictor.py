@@ -262,7 +262,9 @@ def test_port_imports_no_jax():
             "paddle_tpu_torch.jit.api, paddle_tpu_torch.nn.quant, "
             "paddle_tpu_torch.framework_io, paddle_tpu_torch.models.gpt, "
             "paddle_tpu_torch.examples.llm_serve, "
-            "paddle_tpu_torch.framework.graphs; "
+            "paddle_tpu_torch.framework.graphs, "
+            "paddle_tpu_torch.observability, "
+            "paddle_tpu_torch.utils.tbwriter; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'paddle_tpu' or m.startswith('paddle_tpu.')"
             " for m in sys.modules), 'paddle_tpu imported'")
