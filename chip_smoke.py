@@ -169,6 +169,37 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    as its own) equal to plain greedy; and GPT at GPT-2 XL's widths (2
    layers, f32): greedy, sampled and beam on both routes, token for
    token.
+   Then the serving router on the same model, one model object shared
+   by every replica (``router_phase``): 8 greedy requests of 64-512
+   tokens, 32 new each, 4 of them sharing a 256-token prefix (served
+   once first on every replica that prefills, so each request's prefill
+   runs the same program in every pool), the 4 others alone in their
+   buckets; block-table decode. (a) One predictor, then a unified pool
+   of 2 replicas with ``policy="affinity"`` and with ``"least_loaded"``
+   (profiled): every request ok with the one predictor's tokens, the
+   shared requests prefix hits; prints the affinity-routed share, the
+   pool's decode tokens/s beside the one predictor's, TTFT p50 and the
+   idle share. (b) Prefill + decode (``roles=["prefill", "decode"]``):
+   (a)'s tokens, one handoff per request and no fallback, every request
+   ending on the decode replica, whose stats show no prefill; each
+   span's bytes equal the reckoning (2 x layers x KV heads x head_dim x
+   2 bytes a token over whole 16-token pages); prints
+   ``serving.handoff.seconds`` p50 / p90, the bytes moved after prefix
+   dedup and the mean time of each part (gather and copy out, export
+   checksum, import verify, copy in and page writes). (c) The
+   ``handoff_corrupt`` fault once: one ``corrupt`` fallback, the decode
+   replica prefills the request itself, tokens unchanged. (d) A prefill
+   bundle (buckets 64-512 at batch 1, the shared prompts' suffix
+   prefill) and a decode bundle (the decode step) built from the model
+   (``output/chip_smoke_router``, deleted after); the decode bundle
+   refused to a prefill replica with reason ``role``; the pool
+   warm-started from both serves (b)'s tokens in four waves; during the
+   third, a ``PoolController.tick`` under an injected TTFT burn spawns a
+   decode replica (a strict warm start, its captures under the device
+   gate while the pool serves), which serves in the fourth; prints the
+   bundles' hits and misses and decode tokens/s with one and two decode
+   replicas. No replica fails and no request is re-admitted outside
+   (c).
 5. AOT engine (``paddle_tpu_torch/inference/aot``): two bundles built
    from the serve phase's model (``EngineBuilder``: run 1's block-table
    geometry, and runs 2-3's with sampling enabled; power-of-two prompt
@@ -4101,6 +4132,431 @@ def aot_child(torch, dev, spec_path, card):
     return 0
 
 
+# ------------------------------------------------------------- router --
+
+# the router phase's traffic on the serve model: 8 greedy requests of
+# 64-512 tokens, 32 new each; 4 share a 256-token prefix (16 pages) with
+# suffixes of 40-64 tokens (one suffix bucket), the 4 others are alone in
+# the buckets 64, 128, 256 and 512. Every replica that prefills first
+# serves ROUTER_WARM (the shared prefix and 20 tokens, a system prompt
+# served once), so each shared request takes the same suffix prefill on
+# whichever replica it lands, and no two requests share a prefill batch:
+# a request's numerics then do not depend on the replica or the batch,
+# and the pools' tokens equal one predictor's bit for bit
+ROUTER_SUFFIXES = (40, 48, 56, 64)
+ROUTER_COLD = (64, 100, 200, 512)
+ROUTER_NEW = 32
+ROUTER_KW = dict(GEOM, **RUN1)        # block-table decode: one row a slot
+ROUTER_TIMEOUT = 180
+ROUTER_DIR = os.path.join("output", "chip_smoke_router")
+
+
+def router_traffic(torch, vocab, seed):
+    """(warm-up prompt, the 8 prompts (shared and cold alternating),
+    (c)'s prompt, which no replica has seen)."""
+    gen = torch.Generator().manual_seed(seed + 7)
+
+    def toks(n):
+        return torch.randint(1, vocab, (n,), generator=gen).tolist()
+    shared = toks(256)
+    warm = shared + toks(20)
+    pre = [shared + toks(n) for n in ROUTER_SUFFIXES]
+    cold = [toks(n) for n in ROUTER_COLD]
+    return warm, [p for pair in zip(pre, cold) for p in pair], toks(150)
+
+
+def _reg_sum(name, **labels):
+    from paddle_tpu_torch import observability as obs
+    m = obs.get_registry().get(name)
+    if m is None:
+        return 0.0
+    return sum(s.value for s in m.samples()
+               if all(s.labels.get(k) == v for k, v in labels.items()))
+
+
+def _reg_raw(name):
+    """Every observation of a histogram family (its retained samples)."""
+    from paddle_tpu_torch import observability as obs
+    m = obs.get_registry().get(name)
+    return sorted(v for s in m.series() for v in s._raw) if m else []
+
+
+def _q(xs, q):
+    if not xs:
+        return float("nan")
+    xs = sorted(xs)
+    pos = q * (len(xs) - 1)
+    lo = int(pos)
+    hi = min(lo + 1, len(xs) - 1)
+    return xs[lo] + (xs[hi] - xs[lo]) * (pos - lo)
+
+
+def router_replicas(dev, model, warm, roles, names):
+    """One predictor per role on the shared model; each one that
+    prefills serves the warm-up prompt first."""
+    from paddle_tpu_torch.inference import ContinuousBatchingPredictor
+    out = []
+    for role, name in zip(roles, names):
+        cb = ContinuousBatchingPredictor(model, device=dev, name=name,
+                                         role=role, **ROUTER_KW)
+        if role != "decode":
+            cb.generate([warm], max_new_tokens=1)
+        out.append(cb)
+    return out
+
+
+def pool_healthy(label):
+    """No replica failed and no request was re-admitted: a kernel that
+    fails in a replica's thread fails the phase."""
+    fails = _reg_sum("serving.router.replica_failures")
+    readm = _reg_sum("serving.router.readmissions")
+    check(fails == 0 and readm == 0, f"{label}: {fails:.0f} replica "
+          f"failures, {readm:.0f} re-admissions")
+
+
+def router_run(torch, router, prompts, label, card, want=None):
+    """Submit every prompt at once, wait for all; ``want``: the tokens
+    every request must give. Returns {"outs", "wall", "tok_s": decode
+    tokens (all but the first of each request) over the wall time,
+    "ttft_ms": submit to first token per request, "e2e_ms"}."""
+    from paddle_tpu_torch.framework.graphs import device_gate
+    before = {r.name: r.served for r in router.replicas}
+    t0 = time.perf_counter()
+    hs = [router.submit(p, max_new_tokens=ROUTER_NEW) for p in prompts]
+    outs = [h.result(timeout=ROUTER_TIMEOUT) for h in hs]
+    wall = time.perf_counter() - t0
+    with device_gate.shared():
+        torch.cuda.synchronize()
+    st = [h.status for h in hs]
+    check(st == ["ok"] * len(prompts), f"{label}: status {st}")
+    check(all(len(o) == ROUTER_NEW for o in outs),
+          f"{label}: wrong number of new tokens")
+    if want is not None:
+        diff = [i for i, (a, b) in enumerate(zip(outs, want)) if a != b]
+        check(not diff, f"{label}: tokens differ for requests {diff}")
+    ttft = [(h.first_token_ts - h.submit_ts) * 1e3 for h in hs]
+    dec = sum(len(o) for o in outs) - len(outs)
+    served = {r.name: r.served - before.get(r.name, 0)
+              for r in router.replicas}
+    log(f"router {label} on {card}: {dec} decode tokens in {wall:.2f} s "
+        f"({dec / wall:.1f} tok/s); TTFT p50 {_q(ttft, 0.5):.1f} ms, max "
+        f"{max(ttft):.1f} ms; requests served per replica in this run "
+        f"{served}")
+    return {"outs": outs, "wall": wall, "tok_s": dec / wall,
+            "ttft_ms": ttft, "handles": hs}
+
+
+def router_phase(torch, dev, seed, card, model):
+    """The serving router on the serve phase's model, one model object
+    shared by every replica: (a) a unified pool of 2 (affinity, then
+    least loaded) against one predictor, (b) prefill + decode with the KV
+    page-span handoff, (c) the handoff_corrupt fault once, (d) per-role
+    AOT bundles, the disaggregated pool warm from them and a
+    PoolController tick that warm-starts a third (decode) replica while
+    the pool serves."""
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.inference import ContinuousBatchingPredictor
+    from paddle_tpu_torch.serving import Router
+    cfg = model.config
+    warm, prompts, extra = router_traffic(torch, cfg.vocab_size, seed)
+    n = len(prompts)
+    res = {}
+
+    # (a) one predictor, then the unified pools
+    telemetry_reset()
+    single = ContinuousBatchingPredictor(model, device=dev, **ROUTER_KW)
+    single.generate([warm], max_new_tokens=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = single.generate(prompts, max_new_tokens=ROUTER_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(single.last_status == ["ok"] * n, "(a) one predictor: not ok")
+    one = {"tok_s": (n * ROUTER_NEW - n) / wall,
+           "ttft_ms": [t * 1e3 for t in single.last_ttft_s]}
+    log(f"router (a) one predictor on {card}: {n * ROUTER_NEW - n} decode "
+        f"tokens in {wall:.2f} s ({one['tok_s']:.1f} tok/s); TTFT p50 "
+        f"{_q(one['ttft_ms'], 0.5):.1f} ms; stats {single.stats}")
+    want_extra = single.generate([extra], max_new_tokens=ROUTER_NEW)[0]
+    del single
+    for policy in ("affinity", "least_loaded"):
+        telemetry_reset()
+        preds = router_replicas(dev, model, warm, ["unified"] * 2,
+                                ["u0", "u1"])
+        router = Router(preds, policy=policy, seed=seed)
+        try:
+            if policy == "affinity":
+                r = router_run(torch, router, prompts, f"(a) {policy}",
+                               card, want)
+            else:
+                from torch.profiler import ProfilerActivity, profile
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    r = router_run(torch, router, prompts, f"(a) {policy}",
+                                   card, want)
+                busy = sum(ms for ms, _ in
+                           device_kernel_ms(torch, prof).values())
+                r["idle"] = 1 - busy / (r["wall"] * 1e3)
+        finally:
+            router.shutdown(timeout=30)
+        routed = _reg_sum("serving.router.routed")
+        r["affinity_share"] = _reg_sum("serving.router.routed",
+                                       reason="affinity") / routed
+        r["prefix_hits"] = sum(p.stats["prefix_hits"]
+                               + p.stats["prefix_partial_hits"]
+                               for p in preds)
+        pool_healthy(f"(a) {policy}")
+        check(r["prefix_hits"] >= len(ROUTER_SUFFIXES),
+              f"(a) {policy}: {r['prefix_hits']} prefix hits")
+        log(f"router (a) {policy} on {card}: affinity-routed share "
+            f"{r['affinity_share']:.3f}; prefix hits {r['prefix_hits']}; "
+            f"tok/s {r['tok_s']:.1f} vs one predictor's "
+            f"{one['tok_s']:.1f} ({r['tok_s'] / one['tok_s']:.2f}x); TTFT "
+            f"p50 {_q(r['ttft_ms'], 0.5):.1f} vs "
+            f"{_q(one['ttft_ms'], 0.5):.1f} ms"
+            + (f"; idle share {r['idle']:.3f} (profiled)"
+               if "idle" in r else ""))
+        r.pop("handles")
+        res[policy] = r
+        del preds, router
+        free_card(torch)
+    res["one"] = one
+
+    # (b) prefill + decode, then (c) one corrupted span on the same pool
+    telemetry_reset()
+    preds = router_replicas(dev, model, warm, ["prefill", "decode"],
+                            ["prefill0", "decode0"])
+    router = Router(preds, roles=["prefill", "decode"], seed=seed)
+    try:
+        b = router_run(torch, router, prompts, "(b) prefill + decode", card,
+                       want)
+        check(all(h.stage == "decode" and h.replica == "decode0"
+                  for h in b["handles"]), "(b) a request did not end on "
+              "the decode replica")
+        hand = _reg_sum("serving.handoff.requests")
+        fb = _reg_sum("serving.handoff.fallbacks")
+        ds = dict(preds[1].stats)
+        check(hand == n and fb == 0, f"(b) handoffs {hand:.0f}, fallbacks "
+              f"{fb:.0f}")
+        check(ds["prefills"] == 0 and ds["prefix_hits"] == n,
+              f"(b) the decode replica ran a prefill: {ds}")
+        secs = _reg_raw("serving.handoff.seconds")
+        span_bytes = [h.handoff_span.nbytes for h in b["handles"]]
+        moved = _reg_sum("serving.handoff.bytes")
+        per_tok = 2 * cfg.num_hidden_layers * cfg.num_key_value_heads \
+            * (cfg.hidden_size // cfg.num_attention_heads) \
+            * preds[0].pool.k[0].element_size()
+        reckon = [-(-len(p) // GEOM["page_size"]) * GEOM["page_size"]
+                  * per_tok for p in prompts]
+        check(span_bytes == reckon, f"(b) span bytes {span_bytes} vs the "
+              f"page reckoning {reckon}")
+        e2e = _reg_raw("serving.router.e2e_seconds")
+        pp, dp = preds[0].pool, preds[1].pool
+        parts = {"gather": pp.span_seconds["gather"] / pp.span_ops["export"],
+                 "checksum": pp.span_seconds["checksum"]
+                 / pp.span_ops["export"],
+                 "verify": dp.span_seconds["verify"] / n,
+                 "scatter": dp.span_seconds["scatter"]
+                 / max(dp.span_ops["import"], 1)}
+        b.update(handoff_s=secs, span_bytes=span_bytes, moved=moved,
+                 parts=parts, e2e_s=e2e, per_tok=per_tok)
+        del b["handles"]          # they hold the spans' host pages
+        pool_healthy("(b)")
+        log(f"router (b) on {card}: {hand:.0f} handoffs, 0 fallbacks; the "
+            f"decode replica's stats {ds}; serving.handoff.seconds p50 "
+            f"{_q(secs, 0.5) * 1e3:.1f} ms, p90 {_q(secs, 0.9) * 1e3:.1f} "
+            f"ms, max {max(secs) * 1e3:.1f} ms; span bytes per request "
+            f"{statistics.mean(span_bytes) / 2**20:.1f} MiB (the reckoning "
+            f"{per_tok // 1024} KiB a token over whole pages: equal), "
+            f"{moved / n / 2**20:.1f} MiB imported per request after "
+            f"prefix dedup; mean parts: gather + copy out "
+            f"{parts['gather'] * 1e3:.1f} ms, export checksum "
+            f"{parts['checksum'] * 1e3:.1f} ms, import verify "
+            f"{parts['verify'] * 1e3:.1f} ms, scatter (copy in + page "
+            f"writes) {parts['scatter'] * 1e3:.1f} ms; client TTFT p50 "
+            f"{_q(b['ttft_ms'], 0.5):.1f} ms, e2e p50 "
+            f"{_q(e2e, 0.5) * 1e3:.1f} ms")
+        res["b"] = b
+
+        # (c)
+        telemetry_reset()
+        pre = preds[1].stats["prefills"]
+        flags.set_flags({"fault_injection": "handoff_corrupt:times=1"})
+        try:
+            h = router.submit(extra, max_new_tokens=ROUTER_NEW)
+            got = h.result(timeout=ROUTER_TIMEOUT)
+        finally:
+            flags.set_flags({"fault_injection": ""})
+        corrupt = _reg_sum("serving.handoff.fallbacks", reason="corrupt")
+        log(f"router (c) on {card}: handoff_corrupt once: fallbacks "
+            f"corrupt {corrupt:.0f}, status {h.status}, the decode replica "
+            f"prefilled {preds[1].stats['prefills'] - pre}; tokens == one "
+            f"predictor's: {got == want_extra}")
+        check(corrupt == 1 and _reg_sum("serving.handoff.fallbacks") == 1,
+              f"(c) corrupt fallbacks {corrupt}")
+        check(h.status == "ok" and got == want_extra,
+              "(c) the re-prefilled request changed its tokens")
+        check(preds[1].stats["prefills"] == pre + 1,
+              "(c) the decode replica did not re-prefill")
+    finally:
+        router.shutdown(timeout=30)
+    del preds, router
+    free_card(torch)
+
+    # (d)
+    res["d"] = router_aot(torch, dev, seed, card, model, warm, prompts,
+                          want)
+    return res
+
+
+def router_aot(torch, dev, seed, card, model, warm, prompts, want):
+    """(d): a prefill bundle and a decode bundle holding only what the
+    traffic needs, the decode bundle refused to a prefill replica
+    (reason ``role``), the disaggregated pool warm from both (its tokens
+    (b)'s), then a PoolController tick under an injected TTFT burn whose
+    spawn factory warm-starts a second decode replica while the pool
+    serves, and a wave the two decode replicas share."""
+    import collections
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.framework.runtime_config import RuntimeConfig
+    from paddle_tpu_torch.inference import aot
+    from paddle_tpu_torch.observability.slo import (SLOEngine,
+                                                   default_serving_slos)
+    from paddle_tpu_torch.serving import PoolController, Router
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        ROUTER_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    base = RuntimeConfig(**GEOM)
+    n = len(prompts)
+    paths = {"prefill": os.path.join(root, "prefill"),
+             "decode": os.path.join(root, "decode")}
+    try:
+        # prefill: the four cold buckets and the warm-up's at batch 1, and
+        # the shared prompts served once after the warm-up (so their
+        # suffix prefill is recorded); decode: one small prefill to reach
+        # the decode step
+        shared = [p for p in prompts if p[:256] == warm[:256]]
+        for role, buckets, traffic in (
+                ("prefill", (64, 128, 256, 512), [warm] + shared),
+                ("decode", (64,), None)):
+            b = aot.EngineBuilder(model, prompt_buckets=buckets,
+                                  batch_sizes=(1,), capture_forward=False,
+                                  runtime_config=base.for_role(role),
+                                  **RUN1)
+            if traffic:
+                b.add_traffic(traffic, max_new_tokens=1)
+            man = b.build(paths[role], wire_cache=False, seed=seed)
+            kinds = collections.Counter(r["kind"]
+                                        for r in man["artifacts"].values())
+            log(f"router (d): {role} bundle built in {b.build_seconds:.1f} "
+                f"s on {card}: {len(man['artifacts'])} programs "
+                f"{dict(kinds)}, max_new_tokens {b.max_new_tokens}, role "
+                f"{man['geometry']['role']}")
+            check(man["geometry"]["role"] == role, f"{role} bundle's role")
+        try:
+            aot.warm_start(model, paths["decode"], strict=True,
+                           wire_cache=False, role="prefill")
+            check(False, "(d) a prefill replica took the decode bundle")
+        except aot.BundleInvalid as e:
+            check(e.reason == "role", f"(d) rejected as {e.reason!r}")
+            log(f"router (d): the decode bundle refused to a prefill "
+                f"replica: reason {e.reason!r}")
+        telemetry_reset()
+        engines = {}
+        preds = []
+        for role, name in (("prefill", "prefill0"), ("decode", "decode0")):
+            t0 = time.perf_counter()
+            p, e = aot.warm_start(model, paths[role], strict=True,
+                                  wire_cache=False, name=name)
+            check(p.role == role and e.warm, f"(d) {name}: not a warm "
+                  f"{role} replica")
+            log(f"router (d): {name} warm in {time.perf_counter() - t0:.2f} "
+                f"s ({e.stats['loads']} programs, capture "
+                f"{e.stats['capture_s']:.2f} s)")
+            engines[name] = e
+            preds.append(p)
+        preds[0].generate([warm], max_new_tokens=1)
+        router = Router(preds, roles=["prefill", "decode"],
+                        policy="least_loaded", seed=seed)
+        spawned = []
+
+        def spawn(role):
+            # capacity for decode replicas only: the controller then
+            # grows the decode fleet whichever role it tries first
+            if role != "decode":
+                return None
+            t0 = time.perf_counter()
+            p, e = aot.warm_start(model, paths["decode"], strict=True,
+                                  wire_cache=False, name="decode1")
+            spawned.append(time.perf_counter() - t0)
+            engines["decode1"] = e
+            return p
+
+        out = {}
+        try:
+            w1 = router_run(torch, router, prompts, "(d) wave 1 (graphs)",
+                            card, want)
+            w2 = router_run(torch, router, prompts,
+                            "(d) wave 2 (graphs, prompts cached)", card,
+                            want)
+            # wave 3 and the tick: an injected TTFT burn (20 observations
+            # of 5 s after the engine's baseline) while wave 3 is in
+            # flight; the spawn's captures run under the device gate's
+            # exclusive side while the two replicas serve
+            slo = SLOEngine(default_serving_slos(ttft_target_s=0.5))
+            slo.evaluate()
+            t0 = time.perf_counter()
+            hs = [router.submit(p, max_new_tokens=ROUTER_NEW)
+                  for p in prompts]
+            for _ in range(20):
+                obs.histogram("serving.router.ttft_seconds",
+                              unit="s").observe(5.0)
+            ctl = PoolController(router, slo_engine=slo, spawn=spawn)
+            made = ctl.tick()
+            outs3 = [h.result(timeout=ROUTER_TIMEOUT) for h in hs]
+            t3 = time.perf_counter() - t0
+            grew = [d for d in made if d["rule"] == "scale_out"]
+            log(f"router (d) tick: decisions "
+                f"{[(d['rule'], d['action'], d['params']) for d in made]}, "
+                f"fast burn {made[0]['inputs']['burn_fast'] if made else 0}"
+                f"; the spawn's warm start {spawned} s; wave 3 in "
+                f"{t3:.2f} s")
+            check(len(grew) == 1 and grew[0]["action"] == "spawn"
+                  and grew[0]["params"]["role"] == "decode",
+                  f"(d) the tick did not spawn a decode replica: {made}")
+            diff = [i for i, (a, b) in enumerate(zip(outs3, want))
+                    if a != b]
+            check(not diff and all(h.status == "ok" for h in hs),
+                  f"(d) wave 3 (the spawn): tokens differ for requests "
+                  f"{diff} (served by {[hs[i].replica for i in diff]})")
+            w4 = router_run(torch, router, prompts,
+                            "(d) wave 4 (two decode replicas)", card, want)
+            new = next(r for r in router.replicas if r.name == "decode1")
+            check(new.served >= 1, "(d) the spawned replica served nothing")
+            pool_healthy("(d)")
+            hits = {k: e.stats["hits"] for k, e in engines.items()}
+            misses = {k: e.stats["misses"] for k, e in engines.items()}
+            log(f"router (d) on {card}: tokens == (b)'s eager tokens in "
+                f"waves 1-4; decode tok/s one decode replica (wave 2) "
+                f"{w2['tok_s']:.1f}, two (wave 4) {w4['tok_s']:.1f} "
+                f"({w4['tok_s'] / w2['tok_s']:.2f}x); wave 1 "
+                f"{w1['tok_s']:.1f} tok/s, TTFT p50 "
+                f"{_q(w1['ttft_ms'], 0.5):.1f} ms; the spawned replica "
+                f"served {new.served}; bundle hits {hits}, misses "
+                f"{misses}")
+            for w in (w1, w2, w4):
+                del w["handles"]
+            out = {"w1": w1, "w2": w2, "w4": w4, "spawn_s": spawned,
+                   "misses": misses}
+        finally:
+            router.shutdown(timeout=30)
+        del preds, router, engines
+        free_card(torch)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # ---------------------------------------------------------- fine-tuning --
 
 # launches of each kernel per fine-tuning step of a 12-layer encoder: the
@@ -4693,6 +5149,10 @@ def main(argv=None):
     mains["flash_fwd"]["extra"]["decode_launches"] = \
         infer["counts"]["flash_fwd"]
     log(f"inference-API phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    router_phase(torch, dev, args.seed, card, serve["model"])
+    log(f"router phase took {time.perf_counter() - t0:.1f} s")
+    free_card(torch)
     t0 = time.perf_counter()
     aot_phase(torch, dev, args.seed, args.layers, card, serve)
     del serve

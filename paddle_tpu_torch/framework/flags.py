@@ -132,3 +132,25 @@ define_flag("serve_decode_watchdog_s", 0.0,
             "seconds, pending requests fail with last_status "
             "'watchdog' instead of generate() hanging. 0 disables "
             "(the resolve blocks unconditionally, no polling).")
+define_flag("serve_tp_degree", 1,
+            "Tensor-parallel serving degree of each "
+            "ContinuousBatchingPredictor replica (RuntimeConfig."
+            "tp_degree). Joins the AOT bundle topology fingerprint (a "
+            "mismatch invalidates with reason 'topology'). The port "
+            "serves on one device: any value but 1 raises.")
+define_flag("serve_role", "unified",
+            "Disaggregated serving role of this replica: 'unified' "
+            "(prefill+decode, the default), 'prefill' (fills KV pages "
+            "and hands off at first token), or 'decode' (resumes from "
+            "an imported KV page span). Joins the AOT bundle fingerprint "
+            "next to topology (mismatch invalidates with reason 'role'); "
+            "per-role RuntimeConfig overlays apply via "
+            "RuntimeConfig.for_role.")
+define_flag("quantized_grad_comm", False,
+            "int8 gradient collectives with per-bucket scales and an "
+            "error-feedback residual (RuntimeConfig.quantized_grad_comm; "
+            "carried for the distributed trainer, unread on one device).")
+define_flag("grad_bucket_bytes", 32 * 1024 * 1024,
+            "Target flat-bucket payload size for gradient collectives "
+            "(RuntimeConfig.grad_bucket_bytes; carried for the "
+            "distributed trainer, unread on one device).")

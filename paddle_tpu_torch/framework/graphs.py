@@ -4,7 +4,8 @@
 a compiled XLA program.
 
 - ``capture_stream(device)``: the stream every capture on a device runs
-  on, its cuBLAS and cuBLASLt workspaces allocated before any capture.
+  on; a capturing thread's cuBLAS and cuBLASLt workspaces on it are
+  allocated before its first capture.
 - ``graph_pool(device, owner)``: the graph memory pool an owner's
   programs on a device share.
 - ``GraphProgram``: one function captured into a CUDA graph over static
@@ -12,17 +13,113 @@ a compiled XLA program.
   launch counts its capture recorded and returns clones of the outputs.
 - ``Captured``: a program with the weights it reads by address, for
   the per-signature caches that re-capture when a weight is rebound.
+- ``device_gate``: the process-wide rule that keeps captures apart from
+  other threads' device work (below).
+
+The capture rule across threads. ``torch.cuda.graph`` captures in the
+"global" error mode: while one thread captures, a synchronising call
+from any other thread (``.item()``, ``.cpu()``, an event wait, a
+``cudaMalloc``) invalidates the capture ("operation not permitted when
+stream is capturing"). Replicas of a serving pool (``serving.Router``)
+run one serve loop per thread on one device, and a replica captures at a
+warm start or a bucket miss while the others serve. So every capture
+holds ``device_gate.exclusive()``, and every serve-loop iteration (and
+every span export or import between iterations) holds
+``device_gate.shared()``: a capture waits for the running iterations to
+end, and no iteration starts while it runs. A thread that holds the
+shared side and captures (a bucket miss inside its own iteration) sets
+its shared hold aside while it waits, so two replicas that miss at once
+capture one after the other instead of deadlocking. Other code that
+drives the device beside live replicas must take the shared side too.
+
+cuBLAS keeps one workspace per (handle, stream), and a handle is per
+thread: every graph a thread captures on the capture stream uses that
+thread's workspace there, whichever thread replays it. So an eager run
+on the capture stream (the AOT engine's warm-up before a capture) holds
+the exclusive side too, ordered after and before the default stream's
+work: it would otherwise share a split-K workspace with another
+thread's replays of graphs that the same thread captured.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
+import threading
 import weakref
 
 import torch
 
 from ..kernels import _build
 
-__all__ = ["GraphProgram", "Captured", "capture_stream", "graph_pool"]
+__all__ = ["GraphProgram", "Captured", "capture_stream", "graph_pool",
+           "DeviceGate", "device_gate"]
+
+
+class DeviceGate:
+    """A re-entrant shared / exclusive lock over the device: shared for
+    device work that may run on several threads at once, exclusive for a
+    CUDA-graph capture (see the module's capture rule). Exclusive waiters
+    go first: no new shared hold starts while a capture waits."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._shared = {}        # thread id -> shared depth
+        self._owner = None       # thread id of the exclusive holder
+        self._depth = 0          # its exclusive depth
+        self._waiting = 0        # threads waiting for the exclusive side
+
+    @contextlib.contextmanager
+    def shared(self):
+        me = threading.get_ident()
+        with self._cv:
+            if not (self._shared.get(me) or self._owner == me):
+                while self._owner is not None or self._waiting:
+                    self._cv.wait()
+            self._shared[me] = self._shared.get(me, 0) + 1
+        try:
+            yield
+        finally:
+            with self._cv:
+                n = self._shared[me] - 1
+                if n:
+                    self._shared[me] = n
+                else:
+                    del self._shared[me]
+                    self._cv.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        me = threading.get_ident()
+        held = 0
+        with self._cv:
+            if self._owner != me:
+                # set this thread's shared hold aside while it waits: two
+                # holders that both capture would otherwise wait on each
+                # other
+                held = self._shared.pop(me, 0)
+                if held:
+                    self._cv.notify_all()
+                self._waiting += 1
+                try:
+                    while self._owner is not None or self._shared:
+                        self._cv.wait()
+                finally:
+                    self._waiting -= 1
+                self._owner = me
+            self._depth += 1
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._depth -= 1
+                if not self._depth:
+                    self._owner = None
+                    if held:
+                        self._shared[me] = held
+                    self._cv.notify_all()
+
+
+device_gate = DeviceGate()
 
 
 def _leaves(x, out):
@@ -57,26 +154,43 @@ def _structure(x):
 
 
 _capture_streams = {}     # device index -> the process's capture stream
+_blas_ready = set()       # (device index, cuBLAS handle) warmed on it
+
+
+def _device_index(device):
+    return device.index if device.index is not None else \
+        torch.cuda.current_device()
+
+
+def _warm_blas(stream):
+    """Allocate the calling thread's cuBLAS and cuBLASLt workspaces on
+    ``stream`` (once per handle): cuBLAS keeps one workspace per (handle,
+    stream), and one first allocated during a capture would come from
+    that graph's pool, which the workspace cache would outlive."""
+    device = stream.device
+    key = (_device_index(device), torch.cuda.current_blas_handle())
+    if key in _blas_ready:
+        return
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        for dt in (torch.float32, torch.bfloat16):
+            a = torch.ones(64, 64, device=device, dtype=dt)
+            torch.mm(a, a)
+            torch.nn.functional.linear(a, a, a[0])
+    torch.cuda.current_stream(device).wait_stream(stream)
+    _blas_ready.add(key)
 
 
 def capture_stream(device):
-    """The stream every capture on ``device`` runs on, its cuBLAS and
-    cuBLASLt workspaces allocated before any capture. cuBLAS keeps one
-    workspace per (handle, stream); one first allocated during a capture
-    would come from that graph's pool, and the workspace cache would
-    still hold it after the graph and its pool are freed."""
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
+    """The stream every capture on ``device`` runs on, the creating
+    thread's cuBLAS workspaces allocated on it (another capturing thread
+    allocates its own first: ``GraphProgram``)."""
+    idx = _device_index(device)
     s = _capture_streams.get(idx)
     if s is None:
         s = torch.cuda.Stream(device)
-        s.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(s):
-            for dt in (torch.float32, torch.bfloat16):
-                a = torch.ones(64, 64, device=device, dtype=dt)
-                torch.mm(a, a)
-                torch.nn.functional.linear(a, a, a[0])
-        torch.cuda.current_stream(device).wait_stream(s)
+        with device_gate.exclusive():
+            _warm_blas(s)
         _capture_streams[idx] = s
     return s
 
@@ -127,24 +241,29 @@ class GraphProgram:
 
     def __init__(self, fn, args, pool, stream):
         self._structure = _structure(args)
-        self._inputs = [t.clone() for t in _leaves(args, [])]
-        static_args = _rebuild(args, iter(self._inputs))
-        before = _build.snapshot_launch_counts()
-        self.graph = torch.cuda.CUDAGraph()
-        # no cyclic garbage collection while capturing: a collected graph
-        # (an engine and its predictor form a cycle) frees its pool, and a
-        # cudaFree inside a capture invalidates the capture
-        gc_was = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(self.graph, pool=pool, stream=stream):
-                out = fn(*static_args)
-        finally:
-            if gc_was:
-                gc.enable()
-            self.launches, self.dtype_launches = \
-                _build.launch_counts_since(before)
-            _build.restore_launch_counts(before)
+        # the whole capture, its input copies and launch-count snapshot
+        # included, holds the device gate's exclusive side
+        with device_gate.exclusive():
+            _warm_blas(stream)
+            self._inputs = [t.clone() for t in _leaves(args, [])]
+            static_args = _rebuild(args, iter(self._inputs))
+            before = _build.snapshot_launch_counts()
+            self.graph = torch.cuda.CUDAGraph()
+            # no cyclic garbage collection while capturing: a collected
+            # graph (an engine and its predictor form a cycle) frees its
+            # pool, and a cudaFree inside a capture invalidates it
+            gc_was = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(self.graph, pool=pool,
+                                      stream=stream):
+                    out = fn(*static_args)
+            finally:
+                if gc_was:
+                    gc.enable()
+                self.launches, self.dtype_launches = \
+                    _build.launch_counts_since(before)
+                _build.restore_launch_counts(before)
         self._out = out
         self._outputs = _leaves(out, [])
 

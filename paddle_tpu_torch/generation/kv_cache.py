@@ -13,11 +13,21 @@ scatters, the mixed step's span writes and copy-on-write all mutate
 ``PagedKVPool.k[i]`` / ``PagedKVPool.v[i]``. Every write and every read of a page runs on the
 device's current stream, so a write is always ordered before the
 attention that reads it.
+
+For disaggregated serving a pool exports the pages of a prompt as a
+``KVPageSpan`` (host pages and a SHA-256 checksum over the reference's
+bytes) and imports one, scattering the pages IN PLACE into its per-layer
+tensors: a captured CUDA graph reads the pool by address, so an import
+must never rebind ``pool.k[i]`` (the reference's functional ``.at[].set``
+returns new arrays).
 """
 from __future__ import annotations
 
+import hashlib
+import time
 from typing import List, NamedTuple
 
+import numpy as np
 import torch
 
 from ..observability import metrics as _obsm
@@ -110,9 +120,20 @@ class PagedKVPool:
                   for _ in range(n_layers)]
         self.v = [torch.zeros(shape, dtype=tdt, device=device)
                   for _ in range(n_layers)]
+        # the reference's KV layout name for one device (a span from
+        # another layout is counted as resharded on import)
+        self.topology = "single"
         self._free = list(range(self.num_pages))
         self._refs = {}
         self.reclaimer = None
+        # seconds spent in each part of the span transport, summed over
+        # the exports and imports this pool ran: gather (device gather
+        # and the device-to-host copy), checksum (export's SHA-256),
+        # verify (import's SHA-256), scatter (host-to-device copy and the
+        # in-place page writes)
+        self.span_seconds = {"gather": 0.0, "checksum": 0.0,
+                             "verify": 0.0, "scatter": 0.0}
+        self.span_ops = {"export": 0, "import": 0}
 
     @property
     def free_count(self):
@@ -156,6 +177,135 @@ class PagedKVPool:
         for v in self.v:
             v[dst].copy_(v[src])
 
+    # ----------------------------------------------------- disaggregation
+    def export_span(self, prompt, page_ids, next_token=None):
+        """The pages holding ``prompt``'s K/V as a ``KVPageSpan`` (the
+        prefill -> decode handoff). ``page_ids`` is the request's block
+        table prefix, ``ceil(len(prompt) / page)`` entries; ``next_token``
+        is the first token the prefill side resolved, carried so the
+        decode side resumes with no prefill. One gather per layer into a
+        device buffer, then one device-to-host copy; the stale tail of
+        the trailing partial page is zeroed, so the payload and its
+        checksum depend on the prompt's K/V only."""
+        page = self.page_size
+        n = len(prompt)
+        partial_len = n % page
+        want = n // page + (1 if partial_len else 0)
+        if want == 0 or len(page_ids) < want:
+            raise ValueError(
+                f"export_span: need {want} pages for a {n}-token prompt, "
+                f"got {len(page_ids)} page ids")
+        t0 = time.perf_counter()
+        dev = self.k[0].device
+        sel = torch.tensor([int(p) for p in page_ids[:want]],
+                           dtype=torch.long, device=dev)
+        nl = len(self.k)
+        buf = torch.empty((2, nl, want) + tuple(self.k[0].shape[1:]),
+                          dtype=self.k[0].dtype, device=dev)
+        for layer in range(nl):
+            torch.index_select(self.k[layer], 0, sel, out=buf[0, layer])
+            torch.index_select(self.v[layer], 0, sel, out=buf[1, layer])
+        if partial_len:
+            buf[:, :, -1, partial_len:] = 0
+        host = buf.cpu()
+        t1 = time.perf_counter()
+        span = KVPageSpan(
+            prompt=tuple(int(t) for t in prompt),
+            next_token=(None if next_token is None else int(next_token)),
+            page_size=page, n_kv_heads=self.n_kv_heads,
+            head_dim=self.head_dim, dtype=self.dtype,
+            topology=self.topology, k_pages=list(host[0].unbind(0)),
+            v_pages=list(host[1].unbind(0)))
+        self.span_seconds["gather"] += t1 - t0
+        self.span_seconds["checksum"] += time.perf_counter() - t1
+        self.span_ops["export"] += 1
+        return span
+
+    def import_span(self, span, prefix_cache=None):
+        """Bring a ``KVPageSpan`` into this pool, reusing pages
+        ``prefix_cache`` already holds (only the missing pages are
+        allocated and written). The reference's order: the checksum,
+        then the geometry (``ValueError`` on either), the dedup, the
+        allocation (``MemoryError`` when the pool cannot hold the
+        pages), the in-place scatter into each layer's pages, then the
+        trie insert and the release of the allocation's references (the
+        trie holds the pages; the serve loop's full-prefix-hit path picks
+        them up). Without ``prefix_cache`` the caller owns the returned
+        references. Returns ``page_ids`` (the table prefix covering the
+        prompt), ``imported`` / ``reused`` page counts, the ``bytes``
+        written and ``resharded`` (the span came from another KV
+        layout)."""
+        t0 = time.perf_counter()
+        ok = span.verify()
+        self.span_seconds["verify"] += time.perf_counter() - t0
+        if not ok:
+            raise ValueError("KVPageSpan checksum mismatch (corrupted "
+                             "or torn handoff payload)")
+        if (span.page_size != self.page_size
+                or span.n_kv_heads != self.n_kv_heads
+                or span.head_dim != self.head_dim
+                or span.dtype != self.dtype
+                or len(span.k_pages) != len(self.k)):
+            raise ValueError(
+                "KVPageSpan geometry mismatch: span "
+                f"(page={span.page_size}, heads={span.n_kv_heads}, "
+                f"dim={span.head_dim}, dtype={span.dtype}, "
+                f"layers={len(span.k_pages)}) vs pool "
+                f"(page={self.page_size}, heads={self.n_kv_heads}, "
+                f"dim={self.head_dim}, dtype={self.dtype}, "
+                f"layers={len(self.k)})")
+        resharded = span.topology != self.topology
+        page = self.page_size
+        prompt = span.prompt
+        n = len(prompt)
+        total = n // page + (1 if n % page else 0)
+        reused = []
+        if prefix_cache is not None:
+            pages, covered, partial, _ = prefix_cache.lookup(prompt)
+            reused = list(pages)
+            if covered == n or (partial is not None
+                                and covered + partial[1] == n):
+                # fully resident: nothing to move
+                return {"page_ids": reused + (
+                            [partial[0]] if partial is not None else []),
+                        "imported": 0, "reused": total, "bytes": 0,
+                        "resharded": resharded}
+        missing = list(range(len(reused), total))
+        ids = self.alloc(len(missing))
+        if ids is None:
+            raise MemoryError(
+                f"import_span: pool cannot hold {len(missing)} pages "
+                f"(free={self.free_count})")
+        t0 = time.perf_counter()
+        tdt = self.k[0].dtype
+        dev = self.k[0].device
+        dst = torch.tensor(ids, dtype=torch.long, device=dev)
+        sel = None if len(missing) == total else \
+            torch.tensor(missing, dtype=torch.long)
+        nbytes = 0
+        for pages, pool_pages in ((span.k_pages, self.k),
+                                  (span.v_pages, self.v)):
+            for layer, a in enumerate(pages):
+                upd = _page_tensor(a, tdt)
+                if sel is not None:
+                    upd = upd.index_select(0, sel)
+                nbytes += upd.numel() * upd.element_size()
+                # in place: captured graphs read this tensor by address
+                pool_pages[layer].index_copy_(0, dst, upd.to(dev))
+        self.span_seconds["scatter"] += time.perf_counter() - t0
+        self.span_ops["import"] += 1
+        all_ids = reused + ids
+        if prefix_cache is not None:
+            next_tokens = None
+            if span.next_token is not None:
+                next_tokens = [None] * (n - 1) + [span.next_token]
+            prefix_cache.insert(prompt, all_ids, next_tokens, self)
+            # the trie holds the surviving references
+            self.release(ids)
+        return {"page_ids": all_ids, "imported": len(ids),
+                "reused": len(reused), "bytes": nbytes,
+                "resharded": resharded}
+
     def write(self, layer, page, off, k, v):
         """Write K/V rows into layer ``layer``'s pages at (``page``,
         ``off``), cast to the pool's dtype (indexed assignment refuses a
@@ -163,6 +313,91 @@ class PagedKVPool:
         kp, vp = self.k[layer], self.v[layer]
         kp[page, off] = k.to(kp.dtype)
         vp[page, off] = v.to(vp.dtype)
+
+
+def _page_tensor(a, dtype):
+    """A span page as a CPU tensor of the pool's ``dtype``: a torch
+    tensor as it is, a numpy array shared (a bfloat16 page arrives as a
+    uint16 / int16 view of its bits, or as an ``ml_dtypes`` array)."""
+    if not isinstance(a, torch.Tensor):
+        arr = np.ascontiguousarray(a)
+        if arr.dtype.itemsize == 2 and arr.dtype.kind not in "f":
+            arr = arr.view(np.int16)      # bfloat16 bits
+        a = torch.from_numpy(arr)
+    if a.dtype != dtype and not a.is_floating_point():
+        a = a.view(dtype)
+    return a
+
+
+def _page_bytes(a):
+    """A span page's bytes in memory order (what the checksum hashes),
+    without copying a contiguous page."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().contiguous().view(torch.uint8).numpy()
+    return np.ascontiguousarray(a).view(np.uint8)
+
+
+class KVPageSpan:
+    """One request's prefilled KV pages, for transfer between replicas
+    (the prefill -> decode handoff).
+
+    ``k_pages[l]`` / ``v_pages[l]`` are per-layer host pages [n_pages,
+    page_size, n_kv_heads, head_dim] covering the prompt (the trailing
+    partial page zeroed past its valid tokens): CPU tensors, or numpy
+    arrays for float32 and float16 (a bfloat16 numpy page is a uint16
+    view of its bits). ``checksum`` is the reference's SHA-256 over the
+    header ``repr`` and then every K page and every V page's bytes, so
+    identical K/V give the identical string in both packages; import
+    verifies it. ``trace`` (a TraceContext as a plain dict) and
+    ``topology`` are transport metadata, outside the checksum."""
+
+    __slots__ = ("prompt", "next_token", "page_size", "n_kv_heads",
+                 "head_dim", "dtype", "topology", "k_pages", "v_pages",
+                 "checksum", "trace")
+
+    def __init__(self, prompt, next_token, page_size, n_kv_heads,
+                 head_dim, dtype, topology, k_pages, v_pages,
+                 checksum=None, trace=None):
+        self.prompt = tuple(prompt)
+        self.next_token = next_token
+        self.page_size = int(page_size)
+        self.n_kv_heads = int(n_kv_heads)
+        self.head_dim = int(head_dim)
+        self.dtype = str(dtype)
+        self.topology = str(topology)
+        self.k_pages = list(k_pages)
+        self.v_pages = list(v_pages)
+        self.trace = dict(trace) if trace else None
+        self.checksum = (checksum if checksum is not None
+                         else self.compute_checksum())
+
+    @property
+    def n_pages(self) -> int:
+        return int(self.k_pages[0].shape[0]) if self.k_pages else 0
+
+    @property
+    def nbytes(self) -> int:
+        return sum(int(_page_bytes(a).size)
+                   for a in (*self.k_pages, *self.v_pages))
+
+    @property
+    def keys(self):
+        """The trie keys of the span's full pages (the dedup key)."""
+        return prefix_page_keys(self.prompt, self.page_size)
+
+    def compute_checksum(self) -> str:
+        h = hashlib.sha256()
+        h.update(repr((self.prompt, self.next_token, self.page_size,
+                       self.n_kv_heads, self.head_dim,
+                       self.dtype)).encode())
+        for a in self.k_pages:
+            h.update(_page_bytes(a))
+        for a in self.v_pages:
+            h.update(_page_bytes(a))
+        return h.hexdigest()
+
+    def verify(self) -> bool:
+        return self.checksum == self.compute_checksum()
 
 
 def prefix_page_keys(prompt, page_size):
@@ -288,15 +523,17 @@ class PrefixCache:
     def reclaimable_count(self, pool):
         """Pages the trie holds that no request uses (slightly optimistic
         for a ref-1 interior node above a pinned descendant; exact once
-        the pool is idle)."""
+        the pool is idle). The walk copies each node's dicts (one step
+        under the GIL), so an autoscaler may read it while the replica's
+        serve loop grows the trie on its own thread."""
         count = 0
 
         def walk(node):
             nonlocal count
-            for rec in node.partials.values():
+            for rec in list(node.partials.values()):
                 if pool.ref_count(rec[0]) == 1:
                     count += 1
-            for child in node.children.values():
+            for child in list(node.children.values()):
                 if pool.ref_count(child.page) == 1:
                     count += 1
                 walk(child)

@@ -67,6 +67,11 @@ class EngineBuilder:
         self.prompt_buckets = sorted(set(int(b) for b in prompt_buckets))
         self.cb_kwargs = _named_kv_dtype(cb_kwargs)
         self.max_new_tokens = int(max_new_tokens)
+        # a prefill-role bundle serves one token per request (then the KV
+        # span hands off): calibration runs max_new 1, so the bundle holds
+        # no decode programs that role never dispatches
+        if self.cb_kwargs.get("role", self._rc.serve_role) == "prefill":
+            self.max_new_tokens = 1
         self.capture_forward = bool(capture_forward)
         bmax = int(self.cb_kwargs.get("max_batch_size",
                                       self._rc.max_batch_size))

@@ -52,7 +52,8 @@ from typing import Dict, Optional
 import torch
 
 from ...framework import integrity as _integrity
-from ...framework.graphs import GraphProgram, capture_stream
+from ...framework.graphs import (GraphProgram, capture_stream,
+                                 device_gate)
 from ...kernels import _build
 from ...observability import metrics as _obsm
 from ...observability import tracing as _obstr
@@ -226,11 +227,15 @@ class InferenceEngine:
             return fn
         stream = capture_stream(dev)
         if warm_up:
-            cur = torch.cuda.current_stream(dev)
-            stream.wait_stream(cur)
-            with torch.cuda.stream(stream):
-                fn(*args)
-            cur.wait_stream(stream)
+            # an eager run on the capture stream shares this thread's
+            # cuBLAS workspace there with the graphs it captured, which
+            # other replicas may be replaying (framework.graphs)
+            with device_gate.exclusive():
+                cur = torch.cuda.current_stream(dev)
+                stream.wait_stream(cur)
+                with torch.cuda.stream(stream):
+                    fn(*args)
+                cur.wait_stream(stream)
         if self._pool is None:
             # a pool of the engine's own, not generate()'s: a pool's memory
             # goes back to the allocator only once every graph captured
@@ -357,9 +362,21 @@ def warm_start(model, path: Optional[str] = None, strict: bool = False,
     cold: its misses capture and write back into the fresh bundle. With
     ``strict=True`` the invalidation raises instead.
 
+    A warm start runs under the device gate's shared side
+    (``framework.graphs``): it may build a replica while the pool's other
+    replicas serve.
+
     Returns ``(predictor, engine)``."""
+    with device_gate.shared():
+        return _warm_start(model, path, strict, wire_cache, runtime_config,
+                           cb_kwargs)
+
+
+def _warm_start(model, path, strict, wire_cache, runtime_config, cb_kwargs):
     from ..predictor import ContinuousBatchingPredictor
-    from ...framework.runtime_config import RuntimeConfig, COMPILED_FIELDS
+    from ...framework.runtime_config import (COMPILED_FIELDS,
+                                             MIGRATED_FLAG_KNOBS,
+                                             RuntimeConfig)
     cb_kwargs = _named_kv_dtype(cb_kwargs)
     path = path or default_engine_dir()
     if not path:
@@ -456,6 +473,12 @@ def warm_start(model, path: Optional[str] = None, strict: bool = False,
             wire_kernel_cache(bundle.kernel_dir, model.device)
         engine = InferenceEngine(bundle, write_back=True)
         eff_rc = runtime_config
+    if eff_rc is not None:
+        # drift telemetry: the serving config against what this host's
+        # flags would give, on the knobs flags can express
+        drift = eff_rc.diff(RuntimeConfig.from_flags())
+        for field in sorted(set(drift) & set(MIGRATED_FLAG_KNOBS.values())):
+            _obsm.counter("aot.config_drift").inc(key=field)
     kw = {**geometry, **cb_kwargs}
     kw.pop("mesh_topology", None)      # manifest-only, not an argument
     kw.setdefault("device", model.device)

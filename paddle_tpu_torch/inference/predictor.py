@@ -86,6 +86,7 @@ import numpy as np
 import torch
 
 from ..framework import faults as _faults
+from ..framework import graphs as _graphs
 from ..framework import resolve_device
 from ..framework.runtime_config import RuntimeConfig, check_servable
 from ..generation import sampling
@@ -159,8 +160,14 @@ class ContinuousBatchingPredictor:
 
     ``engine``: an ``inference.aot.InferenceEngine`` whose programs serve
     the steps (``aot.warm_start`` builds both); attaching it captures
-    every program its bundle holds. ``tp_degree`` and ``role`` take the
-    reference's defaults only (1, "unified"); another value raises.
+    every program its bundle holds. ``tp_degree`` must be 1 (one
+    device). ``role`` ("unified", "prefill" or "decode"; default the
+    runtime config's ``serve_role``) is the replica's disaggregated serve
+    role: a prefill replica inserts every finished ingest into the prefix
+    cache, chunked prompts included, so ``export_page_span`` finds the
+    pages and the first token; a decode replica admits a request whose
+    span ``import_page_span`` brought in as a full prefix hit, with no
+    prefill forward.
     """
 
     def __init__(self, model, max_batch_size=None, page_size=None,
@@ -207,8 +214,15 @@ class ContinuousBatchingPredictor:
         # series and serve.* span carries replica=<name>
         self._mlbl = {"replica": name} if name else {}
         self.tp = int(rc.tp_degree if tp_degree is None else tp_degree)
+        # the disaggregated serve role: "prefill" fills KV pages and hands
+        # off at the first token, "decode" resumes from an imported KV page
+        # span, "unified" does both. It joins the metric labels only when
+        # it is not "unified" (a unified fleet's label sets stay as they
+        # were)
         self.role = rc.serve_role if role is None else role
         check_servable(self.tp, self.role)
+        if self.role != "unified":
+            self._mlbl["role"] = self.role
         self.tp_topology = "replicated"
         self._rc_buckets = tuple(rc.prompt_buckets)
         self.model = model
@@ -228,10 +242,11 @@ class ContinuousBatchingPredictor:
             # f32 page bandwidth), as the reference
             kv_dtype = next(model.parameters()).dtype
         self.kv_dtype = kv_dtype_name(kv_dtype)
-        self.pool = PagedKVPool(cfg.num_hidden_layers, num_pages + 1,
-                                page_size, cfg.num_key_value_heads,
-                                head_dim, dtype=self.kv_dtype,
-                                device=self.device)
+        with _graphs.device_gate.shared():   # a replica built mid-serve
+            self.pool = PagedKVPool(cfg.num_hidden_layers, num_pages + 1,
+                                    page_size, cfg.num_key_value_heads,
+                                    head_dim, dtype=self.kv_dtype,
+                                    device=self.device)
         # inactive slots point their block table at a trash page: the
         # decode step writes one K/V row for EVERY slot
         self._trash = self.pool.alloc(1)[0]
@@ -350,6 +365,61 @@ class ContinuousBatchingPredictor:
             if b >= n:
                 return b
         return _pow2_bucket(n)
+
+    # ------------------------------------------------------ disaggregation
+    def export_page_span(self, prompt):
+        """The KV pages covering ``prompt`` as a ``KVPageSpan`` for the
+        prefill -> decode handoff, or None when it cannot be exported
+        (pages reclaimed, a sampled request, no prefix cache, or the
+        first token unknown): the router counts that as an
+        ``export_miss`` fallback and dispatches without a span. Pages
+        and first token come from the prefix-cache trie. Runs on the
+        replica's worker thread between serve-loop ticks."""
+        if self.prefix_cache is None or not len(prompt):
+            return None
+        prompt = list(prompt)
+        pages, covered, partial, next_token = \
+            self.prefix_cache.lookup(prompt)
+        ids = list(pages)
+        if partial is not None and covered + partial[1] == len(prompt):
+            ids.append(partial[0])
+            covered += partial[1]
+        if covered != len(prompt) or next_token is None:
+            return None
+        with _graphs.device_gate.shared():
+            return self.pool.export_span(prompt, ids, next_token)
+
+    def import_page_span(self, span):
+        """Bring a handoff ``KVPageSpan`` into this replica's pool and
+        prefix trie (decode side), reusing resident prefix pages; returns
+        the pool's import stats. Raises on a corrupted span (checksum),
+        a geometry mismatch (``ValueError``) or a full pool
+        (``MemoryError``): the caller then prefills. After an import the
+        serve loop admits the request as a full prefix hit, with no
+        prefill forward. Runs on the replica's worker thread between
+        serve-loop ticks."""
+        if self.prefix_cache is None:
+            raise ValueError(
+                "import_page_span needs the prefix cache "
+                "(enable_prefix_cache=True): the imported span reaches "
+                "the serve loop through the trie")
+        with _graphs.device_gate.shared():
+            return self.pool.import_span(span, self.prefix_cache)
+
+    def export_request_span(self, prompt):
+        """Deprecated alias of ``export_page_span`` (a KV *page* span; the
+        rename keeps request tracing *spans* apart from it)."""
+        import warnings
+        warnings.warn("export_request_span is renamed export_page_span",
+                      DeprecationWarning, stacklevel=2)
+        return self.export_page_span(prompt)
+
+    def import_request_span(self, span):
+        """Deprecated alias of ``import_page_span``."""
+        import warnings
+        warnings.warn("import_request_span is renamed import_page_span",
+                      DeprecationWarning, stacklevel=2)
+        return self.import_page_span(span)
 
     # ------------------------------------------------------ host <-> device
     def _put(self, arr):
@@ -1225,13 +1295,23 @@ class ContinuousBatchingPredictor:
             if self._wants_sampling(samp_of[r]):
                 self.sampling_stats["sampled_requests"] += 1
 
-        def chunk_first_token(b, r):
+        def chunk_first_token(b, r, first=None):
             """The step that gives the request its first generated token
-            resolved (a final chunk's argmax, or a sampled request's
-            replay draw)."""
+            resolved (a final chunk's argmax ``first``, or a sampled
+            request's replay draw). On a prefill-role replica the
+            finished ingest also goes into the prefix trie (chunked
+            prompts bypass it at admission), so the handoff's span export
+            finds the pages and the first token."""
             req_sp[r].event("first_token")
             note_cold_start()
             observe_ttft(r)
+            if (self.role == "prefill" and first is not None
+                    and self.prefix_cache is not None
+                    and not self._wants_sampling(samp_of[r])):
+                L = len(prompts[r])
+                self.prefix_cache.insert(
+                    prompts[r], slot_pages[b][:-(-L // self.page)],
+                    [None] * (L - 1) + [int(first)], self.pool)
 
         def sampled_chunk_first(b, r):
             """A sampled request's final chunk resolved: its argmax is
@@ -1426,125 +1506,130 @@ class ContinuousBatchingPredictor:
         finished = False
         try:
             while True:
-                apply_cancels()
-                expire_deadlines()
-                if inflight is not None and (
-                        spec_mode or (self.sampling_enabled
-                                      and "chunk_mid" in inflight)):
-                    # resolve BEFORE dispatching when the next dispatch
-                    # needs this step's host state: in speculative mode
-                    # the drafter needs the committed tokens in the
-                    # histories, and ctx / the ragged meta rewound to the
-                    # kept prefix; a mixed step on a sampling-enabled
-                    # predictor moves sampled slots into first-token
-                    # replay and un-pauses sampled decode slots, and a
-                    # dispatch chained in between would take the
-                    # discarded argmax or advance ctx past the replay
-                    # position
-                    prev, inflight = inflight, None
-                    if not resolve(prev):
-                        break
-                if not closed:
-                    batch = intake()
-                    if batch is None:
-                        closed = True
-                    elif batch:
-                        for sreq in batch:
-                            add_request(sreq)
-                        expire_queued()
-                        shed_overflow()
-                admitted = False
-                while admission_round():
-                    admitted = True
-                active = [b for b in range(self.B) if slot_req[b] >= 0]
-                self._m_queue.set(len(q), **mlbl)
-                self._m_flight.set(len(active), **mlbl)
-                if use_tiers:
-                    depths = q.depths()
-                    for t_name in tiers_seen - set(depths):
-                        self._m_tier_q.set(0, tier=t_name, **mlbl)
-                    for t_name, d in depths.items():
-                        tiers_seen.add(t_name)
-                        self._m_tier_q.set(d, tier=t_name, **mlbl)
-                if admitted or self.stats["evictions"] != evictions_seen:
-                    # free_count walks the prefix trie: refresh only when
-                    # pages moved, not every decode step
-                    evictions_seen = self.stats["evictions"]
-                    self._m_util.set((self.capacity - self.pool.free_count)
-                                     / max(self.capacity, 1), **mlbl)
-                cur = None
-                if active:
-                    self.stats["max_in_flight"] = max(
-                        self.stats["max_in_flight"], len(active))
-                    # a dispatch is useless when every active slot's
-                    # budget is met once the in-flight step resolves
-                    pend = {b for b, r in inflight["snap"]
-                            if slot_req[b] == r} if inflight else set()
-                    useful = any(len(slot_new[b]) + (1 if b in pend else 0)
-                                 < max_new[slot_req[b]] for b in active)
-                    if any(slot_pending[b] for b in active):
-                        # a prompt is mid-ingest: this step runs the
-                        # MIXED program -- its chunk advances while the
-                        # decode slots take their normal token step.
-                        # Sampled decode slots PAUSE (the mixed step has
-                        # no sampling operands): they run their committed
-                        # token again at the same position, and resume
-                        # after the ingest
-                        paused = [b for b in active if not slot_pending[b]
-                                  and self._wants_sampling(
-                                      samp_of[slot_req[b]])]
-                        for b in paused:
-                            override[b] = True
-                        cur = self._dispatch_mixed_step(
-                            active, slot_req, slot_pending, tables, ctx,
-                            last_tok_host, override, builder, inflight,
-                            req_sp, paused)
-                    elif useful:
-                        if spec_mode:
-                            sv = samp_vec(set()) if self.sampling_enabled \
-                                else None
-                            cur = self._dispatch_spec_step(
-                                active, slot_req, slot_hist, tables, ctx,
-                                last_tok_host, override, builder, max_new,
-                                slot_new, sv, s_temp)
-                        else:
-                            sv = samp_vec(pend) if self.sampling_enabled \
-                                else None
-                            cur = self._dispatch_step(
-                                active, slot_req, tables, ctx,
+                # device work runs under the device gate's shared side:
+                # a CUDA-graph capture on another thread (a warm start,
+                # a bucket miss) waits for this iteration to end, and
+                # this loop waits while one runs (framework.graphs)
+                with _graphs.device_gate.shared():
+                    apply_cancels()
+                    expire_deadlines()
+                    if inflight is not None and (
+                            spec_mode or (self.sampling_enabled
+                                          and "chunk_mid" in inflight)):
+                        # resolve BEFORE dispatching when the next dispatch
+                        # needs this step's host state: in speculative mode
+                        # the drafter needs the committed tokens in the
+                        # histories, and ctx / the ragged meta rewound to the
+                        # kept prefix; a mixed step on a sampling-enabled
+                        # predictor moves sampled slots into first-token
+                        # replay and un-pauses sampled decode slots, and a
+                        # dispatch chained in between would take the
+                        # discarded argmax or advance ctx past the replay
+                        # position
+                        prev, inflight = inflight, None
+                        if not resolve(prev):
+                            break
+                    if not closed:
+                        batch = intake()
+                        if batch is None:
+                            closed = True
+                        elif batch:
+                            for sreq in batch:
+                                add_request(sreq)
+                            expire_queued()
+                            shed_overflow()
+                    admitted = False
+                    while admission_round():
+                        admitted = True
+                    active = [b for b in range(self.B) if slot_req[b] >= 0]
+                    self._m_queue.set(len(q), **mlbl)
+                    self._m_flight.set(len(active), **mlbl)
+                    if use_tiers:
+                        depths = q.depths()
+                        for t_name in tiers_seen - set(depths):
+                            self._m_tier_q.set(0, tier=t_name, **mlbl)
+                        for t_name, d in depths.items():
+                            tiers_seen.add(t_name)
+                            self._m_tier_q.set(d, tier=t_name, **mlbl)
+                    if admitted or self.stats["evictions"] != evictions_seen:
+                        # free_count walks the prefix trie: refresh only when
+                        # pages moved, not every decode step
+                        evictions_seen = self.stats["evictions"]
+                        self._m_util.set((self.capacity - self.pool.free_count)
+                                         / max(self.capacity, 1), **mlbl)
+                    cur = None
+                    if active:
+                        self.stats["max_in_flight"] = max(
+                            self.stats["max_in_flight"], len(active))
+                        # a dispatch is useless when every active slot's
+                        # budget is met once the in-flight step resolves
+                        pend = {b for b, r in inflight["snap"]
+                                if slot_req[b] == r} if inflight else set()
+                        useful = any(len(slot_new[b]) + (1 if b in pend else 0)
+                                     < max_new[slot_req[b]] for b in active)
+                        if any(slot_pending[b] for b in active):
+                            # a prompt is mid-ingest: this step runs the
+                            # MIXED program -- its chunk advances while the
+                            # decode slots take their normal token step.
+                            # Sampled decode slots PAUSE (the mixed step has
+                            # no sampling operands): they run their committed
+                            # token again at the same position, and resume
+                            # after the ingest
+                            paused = [b for b in active if not slot_pending[b]
+                                      and self._wants_sampling(
+                                          samp_of[slot_req[b]])]
+                            for b in paused:
+                                override[b] = True
+                            cur = self._dispatch_mixed_step(
+                                active, slot_req, slot_pending, tables, ctx,
                                 last_tok_host, override, builder, inflight,
-                                sv)
-                if cur is not None:
-                    # slots awaiting their first sampled token draw it in
-                    # this step: they ride the chunk_final first-token
-                    # path of the resolver (paused slots keep waiting)
-                    firsts = {b for b in active if slot_await_first[b]
-                              and b not in cur.get("chunk_mid", ())}
-                    if firsts:
-                        cur["chunk_final"] = set(
-                            cur.get("chunk_final", ())) | firsts
-                        for b in firsts:
-                            slot_await_first[b] = False
-                    # sampled requests' final chunks: from the argmax
-                    # first-token path to first-token replay
-                    cfs = {b for b in cur.get("chunk_final", ())
-                           if b not in firsts and slot_req[b] >= 0
-                           and self._wants_sampling(samp_of[slot_req[b]])}
-                    if cfs:
-                        cur["chunk_final"] = set(cur["chunk_final"]) - cfs
-                        cur["chunk_final_sampled"] = cfs
-                prev, inflight = inflight, cur
-                if prev is not None:
-                    if not resolve(prev):
-                        break
-                elif cur is None:
-                    if closed:
-                        break
-                    # an idle open stream: intake() is expected to block
-                    # briefly itself; this only keeps the loop from
-                    # spinning
-                    if not out:
-                        time.sleep(0.0002)
+                                req_sp, paused)
+                        elif useful:
+                            if spec_mode:
+                                sv = samp_vec(set()) if self.sampling_enabled \
+                                    else None
+                                cur = self._dispatch_spec_step(
+                                    active, slot_req, slot_hist, tables, ctx,
+                                    last_tok_host, override, builder, max_new,
+                                    slot_new, sv, s_temp)
+                            else:
+                                sv = samp_vec(pend) if self.sampling_enabled \
+                                    else None
+                                cur = self._dispatch_step(
+                                    active, slot_req, tables, ctx,
+                                    last_tok_host, override, builder, inflight,
+                                    sv)
+                    if cur is not None:
+                        # slots awaiting their first sampled token draw it in
+                        # this step: they ride the chunk_final first-token
+                        # path of the resolver (paused slots keep waiting)
+                        firsts = {b for b in active if slot_await_first[b]
+                                  and b not in cur.get("chunk_mid", ())}
+                        if firsts:
+                            cur["chunk_final"] = set(
+                                cur.get("chunk_final", ())) | firsts
+                            for b in firsts:
+                                slot_await_first[b] = False
+                        # sampled requests' final chunks: from the argmax
+                        # first-token path to first-token replay
+                        cfs = {b for b in cur.get("chunk_final", ())
+                               if b not in firsts and slot_req[b] >= 0
+                               and self._wants_sampling(samp_of[slot_req[b]])}
+                        if cfs:
+                            cur["chunk_final"] = set(cur["chunk_final"]) - cfs
+                            cur["chunk_final_sampled"] = cfs
+                    prev, inflight = inflight, cur
+                    if prev is not None:
+                        if not resolve(prev):
+                            break
+                    elif cur is None:
+                        if closed:
+                            break
+                        # an idle open stream: intake() is expected to block
+                        # briefly itself; this only keeps the loop from
+                        # spinning
+                        if not out:
+                            time.sleep(0.0002)
                 while out:
                     yield out.popleft()
             for r, res in enumerate(results):
@@ -1952,11 +2037,11 @@ class ContinuousBatchingPredictor:
                 sampled_first(b, r)       # argmax dropped: replay next
                 continue
             first = b in chunk_final
+            t = int(nxt[b])
             if first:
-                first_cb(b, r)
+                first_cb(b, r, t)
             elif len(slot_new[b]) >= max_new[r]:
                 continue                  # token of a post-budget step
-            t = int(nxt[b])
             if bool(done[b]):             # eos computed on the device
                 if not first:
                     req_sp[r].event("token", i=len(slot_new[b]) + 1)

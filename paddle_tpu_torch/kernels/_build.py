@@ -68,25 +68,34 @@ def _dtype_name(dt) -> str:
     return str(dt).rsplit(".", 1)[-1]
 
 
+# the counters are process-wide and serving replicas launch from one
+# thread each: every update and read of them holds this lock
+_count_lock = threading.Lock()
+
+
 def count_launch(name: str, dtype=None, kv_dtype=None) -> None:
     """One launch of kernel ``name``; with ``dtype`` (q's torch dtype)
     also one of its (``dtype``, ``kv_dtype`` or ``dtype``) instance."""
-    launch_counts[name] += 1
-    if dtype is not None:
-        kv = dtype if kv_dtype is None else kv_dtype
-        dtype_launch_counts[(name, _dtype_name(dtype), _dtype_name(kv))] += 1
+    with _count_lock:
+        launch_counts[name] += 1
+        if dtype is not None:
+            kv = dtype if kv_dtype is None else kv_dtype
+            dtype_launch_counts[(name, _dtype_name(dtype),
+                                 _dtype_name(kv))] += 1
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
-    dtype_launch_counts.clear()
+    with _count_lock:
+        for k in launch_counts:
+            launch_counts[k] = 0
+        dtype_launch_counts.clear()
 
 
 def snapshot_launch_counts() -> tuple:
     """Copies of both counters, for ``launch_counts_since`` and
     ``restore_launch_counts``."""
-    return dict(launch_counts), dict(dtype_launch_counts)
+    with _count_lock:
+        return dict(launch_counts), dict(dtype_launch_counts)
 
 
 def launch_counts_since(before: tuple) -> tuple:
@@ -94,24 +103,28 @@ def launch_counts_since(before: tuple) -> tuple:
     ``snapshot_launch_counts()``): ({kernel: n}, {(kernel, q dtype, KV
     dtype): n}), zeros left out."""
     names, dts = before
-    return ({k: n - names[k] for k, n in launch_counts.items()
-             if n != names[k]},
-            {k: n - dts.get(k, 0) for k, n in dtype_launch_counts.items()
-             if n != dts.get(k, 0)})
+    with _count_lock:
+        return ({k: n - names[k] for k, n in launch_counts.items()
+                 if n != names[k]},
+                {k: n - dts.get(k, 0)
+                 for k, n in dtype_launch_counts.items()
+                 if n != dts.get(k, 0)})
 
 
 def restore_launch_counts(before: tuple) -> None:
-    launch_counts.update(before[0])
-    dtype_launch_counts.clear()
-    dtype_launch_counts.update(before[1])
+    with _count_lock:
+        launch_counts.update(before[0])
+        dtype_launch_counts.clear()
+        dtype_launch_counts.update(before[1])
 
 
 def add_launch_counts(delta: tuple) -> None:
     """Add a ``launch_counts_since`` result to both counters."""
-    for k, n in delta[0].items():
-        launch_counts[k] += n
-    for k, n in delta[1].items():
-        dtype_launch_counts[k] += n
+    with _count_lock:
+        for k, n in delta[0].items():
+            launch_counts[k] += n
+        for k, n in delta[1].items():
+            dtype_launch_counts[k] += n
 
 
 # nvcc runs of this process (a warm start from a bundle runs none)
