@@ -274,6 +274,25 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    step-5 and step-6 losses and, bitwise, its step-6 weights and
    optimizer state. Checkpoints go to ``output/`` in the checkout and
    are deleted afterwards.
+8. Float16 training (``train_f16_phase``): the same 8-layer model and
+   batch, built in f32, ``amp.decorate``d to f16 at O2, 6 steps of
+   ``TrainStep(..., scaler=GradScaler())`` under ``auto_cast(level="O2",
+   dtype="float16")``: every loss finite, the last below the first, the
+   per-layer launches every step with the f16 instances of both backward
+   kernels ``layers`` times a step; prints step time, tokens/s, MFU, peak
+   memory, the scale and the skipped steps after each step, and profiles
+   one step. Then a fresh model of the same seed with ``use_recompute``
+   for 3 steps: losses within f16 tolerance of the first run's (bit for
+   bit equality logged), rms_norm and flash_fwd launched once more per
+   layer per step, peak memory lower. Then ``o1_scaler_gate``: O1 f16
+   with ``GradScaler(2^32)`` on a 2-layer model (hidden 512), card vs
+   CPU: the same scales and skipped steps, losses and the first update's
+   gradients within ``O1_GATE_TOL``, and no host sync in steps 2-3 on the
+   card (``torch.cuda.set_sync_debug_mode("error")``). The kernel phase
+   holds the f16 backward at the bf16 cases' geometries (GQA, head_dim
+   64, key mask + kv_lens, and dropout at the BERT shape) and with dO
+   under loss scaling (``loss_scaled_bwd``: the scaler's 2^15, dK near
+   2^14, and dS past f16's 65504), and times it at the training shape.
 
 The line before the last is the ``kernels`` JSON record; the last line
 is ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -550,9 +569,12 @@ def flash_train_row(torch, dev, g):
 def flash_bwd_phase(torch, dev, g):
     """Both backward kernels against the plain backward on the same
     inputs (q, k, v, dO random; out and lse from the forward kernel),
-    each bf16 case's largest error logged beside the output's largest
-    value; two bf16 launches must agree bit for bit; timed at the training
-    shape, q[2, 2048, 32, 128] bf16 causal, and at head_dim 64 (logged)."""
+    each 16-bit case's largest error logged beside the output's largest
+    value; two bf16 or f16 launches must agree bit for bit; timed at the
+    training shape, q[2, 2048, 32, 128] causal, in bf16 (the main rows)
+    and f16 (returned apart, keyed as ``dtype_phase``'s rows), and at
+    head_dim 64 (logged). Then the f16 kernels under loss scaling
+    (``loss_scaled_bwd``). Returns (bf16 rows, f16 rows)."""
     from paddle_tpu_torch.kernels import attention as A
     F = torch.nn.functional
     # (dtype, B, Sq, Sk, H, Hkv, D, causal, key-padding mask + kv_lens)
@@ -561,7 +583,11 @@ def flash_bwd_phase(torch, dev, g):
              ("bfloat16", 2, 2048, 2048, 32, 8, 128, True, False),
              ("bfloat16", 2, 1024, 1024, 16, 16, 64, True, False),
              ("bfloat16", 2, 384, 640, 32, 32, 128, False, True),
-             ("bfloat16", 2, 2048, 2048, 32, 32, 64, True, False)]
+             ("bfloat16", 2, 2048, 2048, 32, 32, 64, True, False),
+             ("float16", 2, 2048, 2048, 32, 32, 128, True, False),
+             ("float16", 2, 2048, 2048, 32, 8, 128, True, False),
+             ("float16", 2, 1024, 1024, 16, 16, 64, True, False),
+             ("float16", 2, 384, 640, 32, 32, 128, False, True)]
 
     def inputs(dt, b, sq, sk, h, hkv, d, causal, mask, lens):
         q = torch.randn(b, sq, h, d, device=dev, generator=g).to(dt)
@@ -572,7 +598,7 @@ def flash_bwd_phase(torch, dev, g):
                                             lens)
         return q, k, v, do, lse, A.bwd_delta(out, do), out
 
-    rows = {}
+    rows, rows16 = {}, {}
     for dtype, b, sq, sk, h, hkv, d, causal, padded in cases:
         dt = getattr(torch, dtype)
         mask = lens = None
@@ -596,11 +622,11 @@ def flash_bwd_phase(torch, dev, g):
         errs = [compare(torch, f"flash_bwd_{w} {name}", got, ref, dtype)
                 for w, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv),
                                        want)]
-        if dtype == "bfloat16":
-            # the tensor-core kernels take P and dS as bf16 hi + lo parts
+        if dtype != "float32":
+            # the tensor-core kernels take P and dS as 16-bit hi + lo parts
             # where the plain version keeps them in f32
             tops = [float(w.float().abs().max()) for w in want]
-            log("  bf16 error over the largest |value|: " + ", ".join(
+            log(f"  {dtype} error over the largest |value|: " + ", ".join(
                 f"{w} {e:.3e} / {t:.3e} = {e / t:.3e}"
                 for w, e, t in zip(("dq", "dk", "dv"), errs, tops)))
             again = (A.flash_bwd_dq_kernel(q, k, v, do, lse, delta, sc,
@@ -620,8 +646,12 @@ def flash_bwd_phase(torch, dev, g):
                     q_, k_, v_, do_, l_, dl_, sc, True))]
             log(f"  flash_bwd at {name}: dkdv {t64[0]:.4f} ms, dq "
                 f"{t64[1]:.4f} ms (median device time)")
-        if rows:
+        # the timed cases: the first of each 16-bit dtype
+        timed = {"bfloat16": rows, "float16": rows16}.get(dtype)
+        if timed is None or timed:
             continue
+        if dtype == "float16":
+            loss_scaled_bwd(torch, q, k, v, out, lse, do, sc)
         # the timed case: two input sets (~200 MB each, past the L2)
         sets = [(q, k, v, do, lse, delta, out),
                 inputs(dt, b, sq, sk, h, hkv, d, causal, None, None)]
@@ -659,11 +689,65 @@ def flash_bwd_phase(torch, dev, g):
         q_b, qq_b = bound(3 * qb_ + 2 * kb_ + rows_b, 6 * d * pairs, dtype)
         shape = f"q[{b}, {sq}, {h}, {d}] {dtype} causal"
         common = dict(plain_ms=plain, library_ms=lib, shape=shape)
-        rows["flash_bwd_dkdv"] = dict(max_abs_err=max(errs[1:]), t=t_kv,
-                                      bound_ms=kv_b, bound_by=kvq_b, **common)
-        rows["flash_bwd_dq"] = dict(max_abs_err=errs[0], t=t_q, bound_ms=q_b,
-                                    bound_by=qq_b, **common)
-    return rows
+        key = {"bfloat16": lambda n: n,
+               "float16": lambda n: (n, dtype, dtype)}[dtype]
+        timed[key("flash_bwd_dkdv")] = dict(max_abs_err=max(errs[1:]), t=t_kv,
+                                            bound_ms=kv_b, bound_by=kvq_b,
+                                            **common)
+        timed[key("flash_bwd_dq")] = dict(max_abs_err=errs[0], t=t_q,
+                                          bound_ms=q_b, bound_by=qq_b,
+                                          **common)
+    return rows, rows16
+
+
+def max_ds(torch, q, k, v, out, lse, do, sc):
+    """The plain backward's largest |dS| = |P * (dP - delta)| (causal, no
+    mask, as many heads as q and k: the training shape), a head at a
+    time."""
+    from paddle_tpu_torch.kernels import attention as A
+    delta = A.bwd_delta(out, do)
+    tops = []
+    for h in range(q.shape[2]):
+        p = torch.exp(torch.einsum("bqd,bkd->bqk", q[:, :, h].float(),
+                                   k[:, :, h].float()) * sc
+                      - lse[:, h, :, None]).tril()
+        dp = torch.einsum("bqd,bkd->bqk", do[:, :, h].float(),
+                          v[:, :, h].float())
+        tops.append((p * (dp - delta[:, h, :, None])).abs().max())
+    return float(torch.stack(tops).max())       # NaN if any is
+
+
+def loss_scaled_bwd(torch, q, k, v, out, lse, do, sc):
+    """The f16 backward kernels with dO of a loss gradient's size (the
+    random dO over 2^8) multiplied by a loss scale: GradScaler's default
+    2^15, the power of two that puts the plain version's largest |dK| in
+    (2^13, 2^14], and the largest that keeps dO finite in f16, where the
+    largest |dS| must pass f16's 65504 (each scale's is logged). The kernels'
+    outputs must be finite wherever the plain version's are and within
+    ``TOL["float16"]`` of it after both are divided by the scale (the
+    gradients the scaler hands the optimizer)."""
+    from paddle_tpu_torch.kernels import attention as A
+    base = do.float() * 2.0 ** -8
+    dk1 = A.flash_attention_bwd_plain(q, k, v, out, lse, base, sc, True)[1]
+    fit_dk = 2.0 ** math.floor(math.log2(2.0 ** 14 / float(dk1.abs().max())))
+    del dk1
+    fit_ds = 2.0 ** math.floor(math.log2(65504 / float(base.abs().max())))
+    for s in (2.0 ** 15, fit_dk, fit_ds):
+        gs = (base * s).half()
+        got = A.flash_attention_bwd_kernel(q, k, v, out, lse, gs, sc, True)
+        want = A.flash_attention_bwd_plain(q, k, v, out, lse, gs, sc, True)
+        top_ds = max_ds(torch, q, k, v, out, lse, gs, sc)
+        if s == fit_ds:
+            check(top_ds > 65504, f"largest |dS| {top_ds} within f16")
+        for w, a, r in zip(("dq", "dk", "dv"), got, want):
+            fin = torch.isfinite(r)
+            check(bool(torch.isfinite(a[fin]).all()),
+                  f"flash_bwd_{w} f16 x{s:g}: not finite where the plain "
+                  "version is")
+            compare(torch, f"flash_bwd_{w} f16 dO x{s:g} (largest |dS| "
+                    f"{top_ds:.3e}, {int(fin.sum())} of {fin.numel()} plain "
+                    "values finite), over the scale",
+                    a[fin].float() / s, r[fin].float() / s, "float16")
 
 
 def paged_phase(torch, dev, g):
@@ -1560,7 +1644,7 @@ BERT_ATTN = dict(b=16, s=128, h=12, d=64, p=0.1)
 
 def dropout_phase(torch, dev, g):
     """The three flash kernels with attention dropout against their plain
-    versions at the BERT-base fine-tuning shape (f32 and bf16, additive
+    versions at the BERT-base fine-tuning shape (f32, bf16 and f16, additive
     key mask, p 0.1, one fixed seed pair); the pattern's keep rate over
     the unmasked entries within 6 binomial standard deviations of 0.9;
     the f32 kernels timed with and without dropout (and SDPA with
@@ -1585,7 +1669,7 @@ def dropout_phase(torch, dev, g):
     check(abs(rate - (1 - p)) <= 6 * sd, "dropout keep rate off 1 - p")
     sc = d ** -0.5
     drop = dict(dropout_p=p, seeds=seeds)
-    for dtype in ("float32", "bfloat16"):
+    for dtype in ("float32", "bfloat16", "float16"):
         dt = getattr(torch, dtype)
         q, k, v, do = (torch.randn(b, s, h, d, device=dev, generator=g).to(dt)
                        for _ in range(4))
@@ -1805,9 +1889,10 @@ TRAIN_KERNELS = ("rms_norm", "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
 # weights keeps 16 bytes per parameter, 108 GB for all 32 layers
 TRAIN_LAYERS = 8
 # decoder layers of serve run F16, of 32: its eager run is host-bound,
-# so its time grows with the depth; 16 keeps the whole script well
-# inside its time limit
-F16_LAYERS = 16
+# so its time grows with the depth; 8 keeps the whole script, with the
+# f16 training phases, inside its time limit on a slow host (1127 s at 16
+# layers on one H100 80GB HBM3 machine, 833 s on another)
+F16_LAYERS = 8
 
 
 def free_card(torch):
@@ -4934,24 +5019,24 @@ def train_phase(torch, dev, seed, card, layers, out_dir):
     want = {k: n * steps for k, n in train_kernels_per_step(layers).items()}
     check(all(counts[k] == n for k, n in want.items()),
           f"launches {counts} are not {want} ({steps} steps)")
-    train_profile(torch, model, trainer, ids, card)
+    train_profile(torch, lambda: trainer._step_obj(ids, ids), card)
     return counts
 
 
-def train_profile(torch, model, trainer, ids, card):
-    """One more step under the profiler: device busy and idle share and
-    the device time by kernel."""
+def train_profile(torch, one_step, card, label="train"):
+    """One more step (``one_step()``) under the profiler: device busy and
+    idle share and the device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer._step_obj(ids, ids)
+        one_step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kern = device_kernel_ms(torch, prof)
     busy = sum(ms for ms, _ in kern.values())
-    log(f"train profile on {card}: one step, wall {wall:.1f} ms (traced), "
+    log(f"{label} profile on {card}: one step, wall {wall:.1f} ms (traced), "
         f"device busy {busy:.1f} ms, idle share {1 - busy / wall:.3f}")
     for name, (ms, n) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:14]:
         log(f"  {ms:9.2f} ms {100 * ms / busy:5.1f}% x{n:<6d} {name[:90]}")
@@ -4960,7 +5045,7 @@ def train_profile(torch, model, trainer, ids, card):
         cat = next((c for c, keys in TRAIN_OP_CATEGORIES
                     if any(k in name for k in keys)), "other")
         cats[cat] = cats.get(cat, 0.0) + ms
-    log("train profile by category: " + ", ".join(
+    log(f"{label} profile by category: " + ", ".join(
         f"{c} {ms:.1f} ms ({100 * ms / busy:.1f}%)"
         for c, ms in sorted(cats.items(), key=lambda kv: -kv[1])))
 
@@ -4968,11 +5053,240 @@ def train_profile(torch, model, trainer, ids, card):
 # device kernels of a training step by kind, matched on the kernel name
 TRAIN_OP_CATEGORIES = (
     ("fused_optimizer", ("fused_update_kernel", "grad_sq_", "bump_steps")),
+    ("amp_unscale", ("non_finite_check_and_unscale",)),
     ("flash_bwd", ("flash_bwd",)), ("flash_fwd", ("flash_fwd",)),
     ("rms_norm", ("_rms_norm_fwd",)), ("layer_norm", ("_layer_norm_fwd",)),
     ("gemm", ("nvjet", "gemm", "cutlass", "splitKreduce")),
     ("elementwise", ("elementwise", "copy_kernel", "CatArray", "fill")),
     ("reduce", ("reduce", "softmax", "Softmax")))
+
+
+# float16 training: O2 over a decorated model, dynamic loss
+# scaling inside TrainStep, then the same steps with activation recompute
+F16_TRAIN_STEPS, RECOMPUTE_STEPS = 6, 3
+F16_TRAIN_BATCH = (2, 2048)
+
+
+def _f16_train_model(torch, dev, seed, layers, use_recompute=False):
+    """The training run's model (Llama-2-7B widths, ``layers`` of 32,
+    weights from ``seed``) built in f32 and decorated to f16 at O2."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=layers,
+                                use_recompute=use_recompute)
+    model = LlamaForCausalLM(cfg, device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(seed))
+    return amp.decorate(model, level="O2", dtype="float16")
+
+
+def f16_train_run(torch, dev, seed, card, layers, steps, use_recompute,
+                  profile=False):
+    """``steps`` TrainSteps of the f16 model under ``auto_cast(level="O2",
+    dtype="float16")`` with ``GradScaler()`` at its defaults, on the bf16
+    run's fixed batch and AdamW. Returns the run's losses, step times,
+    scales, skipped steps, launches, peak memory and parameter count."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import (dtype_launch_counts, launch_counts,
+                                          reset_launch_counts)
+    from paddle_tpu_torch.models import LlamaPretrainingCriterion
+    from paddle_tpu_torch.optimizer.lr import CosineAnnealingDecay
+    b, s = F16_TRAIN_BATCH
+    model = _f16_train_model(torch, dev, seed, layers, use_recompute)
+    n_params = sum(p.numel() for p in model.parameters())
+    crit = LlamaPretrainingCriterion()
+    scaler = amp.GradScaler()
+    step = TrainStep(model, _adamw(model, CosineAnnealingDecay(
+        3e-4, T_max=F16_TRAIN_STEPS)), lambda lg, lb: crit(lg, lb),
+        scaler=scaler)
+    ids = torch.randint(0, model.config.vocab_size, (b, s),
+                        generator=torch.Generator().manual_seed(seed + 4)
+                        ).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    losses, times, scales, skipped = [], [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        with amp.auto_cast(level="O2", dtype="float16"):
+            loss = step(ids, ids)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        scales.append(scaler.get_loss_scaling())
+        skipped.append(scaler._good_steps == 0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    res = dict(losses=losses, times=times, scales=scales, skipped=skipped,
+               counts=dict(launch_counts),
+               dtype_counts=dict(dtype_launch_counts), peak=peak,
+               n_params=n_params, tokens=b * s)
+    if profile:
+        def one_step():
+            with amp.auto_cast(level="O2", dtype="float16"):
+                step(ids, ids)
+        train_profile(torch, one_step, card, "f16 train")
+    return res
+
+
+def train_f16_phase(torch, dev, seed, card, layers):
+    """Float16 pretraining at Llama-2-7B widths (``layers`` of 32; the
+    bf16 run's cut, for AdamW's 16 bytes a parameter): the model
+    decorated at O2, ``auto_cast(level="O2", dtype="float16")`` around a
+    ``TrainStep`` with ``GradScaler()``, 6 steps at 2 x 2048 on the bf16
+    run's fixed batch with its AdamW. Every loss finite, the last below
+    the first, each kernel launched its per-layer count every step, and
+    the f16 instances of both backward kernels ``layers`` times a step.
+    Then the same model (fresh, same seed) with ``use_recompute`` for 3
+    steps: losses within the f16 tolerance of the first run's (whether
+    they are bit for bit equal is logged), rms_norm and flash_fwd launched
+    once more per layer per step, peak memory lower. Returns the f16
+    run's launches per (kernel, q dtype, K/V dtype)."""
+    runs = {}
+    for label, rc, steps in (("f16", False, F16_TRAIN_STEPS),
+                             ("f16 + recompute", True, RECOMPUTE_STEPS)):
+        t0 = time.perf_counter()
+        r = runs[label] = f16_train_run(torch, dev, seed, card, layers, steps,
+                                        rc, profile=not rc)
+        med = statistics.median(r["times"][1:])
+        tok_s = r["tokens"] / med
+        log(f"train {label}: Llama-2-7B widths, {layers} of 32 layers, O2 "
+            f"float16, {r['n_params'] / 1e9:.3f} B parameters; losses "
+            f"{r['losses']}; step times (s) "
+            f"{[round(t, 4) for t in r['times']]}; loss scale after each "
+            f"step {r['scales']}; skipped steps "
+            f"{[i + 1 for i, x in enumerate(r['skipped']) if x]}; "
+            f"launches {r['counts']}")
+        log(f"train {label} on {card}: step median (steps 2-{steps}) "
+            f"{med * 1e3:.1f} ms, {tok_s:.1f} tokens/s, MFU "
+            f"{6 * r['n_params'] * tok_s / 989e12:.4f} (6 N tokens/s over "
+            f"989e12); peak memory {r['peak'] / 2**30:.2f} GiB; run took "
+            f"{time.perf_counter() - t0:.1f} s")
+        check(all(math.isfinite(x) for x in r["losses"]),
+              f"{label}: non-finite loss {r['losses']}")
+        per = train_kernels_per_step(layers)
+        if rc:
+            per["rms_norm"] += 2 * layers     # the recomputed forward
+            per["flash_fwd"] += layers
+        want = {k: n * steps for k, n in per.items()}
+        check(all(r["counts"][k] == n for k, n in want.items()),
+              f"{label}: launches {r['counts']} are not {want}")
+        for k in ("flash_bwd_dkdv", "flash_bwd_dq"):
+            n = r["dtype_counts"].get((k, "float16", "float16"), 0)
+            check(n == layers * steps, f"{label}: {n} f16 {k} launches, not "
+                  f"{layers} a step")
+        free_card(torch)
+    f16, rc = runs["f16"], runs["f16 + recompute"]
+    check(f16["losses"][-1] < f16["losses"][0],
+          f"f16: the loss does not descend: {f16['losses']}")
+    a, b_ = rc["losses"], f16["losses"][:RECOMPUTE_STEPS]
+    log(f"recompute vs not: losses {a} vs {b_} (bit for bit equal: "
+        f"{a == b_}); step median "
+        f"{statistics.median(rc['times'][1:]) * 1e3:.1f} vs "
+        f"{statistics.median(f16['times'][1:]) * 1e3:.1f} ms; peak "
+        f"{rc['peak'] / 2**30:.2f} vs {f16['peak'] / 2**30:.2f} GiB")
+    check(all(abs(x - y) <= 1e-3 + 4e-3 * abs(y) for x, y in zip(a, b_)),
+          f"recompute losses {a} differ from {b_}")
+    check(rc["scales"] == f16["scales"][:RECOMPUTE_STEPS],
+          "recompute changed the loss scale's trajectory")
+    check(rc["peak"] < f16["peak"], "recompute did not lower peak memory")
+    return f16["dtype_counts"]
+
+
+def o1_scaler_gate(torch, dev, seed):
+    """O1 float16 with dynamic loss scaling, card vs CPU: a 2-layer Llama
+    (``O1_GATE``) with f32 parameters, the same weights on both, 3
+    TrainSteps under ``auto_cast(dtype="float16")`` with
+    ``GradScaler(init_loss_scaling=2**32, decr_ratio=2**-12)``: step 1
+    overflows f16 and is skipped, the scale drops to 2^20 (at the default
+    ratio 0.5 the first update would need ~10 CPU steps), and a later step
+    updates. The scale and the skipped steps after every step equal on
+    both devices; the losses and the gradients of the first step that
+    updates within ``O1_GATE_TOL`` of each tensor's largest CPU value (the
+    weight change is logged: AdamW's first update, lr * g / (|g| + eps),
+    turns f16 rounding of gradients near 0 into lr-sized moves of either
+    sign). Steps 2-3 on the card run under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing in them, found-inf
+    included, waits for the device."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         LlamaPretrainingCriterion)
+    cfg = LlamaConfig(**O1_GATE["config"])
+    cpu = LlamaForCausalLM(cfg, device="cpu").init_weights(
+        torch.Generator().manual_seed(seed))
+    gpu = LlamaForCausalLM(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    ids = torch.randint(0, cfg.vocab_size, (1, O1_GATE["tokens"]),
+                        generator=torch.Generator().manual_seed(seed + 5))
+    crit = LlamaPretrainingCriterion()
+
+    def run(model, on_card):
+        sc = amp.GradScaler(init_loss_scaling=2.0 ** 32,
+                            decr_ratio=2.0 ** -12)
+        step = TrainStep(model, _adamw(model, F32_TRAIN_LR, F32_TRAIN_EPS),
+                         lambda lg, lb: crit(lg, lb), scaler=sc)
+        x = ids.to(next(model.parameters()).device)
+        named = dict(model.named_parameters())
+        p0 = {n: p.detach().cpu().clone() for n, p in named.items()}
+        losses, scales, skipped, grads = [], [], [], []
+        t0 = time.perf_counter()
+        for i in range(3):
+            strict = on_card and i > 0
+            if strict:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                with amp.auto_cast(dtype="float16"):
+                    loss = step(x, x)
+            finally:
+                if strict:
+                    torch.cuda.set_sync_debug_mode("default")
+            losses.append(float(loss))
+            scales.append(sc.get_loss_scaling())
+            skipped.append(sc._good_steps == 0)
+            grads.append({n: p.grad.detach().float().cpu()
+                          for n, p in named.items()})
+        upd = {n: p.detach().cpu().float() - p0[n].float()
+               for n, p in named.items()}
+        return dict(losses=losses, scales=scales, skipped=skipped,
+                    gradient=grads, update=upd,
+                    s=time.perf_counter() - t0)
+    g, c = run(gpu, True), run(cpu, False)
+    check(g["scales"] == c["scales"] and g["skipped"] == c["skipped"],
+          f"the scale ({g['scales']} vs {c['scales']}) or the skipped steps "
+          f"({g['skipped']} vs {c['skipped']}) differ between card and CPU")
+    check(g["skipped"][0] and not g["skipped"][-1],
+          f"skipped steps {g['skipped']}: step 1 must overflow, step 3 not")
+    first = g["skipped"].index(False)
+    g["gradient"], c["gradient"] = g["gradient"][first], c["gradient"][first]
+    worst = {k: worst_rel(g[k], c[k]) for k in ("gradient", "update")}
+    log(f"O1 float16 + GradScaler(2^32), card vs CPU ({cfg.hidden_size} "
+        f"wide, 2 layers, 1 x {O1_GATE['tokens']}): losses {g['losses']} "
+        f"vs {c['losses']}; scales {g['scales']} vs {c['scales']}; skipped "
+        f"{g['skipped']} vs {c['skipped']}; worst max|card - cpu| / "
+        f"max|cpu|: " + ", ".join(f"{k} {e:.3e} ({n})"
+                                  for k, (e, n) in worst.items())
+        + f" (gradients of step {first + 1}); card {g['s']:.1f} s, CPU "
+        f"{c['s']:.1f} s; steps 2-3 on the card made no host sync")
+    for i, (a, b_) in enumerate(zip(g["losses"], c["losses"])):
+        check(abs(a - b_) <= O1_GATE_TOL["loss"] * abs(b_),
+              f"step {i + 1} loss {a} on the card vs {b_} on the CPU")
+    e, n = worst["gradient"]
+    check(e <= O1_GATE_TOL["gradient"], f"gradient of {n} differs by "
+          f"{e:.3e} of its largest value (limit {O1_GATE_TOL['gradient']})")
+
+
+# the O1 gate's model: Llama-2-7B's depth cut to 2 and, for the CPU half,
+# its widths too (f16 GEMMs ran at ~1 GFLOP/s on the H100 machine's host
+# CPU: a full-width step would take minutes there, hidden 1024 took 36-71 s
+# for 3 steps);
+# head_dim 128 and the vocabulary as on the training path
+O1_GATE = dict(config=dict(hidden_size=512, num_attention_heads=4,
+                           num_key_value_heads=4, intermediate_size=1408,
+                           num_hidden_layers=2), tokens=32)
+# card vs CPU under O1 f16: both round the same products to f16 but sum
+# them in another order; each gradient's max |difference| over its
+# largest CPU value (losses: relative)
+O1_GATE_TOL = {"loss": 1e-3, "gradient": 1e-2}
 
 
 def resume_phase(torch, dev, seed, out_dir):
@@ -5082,10 +5396,11 @@ def main(argv=None):
     log("kernels vs plain versions (Llama-2-7B serving and training, "
         "BERT-base fine-tuning shapes):")
     ln = ln_phase(torch, dev, g)
-    mains = {"rms_norm": rms_phase(torch, dev, g),
-             "layer_norm": ln["float32"],
-             "flash_fwd": flash_phase(torch, dev, g),
-             **flash_bwd_phase(torch, dev, g),
+    rms = rms_phase(torch, dev, g)
+    ln32 = ln["float32"]
+    fwd = flash_phase(torch, dev, g)
+    bwd, bwd16 = flash_bwd_phase(torch, dev, g)
+    mains = {"rms_norm": rms, "layer_norm": ln32, "flash_fwd": fwd, **bwd,
              "paged_decode": paged_phase(torch, dev, g),
              "ragged_decode": ragged_phase(torch, dev, g),
              "paged_varq": varq_phase(torch, dev, g)}
@@ -5100,7 +5415,7 @@ def main(argv=None):
     free_card(torch)
     mains.update(optimizer_phase(torch, dev, args.seed))
     mains.update(sampling_phase(torch, dev, g))
-    dtype_rows = dtype_phase(torch, dev, g)
+    dtype_rows = {**dtype_phase(torch, dev, g), **bwd16}
     gpt_rows = gpt_kernel_rows(torch, dev, g)
     for name, m in [*mains.items(), ("layer_norm (bf16)", ln["bfloat16"]),
                     *((row_name(*k), m) for k, m in dtype_rows.items()),
@@ -5185,6 +5500,13 @@ def main(argv=None):
         resume_phase(torch, dev, args.seed, os.path.join(out_dir, "resume"))
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+    free_card(torch)
+    t0 = time.perf_counter()
+    train16 = train_f16_phase(torch, dev, args.seed, card, TRAIN_LAYERS)
+    log(f"f16 training + recompute phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    o1_scaler_gate(torch, dev, args.seed)
+    log(f"O1 scaler gate took {time.perf_counter() - t0:.1f} s")
 
     sources = {"rms_norm": ("triton",
                             "paddle_tpu_torch/kernels/_rms_triton.py",
@@ -5248,11 +5570,13 @@ def main(argv=None):
     # the f16 and mixed instances: launches of the instance in the run that
     # drives it on the card (serve run F16, the 2-layer gates' block-table
     # f16 decode, the BERT-base f16 eval; serve run KV for bf16 q over f32
-    # pages; the 2-layer f32 gate for f32 q over bf16 pages)
+    # pages; the 2-layer f32 gate for f32 q over bf16 pages; the f16
+    # training run for the backward kernels)
     for key, m in dtype_rows.items():
         route, src, replaces = sources[key[0]]
         n = next((c[key] for c in (f16["dtype_counts"], gate_counts, bert16,
-                                   kv["dtype_counts"]) if c.get(key)), 0)
+                                   kv["dtype_counts"], train16)
+                  if c.get(key)), 0)
         check(n > 0, f"{row_name(*key)} was launched on no served path")
         rows.append({"name": row_name(*key), "route": route, "source": src,
                      "replaces": replaces, "launches": n,

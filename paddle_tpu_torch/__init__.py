@@ -19,7 +19,11 @@ BERT / ERNIE sequence-classification fine-tuning
 kernels' counter-hash attention dropout — and the fused multi-tensor
 optimizer step (``optimizer.fused``: SGD, Momentum, Adam, AdamW under
 the eager ``step()`` and ``TrainStep``) over the ``grad_sq_norm`` and
-``fused_update`` kernels.
+``fused_update`` kernels — and float16 training: ``amp`` (``auto_cast``
+O1 / O2, ``decorate``, ``GradScaler`` in the eager loop and inside
+``jit.TrainStep``) over the f16 instances of the flash kernels, with
+activation recompute (``distributed.fleet.recompute``,
+``LlamaConfig.use_recompute``).
 
 Runtime telemetry (metrics, spans, the flight recorder, exporters) is
 ``observability``, the reference's package.

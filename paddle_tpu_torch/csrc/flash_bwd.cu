@@ -43,10 +43,10 @@
 // the bf16 tensor cores, 989 TFLOP/s dense (dK/dV at q[2, 2048, 32, 128]
 // causal: 1.37e11 operations, 0.139 ms; dQ 1.03e11, 0.104 ms).
 //
-// bf16 (dtype 1): tensor-core kernels, `tc::flash_bwd_dkdv_wgmma` and
-// `tc::flash_bwd_dq_wgmma`. Every product is a `wgmma.mma_async` (sm_90a)
-// m64nNk16 in bf16 with f32 accumulators; none uses mma.sync. They follow
-// FlashAttention-3's register arrangement:
+// bf16 and f16 (dtypes 1, 2): tensor-core kernels, `tc::flash_bwd_dkdv_wgmma`
+// and `tc::flash_bwd_dq_wgmma`, templates on the element type. Every
+// product is a `wgmma.mma_async` (sm_90a) m64nNk16 with f32 accumulators;
+// none uses mma.sync. They follow FlashAttention-3's register arrangement:
 // - dK/dV: a CTA of one warpgroup (128 threads) per (batch x KV head,
 //   64-key tile). Per (query head, 64-row query tile) it computes S^T =
 //   K Q^T and dP^T = V dO^T (keys as M, both operands from shared memory,
@@ -84,6 +84,26 @@
 // 64 254; dQ D = 128 255 with 4 bytes spilled, D = 64 206 (210); the
 // accumulators take D/2 + D/2 (dK/dV) or D/2 (dQ) f32, S and dP 32 + 32,
 // the hi/lo fragments 64 (dK/dV) or 32 (dQ).
+//
+// f16 (dtype 2): the same kernels on f16 operands (m64nNk16 f32.f16.f16),
+// as the reference computes in f32 from f16 inputs. f16 has 3 more bits
+// than bf16 but 2^-24 .. 65504 for range, and under loss scaling (dO
+// multiplied by up to 2^15 or more) dS = P * (dP - delta) passes 65504
+// while the f32 sums, dK and dQ stay finite: a hi + lo split of such a dS
+// overflows to inf, and the scaler would skip steps that the reference
+// takes. So the dS operand of each row (a key row of dS^T for dK, a query
+// row of dS for dQ) is scaled by an exact power of two 2^-e chosen from
+// the tile's largest |dS| of that row (a quad shuffle), which puts it in
+// [2^14, 2^15); e only grows along the walk, and when it does the row of
+// the f32 accumulator is scaled down by the same exact power of two, so
+// the accumulator always holds the sum in units of 2^e and the store
+// multiplies by 2^e (`rescale_rows`). P (in [0, 1]) and P * D (at most 1
+// / (1 - p)) need no scaling. Every product stays a hi + lo pair: 22
+// significant bits; a lo part below f16's smallest normal (6.1e-5) keeps
+// an absolute error of at most 2^-25 in the scaled units, which is 2^-39
+// of the row's largest |dS| (or, for P, 2^-25 absolute). The rescale adds
+// a row maximum and D/2 multiplies per thread and tile to dK and dQ; the
+// bf16 instance compiles without it (bf16 has f32's range).
 //
 // f32 (dtype 0): the FMA-unit kernels below (TF32 is off in the port, so
 // the tensor cores do not apply): 256 threads per block, each owning a
@@ -459,7 +479,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 }  // namespace
 
 // ------------------------------------------------------------------------
-// bf16: the tensor-core kernels (wgmma, sm_90a). See the note at the top.
+// bf16 and f16: the tensor-core kernels (wgmma, sm_90a). See the note at
+// the top.
 
 namespace tc {
 
@@ -469,24 +490,87 @@ constexpr int kStages = 2;    // depth of the cp.async ring
 // SM, whose elementwise phases overlap each other's products
 constexpr int kDkdvWG = 1;
 
+// the A fragment of one k-step (four E pairs in registers), typed by its
+// element type so that the products below take E from their operand
+template <class E>
+struct AFrag {
+  uint32_t r[4];
+};
+template <class E, int N>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[N], const AFrag<E>& a,
+                                            uint64_t b) {
+  wgmma_rs_tb<E>(d, a.r, b);
+}
+template <class E>
+__device__ __forceinline__ void fence_regs(AFrag<E> (&f)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(f[i].r[j])::"memory");
+}
+
 // A fragments of the 4 k-steps of a 64 x 64 f32 accumulator (its columns
 // become wgmma's K; the m64nNk16 accumulator layout already is the A
-// layout), each value x split in two bf16, hi = bf16(x) and lo = bf16(x -
-// hi): hi + lo keeps 16 significant bits of x where one bf16 keeps 8
+// layout), each value x split in two E, hi = E(x) and lo = E(x - hi): hi +
+// lo keeps 16 significant bits of x where one bf16 keeps 8 (22 where one
+// f16 keeps 11)
+template <class E>
 __device__ __forceinline__ void to_a_frags(const float (&x)[32],
-                                           uint32_t (&hi)[4][4],
-                                           uint32_t (&lo)[4][4]) {
+                                           AFrag<E> (&hi)[4],
+                                           AFrag<E> (&lo)[4]) {
 #pragma unroll
   for (int s = 0; s < 4; ++s)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float a = x[8 * s + 2 * i], b = x[8 * s + 2 * i + 1];
-      __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-      const float2 hf = __bfloat1622float2(h);
-      __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
-      hi[s][i] = *reinterpret_cast<uint32_t*>(&h);
-      lo[s][i] = *reinterpret_cast<uint32_t*>(&l);
+      hi[s].r[i] = pack2<E>(a, b);
+      const float2 hf = unpack2<E>(hi[s].r[i]);
+      lo[s].r[i] = pack2<E>(a - hf.x, b - hf.y);
     }
+}
+
+// f16 only: 2^e as an f32 for e in [-126, 127], 0 below
+__device__ __forceinline__ float pow2i(int e) {
+  return e < -126 ? 0.f : __int_as_float((e + 127) << 23);
+}
+
+// f16 only: keeps the A operand dS of the thread's accumulator rows rr = 0,
+// 1 (16 values each, 4 threads a row) inside f16's range. The row's
+// exponent ex[rr] only grows: when the tile's largest |dS| of a row needs
+// a larger one, the row of `acc` (the dK or dQ sum, in units of 2^ex) is
+// scaled down by the exact power of two; then the row's dS is multiplied
+// by 2^-ex, which puts its largest value of the tile below 2^15. The
+// caller multiplies the sum by 2^ex at the end. Exponents stay in
+// [-100, 114], so every factor is a power of two that f32 holds (a factor
+// below 2^-126 drops a sum smaller than 2^-126 of the new row maximum).
+template <int N>
+__device__ __forceinline__ void rescale_rows(float (&ds)[32], float (&acc)[N],
+                                             int (&ex)[2]) {
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float m = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      m = fmaxf(m, fmaxf(fabsf(ds[4 * j + 2 * rr]),
+                         fabsf(ds[4 * j + 2 * rr + 1])));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    // m in [2^x, 2^(x + 1)): times 2^(14 - x) it lies in [2^14, 2^15)
+    const int x = ((__float_as_int(m) >> 23) & 0xff) - 127;
+    const int e = max(ex[rr], max(x - 14, -100));
+    const float down = pow2i(ex[rr] - e), inv = pow2i(-e);
+    ex[rr] = e;
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+      acc[4 * j + 2 * rr] *= down;
+      acc[4 * j + 2 * rr + 1] *= down;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      ds[4 * j + 2 * rr] *= inv;
+      ds[4 * j + 2 * rr + 1] *= inv;
+    }
+  }
 }
 
 // P = exp(s * scale + mask - lse) where kept, else exactly 0, on one
@@ -513,17 +597,18 @@ __device__ __forceinline__ float prob(float s, bool keep, const float* mb,
 // keys); warpgroup w owns keys [k0 + 64 w, k0 + 64 w + 64). K and V stay
 // in shared memory; Q, dO, lse and delta of the (query head, query tile)
 // pairs stream through a 2-stage cp.async ring.
-template <int D, bool DROP>
+template <class E, int D, bool DROP>
 __global__ void __launch_bounds__(128 * kDkdvWG, 2 / kDkdvWG)
     flash_bwd_dkdv_wgmma(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const E* __restrict__ q, const E* __restrict__ k,
+    const E* __restrict__ v, const E* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const float* __restrict__ mask, const int* __restrict__ kv_lens,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk, int H,
+    E* __restrict__ dk, E* __restrict__ dv, int Sq, int Sk, int H,
     int Hkv, long long msb, long long msh, long long msq, long long msk,
     float scale, int causal, uint32_t seed0, Dropout drop) {
   constexpr int BN = 64 * kDkdvWG, NT = 128 * kDkdvWG;
+  constexpr bool F16 = std::is_same<E, f16>::value;
   constexpr uint32_t KV_BYTES = BN * D * 2, Q_BYTES = kBM * D * 2;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -565,6 +650,7 @@ __global__ void __launch_bounds__(128 * kDkdvWG, 2 / kDkdvWG)
   float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  int ex[2] = {-100, -100};  // f16: dk_acc's row exponents (rescale_rows)
 
   if (n_it > 0) {
     load_tile<BN, D, NT>(sK, k + kv_off, kv_stride, k0, Sk, tid);
@@ -600,13 +686,13 @@ __global__ void __launch_bounds__(128 * kDkdvWG, 2 / kDkdvWG)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(s, kmajor_desc<BN>(sK, 64 * wg, kk),
-               kmajor_desc<kBM>(qs, 0, kk), kk);
+      wgmma_ss<E>(s, kmajor_desc<BN>(sK, 64 * wg, kk),
+                  kmajor_desc<kBM>(qs, 0, kk), kk);
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(dp, kmajor_desc<BN>(sV, 64 * wg, kk),
-               kmajor_desc<kBM>(os, 0, kk), kk);
+      wgmma_ss<E>(dp, kmajor_desc<BN>(sV, 64 * wg, kk),
+                  kmajor_desc<kBM>(os, 0, kk), kk);
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs(s);
@@ -650,21 +736,25 @@ __global__ void __launch_bounds__(128 * kDkdvWG, 2 / kDkdvWG)
 #pragma unroll
         for (int rr = 0; rr < 2; ++rr) {
           const int i = 4 * j + 2 * rr + e;
+          // a masked entry (P = 0) gives exactly 0, also where dP or delta
+          // is not finite, as the plain version's select does
           if constexpr (DROP) {
             const uint32_t ki = (uint32_t)(kw + kr + 8 * rr);
             const float dm =
                 fmix32(xq ^ ki ^ drop.seed1) >= drop.thresh ? drop.dscale
                                                             : 0.f;
-            dp[i] = s[i] * (dp[i] * dm - dl);
+            dp[i] = s[i] != 0.f ? s[i] * (dp[i] * dm - dl) : 0.f;
             s[i] *= dm;
           } else {
-            dp[i] = s[i] * (dp[i] - dl);
+            dp[i] = s[i] != 0.f ? s[i] * (dp[i] - dl) : 0.f;
           }
         }
       }
     // dV += (P D)^T dO and dK += dS^T Q, each as the hi and the lo part:
     // A from registers, B the query-major dO / Q tiles read transposed
-    uint32_t ph[4][4], pl[4][4], sh[4][4], sl[4][4];
+    // (f16: dS^T rescaled per key row first; P * D is at most 1 / (1 - p))
+    if constexpr (F16) rescale_rows(dp, dk_acc, ex);
+    AFrag<E> ph[4], pl[4], sh[4], sl[4];
     to_a_frags(s, ph, pl);
     to_a_frags(dp, sh, sl);
     wgmma_fence();
@@ -687,20 +777,21 @@ __global__ void __launch_bounds__(128 * kDkdvWG, 2 / kDkdvWG)
     fence_regs(sl);
   }
 
-  bf16* dkb = dk + kv_off;
-  bf16* dvb = dv + kv_off;
+  E* dkb = dk + kv_off;
+  E* dvb = dv + kv_off;
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int ki = kw + kr + 8 * rr;
     if (ki >= Sk) continue;
+    const float f = F16 ? scale * pow2i(ex[rr]) : scale;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const long long o = ki * kv_stride + 8 * j + qc;
       const int i = 4 * j + 2 * rr;
-      *reinterpret_cast<__nv_bfloat162*>(dkb + o) =
-          __floats2bfloat162_rn(dk_acc[i] * scale, dk_acc[i + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + o) =
-          __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
+      *reinterpret_cast<uint32_t*>(dkb + o) =
+          pack2<E>(dk_acc[i] * f, dk_acc[i + 1] * f);
+      *reinterpret_cast<uint32_t*>(dvb + o) =
+          pack2<E>(dv_acc[i], dv_acc[i + 1]);
     }
   }
 }
@@ -708,16 +799,17 @@ __global__ void __launch_bounds__(128 * kDkdvWG, 2 / kDkdvWG)
 // dQ: one CTA of one warpgroup per (batch x query head, 64-row query
 // tile), launched longest causal row first. Q and dO stay in shared
 // memory; K and V tiles of 64 keys stream through a 2-stage ring.
-template <int D, bool DROP>
+template <class E, int D, bool DROP>
 __global__ void __launch_bounds__(128, 2) flash_bwd_dq_wgmma(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const E* __restrict__ q, const E* __restrict__ k,
+    const E* __restrict__ v, const E* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const float* __restrict__ mask, const int* __restrict__ kv_lens,
-    bf16* __restrict__ dq, int Sq, int Sk, int H, int Hkv, long long msb,
+    E* __restrict__ dq, int Sq, int Sk, int H, int Hkv, long long msb,
     long long msh, long long msq, long long msk, float scale, int causal,
     uint32_t seed0, Dropout drop) {
   constexpr int BN = 64, NT = 128;
+  constexpr bool F16 = std::is_same<E, f16>::value;
   constexpr uint32_t T_BYTES = 64 * D * 2;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_addr(smem_raw) + 1023) & ~1023u;
@@ -763,6 +855,7 @@ __global__ void __launch_bounds__(128, 2) flash_bwd_dq_wgmma(
   float acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  int ex[2] = {-100, -100};  // f16: acc's row exponents (rescale_rows)
 
   if (n_it > 0) {
     load_tile<kBM, D, NT>(sQ, q + q_off, q_stride, q0, Sq, tid);
@@ -786,13 +879,13 @@ __global__ void __launch_bounds__(128, 2) flash_bwd_dq_wgmma(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(s, kmajor_desc<kBM>(sQ, 0, kk), kmajor_desc<BN>(ks, 0, kk),
-               kk);
+      wgmma_ss<E>(s, kmajor_desc<kBM>(sQ, 0, kk), kmajor_desc<BN>(ks, 0, kk),
+                  kk);
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(dp, kmajor_desc<kBM>(sO, 0, kk), kmajor_desc<BN>(vs, 0, kk),
-               kk);
+      wgmma_ss<E>(dp, kmajor_desc<kBM>(sO, 0, kk), kmajor_desc<BN>(vs, 0, kk),
+                  kk);
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs(s);
@@ -836,11 +929,12 @@ __global__ void __launch_bounds__(128, 2) flash_bwd_dq_wgmma(
                         drop.seed1) >= drop.thresh
                      ? drop.dscale
                      : 0.f;
-          dp[i] = s[i] * (dp[i] * dm - dl[rr]);
+          dp[i] = s[i] != 0.f ? s[i] * (dp[i] * dm - dl[rr]) : 0.f;
         }
     // dQ += dS K as the hi and the lo part: A from registers, B the
-    // key-major K tile read transposed
-    uint32_t sh[4][4], sl[4][4];
+    // key-major K tile read transposed (f16: dS rescaled per query row)
+    if constexpr (F16) rescale_rows(dp, acc, ex);
+    AFrag<E> sh[4], sl[4];
     to_a_frags(dp, sh, sl);
     wgmma_fence();
     fence_regs(acc);
@@ -860,12 +954,12 @@ __global__ void __launch_bounds__(128, 2) flash_bwd_dq_wgmma(
   for (int rr = 0; rr < 2; ++rr) {
     const int qi = q0 + qr + 8 * rr;
     if (qi >= Sq) continue;
+    const float f = F16 ? scale * pow2i(ex[rr]) : scale;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int i = 4 * j + 2 * rr;
-      *reinterpret_cast<__nv_bfloat162*>(dq + q_off + qi * q_stride + 8 * j +
-                                         kc) =
-          __floats2bfloat162_rn(acc[i] * scale, acc[i + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dq + q_off + qi * q_stride + 8 * j + kc) =
+          pack2<E>(acc[i] * f, acc[i + 1] * f);
     }
   }
 }
@@ -931,18 +1025,18 @@ int launch_dq(const Args& a, void* dq, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// the bf16 kernels copy 16 bytes at a time and store bf16 pairs
+// the 16-bit kernels copy 16 bytes at a time and store pairs
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 bool aligned16(const Args& a) {
   return aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
          aligned16(a.dout);
 }
 
-template <int D>
+template <class E, int D>
 int launch_dkdv_wgmma(const Args& a, void* dk, void* dv, cudaStream_t stream) {
   constexpr int smem = tc::dkdv_smem_bytes<D>();
-  auto kern = a.drop.dscale > 0.f ? tc::flash_bwd_dkdv_wgmma<D, true>
-                                  : tc::flash_bwd_dkdv_wgmma<D, false>;
+  auto kern = a.drop.dscale > 0.f ? tc::flash_bwd_dkdv_wgmma<E, D, true>
+                                  : tc::flash_bwd_dkdv_wgmma<E, D, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -951,27 +1045,27 @@ int launch_dkdv_wgmma(const Args& a, void* dk, void* dv, cudaStream_t stream) {
   constexpr int BN = 64 * tc::kDkdvWG;
   dim3 grid(a.B * a.Hkv, (a.Sk + BN - 1) / BN);
   kern<<<grid, 128 * tc::kDkdvWG, smem, stream>>>(
-      static_cast<const tc::bf16*>(a.q), static_cast<const tc::bf16*>(a.k),
-      static_cast<const tc::bf16*>(a.v), static_cast<const tc::bf16*>(a.dout),
-      a.lse, a.delta, a.mask, a.kv_lens, static_cast<tc::bf16*>(dk),
-      static_cast<tc::bf16*>(dv), a.Sq, a.Sk, a.H, a.Hkv, a.msb, a.msh, a.msq,
+      static_cast<const E*>(a.q), static_cast<const E*>(a.k),
+      static_cast<const E*>(a.v), static_cast<const E*>(a.dout),
+      a.lse, a.delta, a.mask, a.kv_lens, static_cast<E*>(dk),
+      static_cast<E*>(dv), a.Sq, a.Sk, a.H, a.Hkv, a.msb, a.msh, a.msq,
       a.msk, a.scale, a.causal, a.seed0, a.drop);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <class E, int D>
 int launch_dq_wgmma(const Args& a, void* dq, cudaStream_t stream) {
   constexpr int smem = tc::dq_smem_bytes<D>();
-  auto kern = a.drop.dscale > 0.f ? tc::flash_bwd_dq_wgmma<D, true>
-                                  : tc::flash_bwd_dq_wgmma<D, false>;
+  auto kern = a.drop.dscale > 0.f ? tc::flash_bwd_dq_wgmma<E, D, true>
+                                  : tc::flash_bwd_dq_wgmma<E, D, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(a.B * a.H, (a.Sq + tc::kBM - 1) / tc::kBM);
   kern<<<grid, 128, smem, stream>>>(
-      static_cast<const tc::bf16*>(a.q), static_cast<const tc::bf16*>(a.k),
-      static_cast<const tc::bf16*>(a.v), static_cast<const tc::bf16*>(a.dout),
-      a.lse, a.delta, a.mask, a.kv_lens, static_cast<tc::bf16*>(dq), a.Sq,
+      static_cast<const E*>(a.q), static_cast<const E*>(a.k),
+      static_cast<const E*>(a.v), static_cast<const E*>(a.dout),
+      a.lse, a.delta, a.mask, a.kv_lens, static_cast<E*>(dq), a.Sq,
       a.Sk, a.H, a.Hkv, a.msb, a.msh, a.msq, a.msk, a.scale, a.causal,
       a.seed0, a.drop);
   return (int)cudaGetLastError();
@@ -984,7 +1078,7 @@ bool valid(const Args& a) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Layouts: q/dout/dq [B, Sq, H, D],
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Layouts: q/dout/dq [B, Sq, H, D],
 // k/v/dk/dv [B, Sk, Hkv, D], lse/delta [B, H, Sq] f32, all contiguous;
 // mask (may be null) is f32 addressed as mask[b*msb + h*msh + q*msq +
 // k*msk]; kv_lens (may be null) is int32 [B]. Dropout: dscale = 1 / (1 - p)
@@ -1011,11 +1105,17 @@ extern "C" int flash_bwd_dkdv(FLASH_BWD_ARGS, void* dk, void* dv,
   FLASH_BWD_PACK;
   if (dtype == 0 && head_dim == 64) return launch_dkdv<float, 64>(a, dk, dv, stream);
   if (dtype == 0 && head_dim == 128) return launch_dkdv<float, 128>(a, dk, dv, stream);
-  if (dtype == 1 && (head_dim == 64 || head_dim == 128)) {
+  if ((dtype == 1 || dtype == 2) && (head_dim == 64 || head_dim == 128)) {
     if (!aligned16(a) || !aligned16(dk) || !aligned16(dv))
       return (int)cudaErrorMisalignedAddress;
-    return head_dim == 64 ? launch_dkdv_wgmma<64>(a, dk, dv, stream)
-                          : launch_dkdv_wgmma<128>(a, dk, dv, stream);
+    return tc::with_dtype(dtype, [&](auto tag) {
+      using E = typename decltype(tag)::type;
+      if constexpr (std::is_same<E, float>::value)
+        return (int)cudaErrorInvalidValue;
+      else
+        return head_dim == 64 ? launch_dkdv_wgmma<E, 64>(a, dk, dv, stream)
+                              : launch_dkdv_wgmma<E, 128>(a, dk, dv, stream);
+    });
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1024,10 +1124,16 @@ extern "C" int flash_bwd_dq(FLASH_BWD_ARGS, void* dq, FLASH_BWD_DIMS) {
   FLASH_BWD_PACK;
   if (dtype == 0 && head_dim == 64) return launch_dq<float, 64>(a, dq, stream);
   if (dtype == 0 && head_dim == 128) return launch_dq<float, 128>(a, dq, stream);
-  if (dtype == 1 && (head_dim == 64 || head_dim == 128)) {
+  if ((dtype == 1 || dtype == 2) && (head_dim == 64 || head_dim == 128)) {
     if (!aligned16(a) || !aligned16(dq)) return (int)cudaErrorMisalignedAddress;
-    return head_dim == 64 ? launch_dq_wgmma<64>(a, dq, stream)
-                          : launch_dq_wgmma<128>(a, dq, stream);
+    return tc::with_dtype(dtype, [&](auto tag) {
+      using E = typename decltype(tag)::type;
+      if constexpr (std::is_same<E, float>::value)
+        return (int)cudaErrorInvalidValue;
+      else
+        return head_dim == 64 ? launch_dq_wgmma<E, 64>(a, dq, stream)
+                              : launch_dq_wgmma<E, 128>(a, dq, stream);
+    });
   }
   return (int)cudaErrorInvalidValue;
 }

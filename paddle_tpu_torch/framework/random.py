@@ -15,6 +15,10 @@ Two streams, both set by :func:`seed`:
 - **Generation seeds**: ``generate()`` without a ``seed`` draws the base
   of its sampling keys once on the host (:func:`generation_seed`).
 
+``get_rng_state`` / ``set_rng_state`` save and put back all three
+streams (a recomputed forward replays them: ``distributed.fleet.
+recompute``).
+
 ``seed(s)`` also calls ``torch.manual_seed(s)``, so that parameters
 initialised with torch's default generators (the layers' own
 ``reset_parameters``) are reproducible. The reference's jax keys give
@@ -72,3 +76,26 @@ def device_generator(device) -> torch.Generator:
     if g is None:
         g = _per_device[dev] = torch.Generator(device=dev).manual_seed(_seed)
     return g
+
+
+def get_rng_state() -> dict:
+    """The state of every stream of this module (not torch's default
+    generators), for :func:`set_rng_state`."""
+    return {"seed": _seed, "attn": _attn.get_state(),
+            "gen": _gen.get_state(),
+            "devices": {d: g.get_state() for d, g in _per_device.items()}}
+
+
+def set_rng_state(state: dict):
+    """Put back a :func:`get_rng_state`: each stream continues from where
+    it was then; a device generator created since starts anew from the
+    seed, as it did then."""
+    global _seed
+    _seed = state["seed"]
+    _attn.set_state(state["attn"])
+    _gen.set_state(state["gen"])
+    for dev in list(_per_device):
+        if dev not in state["devices"]:
+            del _per_device[dev]
+    for dev, st in state["devices"].items():
+        device_generator(dev).set_state(st)

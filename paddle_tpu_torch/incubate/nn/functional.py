@@ -3,12 +3,14 @@ Llama serving and BERT/ERNIE fine-tuning paths use)."""
 import torch
 import torch.nn.functional as F
 
+from ...amp import cast_inputs
 from ...kernels.norm import fused_layer_norm as _fused_layer_norm
 
 
 def swiglu(x, y=None, name=None):
     """``silu(x) * y``; with ``y`` None, ``x`` is split in half on its last
     axis. Plain tensor ops, as in the reference."""
+    x, y = cast_inputs("swiglu", x, y)
     if y is None:
         x, y = torch.chunk(x, 2, dim=-1)
     return F.silu(x) * y
@@ -19,4 +21,5 @@ def fused_layer_norm(x, scale, bias, epsilon=1e-5):
     LayerNorm kernel (the reference's own entry to ``_ln_kernel``). The
     reference's ``begin_norm_axis`` is left out: it accepts it and always
     normalizes the last axis."""
+    x, scale, bias = cast_inputs("layer_norm", x, scale, bias)
     return _fused_layer_norm(x, scale, bias, epsilon)

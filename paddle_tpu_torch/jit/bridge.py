@@ -16,7 +16,17 @@ step is built, as the reference reads it at trace time) a non-finite
 loss leaves the parameters, master weights, moments and step counters at
 their pre-step values: a device predicate the kernel reads (a select on
 the per-parameter path); the host never waits for the loss.
-``GradScaler`` (f16 loss scaling) is not ported: a bf16 step needs none.
+
+With ``scaler`` (an enabled ``amp.GradScaler``; a disabled one is
+ignored, as the reference ignores it) the step runs the reference's
+compiled dynamic loss scaling: ``backward`` of the loss times the scale
+(multiplied in f32), the gradients unscaled before the clip, found-inf
+(some unscaled gradient not finite) ORed into that same predicate, so a
+step with an overflow changes no parameter, master weight, moment or
+step counter, and the scale and its counters adapted by selects on the
+device. They stay device tensors between steps; the scaler reads them
+back only when a value is asked for, so the host never waits for
+found-inf either. The guard still looks at the unscaled loss.
 """
 from __future__ import annotations
 
@@ -24,6 +34,7 @@ from typing import Callable
 
 import torch
 
+from ..amp.grad_scaler import device_adapt, device_unscale, scaler_state_in
 from ..framework.flags import flag_value
 from ..optimizer.fused import _count_dispatch, fused_plan
 
@@ -35,15 +46,18 @@ class TrainStep:
     ``n_model_inputs`` batch entries feed the model, the rest feed
     ``loss_fn``. Inputs that are not tensors (numpy arrays) are moved to
     the device of the model's first parameter. After a call each
-    parameter's ``.grad`` holds its unclipped gradient of that step.
+    parameter's ``.grad`` holds its unclipped gradient of that step
+    (unscaled, with a ``scaler``).
     """
 
     def __init__(self, model, optimizer, loss_fn: Callable,
-                 n_model_inputs: int = 1):
+                 n_model_inputs: int = 1, scaler=None):
         self._model = model
         self._opt = optimizer
         self._loss_fn = loss_fn
         self._n_in = n_model_inputs
+        self._scaler = scaler if (scaler is not None
+                                  and scaler.is_enable()) else None
         named = [(n, p) for n, p in model.named_parameters()
                  if p.requires_grad]
         self._p = [p for _, p in named]
@@ -71,10 +85,19 @@ class TrainStep:
         outs = self._model(*batch[:self._n_in])
         outs = outs if isinstance(outs, tuple) else (outs,)
         loss = self._loss_fn(*outs, *batch[self._n_in:])
-        loss.backward()
+        if self._scaler is None:
+            loss.backward()
+        else:
+            sc_state = scaler_state_in(self._scaler, self._device)
+            (loss.float() * sc_state[0]).backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self._p]
         bad = ~torch.isfinite(loss.detach()) if self._guard else None
+        if self._scaler is not None:
+            found_inf = device_unscale(grads, sc_state[0])
+            bad = found_inf if bad is None else bad | found_inf
+            self._scaler._dev_state = device_adapt(self._scaler, found_inf,
+                                                   sc_state)
         lr = self._opt._lr_operand(self._device)
         self._plan = fused_plan(
             self._opt, self._p, grads, self._p_names, self._plan,

@@ -30,13 +30,14 @@ import math
 
 import torch
 
+from ..amp import cast_inputs
 from ..framework import random as _random
 from ._build import NEG_INF, check, count_launch, load, stream_ptr
 from ._ops import define_op
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the backward kernels' dtypes (one for q, k, v and dout)
-_BWD_DTYPES = (torch.float32, torch.bfloat16)
+_BWD_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _HEAD_DIMS = (64, 128)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _DIMS = [_I, _I, _I, _I, _I,                # B, Sq, Sk, H, Hkv
@@ -446,7 +447,10 @@ def flash_attention_bshd(query, key, value, attn_mask=None, dropout_p=0.0,
     a mask that requires grad raises (the reference sends it to XLA).
     With ``training`` and ``dropout_p`` in (0, 1), the call draws its two
     dropout seeds from ``framework.random`` (the reference's kernel-path
-    pattern); ``training=False`` runs without dropout."""
+    pattern); ``training=False`` runs without dropout. Under ``amp`` the
+    query, key and value are cast as for the reference's
+    "flash_attention" op."""
+    query, key, value = cast_inputs("flash_attention", query, key, value)
     p = float(dropout_p) if training else 0.0
     if not 0.0 <= p < 1.0:
         raise ValueError(f"dropout_p={dropout_p} is not in [0, 1)")

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..amp import cast_inputs
 from ..framework import resolve_device
 from ..generation import GenerationMixin
 from ..generation.kv_cache import (StaticCacheEntry, StaticKVCache,
@@ -199,7 +200,8 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
         out = self.gpt(input_ids, attn_mask, position_ids, past_key_values,
                        use_cache)
         h, caches = out if use_cache else (out, None)
-        logits = torch.matmul(h, self.gpt.wte.weight.t())
+        logits = torch.matmul(*cast_inputs("matmul", h,
+                                           self.gpt.wte.weight.t()))
         if use_cache:
             return logits, caches
         return logits

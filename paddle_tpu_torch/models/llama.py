@@ -23,6 +23,8 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from ..amp import cast_inputs
+from ..distributed.fleet.recompute import recompute
 from ..framework import resolve_device
 from ..generation import GenerationMixin
 from ..generation.kv_cache import (PagedCacheEntry, StaticCacheEntry,
@@ -32,6 +34,7 @@ from ..incubate.nn.functional import swiglu
 from ..kernels.norm import fused_rms_norm
 from ..kernels.rope import apply_rotary_emb, rope_freqs
 from ..nn import functional as PF
+from ..nn.layers_common import AmpLinear
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -50,6 +53,7 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     initializer_range: float = 0.02
     tie_word_embeddings: bool = False
+    use_recompute: bool = False
     tensor_parallel: bool = True
     dtype: str = "float32"
 
@@ -78,11 +82,12 @@ class LlamaRMSNorm(nn.Module):
         self.variance_epsilon = config.rms_norm_eps
 
     def forward(self, x):
-        return fused_rms_norm(x, self.weight, self.variance_epsilon)
+        x, w = cast_inputs("rms_norm", x, self.weight)
+        return fused_rms_norm(x, w, self.variance_epsilon)
 
 
 def _linear(n_in, n_out, config, device):
-    return nn.Linear(n_in, n_out, bias=False, device=device,
+    return AmpLinear(n_in, n_out, bias=False, device=device,
                      dtype=config.torch_dtype)
 
 
@@ -113,7 +118,7 @@ class LlamaAttention(nn.Module):
                                                self.head_dim)
         v = self.v_proj(hidden_states).reshape(b, s, self.num_kv_heads,
                                                self.head_dim)
-        q, k = apply_rotary_emb(q, k, cos, sin)
+        q, k = apply_rotary_emb(*cast_inputs("fused_rope", q, k, cos, sin))
 
         if isinstance(past_key_value, PagedCacheEntry):
             # paged decode: write this step's K/V into each slot's page,
@@ -193,7 +198,7 @@ class LlamaModel(nn.Module):
 
     def forward(self, input_ids, attn_mask=None, position_ids=None,
                 past_key_values=None, use_cache=False):
-        h = self.embed_tokens(input_ids)
+        h = PF.embedding(input_ids, self.embed_tokens.weight)
         s = input_ids.shape[1]
         if position_ids is not None:
             # per-row positions (left-padded prompts): gather trig rows
@@ -209,7 +214,12 @@ class LlamaModel(nn.Module):
         caches = []
         for i, layer in enumerate(self.layers):
             pkv = past_key_values[i] if past_key_values is not None else None
-            h, cache = layer(h, cos, sin, attn_mask, position_ids, pkv)
+            if self.config.use_recompute and self.training and pkv is None:
+                # activation recompute: the layer runs again in backward
+                h, cache = recompute(layer, h, cos, sin, attn_mask,
+                                     position_ids, None)
+            else:
+                h, cache = layer(h, cos, sin, attn_mask, position_ids, pkv)
             caches.append(cache)
         h = self.norm(h)
         if use_cache:
@@ -255,7 +265,8 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
                          use_cache)
         h, caches = out if use_cache else (out, None)
         if self.lm_head is None:
-            logits = torch.matmul(h, self.llama.embed_tokens.weight.t())
+            logits = torch.matmul(*cast_inputs(
+                "matmul", h, self.llama.embed_tokens.weight.t()))
         else:
             logits = self.lm_head(h)
         if use_cache:

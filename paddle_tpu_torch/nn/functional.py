@@ -1,10 +1,17 @@
 """Counterpart of ``paddle_tpu/nn/functional.py`` (only what the Llama
-serving and pretraining and the BERT/ERNIE fine-tuning paths use)."""
+serving and pretraining and the BERT/ERNIE fine-tuning paths use).
+
+Where the reference names an op for its dispatcher (``linear``,
+``embedding``, ``dropout``, ``gelu``, ``relu``, ``layer_norm``,
+``cross_entropy``), the function casts its inputs as ``amp`` says for
+that name (``amp.cast_inputs``); ``tanh`` is unnamed there and never
+cast."""
 import math
 
 import torch
 import torch.nn.functional as F
 
+from ..amp import cast_inputs
 from ..framework import random as _random
 from ..kernels.attention import flash_attention_bshd
 from ..kernels.norm import fused_layer_norm
@@ -15,18 +22,21 @@ def tanh(x, name=None):
 
 
 def relu(x, name=None):
+    (x,) = cast_inputs("relu", x)
     return torch.relu(x)
 
 
 def gelu(x, approximate=False, name=None):
     """GELU, exact (erf) by default as ``jax.nn.gelu(approximate=False)``;
     ``approximate=True`` is the tanh form."""
+    (x,) = cast_inputs("gelu", x)
     return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
 def linear(x, weight, bias=None, name=None):
     """Paddle semantics: ``weight`` is [in_features, out_features] (the
     transpose of ``torch.nn.functional.linear``'s), ``y = x @ W + b``."""
+    x, weight, bias = cast_inputs("linear", x, weight, bias)
     y = torch.matmul(x, weight)
     return y if bias is None else y + bias
 
@@ -38,6 +48,7 @@ def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     if sparse:
         raise NotImplementedError("embedding: sparse gradients are not "
                                   "ported")
+    (weight,) = cast_inputs("embedding", weight)
     out = F.embedding(x, weight)
     if padding_idx is not None:
         out = torch.where((x == padding_idx)[..., None], 0.0, out)
@@ -64,6 +75,7 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
         return x
     if p == 1.0:
         return torch.zeros_like(x)
+    (x,) = cast_inputs("dropout", x)   # only where the reference names it
     shape = list(x.shape)
     if axis is not None:
         axes = axis if isinstance(axis, (list, tuple)) else [axis]
@@ -87,6 +99,7 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05,
     if isinstance(normalized_shape, int):
         normalized_shape = [normalized_shape]
     normalized_shape = [int(s) for s in normalized_shape]
+    x, weight, bias = cast_inputs("layer_norm", x, weight, bias)
     lead = x.dim() - len(normalized_shape)
     if lead < 0 or list(x.shape[lead:]) != normalized_shape:
         raise ValueError(f"layer_norm: normalized_shape {normalized_shape} "
@@ -129,6 +142,7 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
             "weight or label smoothing, are ported")
     if label.dtype.is_floating_point:
         raise TypeError("cross_entropy: hard labels must be integers")
+    (input,) = cast_inputs("cross_entropy", input)
     if label.dim() == input.dim():
         label = label.squeeze(-1)
     n = input.shape[-1]

@@ -4,8 +4,10 @@
 
 Parameter names are the reference's (``weight``, ``bias``), so
 ``convert.load_reference_state_dict`` moves weights across by name.
-``Linear`` is a ``torch.nn.Linear``: it stores its weight as [out, in]
-where Paddle stores [in, out], and ``convert`` transposes it. Default
+``Linear`` is a ``torch.nn.Linear`` (through ``AmpLinear``, whose
+forward casts its inputs as ``amp`` says for "linear"): it stores its
+weight as [out, in] where Paddle stores [in, out], and ``convert``
+transposes it. Default
 initialisation follows the reference: Xavier-uniform linear weights and
 zero biases, N(0, 1) embeddings (zero at ``padding_idx``), LayerNorm
 weight one and bias zero, drawn from torch's default generators (see
@@ -16,12 +18,23 @@ from __future__ import annotations
 import numbers
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..amp import cast_inputs
 from . import functional as PF
 
 
-class Linear(nn.Linear):
+class AmpLinear(nn.Linear):
+    """``torch.nn.Linear`` (same parameters, same state dict) whose
+    input, weight and bias are cast as ``amp`` says for the reference's
+    "linear" op."""
+
+    def forward(self, x):
+        return F.linear(*cast_inputs("linear", x, self.weight, self.bias))
+
+
+class Linear(AmpLinear):
     """``y = x W + b`` with a bias, as the reference's default."""
 
     def __init__(self, in_features, out_features, device=None, dtype=None):

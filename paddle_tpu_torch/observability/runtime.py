@@ -192,7 +192,12 @@ def device_memory_stats(device=None) -> dict:
         # some module-level objects answer with a deprecation warning
         if issubclass(type(o), torch.Tensor) and o.device.type == "cpu":
             st = o.untyped_storage()
-            key = st.data_ptr()
+            try:
+                key = st.data_ptr()
+            except RuntimeError:
+                # a fake or functional tensor (a torch.export trace can
+                # leave some alive) owns no memory
+                continue
             if key and key not in seen:
                 seen.add(key)
                 live += st.nbytes()

@@ -253,7 +253,8 @@ def cuda():
 # kernel vs plain version on the card: f32 sums in another order; bf16
 # outputs at most one bf16 ulp apart (rtol), atol for small outputs
 CARD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
-            torch.bfloat16: dict(atol=5e-3, rtol=2e-2)}
+            torch.bfloat16: dict(atol=5e-3, rtol=2e-2),
+            torch.float16: dict(atol=1e-3, rtol=4e-3)}
 
 CARD_CASES = dict(CASES, **{
     "bert_tail_100": (3, 100, 100, 4, 4, 64, False, "additive", 0.1),
@@ -262,7 +263,8 @@ CARD_CASES = dict(CASES, **{
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("case", list(CARD_CASES))
 def test_dropout_kernels_match_plain(cuda, dtype, case):
     q, k, v, g, causal, mask, p = _case(case, seed=5, cases=CARD_CASES)

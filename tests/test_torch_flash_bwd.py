@@ -6,14 +6,19 @@ versions (forward with ``lse``, then ``flash_attention_bwd_plain``); its
 gradients are held against ``jax.vjp`` of the reference's
 ``_gen_reference`` and against the reference's own backward through its
 Pallas kernels in interpret mode (``_flash_bwd_pallas``), on the same
-seeded numpy inputs. f32 tolerance: atol = rtol = 1e-5.
+seeded numpy inputs. f32 tolerance: atol = rtol = 1e-5. In f16 the
+plain versions are held to the Pallas backward on the same f16 inputs
+(``TOL16``).
 
 The ``cuda`` cases hold the two backward kernels of ``csrc/flash_bwd.cu``
-against ``flash_attention_bwd_plain`` on the card (printing each bf16
-case's largest error), check that two bf16 launches agree bit for bit,
-and skip without a card; run them with ``python -m pytest --noconftest
+against ``flash_attention_bwd_plain`` on the card in f32, bf16 and f16
+(printing each case's largest error), check that two bf16 or f16
+launches agree bit for bit, hold the f16 kernels to the plain version
+with dO multiplied by a loss scale, and skip without a card; run them with ``python -m pytest --noconftest
 -m cuda -s tests/test_torch_flash_bwd.py``.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +32,15 @@ from paddle_tpu_torch.kernels.attention import (flash_attention_bshd,
 from paddle_tpu_torch.kernels.norm import fused_rms_norm
 
 TOL = dict(atol=1e-5, rtol=1e-5)
+# kernel vs plain version on the card in f16: the sums of one f32
+# arithmetic taken in another order, rounded to f16 (an ulp is 2^-10
+# relative); atol for outputs near 0 (chip_smoke.py's TOL["float16"])
+TOL16 = dict(atol=1e-3, rtol=4e-3)
+# port vs reference in f16 on the CPU: each side also rounds its forward's
+# O to f16 (delta = rowsum(dO * O) follows it) and its f16 outputs, so an
+# output near 0 whose terms reach the tensor's largest |value| can differ
+# by an f16 ulp of that value or two: atol is 2^-9 of the largest |value|
+REF16_RTOL, REF16_ATOL_OF_MAX = 4e-3, 2.0 ** -9
 NEG = -1e30
 
 # name: (B, Sq, Sk, H, Hkv, D, causal, mask kind, kv_lens)
@@ -137,6 +151,33 @@ def test_flash_grads_match_reference(case, oracle):
         np.testing.assert_allclose(a, w, err_msg=name, **TOL)
 
 
+@pytest.mark.parametrize("case", list(CASES))
+def test_flash_grads_f16_match_pallas_interpret(case):
+    """f16 q, k, v and dO: the plain forward and backward (what a CPU
+    tensor takes) against the reference's Pallas backward in interpret
+    mode on the same f16 inputs; both compute in f32 and round their
+    outputs to f16."""
+    q, k, v, g, causal, mask, lens = (
+        a.astype(np.float16) if isinstance(a, np.ndarray)
+        and a.dtype == np.float32 and a.ndim == 4 and i != 5 else a
+        for i, a in enumerate(_case(case)))
+    got = [t for t in _port_grads(q.astype(np.float32),
+                                  k.astype(np.float32), v.astype(np.float32),
+                                  g.astype(np.float32), causal, mask, lens,
+                                  dtype=torch.float16)]
+    want = _ref_grads(q, k, v, g, causal, mask, lens, "pallas_interpret")
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.float16 and w.dtype == np.float16, name
+        a = a.float().numpy()
+        assert np.isfinite(a).all(), f"{name} not finite"
+        if case == "no_valid_key":
+            a, w = a[:1], w[:1]           # as in the f32 test above
+        w = w.astype(np.float32)
+        np.testing.assert_allclose(
+            a, w, err_msg=name, rtol=REF16_RTOL,
+            atol=REF16_ATOL_OF_MAX * float(np.abs(w).max()))
+
+
 def test_flash_grads_without_grad_stay_forward_only():
     """No input requiring grad (or no_grad): the forward-only path, with
     the same output as the differentiable one."""
@@ -204,7 +245,8 @@ def cuda():
 # kernel vs plain version on the card: f32 sums in another order; bf16
 # outputs at most one bf16 ulp apart (rtol), atol for small outputs
 CARD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
-            torch.bfloat16: dict(atol=5e-3, rtol=2e-2)}
+            torch.bfloat16: dict(atol=5e-3, rtol=2e-2),
+            torch.float16: TOL16}
 
 CARD_CASES = dict(CASES, **{
     "tail_100_d128": (2, 100, 100, 4, 1, 128, True, None, None),
@@ -216,7 +258,8 @@ CARD_CASES = dict(CASES, **{
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("case", list(CARD_CASES))
 def test_flash_bwd_kernels_match_plain(cuda, dtype, case):
     q, k, v, g, causal, mask, lens = _case(case, seed=5, cases=CARD_CASES)
@@ -260,6 +303,94 @@ def test_flash_bwd_bf16_launches_are_bitwise_repeatable(cuda, case):
     torch.cuda.synchronize()
     for name, a, b in zip(("dq", "dk", "dv"), first, again):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["train_512", "gqa4_d128_kvlens"])
+def test_flash_bwd_f16_launches_are_bitwise_repeatable(cuda, case):
+    """As the bf16 test above, for the f16 instances (their per-row
+    rescale of dS changes nothing in the owner-per-tile argument)."""
+    q, k, v, g, causal, mask, lens = _case(case, seed=7, cases=CARD_CASES)
+    q, k, v, g = (torch.from_numpy(a).to(cuda, torch.float16)
+                  for a in (q, k, v, g))
+    kl = None if lens is None else torch.from_numpy(lens).to(cuda)
+    sc = q.shape[-1] ** -0.5
+    out, lse = flash_attention_kernel(q, k, v, sc, causal, None, kl)
+    first = flash_attention_bwd_kernel(q, k, v, out, lse, g, sc, causal,
+                                       None, kl)
+    again = flash_attention_bwd_kernel(q, k, v, out, lse, g, sc, causal,
+                                       None, kl)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, again):
+        assert torch.equal(a, b), name
+
+
+def loss_scale_for(q, k, v, out, lse, g, sc, causal, kl, target=2.0 ** 14):
+    """The power of two s that puts the plain backward's largest |dK|
+    for ``s * g`` in (target / 2, target]: the backward is linear in dO."""
+    dk = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                   out.float(), lse, g.float(), sc, causal,
+                                   None, kl)[1]
+    return 2.0 ** math.floor(math.log2(target / float(dk.abs().max())))
+
+
+def max_ds(q, k, v, out, lse, g, sc, causal, kl):
+    """The plain backward's largest |dS| = |P * (dP - delta)| over the
+    kept entries."""
+    from paddle_tpu_torch.kernels.attention import _keep, _repeat_kv, bwd_delta
+    h = q.shape[2]
+    kf, vf = _repeat_kv(k, h).float(), _repeat_kv(v, h).float()
+    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * sc
+                  - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", g.float(), vf)
+    ds = p * (dp - bwd_delta(out, g)[..., None])
+    keep = _keep(q.shape[1], k.shape[1], causal, kl, q.device)
+    if keep is not None:
+        ds = torch.where(keep, ds, 0.0)
+    return float(ds.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", ["2^15", "dk_near_2^14", "ds_past_f16"])
+@pytest.mark.parametrize("case", ["train_512", "gqa4_d128_kvlens",
+                                  "tail_causal_gqa"])
+def test_flash_bwd_f16_loss_scaled(cuda, case, scale):
+    """dO of a loss gradient's size (N(0, 2^-8)) multiplied by a loss
+    scale: GradScaler's default 2^15, the power of two that brings the
+    largest |dK| near 2^14, or the largest that keeps dO finite in f16,
+    where the largest |dS| passes f16's 65504 (dK and dQ may overflow
+    there too: only the plain version's finite values are compared). The kernels' outputs are finite wherever the plain
+    version's are, and within the f16 tolerance of it once both are
+    divided by the scale (the gradient the scaler hands the optimizer)."""
+    q, k, v, g, causal, mask, lens = _case(case, seed=8, cases=CARD_CASES)
+    if scale == "ds_past_f16":
+        v = v * 8.0       # dP = dO . V eight times larger: dS passes 65504
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.float16) for a in (q, k, v))
+    g = torch.from_numpy(g).to(cuda) * 2.0 ** -8
+    kl = None if lens is None else torch.from_numpy(lens).to(cuda)
+    sc = q.shape[-1] ** -0.5
+    out, lse = flash_attention_kernel(q, k, v, sc, causal, None, kl)
+    if scale == "2^15":
+        s = 2.0 ** 15
+    elif scale == "dk_near_2^14":
+        s = loss_scale_for(q, k, v, out, lse, g, sc, causal, kl)
+    else:        # the largest scale that keeps dO finite in f16
+        s = 2.0 ** math.floor(math.log2(65504 / float(g.abs().max())))
+    gs = (g * s).half()
+    if scale == "ds_past_f16":
+        assert max_ds(q, k, v, out, lse, gs, sc, causal, kl) > 65504
+    got = flash_attention_bwd_kernel(q, k, v, out, lse, gs, sc, causal,
+                                     None, kl)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, gs, sc, causal,
+                                     None, kl)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        fin = torch.isfinite(w)
+        assert torch.isfinite(a[fin]).all(), name
+        print(f"{case} x{s:g} {name}: largest |value| "
+              f"{float(w[fin].float().abs().max()):.3e}")
+        torch.testing.assert_close(a[fin].float() / s, w[fin].float() / s,
+                                   msg=name, **TOL16)
 
 
 @pytest.mark.cuda
