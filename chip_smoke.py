@@ -60,9 +60,23 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    Then GPT-2 XL's two shapes (``gpt_kernel_rows``): LayerNorm at
    x[1200, 1600] bf16 (the 4 x 300-token prefill) and the flash forward
    at the beam route's static decode shape, q[16, 1, 25, 64] against k,
-   v[16, 332, 25, 64] bf16 under a bool padding mask, each against its
-   plain version, a second launch bitwise the first, timed beside its
-   bound, its plain version and ``F.layer_norm`` / SDPA.
+   v[16, 332, 25, 64] bf16 under a bool padding mask (and at the greedy
+   route's, q[4, 1, 25, 64]), each against its plain version, a second
+   launch bitwise the first, timed beside its bound, its plain version
+   and ``F.layer_norm`` / SDPA. A forward with one query row in one
+   16-bit dtype and no dropout takes the one-row decode route (the split
+   decode walk over the cache window its mask keeps), every other launch
+   the kernel it took before (``attention.fwd_route``; each timed launch
+   is held to its route through ``kernels.route_counts``); the route's
+   cases (``flash_decode_cases``: bf16 and f16, query-head groups 1, 4
+   and 8 at head_dim 64 and 128, Sk 1 / 65 / 332 / 544, the static
+   route's padding window, random additive masks per head and
+   broadcast, kv_lens, causality and rows with no kept key) are held to
+   the plain version, lse exactly -1e30 on rows with no kept key, a
+   second launch bitwise. bf16 and f16 q over f32 pages take the split
+   walk in both decode kernels (``split_f32_pages``: contexts 557 / 300 /
+   97 / 1 and up to 1024, GQA 8), each within ``pair_tol`` of the plain
+   version and bitwise on a second launch.
 3. Full-width f32 checks: a 2-layer model at Llama-2-7B widths gives the
    same prefill logits on the card (kernels) as on the CPU (plain
    versions) and the same greedy tokens through the predictor; the
@@ -131,7 +145,8 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    prompts 2-6 through ragged decode: every request ok, the pool's bytes
    those of f32 pages, and flash_fwd (the suffix prefill), paged_decode,
    paged_varq and ragged_decode launched with bf16 q over f32 pages
-   (``kernels.dtype_launch_counts``).
+   (``kernels.dtype_launch_counts``), every paged_decode and
+   ragged_decode launch through the split walk.
    Then the inference API on the same model (``infer_phase``): (a)
    ``LLMPredictor`` (max_batch_size 8) over 12 prompts of 17-300 tokens
    (two micro-batches, buckets 512 and 128), 32 new tokens greedy and
@@ -142,7 +157,9 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    gets its tokens, and the ``rms_norm``, ``flash_fwd`` and
    ``categorical_rows`` launches of the eager call and of each replay
    equal the route's count (per call and step 2L + 1, L and, sampled,
-   1); then beam search (4 beams, length penalty 0.6) on 4 of the
+   1), the first call's forwards taking both the tensor-core kernel
+   (the prefill) and the one-row decode route (the steps); then beam
+   search (4 beams, length penalty 0.6) on 4 of the
    prompts (17-300 tokens, 32 new) the same way; prints decode tokens/s
    eager and replayed, prefill ms, capture seconds and peak memory;
    (b) ``SpeculativePredictor`` (gamma 4) with a
@@ -354,6 +371,26 @@ def device_kernel_ms(torch, prof):
     return out
 
 
+def device_idle(torch, fn, card, label, top=6):
+    """fn() traced on the device alone (no host events, so the trace is
+    cheap to read): logs wall and device busy ms and the kernels with the
+    most device time; returns the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = device_kernel_ms(torch, prof)
+    busy = sum(ms for ms, _ in kern.values())
+    log(f"{label} on {card}: wall {wall:.1f} ms (traced), device busy "
+        f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}; top device time:")
+    for name, (ms, n) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:top]:
+        log(f"  {ms:9.2f} ms {100 * ms / busy:5.1f}% x{n:<6d} {name[:90]}")
+    return 1 - busy / wall
+
+
 def time_ms(torch, fn, sets, iters=24, warmup=4):
     """Times of one call of fn(*sets[i % len(sets)]), in ms. The input
     sets together exceed the 50 MB L2, so every call reads its inputs
@@ -476,7 +513,11 @@ def flash_phase(torch, dev, g):
         k = torch.randn(b, s, hkv, d, device=dev, generator=g).to(dt)
         v = torch.randn(b, s, hkv, d, device=dev, generator=g).to(dt)
         sc = d ** -0.5
-        out, lse = A.flash_attention_kernel(q, k, v, sc, True, mask)
+        (out, lse), routes = launched_routes(
+            lambda: A.flash_attention_kernel(q, k, v, sc, True, mask))
+        want_route = "fma" if dtype == "float32" else "wgmma"
+        check(routes == {("flash_fwd", want_route): 1},
+              f"flash_fwd {dtype} Sq={s}: launched {routes}")
         want = A.flash_attention_plain(q, k, v, sc, True, mask)
         check(bool(torch.isfinite(lse).all()), "flash lse non-finite")
         err = compare(torch, f"flash_fwd causal+mask {dtype} "
@@ -516,6 +557,7 @@ def flash_phase(torch, dev, g):
                 f"{t32:.4f} ms (median device time)")
     main["extra"] = {**flash_train_row(torch, dev, g),
                      **flash_decode_row(torch, dev, g)}
+    flash_decode_cases(torch, dev, g)
     # suffix prefill: Sq < Sk, causality carried by the mask alone
     sq, sk = 128, 384
     q = torch.randn(1, sq, 32, d, device=dev, generator=g).bfloat16()
@@ -1265,7 +1307,50 @@ def dtype_phase(torch, dev, g):
         rows["paged_varq", qd, kd] = varq_dtype_row(
             torch, dev, g, sets, tables, page, qt, pair_tol(qd, kd),
             ops_type(qd, kd))
+    split_f32_pages(torch, dev, g, tables, page)
     return rows
+
+
+def split_f32_pages(torch, dev, g, tables, page):
+    """Both decode kernels with bf16 and f16 q over f32 pages (the split
+    walk with f32 rows in its ring) at q[4, 32, 128] with contexts 557 /
+    300 / 97 / 1 and 1024 / 1000 / 700 / 333, and at a GQA group of 8
+    (Hkv = 4): each launch takes the split route, within ``pair_tol`` of
+    the plain version, a second launch bitwise the first."""
+    from paddle_tpu_torch.kernels import paged_attention as P
+    b, d = 4, 128
+    num_pages = tables.numel() + 1
+    for qd in ("bfloat16", "float16"):
+        for h, hkv, ctx in ((32, 32, [557, 300, 97, 1]),
+                            (32, 32, [1024, 1000, 700, 333]),
+                            (32, 4, [557, 300, 97, 1])):
+            q = torch.randn(b, h, d, device=dev, generator=g).to(
+                getattr(torch, qd))
+            kp, vp = (torch.randn(num_pages, page, hkv, d, device=dev,
+                                  generator=g) for _ in range(2))
+            lens = torch.tensor(ctx, dtype=torch.int32, device=dev)
+            meta = _builder_meta(torch, dev, tables, lens, page)
+            sc = d ** -0.5
+            for name, fn, plain in (
+                    ("paged_decode",
+                     lambda: P.paged_attention_kernel(q, kp, vp, tables,
+                                                      lens, sc),
+                     lambda: P.paged_attention_plain(q, kp, vp, tables,
+                                                     lens, sc)),
+                    ("ragged_decode",
+                     lambda: P.paged_attention_ragged_kernel(q, kp, vp, lens,
+                                                             meta, sc),
+                     lambda: P.paged_attention_ragged_plain(q, kp, vp, lens,
+                                                            meta, sc))):
+                label = (f"{name} q[{b}, {h}, {d}] {qd}, pages float32, "
+                         f"Hkv={hkv} ctx={ctx}")
+                out, routes = launched_routes(fn)
+                check(routes == {(name, "split"): 1},
+                      f"{label}: launched {routes}, not the split walk")
+                compare(torch, label, out, plain(), None,
+                        tol=pair_tol(qd, "float32"))
+                check(torch.equal(out, fn()),
+                      f"{label}: a second launch differs from the first")
 
 
 def varq_dtype_row(torch, dev, g, sets, tables, page, qt, tol, op_type):
@@ -2187,10 +2272,10 @@ def serve_run(torch, dev, model, cfg, prompts, max_new, card, label,
     kernel in ``required`` must have launched. Returns {"outs", "counts",
     "stats", "cb", "tok_s": decode tokens/s outside monolithic prefill,
     "ttft_p50_ms", "peak_gib", "dtype_counts": launches per (kernel, q
-    dtype, K/V dtype)}."""
+    dtype, K/V dtype), "routes": launches per (kernel, device kernel)}."""
     from paddle_tpu_torch.inference import ContinuousBatchingPredictor
     from paddle_tpu_torch.kernels import (dtype_launch_counts, launch_counts,
-                                          reset_launch_counts)
+                                          reset_launch_counts, route_counts)
     if cb is None:
         cb = ContinuousBatchingPredictor(model, device=dev, **GEOM, **kw)
     prefill_s = time_prefills(cb)
@@ -2203,6 +2288,7 @@ def serve_run(torch, dev, model, cfg, prompts, max_new, card, label,
     wall = time.perf_counter() - t0
     counts = dict(launch_counts)
     dtype_counts = dict(dtype_launch_counts)
+    routes = dict(route_counts)
     untime_prefills(cb)
     peak = torch.cuda.max_memory_allocated(dev)
     log(f"serve {label}: status {cb.last_status}; stats {cb.stats}")
@@ -2229,7 +2315,7 @@ def serve_run(torch, dev, model, cfg, prompts, max_new, card, label,
         f"{cb.stats['decode_steps']} steps); peak memory "
         f"{peak / 2**30:.2f} GiB")
     return {"outs": outs, "counts": counts, "dtype_counts": dtype_counts,
-            "stats": dict(cb.stats),
+            "routes": routes, "stats": dict(cb.stats),
             "sampling_stats": dict(cb.sampling_stats), "cb": cb,
             "tok_s": dec_tok / dec_s,
             "ttft_p50_ms": statistics.median(ttft) * 1e3,
@@ -2338,7 +2424,8 @@ def serve_kv_run(torch, dev, serve, card):
     and paged_varq launched with (bf16 q, f32 pages); then run 1's
     prompts 2-6 (the shared prefix's extension among them) through ragged
     decode over f32 pages, 16 new tokens each. Returns the two
-    runs' per-instance launch counts and the counted run's numbers."""
+    runs' per-instance launch counts and the counted run's numbers, with
+    a traced pass's idle share ("idle")."""
     model, cfg = serve["model"], serve["model"].config
     prompts = serve["prompts"] + serve["reps"]
     max_new = serve["max_new"] + [64, 64]
@@ -2364,8 +2451,21 @@ def serve_kv_run(torch, dev, serve, card):
           f"the KV pool holds {have} bytes, not {want_bytes} of f32 pages")
     check(all(n > 0 for n in got.values()),
           f"a kernel of run KV never ran on bf16 q over f32 pages: {got}")
+    routes = res["routes"]
+    check(routes.get(("paged_decode", "split"), 0) == got["paged_decode"]
+          and ("paged_decode", "fma") not in routes,
+          f"run KV's paged_decode launches did not all take the split walk: "
+          f"{routes}")
     check(st["mixed_steps"] > 0 and st["spec_proposed"] > 0,
           f"run KV ran no mixed step or drafted nothing: {st}")
+    # the idle share says how much of a decode kernel's gain an eager
+    # run can show (a device-only trace: a host-op trace of 32 eager
+    # layers costs about a minute to read)
+    if cb.prefix_cache is not None:
+        cb.prefix_cache.clear(cb.pool)
+    res["idle"] = device_idle(
+        torch, lambda: cb.generate(prompts[:4], max_new_tokens=32), card,
+        "serve run KV (4 requests x 32 tokens)")
     del cb
     free_card(torch)
     rag = serve_run(torch, dev, model, cfg, serve["prompts"][1:6], [16] * 5,
@@ -2374,6 +2474,12 @@ def serve_kv_run(torch, dev, serve, card):
     rag.pop("cb")
     n = rag["dtype_counts"].get(("ragged_decode", "bfloat16", "float32"), 0)
     check(n > 0, "ragged_decode never ran on bf16 q over f32 pages")
+    check(rag["routes"].get(("ragged_decode", "split"), 0) == n
+          and ("ragged_decode", "fma") not in rag["routes"],
+          f"run KV's ragged_decode launches did not all take the split "
+          f"walk: {rag['routes']}")
+    log(f"serve run KV: device kernels {res['routes']} (block table), "
+        f"{rag['routes']} (ragged)")
     log(f"serve run KV took {time.perf_counter() - t0:.1f} s")
     free_card(torch)
     res["dtype_counts"] = {k: res["dtype_counts"].get(k, 0)
@@ -2944,52 +3050,189 @@ INFER_CHILD_TIMEOUT = 300
 INFER_RUNS = 10
 
 
+def static_decode_case(torch, dev, g, b, h, d, lens, s, dtype, sets=2,
+                       new=INFER_NEW):
+    """Inputs of the forward at one of the static route's decode steps:
+    ``sets`` draws of q[b, 1, h, d] against the whole cache k, v[b, s +
+    new, h, d] (an s-token bucket and ``new`` new tokens) of ``dtype``,
+    under the
+    route's bool padding mask: row r keeps its prompt's ``lens[r]`` keys
+    (after the left padding) and its first 8 decode slots. Returns (sets,
+    the bool mask [b, 1, 1, s + new], its additive f32 form, the bytes
+    bound's bytes, the kept (query head, key) pairs)."""
+    from paddle_tpu_torch.kernels import attention as A
+    ml = s + new
+    lens = torch.tensor(lens, device=dev)
+    j = torch.arange(ml, device=dev)[None, :]
+    keep = ((j >= s - lens[:, None]) & (j < s + 8))[:, None, None, :]
+    madd = A.additive_mask(keep, b, h, 1, ml)
+    dt = getattr(torch, dtype)
+    draws = [tuple(torch.randn(b, n, h, d, device=dev, generator=g).to(dt)
+                   for n in (1, ml, ml)) for _ in range(sets)]
+    pairs = int(keep.sum()) * h
+    # q and out, K and V only at the key slots the mask keeps (a masked
+    # key adds nothing to the output, so the function need not read it),
+    # the mask and lse
+    isz = draws[0][0].element_size()
+    nbytes = (2 * b * h * d + 2 * d * pairs) * isz + madd.numel() * 4 \
+        + b * h * 4
+    return draws, keep, madd, nbytes, pairs
+
+
+def launched_routes(fn):
+    """fn() and the device kernels its launches took: {(kernel, route):
+    n} from ``kernels.route_counts``."""
+    from paddle_tpu_torch.kernels import route_counts
+    before = dict(route_counts)
+    out = fn()
+    return out, {k: n - before.get(k, 0) for k, n in route_counts.items()
+                 if n != before.get(k, 0)}
+
+
+def static_decode_row(torch, dev, g, label, b, h, d, lens, s, dtype):
+    """The forward at one static-route decode shape (``static_decode_case``):
+    against its plain version through the one-row decode route, a second
+    launch bitwise the first, then timed beside its plain version, SDPA
+    with the same bool mask and the bytes bound. Returns a kernels-line
+    row (``t`` the kernel's times)."""
+    from paddle_tpu_torch.kernels import attention as A
+    F = torch.nn.functional
+    # enough draws that their caches (2 b (s + new) h d elements each)
+    # rotate past the 50 MB L2
+    per = 2 * b * (s + INFER_NEW) * h * d * 2
+    sets, keep, madd, nbytes, pairs = static_decode_case(
+        torch, dev, g, b, h, d, lens, s, dtype,
+        sets=max(2, -(-64_000_000 // per)))
+    sc = d ** -0.5
+    ml = s + INFER_NEW
+    shape = (f"q[{b}, 1, {h}, {d}] k, v[{b}, {ml}, {h}, {d}] {dtype}, bool "
+             "padding mask")
+    (out, lse), routes = launched_routes(
+        lambda: A.flash_attention_kernel(*sets[0], sc, False, madd))
+    check(routes == {("flash_fwd", "decode"): 1},
+          f"flash_fwd {label}: launched {routes}, not the decode route")
+    err = compare(torch, f"flash_fwd {label} {shape}", out,
+                  A.flash_attention_plain(*sets[0], sc, False, madd), dtype)
+    again = A.flash_attention_kernel(*sets[0], sc, False, madd)
+    check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+          f"flash_fwd {label} {dtype}: a second launch differs")
+    t = time_ms(torch, lambda q, k, v: A.flash_attention_kernel(
+        q, k, v, sc, False, madd), sets)
+    plain = time_ms(torch, lambda q, k, v: A.flash_attention_plain(
+        q, k, v, sc, False, madd), sets)["median"]
+    lib = time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=keep, scale=sc), sets)["median"]
+    b_ms, by = bound(nbytes, 4 * d * pairs, dtype)
+    log(f"  flash_fwd {label}, {shape}: decode route median "
+        f"{t['median']:.4f} ms (CUPTI {t['cupti']:.4f}, back to back "
+        f"{t['queue']:.4f}), bound {b_ms:.4f} ms ({by}), plain "
+        f"{plain:.4f} ms, SDPA (same mask) {lib:.4f} ms")
+    return dict(max_abs_err=err, t=t, plain_ms=plain, library_ms=lib,
+                bound_ms=b_ms, bound_by=by, shape=shape, route="decode")
+
+
 def flash_decode_row(torch, dev, g, dtype="bfloat16"):
     """The forward at the static route's decode shape: one query row per
     sequence, q[8, 1, 32, 128] (bf16, or ``dtype``) against the whole
     cache k, v[8, 544, 32, 128] (a 512-token bucket and 32 new tokens)
     under a bool padding mask (each row's prompt and its first 8 decode
-    slots valid), against its plain version, a second launch bitwise the
-    first, timed beside SDPA with the same mask and the bytes bound."""
+    slots valid) (``static_decode_row``), as ``decode_*`` keys."""
+    m = static_decode_row(torch, dev, g, "static decode", 8, 32, 128,
+                          INFER_LENS[0], 512, dtype)
+    return {"decode_shape": m["shape"], "decode_ms": m["t"]["median"],
+            "decode_cupti_ms": m["t"]["cupti"],
+            "decode_queue_ms": m["t"]["queue"],
+            "decode_bound_ms": m["bound_ms"],
+            "decode_plain_ms": m["plain_ms"],
+            "decode_library_ms": m["library_ms"],
+            "decode_max_abs_err": m["max_abs_err"], "decode_route": "decode"}
+
+
+# the one-row decode route's cases (``flash_decode_cases``): (H, Hkv, D,
+# Sk, mask, kv_lens, causal). Masks: "window" the static route's bool
+# padding window [B, 1, 1, Sk], "head" a random additive mask per head
+# [B, H, 1, Sk] with -1e30 entries, "broadcast" one random additive row
+# for every sequence and head [1, 1, 1, Sk]; the last row of a "window"
+# case keeps no key. kv_lens ends the rows at Sk, mid-range, 1 and 0.
+DECODE_CASES = (
+    (32, 32, 128, 544, "window", False, False),
+    (25, 25, 64, 332, "window", False, False),
+    (32, 8, 128, 332, "head", False, False),
+    (32, 4, 64, 65, "head", False, False),
+    (16, 4, 64, 544, "broadcast", False, False),
+    (32, 4, 128, 65, None, True, False),
+    (8, 8, 128, 544, "window", True, False),
+    (32, 32, 128, 1, None, False, False),
+    (16, 2, 64, 65, "window", False, True),
+    (16, 16, 64, 1, "head", False, False),
+)
+
+
+def flash_decode_cases(torch, dev, g):
+    """The forward's one-row decode route (q[4, 1, H, D] in bf16 and f16)
+    at ``DECODE_CASES``: each launch takes the decode route, the output
+    within ``TOL`` of the plain version on the rows with a kept key, lse
+    within f32's there and exactly -1e30 on rows with none, and a second
+    launch bitwise the first (out and lse)."""
     from paddle_tpu_torch.kernels import attention as A
-    F = torch.nn.functional
-    b, h, d, s = 8, 32, 128, 512
-    ml = s + INFER_NEW
-    lens = torch.tensor(INFER_LENS[0], device=dev)
-    j = torch.arange(ml, device=dev)[None, :]
-    keep = ((j >= s - lens[:, None]) & (j < s + 8))[:, None, None, :]
-    madd = A.additive_mask(keep, b, h, 1, ml)
-    dt = getattr(torch, dtype)
-    sets = [tuple(torch.randn(b, n, h, d, device=dev, generator=g).to(dt)
-                  for n in (1, ml, ml)) for _ in range(2)]
-    sc = d ** -0.5
-    shape = (f"q[{b}, 1, {h}, {d}] k, v[{b}, {ml}, {h}, {d}] {dtype}, bool "
-             "padding mask")
-    out, lse = A.flash_attention_kernel(*sets[0], sc, False, madd)
-    err = compare(torch, f"flash_fwd static decode {shape}", out,
-                  A.flash_attention_plain(*sets[0], sc, False, madd),
-                  dtype)
-    check(torch.equal(out, A.flash_attention_kernel(*sets[0], sc, False,
-                                                    madd)[0]),
-          f"flash_fwd static decode {dtype}: a second launch differs")
-    t = time_ms(torch, lambda q, k, v: A.flash_attention_kernel(
-        q, k, v, sc, False, madd), sets)
-    lib = time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        attn_mask=keep, scale=sc), sets)["median"]
-    pairs = int(keep.sum()) * h
-    isz = out.element_size()
-    # K and V only at the key slots the mask keeps: a masked key adds
-    # nothing to the output, so the function need not read it
-    nbytes = (2 * out.numel() + 2 * d * pairs) * isz \
-        + madd.numel() * 4 + lse.numel() * 4
-    b_ms, by = bound(nbytes, 4 * d * pairs, dtype)
-    log(f"  flash_fwd at the static decode shape, {shape}: kernel median "
-        f"{t['median']:.4f} ms (CUPTI {t['cupti']:.4f}), bound {b_ms:.4f} "
-        f"ms ({by}), SDPA (same mask) {lib:.4f} ms")
-    return {"decode_shape": shape, "decode_ms": t["median"],
-            "decode_cupti_ms": t["cupti"], "decode_bound_ms": b_ms,
-            "decode_library_ms": lib, "decode_max_abs_err": err}
+    b = 4
+    for dtype in ("bfloat16", "float16"):
+        dt = getattr(torch, dtype)
+        for h, hkv, d, sk, kind, with_lens, causal in DECODE_CASES:
+            q = torch.randn(b, 1, h, d, device=dev, generator=g).to(dt)
+            k, v = (torch.randn(b, sk, hkv, d, device=dev,
+                                generator=g).to(dt) for _ in range(2))
+            j = torch.arange(sk, device=dev)
+            mask = None
+            if kind == "window":
+                lo = torch.tensor([0, sk // 3, sk // 2, sk], device=dev)
+                hi = torch.tensor([sk, sk - sk // 4, sk // 2 + 8, sk],
+                                  device=dev)
+                keep = (j[None] >= lo[:, None]) & (j[None] < hi[:, None])
+                mask = A.additive_mask(keep[:, None, None], b, h, 1, sk)
+            elif kind in ("head", "broadcast"):
+                rows = (b, h) if kind == "head" else (1, 1)
+                r = torch.randn(*rows, 1, sk, device=dev, generator=g)
+                drop = torch.rand(*rows, 1, sk, device=dev, generator=g)
+                mask = torch.where(drop < 0.3, NEG, 2 * r)
+            lens = torch.tensor([sk, max(sk // 2, 1), 1, 0],
+                                dtype=torch.int32, device=dev) \
+                if with_lens else None
+            sc = d ** -0.5
+            label = (f"flash_fwd decode {dtype} q[{b}, 1, {h}, {d}] Hkv={hkv}"
+                     f" Sk={sk} mask={kind} kv_lens={with_lens} "
+                     f"causal={causal}")
+            (out, lse), routes = launched_routes(
+                lambda: A.flash_attention_kernel(q, k, v, sc, causal, mask,
+                                                 lens))
+            check(routes == {("flash_fwd", "decode"): 1},
+                  f"{label}: launched {routes}")
+            want, want_lse = A.flash_attention_plain(
+                q, k, v, sc, causal, mask, lens, return_lse=True)
+            # rows (sequence, head) with a kept key: the plain scores
+            s = torch.zeros(b, h, 1, sk, device=dev)
+            if mask is not None:
+                s = s + mask
+            kl = A._keep(1, sk, causal, lens, dev)
+            if kl is not None:
+                s = torch.where(kl, s, NEG)
+            valid = (s > NEG / 2).any(-1)[..., 0]          # [B, H]
+            vr = valid[:, None, :]                         # [B, 1, H]
+            compare(torch, label, out, want, dtype, rows=vr)
+            check(bool(torch.isfinite(out.float()).all()),
+                  f"{label}: non-finite output")
+            lse1, want1 = lse[..., 0], want_lse[..., 0]    # [B, H]
+            check(torch.allclose(lse1[valid], want1[valid],
+                                 **TOL["float32"]),
+                  f"{label}: lse differs from the plain version's")
+            check(bool((lse1[~valid] == NEG).all()),
+                  f"{label}: lse on a row with no kept key is not -1e30")
+            again = A.flash_attention_kernel(q, k, v, sc, causal, mask, lens)
+            check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+                  f"{label}: a second launch differs from the first")
+    log(f"  flash_fwd one-row decode route: {2 * len(DECODE_CASES)} cases "
+        "within tolerance, bitwise on a second launch")
 
 
 def _sync_time(torch, fn):
@@ -3030,21 +3273,35 @@ class eager_static_route:
         GenerationMixin._dispatch = self._real
 
 
-def graph_run(torch, fn, label, want=None, reps=3):
+# the device kernels (``kernels.route_counts``) of each ``graph_run``
+# label's first call, eager run and captures
+FIRST_CALL_ROUTES = {}
+# the static route's forwards: the prefill's rows take the tensor-core
+# kernel, every decode step's one row the decode route
+STATIC_ROUTES = (("flash_fwd", "wgmma"), ("flash_fwd", "decode"))
+
+
+def graph_run(torch, fn, label, want=None, reps=3, routes=()):
     """``fn()`` on static-route signatures this process has not seen: the
     first call runs the loop eagerly and captures each signature's CUDA
     graph; ``reps`` replays each equal it bit for bit and launch what it
     launched; then ``reps`` eager runs of the same loop without graphs
     (``eager_static_route``) equal it too. With ``want``, the first
-    call's launches must equal it. Returns (output, median eager s,
-    median replay s, capture s, the first call's launches)."""
+    call's launches must equal it; every (kernel, route) of ``routes``
+    must have launched in it. Returns (output, median eager s, median
+    replay s, capture s, the first call's launches)."""
     from paddle_tpu_torch.generation import graph_stats
-    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.kernels import (launch_counts, reset_launch_counts,
+                                          route_counts)
     cap0, n0 = graph_stats["capture_s"], graph_stats["captures"]
     reset_launch_counts()
     out = fn()
     torch.cuda.synchronize()
     counts = dict(launch_counts)
+    FIRST_CALL_ROUTES[label] = dict(route_counts)
+    check(all(route_counts[r] > 0 for r in routes),
+          f"{label}: the first call's device kernels {dict(route_counts)} "
+          f"miss one of {routes}")
     cap = graph_stats["capture_s"] - cap0
     check(graph_stats["captures"] > n0,
           f"{label}: the first call captured no graph")
@@ -3116,7 +3373,7 @@ def llm_phase(torch, dev, seed, card, model):
     torch.cuda.reset_peak_memory_stats()
     outs, full_e, full_r, cap, counts = graph_run(
         torch, lambda: pred.generate(prompts, INFER_NEW),
-        "LLMPredictor greedy", want)
+        "LLMPredictor greedy", want, routes=STATIC_ROUTES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check(len(outs) == len(prompts)
           and all(len(o) == INFER_NEW for o in outs),
@@ -3139,7 +3396,7 @@ def llm_phase(torch, dev, seed, card, model):
     want_s = dict(want, categorical_rows=calls * INFER_NEW)
     souts, s_e, s_r, _, _ = graph_run(
         torch, lambda: pred.generate(prompts, INFER_NEW, **sampled),
-        "sampled LLMPredictor", want_s)
+        "sampled LLMPredictor", want_s, routes=STATIC_ROUTES)
     check(all(len(o) == INFER_NEW for o in souts),
           f"sampled LLMPredictor: lengths {[len(o) for o in souts]}")
     n_tok = len(prompts) * INFER_NEW
@@ -3167,7 +3424,7 @@ def llm_phase(torch, dev, seed, card, model):
     (btok, bsc), b_e, b_r, bcap, _ = graph_run(
         torch, lambda: model.generate(ids, attention_mask=mask,
                                       max_new_tokens=INFER_NEW, **beam),
-        "beam search", want_b)
+        "beam search", want_b, routes=STATIC_ROUTES)
     bpeak = torch.cuda.max_memory_allocated() / 2 ** 30
     check(tuple(btok.shape) == (4, INFER_NEW)
           and bool(torch.isfinite(bsc).all()),
@@ -3512,10 +3769,10 @@ def gpt_kernel_rows(torch, dev, g):
     route's static decode shape, q[16, 1, 25, 64] (4 sequences x 4
     beams, 25 heads of 64) against k, v[16, 332, 25, 64] bf16 under a
     bool padding mask (each row's prompt and its first 8 decode slots
-    valid). Each against its plain version, a second launch bitwise the
-    first, timed beside its bound, its plain version and ``F.layer_norm``
-    / SDPA with the same mask. Returns {name: row}."""
-    from paddle_tpu_torch.kernels import attention as A
+    valid), and at the greedy route's, q[4, 1, 25, 64] against 332 keys.
+    Each against its plain version, a second launch bitwise the first,
+    timed beside its bound, its plain version and ``F.layer_norm`` /
+    SDPA with the same mask. Returns {name: row}."""
     from paddle_tpu_torch.kernels import norm
     F = torch.nn.functional
     rows = {}
@@ -3533,32 +3790,21 @@ def gpt_kernel_rows(torch, dev, g):
         TOL["bfloat16"], 2 * x.numel() * 2 + 2 * d * 2, 8 * x.numel(),
         "float32", shape,
         lib=lambda a, c, e: F.layer_norm(a, (d,), c, e, 1e-5))
-    bk, h, hd, s = len(GPT_LENS) * GPT_BEAMS, 25, 64, max(GPT_LENS)
-    ml = s + GPT_NEW
-    lens = torch.tensor(GPT_LENS, device=dev).repeat_interleave(GPT_BEAMS)
-    j = torch.arange(ml, device=dev)[None, :]
-    keep = ((j >= s - lens[:, None]) & (j < s + 8))[:, None, None, :]
-    madd = A.additive_mask(keep, bk, h, 1, ml)
-    sets = [tuple(torch.randn(bk, m, h, hd, device=dev, generator=g).bfloat16()
-                  for m in (1, ml, ml)) for _ in range(3)]
-    sc = hd ** -0.5
-    shape = (f"q[{bk}, 1, {h}, {hd}] k, v[{bk}, {ml}, {h}, {hd}] bfloat16, "
-             "bool padding mask")
-    # q and out, K and V only at the key slots the mask keeps (a masked
-    # key adds nothing to the output), the mask and lse
-    pairs = int(keep.sum()) * h
-    nbytes = (2 * sets[0][0].numel() + 2 * hd * pairs) * 2 \
-        + madd.numel() * 4 + bk * h * 4
-    rows["flash_fwd"] = dtype_row(
-        torch, f"flash_fwd GPT-2 XL static decode {shape}",
-        lambda q, k, v: A.flash_attention_kernel(q, k, v, sc, False,
-                                                 madd)[0],
-        lambda q, k, v: A.flash_attention_plain(q, k, v, sc, False, madd),
-        sets, TOL["bfloat16"], nbytes, 4 * hd * pairs,
-        "bfloat16", shape,
-        lib=lambda q, k, v: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=keep, scale=sc))
+    # the flash forward at the beam route's decode shape (4 sequences x 4
+    # beams) and, as greedy_* keys, at the greedy route's (4 rows)
+    lens = [n for n in GPT_LENS for _ in range(GPT_BEAMS)]
+    rows["flash_fwd"] = static_decode_row(
+        torch, dev, g, "GPT-2 XL beam decode", len(lens), 25, 64, lens,
+        max(GPT_LENS), "bfloat16")
+    m = static_decode_row(torch, dev, g, "GPT-2 XL greedy decode",
+                          len(GPT_LENS), 25, 64, GPT_LENS, max(GPT_LENS),
+                          "bfloat16")
+    rows["flash_fwd"]["extra"] = {
+        "greedy_shape": m["shape"], "greedy_ms": m["t"]["median"],
+        "greedy_cupti_ms": m["t"]["cupti"], "greedy_queue_ms": m["t"]["queue"],
+        "greedy_bound_ms": m["bound_ms"], "greedy_plain_ms": m["plain_ms"],
+        "greedy_library_ms": m["library_ms"],
+        "greedy_max_abs_err": m["max_abs_err"]}
     return rows
 
 
@@ -3604,7 +3850,7 @@ def gpt_phase(torch, dev, seed, card, layers=48):
         (toks, scores), t_e, t_r, cap, counts = graph_run(
             torch, lambda: model.generate(ids, attention_mask=mask,
                                           max_new_tokens=GPT_NEW, **kw),
-            f"GPT {name}", want)
+            f"GPT {name}", want, routes=STATIC_ROUTES)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         check(tuple(toks.shape) == (b, GPT_NEW)
               and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
@@ -4121,6 +4367,7 @@ def aot_child(torch, dev, spec_path, card):
     def keep(r):
         r.pop("cb", None)
         r.pop("dtype_counts", None)     # tuple keys: not JSON
+        r.pop("routes", None)
         runs.append(r)
 
     # run 1 on the block-table bundle, then a bucket miss there
@@ -5463,6 +5710,9 @@ def main(argv=None):
     infer = infer_phase(torch, dev, args.seed, card, serve["model"])
     mains["flash_fwd"]["extra"]["decode_launches"] = \
         infer["counts"]["flash_fwd"]
+    mains["flash_fwd"]["extra"]["decode_route_launches"] = \
+        FIRST_CALL_ROUTES["LLMPredictor greedy"].get(("flash_fwd", "decode"),
+                                                     0)
     log(f"inference-API phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     router_phase(torch, dev, args.seed, card, serve["model"])
@@ -5598,7 +5848,15 @@ def main(argv=None):
                      "bound_by": m["bound_by"],
                      "library_ms": m["library_ms"], "shape": m["shape"],
                      "cupti_ms": m["t"]["cupti"],
-                     "queue_ms": m["t"]["queue"]})
+                     "queue_ms": m["t"]["queue"], **m.get("extra", {})})
+        if name == "flash_fwd":
+            rows[-1].update(
+                kernel_route="decode",
+                decode_route_launches=FIRST_CALL_ROUTES["GPT beam"].get(
+                    ("flash_fwd", "decode"), 0),
+                greedy_launches=gpt["greedy"]["counts"][name],
+                greedy_decode_route_launches=FIRST_CALL_ROUTES[
+                    "GPT greedy"].get(("flash_fwd", "decode"), 0))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

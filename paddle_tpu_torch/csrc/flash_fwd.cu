@@ -73,6 +73,30 @@
 // 12.8): 230 at D = 128 (243 with dropout, 254 with dropout and a staged
 // mask), 180 at D = 64 (at most 222), no spills.
 //
+// One query row (bf16 or f16, Sq = 1, no dropout; `decode_route`): the
+// decode walk of decode_split.cuh over the contiguous cache
+// (`dec::DenseKeys`). Every decode step of generate()'s static route
+// launches this shape, q[B, 1, H, D] against k, v[B, Sk, Hkv, D] under
+// the bool padding mask of the static cache. It is bound by the bytes of
+// K and V at the kept keys (a few operations a byte), not by the tensor
+// cores: the `wgmma` kernel above ran it as a 64-row tile with one live
+// row, one CTA per (sequence, query head) walking all Sk keys in series,
+// the masked tail included: 0.0365 ms at GPT-2 XL's beam shape
+// q[16, 1, 25, 64], 332 keys (7.4x its bytes bound, 1.24x SDPA's 0.0294)
+// and 0.0390 ms at Llama-2-7B's q[8, 1, 32, 128], 544 keys (6.9x; H100
+// 80GB HBM3, 700 W). The route serves a KV head's whole query-head group
+// with one walk (K/V read once per KV head), walks only the window of
+// keys that some head of the group keeps (found from the mask, kv_lens
+// and causality at the start of the walk), splits it over a cluster of
+// up to 4 CTAs and combines the ranks in a fixed order; P stays f32
+// (the plain version rounds the normalised P to V's dtype: the two
+// differ by that one rounding, inside the card tolerance). lse is
+// m + log(l) of the combined state; a row whose group keeps no key gets
+// lse -1e30 exactly and a zero output. Measured (H100 80GB HBM3, 700 W;
+// tools/kernel_variants.py): 0.0198 ms at both decode shapes above, below
+// SDPA (0.0422 and 0.0303), 3.5x and 4x their bounds; the variants that
+// lost are listed in decode_split.cuh.
+//
 // f16 (dtype 2): the same kernel with f16 operands (`wgmma` m64nNk16
 // .f32.f16.f16) and P as ONE f16 (kFwdSplitPF16 off). One f16 rounds the
 // unnormalised exp(s - m) where the plain version rounds the normalised
@@ -109,6 +133,7 @@
 
 #include <type_traits>
 
+#include "decode_split.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -686,14 +711,29 @@ namespace {
 // the 16-bit kernels copy 16 bytes at a time and store element pairs
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
+// the largest query-head group of the one-row decode route (its shared
+// memory holds the group's queries and accumulators)
+constexpr int kDecodeMaxGroup = 64;
+
+// the launches the one-row decode route takes (kernels/attention.py
+// `fwd_route` mirrors this): q, k and v of one 16-bit dtype, one query
+// row, no dropout, a query-head group of at most kDecodeMaxGroup
+bool decode_route(int dtype, int kv_dtype, int Sq, int H, int Hkv,
+                  float dscale) {
+  return dtype == kv_dtype && dtype != 0 && Sq == 1 && !(dscale > 0.f) &&
+         H / Hkv <= kDecodeMaxGroup;
+}
+
 }  // namespace
 
 // dtype: q's and the output's element type, kv_dtype: K's and V's (0 =
 // float32, 1 = bfloat16, 2 = float16). One 16-bit dtype throughout runs the
-// wgmma kernel; float32, or q of one dtype with K/V of another, the FMA
-// kernel (mixed dtypes without dropout). Layouts: q/out [B, Sq, H, D],
-// k/v [B, Sk, Hkv, D], lse [B, H, Sq], all contiguous; mask (may be
-// null) is f32 addressed as mask[b*msb + h*msh + q*msq + k*msk];
+// one-row decode route where `decode_route` says so (Sq = 1, no dropout)
+// and the wgmma kernel otherwise; float32, or q of one dtype with K/V of
+// another, the FMA kernel (mixed dtypes without dropout). Layouts: q/out
+// [B, Sq, H, D], k/v [B, Sk, Hkv, D], lse [B, H, Sq], all contiguous;
+// mask (may be null) is f32 addressed as mask[b*msb + h*msh + q*msq +
+// k*msk];
 // kv_lens (may be null) is int32 [B]. Dropout: dscale = 1 / (1 - p) as
 // f32, 0 for none; thresh = min(2^32 - 1, round(p * 2^32)); seed0 and
 // seed1 the call's two int32 seeds. Returns cudaGetLastError().
@@ -717,6 +757,23 @@ extern "C" int flash_fwd(int dtype, int kv_dtype, int head_dim,
         if (!aligned16(q) || !aligned16(k) || !aligned16(v) ||
             !aligned16(out))
           return (int)cudaErrorMisalignedAddress;
+        if (decode_route(dtype, kv_dtype, Sq, H, Hkv, dscale)) {
+          auto dec_run = head_dim == 64
+                             ? dec::launch_split<TQ, TQ, 64, dec::DenseKeys>
+                             : dec::launch_split<TQ, TQ, 128, dec::DenseKeys>;
+          dec::DenseKeys keys = {};
+          keys.mask = mask;
+          keys.msb = msb;
+          keys.msh = msh;
+          keys.msk = msk;
+          keys.Sk = Sk;
+          keys.causal = causal;
+          keys.lse = lse;
+          keys.H = H;
+          return dec_run(q, k, v, keys, kv_lens, out, B, H, Hkv,
+                         dec::split_ranks(Sk, (long long)B * Hkv), scale,
+                         stream);
+        }
         auto run = head_dim == 64 ? tc::launch_wgmma<TQ, 64>
                                   : tc::launch_wgmma<TQ, 128>;
         return run(q, k, v, mask, kv_lens, out, lse, B, Sq, Sk, H, Hkv, msb,

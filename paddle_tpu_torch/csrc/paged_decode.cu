@@ -29,17 +29,26 @@
 //
 // f16 (dtype 2): the same split walk with f16 pages and queries.
 //
-// q and pages of different dtypes (q in the model's dtype, pages in the
-// KV pool's `kv_dtype`; each of f32 / bf16 / f16): `paged_decode_kernel`
-// below with q read as TQ and pages as TKV, converted to f32 on load and
-// the output in TQ. The plain version rounds the NORMALISED P to V's dtype
-// before P.V; an online softmax could only round exp(s - m) of the
-// running max, a different rounding (2^-9 relative in bf16) that moves a
-// greedy token where two logits are close. So with 16-bit pages the walk
-// runs twice: the first pass takes each query head's max and sum, the
-// second recomputes the scores and accumulates P = TKV(exp(s - m) / l)
-// times V, the plain version's arithmetic (f32 pages need no rounding:
-// one online pass).
+// bf16 or f16 q over f32 pages (a 16-bit model over an f32 KV pool,
+// `kv_dtype="float32"`): the same split walk with the ring holding f32
+// rows. f32 V needs no rounding of P, so the one online pass is
+// the plain version's arithmetic up to summation order. Before, this pair
+// ran `paged_decode_kernel` below, one unsplit block per (KV head,
+// sequence): 0.1085 ms at q[4, 32, 128] bf16, ctx 557 / 300 / 97 / 1,
+// against a bytes bound of 0.0094 (H100 80GB HBM3, 700 W); the split
+// walk's time and the ring shapes measured for f32 rows are in
+// decode_split.cuh.
+//
+// The other pairs of different dtypes (f32 q over 16-bit pages, and bf16
+// with f16): `paged_decode_kernel` below with q read as TQ and pages as
+// TKV, converted to f32 on load and the output in TQ. The plain version
+// rounds the NORMALISED P to V's dtype before P.V; an online softmax
+// could only round exp(s - m) of the running max, a different rounding
+// (2^-9 relative in bf16) that moves a greedy token where two logits are
+// close. So with 16-bit pages the walk runs twice: the first pass takes
+// each query head's max and sum, the second recomputes the scores and
+// accumulates P = TKV(exp(s - m) / l) times V, the plain version's
+// arithmetic.
 //
 // f32 (dtype 0): `paged_decode_kernel`, one block per (KV head,
 // sequence) walking the sequence in 64-token chunks with an online
@@ -66,7 +75,8 @@ size_t smem_floats(int G) {
 }
 
 // TQ is q's and the output's element type, TKV the pages' (with 16-bit
-// pages two passes: P normalised, then rounded to TKV before P.V)
+// pages two passes: P normalised, then rounded to TKV before P.V; the
+// f32 instance serves f32 q)
 template <typename TQ, typename TKV, int D>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
@@ -211,11 +221,11 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
 }  // namespace
 
 // dtype: q's and the output's element type, kv_dtype: the pages' (0 =
-// float32, 1 = bfloat16, 2 = float16). One 16-bit dtype runs the
-// cluster-split walk; float32, or q and pages of different dtypes, the
-// FMA kernel. Layouts (contiguous): q/out [B, H, D], k_pages/v_pages
-// [num_pages, page, Hkv, D] (16-byte aligned), tables int32 [B, pps], lens
-// int32 [B]. Returns cudaGetLastError().
+// float32, 1 = bfloat16, 2 = float16). A 16-bit q over pages of its
+// dtype or of f32 runs the cluster-split walk (`dec::splits`); f32 q, or
+// bf16 with f16, the FMA kernel. Layouts (contiguous): q/out [B, H, D],
+// k_pages/v_pages [num_pages, page, Hkv, D] (16-byte aligned), tables
+// int32 [B, pps], lens int32 [B]. Returns cudaGetLastError().
 extern "C" int paged_decode(int dtype, int kv_dtype, int head_dim,
                             const void* q, const void* k_pages,
                             const void* v_pages, const int* tables,
@@ -229,14 +239,15 @@ extern "C" int paged_decode(int dtype, int kv_dtype, int head_dim,
     return tc::with_dtype(kv_dtype, [&](auto tkv) {
       using TQ = typename decltype(tq)::type;
       using TKV = typename decltype(tkv)::type;
-      if constexpr (std::is_same<TQ, TKV>::value &&
-                    !std::is_same<TQ, float>::value) {
-        auto run = head_dim == 64 ? dec::launch_split<TQ, 64, dec::TablePages>
-                                  : dec::launch_split<TQ, 128, dec::TablePages>;
+      if constexpr (dec::splits<TQ, TKV>()) {
+        auto run = head_dim == 64
+                       ? dec::launch_split<TQ, TKV, 64, dec::TablePages>
+                       : dec::launch_split<TQ, TKV, 128, dec::TablePages>;
         return run(q, k_pages, v_pages,
                    dec::TablePages{tables, pps, page, num_pages, nullptr},
                    lens, out, B, H, Hkv,
-                   dec::split_ranks((long long)pps * page), scale, stream);
+                   dec::split_ranks((long long)pps * page, (long long)B * Hkv),
+                   scale, stream);
       } else {
         auto run = head_dim == 64 ? launch<TQ, TKV, 64> : launch<TQ, TKV, 128>;
         return run(q, k_pages, v_pages, tables, lens, out, B, H, Hkv, page,

@@ -261,7 +261,7 @@ class GraphProgram:
             finally:
                 if gc_was:
                     gc.enable()
-                self.launches, self.dtype_launches = \
+                self.launches, self.dtype_launches, self.route_launches = \
                     _build.launch_counts_since(before)
                 _build.restore_launch_counts(before)
         self._out = out
@@ -276,5 +276,6 @@ class GraphProgram:
         for dst, src in zip(self._inputs, leaves):
             dst.copy_(src, non_blocking=True)
         self.graph.replay()
-        _build.add_launch_counts((self.launches, self.dtype_launches))
+        _build.add_launch_counts((self.launches, self.dtype_launches,
+                                  self.route_launches))
         return _rebuild(self._out, (t.clone() for t in self._outputs))

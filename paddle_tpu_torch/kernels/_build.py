@@ -20,7 +20,8 @@ not 0.
 Also here: the shared ``NEG_INF`` constant and the per-kernel launch
 counters that show a run really went through the kernels, with beside
 them the launches per (kernel, q dtype, KV dtype) instance
-(``dtype_launch_counts``: which instance a run went through). A
+(``dtype_launch_counts``: which instance a run went through) and per
+(kernel, device kernel) (``route_counts``). A
 captured CUDA graph runs no Python when it is replayed, so the AOT
 engine records the counters' change over each capture
 (``launch_counts_since``), puts them back (a capture launches nothing)
@@ -84,47 +85,68 @@ def count_launch(name: str, dtype=None, kv_dtype=None) -> None:
                                  _dtype_name(kv))] += 1
 
 
+# launches per (kernel, route) where a kernel's C entry picks one of
+# several device kernels by shape and dtype (``flash_fwd``: "decode",
+# "wgmma" or "fma"; ``paged_decode`` / ``ragged_decode``: "split" or
+# "fma"): which device kernel ran. The launch gates read
+# ``launch_counts``
+route_counts = collections.Counter()
+
+
+def count_route(name: str, route: str) -> None:
+    with _count_lock:
+        route_counts[(name, route)] += 1
+
+
 def reset_launch_counts() -> None:
     with _count_lock:
         for k in launch_counts:
             launch_counts[k] = 0
         dtype_launch_counts.clear()
+        route_counts.clear()
 
 
 def snapshot_launch_counts() -> tuple:
-    """Copies of both counters, for ``launch_counts_since`` and
+    """Copies of the three counters, for ``launch_counts_since`` and
     ``restore_launch_counts``."""
     with _count_lock:
-        return dict(launch_counts), dict(dtype_launch_counts)
+        return (dict(launch_counts), dict(dtype_launch_counts),
+                dict(route_counts))
 
 
 def launch_counts_since(before: tuple) -> tuple:
     """The launches counted since ``before`` (a
     ``snapshot_launch_counts()``): ({kernel: n}, {(kernel, q dtype, KV
-    dtype): n}), zeros left out."""
-    names, dts = before
+    dtype): n}, {(kernel, route): n}), zeros left out."""
+    names, dts, routes = before
     with _count_lock:
         return ({k: n - names[k] for k, n in launch_counts.items()
                  if n != names[k]},
                 {k: n - dts.get(k, 0)
                  for k, n in dtype_launch_counts.items()
-                 if n != dts.get(k, 0)})
+                 if n != dts.get(k, 0)},
+                {k: n - routes.get(k, 0) for k, n in route_counts.items()
+                 if n != routes.get(k, 0)})
 
 
 def restore_launch_counts(before: tuple) -> None:
     with _count_lock:
         launch_counts.update(before[0])
-        dtype_launch_counts.clear()
-        dtype_launch_counts.update(before[1])
+        for counter, saved in ((dtype_launch_counts, before[1]),
+                               (route_counts, before[2])):
+            counter.clear()
+            counter.update(saved)
 
 
 def add_launch_counts(delta: tuple) -> None:
-    """Add a ``launch_counts_since`` result to both counters."""
+    """Add a ``launch_counts_since`` result to the three counters."""
     with _count_lock:
         for k, n in delta[0].items():
             launch_counts[k] += n
-        for k, n in delta[1].items():
-            dtype_launch_counts[k] += n
+        for counter, more in ((dtype_launch_counts, delta[1]),
+                              (route_counts, delta[2])):
+            for k, n in more.items():
+                counter[k] += n
 
 
 # nvcc runs of this process (a warm start from a bundle runs none)

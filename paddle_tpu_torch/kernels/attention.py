@@ -32,7 +32,8 @@ import torch
 
 from ..amp import cast_inputs
 from ..framework import random as _random
-from ._build import NEG_INF, check, count_launch, load, stream_ptr
+from ._build import (NEG_INF, check, count_launch, count_route, load,
+                     stream_ptr)
 from ._ops import define_op
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -274,6 +275,26 @@ def _check(what, q, k, v, mask, kv_lens, dtypes=tuple(_DTYPE_CODE),
     return b, sq, h, d, sk, hkv
 
 
+# the largest query-head group of the forward's one-row decode route
+# (``kDecodeMaxGroup`` in csrc/flash_fwd.cu)
+DECODE_MAX_GROUP = 64
+
+
+def fwd_route(q_dtype, kv_dtype, sq, h, hkv, dropout_p=0.0) -> str:
+    """The device kernel ``flash_fwd``'s C entry launches for these
+    dtypes and shapes (``decode_route`` and the dispatch in
+    csrc/flash_fwd.cu): "decode", the one-row decode walk (q, k and v of
+    one 16-bit dtype, Sq = 1, no dropout, H / Hkv at most
+    ``DECODE_MAX_GROUP``); "wgmma", the tensor-core kernel (one 16-bit
+    dtype otherwise); "fma", the FMA kernel (f32, or q and K/V of two
+    dtypes)."""
+    if q_dtype != kv_dtype or q_dtype == torch.float32:
+        return "fma"
+    if sq == 1 and not dropout_p and h // hkv <= DECODE_MAX_GROUP:
+        return "decode"
+    return "wgmma"
+
+
 def _mask_args(mask, sk):
     """(pointer, batch, head, query and key strides) of an additive mask
     broadcast over [B, H, Sq, Sk]; a size-1 axis gets stride 0."""
@@ -295,8 +316,9 @@ def flash_attention_kernel(q, k, v, scale, causal=False, mask=None,
     v of one dtype, q of that dtype or, without dropout, of another; D 64
     or 128, H % Hkv == 0); mask additive f32 [Bm, Hm, Sq|1, Sk|1] or
     None; kv_lens int32 [B] or None; ``dropout_p`` in [0, 1) with
-    ``seeds`` (two int32) when it is not 0. Returns (out [B, Sq, H, D] in
-    q's dtype, lse [B, H, Sq] f32)."""
+    ``seeds`` (two int32) when it is not 0. The device kernel follows
+    from the dtypes and shapes alone (``fwd_route``). Returns (out [B,
+    Sq, H, D] in q's dtype, lse [B, H, Sq] f32)."""
     b, sq, h, d, sk, hkv = _check("flash_fwd", q, k, v, mask, kv_lens)
     if dropout_p and k.dtype != q.dtype:
         raise TypeError("flash_fwd: dropout takes q, k and v of one dtype")
@@ -313,6 +335,8 @@ def flash_attention_kernel(q, k, v, scale, causal=False, mask=None,
         stream_ptr(q.device))
     check(err, "flash_fwd")
     count_launch("flash_fwd", q.dtype, k.dtype)
+    count_route("flash_fwd", fwd_route(q.dtype, k.dtype, sq, h, hkv,
+                                       dropout_p))
     return out, lse
 
 

@@ -17,8 +17,10 @@ Ragged metadata travels as one int32 ``[6, G]`` tensor whose rows are
 Each kernel takes q and pages in float32, bfloat16 or float16, the pages
 in the KV pool's dtype and q in the model's, which may differ (the C
 entries take both dtype codes): one 16-bit dtype runs the tensor-core or
-cluster-split instance, f32 or two dtypes the FMA instance. The plain
-versions compute in f32 whatever the dtypes and return q's dtype.
+cluster-split instance, and so does a 16-bit q over f32 pages in the
+decode kernels (``decode_route``); f32 or two dtypes otherwise the FMA
+instance. The plain versions compute in f32 whatever the dtypes and
+return q's dtype.
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ import math
 import numpy as np
 import torch
 
-from ._build import NEG_INF, check, count_launch, load, stream_ptr
+from ._build import (NEG_INF, check, count_launch, count_route, load,
+                     stream_ptr)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (64, 128)
@@ -330,6 +333,17 @@ def paged_attention_ragged_varq_plain(q, k_pages, v_pages, kv_lens, q_lens,
 
 # ------------------------------------------------------ kernel wrappers --
 
+def decode_route(q_dtype, kv_dtype) -> str:
+    """The device kernel the decode entries (``paged_decode``,
+    ``ragged_decode``) launch for these dtypes (``dec::splits`` in
+    csrc/decode_split.cuh): "split", the cluster-split walk (a 16-bit q
+    over pages of its own dtype or of float32); "fma", the FMA kernels
+    (f32 q, or bf16 with f16)."""
+    if q_dtype != torch.float32 and kv_dtype in (q_dtype, torch.float32):
+        return "split"
+    return "fma"
+
+
 def _check_paged(name, q, k_pages, v_pages, q_dims, ints):
     """Shared argument checks of the paged kernels: q has ``q_dims``
     dims ending in [H, D]; pages [P, page, Hkv, D], K and V of one dtype
@@ -394,6 +408,7 @@ def paged_attention_kernel(q, k_pages, v_pages, block_tables, context_lens,
         float(scale), stream_ptr(q.device))
     check(err, "paged_decode")
     count_launch("paged_decode", q.dtype, k_pages.dtype)
+    count_route("paged_decode", decode_route(q.dtype, k_pages.dtype))
     return out
 
 
@@ -401,11 +416,11 @@ def paged_attention_ragged_kernel(q, k_pages, v_pages, context_lens, meta,
                                   scale):
     """Launch ``csrc/ragged_decode.cu`` on CUDA tensors: q [B, H, D],
     pages [P, page, Hkv, D], context_lens int32 [B] (post-write lengths),
-    meta int32 [6, G]. q and pages of one 16-bit dtype: one launch, each
-    (sequence, KV head) walk split over a thread-block cluster. f32, or q
-    and pages of different dtypes: two passes, a per-entry partial
-    softmax into an f32 workspace [G, H, D + 2], then one combine per
-    (sequence, head)."""
+    meta int32 [6, G]. A 16-bit q over pages of its dtype or of f32
+    (``decode_route``): one launch, each (sequence, KV head) walk split
+    over a thread-block cluster. f32 q, or bf16 with f16: two passes, a
+    per-entry partial softmax into an f32 workspace [G, H, D + 2], then
+    one combine per (sequence, head)."""
     _check_meta("ragged_decode", meta)
     _check_paged("ragged_decode", q, k_pages, v_pages, 3,
                  (context_lens, meta))
@@ -417,8 +432,8 @@ def paged_attention_ragged_kernel(q, k_pages, v_pages, context_lens, meta,
     if g * page > 2**31 - 1 or hkv > 65535:
         raise ValueError("ragged_decode: grid too large")
     out = torch.empty_like(q)
-    split = q.dtype == k_pages.dtype and q.dtype != torch.float32
-    ws = None if split else torch.empty(
+    route = decode_route(q.dtype, k_pages.dtype)
+    ws = None if route == "split" else torch.empty(
         g * h * (d + 2), dtype=torch.float32, device=q.device)
     lib = load("ragged_decode", _SIGNATURES["ragged_decode"])
     err = lib.ragged_decode(
@@ -429,6 +444,7 @@ def paged_attention_ragged_kernel(q, k_pages, v_pages, context_lens, meta,
         page, num_pages, g, float(scale), stream_ptr(q.device))
     check(err, "ragged_decode")
     count_launch("ragged_decode", q.dtype, k_pages.dtype)
+    count_route("ragged_decode", route)
     return out
 
 

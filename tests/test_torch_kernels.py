@@ -137,6 +137,12 @@ def _flash_case(name, rng):
         sq = sk = 16
         hkv = h
         mask, causal, lens = None, True, np.array([16, 9], np.int32)
+    elif name == "static_decode_q1":              # one query row, GQA 4
+        sq, sk, hkv = 1, 40, 1                    # a left-padded window
+        keep = np.zeros((b, 1, 1, sk), bool)      # that ends before Sk
+        keep[0, ..., 10:30] = True
+        keep[1, ..., :25] = True
+        mask = np.where(keep, 0.0, NEG).astype(np.float32)
     else:
         raise ValueError(name)
     q = rng.randn(b, sq, h, d).astype(np.float32)
@@ -157,7 +163,7 @@ def _flash_case(name, rng):
 
 
 FLASH_CASES = ["causal_mask", "mask_sq_lt_sk", "gqa_causal_mask",
-               "gqa_key_padding_q1", "kv_lens"]
+               "gqa_key_padding_q1", "kv_lens", "static_decode_q1"]
 
 
 @pytest.mark.parametrize("case", FLASH_CASES)
@@ -418,9 +424,9 @@ PAGED_GEOMETRIES = [(4, 4, [5, 16, 1, 0, 23], 20),
 @pytest.mark.parametrize("dtype", CARD_DTYPES)
 @pytest.mark.parametrize("h,hkv,d", [(8, 8, 128), (4, 2, 64), (32, 8, 128),
                                      (4, 4, 64), (16, 4, 64), (8, 1, 64),
-                                     (16, 2, 128)],
+                                     (16, 2, 128), (32, 1, 128)],
                          ids=["g1_d128", "g2_d64", "g4_d128", "g1_d64",
-                              "g4_d64", "g8_d64", "g8_d128"])
+                              "g4_d64", "g8_d64", "g8_d128", "g32_d128"])
 def test_paged_kernel_matches_plain(cuda, dtype, h, hkv, d):
     """Each geometry within the card tolerance of the plain version, and
     a second launch bitwise equal to the first; q of one dtype, pages of

@@ -1,22 +1,25 @@
 #!/usr/bin/env python3
 """Design variants of the port's bf16 attention kernels, built side by
-side on one GPU: the flash-attention forward (``csrc/flash_fwd.cu``),
-paged decode (``csrc/paged_decode.cu``), ragged decode
-(``csrc/ragged_decode.cu``; both decode kernels run the cluster-split
-walk of ``csrc/decode_split.cuh``) and the variable-query span kernel
-(``csrc/paged_varq.cu``).
+side on one GPU: the flash-attention forward (``csrc/flash_fwd.cu``;
+its one-row decode route runs the cluster-split walk of
+``csrc/decode_split.cuh``), paged decode (``csrc/paged_decode.cu``),
+ragged decode (``csrc/ragged_decode.cu``; both decode kernels run the
+same walk) and the variable-query span kernel (``csrc/paged_varq.cu``).
 
     python3 tools/kernel_variants.py [--iters 24] [--only NAME,...]
                                      [--parent DIR] [--dtype float16]
+                                     [--kv float32]
 
-``--only`` picks sections (flash_fwd, paged_decode, ragged_decode,
-paged_varq; default all). ``--parent`` names a checkout of another
-commit (``git archive`` of it unpacked anywhere): its ragged decode and
-span kernels are built and timed beside these as ``parent`` (a parent
-whose C entries take one dtype code is called with one). ``--dtype``
-runs every section on that 16-bit dtype's inputs (default bfloat16),
-held to its tolerance (``chip_smoke.TOL``). Each variant is the shipped
-source with one choice changed:
+``--only`` picks sections (flash_fwd, flash_decode, paged_decode,
+ragged_decode, paged_varq; default all). ``--parent`` names a checkout
+of another commit (``git archive`` of it unpacked anywhere): its kernels
+of every section but flash_fwd are built and timed beside these as
+``parent`` (a parent whose C entries take one dtype code is called with
+one). ``--dtype`` runs every section on that 16-bit dtype's inputs
+(default bfloat16), held to its tolerance (``chip_smoke.TOL``); ``--kv
+float32`` gives the decode sections f32 pages under those queries (a
+16-bit model over an f32 KV pool). Each variant is the shipped source
+with one choice changed:
 
 - ``flash_fwd wgW_bnN``: W warpgroups (64 query rows each) per CTA and
   key tiles of N keys (``kFwdWG``, ``kFwdBN``), W in {1, 2}, N in
@@ -29,11 +32,32 @@ source with one choice changed:
   ``wg1_bn64_l2_mask``: the mask read from L2 into registers in the
   accumulator layout where the shipped kernel stages it through shared
   memory by cp.async.
+- ``flash_decode``: the forward at one query row (the static route's
+  decode steps), through the one-row decode route. ``clusterC``: each
+  (sequence, KV head) walk split over at most C CTAs (``kMaxCluster``),
+  C in {1, 2, 8} (4 is shipped); ``slotsN``: the ranks cut back to keep
+  a launch within N CTAs (``kSplitSlots``, 1024 shipped), N in {512,
+  2048}; ``stage2048`` and ``stage8192``: ring stages of 2 or 8 KiB of K
+  rows (``kDenseStageBytes``; 4 KiB shipped: 16 keys at head_dim 128,
+  32 at 64); ``stages3`` and ``stages4``: rings of 3 or 4 stages
+  (``kDenseStages``; 2 shipped); ``all_keys``: every key below kv_lens
+  walked, the masked ones scored -1e30, where the shipped walk finds the
+  window of kept keys first (``kDenseWindow``). Timed at Llama-2-7B's static
+  decode shape q[8, 1, 32, 128] against 544 keys and GPT-2 XL's beam and
+  greedy shapes q[16, 1, 25, 64] and q[4, 1, 25, 64] against 332 (the
+  route's bool padding mask, ``chip_smoke.static_decode_case``), beside
+  SDPA with the same mask and the bytes bound; ``parent`` is the
+  parent's forward at the same shapes (before the decode route: the
+  64-row ``wgmma`` tile).
 - ``paged_decode clusterC`` and ``ragged_decode clusterC``: each
   (sequence, KV head) walk split over at most C CTAs (``kMaxCluster``),
   C in {1, 2, 4} (and 8 for paged decode); 1 is one CTA walking the
   whole context; 4 is shipped. ``cluster4_chunk64``: 64-key ring stages
-  (``kSplitChunk``) instead of 32.
+  (``kSplitChunk``) instead of 32. With ``--kv float32`` (the ring's
+  f32 instance): ``f32_chunk32`` (``kSplitChunkF32`` 32 keys a stage
+  instead of 16), ``f32_stages2`` and ``f32_stages4``
+  (``kSplitStagesF32``; 3 shipped) and ``slotsN`` as for
+  ``flash_decode``.
 - ``paged_varq``: ``shipped`` (P as bf16 hi + lo, a 2-stage K/V ring,
   one-tile spans split over up to 2 CTAs), ``single_bf16_p``
   (``kVarqSplitP`` off), ``split_f16_p`` (``kVarqSplitPF16`` on),
@@ -73,9 +97,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 NEG = -1e30
-# the dtype every section runs in (``--dtype``) and its code
-DT = {"name": "bfloat16", "code": 1}
-CODES = {"bfloat16": 1, "float16": 2}
+# the dtype every section runs in (``--dtype``) and its code, and the
+# decode sections' page dtype (``--kv``) and its code
+DT = {"name": "bfloat16", "code": 1, "kv": "bfloat16", "kv_code": 1}
+CODES = {"float32": 0, "bfloat16": 1, "float16": 2}
 
 
 def variants(csrc, target, consts):
@@ -101,12 +126,14 @@ def variants(csrc, target, consts):
     return out
 
 
-def build(sources, out_dir, signatures, include):
+def build(sources, out_dir, signatures, include, kv_code):
     """Compile every variant in parallel, each in a directory of its own
     holding its changed files (they shadow those of ``include``, a
-    ``csrc`` directory); returns {name: ctypes library}. A library whose
-    entry takes one dtype code (a parent before the KV dtype code) gets
-    ``signatures`` without the second code, and ``codes`` of one."""
+    ``csrc`` directory); returns {name: ctypes library}, each with the
+    dtype ``codes`` its entry is called with (q's, then ``kv_code``). A
+    library whose entry takes one dtype code (a parent before the KV
+    dtype code) gets ``signatures`` without the second code, and
+    ``codes`` of one."""
     from paddle_tpu_torch.kernels import _build
     procs = {}
     for name, files in sources.items():
@@ -133,12 +160,13 @@ def build(sources, out_dir, signatures, include):
             f = getattr(lib, fn)
             args = list(argtypes) if two else [argtypes[0], *argtypes[2:]]
             f.argtypes, f.restype = args, ctypes.c_int
-        lib.codes = (DT["code"],) * (2 if two else 1)
+        lib.codes = (DT["code"], kv_code) if two else (DT["code"],)
         libs[name] = lib
     return libs
 
 
-SECTIONS = ("flash_fwd", "paged_decode", "ragged_decode", "paged_varq")
+SECTIONS = ("flash_fwd", "flash_decode", "paged_decode", "ragged_decode",
+            "paged_varq")
 
 
 def main(argv=None):
@@ -149,10 +177,16 @@ def main(argv=None):
     ap.add_argument("--parent", default=None,
                     help="a checkout whose ragged decode and span kernels "
                          "are timed beside these")
-    ap.add_argument("--dtype", default="bfloat16", choices=sorted(CODES),
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "float16"),
                     help="the inputs' dtype in every section")
+    ap.add_argument("--kv", default=None, choices=("float32",),
+                    help="the decode sections' page dtype (default: "
+                         "--dtype)")
     args = ap.parse_args(argv)
-    DT.update(name=args.dtype, code=CODES[args.dtype])
+    kv = args.kv or args.dtype
+    DT.update(name=args.dtype, code=CODES[args.dtype], kv=kv,
+              kv_code=CODES[kv])
     only = set(args.only.split(","))
     if only - set(SECTIONS):
         ap.error(f"unknown sections {sorted(only - set(SECTIONS))}")
@@ -166,7 +200,8 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    print(f"card: {smi}; inputs in {args.dtype}", flush=True)
+    print(f"card: {smi}; inputs in {args.dtype}, decode pages in {kv}",
+          flush=True)
     dt = getattr(torch, args.dtype)
     tol = S.TOL[args.dtype]
     csrc = os.path.join(REPO, "paddle_tpu_torch", "csrc")
@@ -199,6 +234,30 @@ def main(argv=None):
                                          "constexpr int kSplitChunk = 32;",
                                          "constexpr int kSplitChunk = 64;")]
     ragged_consts = clusters((1, 2, 4))
+    slots = {f"slots{n}": [(split, "constexpr int kSplitSlots = 1024;",
+                            f"constexpr int kSplitSlots = {n};")]
+             for n in (512, 2048)}
+    if kv == "float32":
+        f32 = {"f32_chunk32": [(split, "constexpr int kSplitChunkF32 = 16;",
+                                "constexpr int kSplitChunkF32 = 32;")]}
+        f32.update({f"f32_stages{n}": [(
+            split, "constexpr int kSplitStagesF32 = 3;",
+            f"constexpr int kSplitStagesF32 = {n};")] for n in (2, 4)})
+        del paged_consts["cluster4_chunk64"]
+        paged_consts.update(f32, **slots)
+        ragged_consts.update(f32, **slots)
+    decode_consts = {"shipped": [], **clusters((1, 2, 8)), **slots}
+    for n in (2048, 8192):
+        decode_consts[f"stage{n}"] = [(
+            split, "constexpr int kDenseStageBytes = 4096;",
+            f"constexpr int kDenseStageBytes = {n};")]
+    for n in (3, 4):
+        decode_consts[f"stages{n}"] = [(split,
+                                        "constexpr int kDenseStages = 2;",
+                                        f"constexpr int kDenseStages = {n};")]
+    decode_consts["all_keys"] = [(split,
+                                  "constexpr bool kDenseWindow = true;",
+                                  "constexpr bool kDenseWindow = false;")]
     vq = "paged_varq.cu"
     varq_consts = {"shipped": [], "single_bf16_p": [(
         vq, "constexpr bool kVarqSplitP = true;",
@@ -213,6 +272,7 @@ def main(argv=None):
             f"constexpr int kVarqMaxCluster = {c};")]
     tmp = tempfile.mkdtemp(prefix="kernel_variants_")
     want = {"flash_fwd": (fwd, fwd_consts, A._SIGNATURES),
+            "flash_decode": (fwd, decode_consts, A._SIGNATURES),
             "paged_decode": ("paged_decode.cu", paged_consts,
                              P._SIGNATURES["paged_decode"]),
             "ragged_decode": ("ragged_decode.cu", ragged_consts,
@@ -223,14 +283,17 @@ def main(argv=None):
         if sec not in only:
             continue
         target, consts, sig = want[sec]
+        # the flash sections run q, k and v of one dtype
+        kv_code = DT["code"] if sec.startswith("flash") else DT["kv_code"]
         libs[sec] = {}
-        if args.parent and sec in ("ragged_decode", "paged_varq"):
+        if args.parent and sec != "flash_fwd":
             pdir = os.path.join(os.path.abspath(args.parent),
                                 "paddle_tpu_torch", "csrc")
             libs[sec].update(build(variants(pdir, target, {"parent": []}),
-                                   os.path.join(tmp, sec), sig, pdir))
+                                   os.path.join(tmp, sec), sig, pdir,
+                                   kv_code))
         libs[sec].update(build(variants(csrc, target, consts),
-                               os.path.join(tmp, sec), sig, csrc))
+                               os.path.join(tmp, sec), sig, csrc, kv_code))
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -253,6 +316,9 @@ def main(argv=None):
     if "flash_fwd" in libs:
         flash_section(torch, S, A, libs["flash_fwd"], dev, g, med, verdict,
                       dt)
+    if "flash_decode" in libs:
+        flash_decode_section(torch, S, A, libs["flash_decode"], dev, g, med,
+                             verdict)
     if only & {"paged_decode", "ragged_decode", "paged_varq"}:
         decode_sections(torch, S, A, P, libs, dev, g, med, verdict, dt)
     return 0
@@ -260,19 +326,7 @@ def main(argv=None):
 
 def flash_section(torch, S, A, fwd_libs, dev, g, med, verdict, dt):
     def fwd(lib, q, k, v, mask, causal):
-        b, sq, h, d = q.shape
-        m_ptr, *strides = A._mask_args(mask, k.shape[1])
-        out = torch.empty_like(q)
-        lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
-        err = lib.flash_fwd(*lib.codes, d, q.data_ptr(), k.data_ptr(),
-                            v.data_ptr(),
-                            m_ptr, None, out.data_ptr(), lse.data_ptr(), b,
-                            sq, k.shape[1], h, k.shape[2], *strides,
-                            float(d ** -0.5), int(causal), 0, 0, 0, 0.0,
-                            A.stream_ptr(dev))
-        if err:
-            raise RuntimeError(f"flash_fwd: CUDA error {err} at launch")
-        return out
+        return flash_fwd_call(torch, A, dev, lib, q, k, v, mask, causal)
 
     def qkv(b, s, h):
         return [tuple(torch.randn(b, s, h, 128, device=dev,
@@ -311,6 +365,54 @@ def flash_section(torch, S, A, fwd_libs, dev, g, med, verdict, dt):
         print(f"  serve shape {e_s}; training shape {e_t}", flush=True)
 
 
+def flash_fwd_call(torch, A, dev, lib, q, k, v, mask, causal):
+    """One launch of ``lib``'s flash_fwd entry (no kv_lens, no dropout);
+    returns the output."""
+    b, sq, h, d = q.shape
+    m_ptr, *strides = A._mask_args(mask, k.shape[1])
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    err = lib.flash_fwd(*lib.codes, d, q.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), m_ptr, None, out.data_ptr(),
+                        lse.data_ptr(), b, sq, k.shape[1], h, k.shape[2],
+                        *strides, float(d ** -0.5), int(causal), 0, 0, 0,
+                        0.0, A.stream_ptr(dev))
+    if err:
+        raise RuntimeError(f"flash_fwd: CUDA error {err} at launch")
+    return out
+
+
+def flash_decode_section(torch, S, A, libs, dev, g, med, verdict):
+    """Each decode-route variant (and the parent's forward) at the static
+    route's three decode shapes, beside SDPA and the bytes bound."""
+    F = torch.nn.functional
+    beam = [n for n in S.GPT_LENS for _ in range(S.GPT_BEAMS)]
+    shapes = (("llama", 8, 32, 128, S.INFER_LENS[0], 512),
+              ("gpt_beam", len(beam), 25, 64, beam, max(S.GPT_LENS)),
+              ("gpt_greedy", len(S.GPT_LENS), 25, 64, S.GPT_LENS,
+               max(S.GPT_LENS)))
+    for label, b, h, d, lens, s in shapes:
+        per = 2 * b * (s + S.INFER_NEW) * h * d * 2
+        sets, keep, madd, nbytes, pairs = S.static_decode_case(
+            torch, dev, g, b, h, d, lens, s, DT["name"],
+            sets=max(2, -(-64_000_000 // per)))
+        b_ms, by = S.bound(nbytes, 4 * d * pairs, DT["name"])
+        want = A.flash_attention_plain(*sets[0], d ** -0.5, False, madd)
+        sdpa = med(lambda q, k, v: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=keep, scale=d ** -0.5), sets)
+        print(f"flash_decode {label} q[{b}, 1, {h}, {d}] k, v[{b}, "
+              f"{s + S.INFER_NEW}, {h}, {d}]: bound {b_ms:.4f} ms ({by}), "
+              f"SDPA (same mask) {sdpa:.4f} ms", flush=True)
+        for name, lib in libs.items():
+            def run(q, k, v, lib=lib):
+                return flash_fwd_call(torch, A, dev, lib, q, k, v, madd,
+                                      False)
+            t = med(run, sets)
+            print(f"flash_decode {name} {label}: {t:.4f} ms; "
+                  f"{verdict(run(*sets[0]), want)}", flush=True)
+
+
 def decode_sections(torch, S, A, P, libs, dev, g, med, verdict, dt):
     b, d, page, pps, h, hkv = 4, 128, 16, 64, 32, 32
     num_pages = b * pps + 1
@@ -318,8 +420,9 @@ def decode_sections(torch, S, A, P, libs, dev, g, med, verdict, dt):
     tables = torch.randperm(num_pages, device=dev, generator=g)[
         :b * pps].reshape(b, pps).to(torch.int32).contiguous()
     q = torch.randn(b, h, d, device=dev, generator=g).to(dt)
+    kt = getattr(torch, DT["kv"])
     sets = [tuple(torch.randn(num_pages, page, hkv, d, device=dev,
-                              generator=g).to(dt) for _ in range(2))
+                              generator=g).to(kt) for _ in range(2))
             for _ in range(4)]
 
     def call(lib, fn, *args):
@@ -361,7 +464,7 @@ def decode_sections(torch, S, A, P, libs, dev, g, med, verdict, dt):
                   f"{t:.4f} ms; "
                   f"{verdict(ragged(lib, *sets[0], ctx, meta, ws), want)}",
                   flush=True)
-    if "paged_varq" in libs:
+    if "paged_varq" in libs and DT["kv"] == DT["name"]:
         varq_section(torch, S, A, P, libs["paged_varq"], dev, g, med,
                      verdict, tables, sets, page, dt)
 
