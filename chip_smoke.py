@@ -76,7 +76,16 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    second launch bitwise. bf16 and f16 q over f32 pages take the split
    walk in both decode kernels (``split_f32_pages``: contexts 557 / 300 /
    97 / 1 and up to 1024, GQA 8), each within ``pair_tol`` of the plain
-   version and bitwise on a second launch.
+   version and bitwise on a second launch. A bf16 or f16 q over f32 K/V
+   takes the tensor-core kernels with K and V split into bf16 hi + lo
+   parts (route ``wgmma_f32kv``: the forward at Sq > 1 and the span
+   kernel): the suffix-prefill and span rows above are held to that
+   route, and ``f32_kv_cases`` adds the forward with an f16 q and both
+   kernels at a GQA group of 8 (Hkv = 4) with bf16 and f16 q (the span
+   kernel at its mixed and verify shapes, through the meta and the block
+   table), each within ``pair_tol``, bitwise on a second launch. Those
+   rows' operations are bounded at the 16-bit tensor-core peak
+   (``ops_type``).
 3. Full-width f32 checks: a 2-layer model at Llama-2-7B widths gives the
    same prefill logits on the card (kernels) as on the CPU (plain
    versions) and the same greedy tokens through the predictor; the
@@ -146,7 +155,9 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    those of f32 pages, and flash_fwd (the suffix prefill), paged_decode,
    paged_varq and ragged_decode launched with bf16 q over f32 pages
    (``kernels.dtype_launch_counts``), every paged_decode and
-   ragged_decode launch through the split walk.
+   ragged_decode launch through the split walk, and every flash_fwd and
+   paged_varq launch on (bf16 q, f32 pages) through the ``wgmma_f32kv``
+   kernels (``f32kv_routes``).
    Then the inference API on the same model (``infer_phase``): (a)
    ``LLMPredictor`` (max_batch_size 8) over 12 prompts of 17-300 tokens
    (two micro-batches, buckets 512 and 128), 32 new tokens greedy and
@@ -490,6 +501,16 @@ def rms_phase(torch, dev, g):
                         library_ms=lib, bound_ms=b_ms, bound_by=by,
                         shape=f"x[{n}, 4096] {dtype}")
     return main
+
+
+def suffix_mask(torch, dev, sq=128, sk=384, cached=200):
+    """The additive f32 [1, 1, sq, sk] mask of a prefix-cache suffix
+    prefill: the ``cached`` prefix keys, then the suffix's own keys
+    causally (its last ``sq`` keys)."""
+    jq = torch.arange(sq, device=dev)[:, None]
+    jk = torch.arange(sk, device=dev)[None, :]
+    keep = (jk < cached) | ((jk >= sk - sq) & (jk - (sk - sq) <= jq))
+    return torch.where(keep, 0.0, NEG).float()[None, None]
 
 
 def prefill_mask(torch, dev, lens, s):
@@ -1154,9 +1175,14 @@ def pair_tol(qd, kd):
 
 
 def ops_type(qd, kd):
-    """The type whose peak bounds a row's operations: f32 where either
-    operand is f32 (the FMA instances), else the 16-bit type."""
-    return "float32" if "float32" in (qd, kd) else qd
+    """The type whose peak bounds a row's operations: q's. A 16-bit q
+    over f32 K/V (pages) is bounded at the 16-bit tensor-core peak, as
+    the one-dtype rows are: the card computes a 16-bit-by-f32 product to
+    f32 accuracy there by splitting the f32 operand into 16-bit parts
+    (the ``wgmma_f32kv`` instances do), so the FMA units' f32 peak is not
+    the least time of that work. An f32 q keeps the f32 peak (its
+    instances still run on the FMA units)."""
+    return qd
 
 
 def row_name(kernel, qd, kd=None):
@@ -1168,12 +1194,16 @@ def row_name(kernel, qd, kd=None):
 
 
 def dtype_row(torch, name, fn, plain, sets, tol, nbytes, ops, op_type,
-              shape, lib=None, rows=None):
+              shape, lib=None, rows=None, route=None):
     """One f16 / mixed row: ``fn`` (the kernel wrapper) against ``plain``
-    on ``sets[0]`` within ``tol``, a second launch bitwise the first,
-    then the median time of ``fn``, ``plain`` and (where one PyTorch call
-    computes the same function) ``lib`` over ``sets``, beside the bound."""
-    out = fn(*sets[0])
+    on ``sets[0]`` within ``tol``, its first launch on the device kernel
+    ``route`` ((kernel, route) of ``kernels.route_counts``) where given, a
+    second launch bitwise the first, then the median time of ``fn``,
+    ``plain`` and (where one PyTorch call computes the same function)
+    ``lib`` over ``sets``, beside the bound."""
+    out, routes = launched_routes(lambda: fn(*sets[0]))
+    check(route is None or routes == {route: 1},
+          f"{name}: launched {routes}, not {route}")
     err = compare(torch, name, out, plain(*sets[0]), None, rows=rows,
                   tol=tol)
     check(torch.equal(out, fn(*sets[0])),
@@ -1249,10 +1279,7 @@ def dtype_phase(torch, dev, g):
     row["extra"] = flash_decode_row(torch, dev, g, "float16")
     rows["flash_fwd", "float16", "float16"] = row
     sq, sk = 128, 384
-    jq = torch.arange(sq, device=dev)[:, None]
-    jk = torch.arange(sk, device=dev)[None, :]
-    m = torch.where((jk < 200) | ((jk >= sk - sq) & (jk - (sk - sq) <= jq)),
-                    0.0, NEG).float()[None, None]
+    m = suffix_mask(torch, dev, sq, sk)
     qd, kd = MIXED_PAIRS[0]
     sets = [(torch.randn(1, sq, h, d, device=dev, generator=g).to(
         getattr(torch, qd)),) + tuple(
@@ -1268,7 +1295,7 @@ def dtype_phase(torch, dev, g):
         2 * sq * h * d * 2 + 2 * sk * h * d * 4 + m.numel() * 4
         + h * sq * 4, 4 * d * kept, ops_type(qd, kd),
         f"q[1, {sq}, {h}, {d}] {qd}, k, v[1, {sk}, {h}, {d}] {kd}, "
-        "suffix mask")
+        "suffix mask", route=("flash_fwd", "wgmma_f32kv"))
 
     # the decode kernels at q[4, 32, 128], contexts 557 / 300 / 97 / 1
     b, page, pps = 4, 16, 64
@@ -1306,8 +1333,9 @@ def dtype_phase(torch, dev, g):
         # the span kernel at its two shapes over the same pages
         rows["paged_varq", qd, kd] = varq_dtype_row(
             torch, dev, g, sets, tables, page, qt, pair_tol(qd, kd),
-            ops_type(qd, kd))
+            ops_type(qd, kd), P.varq_route(qt, kt))
     split_f32_pages(torch, dev, g, tables, page)
+    f32_kv_cases(torch, dev, g, tables, page)
     return rows
 
 
@@ -1353,11 +1381,75 @@ def split_f32_pages(torch, dev, g, tables, page):
                       f"{label}: a second launch differs from the first")
 
 
-def varq_dtype_row(torch, dev, g, sets, tables, page, qt, tol, op_type):
+def f32_kv_cases(torch, dev, g, tables, page):
+    """The ``wgmma_f32kv`` instances beyond the rows: the forward at the
+    suffix-prefill shape (q[1, 128, 32, 128] against 384 f32 keys, the
+    suffix's mask) with an f16 q and, with bf16 and f16 q, at a GQA group
+    of 8 (Hkv = 4); the span kernel with an f16 q over f32 pages at its
+    mixed and verify shapes, and with bf16 and f16 q at Hkv = 4. Each
+    launch on the route, within ``pair_tol`` of the plain version, a
+    second launch bitwise the first."""
+    from paddle_tpu_torch.kernels import attention as A
+    from paddle_tpu_torch.kernels import paged_attention as P
+    sq, sk, h, d = 128, 384, 32, 128
+    sc = d ** -0.5
+    m = suffix_mask(torch, dev, sq, sk)
+    num_pages = tables.numel() + 1
+    for qd, hkv in (("float16", 32), ("bfloat16", 4), ("float16", 4)):
+        qt = getattr(torch, qd)
+        tol = pair_tol(qd, "float32")
+        q = torch.randn(1, sq, h, d, device=dev, generator=g).to(qt)
+        k, v = (torch.randn(1, sk, hkv, d, device=dev, generator=g)
+                for _ in range(2))
+        label = (f"flash_fwd suffix mask q[1, {sq}, {h}, {d}] {qd}, k, v"
+                 f"[1, {sk}, {hkv}, {d}] float32")
+        (out, _), routes = launched_routes(
+            lambda: A.flash_attention_kernel(q, k, v, sc, False, m))
+        check(routes == {("flash_fwd", "wgmma_f32kv"): 1},
+              f"{label}: launched {routes}, not the f32-K/V tensor-core "
+              "kernel")
+        compare(torch, label, out, A.flash_attention_plain(q, k, v, sc,
+                                                           False, m),
+                None, tol=tol)
+        check(torch.equal(out, A.flash_attention_kernel(q, k, v, sc, False,
+                                                        m)[0]),
+              f"{label}: a second launch differs from the first")
+        kp, vp = (torch.randn(num_pages, page, hkv, d, device=dev,
+                              generator=g) for _ in range(2))
+        for qb, ql, kl in ((256, [256, 1, 1, 97], [512, 301, 98, 97]),
+                           (5, [5] * 4, [561, 305, 101, 5])):
+            q = torch.randn(4, qb, h, d, device=dev, generator=g).to(qt)
+            q_lens, kv_lens = (torch.tensor(x, dtype=torch.int32,
+                                            device=dev) for x in (ql, kl))
+            meta = _builder_meta(torch, dev, tables, kv_lens, page)
+            label = (f"paged_varq q{list(q.shape)} {qd}, pages float32 "
+                     f"Hkv={hkv} q_lens={ql} kv_lens={kl}")
+            for src, plain in (
+                    (dict(meta=meta), lambda: P.paged_attention_ragged_varq_plain(
+                        q, kp, vp, kv_lens, q_lens, meta, sc)),
+                    (dict(block_tables=tables),
+                     lambda: P.paged_attention_varq_plain(
+                         q, kp, vp, tables, kv_lens, q_lens, sc))):
+                def fn():
+                    return P.paged_attention_varq_kernel(
+                        q, kp, vp, kv_lens, q_lens, sc, **src)
+                out, routes = launched_routes(fn)
+                check(routes == {("paged_varq", "wgmma_f32kv"): 1},
+                      f"{label}: launched {routes}, not the f32-page "
+                      "tensor-core kernel")
+                compare(torch, f"{label} ({next(iter(src))})", out, plain(),
+                        None, tol=tol)
+                check(torch.equal(out, fn()),
+                      f"{label}: a second launch differs from the first")
+
+
+def varq_dtype_row(torch, dev, g, sets, tables, page, qt, tol, op_type,
+                   route):
     """paged_varq over ``sets``' pages with q of ``qt``: the mixed shape
     q[4, 256, 32, 128] (q_lens 256 / 1 / 1 / 97) as the row and the verify
     shape q[4, 5, 32, 128] (5-row spans) as its ``verify_*`` keys, each
-    through the meta against its plain version, a bitwise second launch."""
+    through the meta against its plain version on the device kernel
+    ``route``, a bitwise second launch."""
     from paddle_tpu_torch.kernels import paged_attention as P
     h, d = sets[0][0].shape[2:]
     sc = d ** -0.5
@@ -1380,7 +1472,7 @@ def varq_dtype_row(torch, dev, g, sets, tables, page, qt, tol, op_type):
                 q, a, c, kv_lens, q_lens, sc, meta=meta),
             lambda a, c: P.paged_attention_varq_plain(
                 q, a, c, tables, kv_lens, q_lens, sc), sets, tol, 0, 0,
-            op_type, shape)
+            op_type, shape, route=("paged_varq", route))
         row.update(bound_ms=b_ms, bound_by=by)
         if not key:
             out.update(row)
@@ -2416,6 +2508,18 @@ def dtype_launches(counts, kernels, qd, kd):
     return {k: counts.get((k, qd, kd), 0) for k in kernels}
 
 
+def f32kv_routes(routes, got, label):
+    """Every flash_fwd and paged_varq launch of a run with (bf16 q, f32
+    pages) (``got``: {kernel: launches of that instance}) took the
+    tensor-core kernel over bf16 parts of the pages, and none the FMA
+    kernel (the run's other launches are one-dtype ones)."""
+    for name in ("flash_fwd", "paged_varq"):
+        check(routes.get((name, "wgmma_f32kv"), 0) == got.get(name, 0)
+              and (name, "fma") not in routes,
+              f"{label}'s {name} launches over f32 pages did not all take "
+              f"the f32-K/V tensor-core kernel: {routes}, {got}")
+
+
 def serve_kv_run(torch, dev, serve, card):
     """Serve run KV on the serve phase's bf16 model with
     ``kv_dtype="float32"``: every request ok, the pool's bytes those of
@@ -2456,6 +2560,7 @@ def serve_kv_run(torch, dev, serve, card):
           and ("paged_decode", "fma") not in routes,
           f"run KV's paged_decode launches did not all take the split walk: "
           f"{routes}")
+    f32kv_routes(routes, got, "run KV")
     check(st["mixed_steps"] > 0 and st["spec_proposed"] > 0,
           f"run KV ran no mixed step or drafted nothing: {st}")
     # the idle share says how much of a decode kernel's gain an eager
@@ -2465,7 +2570,7 @@ def serve_kv_run(torch, dev, serve, card):
         cb.prefix_cache.clear(cb.pool)
     res["idle"] = device_idle(
         torch, lambda: cb.generate(prompts[:4], max_new_tokens=32), card,
-        "serve run KV (4 requests x 32 tokens)")
+        "serve run KV (4 requests x 32 tokens)", top=12)
     del cb
     free_card(torch)
     rag = serve_run(torch, dev, model, cfg, serve["prompts"][1:6], [16] * 5,
@@ -2478,6 +2583,9 @@ def serve_kv_run(torch, dev, serve, card):
           and ("ragged_decode", "fma") not in rag["routes"],
           f"run KV's ragged_decode launches did not all take the split "
           f"walk: {rag['routes']}")
+    f32kv_routes(rag["routes"], dtype_launches(
+        rag["dtype_counts"], ("flash_fwd", "paged_varq"), "bfloat16",
+        "float32"), "run KV's ragged pass")
     log(f"serve run KV: device kernels {res['routes']} (block table), "
         f"{rag['routes']} (ragged)")
     log(f"serve run KV took {time.perf_counter() - t0:.1f} s")

@@ -110,12 +110,33 @@
 // f16's smallest subnormal (2^-24) is 0 in both versions, a weight below
 // 2^-24 of the row's largest.
 //
-// Mixed dtypes (q of one of f32 / bf16 / f16, K and V of another: a
-// prefix-cache suffix prefill whose cached pages have the KV pool's dtype
-// and whose new keys the model's, concatenated, promoted as torch.cat
-// promotes): the FMA kernel below with q read as TQ and K/V as TKV, each
-// converted to f32 on load, P rounded to TKV before P.V as the plain
-// version rounds it, the output in TQ; no dropout (inference only).
+// A bf16 or f16 q over f32 K/V at Sq > 1 without dropout (`tc::f32_kv`, route
+// "wgmma_f32kv": the prefix cache's suffix prefill over an f32 KV pool, whose
+// cached f32 pages and the suffix's 16-bit K/V concatenate to f32 as torch.cat
+// promotes): the wgmma kernel with K and V entering the products as bf16 hi +
+// lo parts (wgmma.cuh's note): S = Q K_hi^T + Q K_lo^T (+ Q_lo K_hi^T for an
+// f16 q), O += P_hi V_hi + P_hi V_lo + P_lo V_hi, P kept to 16 bits (the plain
+// version's P is unrounded f32: V is f32). Each 64-key tile's f32 rows come by
+// cp.async into a 2-stage f32 ring and are split in shared memory into hi and
+// lo tiles, K before the S product and V while it runs; one CTA an SM (209 KiB
+// with a bf16 q, 226 with its staged mask; an f16 q's lo tile leaves no room,
+// so its mask is read from L2). Bound on the H100: the bytes (f32 K/V);
+// operations count at the 16-bit tensor-core peak (the split reaches f32
+// accuracy there). Measured on an H100 80GB HBM3 at 700 W
+// (tools/kernel_variants.py --only flash_f32kv --parent: the previous FMA
+// kernel in the same process) at q[1, 128, 32, 128] against 384 f32 keys under
+// the suffix's mask: bf16 q 0.0342 ms (FMA 0.0993; bytes bound 0.0044), f16 q
+// 0.0382 (FMA 0.0991); with 4 KV heads 0.0339 / 0.0376. The grid is 64 CTAs of
+// six key tiles each, so what holds it is the chain per tile: without the
+// split it takes 0.0279, without the f32 copies 0.0352 (diagnostic variants).
+// 32-key tiles with 3 or 2 stages lost (0.0362). A split of the key walk over
+// a 2-CTA cluster, combined through distributed shared memory as paged_varq.cu
+// does, took 0.0396 against 0.0350 unsplit (tools/kernel_variants.py on a
+// build that had it) and is not shipped. At Sq = 1, and for the other pairs of
+// dtypes (f32 q over 16-bit K/V, bf16 with f16): the FMA kernel below with q
+// read as TQ and K/V as TKV, each converted to f32 on load, P rounded to TKV
+// before P.V as the plain version rounds it, the output in TQ; no dropout with
+// two dtypes (inference only).
 //
 // f32 (dtype 0): the FMA-unit kernel below (TF32 is off in the port):
 // one block of 256 threads per (batch*head, 64-row query tile) keeps the
@@ -390,6 +411,11 @@ constexpr int kFwdBN = 64;      // keys per K/V tile
 constexpr int kFwdStages = 2;   // depth of the K and V cp.async rings
 constexpr bool kFwdSplitP = true;  // P as bf16 hi + lo parts, not one bf16
 constexpr bool kFwdSplitPF16 = false;  // the f16 instance: one f16 P
+// a 16-bit q over f32 K/V (one warpgroup a CTA): keys per tile and depth
+// of the f32 staging ring (64 keys at head_dim 128 fill 224 KiB with two
+// stages, so the mask is read from L2 there)
+constexpr int kFwdBNF32 = 64;
+constexpr int kFwdStagesF32 = 2;
 
 // P of one tile in place: s holds the thread's S = Q K^T entries (rows qr
 // and qr + 8 of its warpgroup, columns 8 j + kc + {0, 1}), mv the mask's
@@ -458,28 +484,60 @@ __device__ __forceinline__ void tile_probs(
       }
 }
 
+// Shared memory of flash_fwd_wgmma<E, TKV, D, BN, NWG, ..>, in bytes from
+// its 1024-aligned base: the Q tile (and, for an f16 q over f32 K/V, its
+// lo part); then either the K and V rings of 16-bit tiles, or (f32 K/V)
+// the K and V hi and lo tiles and the ring of f32 staging tiles; then the
+// staged mask tile (MASK bytes, where the launcher stages one).
+template <class E, class TKV, int D, int BN, int NWG>
+struct FwdSmem {
+  static constexpr bool F32 = std::is_same<TKV, float>::value;
+  static constexpr bool QLO = F32 && std::is_same<E, f16>::value;
+  static constexpr int BM = 64 * NWG;
+  static constexpr int NS = F32 ? kFwdStagesF32 : kFwdStages;
+  static constexpr uint32_t Q_BYTES = BM * D * 2, KV_BYTES = BN * D * 2;
+  static constexpr uint32_t F_BYTES = BN * D * 4;  // one f32 staging tile
+  static constexpr uint32_t K = Q_BYTES * (QLO ? 2 : 1);
+  static constexpr uint32_t V = F32 ? K + 2 * KV_BYTES : K + NS * KV_BYTES;
+  static constexpr uint32_t RING = F32 ? K + 4 * KV_BYTES : K;
+  static constexpr uint32_t M = RING + NS * 2 * (F32 ? F_BYTES : KV_BYTES);
+  static constexpr uint32_t MASK = BM * (BN + 4) * 4;
+};
+
 // One CTA of NWG warpgroups per (batch x query head, 64 NWG query rows),
 // the longest causal rows first; Q stays in shared memory, K and V tiles
-// of BN keys stream through rings of kFwdStages stages each. STAGE copies
-// each tile's mask into shared memory (one warpgroup only: it adds a CTA
-// sync); otherwise a mask is read from L2.
-template <class E, int D, int BN, int NWG, bool DROP, bool STAGE>
+// of BN keys stream through rings of kFwdStages stages each (f32 K/V:
+// kFwdStagesF32 stages of f32 rows, each tile split into bf16 hi and lo
+// tiles before its products; one warpgroup). STAGE copies each tile's
+// mask into shared memory (one warpgroup only: it adds a CTA sync);
+// otherwise a mask is read from L2.
+template <class E, class TKV, int D, int BN, int NWG, bool DROP, bool STAGE>
 __global__ void __launch_bounds__(128 * NWG, 1) flash_fwd_wgmma(
-    const E* __restrict__ q, const E* __restrict__ k,
-    const E* __restrict__ v, const float* __restrict__ mask,
+    const E* __restrict__ q, const TKV* __restrict__ k,
+    const TKV* __restrict__ v, const float* __restrict__ mask,
     const int* __restrict__ kv_lens, E* __restrict__ out,
     float* __restrict__ lse, int Sq, int Sk, int H, int Hkv, long long msb,
     long long msh, long long msq, long long msk, float scale, int causal,
     uint32_t seed0, uint32_t seed1, uint32_t thresh, float dscale) {
-  constexpr int BM = 64 * NWG, NT = 128 * NWG, NS = kFwdStages;
+  using L = FwdSmem<E, TKV, D, BN, NWG>;
+  constexpr bool F32 = L::F32, QLO = L::QLO;
+  // the products' operand type: bf16 parts over f32 K/V, else E
+  using PE = typename std::conditional<F32, bf16, E>::type;
+  constexpr int BM = L::BM, NT = 128 * NWG, NS = L::NS;
   constexpr bool SPLIT =
-      std::is_same<E, f16>::value ? kFwdSplitPF16 : kFwdSplitP;
+      F32 || (std::is_same<E, f16>::value ? kFwdSplitPF16 : kFwdSplitP);
   static_assert(!STAGE || NWG == 1, "a staged mask needs one warpgroup");
-  constexpr uint32_t Q_BYTES = BM * D * 2, KV_BYTES = BN * D * 2;
+  static_assert(!F32 || (NWG == 1 && !DROP),
+                "f32 K/V: one warpgroup, no dropout");
+  constexpr uint32_t KV_BYTES = L::KV_BYTES, F_BYTES = L::F_BYTES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_addr(smem_raw) + 1023) & ~1023u;
-  const uint32_t sK = sQ + Q_BYTES, sV = sK + NS * KV_BYTES;  // the rings
-  const uint32_t sM = sV + NS * KV_BYTES;  // the staged mask tile
+  const uint32_t sQl = sQ + L::Q_BYTES;
+  // 16-bit K/V: the rings; f32 K/V: the hi tiles, each followed by its lo
+  // tile, and the f32 ring (K then V a stage)
+  const uint32_t sK = sQ + L::K, sV = sQ + L::V, sF = sQ + L::RING;
+  const uint32_t sKl = sK + KV_BYTES, sVl = sV + KV_BYTES;
+  const uint32_t sM = sQ + L::M;  // the staged mask tile
   const float* mtile =
       reinterpret_cast<const float*>(smem_raw + (sM - smem_addr(smem_raw)));
 
@@ -508,31 +566,47 @@ __global__ void __launch_bounds__(128 * NWG, 1) flash_fwd_wgmma(
   for (int rr = 0; rr < 2; ++rr)
     xq[rr] = DROP ? fmix32(row_key ^ (uint32_t)(qw + qr + 8 * rr)) : 0u;
 
-  // tile i's K or V rows into its ring stage; rows past kend zero-filled
-  auto load_k = [&](int i) {
-    if (i < n_it)
+  // tile i's K and V rows into its ring stage (f32 K/V: the f32 ring);
+  // rows past kend zero-filled
+  auto load_kv = [&](int i) {
+    if (i >= n_it) return;
+    if constexpr (F32) {
+      const uint32_t f = sF + (i % NS) * 2 * F_BYTES;
+      stage_rows<BN, D, NT>(
+          f, k + kv_off,
+          [&](int r) -> long long {
+            const int key = i * BN + r;
+            return key < kend ? (long long)key * kv_stride : -1;
+          },
+          tid, f + F_BYTES, v + kv_off);
+    } else {
       load_tile<BN, D, NT>(sK + (i % NS) * KV_BYTES, k + kv_off, kv_stride,
                            i * BN, kend, tid);
-  };
-  auto load_v = [&](int i) {
-    if (i < n_it)
       load_tile<BN, D, NT>(sV + (i % NS) * KV_BYTES, v + kv_off, kv_stride,
                            i * BN, kend, tid);
+    }
   };
 
   float acc[D / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float s[BN / 2], mv[BN / 2], alpha[2];
-  uint32_t pf[BN / 16][4], pl[BN / 16][4];  // P's hi and lo parts (E)
+  uint32_t pf[BN / 16][4], pl[BN / 16][4];  // P's hi and lo parts (PE)
 
-  // S = Q K^T of tile i (queries x keys), A and B from shared memory
+  // S = Q K^T of tile i (queries x keys), A and B from shared memory; over
+  // f32 K/V Q K_hi^T + Q K_lo^T (+ Q_lo K_hi^T for an f16 q)
   auto start_s = [&](int i) {
+    const uint32_t kt = F32 ? sK : sK + (i % NS) * KV_BYTES;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<E>(s, kmajor_desc<BM>(sQ, 64 * wg, kk),
-                  kmajor_desc<BN>(sK + (i % NS) * KV_BYTES, 0, kk), kk);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint64_t qd = kmajor_desc<BM>(sQ, 64 * wg, kk);
+      wgmma_ss<PE>(s, qd, kmajor_desc<BN>(kt, 0, kk), kk);
+      if constexpr (F32) wgmma_ss<PE>(s, qd, kmajor_desc<BN>(sKl, 0, kk), 1);
+      if constexpr (QLO)
+        wgmma_ss<PE>(s, kmajor_desc<BM>(sQl, 64 * wg, kk),
+                     kmajor_desc<BN>(sK, 0, kk), 1);
+    }
     wgmma_commit();
   };
   // tile i's mask rows into the padded shared tile (BN + 4 floats a row,
@@ -582,8 +656,8 @@ __global__ void __launch_bounds__(128 * NWG, 1) flash_fwd_wgmma(
     else
       run(std::false_type{}, std::false_type{});
   };
-  // O = alpha O, then P as A fragments of E (the accumulator layout is
-  // the A layout): hi = E(P) and, with SPLIT, lo = E(P - hi)
+  // O = alpha O, then P as A fragments of PE (the accumulator layout is
+  // the A layout): hi = PE(P) and, with SPLIT, lo = PE(P - hi)
   auto rescale_pack = [&]() {
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
@@ -592,36 +666,51 @@ __global__ void __launch_bounds__(128 * NWG, 1) flash_fwd_wgmma(
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float a = s[8 * kk + 2 * i], c = s[8 * kk + 2 * i + 1];
-        pf[kk][i] = pack2<E>(a, c);
+        pf[kk][i] = pack2<PE>(a, c);
         if constexpr (SPLIT) {
-          const float2 hf = unpack2<E>(pf[kk][i]);
-          pl[kk][i] = pack2<E>(a - hf.x, c - hf.y);
+          const float2 hf = unpack2<PE>(pf[kk][i]);
+          pl[kk][i] = pack2<PE>(a - hf.x, c - hf.y);
         }
       }
   };
-  // O += P V of tile i (hi, then lo), the key-major V tile read
-  // transposed
+  // O += P V of tile i (hi, then lo; over f32 K/V also P_hi V_lo), the
+  // key-major V tile read transposed
   auto start_pv = [&](int i) {
+    const uint32_t vt = F32 ? sV : sV + (i % NS) * KV_BYTES;
     wgmma_fence();
     fence_regs(acc);
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint64_t vd = mnmajor_desc<BN>(sV + (i % NS) * KV_BYTES, kk);
-      wgmma_rs_tb<E>(acc, pf[kk], vd);
-      if constexpr (SPLIT) wgmma_rs_tb<E>(acc, pl[kk], vd);
+      const uint64_t vd = mnmajor_desc<BN>(vt, kk);
+      wgmma_rs_tb<PE>(acc, pf[kk], vd);
+      if constexpr (SPLIT) wgmma_rs_tb<PE>(acc, pl[kk], vd);
+      if constexpr (F32)
+        wgmma_rs_tb<PE>(acc, pf[kk], mnmajor_desc<BN>(sVl, kk));
     }
     wgmma_commit();
   };
 
   // groups: {Q, K 0, V 0}, then pairs {mask}, {K, V}: the prologue's
   // masks are empty, tile it's mask is copied during its S product while
-  // K and V run NS - 1 tiles ahead
-  if (n_it > 0) load_tile<BM, D, NT>(sQ, q + q_off, q_stride, q0, Sq, tid);
+  // K and V run NS - 1 tiles ahead. An f16 q over f32 K/V is split into
+  // bf16 hi and lo tiles here, synchronously.
+  if (n_it > 0) {
+    if constexpr (QLO) {
+      split_rows<BM, D, NT>(
+          sQ, sQl, q + q_off,
+          [&](int r) -> long long {
+            return q0 + r < Sq ? (long long)(q0 + r) * q_stride : -1;
+          },
+          tid);
+      fence_async_smem();
+    } else {
+      load_tile<BM, D, NT>(sQ, q + q_off, q_stride, q0, Sq, tid);
+    }
+  }
 #pragma unroll
   for (int it = 0; it < NS - 1; ++it) {
     if (it > 0) cp_async_commit();
-    load_k(it);
-    load_v(it);
+    load_kv(it);
     cp_async_commit();
   }
   for (int it = 0; it < n_it; ++it) {
@@ -629,11 +718,22 @@ __global__ void __launch_bounds__(128 * NWG, 1) flash_fwd_wgmma(
     __syncthreads();  // tile it landed; everyone is done with tile it - 1
     if constexpr (STAGE) stage_mask(it);
     cp_async_commit();
-    load_k(it + NS - 1);
-    load_v(it + NS - 1);
+    load_kv(it + NS - 1);
     cp_async_commit();
     if (it >= n_w) continue;
+    const uint32_t f = sF + (it % NS) * 2 * F_BYTES;  // f32 K/V's stage
+    if constexpr (F32) {
+      // K's f32 rows into its hi and lo tiles before the S product
+      split_tile<BN, D, NT>(sK, sKl, f, tid);
+      fence_async_smem();
+      __syncthreads();
+    }
     start_s(it);
+    if constexpr (F32) {
+      // V's f32 rows into its hi and lo tiles while the S product runs
+      split_tile<BN, D, NT>(sV, sVl, f + F_BYTES, tid);
+      fence_async_smem();
+    }
     if constexpr (STAGE) {
       cp_async_wait<1>();
       __syncthreads();  // the mask tile landed
@@ -643,6 +743,7 @@ __global__ void __launch_bounds__(128 * NWG, 1) flash_fwd_wgmma(
     fence_regs(s);
     probs(it);
     rescale_pack();
+    if constexpr (F32) __syncthreads();  // every thread's V parts stored
     start_pv(it);
     wgmma_wait<0>();
     fence_regs(acc);
@@ -670,35 +771,42 @@ __global__ void __launch_bounds__(128 * NWG, 1) flash_fwd_wgmma(
   }
 }
 
-template <class E, int D>
+template <class E, class TKV, int D>
 int launch_wgmma(const void* q, const void* k, const void* v,
                  const float* mask, const int* kv_lens, void* out, float* lse,
                  int B, int Sq, int Sk, int H, int Hkv, long long msb,
                  long long msh, long long msq, long long msk, float scale,
                  int causal, int seed0, int seed1, unsigned thresh,
                  float dscale, cudaStream_t stream) {
-  constexpr int BM = 64 * kFwdWG;
-  constexpr int smem = 1024 + BM * D * 2 + kFwdStages * 2 * kFwdBN * D * 2;
-  constexpr int mask_smem = BM * (kFwdBN + 4) * 4;
+  // f32 K/V: one warpgroup, kFwdBNF32 keys a tile, no dropout
+  constexpr bool F32 = std::is_same<TKV, float>::value;
+  constexpr int WG = F32 ? 1 : kFwdWG, BN = F32 ? kFwdBNF32 : kFwdBN;
+  using L = FwdSmem<E, TKV, D, BN, WG>;
+  constexpr int smem = 1024 + (int)L::M;
+  constexpr int mask_smem = (int)L::MASK;
   // the mask tile is staged when its rows are distinct (msq != 0), keys
-  // contiguous and every row 16-byte aligned; otherwise it is read from L2
+  // contiguous and every row 16-byte aligned, and it fits beside the
+  // rings; otherwise it is read from L2
+  constexpr bool FITS = smem + mask_smem <= 232448;
   const int stage = kFwdWG == 1 && mask && msk == 1 && msq != 0 &&
                     msq % 4 == 0 && msb % 4 == 0 && msh % 4 == 0 &&
-                    ((uintptr_t)mask & 15) == 0;
-  constexpr bool ONE = kFwdWG == 1;
+                    ((uintptr_t)mask & 15) == 0 && FITS;
+  constexpr bool ONE = WG == 1 && FITS;
+  if (F32 && dscale > 0.f) return (int)cudaErrorInvalidValue;
   auto kern =
-      dscale > 0.f
-          ? (stage ? flash_fwd_wgmma<E, D, kFwdBN, kFwdWG, true, ONE>
-                   : flash_fwd_wgmma<E, D, kFwdBN, kFwdWG, true, false>)
-          : (stage ? flash_fwd_wgmma<E, D, kFwdBN, kFwdWG, false, ONE>
-                   : flash_fwd_wgmma<E, D, kFwdBN, kFwdWG, false, false>);
+      dscale > 0.f && !F32
+          ? (stage ? flash_fwd_wgmma<E, TKV, D, BN, WG, !F32, ONE>
+                   : flash_fwd_wgmma<E, TKV, D, BN, WG, !F32, false>)
+          : (stage ? flash_fwd_wgmma<E, TKV, D, BN, WG, false, ONE>
+                   : flash_fwd_wgmma<E, TKV, D, BN, WG, false, false>);
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem + mask_smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem + (ONE ? mask_smem : 0));
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(B * H, (Sq + BM - 1) / BM);
-  kern<<<grid, 128 * kFwdWG, smem + (stage ? mask_smem : 0), stream>>>(
-      static_cast<const E*>(q), static_cast<const E*>(k),
-      static_cast<const E*>(v), mask, kv_lens, static_cast<E*>(out),
+  dim3 grid(B * H, (Sq + L::BM - 1) / L::BM);
+  kern<<<grid, 128 * WG, smem + (stage ? mask_smem : 0), stream>>>(
+      static_cast<const E*>(q), static_cast<const TKV*>(k),
+      static_cast<const TKV*>(v), mask, kv_lens, static_cast<E*>(out),
       lse, Sq, Sk, H, Hkv, msb, msh, msq, msk, scale, causal, (uint32_t)seed0,
       (uint32_t)seed1, (uint32_t)thresh, dscale);
   return (int)cudaGetLastError();
@@ -729,8 +837,10 @@ bool decode_route(int dtype, int kv_dtype, int Sq, int H, int Hkv,
 // dtype: q's and the output's element type, kv_dtype: K's and V's (0 =
 // float32, 1 = bfloat16, 2 = float16). One 16-bit dtype throughout runs the
 // one-row decode route where `decode_route` says so (Sq = 1, no dropout)
-// and the wgmma kernel otherwise; float32, or q of one dtype with K/V of
-// another, the FMA kernel (mixed dtypes without dropout). Layouts: q/out
+// and the wgmma kernel otherwise; a 16-bit q over f32 K/V (`tc::f32_kv`)
+// at Sq > 1 without dropout the wgmma kernel with K and V in bf16 hi + lo
+// parts; float32, or other pairs of dtypes, or a 16-bit q over f32 K/V at
+// Sq = 1, the FMA kernel (no dropout with two dtypes). Layouts: q/out
 // [B, Sq, H, D], k/v [B, Sk, Hkv, D], lse [B, H, Sq], all contiguous;
 // mask (may be null) is f32 addressed as mask[b*msb + h*msh + q*msq +
 // k*msk];
@@ -774,12 +884,24 @@ extern "C" int flash_fwd(int dtype, int kv_dtype, int head_dim,
                          dec::split_ranks(Sk, (long long)B * Hkv), scale,
                          stream);
         }
-        auto run = head_dim == 64 ? tc::launch_wgmma<TQ, 64>
-                                  : tc::launch_wgmma<TQ, 128>;
+        auto run = head_dim == 64 ? tc::launch_wgmma<TQ, TQ, 64>
+                                  : tc::launch_wgmma<TQ, TQ, 128>;
         return run(q, k, v, mask, kv_lens, out, lse, B, Sq, Sk, H, Hkv, msb,
                    msh, msq, msk, scale, causal, seed0, seed1, thresh,
                    dscale, stream);
       } else {
+        if constexpr (tc::f32_kv<TQ, TKV>()) {
+          if (Sq > 1 && !(dscale > 0.f)) {
+            if (!aligned16(q) || !aligned16(k) || !aligned16(v) ||
+                !aligned16(out))
+              return (int)cudaErrorMisalignedAddress;
+            auto run = head_dim == 64 ? tc::launch_wgmma<TQ, TKV, 64>
+                                      : tc::launch_wgmma<TQ, TKV, 128>;
+            return run(q, k, v, mask, kv_lens, out, lse, B, Sq, Sk, H, Hkv,
+                       msb, msh, msq, msk, scale, causal, seed0, seed1,
+                       thresh, dscale, stream);
+          }
+        }
         auto run = head_dim == 64 ? launch<TQ, TKV, 64>
                                   : launch<TQ, TKV, 128>;
         return run(q, k, v, mask, kv_lens, out, lse, B, Sq, Sk, H, Hkv, msb,

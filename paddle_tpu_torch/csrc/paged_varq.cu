@@ -78,13 +78,46 @@
 // outside TOL[float16], and one P was 3-5 % faster; H100 80GB HBM3, 700
 // W, tools/kernel_variants.py --dtype float16).
 //
-// q and pages of different dtypes (q in the model's dtype, pages in the
-// KV pool's `kv_dtype`; each of f32 / bf16 / f16): the FMA kernel below
-// with q read as TQ and pages as TKV, converted to f32 on load and the
-// output in TQ. With 16-bit pages the walk runs twice, as paged_decode.cu's
-// FMA kernel: the rows' max and sum first, then P = TKV(exp(s - m) / l)
-// times V, so that P is rounded where the plain version rounds it (after
-// normalising); f32 pages take one online pass.
+// A bf16 or f16 q over f32 pages (a 16-bit model over an f32 KV pool;
+// `tc::f32_kv`, route "wgmma_f32kv"): the same wgmma kernel with the pages
+// entering the products as bf16 hi + lo parts (wgmma.cuh's note), so the
+// f32 operand keeps 16 significant bits over f32's whole range: S = Q
+// K_hi^T + Q K_lo^T (+ Q_lo K_hi^T for an f16 q, whose 11 bits are split
+// exactly), O += P_hi V_hi + P_hi V_lo + P_lo V_hi. The plain version and
+// the Pallas kernel keep everything in f32 (P unrounded: V is f32), so
+// the two differ by those 2^-17 terms before the output's own rounding to
+// q's dtype. Each key tile's f32 K and V rows are gathered by cp.async
+// into a 2-stage f32 ring (wgmma.cuh's `stage_rows`) and split in shared
+// memory into hi and lo tiles (`split_tile`): K before the S product, V
+// while it runs. Tiles of 16 KiB of f32 keys (kVarqF32TileBytes: 32 keys
+// at head_dim 128, 64 at 64), so with a bf16 q the CTA takes 113 KiB and
+// two share an SM; an f16 q's lo tile (16 KiB more) leaves one an SM.
+// Bound on the H100: the bytes of the f32 pages (4 a value, twice bf16's)
+// at the mixed and verify shapes; the operations of a 16-bit-by-f32
+// product count at the 16-bit tensor-core peak (the split reaches f32
+// accuracy there), not the FMA units' f32 peak. Measured on an H100 80GB
+// HBM3 at 700 W (tools/kernel_variants.py --only paged_varq --kv float32
+// --parent: the previous FMA kernel in the same process), bf16
+// q: 0.0696 ms at q[4, 256, 32, 128] mixed spans (FMA 0.2482; bytes bound
+// 0.0132) and 0.0472 ms at the verify shape q[4, 5, 32, 128] (FMA 0.1946;
+// bound 0.0096); f16 q: 0.0947 / 0.0576 (FMA 0.2444 / 0.1924). Variants
+// that lost (bf16 q): 32 KiB tiles, one CTA an SM (0.0904 / 0.0598); a
+// 3-stage ring (0.0899 / 0.0544); the verify walk unsplit (0.0674) or over
+// 4 CTAs (0.0488). What holds it is each CTA's chain per key tile (copy
+// wait, split, S, softmax, P V in one warpgroup): without the split the
+// kernel takes 0.0565 / 0.0386, without the f32 copies 0.0523 / 0.0306
+// (diagnostic variants). Not built: TF32 products (K-major operands only,
+// so V would need a transposed copy, at half the 16-bit rate) and f32 rows
+// loaded through registers (a tile is 128 registers a thread); 32-key
+// tiles at head_dim 64 crashed ptxas 12.8/12.9 (the cluster combine's
+// instance), hence the tile sized in bytes.
+//
+// Other pairs of dtypes (f32 q over 16-bit pages, bf16 with f16): the
+// FMA kernel below with q read as TQ and pages as TKV, converted to f32
+// on load and the output in TQ. With 16-bit pages the walk runs twice, as
+// paged_decode.cu's FMA kernel: the rows' max and sum first, then P =
+// TKV(exp(s - m) / l) times V, so that P is rounded where the plain
+// version rounds it (after normalising).
 //
 // f32 (dtype 0): the FMA-unit kernel below (TF32 is off in the port):
 // one block of 256 threads per (64-row query tile, KV head, slot) walks
@@ -425,6 +458,15 @@ constexpr bool kVarqSplitP = true;     // P as bf16 hi + lo parts, not one bf16
 constexpr bool kVarqSplitPF16 = false;  // the f16 instance: one f16 P
 constexpr int kVarqMaxCluster = 2;     // CTAs per one-tile span walk, at most
 constexpr int kVarqMinShare = 128;     // keys per rank that warrant one more
+// f32 pages (a 16-bit q over an f32 pool): bytes of one f32 K tile (32
+// keys at head_dim 128, 64 at 64) and depth of the f32 staging ring; with
+// a bf16 q the CTA then takes 113 KiB at head_dim 128, so two CTAs share
+// an SM
+constexpr int kVarqF32TileBytes = 16384;
+constexpr int kVarqStagesF32 = 2;
+// dynamic shared memory is 16-byte aligned: at most 1008 bytes pad its
+// base to the 1024-byte alignment of the swizzled tiles
+constexpr int kVarqSlack = 1008;
 
 // P of one key tile in place: s holds the thread's S = Q K^T entries
 // (rows qr and qr + 8 of the tile, columns 8 j + kc + {0, 1}), unscaled;
@@ -432,15 +474,14 @@ constexpr int kVarqMinShare = 128;     // keys per rank that warrant one more
 // rows' running max (natural-log domain) and partial sums, alpha the
 // factor the output rows are rescaled by. EDGE applies the keep test
 // (key < kend and key <= the row's position).
-template <bool EDGE>
-__device__ __forceinline__ void varq_probs(float (&s)[kVarqBN / 2],
-                                           float (&m)[2], float (&l)[2],
-                                           float (&alpha)[2],
+template <bool EDGE, int NS>
+__device__ __forceinline__ void varq_probs(float (&s)[NS], float (&m)[2],
+                                           float (&l)[2], float (&alpha)[2],
                                            const int (&qpos)[2], int k_col0,
                                            int kend, float scale) {
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int j = 0; j < kVarqBN / 8; ++j)
+  for (int j = 0; j < NS / 4; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int ki = k_col0 + 8 * j + e;
@@ -466,7 +507,7 @@ __device__ __forceinline__ void varq_probs(float (&s)[kVarqBN / 2],
   }
   const float sl2 = scale * kLog2e;
 #pragma unroll
-  for (int j = 0; j < kVarqBN / 8; ++j)
+  for (int j = 0; j < NS / 4; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e)
 #pragma unroll
@@ -477,13 +518,37 @@ __device__ __forceinline__ void varq_probs(float (&s)[kVarqBN / 2],
       }
 }
 
+// Shared memory of paged_varq_wgmma<E, TKV, D>, in bytes from its
+// 1024-aligned base: the Q tile (and, for an f16 q over f32 pages, its lo
+// part); then either the K and V rings of 16-bit tiles, or (f32 pages) the
+// K and V hi and lo tiles and the ring of f32 staging tiles; then two ints
+// (the slot's first meta entry and its count). RING is the region the
+// cluster combine reuses once the walk is done.
+template <class E, class TKV, int D>
+struct VarqSmem {
+  static constexpr bool F32 = std::is_same<TKV, float>::value;
+  static constexpr bool QLO = F32 && std::is_same<E, f16>::value;
+  static constexpr int BN = F32 ? kVarqF32TileBytes / (4 * D) : kVarqBN;
+  static constexpr int NS = F32 ? kVarqStagesF32 : kVarqStages;
+  static constexpr uint32_t Q_BYTES = 64 * D * 2, KV_BYTES = BN * D * 2;
+  static constexpr uint32_t F_BYTES = BN * D * 4;  // one f32 staging tile
+  static constexpr uint32_t K = Q_BYTES * (QLO ? 2 : 1);
+  static constexpr uint32_t V = F32 ? K + 2 * KV_BYTES : K + NS * KV_BYTES;
+  static constexpr uint32_t RING = F32 ? K + 4 * KV_BYTES : K;
+  static constexpr uint32_t META = RING + NS * 2 * (F32 ? F_BYTES : KV_BYTES);
+  static constexpr uint32_t BYTES = META + 16;
+  static_assert(64 * D * 4 + 2 * 64 * 4 <= META - RING,
+                "the combine's staging must fit the ring");
+};
+
 // One cluster of CTAs, each one warpgroup, per (query tile, KV head hk,
-// slot b): grid (tiles * cluster, Hkv, B), every tensor of the 16-bit
-// element type E. See the note at the top.
-template <class E, int D>
+// slot b): grid (tiles * cluster, Hkv, B). q and the output are of the
+// 16-bit type E, the pages of E or (f32_kv) f32, entering the products as
+// bf16 hi + lo parts. See the note at the top.
+template <class E, class TKV, int D>
 __global__ void __launch_bounds__(128, 1) paged_varq_wgmma(
-    const E* __restrict__ q, const E* __restrict__ k_pages,
-    const E* __restrict__ v_pages, const int* __restrict__ tables,
+    const E* __restrict__ q, const TKV* __restrict__ k_pages,
+    const TKV* __restrict__ v_pages, const int* __restrict__ tables,
     const int* __restrict__ meta, const int* __restrict__ kv_lens,
     const int* __restrict__ q_lens, E* __restrict__ out, int Qb, int H,
     int Hkv, int page, int pps, int num_pages, int G, float scale) {
@@ -491,15 +556,24 @@ __global__ void __launch_bounds__(128, 1) paged_varq_wgmma(
   cg::cluster_group cluster = cg::this_cluster();
   const int n_ranks = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  constexpr int BN = kVarqBN, NT = 128, NS = kVarqStages;
+  using L = VarqSmem<E, TKV, D>;
+  constexpr bool F32 = L::F32, QLO = L::QLO;
+  // the products' operand type: bf16 parts over f32 pages, else E
+  using PE = typename std::conditional<F32, bf16, E>::type;
+  constexpr int BN = L::BN, NT = 128, NS = L::NS;
   constexpr bool SPLIT =
-      std::is_same<E, f16>::value ? kVarqSplitPF16 : kVarqSplitP;
-  constexpr uint32_t Q_BYTES = 64 * D * 2, KV_BYTES = BN * D * 2;
+      F32 || (std::is_same<E, f16>::value ? kVarqSplitPF16 : kVarqSplitP);
+  constexpr uint32_t KV_BYTES = L::KV_BYTES, F_BYTES = L::F_BYTES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = smem_addr(smem_raw);
-  const uint32_t sQ = (base + 1023) & ~1023u;
-  const uint32_t sK = sQ + Q_BYTES, sV = sK + NS * KV_BYTES;  // the rings
-  __shared__ int s_lo, s_n;
+  const uint32_t sQ = (base + 1023) & ~1023u, sQl = sQ + L::Q_BYTES;
+  // 16-bit pages: the K and V rings; f32 pages: the K and V hi tiles, each
+  // followed by its lo tile, and the f32 ring (K then V a stage)
+  const uint32_t sK = sQ + L::K, sV = sQ + L::V, sF = sQ + L::RING;
+  const uint32_t sKl = sK + KV_BYTES, sVl = sV + KV_BYTES;
+  // no static shared memory: two CTAs fit an SM where the layout allows
+  int& s_lo = *reinterpret_cast<int*>(smem_raw + (sQ + L::META - base));
+  int& s_n = (&s_lo)[1];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int hk = blockIdx.y, b = blockIdx.z;
@@ -581,41 +655,50 @@ __global__ void __launch_bounds__(128, 1) paged_varq_wgmma(
   const int qpos0 = kl - ql + i0;
 
   // the rank's key tile i into ring stage i % NS, row by row from the
-  // pages
+  // pages (f32 pages: into the f32 staging ring)
   auto load_kv = [&](int i) {
     if (i >= n_it) return;
     const int k0 = (it0 + i) * BN;
-    load_rows<BN, D, NT>(
-        sK + (i % NS) * KV_BYTES, k_pages,
-        [&](int r) -> long long {
-          const int pos = k0 + r;
-          if (pos >= k_end) return -1;
-          const int pid = min(max(plist[pos / page], 0), num_pages - 1);
-          return ((long long)pid * page + pos % page) * kv_stride +
-                 (long long)hk * D;
-        },
-        tid, sV + (i % NS) * KV_BYTES, v_pages);
+    auto row_off = [&](int r) -> long long {
+      const int pos = k0 + r;
+      if (pos >= k_end) return -1;
+      const int pid = min(max(plist[pos / page], 0), num_pages - 1);
+      return ((long long)pid * page + pos % page) * kv_stride +
+             (long long)hk * D;
+    };
+    if constexpr (F32) {
+      const uint32_t f = sF + (i % NS) * 2 * F_BYTES;
+      stage_rows<BN, D, NT>(f, k_pages, row_off, tid, f + F_BYTES, v_pages);
+    } else {
+      load_rows<BN, D, NT>(sK + (i % NS) * KV_BYTES, k_pages, row_off, tid,
+                           sV + (i % NS) * KV_BYTES, v_pages);
+    }
   };
 
   float acc[D / 2], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float s[BN / 2], alpha[2];
-  uint32_t pf[BN / 16][4], pl[BN / 16][4];  // P's hi and lo parts (E)
+  uint32_t pf[BN / 16][4], pl[BN / 16][4];  // P's hi and lo parts (PE)
 
   // groups: {Q, K 0, V 0}, {K 1, V 1}, .. up to tile NS - 2, then one
   // {K, V} per tile, NS - 1 tiles ahead; the next tile's gathers are
-  // issued while the S product runs
-  if (n_it > 0)
-    load_rows<64, D, NT>(
-        sQ, q,
-        [&](int r) -> long long {
-          const int si = i0 + r / Gq;
-          return r < nrows && si < ql
-                     ? qo + si * q_stride + (long long)(r % Gq) * D
-                     : -1;
-        },
-        tid);
+  // issued while the S product runs. An f16 q over f32 pages is split
+  // into bf16 hi and lo tiles here, synchronously.
+  if (n_it > 0) {
+    auto q_off = [&](int r) -> long long {
+      const int si = i0 + r / Gq;
+      return r < nrows && si < ql
+                 ? qo + si * q_stride + (long long)(r % Gq) * D
+                 : -1;
+    };
+    if constexpr (QLO) {
+      split_rows<64, D, NT>(sQ, sQl, q, q_off, tid);
+      fence_async_smem();
+    } else {
+      load_rows<64, D, NT>(sQ, q, q_off, tid);
+    }
+  }
 #pragma unroll
   for (int i = 0; i < NS - 1; ++i) {
     load_kv(i);
@@ -625,16 +708,35 @@ __global__ void __launch_bounds__(128, 1) paged_varq_wgmma(
     cp_async_wait<NS - 2>();
     __syncthreads();  // tile it landed; everyone is done with tile it - 1
     const uint32_t st = (it % NS) * KV_BYTES;
+    const uint32_t f = sF + (it % NS) * 2 * F_BYTES;  // f32 pages' stage
+    if constexpr (F32) {
+      // K's f32 rows into its hi and lo tiles before the S product
+      split_tile<BN, D, NT>(sK, sKl, f, tid);
+      fence_async_smem();
+      __syncthreads();
+    }
+    const uint32_t kt = F32 ? sK : sK + st, vt = F32 ? sV : sV + st;
 
-    // S = Q K^T (queries x keys), A and B from shared memory
+    // S = Q K^T (queries x keys), A and B from shared memory; over f32
+    // pages Q K_hi^T + Q K_lo^T (+ Q_lo K_hi^T for an f16 q)
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<E>(s, kmajor_desc<64>(sQ, 0, kk),
-                  kmajor_desc<BN>(sK + st, 0, kk), kk);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint64_t qd = kmajor_desc<64>(sQ, 0, kk);
+      wgmma_ss<PE>(s, qd, kmajor_desc<BN>(kt, 0, kk), kk);
+      if constexpr (F32) wgmma_ss<PE>(s, qd, kmajor_desc<BN>(sKl, 0, kk), 1);
+      if constexpr (QLO)
+        wgmma_ss<PE>(s, kmajor_desc<64>(sQl, 0, kk),
+                     kmajor_desc<BN>(sK, 0, kk), 1);
+    }
     wgmma_commit();
     load_kv(it + NS - 1);
     cp_async_commit();
+    if constexpr (F32) {
+      // V's f32 rows into its hi and lo tiles while the S product runs
+      split_tile<BN, D, NT>(sV, sVl, f + F_BYTES, tid);
+      fence_async_smem();
+    }
     wgmma_wait<0>();
     fence_regs(s);
 
@@ -644,8 +746,8 @@ __global__ void __launch_bounds__(128, 1) paged_varq_wgmma(
     else
       varq_probs<true>(s, m, l, alpha, qpos, k0 + kc, k_end, scale);
 
-    // O = alpha O, then P as A fragments of E (the accumulator layout is
-    // the A layout): hi = E(P) and, with SPLIT, lo = E(P - hi)
+    // O = alpha O, then P as A fragments of PE (the accumulator layout is
+    // the A layout): hi = PE(P) and, with SPLIT, lo = PE(P - hi)
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 #pragma unroll
@@ -653,21 +755,25 @@ __global__ void __launch_bounds__(128, 1) paged_varq_wgmma(
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float a = s[8 * kk + 2 * i], c = s[8 * kk + 2 * i + 1];
-        pf[kk][i] = pack2<E>(a, c);
+        pf[kk][i] = pack2<PE>(a, c);
         if constexpr (SPLIT) {
-          const float2 hf = unpack2<E>(pf[kk][i]);
-          pl[kk][i] = pack2<E>(a - hf.x, c - hf.y);
+          const float2 hf = unpack2<PE>(pf[kk][i]);
+          pl[kk][i] = pack2<PE>(a - hf.x, c - hf.y);
         }
       }
+    if constexpr (F32) __syncthreads();  // every thread's V parts stored
 
-    // O += P V (hi, then lo), the key-major V tile read transposed
+    // O += P V (hi, then lo; over f32 pages also P_hi V_lo), the
+    // key-major V tile read transposed
     wgmma_fence();
     fence_regs(acc);
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint64_t vd = mnmajor_desc<BN>(sV + st, kk);
-      wgmma_rs_tb<E>(acc, pf[kk], vd);
-      if constexpr (SPLIT) wgmma_rs_tb<E>(acc, pl[kk], vd);
+      const uint64_t vd = mnmajor_desc<BN>(vt, kk);
+      wgmma_rs_tb<PE>(acc, pf[kk], vd);
+      if constexpr (SPLIT) wgmma_rs_tb<PE>(acc, pl[kk], vd);
+      if constexpr (F32)
+        wgmma_rs_tb<PE>(acc, pf[kk], mnmajor_desc<BN>(sVl, kk));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -701,11 +807,12 @@ __global__ void __launch_bounds__(128, 1) paged_varq_wgmma(
   }
 
   // combine the ranks' (max, sum, accumulator), staged in each rank's now
-  // idle K/V rings: rank r writes elements [128 r, 128 r + 128) + 128
-  // n_ranks i of the tile's rows
+  // idle ring: rank r writes elements [128 r, 128 r + 128) + 128 n_ranks i
+  // of the tile's rows
   cp_async_wait<0>();
   __syncthreads();
-  float* acc_s = reinterpret_cast<float*>(smem_raw + (sK - base));  // [64][D]
+  float* acc_s =
+      reinterpret_cast<float*>(smem_raw + (sQ + L::RING - base));  // [64][D]
   float* m_s = acc_s + 64 * D;
   float* l_s = m_s + 64;
 #pragma unroll
@@ -743,16 +850,14 @@ __global__ void __launch_bounds__(128, 1) paged_varq_wgmma(
   cluster.sync();
 }
 
-template <class E, int D>
+template <class E, class TKV, int D>
 int launch_wgmma(const void* q, const void* k_pages, const void* v_pages,
                  const int* tables, const int* meta, const int* kv_lens,
                  const int* q_lens, void* out, int B, int Qb, int H, int Hkv,
                  int page, int pps, int num_pages, int G, float scale,
                  cudaStream_t stream) {
-  constexpr int smem = 1024 + 64 * D * 2 + kVarqStages * 2 * kVarqBN * D * 2;
-  static_assert(64 * D * 4 + 2 * 64 * 4 <= kVarqStages * 2 * kVarqBN * D * 2,
-                "the combine's staging must fit the rings");
-  auto kern = paged_varq_wgmma<E, D>;
+  constexpr int smem = kVarqSlack + (int)VarqSmem<E, TKV, D>::BYTES;
+  auto kern = paged_varq_wgmma<E, TKV, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -779,7 +884,7 @@ int launch_wgmma(const void* q, const void* k_pages, const void* v_pages,
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(
       &cfg, kern, static_cast<const E*>(q),
-      static_cast<const E*>(k_pages), static_cast<const E*>(v_pages),
+      static_cast<const TKV*>(k_pages), static_cast<const TKV*>(v_pages),
       tables, meta, kv_lens, q_lens, static_cast<E*>(out), Qb, H, Hkv,
       page, pps, num_pages, G, scale);
   if (err != cudaSuccess) return (int)err;
@@ -797,11 +902,12 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 // dtype: q's and the output's element type, kv_dtype: the pages' (0 =
 // float32, 1 = bfloat16, 2 = float16). One 16-bit dtype runs the wgmma
-// kernel; float32, or q and pages of different dtypes, the FMA kernel.
-// Layouts (contiguous): q/out [B, Qb, H, D], k_pages/v_pages [num_pages,
-// page, Hkv, D] (16-byte aligned), kv_lens/q_lens int32 [B], and exactly
-// one page source: tables int32 [B, pps] (meta null) or meta int32 [6, G]
-// (tables null). H / Hkv <= 64. Returns cudaGetLastError().
+// kernel; a 16-bit q over f32 pages (`tc::f32_kv`) the wgmma kernel with
+// the pages in bf16 hi + lo parts; float32 q, or bf16 with f16, the FMA
+// kernel. Layouts (contiguous): q/out [B, Qb, H, D], k_pages/v_pages
+// [num_pages, page, Hkv, D] (16-byte aligned), kv_lens/q_lens int32 [B],
+// and exactly one page source: tables int32 [B, pps] (meta null) or meta
+// int32 [6, G] (tables null). H / Hkv <= 64. Returns cudaGetLastError().
 extern "C" int paged_varq(int dtype, int kv_dtype, int head_dim,
                           const void* q, const void* k_pages,
                           const void* v_pages, const int* tables,
@@ -819,13 +925,14 @@ extern "C" int paged_varq(int dtype, int kv_dtype, int head_dim,
     return tc::with_dtype(kv_dtype, [&](auto tkv) {
       using TQ = typename decltype(tq)::type;
       using TKV = typename decltype(tkv)::type;
-      if constexpr (std::is_same<TQ, TKV>::value &&
-                    !std::is_same<TQ, float>::value) {
+      constexpr bool ONE = std::is_same<TQ, TKV>::value &&
+                           !std::is_same<TQ, float>::value;
+      if constexpr (ONE || tc::f32_kv<TQ, TKV>()) {
         if (!aligned16(q) || !aligned16(k_pages) || !aligned16(v_pages) ||
             !aligned16(out))
           return (int)cudaErrorMisalignedAddress;
-        auto run = head_dim == 64 ? tc::launch_wgmma<TQ, 64>
-                                  : tc::launch_wgmma<TQ, 128>;
+        auto run = head_dim == 64 ? tc::launch_wgmma<TQ, TKV, 64>
+                                  : tc::launch_wgmma<TQ, TKV, 128>;
         return run(q, k_pages, v_pages, tables, meta, kv_lens, q_lens, out, B,
                    Qb, H, Hkv, page, pps, num_pages, G, scale, stream);
       } else {

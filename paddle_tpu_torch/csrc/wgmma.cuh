@@ -11,6 +11,32 @@
 // lane l) of a warpgroup holds rows 16 w + l / 4 and 16 w + l / 4 + 8 of
 // an m64nN accumulator, columns 8 j + 2 (l % 4) + {0, 1}, as elements
 // 4 j + {0, 1} and 4 j + {2, 3}.
+//
+// f32 K and V under a 16-bit q (`f32_kv`: flash_fwd.cu's and
+// paged_varq.cu's instances for a bf16 / f16 model over an f32 KV pool;
+// they replace the FMA-unit kernels that ran paddle_tpu/kernels/
+// attention.py `_fwd_kernel` and paged_attention.py `_ragged_varq_kernel`
+// for these dtypes). The f32 operand keeps its bits as two bf16 parts, hi
+// = bf16(x) and lo = bf16(x - hi) (`split_bf16`): hi + lo is x to within
+// 2^-17 |x|, at least 16 significant bits, over f32's whole exponent
+// range (bf16 has f32's exponents; f16 parts would overflow past 65504
+// and lose bits below 2^-14). A product with such an operand runs once
+// per part: S = Q K_hi^T + Q K_lo^T, O += P_hi V_hi + P_hi V_lo + P_lo
+// V_hi (P_lo V_lo, below 2^-17 of the term, is dropped). A bf16 q is
+// exact in bf16; an f16 q (11 significant bits) is split too, exactly
+// (`split_rows`: lo holds the 3 bits bf16 cannot), and S gains Q_lo
+// K_hi^T. The f32 rows arrive by cp.async in a dense staging tile
+// (`stage_rows`) and are converted in shared memory into the swizzled hi
+// and lo tiles (`split_tile`), whose generic stores are made visible to
+// wgmma by `fence_async_smem` and a barrier. Bound: the bytes of the f32
+// operand, the operations at the 16-bit tensor-core peak. On an H100 80GB
+// HBM3 at 700 W (tools/kernel_variants.py) the split costs
+// each kernel a fifth of its time (0.0342 -> 0.0279 ms for flash_fwd's
+// suffix prefill, 0.0696 -> 0.0565 for paged_varq's mixed shape without
+// it); TF32 products (K-major operands only, V needing a transposed copy,
+// at half the 16-bit rate) and f32 rows converted through registers (a
+// 64-key tile is 128 registers a thread) were not built. The variants
+// measured are in the two kernels' notes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -82,13 +108,18 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
+// generic-proxy writes to shared memory (stores, cp.async), made visible
+// to wgmma, which reads through the async proxy; a barrier follows before
+// the product
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 // waits until at most N of this thread's newest copy groups are pending
-// and makes the others visible to wgmma, which reads shared memory
-// through the async proxy; a __syncthreads follows
+// and makes the others visible to wgmma; a __syncthreads follows
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  fence_async_smem();
 }
 __device__ __forceinline__ void cp_async_wait_all() { cp_async_wait<0>(); }
 
@@ -143,6 +174,128 @@ __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
   return sw128_desc(tile + kk * 16 * 128, R * 128, 1024);
 }
 
+// byte offset of 16-byte chunk c of row r in an R-row swizzled tile
+template <int R>
+__device__ __forceinline__ uint32_t sw_chunk(int r, int c) {
+  return (c / 8) * (R * 128) + r * 128 + (((c % 8) ^ (r % 8)) << 4);
+}
+
+__device__ __forceinline__ void st_shared_v2(uint32_t addr, uint32_t a,
+                                             uint32_t b) {
+  asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(addr), "r"(a),
+               "r"(b)
+               : "memory");
+}
+__device__ __forceinline__ void st_shared_v4(uint32_t addr,
+                                             const uint32_t (&w)[4]) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3])
+               : "memory");
+}
+__device__ __forceinline__ float4 ld_shared_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// q (and the output) of a 16-bit type over f32 K/V: the tensor-core
+// kernels with the f32 operand in bf16 hi + lo parts (paged_varq.cu's
+// dispatch and flash_fwd.cu's at Sq > 1; kernels/paged_attention.py
+// `varq_route` and kernels/attention.py `fwd_route` mirror it)
+template <class TQ, class TKV>
+constexpr bool f32_kv() {
+  return !std::is_same<TQ, float>::value && std::is_same<TKV, float>::value;
+}
+
+// two f32 values as packed bf16 hi and lo pairs: hi = bf16(x), lo =
+// bf16(x - hi) (x - hi is exact in f32), so hi + lo = x to 2^-17 |x|
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = pack2<bf16>(a, b);
+  const float2 h = unpack2<bf16>(hi);
+  lo = pack2<bf16>(a - h.x, b - h.y);
+}
+
+// rows [0, R) of D f32 values into a dense staging tile (row r at byte
+// r * D * 4 of `dst`), row r from element offset row_off(r) of `src` (a
+// negative offset zero-fills the row and reads nothing), 16 bytes (4
+// values) per cp.async; with `src2`, the same rows of a second tensor
+// into `dst2` (K and V rows of one position: each offset computed once)
+template <int R, int D, int NT, class RowOff>
+__device__ __forceinline__ void stage_rows(uint32_t dst, const float* src,
+                                           RowOff row_off, int tid,
+                                           uint32_t dst2 = 0,
+                                           const float* src2 = nullptr) {
+  constexpr int CPR = D / 4;  // 16-byte chunks per row
+  static_assert((R * CPR) % NT == 0, "tile chunks must split evenly");
+#pragma unroll
+  for (int j = 0; j < R * CPR / NT; ++j) {
+    const int i = tid + j * NT, r = i / CPR, c = i % CPR;
+    const long long off = row_off(r);
+    const bool in = off >= 0;
+    const uint32_t at = (uint32_t)(r * D + c * 4) * 4;
+    const long long g = (in ? off : 0) + c * 4;
+    cp_async16(dst + at, src + g, in ? 16 : 0);
+    if (src2 != nullptr) cp_async16(dst2 + at, src2 + g, in ? 16 : 0);
+  }
+}
+
+// a dense staging tile of R rows x D f32 values (`stage_rows`) as bf16 hi
+// and lo tiles in the swizzled layout, 4 values (half a chunk) per step:
+// a warp reads 512 contiguous bytes and writes whole 128-byte panel rows,
+// so neither side has bank conflicts. Generic stores: fence_async_smem
+// and a barrier before a wgmma reads the tiles
+template <int R, int D, int NT>
+__device__ __forceinline__ void split_tile(uint32_t hi, uint32_t lo,
+                                           uint32_t stage, int tid) {
+  constexpr int QPR = D / 4;  // 4-value pieces per row
+  static_assert((R * QPR) % NT == 0, "tile pieces must split evenly");
+#pragma unroll 4
+  for (int j = 0; j < R * QPR / NT; ++j) {
+    const int i = tid + j * NT, r = i / QPR, p = i % QPR;
+    const float4 x = ld_shared_f4(stage + (uint32_t)(r * D + 4 * p) * 4);
+    uint32_t h0, h1, l0, l1;
+    split_bf16(x.x, x.y, h0, l0);
+    split_bf16(x.z, x.w, h1, l1);
+    const uint32_t at = sw_chunk<R>(r, p / 2) + (p % 2) * 8;
+    st_shared_v2(hi + at, h0, h1);
+    st_shared_v2(lo + at, l0, l1);
+  }
+}
+
+// rows [0, R) of a tensor of 16-bit elements T as bf16 hi and lo tiles in
+// the swizzled layout (exact for f16: hi keeps 8 of its 11 significant
+// bits, lo the other 3), row r from element offset row_off(r) of `src` (a
+// negative offset gives zeros), 16 bytes per load. Plain loads and
+// generic stores: fence_async_smem and a barrier before a wgmma reads them
+template <int R, int D, int NT, class RowOff, class T>
+__device__ __forceinline__ void split_rows(uint32_t hi, uint32_t lo,
+                                           const T* src, RowOff row_off,
+                                           int tid) {
+  static_assert(sizeof(T) == 2, "16-bit elements");
+  constexpr int CPR = D / 8;  // 16-byte chunks per row
+  static_assert((R * CPR) % NT == 0, "tile chunks must split evenly");
+#pragma unroll
+  for (int j = 0; j < R * CPR / NT; ++j) {
+    const int i = tid + j * NT, r = i / CPR, c = i % CPR;
+    const long long off = row_off(r);
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    if (off >= 0) u = *reinterpret_cast<const uint4*>(src + off + c * 8);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = unpack2<T>(w[e]);
+      split_bf16(f.x, f.y, h[e], l[e]);
+    }
+    st_shared_v4(hi + sw_chunk<R>(r, c), h);
+    st_shared_v4(lo + sw_chunk<R>(r, c), l);
+  }
+}
+
 // rows [0, R) of a swizzled tile of 16-bit elements E, row r from element
 // offset row_off(r) of `src` (a negative offset zero-fills the row and
 // reads nothing), 16 bytes per copy: rows may lie anywhere, as the rows of
@@ -194,6 +347,18 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const E* src,
 
 // the products' inline assembly for operands of type TY ("bf16" or
 // "f16"), f32 accumulators
+#define TC_WGMMA_SS_N32(TY)  \
+  asm volatile(  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"  \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {"  \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "  \
+      "%8, %9, %10, %11, %12, %13, %14, %15"  \
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),  \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])  \
+      : "l"(a), "l"(b), "r"(accumulate))
+
 #define TC_WGMMA_SS_N64(TY)  \
   asm volatile(  \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"  \
@@ -280,6 +445,16 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const E* src,
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])  \
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
 
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32], A and B (E) K-major in shared memory
+template <class E = bf16>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  if constexpr (std::is_same<E, f16>::value)
+    TC_WGMMA_SS_N32("f16");
+  else
+    TC_WGMMA_SS_N32("bf16");
+}
+
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B (E) K-major in shared memory
 template <class E = bf16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
@@ -325,6 +500,7 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[64],
     TC_WGMMA_RS_N128("bf16");
 }
 
+#undef TC_WGMMA_SS_N32
 #undef TC_WGMMA_SS_N64
 #undef TC_WGMMA_SS_N128
 #undef TC_WGMMA_RS_N64

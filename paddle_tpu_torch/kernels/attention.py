@@ -283,12 +283,17 @@ DECODE_MAX_GROUP = 64
 def fwd_route(q_dtype, kv_dtype, sq, h, hkv, dropout_p=0.0) -> str:
     """The device kernel ``flash_fwd``'s C entry launches for these
     dtypes and shapes (``decode_route`` and the dispatch in
-    csrc/flash_fwd.cu): "decode", the one-row decode walk (q, k and v of
-    one 16-bit dtype, Sq = 1, no dropout, H / Hkv at most
-    ``DECODE_MAX_GROUP``); "wgmma", the tensor-core kernel (one 16-bit
-    dtype otherwise); "fma", the FMA kernel (f32, or q and K/V of two
-    dtypes)."""
+    csrc/flash_fwd.cu, ``tc::f32_kv`` in csrc/wgmma.cuh): "decode", the
+    one-row decode walk (q, k and v of one 16-bit dtype, Sq = 1, no
+    dropout, H / Hkv at most ``DECODE_MAX_GROUP``); "wgmma", the
+    tensor-core kernel (one 16-bit dtype otherwise); "wgmma_f32kv", the
+    tensor-core kernel with f32 K/V in bf16 hi + lo parts (a 16-bit q
+    over f32 K/V, Sq > 1, no dropout); "fma", the FMA kernel (f32, other
+    pairs of dtypes, and a 16-bit q over f32 K/V at Sq = 1)."""
     if q_dtype != kv_dtype or q_dtype == torch.float32:
+        if q_dtype != torch.float32 and kv_dtype == torch.float32 \
+                and sq > 1 and not dropout_p:
+            return "wgmma_f32kv"
         return "fma"
     if sq == 1 and not dropout_p and h // hkv <= DECODE_MAX_GROUP:
         return "decode"

@@ -344,6 +344,20 @@ def decode_route(q_dtype, kv_dtype) -> str:
     return "fma"
 
 
+def varq_route(q_dtype, kv_dtype) -> str:
+    """The device kernel ``paged_varq``'s C entry launches for these
+    dtypes (the dispatch in csrc/paged_varq.cu, ``tc::f32_kv`` in
+    csrc/wgmma.cuh): "wgmma", the tensor-core kernel (q and pages of one
+    16-bit dtype); "wgmma_f32kv", the same kernel with f32 pages in bf16
+    hi + lo parts (a 16-bit q over f32 pages); "fma", the FMA kernel (f32
+    q, or bf16 with f16)."""
+    if q_dtype == torch.float32:
+        return "fma"
+    if kv_dtype == q_dtype:
+        return "wgmma"
+    return "wgmma_f32kv" if kv_dtype == torch.float32 else "fma"
+
+
 def _check_paged(name, q, k_pages, v_pages, q_dims, ints):
     """Shared argument checks of the paged kernels: q has ``q_dims``
     dims ending in [H, D]; pages [P, page, Hkv, D], K and V of one dtype
@@ -489,6 +503,7 @@ def paged_attention_varq_kernel(q, k_pages, v_pages, kv_lens, q_lens, scale,
         num_pages, g, float(scale), stream_ptr(q.device))
     check(err, "paged_varq")
     count_launch("paged_varq", q.dtype, k_pages.dtype)
+    count_route("paged_varq", varq_route(q.dtype, k_pages.dtype))
     return out
 
 

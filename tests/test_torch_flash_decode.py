@@ -50,6 +50,14 @@ FWD_ROUTES = [
     ((BF16, F32, 1, 32, 32, 0.0), "fma"),
     ((F32, BF16, 1, 32, 32, 0.0), "fma"),
     ((F16, BF16, 1, 32, 32, 0.0), "fma"),
+    ((BF16, F32, 128, 32, 32, 0.0), "wgmma_f32kv"),   # the suffix prefill
+    ((F16, F32, 2, 32, 4, 0.0), "wgmma_f32kv"),
+    ((F16, F32, 1, 32, 4, 0.0), "fma"),               # Sq = 1 stays
+    ((BF16, F32, 128, 32, 32, 0.1), "fma"),           # dropout (refused)
+    ((F32, F32, 128, 32, 32, 0.0), "fma"),
+    ((F32, BF16, 128, 32, 32, 0.0), "fma"),
+    ((BF16, F16, 128, 32, 32, 0.0), "fma"),
+    ((BF16, BF16, 128, 32, 8, 0.0), "wgmma"),
 ]
 
 
@@ -58,8 +66,9 @@ FWD_ROUTES = [
                               enumerate(FWD_ROUTES)])
 def test_fwd_route_rule(args, route):
     """Sq = 1 in one 16-bit dtype without dropout takes the decode route;
-    Sq > 1 or dropout keep the tensor-core kernel, f32 and two dtypes the
-    FMA kernel."""
+    Sq > 1 or dropout keep the tensor-core kernel; a 16-bit q over f32 K/V
+    at Sq > 1 without dropout the tensor-core kernel over bf16 parts of
+    K/V; f32 and the other pairs of dtypes the FMA kernel."""
     assert A.fwd_route(*args) == route
 
 
@@ -80,6 +89,24 @@ def test_decode_route_rule(dtypes, route):
     assert P.decode_route(*dtypes) == route
 
 
+# (q dtype, page dtype) -> paged_varq's device kernel
+VARQ_ROUTES = [((BF16, BF16), "wgmma"), ((F16, F16), "wgmma"),
+               ((BF16, F32), "wgmma_f32kv"), ((F16, F32), "wgmma_f32kv"),
+               ((F32, F32), "fma"), ((F32, BF16), "fma"),
+               ((F32, F16), "fma"), ((BF16, F16), "fma"),
+               ((F16, BF16), "fma")]
+
+
+@pytest.mark.parametrize("dtypes,route", VARQ_ROUTES,
+                         ids=[f"{str(q)[6:]}-{str(k)[6:]}" for (q, k), _ in
+                              VARQ_ROUTES])
+def test_varq_route_rule(dtypes, route):
+    """One 16-bit dtype takes the tensor-core kernel, a 16-bit q over f32
+    pages the same kernel over bf16 parts of the pages; f32 q, and bf16
+    with f16, the FMA kernel."""
+    assert P.varq_route(*dtypes) == route
+
+
 def test_route_rule_mirrors_the_sources():
     """The Python mirrors name the C sources' constant and conditions."""
     csrc = Path(A.__file__).resolve().parent.parent / "csrc"
@@ -87,6 +114,14 @@ def test_route_rule_mirrors_the_sources():
     m = re.search(r"constexpr int kDecodeMaxGroup = (\d+);", fwd)
     assert m and int(m.group(1)) == A.DECODE_MAX_GROUP
     assert "Sq == 1 && !(dscale > 0.f) &&" in fwd
+    assert ("if constexpr (tc::f32_kv<TQ, TKV>()) {\n"
+            "          if (Sq > 1 && !(dscale > 0.f)) {") in fwd
+    assert ("return !std::is_same<TQ, float>::value && std::is_same<TKV, "
+            "float>::value;") in (csrc / "wgmma.cuh").read_text()
+    assert ("constexpr bool ONE = std::is_same<TQ, TKV>::value &&\n"
+            "                           !std::is_same<TQ, float>::value;\n"
+            "      if constexpr (ONE || tc::f32_kv<TQ, TKV>()) {") in (
+        csrc / "paged_varq.cu").read_text()
     split = (csrc / "decode_split.cuh").read_text()
     assert ("!std::is_same<TQ, float>::value &&\n         (std::is_same<TQ,"
             " TKV>::value || std::is_same<TKV, float>::value)") in split

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.kernels import route_counts
 from paddle_tpu_torch.kernels.attention import (additive_mask,
                                                 flash_attention_bshd,
                                                 flash_attention_kernel,
@@ -354,6 +355,55 @@ def _dtypes(dtype):
     return qd, kd, CARD_TOL[max(qd, kd, key=_WIDTH.__getitem__)]
 
 
+def launched_routes(fn):
+    """fn() and the device kernels its launches took: {(kernel, route):
+    n} from ``kernels.route_counts``."""
+    before = dict(route_counts)
+    out = fn()
+    return out, {k: n - before.get(k, 0) for k, n in route_counts.items()
+                 if n != before.get(k, 0)}
+
+
+def mixed_route(qd, kd, sq=2):
+    """The device kernel a launch with q of ``qd`` over K/V (pages) of
+    ``kd`` must take, written out (not through the Python mirror): a
+    16-bit q over f32 the tensor-core kernel over bf16 parts (the forward
+    at Sq > 1 only), the other pairs of two dtypes the FMA kernel."""
+    if qd != torch.float32 and kd == torch.float32 and sq > 1:
+        return "wgmma_f32kv"
+    return "fma"
+
+
+def magnitude_inputs(rng, qd, q_shape, kv_shape):
+    """q, k, v (numpy f32) whose K and V hold entries no 16-bit part could
+    (f16 parts overflow past 65504 and lose bits below 2^-14): K's
+    features 0-15 x 1e5 and 16-31 x 1e-6, with q's x 1e-5 and x 1e6 (x 1e4
+    for an f16 q, whose range ends at 65504), so each score stays of order
+    one; V's features 0-15 x 1e5 and 16-31 x 1e-6 (for an f16 q, whose
+    output holds neither, x 1e4 and x 1e-3; V's parts do not depend on
+    q's dtype). Returns them and V's per-feature scale [D]."""
+    q = rng.randn(*q_shape).astype(np.float32)
+    k = (rng.randn(*kv_shape) * 0.3).astype(np.float32)
+    v = (rng.randn(*kv_shape) * 0.3).astype(np.float32)
+    f16 = qd == torch.float16
+    q[..., :16] *= 1e-5
+    q[..., 16:32] *= 1e4 if f16 else 1e6
+    k[..., :16] *= 1e5
+    k[..., 16:32] *= 1e-6
+    scale = np.ones(kv_shape[-1], np.float32)
+    scale[:16], scale[16:32] = (1e4, 1e-3) if f16 else (1e5, 1e-6)
+    v *= scale
+    return q, k, v, scale
+
+
+def scaled_close(got, want, scale, tol):
+    """got and want (last axis the features) divided by the features'
+    magnitudes ``scale``, within ``tol``: each feature held to its own
+    size."""
+    s = torch.as_tensor(scale, device=got.device)
+    torch.testing.assert_close(got.float() / s, want.float() / s, **tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
@@ -395,7 +445,10 @@ def test_flash_kernel_matches_plain(cuda, dtype, case):
         with pytest.raises(TypeError, match="dropout"):
             flash_attention_kernel(*args, **drop)
         return
-    out, lse = flash_attention_kernel(*args, **drop)
+    (out, lse), routes = launched_routes(
+        lambda: flash_attention_kernel(*args, **drop))
+    if qd != kd:
+        assert routes == {("flash_fwd", mixed_route(qd, kd, q.shape[1])): 1}
     assert out.dtype == qd
     want, want_lse = flash_attention_plain(*args, return_lse=True, **drop)
     assert torch.isfinite(out.float()).all() and lse.shape == q.shape[:1] + (
@@ -409,6 +462,83 @@ def test_flash_kernel_matches_plain(cuda, dtype, case):
     assert (lse_rows[~vm] == NEG).all()
     again = flash_attention_kernel(*args, **drop)
     assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+# the forward with a 16-bit q over f32 K/V (the suffix prefill over an f32
+# KV pool): Sk across the 64-key tile's edges, GQA 4, and an additive mask
+# per head (one row of one head masked wholly), broadcast over heads, or
+# none under causality
+F32KV_CASES = [(sk, kind) for sk in (1, 63, 65, 384)
+               for kind in ("head", "broadcast", "causal")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qd", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("sk,kind", F32KV_CASES,
+                         ids=[f"sk{a}-{b}" for a, b in F32KV_CASES])
+def test_flash_f32_kv_kernel_matches_plain(cuda, qd, sk, kind):
+    """The tensor-core instance over f32 K/V (route "wgmma_f32kv") within
+    the 16-bit tolerance of the plain version (which keeps everything in
+    f32) on the rows with a kept key, lse within the f32 one there and
+    exactly -1e30 on a row the mask removes wholly, the output finite, and
+    a second launch bitwise equal to the first."""
+    rng = np.random.RandomState(7)
+    b, sq, h, hkv, d = 2, 70, 16, 4, 128
+    q = torch.from_numpy(rng.randn(b, sq, h, d).astype(np.float32)).to(
+        cuda, qd)
+    k, v = (torch.from_numpy((rng.randn(b, sk, hkv, d) * 0.5).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    causal, m = kind == "causal", None
+    valid = torch.ones(b, sq, h, dtype=torch.bool, device=cuda)
+    if kind == "head":
+        mk = np.where(rng.rand(b, h, sq, sk) < 0.3, NEG, 0.0)
+        mk[..., 0] = 0.0                          # every row keeps a key ..
+        mk[1, 3, 5] = NEG                         # .. but this one
+        m = torch.from_numpy(mk.astype(np.float32)).to(cuda)
+        valid[1, 5, 3] = False
+    elif kind == "broadcast":
+        mk = np.zeros((b, 1, 1, sk), np.float32)
+        mk[1, ..., sk // 2:] = NEG
+        m = torch.from_numpy(mk).to(cuda)
+    args = (q, k, v, d ** -0.5, causal, m)
+    (out, lse), routes = launched_routes(lambda: flash_attention_kernel(*args))
+    assert routes == {("flash_fwd", "wgmma_f32kv"): 1}
+    want, want_lse = flash_attention_plain(*args, return_lse=True)
+    assert out.dtype == qd and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out[valid].float(), want[valid].float(),
+                               **CARD_TOL[qd])
+    lse_rows = lse.transpose(1, 2)                # [B, Sq, H]
+    torch.testing.assert_close(lse_rows[valid],
+                               want_lse.transpose(1, 2)[valid],
+                               **CARD_TOL[torch.float32])
+    assert (lse_rows[~valid] == NEG).all()
+    again = flash_attention_kernel(*args)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qd", [torch.bfloat16, torch.float16])
+def test_flash_f32_kv_kernel_holds_magnitudes(cuda, qd):
+    """K and V entries of 1e5 and 1e-6 (``magnitude_inputs``) at the
+    suffix-prefill geometry (q[1, 128] over 384 keys, the suffix's mask,
+    GQA 4): each output feature within the 16-bit tolerance of the plain
+    version at its own size, a second launch bitwise equal."""
+    rng = np.random.RandomState(8)
+    sq, sk, h, hkv, d = 128, 384, 16, 4, 128
+    qn, kn, vn, scale = magnitude_inputs(rng, qd, (1, sq, h, d),
+                                         (1, sk, hkv, d))
+    q = torch.from_numpy(qn).to(cuda, qd)
+    k, v = (torch.from_numpy(a).to(cuda) for a in (kn, vn))
+    j = np.arange(sk)[None, :] - (sk - sq)
+    m = torch.from_numpy(np.where((np.arange(sk)[None, :] < 200)
+                                  | (j <= np.arange(sq)[:, None]), 0.0, NEG)
+                         .astype(np.float32)[None, None]).to(cuda)
+    args = (q, k, v, d ** -0.5, False, m)
+    (out, _), routes = launched_routes(lambda: flash_attention_kernel(*args))
+    assert routes == {("flash_fwd", "wgmma_f32kv"): 1}
+    assert torch.isfinite(out.float()).all()
+    scaled_close(out, flash_attention_plain(*args), scale, CARD_TOL[qd])
+    assert torch.equal(out, flash_attention_kernel(*args)[0])
 
 
 # (page, pages per sequence, context lengths, pages): a 16-token table (a

@@ -397,7 +397,9 @@ def test_ragged_plain_dtypes_match_reference(ref_mode, qd, kd):
 @pytest.mark.parametrize("qd,kd", KPAIRS, ids=[f"{a}-{b}" for a, b in KPAIRS])
 def test_varq_plain_dtypes_match_reference(ref_mode, qd, kd):
     """Spans of 6 / 1 / 3 / 2 rows: against ``_paged_attention_varq_xla``
-    and the interpret-mode ``_ragged_varq_kernel``, on the real rows."""
+    and the interpret-mode ``_ragged_varq_kernel``, on the real rows.
+    Slot 2's span starts at key 0, so its first row rests on one key (the
+    output is one V row, as the card's f32-page instance must give it)."""
     import jax.numpy as jnp
     from paddle_tpu.kernels import paged_attention as R
     rs = np.random.RandomState(5)

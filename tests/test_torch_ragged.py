@@ -25,7 +25,9 @@ from paddle_tpu_torch.kernels.paged_attention import (
     paged_attention_ragged_varq, paged_attention_ragged_varq_plain,
     paged_attention_varq, paged_attention_varq_kernel,
     paged_attention_varq_plain)
-from test_torch_kernels import CARD_DTYPES, _dtypes
+from test_torch_kernels import (CARD_DTYPES, CARD_TOL, _dtypes,
+                                launched_routes, magnitude_inputs,
+                                mixed_route, scaled_close)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 FIELDS = RaggedMetaBuilder.FIELDS
@@ -439,10 +441,12 @@ def test_ragged_kernel_matches_plain(cuda, dtype, page, h, hkv, d):
                                                          0.1), got)
 
 
-def _varq_card_check(q, kp, vp, kl, ql, tables, page, tol):
+def _varq_card_check(q, kp, vp, kl, ql, tables, page, tol, close=None):
     """The kernel against its plain version through the block table and
-    through the meta, padding rows zero, a second launch bitwise equal;
-    returns the meta."""
+    through the meta (``close(got, want)``, by default within ``tol``),
+    padding rows zero, a second launch bitwise equal; q and pages of two
+    dtypes take the device kernel ``mixed_route`` names. Returns the
+    meta."""
     bt = torch.from_numpy(tables).to(q.device)
     m = _m(_builder_meta(tables, kl.cpu().numpy(), page), q.device)
     pad = torch.arange(q.shape[1], device=q.device)[None] >= ql[:, None]
@@ -452,9 +456,17 @@ def _varq_card_check(q, kp, vp, kl, ql, tables, page, tol):
                        (dict(meta=m),
                         lambda: paged_attention_ragged_varq_plain(
                             q, kp, vp, kl, ql, m, 0.1))):
-        got = paged_attention_varq_kernel(q, kp, vp, kl, ql, 0.1, **src)
+        got, routes = launched_routes(
+            lambda: paged_attention_varq_kernel(q, kp, vp, kl, ql, 0.1,
+                                                **src))
+        if q.dtype != kp.dtype:
+            assert routes == {("paged_varq",
+                               mixed_route(q.dtype, kp.dtype)): 1}
         assert got.dtype == q.dtype
-        torch.testing.assert_close(got.float(), plain().float(), **tol)
+        if close is None:
+            torch.testing.assert_close(got.float(), plain().float(), **tol)
+        else:
+            close(got, plain())
         assert not got[pad].any() and not got[kl <= 0].any()
         assert torch.equal(
             paged_attention_varq_kernel(q, kp, vp, kl, ql, 0.1, **src), got)
@@ -490,3 +502,48 @@ def test_varq_kernel_matches_plain(cuda, dtype, page, h, hkv, d):
     span = paged_attention_varq_kernel(q[:, :1].contiguous(), kp, vp, kl,
                                        ones, 0.1, meta=m)
     torch.testing.assert_close(span[:, 0].float(), dec.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qd", [torch.bfloat16, torch.float16])
+def test_varq_f32_pages_kernel_holds_magnitudes(cuda, qd):
+    """A 16-bit q over f32 pages (route "wgmma_f32kv") whose K and V hold
+    entries of 1e5 and 1e-6 (``magnitude_inputs``), GQA 4 at head_dim 128,
+    page 16: mixed spans, then verify spans (the cluster-split walk), each
+    output feature within the 16-bit tolerance of the plain version at its
+    own size, through both page sources, a second launch bitwise equal."""
+    rs = np.random.RandomState(9)
+    h, hkv, d, page, pps, b = 32, 8, 128, 16, 48, 4
+    _, kn, vn, scale = magnitude_inputs(rs, qd, (1, h, d),
+                                        (b * pps + 1, page, hkv, d))
+    kp, vp = (torch.from_numpy(a).to(cuda) for a in (kn, vn))
+    tables = rs.permutation(b * pps + 1)[:b * pps].reshape(b, pps).astype(
+        np.int32)
+    for qb, q_lens, kv_lens in ((96, [80, 20, 1, 3], [117, 83, 130, 0]),
+                                (5, [5, 5, 5, 5], [561, 305, 101, 5])):
+        qn = magnitude_inputs(rs, qd, (b, qb, h, d), (1, 1, 1, d))[0]
+        q = torch.from_numpy(qn).to(cuda, qd)
+        kl, ql = (torch.tensor(x, dtype=torch.int32, device=cuda)
+                  for x in (kv_lens, q_lens))
+        _varq_card_check(q, kp, vp, kl, ql, tables, page, CARD_TOL[qd],
+                         close=lambda got, want: scaled_close(
+                             got, want, scale, CARD_TOL[qd]))
+        assert torch.isfinite(paged_attention_varq_kernel(
+            q, kp, vp, kl, ql, 0.1,
+            block_tables=torch.from_numpy(tables).to(cuda)).float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qd", [torch.bfloat16, torch.float16])
+def test_varq_f32_pages_kernel_largest_group(cuda, qd):
+    """The largest query-head group the wrapper takes (64 at head_dim 64:
+    one span row a tile) over f32 pages at pages of 8, spans across six
+    tiles, a one-key slot and a span from key 0, against the plain version
+    through both page sources, a second launch bitwise equal."""
+    rs = np.random.RandomState(10)
+    kp, vp, tables = _card_pool(rs, 64, 1, 64, torch.float32, cuda, 8, 48, 4)
+    q = torch.from_numpy(rs.randn(4, 6, 64, 64).astype(np.float32)).to(
+        cuda, qd)
+    kl, ql = (torch.tensor(x, dtype=torch.int32, device=cuda)
+              for x in ([40, 1, 300, 6], [6, 1, 6, 6]))
+    _varq_card_check(q, kp, vp, kl, ql, tables, 8, CARD_TOL[qd])

@@ -15,7 +15,11 @@ shapes ``chip_smoke.py`` uses:
   mask, bf16 at q[2, 2048, 32, 128] causal, f32 at BERT's
   q[16, 128, 12, 64] with a key-padding mask;
 - ``flash_bwd_dkdv`` and ``flash_bwd_dq`` bf16 at q[2, 2048, 32, 128]
-  causal, f32 at BERT's shape;
+  causal, f32 at BERT's shape; beside the f32 ones (the BERT-base
+  fine-tune's instances), SDPA in f32 on the same inputs (the additive
+  key mask; its forward, and its backward giving dQ, dK and dV together)
+  and each kernel's bound (bytes over 3.35 TB/s or operations over the
+  f32 peak, as ``chip_smoke.bound``);
 - ``paged_decode`` bf16 and f32 at q[4, 32, 128], contexts 557 / 300 /
   97 / 1, page 16, 64 pages per sequence, and ``ragged_decode`` bf16 on
   the same inputs through the serving loop's meta (G = 256);
@@ -25,7 +29,8 @@ shapes ``chip_smoke.py`` uses:
 - ``rms_norm`` bf16 at x[2048, 4096] and ``layer_norm`` bf16 at
   x[2048, 768] (Triton).
 
-Prints the card and one JSON object {kernel and shape: ms}. Needs one
+Prints the card, one JSON object {kernel and shape: ms}, then one
+{"bounds": {kernel and shape: [ms, "bytes" or "operations"]}}. Needs one
 CUDA device and nvcc; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -108,6 +113,42 @@ def main(argv=None):
         lambda *a: A.flash_bwd_dkdv_kernel(*a, 0.125, False, key), bert)
     med("flash_bwd_dq f32 q[16, 128, 12, 64] key mask",
         lambda *a: A.flash_bwd_dq_kernel(*a, 0.125, False, key), bert)
+    # one PyTorch call of each: SDPA on the same f32 inputs and mask, its
+    # backward (dQ, dK and dV together) timed on a retained graph
+    F = torch.nn.functional
+    med("sdpa f32 q[16, 128, 12, 64] key mask",
+        lambda q, k, v, *_: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=key, scale=0.125), bert)
+    graphs = []
+    for q, k, v, do, *_ in bert:
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        graphs.append((F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=key, scale=0.125), (qt, kt, vt),
+            do.transpose(1, 2)))
+    med("sdpa backward f32 q[16, 128, 12, 64] key mask (dQ, dK, dV)",
+        lambda o, ins, g_: torch.autograd.grad(o, ins, g_,
+                                               retain_graph=True), graphs)
+    del graphs
+    # bounds of the f32 BERT rows: the (query, key) pairs the mask keeps
+    # per head; the forward does 2 products (4 d operations a pair), dK/dV
+    # 4 and dQ 3 (as chip_smoke's backward rows); each input read once,
+    # each output written once
+    b_, s_, h_, d_ = 16, 128, 12, 64
+    pairs = int((key[:, 0, 0] > S.NEG / 2).sum()) * s_ * h_
+    t_b = b_ * s_ * h_ * d_ * 4                  # one f32 [B, S, H, D]
+    rows = b_ * h_ * s_ * 4                      # lse or delta
+    mb = key.numel() * 4
+    bounds = {
+        "flash_fwd f32 q[16, 128, 12, 64] key mask":
+            S.bound(4 * t_b + mb + rows, 4 * d_ * pairs, "float32"),
+        "flash_bwd_dkdv f32 q[16, 128, 12, 64] key mask":
+            S.bound(2 * t_b + 4 * t_b + 2 * rows + mb, 8 * d_ * pairs,
+                    "float32"),
+        "flash_bwd_dq f32 q[16, 128, 12, 64] key mask":
+            S.bound(3 * t_b + 2 * t_b + 2 * rows + mb, 6 * d_ * pairs,
+                    "float32")}
     ctx = torch.tensor([557, 300, 97, 1], dtype=torch.int32, device=dev)
     tables = torch.randperm(257, device=dev, generator=g)[:256].reshape(
         4, 64).to(torch.int32).contiguous()
@@ -141,6 +182,7 @@ def main(argv=None):
                  rnd((n,), torch.bfloat16)) for _ in range(8)]
         med(f"{name} bf16 x[2048, {n}]", fn, sets)
     print(json.dumps(times), flush=True)
+    print(json.dumps({"bounds": bounds}), flush=True)
     return 0
 
 

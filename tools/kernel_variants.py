@@ -2,24 +2,25 @@
 """Design variants of the port's bf16 attention kernels, built side by
 side on one GPU: the flash-attention forward (``csrc/flash_fwd.cu``;
 its one-row decode route runs the cluster-split walk of
-``csrc/decode_split.cuh``), paged decode (``csrc/paged_decode.cu``),
-ragged decode (``csrc/ragged_decode.cu``; both decode kernels run the
-same walk) and the variable-query span kernel (``csrc/paged_varq.cu``).
+``csrc/decode_split.cuh``; its instance for a 16-bit q over f32 K/V),
+paged decode (``csrc/paged_decode.cu``), ragged decode
+(``csrc/ragged_decode.cu``; both decode kernels run the same walk) and
+the variable-query span kernel (``csrc/paged_varq.cu``).
 
     python3 tools/kernel_variants.py [--iters 24] [--only NAME,...]
                                      [--parent DIR] [--dtype float16]
                                      [--kv float32]
 
-``--only`` picks sections (flash_fwd, flash_decode, paged_decode,
-ragged_decode, paged_varq; default all). ``--parent`` names a checkout
+``--only`` picks sections (flash_fwd, flash_decode, flash_f32kv,
+paged_decode, ragged_decode, paged_varq; default all). ``--parent`` names a checkout
 of another commit (``git archive`` of it unpacked anywhere): its kernels
 of every section but flash_fwd are built and timed beside these as
 ``parent`` (a parent whose C entries take one dtype code is called with
 one). ``--dtype`` runs every section on that 16-bit dtype's inputs
 (default bfloat16), held to its tolerance (``chip_smoke.TOL``); ``--kv
-float32`` gives the decode sections f32 pages under those queries (a
-16-bit model over an f32 KV pool). Each variant is the shipped source
-with one choice changed:
+float32`` gives the decode sections and the span kernel f32 pages under
+those queries (a 16-bit model over an f32 KV pool). Each variant is the
+shipped source with one choice changed:
 
 - ``flash_fwd wgW_bnN``: W warpgroups (64 query rows each) per CTA and
   key tiles of N keys (``kFwdWG``, ``kFwdBN``), W in {1, 2}, N in
@@ -58,18 +59,38 @@ with one choice changed:
   instead of 16), ``f32_stages2`` and ``f32_stages4``
   (``kSplitStagesF32``; 3 shipped) and ``slotsN`` as for
   ``flash_decode``.
+- ``flash_f32kv``: the forward with q of ``--dtype`` over f32 K/V (the
+  ``wgmma_f32kv`` instance: K and V staged as f32 rows, split into bf16
+  hi + lo tiles) at the prefix cache's suffix-prefill shape, q[1, 128,
+  32, 128] against 384 keys under the suffix's mask, with 32 and with 4
+  KV heads; ``parent`` is the parent's instance (before this route: the
+  FMA kernel). ``f32_bn32``: 32-key tiles and a 3-stage f32 ring
+  (``kFwdBNF32``, ``kFwdStagesF32``; 64 keys and 2 stages shipped, where
+  a bf16 q's mask is staged and an f16 q's read from L2); ``f32_bn32_stages2``:
+  32-key tiles, 2 stages. Two diagnostic variants, whose outputs are
+  wrong by design and whose times show what a part of the tile's work
+  costs: ``f32_no_split`` (the f32 rows never split into the hi and lo
+  tiles) and ``f32_no_load`` (the f32 rows never copied in).
 - ``paged_varq``: ``shipped`` (P as bf16 hi + lo, a 2-stage K/V ring,
   one-tile spans split over up to 2 CTAs), ``single_bf16_p``
   (``kVarqSplitP`` off), ``split_f16_p`` (``kVarqSplitPF16`` on),
   ``stages3`` (``kVarqStages`` 3: two tiles of gathers in flight) and
   ``clusterC``, C in {1, 4} (``kVarqMaxCluster``:
-  1 walks a one-tile span's whole context in one CTA).
+  1 walks a one-tile span's whole context in one CTA). With ``--kv
+  float32`` (the ``wgmma_f32kv`` instance; ``parent`` is the parent's,
+  the FMA kernel before this route): ``f32_tile32k``
+  (``kVarqF32TileBytes`` 32 KiB: 64 keys a tile at head_dim 128, one CTA
+  an SM; 16 KiB, 32 keys and two CTAs an SM with a bf16 q, shipped),
+  ``f32_stages3`` (``kVarqStagesF32`` 3; 2 shipped), ``clusterC`` as
+  above, and the diagnostic ``f32_no_split`` and ``f32_no_load`` as for
+  ``flash_f32kv``.
 
 Every variant is compiled with the same nvcc flags as the package and
 called through the same C entries. Prints, per variant, the largest
 error against the plain version with the card tolerance's verdict (bf16:
 atol 5e-3, rtol 2e-2), and the median device time (``chip_smoke.time_ms``:
-events around each call, inputs rotating past the 50 MB L2) at the
+events around each call, inputs rotating past the 50 MB L2; the span
+kernel and ``flash_f32kv`` also its CUPTI and back-to-back times) at the
 shapes of ``chip_smoke.py``: flash at q[4, 512, 32, 128] causal + a
 prefill mask and at the training shape q[2, 2048, 32, 128] causal (its
 error over four input draws, with the first elements outside the
@@ -165,8 +186,8 @@ def build(sources, out_dir, signatures, include, kv_code):
     return libs
 
 
-SECTIONS = ("flash_fwd", "flash_decode", "paged_decode", "ragged_decode",
-            "paged_varq")
+SECTIONS = ("flash_fwd", "flash_decode", "flash_f32kv", "paged_decode",
+            "ragged_decode", "paged_varq")
 
 
 def main(argv=None):
@@ -270,9 +291,39 @@ def main(argv=None):
         varq_consts[f"cluster{c}"] = [(
             vq, "constexpr int kVarqMaxCluster = 2;",
             f"constexpr int kVarqMaxCluster = {c};")]
+    if kv == "float32":
+        varq_consts = {n: varq_consts[n]
+                       for n in ("shipped", "cluster1", "cluster4")}
+        for name, nb, n in (("f32_tile32k", 32768, 2),
+                            ("f32_stages3", 16384, 3)):
+            varq_consts[name] = [
+                (vq, "constexpr int kVarqF32TileBytes = 16384;",
+                 f"constexpr int kVarqF32TileBytes = {nb};"),
+                (vq, "constexpr int kVarqStagesF32 = 2;",
+                 f"constexpr int kVarqStagesF32 = {n};")]
+    no_split = [("      split_tile<BN, D, NT>(sK, sKl, f, tid);\n", ""),
+                ("      split_tile<BN, D, NT>(sV, sVl, f + F_BYTES, tid);\n",
+                 "")]
+    if kv == "float32":
+        varq_consts["f32_no_split"] = [(vq, a, b) for a, b in no_split]
+        varq_consts["f32_no_load"] = [(
+            vq, "      stage_rows<BN, D, NT>(f, k_pages",
+            "      if (false) stage_rows<BN, D, NT>(f, k_pages")]
+    f32kv_consts = {"shipped": [],
+                    "f32_no_split": [(fwd, a, b) for a, b in no_split],
+                    "f32_no_load": [(fwd, "      stage_rows<BN, D, NT>(\n",
+                                     "      if (false) stage_rows<BN, D, "
+                                     "NT>(\n")]}
+    for name, n in (("f32_bn32", 3), ("f32_bn32_stages2", 2)):
+        f32kv_consts[name] = [
+            (fwd, "constexpr int kFwdBNF32 = 64;",
+             "constexpr int kFwdBNF32 = 32;"),
+            (fwd, "constexpr int kFwdStagesF32 = 2;",
+             f"constexpr int kFwdStagesF32 = {n};")]
     tmp = tempfile.mkdtemp(prefix="kernel_variants_")
     want = {"flash_fwd": (fwd, fwd_consts, A._SIGNATURES),
             "flash_decode": (fwd, decode_consts, A._SIGNATURES),
+            "flash_f32kv": (fwd, f32kv_consts, A._SIGNATURES),
             "paged_decode": ("paged_decode.cu", paged_consts,
                              P._SIGNATURES["paged_decode"]),
             "ragged_decode": ("ragged_decode.cu", ragged_consts,
@@ -283,8 +334,10 @@ def main(argv=None):
         if sec not in only:
             continue
         target, consts, sig = want[sec]
-        # the flash sections run q, k and v of one dtype
-        kv_code = DT["code"] if sec.startswith("flash") else DT["kv_code"]
+        # the flash sections run q, k and v of one dtype, but flash_f32kv
+        # f32 K/V
+        kv_code = CODES["float32"] if sec == "flash_f32kv" else \
+            DT["code"] if sec.startswith("flash") else DT["kv_code"]
         libs[sec] = {}
         if args.parent and sec != "flash_fwd":
             pdir = os.path.join(os.path.abspath(args.parent),
@@ -299,6 +352,12 @@ def main(argv=None):
 
     def med(fn, sets):
         return S.time_ms(torch, fn, sets, iters=args.iters)["median"]
+
+    def med_all(fn, sets):
+        """"median ms (CUPTI ms; back to back ms)" of ``S.time_ms``."""
+        t = S.time_ms(torch, fn, sets, iters=args.iters)
+        return f"{t['median']:.4f} ms (CUPTI {t['cupti']:.4f}; back to " \
+               f"back {t['queue']:.4f})"
 
     def verdict(got, want, rows=None):
         """Largest error and the count outside tolerance, with the index,
@@ -319,8 +378,12 @@ def main(argv=None):
     if "flash_decode" in libs:
         flash_decode_section(torch, S, A, libs["flash_decode"], dev, g, med,
                              verdict)
+    if "flash_f32kv" in libs:
+        flash_f32kv_section(torch, S, A, libs["flash_f32kv"], dev, g,
+                            med_all, verdict, dt)
     if only & {"paged_decode", "ragged_decode", "paged_varq"}:
-        decode_sections(torch, S, A, P, libs, dev, g, med, verdict, dt)
+        decode_sections(torch, S, A, P, libs, dev, g, med, verdict, dt,
+                        med_all)
     return 0
 
 
@@ -382,6 +445,33 @@ def flash_fwd_call(torch, A, dev, lib, q, k, v, mask, causal):
     return out
 
 
+def flash_f32kv_section(torch, S, A, libs, dev, g, med, verdict, dt):
+    """Each variant of the forward with q of ``dt`` over f32 K/V (and the
+    parent's instance) at the suffix-prefill shape, 32 and 4 KV heads,
+    beside the bound (operations at the 16-bit peak, ``S.ops_type``)."""
+    sq, sk, h, d = 128, 384, 32, 128
+    m = S.suffix_mask(torch, dev, sq, sk)
+    kept = int((m > NEG / 2).sum()) * h
+    for hkv in (32, 4):
+        sets = [(torch.randn(1, sq, h, d, device=dev, generator=g).to(dt),)
+                + tuple(torch.randn(1, sk, hkv, d, device=dev, generator=g)
+                        for _ in range(2)) for _ in range(2)]
+        isz = sets[0][0].element_size()
+        b_ms, by = S.bound(2 * sq * h * d * isz + 2 * sk * hkv * d * 4
+                           + m.numel() * 4 + h * sq * 4, 4 * d * kept,
+                           S.ops_type(DT["name"], "float32"))
+        want = A.flash_attention_plain(*sets[0], d ** -0.5, False, m)
+        print(f"flash_f32kv q[1, {sq}, {h}, {d}] {DT['name']}, k, v[1, {sk}, "
+              f"{hkv}, {d}] float32, suffix mask: bound {b_ms:.4f} ms ({by})",
+              flush=True)
+        for name, lib in libs.items():
+            def run(q, k, v, lib=lib):
+                return flash_fwd_call(torch, A, dev, lib, q, k, v, m, False)
+            t = med(run, sets)
+            print(f"flash_f32kv {name} Hkv={hkv}: {t}; "
+                  f"{verdict(run(*sets[0]), want)}", flush=True)
+
+
 def flash_decode_section(torch, S, A, libs, dev, g, med, verdict):
     """Each decode-route variant (and the parent's forward) at the static
     route's three decode shapes, beside SDPA and the bytes bound."""
@@ -413,7 +503,8 @@ def flash_decode_section(torch, S, A, libs, dev, g, med, verdict):
                   f"{verdict(run(*sets[0]), want)}", flush=True)
 
 
-def decode_sections(torch, S, A, P, libs, dev, g, med, verdict, dt):
+def decode_sections(torch, S, A, P, libs, dev, g, med, verdict, dt,
+                    med_all):
     b, d, page, pps, h, hkv = 4, 128, 16, 64, 32, 32
     num_pages = b * pps + 1
     sc = d ** -0.5
@@ -464,8 +555,8 @@ def decode_sections(torch, S, A, P, libs, dev, g, med, verdict, dt):
                   f"{t:.4f} ms; "
                   f"{verdict(ragged(lib, *sets[0], ctx, meta, ws), want)}",
                   flush=True)
-    if "paged_varq" in libs and DT["kv"] == DT["name"]:
-        varq_section(torch, S, A, P, libs["paged_varq"], dev, g, med,
+    if "paged_varq" in libs:
+        varq_section(torch, S, A, P, libs["paged_varq"], dev, g, med_all,
                      verdict, tables, sets, page, dt)
 
 
@@ -494,12 +585,14 @@ def varq_section(torch, S, A, P, libs, dev, g, med, verdict, tables, sets,
             if err:
                 raise RuntimeError(f"paged_varq: CUDA error {err} at launch")
             return out
-        b_ms, by = S.varq_bound(q, ql, kl, hkv, meta)
+        b_ms, by = S.varq_bound(q, ql, kl, hkv, meta,
+                                kv_isz=sets[0][0].element_size(),
+                                op_type=S.ops_type(DT["name"], DT["kv"]))
         print(f"paged_varq at q[{b}, {qb}, {h}, {d}] q_lens {q_lens} kv_lens "
               f"{kv_lens}: bound {b_ms:.4f} ms ({by})", flush=True)
         for name, lib in libs.items():
             t = med(lambda kp, vp: run(lib, kp, vp), sets)
-            print(f"paged_varq {name} qb {qb}: {t:.4f} ms; "
+            print(f"paged_varq {name} qb {qb}: {t}; "
                   f"{verdict(run(lib, *sets[0]), want, rows)}", flush=True)
 
 
