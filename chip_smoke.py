@@ -12,7 +12,11 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    ragged decode and the variable-query span kernel in CUDA) against its
    plain PyTorch version at the Llama-2-7B serving and training shapes in
    bf16, once in f32 and in a GQA case (H=32, Hkv=8); the backward also
-   at head_dim 64 and with Sq != Sk, a key-padding mask and kv_lens;
+   at head_dim 64 and with Sq != Sk, a key-padding mask and kv_lens, in
+   f32 also at BERT-base's q[16, 128, 12, 64] with a key mask (timed:
+   the fine-tune's instance), every launch on the device kernel
+   ``attention.bwd_route`` names (f32 on the tensor cores over bf16 hi +
+   lo parts of its operands, ``wgmma_f32``);
    LayerNorm at BERT-base's x[2048, 768] in f32 and bf16; the three flash
    kernels with attention dropout 0.1 at BERT-base's q[16, 128, 12, 64]
    with a key-padding mask in f32 and bf16 (the keep rate within
@@ -30,8 +34,8 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    static route's decode shape (q[8, 1, 32, 128] against 544 cached
    keys under a bool padding mask, beside SDPA with the same mask), and
    the f32 instances of both decode kernels at their bf16 shapes. A second bf16 launch of the
-   backward, ragged-decode and variable-query kernels must equal the
-   first bit for bit. Then the fused optimizer's two CUDA kernels
+   ragged-decode and variable-query kernels, and of the backward in
+   every dtype, must equal the first bit for bit. Then the fused optimizer's two CUDA kernels
    (``fused_update``, ``grad_sq_norm``) against their plain versions for
    one AdamW step with a global-norm clip, at one Llama-2-7B layer's
    tensors plus the embedding in bf16 with f32 master weights and at
@@ -287,9 +291,10 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    BERT-base, 30 steps at batch 16 x 128 with row lengths 32-128 through
    ``attention_mask``, every dropout 0.1; then ERNIE-3.0-base for 6
    steps. Every loss finite, and per step 25 LayerNorm launches, 12 of
-   each flash kernel and one ``fused_update`` (the eager ``opt.step()``).
-   Prints step time, tokens/s, MFU (f32 peak) and peak memory, and
-   profiles one step.
+   each flash kernel and one ``fused_update`` (the eager ``opt.step()``),
+   every backward launch on the f32 tensor-core route (``wgmma_f32``,
+   counted in ``kernels.route_counts``). Prints step time, tokens/s, MFU
+   (f32 peak) and peak memory, and profiles one step.
 7. Train: Llama-2-7B widths in bf16, 8 of 32 layers (AdamW's f32 master
    weights and moments take 16 bytes per parameter: all 32 layers would
    need 108 GB), through ``Trainer`` for 6 steps at batch 2 x 2048 on one
@@ -402,15 +407,16 @@ def device_idle(torch, fn, card, label, top=6):
     return 1 - busy / wall
 
 
-def time_ms(torch, fn, sets, iters=24, warmup=4):
+def time_ms(torch, fn, sets, iters=24, warmup=4, sleep_cycles=1_000_000):
     """Times of one call of fn(*sets[i % len(sets)]), in ms. The input
     sets together exceed the 50 MB L2, so every call reads its inputs
     from device memory, as the bound assumes.
 
     - "median": median over `iters` calls of the device time between two
-      CUDA events around the call; a ~0.6 ms sleep kernel queued ahead
-      of each call keeps the device busy while the host enqueues it, so
-      host launch cost stays outside the events.
+      CUDA events around the call; a sleep kernel of `sleep_cycles`
+      (~0.6 ms by default) queued ahead of each call keeps the device
+      busy while the host enqueues it, so host launch cost stays outside
+      the events.
     - "cupti": the CUPTI-traced device time of everything the calls
       launch (torch.profiler), per call — a cross-check.
     - "queue": CUDA events around `iters` back-to-back calls, per call —
@@ -429,7 +435,7 @@ def time_ms(torch, fn, sets, iters=24, warmup=4):
     torch.cuda.synchronize()
     pairs = []
     for i in range(iters):
-        torch.cuda._sleep(1_000_000)
+        torch.cuda._sleep(sleep_cycles)
         start, end = event(), event()
         start.record()
         fn(*sets[i % len(sets)])
@@ -629,28 +635,60 @@ def flash_train_row(torch, dev, g):
             "train_max_abs_err": err}
 
 
+def bert_key_mask(torch, dev, b=16, s=128):
+    """The additive key mask of ``tools/kernel_times.py``'s BERT rows:
+    every other row's keys past 96 masked (-1e30), f32 [b, 1, 1, s]."""
+    key = torch.zeros(b, 1, 1, s, device=dev)
+    key[::2, ..., 96:] = NEG
+    return key
+
+
+def sdpa_bwd_times(torch, sets, mask=None, causal=False, iters=24):
+    """One PyTorch call of the backward pair's function on each of
+    ``sets`` ((q, k, v, dO, ...) in [B, S, H, D]): SDPA's backward (dQ, dK
+    and dV together) on a retained graph, timed as ``time_ms``. Its host
+    enqueue outlasts the default sleep ahead of each timed call, so a
+    longer one keeps it outside the events."""
+    F = torch.nn.functional
+    graphs = []
+    for q_, k_, v_, do_, *_ in sets:
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q_, k_, v_))
+        graphs.append((F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal,
+            scale=q_.shape[-1] ** -0.5), (qt, kt, vt), do_.transpose(1, 2)))
+    return time_ms(torch, lambda o_, ins, g_: torch.autograd.grad(
+        o_, ins, g_, retain_graph=True), graphs, iters=iters,
+        sleep_cycles=4_000_000)
+
+
 def flash_bwd_phase(torch, dev, g):
     """Both backward kernels against the plain backward on the same
     inputs (q, k, v, dO random; out and lse from the forward kernel),
-    each 16-bit case's largest error logged beside the output's largest
-    value; two bf16 or f16 launches must agree bit for bit; timed at the
-    training shape, q[2, 2048, 32, 128] causal, in bf16 (the main rows)
-    and f16 (returned apart, keyed as ``dtype_phase``'s rows), and at
-    head_dim 64 (logged). Then the f16 kernels under loss scaling
-    (``loss_scaled_bwd``). Returns (bf16 rows, f16 rows)."""
+    each case's largest error logged beside the output's largest value
+    (f32: beside the tolerance it may use); every launch on the device
+    kernel ``bwd_route`` names; a second launch bit for bit the first;
+    timed at the training shape, q[2, 2048, 32, 128] causal, in bf16 (the
+    main rows) and f16, at BERT-base's fine-tune shape q[16, 128, 12, 64]
+    with a key mask in f32 (the f16 and f32 rows returned apart, keyed
+    as ``dtype_phase``'s rows), and at head_dim 64 (logged). Then the f16
+    kernels under loss scaling (``loss_scaled_bwd``). Returns (bf16 rows,
+    f16 and f32 rows)."""
     from paddle_tpu_torch.kernels import attention as A
-    F = torch.nn.functional
-    # (dtype, B, Sq, Sk, H, Hkv, D, causal, key-padding mask + kv_lens)
-    cases = [("bfloat16", 2, 2048, 2048, 32, 32, 128, True, False),
-             ("float32", 2, 2048, 2048, 32, 32, 128, True, False),
-             ("bfloat16", 2, 2048, 2048, 32, 8, 128, True, False),
-             ("bfloat16", 2, 1024, 1024, 16, 16, 64, True, False),
-             ("bfloat16", 2, 384, 640, 32, 32, 128, False, True),
-             ("bfloat16", 2, 2048, 2048, 32, 32, 64, True, False),
-             ("float16", 2, 2048, 2048, 32, 32, 128, True, False),
-             ("float16", 2, 2048, 2048, 32, 8, 128, True, False),
-             ("float16", 2, 1024, 1024, 16, 16, 64, True, False),
-             ("float16", 2, 384, 640, 32, 32, 128, False, True)]
+    # (dtype, B, Sq, Sk, H, Hkv, D, causal, mask: None, "pad" (a key-padding
+    # mask + kv_lens) or "bert" (``bert_key_mask``))
+    cases = [("bfloat16", 2, 2048, 2048, 32, 32, 128, True, None),
+             ("float32", 2, 2048, 2048, 32, 32, 128, True, None),
+             ("float32", 16, 128, 128, 12, 12, 64, False, "bert"),
+             ("float32", 2, 384, 640, 32, 8, 128, False, "pad"),
+             ("bfloat16", 2, 2048, 2048, 32, 8, 128, True, None),
+             ("bfloat16", 2, 1024, 1024, 16, 16, 64, True, None),
+             ("bfloat16", 2, 384, 640, 32, 32, 128, False, "pad"),
+             ("bfloat16", 2, 2048, 2048, 32, 32, 64, True, None),
+             ("float16", 2, 2048, 2048, 32, 32, 128, True, None),
+             ("float16", 2, 2048, 2048, 32, 8, 128, True, None),
+             ("float16", 2, 1024, 1024, 16, 16, 64, True, None),
+             ("float16", 2, 384, 640, 32, 32, 128, False, "pad")]
 
     def inputs(dt, b, sq, sk, h, hkv, d, causal, mask, lens):
         q = torch.randn(b, sq, h, d, device=dev, generator=g).to(dt)
@@ -661,44 +699,60 @@ def flash_bwd_phase(torch, dev, g):
                                             lens)
         return q, k, v, do, lse, A.bwd_delta(out, do), out
 
-    rows, rows16 = {}, {}
-    for dtype, b, sq, sk, h, hkv, d, causal, padded in cases:
+    rows, rows_dt = {}, {}
+    for dtype, b, sq, sk, h, hkv, d, causal, mkind in cases:
         dt = getattr(torch, dtype)
         mask = lens = None
-        if padded:
+        if mkind == "pad":
             mask = torch.zeros(b, 1, 1, sk, device=dev)
             mask[1, ..., -100:] = NEG
             lens = torch.tensor([sk, sk - 128], dtype=torch.int32,
                                 device=dev)
+        elif mkind == "bert":
+            mask = bert_key_mask(torch, dev, b, sk)
         sc = d ** -0.5
         q, k, v, do, lse, delta, out = inputs(dt, b, sq, sk, h, hkv, d,
                                               causal, mask, lens)
-        dk, dv = A.flash_bwd_dkdv_kernel(q, k, v, do, lse, delta, sc, causal,
-                                         mask, lens)
-        dq = A.flash_bwd_dq_kernel(q, k, v, do, lse, delta, sc, causal,
-                                   mask, lens)
+
+        def launch():
+            return (A.flash_bwd_dq_kernel(q, k, v, do, lse, delta, sc, causal,
+                                          mask, lens),
+                    *A.flash_bwd_dkdv_kernel(q, k, v, do, lse, delta, sc,
+                                             causal, mask, lens))
+        (dq, dk, dv), routes = launched_routes(launch)
+        route = A.bwd_route(dt, d)
         want = A.flash_attention_bwd_plain(q, k, v, out, lse, do, sc, causal,
                                            mask, lens)
         name = (f"{dtype} q[{b}, {sq}, {h}, {d}] Sk={sk} Hkv={hkv} "
                 f"{'causal' if causal else 'non-causal'}"
-                f"{' + key mask + kv_lens' if padded else ''}")
+                + {None: "", "pad": " + key mask + kv_lens",
+                   "bert": " + BERT key mask"}[mkind])
+        check(routes == {("flash_bwd_dq", route): 1,
+                         ("flash_bwd_dkdv", route): 1},
+              f"flash_bwd {name}: launched {routes}, not {route}")
         errs = [compare(torch, f"flash_bwd_{w} {name}", got, ref, dtype)
                 for w, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv),
                                        want)]
-        if dtype != "float32":
+        if dtype == "float32":
+            # f32 operands enter the products as bf16 hi + lo parts: the
+            # largest share of its tolerance an output uses
+            tol = TOL[dtype]
+            shares = [float(((a - r).abs() / (tol["atol"] + tol["rtol"]
+                                              * r.abs())).max())
+                      for a, r in zip((dq, dk, dv), want)]
+            log(f"  {dtype} on route {route}, largest |err| / (atol + rtol "
+                "|want|): " + ", ".join(f"{w} {x:.3f}" for w, x in
+                                        zip(("dq", "dk", "dv"), shares)))
+        else:
             # the tensor-core kernels take P and dS as 16-bit hi + lo parts
             # where the plain version keeps them in f32
             tops = [float(w.float().abs().max()) for w in want]
             log(f"  {dtype} error over the largest |value|: " + ", ".join(
                 f"{w} {e:.3e} / {t:.3e} = {e / t:.3e}"
                 for w, e, t in zip(("dq", "dk", "dv"), errs, tops)))
-            again = (A.flash_bwd_dq_kernel(q, k, v, do, lse, delta, sc,
-                                           causal, mask, lens),
-                     *A.flash_bwd_dkdv_kernel(q, k, v, do, lse, delta, sc,
-                                              causal, mask, lens))
-            check(all(torch.equal(a, b) for a, b in zip((dq, dk, dv),
-                                                        again)),
-                  f"flash_bwd {name}: a second launch differs")
+        check(all(torch.equal(a, b) for a, b in zip((dq, dk, dv),
+                                                    launch())),
+              f"flash_bwd {name}: a second launch differs")
         if d == 64 and sq == 2048:
             sets = [(q, k, v, do, lse, delta),
                     inputs(dt, b, sq, sk, h, hkv, d, causal, None, None)[:6]]
@@ -709,58 +763,62 @@ def flash_bwd_phase(torch, dev, g):
                     q_, k_, v_, do_, l_, dl_, sc, True))]
             log(f"  flash_bwd at {name}: dkdv {t64[0]:.4f} ms, dq "
                 f"{t64[1]:.4f} ms (median device time)")
-        # the timed cases: the first of each 16-bit dtype
-        timed = {"bfloat16": rows, "float16": rows16}.get(dtype)
-        if timed is None or timed:
+        # the timed cases: the first of each 16-bit dtype at the training
+        # shape, f32 at the BERT shape
+        key = {"bfloat16": lambda n: n}.get(dtype, lambda n: (n, dtype,
+                                                              dtype))
+        timed = rows if dtype == "bfloat16" else rows_dt
+        if (dtype == "float32") != (mkind == "bert") \
+                or key("flash_bwd_dq") in timed:
             continue
         if dtype == "float16":
             loss_scaled_bwd(torch, q, k, v, out, lse, do, sc)
-        # the timed case: two input sets (~200 MB each, past the L2)
-        sets = [(q, k, v, do, lse, delta, out),
-                inputs(dt, b, sq, sk, h, hkv, d, causal, None, None)]
+        # input sets past the L2: two at the training shape (~200 MB
+        # each), four at BERT's (~31 MB each)
+        sets = [(q, k, v, do, lse, delta, out)] + [
+            inputs(dt, b, sq, sk, h, hkv, d, causal, mask, lens)
+            for _ in range(1 if sq == 2048 else 3)]
         t_kv = time_ms(torch, lambda q_, k_, v_, do_, l_, dl_, o_:
                        A.flash_bwd_dkdv_kernel(q_, k_, v_, do_, l_, dl_, sc,
-                                               True), sets)
+                                               causal, mask), sets)
         t_q = time_ms(torch, lambda q_, k_, v_, do_, l_, dl_, o_:
                       A.flash_bwd_dq_kernel(q_, k_, v_, do_, l_, dl_, sc,
-                                            True), sets)
+                                            causal, mask), sets)
         plain = time_ms(torch, lambda q_, k_, v_, do_, l_, dl_, o_:
                         A.flash_attention_bwd_plain(q_, k_, v_, o_, l_, do_,
-                                                    sc, True),
+                                                    sc, causal, mask),
                         sets)["median"]
-        # one PyTorch call of the same function: the backward of causal
-        # SDPA, dQ, dK and dV together
-        graphs = []
-        for q_, k_, v_, do_, *_ in sets:
-            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                          for t in (q_, k_, v_))
-            graphs.append((F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True), (qt, kt, vt),
-                do_.transpose(1, 2)))
-        lib = time_ms(torch, lambda o_, ins, g_: torch.autograd.grad(
-            o_, ins, g_, retain_graph=True), graphs)["median"]
-        del graphs
-        # work of this run's inputs: causal (query, key) pairs per head;
+        # one PyTorch call of the same function: SDPA's backward (of causal
+        # SDPA, or with the same additive mask), dQ, dK and dV together
+        t_lib = sdpa_bwd_times(torch, sets, mask, causal)
+        lib = t_lib["median"]
+        log(f"  SDPA backward: median {lib:.4f} ms, CUPTI "
+            f"{t_lib['cupti']:.4f} ms, back to back {t_lib['queue']:.4f} ms "
+            "per call")
+        # work of this run's inputs: the (query, key) pairs kept per head;
         # dK/dV does 4 products (Q K^T, P^T dO, dO V^T, dS^T Q), dQ 3;
-        # bytes: each input read once, each output written once
-        pairs = b * h * sq * (sq + 1) // 2
+        # bytes: each input read once, each output written once. The f32
+        # instances split their operands for the 16-bit tensor cores:
+        # their operations count at that peak, as ``ops_type``'s do
+        pairs = b * h * (sq * (sq + 1) // 2 if causal else
+                         sq * int((mask[:, 0, 0] > NEG / 2).sum()) // b)
         isz = q.element_size()
-        rows_b = 2 * lse.numel() * 4
+        rows_b = 2 * lse.numel() * 4 + (0 if mask is None
+                                        else mask.numel() * 4)
         qb_, kb_ = q.numel() * isz, k.numel() * isz
-        kv_b, kvq_b = bound(2 * qb_ + 4 * kb_ + rows_b, 8 * d * pairs,
-                            dtype)
-        q_b, qq_b = bound(3 * qb_ + 2 * kb_ + rows_b, 6 * d * pairs, dtype)
-        shape = f"q[{b}, {sq}, {h}, {d}] {dtype} causal"
+        op_t = "bfloat16" if dtype == "float32" else dtype
+        kv_b, kvq_b = bound(2 * qb_ + 4 * kb_ + rows_b, 8 * d * pairs, op_t)
+        q_b, qq_b = bound(3 * qb_ + 2 * kb_ + rows_b, 6 * d * pairs, op_t)
+        shape = (f"q[{b}, {sq}, {h}, {d}] {dtype} "
+                 + ("causal" if causal else "BERT key mask"))
         common = dict(plain_ms=plain, library_ms=lib, shape=shape)
-        key = {"bfloat16": lambda n: n,
-               "float16": lambda n: (n, dtype, dtype)}[dtype]
-        timed[key("flash_bwd_dkdv")] = dict(max_abs_err=max(errs[1:]), t=t_kv,
-                                            bound_ms=kv_b, bound_by=kvq_b,
-                                            **common)
+        timed[key("flash_bwd_dkdv")] = dict(max_abs_err=max(errs[1:]),
+                                            t=t_kv, bound_ms=kv_b,
+                                            bound_by=kvq_b, **common)
         timed[key("flash_bwd_dq")] = dict(max_abs_err=errs[0], t=t_q,
                                           bound_ms=q_b, bound_by=qq_b,
                                           **common)
-    return rows, rows16
+    return rows, rows_dt
 
 
 def max_ds(torch, q, k, v, out, lse, do, sc):
@@ -1181,7 +1239,9 @@ def ops_type(qd, kd):
     f32 accuracy there by splitting the f32 operand into 16-bit parts
     (the ``wgmma_f32kv`` instances do), so the FMA units' f32 peak is not
     the least time of that work. An f32 q keeps the f32 peak (its
-    instances still run on the FMA units)."""
+    instances still run on the FMA units; the f32 backward pair, which
+    splits its operands, is bounded at the 16-bit peak in
+    ``flash_bwd_phase``)."""
     return qd
 
 
@@ -1822,7 +1882,8 @@ BERT_ATTN = dict(b=16, s=128, h=12, d=64, p=0.1)
 def dropout_phase(torch, dev, g):
     """The three flash kernels with attention dropout against their plain
     versions at the BERT-base fine-tuning shape (f32, bf16 and f16, additive
-    key mask, p 0.1, one fixed seed pair); the pattern's keep rate over
+    key mask, p 0.1, one fixed seed pair), each backward launch on the
+    device kernel ``bwd_route`` names; the pattern's keep rate over
     the unmasked entries within 6 binomial standard deviations of 0.9;
     the f32 kernels timed with and without dropout (and SDPA with
     dropout as the yardstick), logged."""
@@ -1858,8 +1919,12 @@ def dropout_phase(torch, dev, g):
         plain0 = A.flash_attention_plain(q, k, v, sc, False, mask)
         check(not torch.allclose(out.float(), plain0.float(), **TOL[dtype]),
               "flash_fwd with dropout gives the output without it")
-        got = A.flash_attention_bwd_kernel(q, k, v, out, lse, do, sc, False,
-                                           mask, **drop)
+        got, routes = launched_routes(lambda: A.flash_attention_bwd_kernel(
+            q, k, v, out, lse, do, sc, False, mask, **drop))
+        route = A.bwd_route(dt, d, p)
+        check(routes == {("flash_bwd_dkdv", route): 1,
+                         ("flash_bwd_dq", route): 1},
+              f"flash_bwd {name}: launched {routes}, not {route}")
         want = A.flash_attention_bwd_plain(q, k, v, out, lse, do, sc, False,
                                            mask, **drop)
         for w, a, r in zip(("dq", "dk", "dv"), got, want):
@@ -5125,7 +5190,8 @@ def finetune_run(torch, dev, card, model, steps):
     run's launch counts."""
     from paddle_tpu_torch.nn.layers_common import Embedding
     from paddle_tpu_torch.examples import bert_finetune as ex
-    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.kernels import (dtype_launch_counts, launch_counts,
+                                          reset_launch_counts, route_counts)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
@@ -5133,6 +5199,8 @@ def finetune_run(torch, dev, card, model, steps):
                    "--seq", "128", "--min-len", "32", "--device", str(dev)])
     torch.cuda.synchronize()
     counts = dict(launch_counts)
+    dtype_counts = dict(dtype_launch_counts)
+    routes = dict(route_counts)
     peak = torch.cuda.max_memory_allocated(dev)
     cfg = res["config"]
     n_params = sum(p.numel() for p in res["model"].parameters())
@@ -5158,8 +5226,16 @@ def finetune_run(torch, dev, card, model, steps):
         cfg.num_hidden_layers).items()}
     check(all(counts[k] == n for k, n in want.items()),
           f"launches {counts} are not {want} ({steps} steps)")
+    # every f32 backward launch on the tensor cores over bf16 parts
+    bwd = {k: routes.get((k, "wgmma_f32"), 0)
+           for k in ("flash_bwd_dkdv", "flash_bwd_dq")}
+    log(f"fine-tune {model}: backward launches by device kernel "
+        f"{ {k: n for k, n in routes.items() if k[0] in bwd} }")
+    check(all(n == counts[k] for k, n in bwd.items()),
+          f"{model}: f32 backward launches {bwd} not all on wgmma_f32 "
+          f"({routes})")
     finetune_profile(torch, dev, res, card, med * 1e3)
-    return counts
+    return counts, dtype_counts
 
 
 def finetune_profile(torch, dev, res, card, step_ms):
@@ -5754,7 +5830,7 @@ def main(argv=None):
     rms = rms_phase(torch, dev, g)
     ln32 = ln["float32"]
     fwd = flash_phase(torch, dev, g)
-    bwd, bwd16 = flash_bwd_phase(torch, dev, g)
+    bwd, bwd_dt = flash_bwd_phase(torch, dev, g)
     mains = {"rms_norm": rms, "layer_norm": ln32, "flash_fwd": fwd, **bwd,
              "paged_decode": paged_phase(torch, dev, g),
              "ragged_decode": ragged_phase(torch, dev, g),
@@ -5770,7 +5846,7 @@ def main(argv=None):
     free_card(torch)
     mains.update(optimizer_phase(torch, dev, args.seed))
     mains.update(sampling_phase(torch, dev, g))
-    dtype_rows = {**dtype_phase(torch, dev, g), **bwd16}
+    dtype_rows = {**dtype_phase(torch, dev, g), **bwd_dt}
     gpt_rows = gpt_kernel_rows(torch, dev, g)
     for name, m in [*mains.items(), ("layer_norm (bf16)", ln["bfloat16"]),
                     *((row_name(*k), m) for k, m in dtype_rows.items()),
@@ -5840,7 +5916,7 @@ def main(argv=None):
     bert16 = bert_f16_eval(torch, dev, args.seed, card)
 
     t0 = time.perf_counter()
-    counts_ft = finetune_run(torch, dev, card, "bert", 30)
+    counts_ft, ft_dtypes = finetune_run(torch, dev, card, "bert", 30)
     free_card(torch)
     finetune_run(torch, dev, card, "ernie", 6)
     log(f"fine-tune phase took {time.perf_counter() - t0:.1f} s")
@@ -5929,11 +6005,12 @@ def main(argv=None):
     # drives it on the card (serve run F16, the 2-layer gates' block-table
     # f16 decode, the BERT-base f16 eval; serve run KV for bf16 q over f32
     # pages; the 2-layer f32 gate for f32 q over bf16 pages; the f16
-    # training run for the backward kernels)
+    # training run for the f16 backward kernels, the BERT-base fine-tune
+    # run for the f32 ones)
     for key, m in dtype_rows.items():
         route, src, replaces = sources[key[0]]
         n = next((c[key] for c in (f16["dtype_counts"], gate_counts, bert16,
-                                   kv["dtype_counts"], train16)
+                                   kv["dtype_counts"], train16, ft_dtypes)
                   if c.get(key)), 0)
         check(n > 0, f"{row_name(*key)} was launched on no served path")
         rows.append({"name": row_name(*key), "route": route, "source": src,

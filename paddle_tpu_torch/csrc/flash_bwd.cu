@@ -105,13 +105,50 @@
 // a row maximum and D/2 multiplies per thread and tile to dK and dQ; the
 // bf16 instance compiles without it (bf16 has f32's range).
 //
-// f32 (dtype 0): the FMA-unit kernels below (TF32 is off in the port, so
-// the tensor cores do not apply): 256 threads per block, each owning a
-// 4x4 micro-tile of the 64x64 score tile (for S and dP at once) and a
-// 4 x D/16 slice of its accumulators; tiles are f32 in shared memory with
-// one column of padding so the strided reads stay free of bank conflicts.
+// f32 (dtype 0): the same kernels, a third instance (E = float), with
+// every f32 operand entering the products as bf16 hi + lo parts (TF32 is
+// off in the port; wgmma.cuh's note gives the split): hi = bf16(x), lo =
+// bf16(x - hi), so hi + lo is x to 2^-16 of |x| at worst. A product of
+// two split operands runs as hi.hi + hi.lo + lo.hi (lo.lo, below 2^-16
+// of the term, is dropped): S^T = K Q^T and dP^T = V dO^T (dK/dV), S = Q
+// K^T and dP = dO V^T (dQ) three times each from shared memory; dV, dK
+// and dQ add the third product of P * D or dS (hi, split in registers as
+// above) on the lo tile of dO, Q or K, read transposed, which wgmma allows
+// for 16-bit operands only (TF32 parts would need transposed copies).
+// That is 12 m64 products per tile pair in dK/dV (16-bit: 6) and 9 in dQ
+// (4). The resident operands (K, V in dK/dV; Q, dO in dQ) arrive once as
+// f32 rows staged by cp.async in the space the streamed tiles use later
+// and are split into swizzled hi and lo tiles (`split_tile`) while the
+// first streamed tile's copies are in flight; each streamed tile (Q and
+// dO; K and V) comes by cp.async into one stage of f32 staging tiles and
+// is split in shared memory, the first of its pair before the product
+// that reads it, the second while that product runs, after which the
+// next tile's copies start into the staging tiles. Shared memory: 4 hi /
+// lo tile pairs and two f32 staging tiles, 100,352 bytes (dK/dV) and
+// 99,328 (dQ) at D = 64, two CTAs an SM as in 16 bits; 198,656 and
+// 197,632 at D = 128, one. Registers (ptxas -v, CUDA 12.8): dK/dV D = 64
+// 254, D = 128 255 with 16 bytes spilled (8 with dropout); dQ D = 64 228
+// (232), D = 128 255 with 20 spilled. Precision: against the plain f32
+// backward the outputs differ by about 1e-5 of their size (largest
+// absolute error 4.5e-5 at BERT-base's q[16, 128, 12, 64] with its key
+// mask, 9.9e-5 at q[2, 2048, 32, 128] causal, where the f32 FMA kernels
+// this instance replaces differed by 1e-6), within the f32 card tolerance
+// (atol = rtol = 1e-4) with a margin `chip_smoke.py` logs per case.
+// Bound at BERT-base's fine-tune shape: the bytes (0.0113 ms dK/dV,
+// 0.0095 dQ on an H100; the operations, three times over at the 16-bit
+// peak, take under half that). Measured on an H100 80GB HBM3 at 700 W
+// (tools/flash_bwd_variants.py, one process) at that shape: dK/dV 0.0369
+// ms, dQ 0.0286 (the FMA kernels before 0.0940 / 0.0803; f32 SDPA's
+// backward, the pair together, 0.1248); with dropout 0.1 0.0391 /
+// 0.0312. The grid is 384 CTAs of two query (or key) tiles
+// each, 1.45 waves of two CTAs an SM, and each CTA's chain of copy,
+// split and products sets the time, 3.3x / 3.0x the bytes: without the
+// streamed tiles' split (a diagnostic variant, wrong by design) 0.0331 /
+// 0.0278; one CTA of two warpgroups per (batch, head) walking all 128
+// keys lost (dK/dV 0.0398); one bf16 part of P and dS (10 and 8
+// products) saved 7 % and failed the tolerance (errors 3e-3).
 //
-// No atomics in either dtype: every output tile has one owner CTA that
+// No atomics in any dtype: every output tile has one owner CTA that
 // writes it once, the dK/dV CTA walking its KV head's whole query-head
 // group, so a launch repeated on the same inputs gives the same bits (the
 // resume check of chip_smoke.py relies on that). Scores never leave the
@@ -127,16 +164,6 @@
 #include "wgmma.cuh"
 
 namespace {
-
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
 
 // murmur3 finalizer (the reference's `_fmix32`): unsigned arithmetic, so
 // products wrap mod 2^32 and shifts are logical
@@ -157,329 +184,10 @@ struct Dropout {
   float dscale;
 };
 
-// rows [r0, r0 + 64) of a [.., n, heads, D] tensor (row stride `stride`
-// elements, `src` at the head's first element) into an f32 [64][D + 1]
-// shared tile; rows at or past n are zero, never garbage
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          long long stride, int r0, int n,
-                                          int tid) {
-  for (int i = tid; i < 64 * D; i += kThreads) {
-    const int r = i / D, c = i % D, s = r0 + r;
-    dst[r * (D + 1) + c] = s < n ? to_f(src[(long long)s * stride + c]) : 0.f;
-  }
-}
-
-// the thread's 4x4 entries (rows ty + 16 i, columns tx + 16 j) of
-// S = Q K^T and dP = dO V^T for one (query tile, key tile) pair
-template <int D>
-__device__ __forceinline__ void score_tiles(const float* Qs, const float* dOs,
-                                            const float* Ks, const float* Vs,
-                                            int tx, int ty, float s[4][4],
-                                            float dp[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float qa[4], oa[4], ka[4], va[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qa[i] = Qs[(ty + 16 * i) * (D + 1) + d];
-      oa[i] = dOs[(ty + 16 * i) * (D + 1) + d];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      ka[j] = Ks[(tx + 16 * j) * (D + 1) + d];
-      va[j] = Vs[(tx + 16 * j) * (D + 1) + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(qa[i], ka[j], s[i][j]);
-        dp[i][j] = fmaf(oa[i], va[j], dp[i][j]);
-      }
-  }
-}
-
-// turns the thread's S into P * D (P without dropout) and dP into dS in
-// place (see the header); DROP = false compiles the dropout away
-template <bool DROP>
-__device__ __forceinline__ void probs(float s[4][4], float dp[4][4], int q0,
-                                      int k0, int Sq, int Sk, int len,
-                                      int causal, const float* mb,
-                                      long long msq, long long msk,
-                                      float scale, const float* lse_s,
-                                      const float* dl_s, int tx, int ty,
-                                      const Dropout& drop, uint32_t row_key) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i, qi = q0 + r;
-    const float lse = lse_s[r], dl = dl_s[r];
-    uint32_t xq = 0u;
-    if constexpr (DROP) xq = fmix32(row_key ^ (uint32_t)qi);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int ki = k0 + tx + 16 * j;
-      const bool keep = qi < Sq && ki < Sk && ki < len && (!causal || qi >= ki);
-      float p = 0.f, ds = 0.f;
-      if (keep) {
-        float x = s[i][j] * scale;
-        if (mb) x += mb[qi * msq + ki * msk];
-        p = expf(x - lse);
-        float dm = 1.f;
-        if constexpr (DROP)
-          dm = fmix32(xq ^ (uint32_t)ki ^ drop.seed1) >= drop.thresh
-                   ? drop.dscale : 0.f;
-        ds = p * (dp[i][j] * dm - dl);
-        p *= dm;
-      }
-      s[i][j] = p;
-      dp[i][j] = ds;
-    }
-  }
-}
-
-template <int D>
-constexpr size_t dkdv_smem_floats() {
-  return 2 * kBK * (D + 1)      // K, V tiles
-         + 2 * kBQ * (D + 1)    // Q, dO tiles
-         + 2 * kBQ * (kBK + 1)  // P, dS
-         + 2 * kBQ;             // lse, delta of the query tile
-}
-
-template <int D>
-constexpr size_t dq_smem_floats() {
-  return 2 * kBQ * (D + 1)      // Q, dO tiles
-         + 2 * kBK * (D + 1)    // K, V tiles
-         + kBQ * (kBK + 1)      // dS
-         + 2 * kBQ;             // lse, delta
-}
-
-template <typename T, int D, bool DROP>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    const float* __restrict__ mask, const int* __restrict__ kv_lens,
-    T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H, int Hkv,
-    long long msb, long long msh, long long msq, long long msk, float scale,
-    int causal, uint32_t seed0, Dropout drop) {
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + kBK * (D + 1);
-  float* Qs = Vs + kBK * (D + 1);
-  float* dOs = Qs + kBQ * (D + 1);
-  float* Ps = dOs + kBQ * (D + 1);
-  float* dSs = Ps + kBQ * (kBK + 1);
-  float* lse_s = dSs + kBQ * (kBK + 1);
-  float* dl_s = lse_s + kBQ;
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
-  const int group = H / Hkv;
-  const int k0 = blockIdx.x * kBK;
-
-  const long long q_stride = (long long)H * D;
-  const long long kv_stride = (long long)Hkv * D;
-  const long long kv_off = ((long long)b * Sk * Hkv + hk) * D;
-  const int len = kv_lens ? kv_lens[b] : Sk;
-
-  constexpr int NC = D / 16;
-  float dk_acc[4][NC], dv_acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-
-  // query tiles whose last row reaches this key tile's first row (all of
-  // them unless causal); none when every key of the tile is past kv_lens
-  const int nq = (Sq + kBQ - 1) / kBQ;
-  const int i_first = causal ? k0 / kBQ : 0;
-  if (k0 < len && i_first < nq) {  // uniform over the block
-    load_tile<T, D>(Ks, k + kv_off, kv_stride, k0, Sk, tid);
-    load_tile<T, D>(Vs, v + kv_off, kv_stride, k0, Sk, tid);
-    for (int g = 0; g < group; ++g) {
-      const int h = hk * group + g;
-      const long long q_off = ((long long)b * Sq * H + h) * D;
-      const float* lb = lse + ((long long)b * H + h) * Sq;
-      const float* db = delta + ((long long)b * H + h) * Sq;
-      const float* mb = mask ? mask + b * msb + h * msh : nullptr;
-      // dropout hashes the query head's row, not the KV head's
-      const uint32_t row_key = fmix32((uint32_t)(b * H + h) ^ seed0);
-      for (int it = i_first; it < nq; ++it) {
-        const int q0 = it * kBQ;
-        __syncthreads();  // the previous tile's readers are done
-        load_tile<T, D>(Qs, q + q_off, q_stride, q0, Sq, tid);
-        load_tile<T, D>(dOs, dout + q_off, q_stride, q0, Sq, tid);
-        for (int r = tid; r < kBQ; r += kThreads) {
-          const bool in = q0 + r < Sq;
-          lse_s[r] = in ? lb[q0 + r] : 0.f;
-          dl_s[r] = in ? db[q0 + r] : 0.f;
-        }
-        __syncthreads();
-
-        float s[4][4], dp[4][4];
-        score_tiles<D>(Qs, dOs, Ks, Vs, tx, ty, s, dp);
-        probs<DROP>(s, dp, q0, k0, Sq, Sk, len, causal, mb, msq, msk, scale,
-                    lse_s, dl_s, tx, ty, drop, row_key);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int idx = (ty + 16 * i) * (kBK + 1) + tx + 16 * j;
-            Ps[idx] = s[i][j];
-            dSs[idx] = dp[i][j];
-          }
-        __syncthreads();
-
-        // dV[key] += (P D)[q, key] dO[q];  dK[key] += dS[q, key] Q[q]; the
-        // thread owns keys ty + 16 i and features tx + 16 j
-        const int rows = min(kBQ, Sq - q0);
-        for (int qq = 0; qq < rows; ++qq) {
-          float pa[4], da[4], oa[NC], xa[NC];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            pa[i] = Ps[qq * (kBK + 1) + ty + 16 * i];
-            da[i] = dSs[qq * (kBK + 1) + ty + 16 * i];
-          }
-#pragma unroll
-          for (int j = 0; j < NC; ++j) {
-            oa[j] = dOs[qq * (D + 1) + tx + 16 * j];
-            xa[j] = Qs[qq * (D + 1) + tx + 16 * j];
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < NC; ++j) {
-              dv_acc[i][j] = fmaf(pa[i], oa[j], dv_acc[i][j]);
-              dk_acc[i][j] = fmaf(da[i], xa[j], dk_acc[i][j]);
-            }
-        }
-      }
-    }
-  }
-
-  T* dkb = dk + kv_off;
-  T* dvb = dv + kv_off;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int ki = k0 + ty + 16 * i;
-    if (ki >= Sk) continue;
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const long long o = ki * kv_stride + tx + 16 * j;
-      dkb[o] = from_f<T>(dk_acc[i][j] * scale);
-      dvb[o] = from_f<T>(dv_acc[i][j]);
-    }
-  }
-}
-
-template <typename T, int D, bool DROP>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    const float* __restrict__ mask, const int* __restrict__ kv_lens,
-    T* __restrict__ dq, int Sq, int Sk, int H, int Hkv, long long msb,
-    long long msh, long long msq, long long msk, float scale, int causal,
-    uint32_t seed0, Dropout drop) {
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + kBQ * (D + 1);
-  float* Ks = dOs + kBQ * (D + 1);
-  float* Vs = Ks + kBK * (D + 1);
-  float* dSs = Vs + kBK * (D + 1);
-  float* lse_s = dSs + kBQ * (kBK + 1);
-  float* dl_s = lse_s + kBQ;
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int hk = h / (H / Hkv);
-  const int q0 = blockIdx.x * kBQ;
-
-  const long long q_stride = (long long)H * D;
-  const long long kv_stride = (long long)Hkv * D;
-  const long long q_off = ((long long)b * Sq * H + h) * D;
-  const long long kv_off = ((long long)b * Sk * Hkv + hk) * D;
-  const float* lb = lse + (long long)blockIdx.y * Sq;
-  const float* db = delta + (long long)blockIdx.y * Sq;
-  const float* mb = mask ? mask + b * msb + h * msh : nullptr;
-  const int len = kv_lens ? kv_lens[b] : Sk;
-  const uint32_t row_key = fmix32((uint32_t)blockIdx.y ^ seed0);  // b*H + h
-
-  load_tile<T, D>(Qs, q + q_off, q_stride, q0, Sq, tid);
-  load_tile<T, D>(dOs, dout + q_off, q_stride, q0, Sq, tid);
-  for (int r = tid; r < kBQ; r += kThreads) {
-    const bool in = q0 + r < Sq;
-    lse_s[r] = in ? lb[q0 + r] : 0.f;
-    dl_s[r] = in ? db[q0 + r] : 0.f;
-  }
-
-  constexpr int NC = D / 16;
-  float acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
-
-  // key tiles past the tile's last query row (causal) or past kv_lens
-  // hold no kept entry
-  int k_end = causal ? min(Sk, q0 + kBQ) : Sk;
-  k_end = min(k_end, len);
-
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // Q/dO loaded; the previous tile's readers are done
-    load_tile<T, D>(Ks, k + kv_off, kv_stride, k0, Sk, tid);
-    load_tile<T, D>(Vs, v + kv_off, kv_stride, k0, Sk, tid);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    score_tiles<D>(Qs, dOs, Ks, Vs, tx, ty, s, dp);
-    probs<DROP>(s, dp, q0, k0, Sq, Sk, len, causal, mb, msq, msk, scale,
-                lse_s, dl_s, tx, ty, drop, row_key);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        dSs[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] = dp[i][j];
-    __syncthreads();
-
-    // dQ[q] += dS[q, key] K[key]; the thread owns rows ty + 16 i and
-    // features tx + 16 j
-    const int cols = min(kBK, Sk - k0);
-    for (int kk = 0; kk < cols; ++kk) {
-      float da[4], ka[NC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) da[i] = dSs[(ty + 16 * i) * (kBK + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < NC; ++j) ka[j] = Ks[kk * (D + 1) + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NC; ++j) acc[i][j] = fmaf(da[i], ka[j], acc[i][j]);
-    }
-  }
-
-  T* dqb = dq + q_off;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    if (qi >= Sq) continue;
-#pragma unroll
-    for (int j = 0; j < NC; ++j)
-      dqb[qi * q_stride + tx + 16 * j] = from_f<T>(acc[i][j] * scale);
-  }
-}
-
 }  // namespace
 
 // ------------------------------------------------------------------------
-// bf16 and f16: the tensor-core kernels (wgmma, sm_90a). See the note at
+// The tensor-core kernels (wgmma, sm_90a) of every dtype. See the note at
 // the top.
 
 namespace tc {
@@ -573,6 +281,15 @@ __device__ __forceinline__ void rescale_rows(float (&ds)[32], float (&acc)[N],
   }
 }
 
+// two adjacent outputs: one pair of E, or two f32 values
+template <class E>
+__device__ __forceinline__ void store2(E* p, float a, float b) {
+  if constexpr (std::is_same<E, float>::value)
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  else
+    *reinterpret_cast<uint32_t*>(p) = pack2<E>(a, b);
+}
+
 // P = exp(s * scale + mask - lse) where kept, else exactly 0, on one
 // element of an S (or S^T) accumulator, without a branch: a dropped
 // entry's exponent is computed and discarded, its mask entry read at a
@@ -593,10 +310,34 @@ __device__ __forceinline__ float prob(float s, bool keep, const float* mb,
   return keep ? p : 0.f;
 }
 
+// Shared memory of the dK/dV kernel, byte offsets from its 1024-aligned
+// base. 16-bit: the K and V tiles, a kStages ring of Q and dO tiles, and
+// kStages slots of a query tile's lse | delta rows. f32: K, V, Q and dO
+// as bf16 hi and lo tiles (each hi tile followed by its lo tile; one Q and
+// one dO tile, split anew from f32 rows for each query tile), one stage
+// of f32 staging tiles for Q's and dO's rows, and the same row slots
+template <class E, int D>
+struct DkdvSmem {
+  static constexpr bool F32 = std::is_same<E, float>::value;
+  static constexpr int BN = 64 * kDkdvWG;
+  static constexpr uint32_t KV = BN * D * 2;   // one 16-bit K or V tile
+  static constexpr uint32_t QT = kBM * D * 2;  // one 16-bit Q or dO tile
+  static constexpr uint32_t F = kBM * D * 4;   // one f32 Q or dO tile
+  static constexpr uint32_t NQ = F32 ? 2 : kStages;  // tiles per Q or dO
+  static constexpr uint32_t V = F32 ? 2 * KV : KV;
+  static constexpr uint32_t Q = 2 * V;
+  static constexpr uint32_t O = Q + NQ * QT;
+  static constexpr uint32_t STAGE = O + NQ * QT;
+  static constexpr uint32_t ROWS = STAGE + (F32 ? 2 * F : 0);
+  static constexpr uint32_t BYTES = ROWS + kStages * 2 * kBM * 4;
+};
+
 // dK/dV: one CTA of kDkdvWG warpgroups per (batch x KV head, 64 kDkdvWG
 // keys); warpgroup w owns keys [k0 + 64 w, k0 + 64 w + 64). K and V stay
 // in shared memory; Q, dO, lse and delta of the (query head, query tile)
-// pairs stream through a 2-stage cp.async ring.
+// pairs stream through a 2-stage cp.async ring (f32: one stage of f32
+// rows, split into the Q and dO hi / lo tiles as their tile starts; the
+// next tile's copies start once the split has read them).
 template <class E, int D, bool DROP>
 __global__ void __launch_bounds__(128 * kDkdvWG, 2 / kDkdvWG)
     flash_bwd_dkdv_wgmma(
@@ -607,14 +348,19 @@ __global__ void __launch_bounds__(128 * kDkdvWG, 2 / kDkdvWG)
     E* __restrict__ dk, E* __restrict__ dv, int Sq, int Sk, int H,
     int Hkv, long long msb, long long msh, long long msq, long long msk,
     float scale, int causal, uint32_t seed0, Dropout drop) {
-  constexpr int BN = 64 * kDkdvWG, NT = 128 * kDkdvWG;
-  constexpr bool F16 = std::is_same<E, f16>::value;
-  constexpr uint32_t KV_BYTES = BN * D * 2, Q_BYTES = kBM * D * 2;
+  using L = DkdvSmem<E, D>;
+  constexpr bool F32 = L::F32, F16 = std::is_same<E, f16>::value;
+  // the products' operand type: bf16 hi + lo parts of f32 operands, else E
+  using PE = typename std::conditional<F32, bf16, E>::type;
+  constexpr int BN = L::BN, NT = 128 * kDkdvWG;
+  constexpr uint32_t KV_BYTES = L::KV, Q_BYTES = L::QT;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
-  const uint32_t sK = (raw + 1023) & ~1023u, sV = sK + KV_BYTES;
-  const uint32_t sQ = sV + KV_BYTES, sO = sQ + kStages * Q_BYTES;
-  const uint32_t sRows = sO + kStages * Q_BYTES;  // [stage][lse | delta]
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t sK = base, sV = base + L::V;
+  const uint32_t sQ = base + L::Q, sO = base + L::O;
+  const uint32_t sF = base + L::STAGE;    // f32: Q's, then dO's rows
+  const uint32_t sRows = base + L::ROWS;  // [stage][lse | delta]
   const float* rows = reinterpret_cast<const float*>(smem_raw + (sRows - raw));
 
   const int tid = threadIdx.x, wg = tid >> 7;
@@ -635,9 +381,19 @@ __global__ void __launch_bounds__(128 * kDkdvWG, 2 / kDkdvWG)
     const int h = hk * group + it / per_g;
     const int q0 = (i_first + it % per_g) * kBM;
     const long long q_off = ((long long)b * Sq * H + h) * D;
-    load_tile<kBM, D, NT>(sQ + st * Q_BYTES, q + q_off, q_stride, q0, Sq, tid);
-    load_tile<kBM, D, NT>(sO + st * Q_BYTES, dout + q_off, q_stride, q0, Sq,
-                          tid);
+    if constexpr (F32) {
+      stage_rows<kBM, D, NT>(
+          sF, q + q_off,
+          [&](int r) -> long long {
+            return q0 + r < Sq ? (long long)(q0 + r) * q_stride : -1;
+          },
+          tid, sF + L::F, dout + q_off);
+    } else {
+      load_tile<kBM, D, NT>(sQ + st * Q_BYTES, q + q_off, q_stride, q0, Sq,
+                            tid);
+      load_tile<kBM, D, NT>(sO + st * Q_BYTES, dout + q_off, q_stride, q0,
+                            Sq, tid);
+    }
     if (tid < 2 * kBM) {
       const int r = tid % kBM;
       const bool in = q0 + r < Sq;
@@ -653,9 +409,33 @@ __global__ void __launch_bounds__(128 * kDkdvWG, 2 / kDkdvWG)
   int ex[2] = {-100, -100};  // f16: dk_acc's row exponents (rescale_rows)
 
   if (n_it > 0) {
-    load_tile<BN, D, NT>(sK, k + kv_off, kv_stride, k0, Sk, tid);
-    load_tile<BN, D, NT>(sV, v + kv_off, kv_stride, k0, Sk, tid);
-    load_stage(0, 0);
+    if constexpr (F32) {
+      // K's and V's f32 rows staged where the Q and dO tiles go (V in the
+      // staging tiles when 128 keys leave no room beside K), with query
+      // tile 0's copies in flight beside them where they fit; then split
+      // into the resident hi and lo tiles
+      constexpr bool BESIDE = BN <= kBM;
+      const uint32_t kf = sQ, vf = BESIDE ? sQ + 2 * KV_BYTES : sF;
+      stage_rows<BN, D, NT>(
+          kf, k + kv_off,
+          [&](int r) -> long long {
+            return k0 + r < Sk ? (long long)(k0 + r) * kv_stride : -1;
+          },
+          tid, vf, v + kv_off);
+      cp_async_commit();
+      if (BESIDE) load_stage(0, 0);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      split_tile<BN, D, NT>(sK, sK + KV_BYTES, kf, tid);
+      split_tile<BN, D, NT>(sV, sV + KV_BYTES, vf, tid);
+      __syncthreads();  // the staged rows are read
+      if (!BESIDE) load_stage(0, 0);
+    } else {
+      load_tile<BN, D, NT>(sK, k + kv_off, kv_stride, k0, Sk, tid);
+      load_tile<BN, D, NT>(sV, v + kv_off, kv_stride, k0, Sk, tid);
+      load_stage(0, 0);
+    }
   }
   cp_async_commit();
 
@@ -667,33 +447,66 @@ __global__ void __launch_bounds__(128 * kDkdvWG, 2 / kDkdvWG)
     const int st = it % kStages;
     cp_async_wait_all();
     __syncthreads();  // stage st landed; everyone is done with stage st ^ 1
-    if (it + 1 < n_it) load_stage(it + 1, st ^ 1);
-    cp_async_commit();
+                      // (f32: with the previous tile's hi and lo tiles)
+    if constexpr (!F32) {
+      if (it + 1 < n_it) load_stage(it + 1, st ^ 1);
+      cp_async_commit();
+    }
 
     const int h = hk * group + it / per_g;
     const int q0 = (i_first + it % per_g) * kBM;
     // uniform over the warpgroup: none of its keys is kept by this tile
-    if (kw >= kend || (causal && q0 + kBM - 1 < kw)) continue;
+    const bool skip = kw >= kend || (causal && q0 + kBM - 1 < kw);
+    if (!F32 && skip) continue;
     const bool full = q0 + kBM <= Sq && kw + 64 <= kend &&
                       (!causal || q0 >= kw + 63);
-    const uint32_t qs = sQ + st * Q_BYTES, os = sO + st * Q_BYTES;
+    const uint32_t qs = F32 ? sQ : sQ + st * Q_BYTES;
+    const uint32_t os = F32 ? sO : sO + st * Q_BYTES;
     const float* lse_t = rows + st * 2 * kBM;
     const float* dl_t = lse_t + kBM;
     const float* mb = mask ? mask + b * msb + h * msh : nullptr;
 
-    // S^T = K Q^T and dP^T = V dO^T (keys x queries), A and B from shared
+    // S^T = K Q^T and dP^T = V dO^T (keys x queries), A and B from shared;
+    // over f32 operands K_hi Q_hi^T + K_hi Q_lo^T + K_lo Q_hi^T (and so
+    // for dP^T), K_lo Q_lo^T dropped
     float s[32], dp[32];
-    wgmma_fence();
+    auto product = [&](float (&d)[32], uint32_t a, uint32_t bt) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<E>(s, kmajor_desc<BN>(sK, 64 * wg, kk),
-                  kmajor_desc<kBM>(qs, 0, kk), kk);
-    wgmma_commit();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<E>(dp, kmajor_desc<BN>(sV, 64 * wg, kk),
-                  kmajor_desc<kBM>(os, 0, kk), kk);
-    wgmma_commit();
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint64_t ad = kmajor_desc<BN>(a, 64 * wg, kk);
+        const uint64_t bd = kmajor_desc<kBM>(bt, 0, kk);
+        wgmma_ss<PE>(d, ad, bd, kk);
+        if constexpr (F32) {
+          wgmma_ss<PE>(d, ad, kmajor_desc<kBM>(bt + Q_BYTES, 0, kk), 1);
+          wgmma_ss<PE>(d, kmajor_desc<BN>(a + KV_BYTES, 64 * wg, kk), bd, 1);
+        }
+      }
+      wgmma_commit();
+    };
+    if constexpr (F32) {
+      // Q's f32 rows into its hi and lo tiles before the S^T product,
+      // dO's while it runs; then the next tile's rows into the staging
+      // tiles (every warpgroup splits and waits, also one that skips)
+      split_tile<kBM, D, NT>(qs, qs + Q_BYTES, sF, tid);
+      fence_async_smem();
+      __syncthreads();
+      if (!skip) {
+        wgmma_fence();
+        product(s, sK, qs);
+      }
+      split_tile<kBM, D, NT>(os, os + Q_BYTES, sF + L::F, tid);
+      fence_async_smem();
+      __syncthreads();  // dO's parts stored; the staging tiles are read
+      if (it + 1 < n_it) load_stage(it + 1, st ^ 1);
+      cp_async_commit();
+      if (skip) continue;
+      wgmma_fence();
+      product(dp, sV, os);
+    } else {
+      wgmma_fence();
+      product(s, sK, qs);
+      product(dp, sV, os);
+    }
     wgmma_wait<1>();
     fence_regs(s);
     auto to_probs = [&](auto masked, auto interior) {
@@ -752,9 +565,10 @@ __global__ void __launch_bounds__(128 * kDkdvWG, 2 / kDkdvWG)
       }
     // dV += (P D)^T dO and dK += dS^T Q, each as the hi and the lo part:
     // A from registers, B the query-major dO / Q tiles read transposed
-    // (f16: dS^T rescaled per key row first; P * D is at most 1 / (1 - p))
+    // (f16: dS^T rescaled per key row first; P * D is at most 1 / (1 - p));
+    // over f32 operands also the hi part on dO's and Q's lo tiles
     if constexpr (F16) rescale_rows(dp, dk_acc, ex);
-    AFrag<E> ph[4], pl[4], sh[4], sl[4];
+    AFrag<PE> ph[4], pl[4], sh[4], sl[4];
     to_a_frags(s, ph, pl);
     to_a_frags(dp, sh, sl);
     wgmma_fence();
@@ -766,6 +580,10 @@ __global__ void __launch_bounds__(128 * kDkdvWG, 2 / kDkdvWG)
       wgmma_rs_tb(dk_acc, sh[kk], mnmajor_desc<kBM>(qs, kk));
       wgmma_rs_tb(dv_acc, pl[kk], mnmajor_desc<kBM>(os, kk));
       wgmma_rs_tb(dk_acc, sl[kk], mnmajor_desc<kBM>(qs, kk));
+      if constexpr (F32) {
+        wgmma_rs_tb(dv_acc, ph[kk], mnmajor_desc<kBM>(os + Q_BYTES, kk));
+        wgmma_rs_tb(dk_acc, sh[kk], mnmajor_desc<kBM>(qs + Q_BYTES, kk));
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -788,17 +606,35 @@ __global__ void __launch_bounds__(128 * kDkdvWG, 2 / kDkdvWG)
     for (int j = 0; j < D / 8; ++j) {
       const long long o = ki * kv_stride + 8 * j + qc;
       const int i = 4 * j + 2 * rr;
-      *reinterpret_cast<uint32_t*>(dkb + o) =
-          pack2<E>(dk_acc[i] * f, dk_acc[i + 1] * f);
-      *reinterpret_cast<uint32_t*>(dvb + o) =
-          pack2<E>(dv_acc[i], dv_acc[i + 1]);
+      store2(dkb + o, dk_acc[i] * f, dk_acc[i + 1] * f);
+      store2(dvb + o, dv_acc[i], dv_acc[i + 1]);
     }
   }
 }
 
+// Shared memory of the dQ kernel, byte offsets from its 1024-aligned base.
+// 16-bit: the Q and dO tiles and a kStages ring of K | V tile pairs. f32:
+// Q, dO, K and V as bf16 hi and lo tiles (each hi tile followed by its lo
+// tile; one K and one V tile, split anew from f32 rows for each key tile)
+// and one stage of f32 staging tiles for K's and V's rows
+template <class E, int D>
+struct DqSmem {
+  static constexpr bool F32 = std::is_same<E, float>::value;
+  static constexpr uint32_t T = 64 * D * 2;  // one 16-bit 64-row tile
+  static constexpr uint32_t F = 64 * D * 4;  // one f32 64-row tile
+  static constexpr uint32_t O = F32 ? 2 * T : T;
+  static constexpr uint32_t KV = 2 * O;
+  static constexpr uint32_t V = KV + 2 * T;  // f32: V's hi and lo tiles
+  static constexpr uint32_t STAGE = KV + 4 * T;
+  static constexpr uint32_t BYTES =
+      F32 ? STAGE + 2 * F : KV + kStages * 2 * T;
+};
+
 // dQ: one CTA of one warpgroup per (batch x query head, 64-row query
 // tile), launched longest causal row first. Q and dO stay in shared
-// memory; K and V tiles of 64 keys stream through a 2-stage ring.
+// memory; K and V tiles of 64 keys stream through a 2-stage ring (f32:
+// one stage of f32 rows, split into the K and V hi / lo tiles as their
+// tile starts; the next tile's copies start once the split has read them).
 template <class E, int D, bool DROP>
 __global__ void __launch_bounds__(128, 2) flash_bwd_dq_wgmma(
     const E* __restrict__ q, const E* __restrict__ k,
@@ -808,12 +644,17 @@ __global__ void __launch_bounds__(128, 2) flash_bwd_dq_wgmma(
     E* __restrict__ dq, int Sq, int Sk, int H, int Hkv, long long msb,
     long long msh, long long msq, long long msk, float scale, int causal,
     uint32_t seed0, Dropout drop) {
+  using L = DqSmem<E, D>;
+  constexpr bool F32 = L::F32, F16 = std::is_same<E, f16>::value;
+  // the products' operand type: bf16 hi + lo parts of f32 operands, else E
+  using PE = typename std::conditional<F32, bf16, E>::type;
   constexpr int BN = 64, NT = 128;
-  constexpr bool F16 = std::is_same<E, f16>::value;
-  constexpr uint32_t T_BYTES = 64 * D * 2;
+  constexpr uint32_t T_BYTES = L::T;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_addr(smem_raw) + 1023) & ~1023u;
-  const uint32_t sO = sQ + T_BYTES, sKV = sO + T_BYTES;  // [stage][K | V]
+  const uint32_t sO = sQ + L::O;
+  const uint32_t sKV = sQ + L::KV;     // 16-bit: [stage][K | V]
+  const uint32_t sF = sQ + L::STAGE;   // f32: K's, then V's rows
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b = blockIdx.x / H, h = blockIdx.x % H, hk = h / (H / Hkv);
@@ -846,10 +687,20 @@ __global__ void __launch_bounds__(128, 2) flash_bwd_dq_wgmma(
   }
 
   auto load_stage = [&](int it, int st) {
-    const uint32_t kv = sKV + st * 2 * T_BYTES;
-    load_tile<BN, D, NT>(kv, k + kv_off, kv_stride, it * BN, Sk, tid);
-    load_tile<BN, D, NT>(kv + T_BYTES, v + kv_off, kv_stride, it * BN, Sk,
-                         tid);
+    if constexpr (F32) {
+      stage_rows<BN, D, NT>(
+          sF, k + kv_off,
+          [&](int r) -> long long {
+            const int key = it * BN + r;
+            return key < Sk ? (long long)key * kv_stride : -1;
+          },
+          tid, sF + L::F, v + kv_off);
+    } else {
+      const uint32_t kv = sKV + st * 2 * T_BYTES;
+      load_tile<BN, D, NT>(kv, k + kv_off, kv_stride, it * BN, Sk, tid);
+      load_tile<BN, D, NT>(kv + T_BYTES, v + kv_off, kv_stride, it * BN, Sk,
+                           tid);
+    }
   };
 
   float acc[D / 2];
@@ -858,9 +709,29 @@ __global__ void __launch_bounds__(128, 2) flash_bwd_dq_wgmma(
   int ex[2] = {-100, -100};  // f16: acc's row exponents (rescale_rows)
 
   if (n_it > 0) {
-    load_tile<kBM, D, NT>(sQ, q + q_off, q_stride, q0, Sq, tid);
-    load_tile<kBM, D, NT>(sO, dout + q_off, q_stride, q0, Sq, tid);
-    load_stage(0, 0);
+    if constexpr (F32) {
+      // Q's and dO's f32 rows staged where the K and V tiles go, key tile
+      // 0's copies in flight beside them; then split into the resident hi
+      // and lo tiles
+      stage_rows<kBM, D, NT>(
+          sKV, q + q_off,
+          [&](int r) -> long long {
+            return q0 + r < Sq ? (long long)(q0 + r) * q_stride : -1;
+          },
+          tid, sQ + L::V, dout + q_off);
+      cp_async_commit();
+      load_stage(0, 0);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      split_tile<kBM, D, NT>(sQ, sQ + T_BYTES, sKV, tid);
+      split_tile<kBM, D, NT>(sO, sO + T_BYTES, sQ + L::V, tid);
+      __syncthreads();  // the staged rows are read
+    } else {
+      load_tile<kBM, D, NT>(sQ, q + q_off, q_stride, q0, Sq, tid);
+      load_tile<kBM, D, NT>(sO, dout + q_off, q_stride, q0, Sq, tid);
+      load_stage(0, 0);
+    }
   }
   cp_async_commit();
 
@@ -868,25 +739,53 @@ __global__ void __launch_bounds__(128, 2) flash_bwd_dq_wgmma(
     const int st = it % kStages, k0 = it * BN;
     cp_async_wait_all();
     __syncthreads();  // stage st landed; everyone is done with stage st ^ 1
-    if (it + 1 < n_it) load_stage(it + 1, st ^ 1);
-    cp_async_commit();
-    const uint32_t ks = sKV + st * 2 * T_BYTES, vs = ks + T_BYTES;
+                      // (f32: with the previous tile's hi and lo tiles)
+    if constexpr (!F32) {
+      if (it + 1 < n_it) load_stage(it + 1, st ^ 1);
+      cp_async_commit();
+    }
+    const uint32_t ks = F32 ? sKV : sKV + st * 2 * T_BYTES;
+    const uint32_t vs = F32 ? sQ + L::V : ks + T_BYTES;
     const bool full = q0 + kBM <= Sq && k0 + BN <= kend &&
                       (!causal || k0 + BN - 1 <= q0);
 
-    // S = Q K^T and dP = dO V^T (queries x keys), A and B from shared
+    // S = Q K^T and dP = dO V^T (queries x keys), A and B from shared;
+    // over f32 operands Q_hi K_hi^T + Q_hi K_lo^T + Q_lo K_hi^T (and so
+    // for dP), Q_lo K_lo^T dropped
     float s[32], dp[32];
-    wgmma_fence();
+    auto product = [&](float (&d)[32], uint32_t a, uint32_t bt) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<E>(s, kmajor_desc<kBM>(sQ, 0, kk), kmajor_desc<BN>(ks, 0, kk),
-                  kk);
-    wgmma_commit();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<E>(dp, kmajor_desc<kBM>(sO, 0, kk), kmajor_desc<BN>(vs, 0, kk),
-                  kk);
-    wgmma_commit();
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint64_t ad = kmajor_desc<kBM>(a, 0, kk);
+        const uint64_t bd = kmajor_desc<BN>(bt, 0, kk);
+        wgmma_ss<PE>(d, ad, bd, kk);
+        if constexpr (F32) {
+          wgmma_ss<PE>(d, ad, kmajor_desc<BN>(bt + T_BYTES, 0, kk), 1);
+          wgmma_ss<PE>(d, kmajor_desc<kBM>(a + T_BYTES, 0, kk), bd, 1);
+        }
+      }
+      wgmma_commit();
+    };
+    if constexpr (F32) {
+      // K's f32 rows into its hi and lo tiles before the S product, V's
+      // while it runs; then the next tile's rows into the staging tiles
+      split_tile<BN, D, NT>(ks, ks + T_BYTES, sF, tid);
+      fence_async_smem();
+      __syncthreads();
+      wgmma_fence();
+      product(s, sQ, ks);
+      split_tile<BN, D, NT>(vs, vs + T_BYTES, sF + L::F, tid);
+      fence_async_smem();
+      __syncthreads();  // V's parts stored; the staging tiles are read
+      if (it + 1 < n_it) load_stage(it + 1, st ^ 1);
+      cp_async_commit();
+      wgmma_fence();
+      product(dp, sO, vs);
+    } else {
+      wgmma_fence();
+      product(s, sQ, ks);
+      product(dp, sO, vs);
+    }
     wgmma_wait<1>();
     fence_regs(s);
     auto to_probs = [&](auto masked, auto interior) {
@@ -932,9 +831,10 @@ __global__ void __launch_bounds__(128, 2) flash_bwd_dq_wgmma(
           dp[i] = s[i] != 0.f ? s[i] * (dp[i] * dm - dl[rr]) : 0.f;
         }
     // dQ += dS K as the hi and the lo part: A from registers, B the
-    // key-major K tile read transposed (f16: dS rescaled per query row)
+    // key-major K tile read transposed (f16: dS rescaled per query row);
+    // over f32 operands also the hi part on K's lo tile
     if constexpr (F16) rescale_rows(dp, acc, ex);
-    AFrag<E> sh[4], sl[4];
+    AFrag<PE> sh[4], sl[4];
     to_a_frags(dp, sh, sl);
     wgmma_fence();
     fence_regs(acc);
@@ -942,6 +842,8 @@ __global__ void __launch_bounds__(128, 2) flash_bwd_dq_wgmma(
     for (int kk = 0; kk < 4; ++kk) {
       wgmma_rs_tb(acc, sh[kk], mnmajor_desc<BN>(ks, kk));
       wgmma_rs_tb(acc, sl[kk], mnmajor_desc<BN>(ks, kk));
+      if constexpr (F32)
+        wgmma_rs_tb(acc, sh[kk], mnmajor_desc<BN>(ks + T_BYTES, kk));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -958,20 +860,10 @@ __global__ void __launch_bounds__(128, 2) flash_bwd_dq_wgmma(
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int i = 4 * j + 2 * rr;
-      *reinterpret_cast<uint32_t*>(dq + q_off + qi * q_stride + 8 * j + kc) =
-          pack2<E>(acc[i] * f, acc[i + 1] * f);
+      store2(dq + q_off + qi * q_stride + 8 * j + kc, acc[i] * f,
+             acc[i + 1] * f);
     }
   }
-}
-
-template <int D>
-constexpr int dkdv_smem_bytes() {
-  return 1024 + 2 * 64 * kDkdvWG * D * 2 +
-         kStages * (2 * kBM * D * 2 + 2 * kBM * 4);
-}
-template <int D>
-constexpr int dq_smem_bytes() {
-  return 1024 + 2 * kBM * D * 2 + kStages * 2 * 64 * D * 2;
 }
 
 }  // namespace tc
@@ -990,42 +882,7 @@ struct Args {
   Dropout drop;
 };
 
-template <typename T, int D>
-int launch_dkdv(const Args& a, void* dk, void* dv, cudaStream_t stream) {
-  const size_t smem = dkdv_smem_floats<D>() * sizeof(float);
-  auto kern = a.drop.dscale > 0.f ? flash_bwd_dkdv_kernel<T, D, true>
-                                  : flash_bwd_dkdv_kernel<T, D, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.Sk + kBK - 1) / kBK, a.B * a.Hkv);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, a.mask, a.kv_lens, static_cast<T*>(dk), static_cast<T*>(dv),
-      a.Sq, a.Sk, a.H, a.Hkv, a.msb, a.msh, a.msq, a.msk, a.scale, a.causal,
-      a.seed0, a.drop);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int D>
-int launch_dq(const Args& a, void* dq, cudaStream_t stream) {
-  const size_t smem = dq_smem_floats<D>() * sizeof(float);
-  auto kern = a.drop.dscale > 0.f ? flash_bwd_dq_kernel<T, D, true>
-                                  : flash_bwd_dq_kernel<T, D, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.Sq + kBQ - 1) / kBQ, a.B * a.H);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, a.mask, a.kv_lens, static_cast<T*>(dq), a.Sq, a.Sk, a.H,
-      a.Hkv, a.msb, a.msh, a.msq, a.msk, a.scale, a.causal, a.seed0, a.drop);
-  return (int)cudaGetLastError();
-}
-
-// the 16-bit kernels copy 16 bytes at a time and store pairs
+// the kernels copy 16 bytes at a time and store pairs
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 bool aligned16(const Args& a) {
   return aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
@@ -1034,7 +891,7 @@ bool aligned16(const Args& a) {
 
 template <class E, int D>
 int launch_dkdv_wgmma(const Args& a, void* dk, void* dv, cudaStream_t stream) {
-  constexpr int smem = tc::dkdv_smem_bytes<D>();
+  constexpr int smem = 1024 + (int)tc::DkdvSmem<E, D>::BYTES;
   auto kern = a.drop.dscale > 0.f ? tc::flash_bwd_dkdv_wgmma<E, D, true>
                                   : tc::flash_bwd_dkdv_wgmma<E, D, false>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -1055,7 +912,7 @@ int launch_dkdv_wgmma(const Args& a, void* dk, void* dv, cudaStream_t stream) {
 
 template <class E, int D>
 int launch_dq_wgmma(const Args& a, void* dq, cudaStream_t stream) {
-  constexpr int smem = tc::dq_smem_bytes<D>();
+  constexpr int smem = 1024 + (int)tc::DqSmem<E, D>::BYTES;
   auto kern = a.drop.dscale > 0.f ? tc::flash_bwd_dq_wgmma<E, D, true>
                                   : tc::flash_bwd_dq_wgmma<E, D, false>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -1083,8 +940,10 @@ bool valid(const Args& a) {
 // mask (may be null) is f32 addressed as mask[b*msb + h*msh + q*msq +
 // k*msk]; kv_lens (may be null) is int32 [B]. Dropout: dscale = 1 / (1 - p)
 // as f32, 0 for none; thresh = min(2^32 - 1, round(p * 2^32)); seed0 and
-// seed1 the forward call's two int32 seeds. Each returns
-// cudaGetLastError().
+// seed1 the forward call's two int32 seeds. Every dtype and head_dim (64,
+// 128) runs the tensor-core kernels, f32 on bf16 hi + lo parts
+// (kernels/attention.py `bwd_route` mirrors this); the tensors must be
+// 16-byte aligned. Each returns cudaGetLastError().
 #define FLASH_BWD_ARGS                                                        \
   int dtype, int head_dim, const void *q, const void *k, const void *v,       \
       const void *dout, const float *lse, const float *delta,                 \
@@ -1103,37 +962,23 @@ bool valid(const Args& a) {
 extern "C" int flash_bwd_dkdv(FLASH_BWD_ARGS, void* dk, void* dv,
                               FLASH_BWD_DIMS) {
   FLASH_BWD_PACK;
-  if (dtype == 0 && head_dim == 64) return launch_dkdv<float, 64>(a, dk, dv, stream);
-  if (dtype == 0 && head_dim == 128) return launch_dkdv<float, 128>(a, dk, dv, stream);
-  if ((dtype == 1 || dtype == 2) && (head_dim == 64 || head_dim == 128)) {
-    if (!aligned16(a) || !aligned16(dk) || !aligned16(dv))
-      return (int)cudaErrorMisalignedAddress;
-    return tc::with_dtype(dtype, [&](auto tag) {
-      using E = typename decltype(tag)::type;
-      if constexpr (std::is_same<E, float>::value)
-        return (int)cudaErrorInvalidValue;
-      else
-        return head_dim == 64 ? launch_dkdv_wgmma<E, 64>(a, dk, dv, stream)
-                              : launch_dkdv_wgmma<E, 128>(a, dk, dv, stream);
-    });
-  }
-  return (int)cudaErrorInvalidValue;
+  if (head_dim != 64 && head_dim != 128) return (int)cudaErrorInvalidValue;
+  if (!aligned16(a) || !aligned16(dk) || !aligned16(dv))
+    return (int)cudaErrorMisalignedAddress;
+  return tc::with_dtype(dtype, [&](auto tag) {
+    using E = typename decltype(tag)::type;
+    return head_dim == 64 ? launch_dkdv_wgmma<E, 64>(a, dk, dv, stream)
+                          : launch_dkdv_wgmma<E, 128>(a, dk, dv, stream);
+  });
 }
 
 extern "C" int flash_bwd_dq(FLASH_BWD_ARGS, void* dq, FLASH_BWD_DIMS) {
   FLASH_BWD_PACK;
-  if (dtype == 0 && head_dim == 64) return launch_dq<float, 64>(a, dq, stream);
-  if (dtype == 0 && head_dim == 128) return launch_dq<float, 128>(a, dq, stream);
-  if ((dtype == 1 || dtype == 2) && (head_dim == 64 || head_dim == 128)) {
-    if (!aligned16(a) || !aligned16(dq)) return (int)cudaErrorMisalignedAddress;
-    return tc::with_dtype(dtype, [&](auto tag) {
-      using E = typename decltype(tag)::type;
-      if constexpr (std::is_same<E, float>::value)
-        return (int)cudaErrorInvalidValue;
-      else
-        return head_dim == 64 ? launch_dq_wgmma<E, 64>(a, dq, stream)
-                              : launch_dq_wgmma<E, 128>(a, dq, stream);
-    });
-  }
-  return (int)cudaErrorInvalidValue;
+  if (head_dim != 64 && head_dim != 128) return (int)cudaErrorInvalidValue;
+  if (!aligned16(a) || !aligned16(dq)) return (int)cudaErrorMisalignedAddress;
+  return tc::with_dtype(dtype, [&](auto tag) {
+    using E = typename decltype(tag)::type;
+    return head_dim == 64 ? launch_dq_wgmma<E, 64>(a, dq, stream)
+                          : launch_dq_wgmma<E, 128>(a, dq, stream);
+  });
 }

@@ -12,31 +12,40 @@
 // an m64nN accumulator, columns 8 j + 2 (l % 4) + {0, 1}, as elements
 // 4 j + {0, 1} and 4 j + {2, 3}.
 //
-// f32 K and V under a 16-bit q (`f32_kv`: flash_fwd.cu's and
-// paged_varq.cu's instances for a bf16 / f16 model over an f32 KV pool;
-// they replace the FMA-unit kernels that ran paddle_tpu/kernels/
-// attention.py `_fwd_kernel` and paged_attention.py `_ragged_varq_kernel`
-// for these dtypes). The f32 operand keeps its bits as two bf16 parts, hi
-// = bf16(x) and lo = bf16(x - hi) (`split_bf16`): hi + lo is x to within
-// 2^-17 |x|, at least 16 significant bits, over f32's whole exponent
-// range (bf16 has f32's exponents; f16 parts would overflow past 65504
-// and lose bits below 2^-14). A product with such an operand runs once
-// per part: S = Q K_hi^T + Q K_lo^T, O += P_hi V_hi + P_hi V_lo + P_lo
-// V_hi (P_lo V_lo, below 2^-17 of the term, is dropped). A bf16 q is
-// exact in bf16; an f16 q (11 significant bits) is split too, exactly
-// (`split_rows`: lo holds the 3 bits bf16 cannot), and S gains Q_lo
-// K_hi^T. The f32 rows arrive by cp.async in a dense staging tile
-// (`stage_rows`) and are converted in shared memory into the swizzled hi
-// and lo tiles (`split_tile`), whose generic stores are made visible to
-// wgmma by `fence_async_smem` and a barrier. Bound: the bytes of the f32
-// operand, the operations at the 16-bit tensor-core peak. On an H100 80GB
-// HBM3 at 700 W (tools/kernel_variants.py) the split costs
-// each kernel a fifth of its time (0.0342 -> 0.0279 ms for flash_fwd's
-// suffix prefill, 0.0696 -> 0.0565 for paged_varq's mixed shape without
-// it); TF32 products (K-major operands only, V needing a transposed copy,
-// at half the 16-bit rate) and f32 rows converted through registers (a
-// 64-key tile is 128 registers a thread) were not built. The variants
-// measured are in the two kernels' notes.
+// f32 operands on the 16-bit tensor cores: K and V under a 16-bit q
+// (`f32_kv`: flash_fwd.cu's and paged_varq.cu's instances for a bf16 / f16
+// model over an f32 KV pool), and every operand of flash_bwd.cu's f32
+// instance (the BERT-base / ERNIE fine-tune's backward). They replace
+// FMA-unit kernels of paddle_tpu/kernels/attention.py `_fwd_kernel`,
+// `_bwd_dkdv_kernel`, `_bwd_dq_kernel` and paged_attention.py
+// `_ragged_varq_kernel` for these dtypes (TF32 is off in the port). The
+// f32 operand keeps its bits as two bf16 parts, hi = bf16(x) and lo =
+// bf16(x - hi) (`split_bf16`; x - hi is exact in f32): hi + lo is x to
+// within 2^-16 |x| (at least 16 significant bits) over f32's whole
+// exponent range (bf16 has f32's exponents; f16 parts would overflow past
+// 65504 and lose bits below 2^-14). A product with one split operand runs
+// once per part (S = Q K_hi^T + Q K_lo^T); one of two split operands runs
+// hi.hi + hi.lo + lo.hi (O += P_hi V_hi + P_hi V_lo + P_lo V_hi; the
+// backward's S, dP, dV, dK and dQ), dropping lo.lo, below 2^-16 of the
+// term: about 1e-5 of each output's size against f32 arithmetic, inside
+// the f32 card tolerance (1e-4). A bf16 q is exact in bf16; an f16 q (11
+// significant bits) is split too, exactly (`split_rows`: lo holds the 3
+// bits bf16 cannot), and S gains Q_lo K_hi^T. The f32 rows arrive by
+// cp.async in a dense staging tile (`stage_rows`) and are converted in
+// shared memory into the swizzled hi and lo tiles (`split_tile`), whose
+// generic stores are made visible to wgmma by `fence_async_smem` and a
+// barrier; parts serve both operand majors (wgmma reads 16-bit operands
+// transposed, .tf32 ones K-major only). Bound: the bytes of the f32
+// operands; the operations count at the 16-bit tensor-core peak. Measured
+// on an H100 80GB HBM3 at 700 W (tools/kernel_variants.py,
+// tools/flash_bwd_variants.py), the split costs each kernel a tenth to a
+// fifth of its time (flash_fwd's suffix prefill 0.0342 -> 0.0279 ms
+// without it, paged_varq's mixed shape 0.0696 -> 0.0565, the backward's
+// dK/dV at BERT-base's shape 0.0368 -> 0.0331, dQ 0.0287 -> 0.0278);
+// TF32 parts (K-major only: transposed copies of V, dO, Q, K; at half the
+// 16-bit rate) and f32 rows converted through registers (a 64-row tile is
+// 128 registers a thread) were not built. The variants measured are in the
+// kernels' notes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -211,7 +220,7 @@ constexpr bool f32_kv() {
 }
 
 // two f32 values as packed bf16 hi and lo pairs: hi = bf16(x), lo =
-// bf16(x - hi) (x - hi is exact in f32), so hi + lo = x to 2^-17 |x|
+// bf16(x - hi) (x - hi is exact in f32), so hi + lo = x to 2^-16 |x|
 __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
                                            uint32_t& lo) {
   hi = pack2<bf16>(a, b);

@@ -300,6 +300,19 @@ def fwd_route(q_dtype, kv_dtype, sq, h, hkv, dropout_p=0.0) -> str:
     return "wgmma"
 
 
+def bwd_route(dtype, head_dim, dropout_p=0.0) -> str:
+    """The device kernel the backward's C entries (``flash_bwd_dkdv`` and
+    ``flash_bwd_dq`` in csrc/flash_bwd.cu) launch for q's dtype and the
+    head dim (64 or 128): "wgmma", the tensor-core kernels on bf16 or f16
+    operands; "wgmma_f32", the same kernels with every f32 operand split
+    into bf16 hi + lo parts. Dropout takes no other route."""
+    del dropout_p
+    if dtype not in _BWD_DTYPES or head_dim not in _HEAD_DIMS:
+        raise ValueError(f"flash_bwd: no kernel for {dtype}, head_dim "
+                         f"{head_dim}")
+    return "wgmma_f32" if dtype == torch.float32 else "wgmma"
+
+
 def _mask_args(mask, sk):
     """(pointer, batch, head, query and key strides) of an additive mask
     broadcast over [B, H, Sq, Sk]; a size-1 axis gets stride 0."""
@@ -382,6 +395,7 @@ def flash_bwd_dkdv_kernel(q, k, v, dout, lse, delta, scale, causal=False,
                              stream_ptr(q.device))
     check(err, "flash_bwd_dkdv")
     count_launch("flash_bwd_dkdv", q.dtype)
+    count_route("flash_bwd_dkdv", bwd_route(q.dtype, q.shape[-1], dropout_p))
     return dk, dv
 
 
@@ -398,6 +412,7 @@ def flash_bwd_dq_kernel(q, k, v, dout, lse, delta, scale, causal=False,
                            stream_ptr(q.device))
     check(err, "flash_bwd_dq")
     count_launch("flash_bwd_dq", q.dtype)
+    count_route("flash_bwd_dq", bwd_route(q.dtype, q.shape[-1], dropout_p))
     return dq
 
 

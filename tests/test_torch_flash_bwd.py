@@ -12,8 +12,10 @@ plain versions are held to the Pallas backward on the same f16 inputs
 
 The ``cuda`` cases hold the two backward kernels of ``csrc/flash_bwd.cu``
 against ``flash_attention_bwd_plain`` on the card in f32, bf16 and f16
-(printing each case's largest error), check that two bf16 or f16
-launches agree bit for bit, hold the f16 kernels to the plain version
+(printing each case's largest error), the f32 instances also at the
+BERT-base fine-tune's shape, check that two launches agree bit for bit
+and that f32 launches take the route ``bwd_route`` names, hold the f16
+kernels to the plain version
 with dO multiplied by a loss scale, and skip without a card; run them with ``python -m pytest --noconftest
 -m cuda -s tests/test_torch_flash_bwd.py``.
 """
@@ -23,8 +25,10 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
-from paddle_tpu_torch.kernels.attention import (flash_attention_bshd,
+from paddle_tpu_torch.kernels import (launch_counts, reset_launch_counts,
+                                      route_counts)
+from paddle_tpu_torch.kernels.attention import (bwd_route,
+                                                flash_attention_bshd,
                                                 flash_attention_bwd_kernel,
                                                 flash_attention_bwd_plain,
                                                 flash_attention_kernel,
@@ -211,6 +215,22 @@ def test_flash_bwd_kernel_refuses_cpu_tensors():
         flash_bwd_dkdv_kernel(q, q, q, q, lse, lse, 0.125)
 
 
+# (q dtype, head_dim, dropout_p) -> the backward's device kernel
+BWD_ROUTES = [((dt, d, p), "wgmma_f32" if dt == torch.float32 else "wgmma")
+              for dt in (torch.float32, torch.bfloat16, torch.float16)
+              for d in (64, 128) for p in (0.0, 0.1)]
+
+
+@pytest.mark.parametrize("args,route", BWD_ROUTES,
+                         ids=[f"{str(dt)[6:]}-d{d}-p{p}"
+                              for (dt, d, p), _ in BWD_ROUTES])
+def test_bwd_route_rule(args, route):
+    """Both backward kernels run on the tensor cores in every dtype and
+    head_dim they take, with or without dropout: bf16 and f16 on their own
+    operands, f32 on bf16 hi + lo parts of its operands."""
+    assert bwd_route(*args) == route
+
+
 # -------------------------------------------------------------- RMSNorm --
 
 @pytest.mark.parametrize("shape", [(6, 128), (2, 3, 256)])
@@ -323,6 +343,80 @@ def test_flash_bwd_f16_launches_are_bitwise_repeatable(cuda, case):
     torch.cuda.synchronize()
     for name, a, b in zip(("dq", "dk", "dv"), first, again):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["train_512", "gqa4_d128_kvlens",
+                                  "tail_causal_gqa"])
+def test_flash_bwd_f32_launches_are_bitwise_repeatable(cuda, case):
+    """As the bf16 test above, for the f32 instances (f32 operands as
+    bf16 hi + lo parts, products in a fixed order), each launch counted on
+    the route ``bwd_route`` names."""
+    q, k, v, g, causal, mask, lens = _case(case, seed=7, cases=CARD_CASES)
+    q, k, v, g = (torch.from_numpy(a).to(cuda) for a in (q, k, v, g))
+    kl = None if lens is None else torch.from_numpy(lens).to(cuda)
+    sc = q.shape[-1] ** -0.5
+    out, lse = flash_attention_kernel(q, k, v, sc, causal, None, kl)
+    reset_launch_counts()
+    first = flash_attention_bwd_kernel(q, k, v, out, lse, g, sc, causal,
+                                       None, kl)
+    again = flash_attention_bwd_kernel(q, k, v, out, lse, g, sc, causal,
+                                       None, kl)
+    torch.cuda.synchronize()
+    route = bwd_route(torch.float32, q.shape[-1])
+    assert dict(route_counts) == {("flash_bwd_dkdv", route): 2,
+                                  ("flash_bwd_dq", route): 2}
+    for name, a, b in zip(("dq", "dk", "dv"), first, again):
+        assert torch.equal(a, b), name
+
+
+# BERT-base's attention, q[16, 128, 12, 64], each row's keys padded past a
+# length in [32, 128] by an additive key mask (the fine-tune's batches)
+BERT_BWD = {"key_mask": (12, None, 0.0), "key_mask_dropout": (12, None, 0.1),
+            "gqa_kv_lens": (4, "lens", 0.0),
+            "gqa_kv_lens_dropout": (3, "lens", 0.1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(BERT_BWD))
+def test_flash_bwd_f32_bert_shape(cuda, case):
+    """The f32 instances at the BERT-base fine-tune's shape with its key
+    mask (and GQA with kv_lens, and dropout 0.1) against the plain
+    backward at the f32 card tolerance; a second launch bitwise equal;
+    every launch on the ``wgmma_f32`` route."""
+    hkv, lens_kind, p = BERT_BWD[case]
+    b, s, h, d = 16, 128, 12, 64
+    rng = np.random.RandomState(9)
+    q, g = (torch.from_numpy(rng.randn(b, s, h, d).astype(np.float32))
+            .to(cuda) for _ in range(2))
+    k, v = (torch.from_numpy(rng.randn(b, s, hkv, d).astype(np.float32))
+            .to(cuda) for _ in range(2))
+    n = rng.randint(32, s + 1, size=b)
+    mask = torch.from_numpy(np.where(np.arange(s)[None, :] < n[:, None],
+                                     0.0, -1e4).astype(np.float32))
+    mask = mask[:, None, None, :].to(cuda)
+    kl = torch.from_numpy(np.maximum(n - 7, 1).astype(np.int32)).to(cuda) \
+        if lens_kind else None
+    drop = dict(dropout_p=p, seeds=(-1234567891, 987654321) if p else None)
+    sc = d ** -0.5
+    out, lse = flash_attention_kernel(q, k, v, sc, False, mask, kl, **drop)
+    reset_launch_counts()
+    got = flash_attention_bwd_kernel(q, k, v, out, lse, g, sc, False, mask,
+                                     kl, **drop)
+    again = flash_attention_bwd_kernel(q, k, v, out, lse, g, sc, False, mask,
+                                       kl, **drop)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, g, sc, False, mask,
+                                     kl, **drop)
+    torch.cuda.synchronize()
+    assert dict(route_counts) == {("flash_bwd_dkdv", "wgmma_f32"): 2,
+                                  ("flash_bwd_dq", "wgmma_f32"): 2}
+    for name, a, r, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert torch.equal(a, r), name
+        print(f"{case} {name}: max abs err "
+              f"{float((a - w).abs().max()):.3e}, largest |value| "
+              f"{float(w.abs().max()):.3e}")
+        torch.testing.assert_close(a, w, msg=name,
+                                   **CARD_TOL[torch.float32])
 
 
 def loss_scale_for(q, k, v, out, lse, g, sc, causal, kl, target=2.0 ** 14):

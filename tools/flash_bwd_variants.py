@@ -1,33 +1,48 @@
 #!/usr/bin/env python3
-"""Design variants of the port's bf16 flash-attention backward kernels
+"""Design variants of the port's flash-attention backward kernels
 (``paddle_tpu_torch/csrc/flash_bwd.cu``), built side by side on one GPU.
 
-    python3 tools/flash_bwd_variants.py [--iters 20]
+    python3 tools/flash_bwd_variants.py [--iters 24] [--parent DIR]
+                                        [--only NAME,...]
 
-Each variant is the shipped source with one design choice undone:
+Each variant is the shipped source with one design choice undone, or
+another checkout's:
 
 - ``shipped``: as committed.
+- ``parent``: the ``flash_bwd.cu`` of ``--parent DIR`` (a ``git archive``
+  of another commit unpacked anywhere), built against that checkout's
+  headers.
 - ``single_bf16``: P and dS enter the accumulating products as one bf16
-  each, without the lo part (dK/dV 4 products per tile pair, dQ 3).
+  each, without the lo part (16-bit dK/dV 4 products per tile pair, dQ
+  3; f32 10 and 8).
 - ``two_warpgroups``: a dK/dV CTA of two warpgroups (128 keys) sharing
-  each Q / dO tile, one CTA per SM.
-- ``no_prefetch``: no copy of the next tile starts during a tile's
-  products (stale tiles after the first: timing only).
+  each Q / dO tile, one CTA per SM; at BERT-base's 128 keys one CTA per
+  (batch, head) walking every key (f32 at head_dim 128 does not fit and
+  is reported as refused).
+- ``f32_no_split`` (diagnostic: wrong outputs by design, its time shows
+  what the split costs): the f32 instances never split the streamed f32
+  tiles (Q and dO in dK/dV, K and V in dQ) into their hi and lo tiles.
 
-Every variant is compiled with the same nvcc flags as the package and
-called through the same C entries. Prints, per variant, the largest
-error against ``flash_attention_bwd_plain`` with the card tolerance's
-verdict (atol 5e-3, rtol 2e-2) at the training shape q[2, 2048, 32, 128]
-bf16 causal and at a ragged causal GQA case, q[1, 136, 4, 64] with 2 KV
-heads, and the median device time of each kernel at the training shape.
-Needs one CUDA device and nvcc; imports nothing of JAX.
+Timed cases (``chip_smoke.time_ms``: median of CUDA events around each
+call, inputs rotating past the 50 MB L2, with the CUPTI and back-to-back
+times): f32 at BERT-base's fine-tune shape q[16, 128, 12, 64] with a key
+mask (half the rows padded past key 96, as ``tools/kernel_times.py``),
+also with dropout 0.1; bf16 and f16 at the training shape q[2, 2048, 32,
+128] causal. Beside them, once: f32 SDPA's backward on the BERT inputs
+(dQ, dK and dV together), the plain backward there, and causal SDPA's
+bf16 backward at the training shape (``chip_smoke.sdpa_bwd_times``; the
+bounds are ``tools/kernel_times.py``'s). Each variant's largest error against
+``flash_attention_bwd_plain`` with ``chip_smoke.TOL``'s verdict, at the
+timed cases and at f32 q[2, 2048, 32, 128] causal and a ragged causal GQA
+case q[1, 136, 4, 64] with 2 KV heads (f32 and bf16). Needs one CUDA
+device and nvcc; imports nothing of JAX.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -35,7 +50,7 @@ import tempfile
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-TOL = dict(atol=5e-3, rtol=2e-2)
+SEEDS = (-1234567891, 987654321)
 
 
 def variants(src):
@@ -49,30 +64,34 @@ def variants(src):
                  "      wgmma_rs_tb(dk_acc, sl[kk], mnmajor_desc<kBM>(qs, kk));\n",
                  "      wgmma_rs_tb(acc, sl[kk], mnmajor_desc<BN>(ks, kk));\n"):
         single = sub(single, line, "")
+    no_split = src
+    for line in ("      split_tile<kBM, D, NT>(qs, qs + Q_BYTES, sF, tid);\n",
+                 "      split_tile<kBM, D, NT>(os, os + Q_BYTES, sF + L::F, tid);\n",
+                 "      split_tile<BN, D, NT>(ks, ks + T_BYTES, sF, tid);\n",
+                 "      split_tile<BN, D, NT>(vs, vs + T_BYTES, sF + L::F, tid);\n"):
+        no_split = sub(no_split, line, "")
     return {
         "shipped": src,
         "single_bf16": single,
         "two_warpgroups": sub(src, "constexpr int kDkdvWG = 1;",
                               "constexpr int kDkdvWG = 2;"),
-        "no_prefetch": sub(src, "    if (it + 1 < n_it) load_stage(it + 1, st ^ 1);",
-                           "    if (it + 1 < n_it && it == 0) "
-                           "load_stage(it + 1, st ^ 1);"),
+        "f32_no_split": no_split,
     }
 
 
 def build(sources, out_dir):
-    """Compile every variant in parallel; returns {name: ctypes library}."""
+    """Compile every variant in parallel; returns {name: ctypes library}.
+    ``sources`` maps a name to (source text, include directory)."""
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels.attention import _BWD_SIGNATURES
     procs = {}
-    for name, text in sources.items():
+    for name, (text, inc) in sources.items():
         cu = os.path.join(out_dir, f"{name}.cu")
         with open(cu, "w") as f:
             f.write(text)
         procs[name] = subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
-             str(_build.SRC_DIR), "-o", os.path.join(out_dir, f"{name}.so"),
-             cu],
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", inc,
+             "-o", os.path.join(out_dir, f"{name}.so"), cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
@@ -89,89 +108,153 @@ def build(sources, out_dir):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--iters", type=int, default=24)
+    ap.add_argument("--parent", metavar="DIR")
+    ap.add_argument("--only", help="comma-separated variant names")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("flash_bwd_variants: needs a CUDA device", file=sys.stderr)
         return 2
+    import chip_smoke as S
+    from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import attention as A
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(f"card: {smi}", flush=True)
-    with open(os.path.join(REPO, "paddle_tpu_torch", "csrc",
-                           "flash_bwd.cu")) as f:
-        sources = variants(f.read())
-    tmp = tempfile.mkdtemp(prefix="flash_bwd_variants_")
-    libs = build(sources, tmp)
+    with open(_build.SRC_DIR / "flash_bwd.cu") as f:
+        sources = {n: (t, str(_build.SRC_DIR))
+                   for n, t in variants(f.read()).items()}
+    if args.parent:
+        csrc = os.path.join(os.path.abspath(args.parent), "paddle_tpu_torch",
+                            "csrc")
+        with open(os.path.join(csrc, "flash_bwd.cu")) as f:
+            sources["parent"] = (f.read(), csrc)
+    if args.only:
+        keep = set(args.only.split(","))
+        sources = {n: s for n, s in sources.items() if n in keep}
+    libs = build(sources, tempfile.mkdtemp(prefix="flash_bwd_variants_"))
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
 
-    def case(b, s, h, hkv, d):
-        q, do = (torch.randn(b, s, h, d, device=dev, generator=g).bfloat16()
-                 for _ in range(2))
-        k, v = (torch.randn(b, s, hkv, d, device=dev, generator=g).bfloat16()
-                for _ in range(2))
-        out, lse = A.flash_attention_kernel(q, k, v, d ** -0.5, True)
-        want = A.flash_attention_bwd_plain(q, k, v, out, lse, do, d ** -0.5,
-                                           True)
-        delta = A.bwd_delta(out, do)
-        head, dims = A._bwd_args("variants", q, k, v, do, lse, delta, None,
-                                 None)
-        outs = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
-        tail = (float(d ** -0.5), 1, 0, 0, 0, 0.0, A.stream_ptr(dev))
-        # the C entries take raw pointers: the inputs stay referenced here
-        return head, dims, tail, outs, want, (q, k, v, do, lse, delta)
+    def rnd(shape, dt):
+        return torch.randn(*shape, device=dev, generator=g).to(dt)
 
-    cases = {"q[2, 2048, 32, 128]": case(2, 2048, 32, 32, 128),
-             "q[1, 136, 4, 64] Hkv=2": case(1, 136, 4, 2, 64)}
+    def inputs(dt, b, s, h, hkv, d, causal, mask=None, p=0.0):
+        """One input set: (q, k, v, dO, out, lse, delta)."""
+        q, do = rnd((b, s, h, d), dt), rnd((b, s, h, d), dt)
+        k, v = rnd((b, s, hkv, d), dt), rnd((b, s, hkv, d), dt)
+        out, lse = A.flash_attention_kernel(
+            q, k, v, d ** -0.5, causal, mask, dropout_p=p,
+            seeds=SEEDS if p else None)
+        return q, k, v, do, out, lse, A.bwd_delta(out, do)
 
-    def launch(lib, c, which):
-        head, dims, tail, (dq, dk, dv) = c[:4]
-        if which == "dkdv":
-            err = lib.flash_bwd_dkdv(*head, dk.data_ptr(), dv.data_ptr(),
-                                     *dims, *tail)
-        else:
-            err = lib.flash_bwd_dq(*head, dq.data_ptr(), *dims, *tail)
-        if err:
-            raise RuntimeError(f"{which}: CUDA error {err} at launch")
+    key = S.bert_key_mask(torch, dev)
+    # name: (dtype, B, S, H, Hkv, D, causal, mask, dropout p, input sets)
+    cases = {
+        "f32 q[16, 128, 12, 64] key mask":
+            ("float32", 16, 128, 12, 12, 64, False, key, 0.0, 4),
+        "f32 q[16, 128, 12, 64] key mask, dropout 0.1":
+            ("float32", 16, 128, 12, 12, 64, False, key, 0.1, 4),
+        "bf16 q[2, 2048, 32, 128] causal":
+            ("bfloat16", 2, 2048, 32, 32, 128, True, None, 0.0, 2),
+        "f16 q[2, 2048, 32, 128] causal":
+            ("float16", 2, 2048, 32, 32, 128, True, None, 0.0, 2),
+        "f32 q[2, 2048, 32, 128] causal":
+            ("float32", 2, 2048, 32, 32, 128, True, None, 0.0, 1),
+        "f32 q[1, 136, 4, 64] Hkv=2 causal":
+            ("float32", 1, 136, 4, 2, 64, True, None, 0.0, 1),
+        "bf16 q[1, 136, 4, 64] Hkv=2 causal":
+            ("bfloat16", 1, 136, 4, 2, 64, True, None, 0.0, 1),
+    }
+    timed = list(cases)[:4]
+    data, want = {}, {}
+    for name, (dt, b, s, h, hkv, d, causal, mask, p, n) in cases.items():
+        sets = [inputs(getattr(torch, dt), b, s, h, hkv, d, causal, mask, p)
+                for _ in range(n)]
+        q, k, v, do, out, lse, _ = sets[0]
+        drop = dict(dropout_p=p, seeds=SEEDS if p else None)
+        want[name] = A.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                 d ** -0.5, causal, mask,
+                                                 **drop)
+        data[name] = sets
 
-    def median_ms(fn):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        pairs = []
-        for _ in range(args.iters):
-            torch.cuda._sleep(1_000_000)
-            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            a.record()
-            fn()
-            b.record()
-            pairs.append((a, b))
-        torch.cuda.synchronize()
-        return statistics.median(a.elapsed_time(b) for a, b in pairs)
+    def launcher(lib, name, which):
+        dt, b, s, h, hkv, d, causal, mask, p = cases[name][:9]
+        tail = (float(d ** -0.5), int(causal),
+                *A._dropout_args(p, SEEDS if p else None),
+                A.stream_ptr(dev))
 
-    for name, lib in libs.items():
-        notes = []
-        for label, c in cases.items():
-            if name == "no_prefetch":
-                break
-            launch(lib, c, "dkdv")
-            launch(lib, c, "dq")
+        def run(q, k, v, do, out, lse, delta):
+            head, dims = A._bwd_args("variants", q, k, v, do, lse, delta,
+                                     mask, None)
+            if which == "dkdv":
+                dk, dv = torch.empty_like(k), torch.empty_like(v)
+                err = lib.flash_bwd_dkdv(*head, dk.data_ptr(), dv.data_ptr(),
+                                         *dims, *tail)
+                res = (dk, dv)
+            else:
+                dq = torch.empty_like(q)
+                err = lib.flash_bwd_dq(*head, dq.data_ptr(), *dims, *tail)
+                res = (dq,)
+            if err:
+                raise RuntimeError(f"{which}: CUDA error {err} at launch")
+            return res
+        return run
+
+    def fmt(t):
+        return f"{t['median']:.4f} ms (CUPTI {t['cupti']:.4f}; back to " \
+               f"back {t['queue']:.4f})"
+
+    results = {}
+    for vname, lib in libs.items():
+        refused = set()
+        for name in cases:
+            dt = cases[name][0]
+            try:
+                dq, = launcher(lib, name, "dq")(*data[name][0])
+                dk, dv = launcher(lib, name, "dkdv")(*data[name][0])
+            except RuntimeError as e:       # e.g. too much shared memory
+                print(f"{vname}: {name}: refused ({e})", flush=True)
+                refused.add(name)
+                continue
             torch.cuda.synchronize()
-            for w, got, ref in zip(("dq", "dk", "dv"), c[3], c[4]):
+            errs = []
+            for w, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                   want[name]):
                 got, ref = got.float(), ref.float()
-                err = float((got - ref).abs().max())
-                bad = int((~torch.isclose(got, ref, **TOL)).sum())
-                notes.append(f"{label} {w} max abs err {err:.3e}, "
-                             f"{bad} outside tolerance")
-        train = cases["q[2, 2048, 32, 128]"]
-        t = [median_ms(lambda: launch(lib, train, w)) for w in ("dkdv", "dq")]
-        print(f"{name}: dkdv {t[0]:.4f} ms, dq {t[1]:.4f} ms at "
-              f"q[2, 2048, 32, 128] bf16 causal", flush=True)
-        for n in notes:
-            print(f"  {n}", flush=True)
+                bad = int((~torch.isclose(got, ref, **S.TOL[dt])).sum())
+                errs.append(f"{w} {float((got - ref).abs().max()):.3e}"
+                            f"{'' if not bad else f' ({bad} outside)'}")
+            print(f"{vname}: {name}: max abs err " + ", ".join(errs),
+                  flush=True)
+        for name in (n for n in timed if n not in refused):
+            t = {w: S.time_ms(torch, launcher(lib, name, w), data[name],
+                              iters=args.iters) for w in ("dkdv", "dq")}
+            results[f"{vname} | {name}"] = {
+                w: {k: round(x, 5) for k, x in t[w].items()} for w in t}
+            print(f"{vname}: {name}: dkdv {fmt(t['dkdv'])}, dq "
+                  f"{fmt(t['dq'])}", flush=True)
+
+    # yardsticks on the same inputs: one PyTorch call of the same function
+    # (SDPA's backward: dQ, dK and dV together) and the plain backward
+    for name in timed[:1] + timed[2:3]:
+        dt, b, s, h, hkv, d, causal, mask, p = cases[name][:9]
+        lib_t = S.sdpa_bwd_times(torch, data[name], mask, causal,
+                                 iters=args.iters)
+        print(f"SDPA backward {name} (dQ, dK, dV): {fmt(lib_t)}",
+              flush=True)
+        results[f"sdpa backward | {name}"] = lib_t
+        if dt == "float32":
+            plain = S.time_ms(torch, lambda q, k, v, do, out, lse, _:
+                              A.flash_attention_bwd_plain(
+                                  q, k, v, out, lse, do, d ** -0.5, causal,
+                                  mask), data[name], iters=args.iters)
+            print(f"plain backward {name} (dQ, dK, dV): {fmt(plain)}",
+                  flush=True)
+            results[f"plain backward | {name}"] = plain
+    print(json.dumps({"card": smi, "times": results}), flush=True)
     return 0
 
 

@@ -17,9 +17,12 @@ shapes ``chip_smoke.py`` uses:
 - ``flash_bwd_dkdv`` and ``flash_bwd_dq`` bf16 at q[2, 2048, 32, 128]
   causal, f32 at BERT's shape; beside the f32 ones (the BERT-base
   fine-tune's instances), SDPA in f32 on the same inputs (the additive
-  key mask; its forward, and its backward giving dQ, dK and dV together)
-  and each kernel's bound (bytes over 3.35 TB/s or operations over the
-  f32 peak, as ``chip_smoke.bound``);
+  key mask; its forward, and its backward giving dQ, dK and dV together,
+  behind a longer sleep: its host enqueue outlasts the default one) and
+  each kernel's bound (bytes over 3.35 TB/s or operations over the peak,
+  as ``chip_smoke.bound``: the f32 peak for the forward, on the FMA
+  units; the 16-bit tensor-core peak for the backward pair, whose f32
+  operands enter the tensor cores as bf16 hi + lo parts);
 - ``paged_decode`` bf16 and f32 at q[4, 32, 128], contexts 557 / 300 /
   97 / 1, page 16, 64 pages per sequence, and ``ragged_decode`` bf16 on
   the same inputs through the serving loop's meta (G = 256);
@@ -97,8 +100,7 @@ def main(argv=None):
         lambda *a: A.flash_bwd_dkdv_kernel(*a, 128 ** -0.5, True), train)
     med("flash_bwd_dq bf16 q[2, 2048, 32, 128] causal",
         lambda *a: A.flash_bwd_dq_kernel(*a, 128 ** -0.5, True), train)
-    key = torch.zeros(16, 1, 1, 128, device=dev)
-    key[::2, ..., 96:] = S.NEG
+    key = S.bert_key_mask(torch, dev)
     bert = [tuple(rnd((16, 128, 12, 64), torch.float32) for _ in range(4))
             for _ in range(2)]
     bert = [(q, k, v, do, *A.flash_attention_kernel(q, k, v, 0.125, False,
@@ -113,28 +115,20 @@ def main(argv=None):
         lambda *a: A.flash_bwd_dkdv_kernel(*a, 0.125, False, key), bert)
     med("flash_bwd_dq f32 q[16, 128, 12, 64] key mask",
         lambda *a: A.flash_bwd_dq_kernel(*a, 0.125, False, key), bert)
-    # one PyTorch call of each: SDPA on the same f32 inputs and mask, its
-    # backward (dQ, dK and dV together) timed on a retained graph
+    # one PyTorch call of each: SDPA on the same f32 inputs and mask, and
+    # its backward (dQ, dK and dV together)
     F = torch.nn.functional
     med("sdpa f32 q[16, 128, 12, 64] key mask",
         lambda q, k, v, *_: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=key, scale=0.125), bert)
-    graphs = []
-    for q, k, v, do, *_ in bert:
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                      for t in (q, k, v))
-        graphs.append((F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=key, scale=0.125), (qt, kt, vt),
-            do.transpose(1, 2)))
-    med("sdpa backward f32 q[16, 128, 12, 64] key mask (dQ, dK, dV)",
-        lambda o, ins, g_: torch.autograd.grad(o, ins, g_,
-                                               retain_graph=True), graphs)
-    del graphs
+    times["sdpa backward f32 q[16, 128, 12, 64] key mask (dQ, dK, dV)"] = \
+        S.sdpa_bwd_times(torch, bert, key, iters=args.iters)["median"]
     # bounds of the f32 BERT rows: the (query, key) pairs the mask keeps
     # per head; the forward does 2 products (4 d operations a pair), dK/dV
-    # 4 and dQ 3 (as chip_smoke's backward rows); each input read once,
-    # each output written once
+    # 4 and dQ 3 (as chip_smoke's backward rows), the backward's at the
+    # 16-bit tensor-core peak; each input read once, each output written
+    # once
     b_, s_, h_, d_ = 16, 128, 12, 64
     pairs = int((key[:, 0, 0] > S.NEG / 2).sum()) * s_ * h_
     t_b = b_ * s_ * h_ * d_ * 4                  # one f32 [B, S, H, D]
@@ -145,10 +139,10 @@ def main(argv=None):
             S.bound(4 * t_b + mb + rows, 4 * d_ * pairs, "float32"),
         "flash_bwd_dkdv f32 q[16, 128, 12, 64] key mask":
             S.bound(2 * t_b + 4 * t_b + 2 * rows + mb, 8 * d_ * pairs,
-                    "float32"),
+                    "bfloat16"),
         "flash_bwd_dq f32 q[16, 128, 12, 64] key mask":
             S.bound(3 * t_b + 2 * t_b + 2 * rows + mb, 6 * d_ * pairs,
-                    "float32")}
+                    "bfloat16")}
     ctx = torch.tensor([557, 300, 97, 1], dtype=torch.int32, device=dev)
     tables = torch.randperm(257, device=dev, generator=g)[:256].reshape(
         4, 64).to(torch.int32).contiguous()
