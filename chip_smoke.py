@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (``paddle_tpu_torch``).
 
-    python3 chip_smoke.py [--layers 32] [--seed 0]
+    python3 chip_smoke.py [--layers 8] [--seed 0]
 
 Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
 
@@ -11,7 +11,10 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    flash-attention forward and backward (dK/dV, dQ), paged decode,
    ragged decode and the variable-query span kernel in CUDA) against its
    plain PyTorch version at the Llama-2-7B serving and training shapes in
-   bf16, once in f32 and in a GQA case (H=32, Hkv=8); the backward also
+   bf16, once in f32 (on the tensor cores over three bf16 parts of Q,
+   K, V and P, ``wgmma_f32``: a full row, and again at BERT-base's q[16,
+   128, 12, 64] with its key mask, the fine-tune's instance, beside f32
+   SDPA) and in a GQA case (H=32, Hkv=8); the backward also
    at head_dim 64 and with Sq != Sk, a key-padding mask and kv_lens, in
    f32 also at BERT-base's q[16, 128, 12, 64] with a key mask (timed:
    the fine-tune's instance), every launch on the device kernel
@@ -20,7 +23,8 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    LayerNorm at BERT-base's x[2048, 768] in f32 and bf16; the three flash
    kernels with attention dropout 0.1 at BERT-base's q[16, 128, 12, 64]
    with a key-padding mask in f32 and bf16 (the keep rate within
-   binomial bounds of 0.9); with the tolerances below. Prints each
+   binomial bounds of 0.9; the f32 forward with dropout on
+   ``wgmma_f32``); with the tolerances below. Prints each
    kernel's median device time, its bound (bytes over 3.35 TB/s or
    operations over the card's peak for their type), the plain version's
    time and the one-call PyTorch equivalent's time where one exists, and
@@ -117,8 +121,10 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    ``LOGIT_TOL16`` and its block-table greedy tokens as above within
    ``LOGIT_TOL16``, and a lookup prompt served alone sees drafts both
    accepted and rejected over f16 pages (``draft_check``).
-4. Serve: Llama-2-7B widths in bf16 with random weights drawn on the
-   card from a seeded torch.Generator. Run 1: 8 requests through
+4. Serve: Llama-2-7B widths in bf16, 8 of its 32 layers (``--layers``;
+   the depth is cut so that the script keeps well inside its time
+   limit), with random weights drawn on the card from a seeded
+   torch.Generator. Run 1: 8 requests through
    ContinuousBatchingPredictor (max_batch_size=4, block-table decode,
    two requests sharing a cached prefix so suffix prefill and
    copy-on-write run). Run 2: the same 8 plus two 320-token prompts that
@@ -266,18 +272,17 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    activities per decode tick, peak memory (the graph pool included) and
    the capture seconds at warm start. The bundles go to
    ``output/chip_smoke_aot`` and are deleted afterwards. Then serve run
-   F16 (``serve_f16_phase``): Llama-2-7B widths and depth in float16
-   (random weights from their own seed, the default f16 pool) in run 3's
-   configuration and traffic: every request ok, drafts proposed and
-   rejected (accepted ones: the 2-layer f16 gate; at 32 layers no lookup
-   prompt's draft is accepted, in bf16 either), rms_norm, flash_fwd,
+   F16 (``serve_f16_phase``): Llama-2-7B widths and run 4's depth in
+   float16 (random weights from their own seed, the default f16 pool) in
+   run 3's configuration and traffic: every request ok, drafts proposed
+   and rejected (accepted ones: the 2-layer f16 gate), rms_norm, flash_fwd,
    ragged_decode and paged_varq launched on f16 operands and
    categorical_rows launched; decode tokens/s, TTFT
    p50, peak memory and a profiled pass's idle share. Then BERT-base
    cast to float16, one eval forward of 16 x 128: 25 LayerNorm and 12
    flash launches on f16 operands.
    Then GPT (``gpt_phase``): GPT-2 XL's published widths (hidden 1600,
-   25 heads of 64, inner 6400, vocab 50257), all 48 layers, bf16, random
+   25 heads of 64, inner 6400, vocab 50257), 12 of its 48 layers, bf16, random
    weights from a seed: greedy, sampled (temperature 0.8, top-p 0.9) and
    beam search (4 beams) over 4 left-padded prompts of 17-300 tokens, 32
    new tokens, through the static route's graphs (eager first call,
@@ -292,9 +297,10 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    ``attention_mask``, every dropout 0.1; then ERNIE-3.0-base for 6
    steps. Every loss finite, and per step 25 LayerNorm launches, 12 of
    each flash kernel and one ``fused_update`` (the eager ``opt.step()``),
-   every backward launch on the f32 tensor-core route (``wgmma_f32``,
-   counted in ``kernels.route_counts``). Prints step time, tokens/s, MFU
-   (f32 peak) and peak memory, and profiles one step.
+   every forward and backward launch on the f32 tensor-core route
+   (``wgmma_f32``, counted in ``kernels.route_counts``). Prints step
+   time, tokens/s, MFU (f32 peak) and peak memory, and profiles one step
+   (with the flash kernels' device ms in it).
 7. Train: Llama-2-7B widths in bf16, 8 of 32 layers (AdamW's f32 master
    weights and moments take 16 bytes per parameter: all 32 layers would
    need 108 GB), through ``Trainer`` for 6 steps at batch 2 x 2048 on one
@@ -542,7 +548,7 @@ def flash_phase(torch, dev, g):
         sc = d ** -0.5
         (out, lse), routes = launched_routes(
             lambda: A.flash_attention_kernel(q, k, v, sc, True, mask))
-        want_route = "fma" if dtype == "float32" else "wgmma"
+        want_route = "wgmma_f32" if dtype == "float32" else "wgmma"
         check(routes == {("flash_fwd", want_route): 1},
               f"flash_fwd {dtype} Sq={s}: launched {routes}")
         want = A.flash_attention_plain(q, k, v, sc, True, mask)
@@ -576,12 +582,27 @@ def flash_phase(torch, dev, g):
                         library_ms=lib, bound_ms=b_ms, bound_by=by,
                         shape=f"q[{b}, {s}, {h}, {d}] {dtype} causal+mask")
         elif dtype == "float32" and hkv == h:
-            # the f32 instance (FMA units) at the same shape, logged
-            sets = [(q, k, v), tuple(torch.randn_like(t) for t in (q, k, v))]
-            t32 = time_ms(torch, lambda a, b, c: A.flash_attention_kernel(
-                a, b, c, sc, True, mask), sets)["median"]
-            log(f"  flash_fwd float32 q[{b}, {s}, {h}, {d}] causal+mask: "
-                f"{t32:.4f} ms (median device time)")
+            # the f32 instance (three bf16 parts on the tensor cores) at
+            # the same shape: a full row, held to its plain version with a
+            # bitwise second launch; operations at the 16-bit peak
+            pairs = int(((mask[:, 0] > NEG / 2) & torch.tril(torch.ones(
+                s, s, dtype=torch.bool, device=dev))).sum()) * h
+            full = mask + torch.where(torch.tril(torch.ones(
+                s, s, dtype=torch.bool, device=dev)), 0.0, NEG)
+            f32_prefill = dtype_row(
+                torch, f"flash_fwd float32 q[{b}, {s}, {h}, {d}] "
+                "causal+mask", lambda a, b_, c: A.flash_attention_kernel(
+                    a, b_, c, sc, True, mask)[0],
+                lambda a, b_, c: A.flash_attention_plain(
+                    a, b_, c, sc, True, mask),
+                [(q, k, v), tuple(torch.randn_like(t) for t in (q, k, v))],
+                TOL[dtype], 4 * q.numel() * 4 + mask.numel() * 4
+                + lse.numel() * 4, 4 * d * pairs, "bfloat16",
+                f"q[{b}, {s}, {h}, {d}] float32 causal+mask",
+                lib=lambda a, b_, c: F.scaled_dot_product_attention(
+                    a.transpose(1, 2), b_.transpose(1, 2),
+                    c.transpose(1, 2), attn_mask=full, scale=sc),
+                rows=key_valid, route=("flash_fwd", "wgmma_f32"))
     main["extra"] = {**flash_train_row(torch, dev, g),
                      **flash_decode_row(torch, dev, g)}
     flash_decode_cases(torch, dev, g)
@@ -599,7 +620,53 @@ def flash_phase(torch, dev, g):
                                                m)[0],
             A.flash_attention_plain(q, k, v, d ** -0.5, False, m),
             "bfloat16")
-    return main
+    return main, {("flash_fwd", "float32", "float32"): flash_f32_row(
+        torch, dev, g, f32_prefill)}
+
+
+def flash_f32_row(torch, dev, g, prefill):
+    """The f32 forward at BERT-base's fine-tune shape, q[16, 128, 12, 64]
+    under ``bert_key_mask`` (what every fine-tune forward launches), on
+    route "wgmma_f32": against its plain version with a bitwise second
+    launch, timed beside f32 SDPA with the same mask and the bytes bound
+    (f32 Q, K, V, O, the mask and lse once; the operations at the 16-bit
+    peak, which the split reaches f32 accuracy at). ``prefill``, the same
+    instance's row at q[4, 512, 32, 128] causal + mask, rides along."""
+    from paddle_tpu_torch.kernels import attention as A
+    F = torch.nn.functional
+    b, s, h, d = 16, 128, 12, 64
+    mask = bert_key_mask(torch, dev, b, s)
+    sc = d ** -0.5
+    # four input sets, 19 MB each: past the 50 MB L2 together
+    sets = [tuple(torch.randn(b, s, h, d, device=dev, generator=g)
+                  for _ in range(3)) for _ in range(4)]
+    pairs = int((mask > NEG / 2).sum()) * s * h
+    row = dtype_row(
+        torch, f"flash_fwd float32 q[{b}, {s}, {h}, {d}] BERT key mask",
+        lambda q, k, v: A.flash_attention_kernel(q, k, v, sc, False,
+                                                 mask)[0],
+        lambda q, k, v: A.flash_attention_plain(q, k, v, sc, False, mask),
+        sets, TOL["float32"],
+        4 * b * s * h * d * 4 + mask.numel() * 4 + b * h * s * 4,
+        4 * d * pairs, "bfloat16",
+        f"q[{b}, {s}, {h}, {d}] float32 BERT key mask",
+        lib=lambda q, k, v: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, scale=sc),
+        route=("flash_fwd", "wgmma_f32"))
+    row["extra"] = {"kernel_route": "wgmma_f32",
+                    "cupti_ms": row["t"]["cupti"],
+                    "queue_ms": row["t"]["queue"],
+                    "prefill_shape": prefill["shape"],
+                    "prefill_ms": prefill["t"]["median"],
+                    "prefill_cupti_ms": prefill["t"]["cupti"],
+                    "prefill_queue_ms": prefill["t"]["queue"],
+                    "prefill_bound_ms": prefill["bound_ms"],
+                    "prefill_bound_by": prefill["bound_by"],
+                    "prefill_plain_ms": prefill["plain_ms"],
+                    "prefill_library_ms": prefill["library_ms"],
+                    "prefill_max_abs_err": prefill["max_abs_err"]}
+    return row
 
 
 def flash_train_row(torch, dev, g):
@@ -734,8 +801,9 @@ def flash_bwd_phase(torch, dev, g):
                 for w, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv),
                                        want)]
         if dtype == "float32":
-            # f32 operands enter the products as bf16 hi + lo parts: the
-            # largest share of its tolerance an output uses
+            # f32 operands enter the products as bf16 parts (hi + lo, or
+            # hi + mid + lo): the largest share of its tolerance an output
+            # uses
             tol = TOL[dtype]
             shares = [float(((a - r).abs() / (tol["atol"] + tol["rtol"]
                                               * r.abs())).max())
@@ -1238,10 +1306,10 @@ def ops_type(qd, kd):
     the one-dtype rows are: the card computes a 16-bit-by-f32 product to
     f32 accuracy there by splitting the f32 operand into 16-bit parts
     (the ``wgmma_f32kv`` instances do), so the FMA units' f32 peak is not
-    the least time of that work. An f32 q keeps the f32 peak (its
-    instances still run on the FMA units; the f32 backward pair, which
-    splits its operands, is bounded at the 16-bit peak in
-    ``flash_bwd_phase``)."""
+    the least time of that work. An f32 q over 16-bit pages keeps the f32
+    peak (those instances still run on the FMA units; the f32 flash
+    forward and backward pair, which split every operand, are bounded at
+    the 16-bit peak in ``flash_f32_row`` and ``flash_bwd_phase``)."""
     return qd
 
 
@@ -1911,8 +1979,14 @@ def dropout_phase(torch, dev, g):
         dt = getattr(torch, dtype)
         q, k, v, do = (torch.randn(b, s, h, d, device=dev, generator=g).to(dt)
                        for _ in range(4))
-        out, lse = A.flash_attention_kernel(q, k, v, sc, False, mask, **drop)
+        (out, lse), routes = launched_routes(lambda: A.flash_attention_kernel(
+            q, k, v, sc, False, mask, **drop))
         name = f"{dtype} q[{b}, {s}, {h}, {d}] key mask, dropout {p}"
+        route = A.fwd_route(dt, dt, s, h, h, p)
+        check(routes == {("flash_fwd", route): 1},
+              f"flash_fwd {name}: launched {routes}, not {route}")
+        check(dtype != "float32" or route == "wgmma_f32",
+              f"flash_fwd {name}: the f32 forward is not on wgmma_f32")
         compare(torch, f"flash_fwd {name}", out,
                 A.flash_attention_plain(q, k, v, sc, False, mask, **drop),
                 dtype)
@@ -1956,7 +2030,8 @@ def dropout_phase(torch, dev, g):
         q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
         attn_mask=mask, dropout_p=p, scale=sc), sets)["median"]
     for label, t in times.items():
-        log(f"  BERT-shape f32 q[{b}, {s}, {h}, {d}] key mask, {label}: "
+        log(f"  BERT-shape f32 q[{b}, {s}, {h}, {d}] key mask, {label} "
+            "(the forward on wgmma_f32): "
             + ", ".join(f"{k} {ms:.4f} ms" for k, ms in t.items()))
     log(f"  SDPA forward with dropout {p} at that shape: {sdpa:.4f} ms")
 
@@ -2549,8 +2624,7 @@ def draft_check(torch, dev, model, toks, kw, label, tries=8):
     and rejected: the verify step then commits drafts and rolls rejected
     positions back on the model's pages. A 2-layer model's continuation
     repeats its lead; at 32 layers the search finds none that repeats
-    more than the lead's first token (serve runs 2-3 and F16: no draft
-    accepted). Returns the run's stats."""
+    more than the lead's first token. Returns the run's stats."""
     from paddle_tpu_torch.inference import ContinuousBatchingPredictor
     for attempt in range(1, tries + 1):
         p = lookup_prompt(torch, model, dev, toks, 16, 4, 8, **kw)
@@ -3981,8 +4055,8 @@ def gpt_kernel_rows(torch, dev, g):
     return rows
 
 
-def gpt_phase(torch, dev, seed, card, layers=48):
-    """GPT at GPT-2 XL's published widths (48 layers, bf16, random
+def gpt_phase(torch, dev, seed, card, layers=12):
+    """GPT at GPT-2 XL's published widths (12 of 48 layers, bf16, random
     weights from a seed): greedy, sampled and beam search over 4
     left-padded prompts of 17-300 tokens, 32 new tokens, through
     ``generate()``'s static route. Each signature's eager first call is
@@ -5234,6 +5308,12 @@ def finetune_run(torch, dev, card, model, steps):
     check(all(n == counts[k] for k, n in bwd.items()),
           f"{model}: f32 backward launches {bwd} not all on wgmma_f32 "
           f"({routes})")
+    # and every f32 forward launch (all at Sq = 128) on the tensor cores
+    fwd = routes.get(("flash_fwd", "wgmma_f32"), 0)
+    log(f"fine-tune {model}: forward launches on wgmma_f32 {fwd} of "
+        f"{counts['flash_fwd']}")
+    check(fwd == counts["flash_fwd"],
+          f"{model}: f32 forward launches not all on wgmma_f32 ({routes})")
     finetune_profile(torch, dev, res, card, med * 1e3)
     return counts, dtype_counts
 
@@ -5267,6 +5347,10 @@ def finetune_profile(torch, dev, res, card, step_ms):
         f"{step_ms:.2f} ms")
     for name, (ms, n) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"  {ms:9.2f} ms {100 * ms / busy:5.1f}% x{n:<6d} {name[:90]}")
+    for fl in ("flash_fwd", "flash_bwd"):
+        got = [(ms, n) for name, (ms, n) in kern.items() if fl in name]
+        log(f"fine-tune profile: {fl} {sum(m for m, _ in got):.3f} ms of "
+            f"device time in the step ({sum(n for _, n in got)} launches)")
     cats = {}
     for name, (ms, n) in kern.items():
         cat = next((c for c, keys in TRAIN_OP_CATEGORIES
@@ -5785,7 +5869,7 @@ def resume_phase(torch, dev, seed, out_dir):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--layers", type=int, default=32,
+    ap.add_argument("--layers", type=int, default=8,
                     help="decoder layers of the served model (of 32)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--aot-child", metavar="SPEC",
@@ -5829,7 +5913,7 @@ def main(argv=None):
     ln = ln_phase(torch, dev, g)
     rms = rms_phase(torch, dev, g)
     ln32 = ln["float32"]
-    fwd = flash_phase(torch, dev, g)
+    fwd, fwd_dt = flash_phase(torch, dev, g)
     bwd, bwd_dt = flash_bwd_phase(torch, dev, g)
     mains = {"rms_norm": rms, "layer_norm": ln32, "flash_fwd": fwd, **bwd,
              "paged_decode": paged_phase(torch, dev, g),
@@ -5846,7 +5930,7 @@ def main(argv=None):
     free_card(torch)
     mains.update(optimizer_phase(torch, dev, args.seed))
     mains.update(sampling_phase(torch, dev, g))
-    dtype_rows = {**dtype_phase(torch, dev, g), **bwd_dt}
+    dtype_rows = {**dtype_phase(torch, dev, g), **bwd_dt, **fwd_dt}
     gpt_rows = gpt_kernel_rows(torch, dev, g)
     for name, m in [*mains.items(), ("layer_norm (bf16)", ln["bfloat16"]),
                     *((row_name(*k), m) for k, m in dtype_rows.items()),
@@ -5879,8 +5963,7 @@ def main(argv=None):
     log(f"f32 BERT-base gate took {time.perf_counter() - t0:.1f} s")
     free_card(torch)
 
-    if args.layers != 32:
-        log(f"serving {args.layers} layers instead of 32 (--layers)")
+    log(f"serving {args.layers} of 32 layers (--layers)")
     t0 = time.perf_counter()
     serve = serve_phase(torch, dev, args.seed, args.layers, card)
     counts1, counts2, counts_s = (r["counts"] for r in serve["runs"])
@@ -6006,11 +6089,12 @@ def main(argv=None):
     # f16 decode, the BERT-base f16 eval; serve run KV for bf16 q over f32
     # pages; the 2-layer f32 gate for f32 q over bf16 pages; the f16
     # training run for the f16 backward kernels, the BERT-base fine-tune
-    # run for the f32 ones)
+    # run for the f32 flash kernels, forward and backward)
     for key, m in dtype_rows.items():
         route, src, replaces = sources[key[0]]
-        n = next((c[key] for c in (f16["dtype_counts"], gate_counts, bert16,
-                                   kv["dtype_counts"], train16, ft_dtypes)
+        n = next((c[key] for c in (ft_dtypes, f16["dtype_counts"],
+                                   gate_counts, bert16, kv["dtype_counts"],
+                                   train16)
                   if c.get(key)), 0)
         check(n > 0, f"{row_name(*key)} was launched on no served path")
         rows.append({"name": row_name(*key), "route": route, "source": src,

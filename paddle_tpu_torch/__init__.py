@@ -28,6 +28,15 @@ activation recompute (``distributed.fleet.recompute``,
 Runtime telemetry (metrics, spans, the flight recorder, exporters) is
 ``observability``, the reference's package.
 
+Parameters are drawn as the reference draws them: ``ParamAttr`` and the
+initializers of ``nn.initializer`` (``Normal``, ``XavierUniform``,
+``Constant``, ... and ``set_global_initializer``), given as
+``weight_attr`` / ``bias_attr`` to ``nn.Linear``, ``nn.LayerNorm``,
+``nn.Embedding``, ``nn.MultiHeadAttention`` and
+``nn.TransformerEncoderLayer`` in the reference's positions (``False``:
+no parameter), each initializer drawing from an explicit
+``torch.Generator`` or torch's default one.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 import torch
@@ -40,5 +49,6 @@ torch.backends.cudnn.allow_tf32 = False
 
 from .framework import resolve_device  # noqa: E402
 from . import observability  # noqa: E402,F401
+from .nn.initializer import ParamAttr  # noqa: E402
 
-__all__ = ["resolve_device", "observability"]
+__all__ = ["ParamAttr", "resolve_device", "observability"]

@@ -106,47 +106,58 @@
 // bf16 instance compiles without it (bf16 has f32's range).
 //
 // f32 (dtype 0): the same kernels, a third instance (E = float), with
-// every f32 operand entering the products as bf16 hi + lo parts (TF32 is
-// off in the port; wgmma.cuh's note gives the split): hi = bf16(x), lo =
-// bf16(x - hi), so hi + lo is x to 2^-16 of |x| at worst. A product of
-// two split operands runs as hi.hi + hi.lo + lo.hi (lo.lo, below 2^-16
-// of the term, is dropped): S^T = K Q^T and dP^T = V dO^T (dK/dV), S = Q
-// K^T and dP = dO V^T (dQ) three times each from shared memory; dV, dK
-// and dQ add the third product of P * D or dS (hi, split in registers as
-// above) on the lo tile of dO, Q or K, read transposed, which wgmma allows
-// for 16-bit operands only (TF32 parts would need transposed copies).
-// That is 12 m64 products per tile pair in dK/dV (16-bit: 6) and 9 in dQ
-// (4). The resident operands (K, V in dK/dV; Q, dO in dQ) arrive once as
-// f32 rows staged by cp.async in the space the streamed tiles use later
-// and are split into swizzled hi and lo tiles (`split_tile`) while the
-// first streamed tile's copies are in flight; each streamed tile (Q and
-// dO; K and V) comes by cp.async into one stage of f32 staging tiles and
-// is split in shared memory, the first of its pair before the product
-// that reads it, the second while that product runs, after which the
-// next tile's copies start into the staging tiles. Shared memory: 4 hi /
-// lo tile pairs and two f32 staging tiles, 100,352 bytes (dK/dV) and
-// 99,328 (dQ) at D = 64, two CTAs an SM as in 16 bits; 198,656 and
-// 197,632 at D = 128, one. Registers (ptxas -v, CUDA 12.8): dK/dV D = 64
-// 254, D = 128 255 with 16 bytes spilled (8 with dropout); dQ D = 64 228
-// (232), D = 128 255 with 20 spilled. Precision: against the plain f32
-// backward the outputs differ by about 1e-5 of their size (largest
-// absolute error 4.5e-5 at BERT-base's q[16, 128, 12, 64] with its key
-// mask, 9.9e-5 at q[2, 2048, 32, 128] causal, where the f32 FMA kernels
-// this instance replaces differed by 1e-6), within the f32 card tolerance
-// (atol = rtol = 1e-4) with a margin `chip_smoke.py` logs per case.
-// Bound at BERT-base's fine-tune shape: the bytes (0.0113 ms dK/dV,
-// 0.0095 dQ on an H100; the operations, three times over at the 16-bit
-// peak, take under half that). Measured on an H100 80GB HBM3 at 700 W
-// (tools/flash_bwd_variants.py, one process) at that shape: dK/dV 0.0369
-// ms, dQ 0.0286 (the FMA kernels before 0.0940 / 0.0803; f32 SDPA's
-// backward, the pair together, 0.1248); with dropout 0.1 0.0391 /
-// 0.0312. The grid is 384 CTAs of two query (or key) tiles
-// each, 1.45 waves of two CTAs an SM, and each CTA's chain of copy,
-// split and products sets the time, 3.3x / 3.0x the bytes: without the
-// streamed tiles' split (a diagnostic variant, wrong by design) 0.0331 /
-// 0.0278; one CTA of two warpgroups per (batch, head) walking all 128
-// keys lost (dK/dV 0.0398); one bf16 part of P and dS (10 and 8
-// products) saved 7 % and failed the tolerance (errors 3e-3).
+// every f32 operand entering the products as bf16 parts (TF32 is off in
+// the port; wgmma.cuh's note gives the split): hi = bf16(x), mid = bf16(x
+// - hi), lo = bf16(x - hi - mid). S^T = K Q^T (dK/dV) and S = Q K^T (dQ)
+// take two parts of each operand, hi.hi + hi.mid + mid.hi; dP^T = V dO^T
+// and dP = dO V^T take three, the six terms whose part indices sum to
+// less than 3 (hi.hi, hi.mid, mid.hi, hi.lo, mid.mid, lo.hi). dV adds the
+// third product of P * D (hi + lo, split in registers as above), its hi
+// part on dO's mid tile; dK and dQ add dS's hi part on Q's (K's) mid and
+// lo tiles and its lo part on the mid tile, read transposed, which wgmma
+// allows for 16-bit operands only (TF32 parts would need transposed
+// copies). That is 17 m64 products per tile pair in dK/dV (16-bit: 6) and
+// 14 in dQ (4). Why three parts in dP, dK and dQ: on a row whose keys the
+// mask all drops, P = exp(s - lse) = 1 on every key (as in the plain
+// version), so dS is as large as dP and the 2^-16 error of two-part
+// products passes into dK and dQ undamped; with two parts everywhere
+// test_torch_flash_bwd.py's `no_valid_key` case sat at 0.8-1.0 of the f32
+// card tolerance, and failed once the forward's out / lse came from
+// flash_fwd.cu's f32 instance (dK 1.47e-4 against atol 1e-4; 6.5e-5 with
+// three parts). The resident operands (K, V in dK/dV; Q, dO in dQ) arrive
+// once as f32 rows staged by cp.async in the space the streamed tiles use
+// later and are split into their part tiles while the first streamed
+// tile's copies are in flight.
+// The streamed operands share one f32 staging tile: the first of a tile's
+// pair (Q; K) is copied in during the previous tile's products and split
+// before the S product, the second (dO; V) is copied in while S and P
+// are formed and split before the dP product, after which the next
+// tile's first copies start. Shared memory: K (dK/dV) or Q (dQ) in two
+// part tiles, the other three operands in three, one f32 staging tile:
+// 108,544 bytes (dK/dV) and 107,520 (dQ) at D = 64, two CTAs an SM as in
+// 16 bits; 215,040 and 214,016 at D = 128, one. Registers (ptxas -v, CUDA
+// 12.8): dK/dV D = 64 254 (241 with dropout), D = 128 255 with 28 bytes
+// spilled (none with dropout); dQ D = 64 194 (228), D = 128 254.
+// Precision: against the plain f32 backward the outputs differ by about
+// 5e-6 of their size (largest absolute error 2.6e-5 at BERT-base's q[16,
+// 128, 12, 64] with its key mask, 1.0e-4 at q[2, 2048, 32, 128] causal,
+// in dV, whose products keep two parts; 6.5e-5 on the `no_valid_key`
+// case), within the f32 card tolerance (atol = rtol = 1e-4) with a
+// margin `chip_smoke.py` logs per case. Bound at BERT-base's fine-tune
+// shape: the bytes (0.0113 ms dK/dV, 0.0095 dQ on an H100; the
+// operations, at the 16-bit peak, take under half that). Measured on an
+// H100 80GB HBM3 at 700 W (tools/flash_bwd_variants.py --parent, one
+// process) at that shape: dK/dV 0.0384 ms, dQ 0.0339 (with two parts in
+// every product 0.0366 / 0.0285; the FMA kernels before those 0.0940 /
+// 0.0803; f32 SDPA's backward, the pair together, 0.1256); with
+// dropout 0.1 0.0411 / 0.0358. The grid is 384 CTAs of two query (or
+// key) tiles each, 1.45 waves of two CTAs an SM, and each CTA's chain of
+// copy, split and products sets the time, 3.4x / 3.6x the bytes. Two
+// parts, measured so before: without the streamed tiles' split
+// (a diagnostic variant, wrong by design) 0.0331 / 0.0278; one CTA of
+// two warpgroups per (batch, head) walking all 128 keys lost (dK/dV
+// 0.0398); one bf16 part of P and dS saved 7 % and failed the tolerance
+// (errors 3e-3).
 //
 // No atomics in any dtype: every output tile has one owner CTA that
 // writes it once, the dK/dV CTA walking its KV head's whole query-head
@@ -312,10 +323,11 @@ __device__ __forceinline__ float prob(float s, bool keep, const float* mb,
 
 // Shared memory of the dK/dV kernel, byte offsets from its 1024-aligned
 // base. 16-bit: the K and V tiles, a kStages ring of Q and dO tiles, and
-// kStages slots of a query tile's lse | delta rows. f32: K, V, Q and dO
-// as bf16 hi and lo tiles (each hi tile followed by its lo tile; one Q and
-// one dO tile, split anew from f32 rows for each query tile), one stage
-// of f32 staging tiles for Q's and dO's rows, and the same row slots
+// kStages slots of a query tile's lse | delta rows. f32: K as bf16 hi and
+// lo tiles, V, Q and dO as hi, mid and lo tiles (each tile followed by
+// its next part; one Q and one dO tile, split anew from f32 rows for each
+// query tile), one f32 staging tile that takes Q's rows and then dO's,
+// and the same row slots
 template <class E, int D>
 struct DkdvSmem {
   static constexpr bool F32 = std::is_same<E, float>::value;
@@ -323,21 +335,22 @@ struct DkdvSmem {
   static constexpr uint32_t KV = BN * D * 2;   // one 16-bit K or V tile
   static constexpr uint32_t QT = kBM * D * 2;  // one 16-bit Q or dO tile
   static constexpr uint32_t F = kBM * D * 4;   // one f32 Q or dO tile
-  static constexpr uint32_t NQ = F32 ? 2 : kStages;  // tiles per Q or dO
+  static constexpr uint32_t NQ = F32 ? 3 : kStages;  // tiles per Q or dO
   static constexpr uint32_t V = F32 ? 2 * KV : KV;
-  static constexpr uint32_t Q = 2 * V;
+  static constexpr uint32_t Q = V + (F32 ? 3 : 1) * KV;
   static constexpr uint32_t O = Q + NQ * QT;
   static constexpr uint32_t STAGE = O + NQ * QT;
-  static constexpr uint32_t ROWS = STAGE + (F32 ? 2 * F : 0);
+  static constexpr uint32_t ROWS = STAGE + (F32 ? F : 0);
   static constexpr uint32_t BYTES = ROWS + kStages * 2 * kBM * 4;
 };
 
 // dK/dV: one CTA of kDkdvWG warpgroups per (batch x KV head, 64 kDkdvWG
 // keys); warpgroup w owns keys [k0 + 64 w, k0 + 64 w + 64). K and V stay
 // in shared memory; Q, dO, lse and delta of the (query head, query tile)
-// pairs stream through a 2-stage cp.async ring (f32: one stage of f32
-// rows, split into the Q and dO hi / lo tiles as their tile starts; the
-// next tile's copies start once the split has read them).
+// pairs stream through a 2-stage cp.async ring (f32: one f32 staging
+// tile, Q's rows split into Q's parts as their tile starts, then dO's
+// rows copied in while S^T is formed and split before dP^T; the next
+// tile's Q rows start once dO's split has read the tile).
 template <class E, int D, bool DROP>
 __global__ void __launch_bounds__(128 * kDkdvWG, 2 / kDkdvWG)
     flash_bwd_dkdv_wgmma(
@@ -377,17 +390,24 @@ __global__ void __launch_bounds__(128 * kDkdvWG, 2 / kDkdvWG)
   const int per_g = k0 < kend && i_first < nq ? nq - i_first : 0;
   const int n_it = group * per_g;
 
+  // f32: the rows of query tile `it` of Q (with its lse | delta rows) or,
+  // with `dO`, of dO into the staging tile
+  auto stage_q = [&](int it, auto src) {
+    const int h = hk * group + it / per_g;
+    const int q0 = (i_first + it % per_g) * kBM;
+    stage_rows<kBM, D, NT>(
+        sF, src + ((long long)b * Sq * H + h) * D,
+        [&](int r) -> long long {
+          return q0 + r < Sq ? (long long)(q0 + r) * q_stride : -1;
+        },
+        tid);
+  };
   auto load_stage = [&](int it, int st) {
     const int h = hk * group + it / per_g;
     const int q0 = (i_first + it % per_g) * kBM;
     const long long q_off = ((long long)b * Sq * H + h) * D;
     if constexpr (F32) {
-      stage_rows<kBM, D, NT>(
-          sF, q + q_off,
-          [&](int r) -> long long {
-            return q0 + r < Sq ? (long long)(q0 + r) * q_stride : -1;
-          },
-          tid, sF + L::F, dout + q_off);
+      stage_q(it, q);
     } else {
       load_tile<kBM, D, NT>(sQ + st * Q_BYTES, q + q_off, q_stride, q0, Sq,
                             tid);
@@ -410,12 +430,14 @@ __global__ void __launch_bounds__(128 * kDkdvWG, 2 / kDkdvWG)
 
   if (n_it > 0) {
     if constexpr (F32) {
-      // K's and V's f32 rows staged where the Q and dO tiles go (V in the
-      // staging tiles when 128 keys leave no room beside K), with query
-      // tile 0's copies in flight beside them where they fit; then split
-      // into the resident hi and lo tiles
-      constexpr bool BESIDE = BN <= kBM;
-      const uint32_t kf = sQ, vf = BESIDE ? sQ + 2 * KV_BYTES : sF;
+      // K's and V's f32 rows staged where the Q and dO tiles go (into the
+      // staging tile too when 128 keys leave no room beside it), with
+      // query tile 0's Q rows in flight beside them where they fit; then
+      // split into the resident part tiles
+      constexpr uint32_t KF = BN * D * 4;  // one f32 K or V tile
+      constexpr bool BESIDE = 2 * KF <= L::STAGE - L::Q;
+      static_assert(2 * KF <= L::ROWS - L::Q, "K's and V's rows fit");
+      const uint32_t kf = sQ, vf = sQ + KF;
       stage_rows<BN, D, NT>(
           kf, k + kv_off,
           [&](int r) -> long long {
@@ -428,7 +450,8 @@ __global__ void __launch_bounds__(128 * kDkdvWG, 2 / kDkdvWG)
       cp_async_wait<1>();
       __syncthreads();
       split_tile<BN, D, NT>(sK, sK + KV_BYTES, kf, tid);
-      split_tile<BN, D, NT>(sV, sV + KV_BYTES, vf, tid);
+      split_tile<BN, D, NT, 3>(sV, sV + KV_BYTES, vf, tid,
+                               sV + 2 * KV_BYTES);
       __syncthreads();  // the staged rows are read
       if (!BESIDE) load_stage(0, 0);
     } else {
@@ -447,7 +470,7 @@ __global__ void __launch_bounds__(128 * kDkdvWG, 2 / kDkdvWG)
     const int st = it % kStages;
     cp_async_wait_all();
     __syncthreads();  // stage st landed; everyone is done with stage st ^ 1
-                      // (f32: with the previous tile's hi and lo tiles)
+                      // (f32: with the previous tile's part tiles)
     if constexpr (!F32) {
       if (it + 1 < n_it) load_stage(it + 1, st ^ 1);
       cp_async_commit();
@@ -466,75 +489,90 @@ __global__ void __launch_bounds__(128 * kDkdvWG, 2 / kDkdvWG)
     const float* dl_t = lse_t + kBM;
     const float* mb = mask ? mask + b * msb + h * msh : nullptr;
 
-    // S^T = K Q^T and dP^T = V dO^T (keys x queries), A and B from shared;
-    // over f32 operands K_hi Q_hi^T + K_hi Q_lo^T + K_lo Q_hi^T (and so
-    // for dP^T), K_lo Q_lo^T dropped
+    // S^T = K Q^T and dP^T = V dO^T (keys x queries), A and B from shared.
+    // Over f32 operands, with N parts of each (hi, mid, lo), the terms
+    // whose part indices sum to less than N: S^T in two (K_h Q_h^T + K_h
+    // Q_m^T + K_m Q_h^T), dP^T in three (V_h dO_h^T + V_h dO_m^T + V_m
+    // dO_h^T + V_h dO_l^T + V_m dO_m^T + V_l dO_h^T)
     float s[32], dp[32];
-    auto product = [&](float (&d)[32], uint32_t a, uint32_t bt) {
+    auto product = [&](float (&d)[32], uint32_t a, uint32_t bt, auto parts) {
+      constexpr int N = decltype(parts)::value;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint64_t ad = kmajor_desc<BN>(a, 64 * wg, kk);
-        const uint64_t bd = kmajor_desc<kBM>(bt, 0, kk);
-        wgmma_ss<PE>(d, ad, bd, kk);
-        if constexpr (F32) {
-          wgmma_ss<PE>(d, ad, kmajor_desc<kBM>(bt + Q_BYTES, 0, kk), 1);
-          wgmma_ss<PE>(d, kmajor_desc<BN>(a + KV_BYTES, 64 * wg, kk), bd, 1);
-        }
-      }
+      for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+        for (int i = 0; i < N; ++i)
+#pragma unroll
+          for (int j = 0; i + j < N; ++j)
+            wgmma_ss<PE>(d, kmajor_desc<BN>(a + i * KV_BYTES, 64 * wg, kk),
+                         kmajor_desc<kBM>(bt + j * Q_BYTES, 0, kk),
+                         kk + i + j);
       wgmma_commit();
     };
+    auto probs = [&]() {
+      auto to_probs = [&](auto masked, auto interior) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + qc + e, qi = q0 + c;
+            const float l = lse_t[c];
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              const int ki = kw + kr + 8 * rr;
+              const bool keep = decltype(interior)::value ||
+                                ((qi < Sq) & (ki < kend) &
+                                 (!causal | (qi >= ki)));
+              float& x = s[4 * j + 2 * rr + e];
+              x = prob<decltype(masked)::value>(x, keep, mb,
+                                                qi * msq + ki * msk, scale,
+                                                l, -l * kLog2e, sl2);
+            }
+          }
+      };
+      if (mb)
+        to_probs(std::true_type{}, std::false_type{});
+      else if (full)
+        to_probs(std::false_type{}, std::true_type{});
+      else
+        to_probs(std::false_type{}, std::false_type{});
+    };
+    using Two = std::integral_constant<int, 2>;
+    using Three = std::integral_constant<int, 3>;
     if constexpr (F32) {
-      // Q's f32 rows into its hi and lo tiles before the S^T product,
-      // dO's while it runs; then the next tile's rows into the staging
-      // tiles (every warpgroup splits and waits, also one that skips)
-      split_tile<kBM, D, NT>(qs, qs + Q_BYTES, sF, tid);
+      // Q's f32 rows into its part tiles before the S^T product; dO's rows
+      // copied into the staging tile while S^T and P are formed, then split
+      // before the dP^T product, after which the next tile's Q rows start
+      // (every warpgroup splits and waits, also one that skips)
+      split_tile<kBM, D, NT, 3>(qs, qs + Q_BYTES, sF, tid, qs + 2 * Q_BYTES);
       fence_async_smem();
-      __syncthreads();
+      __syncthreads();  // Q's parts stored; the staging tile is read
+      stage_q(it, dout);
+      cp_async_commit();
       if (!skip) {
         wgmma_fence();
-        product(s, sK, qs);
+        product(s, sK, qs, Two{});
+        wgmma_wait<0>();
+        fence_regs(s);
+        probs();
       }
-      split_tile<kBM, D, NT>(os, os + Q_BYTES, sF + L::F, tid);
+      cp_async_wait_all();
+      __syncthreads();  // dO's rows landed
+      split_tile<kBM, D, NT, 3>(os, os + Q_BYTES, sF, tid, os + 2 * Q_BYTES);
       fence_async_smem();
-      __syncthreads();  // dO's parts stored; the staging tiles are read
+      __syncthreads();  // dO's parts stored; the staging tile is read
       if (it + 1 < n_it) load_stage(it + 1, st ^ 1);
       cp_async_commit();
       if (skip) continue;
       wgmma_fence();
-      product(dp, sV, os);
+      product(dp, sV, os, Three{});
     } else {
       wgmma_fence();
-      product(s, sK, qs);
-      product(dp, sV, os);
+      product(s, sK, qs, std::integral_constant<int, 1>{});
+      product(dp, sV, os, std::integral_constant<int, 1>{});
+      wgmma_wait<1>();
+      fence_regs(s);
+      probs();
     }
-    wgmma_wait<1>();
-    fence_regs(s);
-    auto to_probs = [&](auto masked, auto interior) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = 8 * j + qc + e, qi = q0 + c;
-          const float l = lse_t[c];
-#pragma unroll
-          for (int rr = 0; rr < 2; ++rr) {
-            const int ki = kw + kr + 8 * rr;
-            const bool keep = decltype(interior)::value ||
-                              ((qi < Sq) & (ki < kend) &
-                               (!causal | (qi >= ki)));
-            float& x = s[4 * j + 2 * rr + e];
-            x = prob<decltype(masked)::value>(x, keep, mb,
-                                              qi * msq + ki * msk, scale, l,
-                                              -l * kLog2e, sl2);
-          }
-        }
-    };
-    if (mb)
-      to_probs(std::true_type{}, std::false_type{});
-    else if (full)
-      to_probs(std::false_type{}, std::true_type{});
-    else
-      to_probs(std::false_type{}, std::false_type{});
     wgmma_wait<0>();
     fence_regs(dp);
     const uint32_t row_key = fmix32((uint32_t)(b * H + h) ^ seed0);
@@ -566,7 +604,8 @@ __global__ void __launch_bounds__(128 * kDkdvWG, 2 / kDkdvWG)
     // dV += (P D)^T dO and dK += dS^T Q, each as the hi and the lo part:
     // A from registers, B the query-major dO / Q tiles read transposed
     // (f16: dS^T rescaled per key row first; P * D is at most 1 / (1 - p));
-    // over f32 operands also the hi part on dO's and Q's lo tiles
+    // over f32 operands also P's hi part on dO's mid tile, and dS's hi part
+    // on Q's mid and lo tiles and its lo part on Q's mid tile
     if constexpr (F16) rescale_rows(dp, dk_acc, ex);
     AFrag<PE> ph[4], pl[4], sh[4], sl[4];
     to_a_frags(s, ph, pl);
@@ -583,6 +622,8 @@ __global__ void __launch_bounds__(128 * kDkdvWG, 2 / kDkdvWG)
       if constexpr (F32) {
         wgmma_rs_tb(dv_acc, ph[kk], mnmajor_desc<kBM>(os + Q_BYTES, kk));
         wgmma_rs_tb(dk_acc, sh[kk], mnmajor_desc<kBM>(qs + Q_BYTES, kk));
+        wgmma_rs_tb(dk_acc, sl[kk], mnmajor_desc<kBM>(qs + Q_BYTES, kk));
+        wgmma_rs_tb(dk_acc, sh[kk], mnmajor_desc<kBM>(qs + 2 * Q_BYTES, kk));
       }
     }
     wgmma_commit();
@@ -614,27 +655,28 @@ __global__ void __launch_bounds__(128 * kDkdvWG, 2 / kDkdvWG)
 
 // Shared memory of the dQ kernel, byte offsets from its 1024-aligned base.
 // 16-bit: the Q and dO tiles and a kStages ring of K | V tile pairs. f32:
-// Q, dO, K and V as bf16 hi and lo tiles (each hi tile followed by its lo
-// tile; one K and one V tile, split anew from f32 rows for each key tile)
-// and one stage of f32 staging tiles for K's and V's rows
+// Q as bf16 hi and lo tiles, dO, K and V as hi, mid and lo tiles (each
+// tile followed by its next part; one K and one V tile, split anew from
+// f32 rows for each key tile) and one f32 staging tile that takes K's
+// rows and then V's
 template <class E, int D>
 struct DqSmem {
   static constexpr bool F32 = std::is_same<E, float>::value;
   static constexpr uint32_t T = 64 * D * 2;  // one 16-bit 64-row tile
   static constexpr uint32_t F = 64 * D * 4;  // one f32 64-row tile
   static constexpr uint32_t O = F32 ? 2 * T : T;
-  static constexpr uint32_t KV = 2 * O;
-  static constexpr uint32_t V = KV + 2 * T;  // f32: V's hi and lo tiles
-  static constexpr uint32_t STAGE = KV + 4 * T;
-  static constexpr uint32_t BYTES =
-      F32 ? STAGE + 2 * F : KV + kStages * 2 * T;
+  static constexpr uint32_t KV = O + (F32 ? 3 : 1) * T;
+  static constexpr uint32_t V = KV + 3 * T;  // f32: V's part tiles
+  static constexpr uint32_t STAGE = V + 3 * T;
+  static constexpr uint32_t BYTES = F32 ? STAGE + F : KV + kStages * 2 * T;
 };
 
 // dQ: one CTA of one warpgroup per (batch x query head, 64-row query
 // tile), launched longest causal row first. Q and dO stay in shared
 // memory; K and V tiles of 64 keys stream through a 2-stage ring (f32:
-// one stage of f32 rows, split into the K and V hi / lo tiles as their
-// tile starts; the next tile's copies start once the split has read them).
+// one f32 staging tile, K's rows split into K's parts as their tile
+// starts, then V's rows copied in while S is formed and split before dP;
+// the next tile's K rows start once V's split has read the tile).
 template <class E, int D, bool DROP>
 __global__ void __launch_bounds__(128, 2) flash_bwd_dq_wgmma(
     const E* __restrict__ q, const E* __restrict__ k,
@@ -686,15 +728,20 @@ __global__ void __launch_bounds__(128, 2) flash_bwd_dq_wgmma(
     xq[rr] = DROP ? fmix32(row_key ^ (uint32_t)qi) : 0u;
   }
 
+  // f32: the rows of key tile `it` of K, or with `v`, of V into the
+  // staging tile
+  auto stage_kv = [&](int it, auto src) {
+    stage_rows<BN, D, NT>(
+        sF, src + kv_off,
+        [&](int r) -> long long {
+          const int key = it * BN + r;
+          return key < Sk ? (long long)key * kv_stride : -1;
+        },
+        tid);
+  };
   auto load_stage = [&](int it, int st) {
     if constexpr (F32) {
-      stage_rows<BN, D, NT>(
-          sF, k + kv_off,
-          [&](int r) -> long long {
-            const int key = it * BN + r;
-            return key < Sk ? (long long)key * kv_stride : -1;
-          },
-          tid, sF + L::F, v + kv_off);
+      stage_kv(it, k);
     } else {
       const uint32_t kv = sKV + st * 2 * T_BYTES;
       load_tile<BN, D, NT>(kv, k + kv_off, kv_stride, it * BN, Sk, tid);
@@ -711,8 +758,9 @@ __global__ void __launch_bounds__(128, 2) flash_bwd_dq_wgmma(
   if (n_it > 0) {
     if constexpr (F32) {
       // Q's and dO's f32 rows staged where the K and V tiles go, key tile
-      // 0's copies in flight beside them; then split into the resident hi
-      // and lo tiles
+      // 0's K rows in flight beside them; then split into the resident
+      // part tiles
+      static_assert(L::V - L::KV >= L::F, "Q's rows fit in K's tiles");
       stage_rows<kBM, D, NT>(
           sKV, q + q_off,
           [&](int r) -> long long {
@@ -725,7 +773,8 @@ __global__ void __launch_bounds__(128, 2) flash_bwd_dq_wgmma(
       cp_async_wait<1>();
       __syncthreads();
       split_tile<kBM, D, NT>(sQ, sQ + T_BYTES, sKV, tid);
-      split_tile<kBM, D, NT>(sO, sO + T_BYTES, sQ + L::V, tid);
+      split_tile<kBM, D, NT, 3>(sO, sO + T_BYTES, sQ + L::V, tid,
+                                sO + 2 * T_BYTES);
       __syncthreads();  // the staged rows are read
     } else {
       load_tile<kBM, D, NT>(sQ, q + q_off, q_stride, q0, Sq, tid);
@@ -739,7 +788,7 @@ __global__ void __launch_bounds__(128, 2) flash_bwd_dq_wgmma(
     const int st = it % kStages, k0 = it * BN;
     cp_async_wait_all();
     __syncthreads();  // stage st landed; everyone is done with stage st ^ 1
-                      // (f32: with the previous tile's hi and lo tiles)
+                      // (f32: with the previous tile's part tiles)
     if constexpr (!F32) {
       if (it + 1 < n_it) load_stage(it + 1, st ^ 1);
       cp_async_commit();
@@ -749,70 +798,83 @@ __global__ void __launch_bounds__(128, 2) flash_bwd_dq_wgmma(
     const bool full = q0 + kBM <= Sq && k0 + BN <= kend &&
                       (!causal || k0 + BN - 1 <= q0);
 
-    // S = Q K^T and dP = dO V^T (queries x keys), A and B from shared;
-    // over f32 operands Q_hi K_hi^T + Q_hi K_lo^T + Q_lo K_hi^T (and so
-    // for dP), Q_lo K_lo^T dropped
+    // S = Q K^T and dP = dO V^T (queries x keys), A and B from shared.
+    // Over f32 operands, with N parts of each (hi, mid, lo), the terms
+    // whose part indices sum to less than N: S in two (Q_h K_h^T + Q_h
+    // K_m^T + Q_m K_h^T), dP in three (dO_h V_h^T + dO_h V_m^T + dO_m V_h^T
+    // + dO_h V_l^T + dO_m V_m^T + dO_l V_h^T)
     float s[32], dp[32];
-    auto product = [&](float (&d)[32], uint32_t a, uint32_t bt) {
+    auto product = [&](float (&d)[32], uint32_t a, uint32_t bt, auto parts) {
+      constexpr int N = decltype(parts)::value;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint64_t ad = kmajor_desc<kBM>(a, 0, kk);
-        const uint64_t bd = kmajor_desc<BN>(bt, 0, kk);
-        wgmma_ss<PE>(d, ad, bd, kk);
-        if constexpr (F32) {
-          wgmma_ss<PE>(d, ad, kmajor_desc<BN>(bt + T_BYTES, 0, kk), 1);
-          wgmma_ss<PE>(d, kmajor_desc<kBM>(a + T_BYTES, 0, kk), bd, 1);
-        }
-      }
+      for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+        for (int i = 0; i < N; ++i)
+#pragma unroll
+          for (int j = 0; i + j < N; ++j)
+            wgmma_ss<PE>(d, kmajor_desc<kBM>(a + i * T_BYTES, 0, kk),
+                         kmajor_desc<BN>(bt + j * T_BYTES, 0, kk),
+                         kk + i + j);
       wgmma_commit();
     };
+    auto probs = [&]() {
+      auto to_probs = [&](auto masked, auto interior) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int ki = k0 + 8 * j + kc + e;
+#pragma unroll
+            for (int rr = 0; rr < 2; ++rr) {
+              const int qi = q0 + qr + 8 * rr;
+              const bool keep = decltype(interior)::value ||
+                                ((qi < Sq) & (ki < kend) &
+                                 (!causal | (qi >= ki)));
+              float& x = s[4 * j + 2 * rr + e];
+              x = prob<decltype(masked)::value>(x, keep, mb,
+                                                qi * msq + ki * msk, scale,
+                                                l[rr], nl2[rr], sl2);
+            }
+          }
+      };
+      if (mb)
+        to_probs(std::true_type{}, std::false_type{});
+      else if (full)
+        to_probs(std::false_type{}, std::true_type{});
+      else
+        to_probs(std::false_type{}, std::false_type{});
+    };
     if constexpr (F32) {
-      // K's f32 rows into its hi and lo tiles before the S product, V's
-      // while it runs; then the next tile's rows into the staging tiles
-      split_tile<BN, D, NT>(ks, ks + T_BYTES, sF, tid);
+      // K's f32 rows into its part tiles before the S product; V's rows
+      // copied into the staging tile while S and P are formed, then split
+      // before the dP product, after which the next tile's K rows start
+      split_tile<BN, D, NT, 3>(ks, ks + T_BYTES, sF, tid, ks + 2 * T_BYTES);
       fence_async_smem();
-      __syncthreads();
+      __syncthreads();  // K's parts stored; the staging tile is read
+      stage_kv(it, v);
+      cp_async_commit();
       wgmma_fence();
-      product(s, sQ, ks);
-      split_tile<BN, D, NT>(vs, vs + T_BYTES, sF + L::F, tid);
+      product(s, sQ, ks, std::integral_constant<int, 2>{});
+      wgmma_wait<0>();
+      fence_regs(s);
+      probs();
+      cp_async_wait_all();
+      __syncthreads();  // V's rows landed
+      split_tile<BN, D, NT, 3>(vs, vs + T_BYTES, sF, tid, vs + 2 * T_BYTES);
       fence_async_smem();
-      __syncthreads();  // V's parts stored; the staging tiles are read
+      __syncthreads();  // V's parts stored; the staging tile is read
       if (it + 1 < n_it) load_stage(it + 1, st ^ 1);
       cp_async_commit();
       wgmma_fence();
-      product(dp, sO, vs);
+      product(dp, sO, vs, std::integral_constant<int, 3>{});
     } else {
       wgmma_fence();
-      product(s, sQ, ks);
-      product(dp, sO, vs);
+      product(s, sQ, ks, std::integral_constant<int, 1>{});
+      product(dp, sO, vs, std::integral_constant<int, 1>{});
+      wgmma_wait<1>();
+      fence_regs(s);
+      probs();
     }
-    wgmma_wait<1>();
-    fence_regs(s);
-    auto to_probs = [&](auto masked, auto interior) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int ki = k0 + 8 * j + kc + e;
-#pragma unroll
-          for (int rr = 0; rr < 2; ++rr) {
-            const int qi = q0 + qr + 8 * rr;
-            const bool keep = decltype(interior)::value ||
-                              ((qi < Sq) & (ki < kend) &
-                               (!causal | (qi >= ki)));
-            float& x = s[4 * j + 2 * rr + e];
-            x = prob<decltype(masked)::value>(x, keep, mb,
-                                              qi * msq + ki * msk, scale,
-                                              l[rr], nl2[rr], sl2);
-          }
-        }
-    };
-    if (mb)
-      to_probs(std::true_type{}, std::false_type{});
-    else if (full)
-      to_probs(std::false_type{}, std::true_type{});
-    else
-      to_probs(std::false_type{}, std::false_type{});
     wgmma_wait<0>();
     fence_regs(dp);
 #pragma unroll
@@ -832,7 +894,8 @@ __global__ void __launch_bounds__(128, 2) flash_bwd_dq_wgmma(
         }
     // dQ += dS K as the hi and the lo part: A from registers, B the
     // key-major K tile read transposed (f16: dS rescaled per query row);
-    // over f32 operands also the hi part on K's lo tile
+    // over f32 operands also the hi part on K's mid and lo tiles and the
+    // lo part on K's mid tile
     if constexpr (F16) rescale_rows(dp, acc, ex);
     AFrag<PE> sh[4], sl[4];
     to_a_frags(dp, sh, sl);
@@ -842,8 +905,11 @@ __global__ void __launch_bounds__(128, 2) flash_bwd_dq_wgmma(
     for (int kk = 0; kk < 4; ++kk) {
       wgmma_rs_tb(acc, sh[kk], mnmajor_desc<BN>(ks, kk));
       wgmma_rs_tb(acc, sl[kk], mnmajor_desc<BN>(ks, kk));
-      if constexpr (F32)
+      if constexpr (F32) {
         wgmma_rs_tb(acc, sh[kk], mnmajor_desc<BN>(ks + T_BYTES, kk));
+        wgmma_rs_tb(acc, sl[kk], mnmajor_desc<BN>(ks + T_BYTES, kk));
+        wgmma_rs_tb(acc, sh[kk], mnmajor_desc<BN>(ks + 2 * T_BYTES, kk));
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();

@@ -138,9 +138,48 @@
 // before P.V as the plain version rounds it, the output in TQ; no dropout with
 // two dtypes (inference only).
 //
-// f32 (dtype 0): the FMA-unit kernel below (TF32 is off in the port):
-// one block of 256 threads per (batch*head, 64-row query tile) keeps the
-// Q tile, one K and one V tile (64 rows, f32) and the 64x64 score tile
+// f32 q over f32 K/V at Sq > 1 (route "wgmma_f32": the BERT-base / ERNIE
+// fine-tune's forward, with or without its attention dropout, and every f32
+// prefill): the same wgmma kernel with every operand in THREE bf16 parts,
+// hi + mid + lo (24 significant bits; `split3_bf16` in wgmma.cuh, whose note
+// gives the bounds). S and P V each keep the six terms of order 2^-16 and
+// above: S = Q_h K_h^T + Q_h K_m^T + Q_m K_h^T + Q_h K_l^T + Q_l K_h^T +
+// Q_m K_m^T, and so O += P V with P, unrounded f32 in the plain version,
+// split in registers. Two parts (16 bits, as flash_bwd.cu's S^T and the
+// 16-bit-q instance above use) left the output and lse ~1e-5 of their size
+// from the f32 version, and the 2-layer f32 training gate of chip_smoke.py
+// (Adam's 1 / eps slope at near-zero gradients turns that into
+// weight-change differences) failed at 1.34e-2 of its 1e-2 limit; with
+// three parts it passes at 7.6e-3 (H100 80GB HBM3, 700 W; the errors
+// against the plain version are ~4e-6). Q's f32 rows arrive once by
+// cp.async, staged in the space of the K and V part tiles while key tile
+// 0's rows land in the ring, and are split into Q's resident part tiles. The ring of f32 K/V
+// rows has one stage (kFwdStagesF32Q): a tile's K rows are split before
+// its S product and its V rows while that product runs, after which the
+// next tile's copies start and overlap the softmax and the P V products.
+// Shared memory: 107,520 bytes at D = 64, two CTAs an SM, where the mask
+// is read from L2 (a key mask, as BERT's: one row broadcast over the
+// queries) and 124,928 where it is staged (one CTA); 231,424 at D = 128
+// with a staged mask. Registers (ptxas -v, CUDA 12.8): D = 64 203 (207
+// with dropout) with the mask from L2, D = 128 254-255 (12-20 bytes
+// spilled with the staged mask). Dropout is the 16-bit instance's: the same keep test
+// and 1 / (1 - p) on P after the sums. The output is written as f32 pairs,
+// lse as in every dtype. Bound on the H100: the bytes of f32 Q, K, V, O,
+// the mask and lse (BERT-base's q[16, 128, 12, 64] with its key mask:
+// 0.0075 ms); the operations, twelve 16-bit products a (query, key) pair
+// at the 16-bit peak, would take 0.0043 there. Measured on an H100 80GB HBM3 at 700 W
+// (tools/kernel_variants.py --only flash_f32 --parent: the previous FMA
+// kernel in the same process): 0.0313 ms at that shape (FMA 0.0549, f32
+// SDPA 0.0420), 0.0339 with dropout 0.1 (FMA 0.0576), 0.2565 at q[4, 512,
+// 32, 128] causal + mask (FMA 0.7102, SDPA 0.4662); 4.2x and 6.2x the
+// bytes bound. The grid at BERT's shape is 384 CTAs of two key tiles each,
+// so the chain of copy, split and products per CTA sets the time: without
+// the K and V splits (a diagnostic variant) it took 0.0330; a staged mask
+// read from L2 instead cost 10 % at D = 128.
+//
+// f32 at Sq = 1 (dtype 0): the FMA-unit kernel below (TF32 is off in the
+// port): one block of 256 threads per (batch*head, 64-row query tile) keeps
+// the Q tile, one K and one V tile (64 rows, f32) and the 64x64 score tile
 // in shared memory; each thread owns a 4x4 score micro-tile and a
 // 4 x D/16 slice of the f32 output accumulator in registers. The loop
 // over KV tiles inside the block replaces the TPU's sequential third
@@ -416,6 +455,9 @@ constexpr bool kFwdSplitPF16 = false;  // the f16 instance: one f16 P
 // stages, so the mask is read from L2 there)
 constexpr int kFwdBNF32 = 64;
 constexpr int kFwdStagesF32 = 2;
+// an f32 q over f32 K/V: one stage of f32 rows, split as its tile starts
+// into three bf16 parts (hi, mid, lo)
+constexpr int kFwdStagesF32Q = 1;
 
 // P of one tile in place: s holds the thread's S = Q K^T entries (rows qr
 // and qr + 8 of its warpgroup, columns 8 j + kc + {0, 1}), mv the mask's
@@ -486,20 +528,26 @@ __device__ __forceinline__ void tile_probs(
 
 // Shared memory of flash_fwd_wgmma<E, TKV, D, BN, NWG, ..>, in bytes from
 // its 1024-aligned base: the Q tile (and, for an f16 q over f32 K/V, its
-// lo part); then either the K and V rings of 16-bit tiles, or (f32 K/V)
-// the K and V hi and lo tiles and the ring of f32 staging tiles; then the
-// staged mask tile (MASK bytes, where the launcher stages one).
+// lo part; for an f32 q its mid and lo parts); then either the K and V
+// rings of 16-bit tiles, or (f32 K/V) the K and V part tiles (hi and lo;
+// hi, mid and lo for an f32 q) and the ring of f32 staging tiles; then
+// the staged mask tile (MASK bytes, where the launcher stages one).
 template <class E, class TKV, int D, int BN, int NWG>
 struct FwdSmem {
   static constexpr bool F32 = std::is_same<TKV, float>::value;
-  static constexpr bool QLO = F32 && std::is_same<E, f16>::value;
+  static constexpr bool FQ = F32 && std::is_same<E, float>::value;
+  static constexpr bool QLO = F32 && !std::is_same<E, bf16>::value;
   static constexpr int BM = 64 * NWG;
-  static constexpr int NS = F32 ? kFwdStagesF32 : kFwdStages;
+  static constexpr int NS =
+      FQ ? kFwdStagesF32Q : F32 ? kFwdStagesF32 : kFwdStages;
+  // bf16 parts of Q and of each f32 K and V tile
+  static constexpr int QP = FQ ? 3 : QLO ? 2 : 1;
+  static constexpr int KP = FQ ? 3 : 2;
   static constexpr uint32_t Q_BYTES = BM * D * 2, KV_BYTES = BN * D * 2;
   static constexpr uint32_t F_BYTES = BN * D * 4;  // one f32 staging tile
-  static constexpr uint32_t K = Q_BYTES * (QLO ? 2 : 1);
-  static constexpr uint32_t V = F32 ? K + 2 * KV_BYTES : K + NS * KV_BYTES;
-  static constexpr uint32_t RING = F32 ? K + 4 * KV_BYTES : K;
+  static constexpr uint32_t K = Q_BYTES * QP;
+  static constexpr uint32_t V = F32 ? K + KP * KV_BYTES : K + NS * KV_BYTES;
+  static constexpr uint32_t RING = F32 ? K + 2 * KP * KV_BYTES : K;
   static constexpr uint32_t M = RING + NS * 2 * (F32 ? F_BYTES : KV_BYTES);
   static constexpr uint32_t MASK = BM * (BN + 4) * 4;
 };
@@ -508,8 +556,9 @@ struct FwdSmem {
 // the longest causal rows first; Q stays in shared memory, K and V tiles
 // of BN keys stream through rings of kFwdStages stages each (f32 K/V:
 // kFwdStagesF32 stages of f32 rows, each tile split into bf16 hi and lo
-// tiles before its products; one warpgroup). STAGE copies each tile's
-// mask into shared memory (one warpgroup only: it adds a CTA sync);
+// tiles before its products; one warpgroup; an f32 q: its rows split once
+// into resident hi and lo tiles, kFwdStagesF32Q stages). STAGE copies each
+// tile's mask into shared memory (one warpgroup only: it adds a CTA sync);
 // otherwise a mask is read from L2.
 template <class E, class TKV, int D, int BN, int NWG, bool DROP, bool STAGE>
 __global__ void __launch_bounds__(128 * NWG, 1) flash_fwd_wgmma(
@@ -520,23 +569,28 @@ __global__ void __launch_bounds__(128 * NWG, 1) flash_fwd_wgmma(
     long long msh, long long msq, long long msk, float scale, int causal,
     uint32_t seed0, uint32_t seed1, uint32_t thresh, float dscale) {
   using L = FwdSmem<E, TKV, D, BN, NWG>;
-  constexpr bool F32 = L::F32, QLO = L::QLO;
+  constexpr bool F32 = L::F32, FQ = L::FQ, QLO = L::QLO;
   // the products' operand type: bf16 parts over f32 K/V, else E
   using PE = typename std::conditional<F32, bf16, E>::type;
   constexpr int BM = L::BM, NT = 128 * NWG, NS = L::NS;
   constexpr bool SPLIT =
       F32 || (std::is_same<E, f16>::value ? kFwdSplitPF16 : kFwdSplitP);
   static_assert(!STAGE || NWG == 1, "a staged mask needs one warpgroup");
-  static_assert(!F32 || (NWG == 1 && !DROP),
-                "f32 K/V: one warpgroup, no dropout");
+  static_assert(!F32 || (NWG == 1 && (FQ || !DROP)),
+                "f32 K/V: one warpgroup; dropout with an f32 q only");
+  static_assert(!FQ || L::RING - L::K >= (uint32_t)BM * D * 4,
+                "an f32 q's rows are staged in the K and V part tiles");
   constexpr uint32_t KV_BYTES = L::KV_BYTES, F_BYTES = L::F_BYTES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_addr(smem_raw) + 1023) & ~1023u;
-  const uint32_t sQl = sQ + L::Q_BYTES;
+  // Q's second and (f32 q) third parts
+  const uint32_t sQl = sQ + L::Q_BYTES, sQ2 = sQ + 2 * L::Q_BYTES;
   // 16-bit K/V: the rings; f32 K/V: the hi tiles, each followed by its lo
-  // tile, and the f32 ring (K then V a stage)
+  // tile (f32 q: its mid tile, then its lo tile), and the f32 ring (K then
+  // V a stage)
   const uint32_t sK = sQ + L::K, sV = sQ + L::V, sF = sQ + L::RING;
   const uint32_t sKl = sK + KV_BYTES, sVl = sV + KV_BYTES;
+  const uint32_t sK2 = sK + 2 * KV_BYTES, sV2 = sV + 2 * KV_BYTES;
   const uint32_t sM = sQ + L::M;  // the staged mask tile
   const float* mtile =
       reinterpret_cast<const float*>(smem_raw + (sM - smem_addr(smem_raw)));
@@ -591,21 +645,29 @@ __global__ void __launch_bounds__(128 * NWG, 1) flash_fwd_wgmma(
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float s[BN / 2], mv[BN / 2], alpha[2];
-  uint32_t pf[BN / 16][4], pl[BN / 16][4];  // P's hi and lo parts (PE)
+  // P's hi and lo parts (PE); an f32 q: hi, mid (pl) and lo (p2)
+  uint32_t pf[BN / 16][4], pl[BN / 16][4], p2[FQ ? BN / 16 : 1][4];
 
   // S = Q K^T of tile i (queries x keys), A and B from shared memory; over
-  // f32 K/V Q K_hi^T + Q K_lo^T (+ Q_lo K_hi^T for an f16 q)
+  // f32 K/V Q K_hi^T + Q K_lo^T (+ Q_lo K_hi^T for an f16 q); an f32 q in
+  // three parts: the six terms of order 2^-16 and above (wgmma.cuh)
   auto start_s = [&](int i) {
     const uint32_t kt = F32 ? sK : sK + (i % NS) * KV_BYTES;
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint64_t qd = kmajor_desc<BM>(sQ, 64 * wg, kk);
-      wgmma_ss<PE>(s, qd, kmajor_desc<BN>(kt, 0, kk), kk);
+      const uint64_t kd = kmajor_desc<BN>(kt, 0, kk);
+      wgmma_ss<PE>(s, qd, kd, kk);
       if constexpr (F32) wgmma_ss<PE>(s, qd, kmajor_desc<BN>(sKl, 0, kk), 1);
       if constexpr (QLO)
+        wgmma_ss<PE>(s, kmajor_desc<BM>(sQl, 64 * wg, kk), kd, 1);
+      if constexpr (FQ) {
+        wgmma_ss<PE>(s, qd, kmajor_desc<BN>(sK2, 0, kk), 1);
+        wgmma_ss<PE>(s, kmajor_desc<BM>(sQ2, 64 * wg, kk), kd, 1);
         wgmma_ss<PE>(s, kmajor_desc<BM>(sQl, 64 * wg, kk),
-                     kmajor_desc<BN>(sK, 0, kk), 1);
+                     kmajor_desc<BN>(sKl, 0, kk), 1);
+      }
     }
     wgmma_commit();
   };
@@ -657,7 +719,8 @@ __global__ void __launch_bounds__(128 * NWG, 1) flash_fwd_wgmma(
       run(std::false_type{}, std::false_type{});
   };
   // O = alpha O, then P as A fragments of PE (the accumulator layout is
-  // the A layout): hi = PE(P) and, with SPLIT, lo = PE(P - hi)
+  // the A layout): hi = PE(P) and, with SPLIT, lo = PE(P - hi); an f32 q:
+  // hi, mid and lo (split3_bf16)
   auto rescale_pack = [&]() {
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
@@ -666,15 +729,19 @@ __global__ void __launch_bounds__(128 * NWG, 1) flash_fwd_wgmma(
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float a = s[8 * kk + 2 * i], c = s[8 * kk + 2 * i + 1];
-        pf[kk][i] = pack2<PE>(a, c);
-        if constexpr (SPLIT) {
-          const float2 hf = unpack2<PE>(pf[kk][i]);
-          pl[kk][i] = pack2<PE>(a - hf.x, c - hf.y);
+        if constexpr (FQ) {
+          split3_bf16(a, c, pf[kk][i], pl[kk][i], p2[kk][i]);
+        } else {
+          pf[kk][i] = pack2<PE>(a, c);
+          if constexpr (SPLIT) {
+            const float2 hf = unpack2<PE>(pf[kk][i]);
+            pl[kk][i] = pack2<PE>(a - hf.x, c - hf.y);
+          }
         }
       }
   };
-  // O += P V of tile i (hi, then lo; over f32 K/V also P_hi V_lo), the
-  // key-major V tile read transposed
+  // O += P V of tile i (hi, then lo; over f32 K/V also P_hi V_lo; an f32
+  // q the six terms of three parts), the key-major V tile read transposed
   auto start_pv = [&](int i) {
     const uint32_t vt = F32 ? sV : sV + (i % NS) * KV_BYTES;
     wgmma_fence();
@@ -686,6 +753,11 @@ __global__ void __launch_bounds__(128 * NWG, 1) flash_fwd_wgmma(
       if constexpr (SPLIT) wgmma_rs_tb<PE>(acc, pl[kk], vd);
       if constexpr (F32)
         wgmma_rs_tb<PE>(acc, pf[kk], mnmajor_desc<BN>(sVl, kk));
+      if constexpr (FQ) {
+        wgmma_rs_tb<PE>(acc, pf[kk], mnmajor_desc<BN>(sV2, kk));
+        wgmma_rs_tb<PE>(acc, p2[kk], vd);
+        wgmma_rs_tb<PE>(acc, pl[kk], mnmajor_desc<BN>(sVl, kk));
+      }
     }
     wgmma_commit();
   };
@@ -693,9 +765,28 @@ __global__ void __launch_bounds__(128 * NWG, 1) flash_fwd_wgmma(
   // groups: {Q, K 0, V 0}, then pairs {mask}, {K, V}: the prologue's
   // masks are empty, tile it's mask is copied during its S product while
   // K and V run NS - 1 tiles ahead. An f16 q over f32 K/V is split into
-  // bf16 hi and lo tiles here, synchronously.
+  // bf16 hi and lo tiles here, synchronously. An f32 q: {Q's f32 rows},
+  // {K 0, V 0}, then pairs {mask}, {K, V} of the next tile, issued once
+  // this tile's rows are split.
   if (n_it > 0) {
-    if constexpr (QLO) {
+    if constexpr (FQ) {
+      // Q's f32 rows staged in the K (and V) part tiles while tile 0's
+      // rows land in the ring, then split into Q's resident hi, mid and lo
+      // tiles (the loop's first barrier orders the reads before K's split)
+      stage_rows<BM, D, NT>(
+          sK, q + q_off,
+          [&](int r) -> long long {
+            return q0 + r < Sq ? (long long)(q0 + r) * q_stride : -1;
+          },
+          tid);
+      cp_async_commit();
+      load_kv(0);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      split_tile<BM, D, NT, L::QP>(sQ, sQl, sK, tid, sQ2);
+      fence_async_smem();
+    } else if constexpr (QLO) {
       split_rows<BM, D, NT>(
           sQ, sQl, q + q_off,
           [&](int r) -> long long {
@@ -714,27 +805,37 @@ __global__ void __launch_bounds__(128 * NWG, 1) flash_fwd_wgmma(
     cp_async_commit();
   }
   for (int it = 0; it < n_it; ++it) {
-    cp_async_wait<2 * (NS - 2)>();
+    cp_async_wait<FQ ? 0 : 2 * (NS - 2)>();
     __syncthreads();  // tile it landed; everyone is done with tile it - 1
     if constexpr (STAGE) stage_mask(it);
     cp_async_commit();
-    load_kv(it + NS - 1);
-    cp_async_commit();
+    if constexpr (!FQ) {
+      load_kv(it + NS - 1);
+      cp_async_commit();
+    }
     if (it >= n_w) continue;
     const uint32_t f = sF + (it % NS) * 2 * F_BYTES;  // f32 K/V's stage
     if constexpr (F32) {
       // K's f32 rows into its hi and lo tiles before the S product
-      split_tile<BN, D, NT>(sK, sKl, f, tid);
+      split_tile<BN, D, NT, L::KP>(sK, sKl, f, tid, sK2);
       fence_async_smem();
       __syncthreads();
     }
     start_s(it);
     if constexpr (F32) {
       // V's f32 rows into its hi and lo tiles while the S product runs
-      split_tile<BN, D, NT>(sV, sVl, f + F_BYTES, tid);
+      split_tile<BN, D, NT, L::KP>(sV, sVl, f + F_BYTES, tid, sV2);
       fence_async_smem();
     }
-    if constexpr (STAGE) {
+    if constexpr (FQ) {
+      // the mask tile landed (the only group in flight), every thread's V
+      // parts are stored and the staged rows read: the next tile's rows
+      // come into the stage while this tile's softmax and P V run
+      if constexpr (STAGE) cp_async_wait<0>();
+      __syncthreads();
+      load_kv(it + 1);
+      cp_async_commit();
+    } else if constexpr (STAGE) {
       cp_async_wait<1>();
       __syncthreads();  // the mask tile landed
     }
@@ -743,12 +844,13 @@ __global__ void __launch_bounds__(128 * NWG, 1) flash_fwd_wgmma(
     fence_regs(s);
     probs(it);
     rescale_pack();
-    if constexpr (F32) __syncthreads();  // every thread's V parts stored
+    if constexpr (F32 && !FQ) __syncthreads();  // every thread's V parts stored
     start_pv(it);
     wgmma_wait<0>();
     fence_regs(acc);
     fence_regs(pf);
     if constexpr (SPLIT) fence_regs(pl);
+    if constexpr (FQ) fence_regs(p2);
   }
 
   if (qw >= Sq) return;
@@ -763,8 +865,12 @@ __global__ void __launch_bounds__(128 * NWG, 1) flash_fwd_wgmma(
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int i = 4 * j + 2 * rr;
-      *reinterpret_cast<uint32_t*>(orow + 8 * j) =
-          pack2<E>(acc[i] / safe, acc[i + 1] / safe);
+      if constexpr (FQ)
+        *reinterpret_cast<float2*>(orow + 8 * j) =
+            make_float2(acc[i] / safe, acc[i + 1] / safe);
+      else
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+            pack2<E>(acc[i] / safe, acc[i + 1] / safe);
     }
     if ((lane & 3) == 0)
       lse[(long long)blockIdx.x * Sq + qi] = m[rr] + logf(safe);
@@ -778,8 +884,10 @@ int launch_wgmma(const void* q, const void* k, const void* v,
                  long long msh, long long msq, long long msk, float scale,
                  int causal, int seed0, int seed1, unsigned thresh,
                  float dscale, cudaStream_t stream) {
-  // f32 K/V: one warpgroup, kFwdBNF32 keys a tile, no dropout
+  // f32 K/V: one warpgroup, kFwdBNF32 keys a tile, dropout with an f32 q
+  // only (DR)
   constexpr bool F32 = std::is_same<TKV, float>::value;
+  constexpr bool DR = !F32 || std::is_same<E, float>::value;
   constexpr int WG = F32 ? 1 : kFwdWG, BN = F32 ? kFwdBNF32 : kFwdBN;
   using L = FwdSmem<E, TKV, D, BN, WG>;
   constexpr int smem = 1024 + (int)L::M;
@@ -792,11 +900,11 @@ int launch_wgmma(const void* q, const void* k, const void* v,
                     msq % 4 == 0 && msb % 4 == 0 && msh % 4 == 0 &&
                     ((uintptr_t)mask & 15) == 0 && FITS;
   constexpr bool ONE = WG == 1 && FITS;
-  if (F32 && dscale > 0.f) return (int)cudaErrorInvalidValue;
+  if (!DR && dscale > 0.f) return (int)cudaErrorInvalidValue;
   auto kern =
-      dscale > 0.f && !F32
-          ? (stage ? flash_fwd_wgmma<E, TKV, D, BN, WG, !F32, ONE>
-                   : flash_fwd_wgmma<E, TKV, D, BN, WG, !F32, false>)
+      dscale > 0.f && DR
+          ? (stage ? flash_fwd_wgmma<E, TKV, D, BN, WG, DR, ONE>
+                   : flash_fwd_wgmma<E, TKV, D, BN, WG, DR, false>)
           : (stage ? flash_fwd_wgmma<E, TKV, D, BN, WG, false, ONE>
                    : flash_fwd_wgmma<E, TKV, D, BN, WG, false, false>);
   cudaError_t err = cudaFuncSetAttribute(
@@ -837,10 +945,12 @@ bool decode_route(int dtype, int kv_dtype, int Sq, int H, int Hkv,
 // dtype: q's and the output's element type, kv_dtype: K's and V's (0 =
 // float32, 1 = bfloat16, 2 = float16). One 16-bit dtype throughout runs the
 // one-row decode route where `decode_route` says so (Sq = 1, no dropout)
-// and the wgmma kernel otherwise; a 16-bit q over f32 K/V (`tc::f32_kv`)
-// at Sq > 1 without dropout the wgmma kernel with K and V in bf16 hi + lo
-// parts; float32, or other pairs of dtypes, or a 16-bit q over f32 K/V at
-// Sq = 1, the FMA kernel (no dropout with two dtypes). Layouts: q/out
+// and the wgmma kernel otherwise; f32 throughout at Sq > 1, with or
+// without dropout, the wgmma kernel with every operand in bf16 hi + lo
+// parts; a 16-bit q over f32 K/V (`tc::f32_kv`) at Sq > 1 without dropout
+// the wgmma kernel with K and V in bf16 hi + lo parts; float32 at Sq = 1,
+// other pairs of dtypes, or a 16-bit q over f32 K/V at Sq = 1, the FMA
+// kernel (no dropout with two dtypes). Layouts: q/out
 // [B, Sq, H, D], k/v [B, Sk, Hkv, D], lse [B, H, Sq], all contiguous;
 // mask (may be null) is f32 addressed as mask[b*msb + h*msh + q*msq +
 // k*msk];
@@ -890,8 +1000,10 @@ extern "C" int flash_fwd(int dtype, int kv_dtype, int head_dim,
                    msh, msq, msk, scale, causal, seed0, seed1, thresh,
                    dscale, stream);
       } else {
-        if constexpr (tc::f32_kv<TQ, TKV>()) {
-          if (Sq > 1 && !(dscale > 0.f)) {
+        constexpr bool F32 =
+            std::is_same<TQ, float>::value && std::is_same<TKV, float>::value;
+        if constexpr (F32 || tc::f32_kv<TQ, TKV>()) {
+          if (Sq > 1 && (F32 || !(dscale > 0.f))) {
             if (!aligned16(q) || !aligned16(k) || !aligned16(v) ||
                 !aligned16(out))
               return (int)cudaErrorMisalignedAddress;

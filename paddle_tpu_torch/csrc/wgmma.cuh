@@ -14,9 +14,10 @@
 //
 // f32 operands on the 16-bit tensor cores: K and V under a 16-bit q
 // (`f32_kv`: flash_fwd.cu's and paged_varq.cu's instances for a bf16 / f16
-// model over an f32 KV pool), and every operand of flash_bwd.cu's f32
-// instance (the BERT-base / ERNIE fine-tune's backward). They replace
-// FMA-unit kernels of paddle_tpu/kernels/attention.py `_fwd_kernel`,
+// model over an f32 KV pool), every operand of flash_bwd.cu's f32
+// instance (the BERT-base / ERNIE fine-tune's backward) and of
+// flash_fwd.cu's f32 instance (its forward; three parts, below). They
+// replace FMA-unit kernels of paddle_tpu/kernels/attention.py `_fwd_kernel`,
 // `_bwd_dkdv_kernel`, `_bwd_dq_kernel` and paged_attention.py
 // `_ragged_varq_kernel` for these dtypes (TF32 is off in the port). The
 // f32 operand keeps its bits as two bf16 parts, hi = bf16(x) and lo =
@@ -26,9 +27,9 @@
 // 65504 and lose bits below 2^-14). A product with one split operand runs
 // once per part (S = Q K_hi^T + Q K_lo^T); one of two split operands runs
 // hi.hi + hi.lo + lo.hi (O += P_hi V_hi + P_hi V_lo + P_lo V_hi; the
-// backward's S, dP, dV, dK and dQ), dropping lo.lo, below 2^-16 of the
-// term: about 1e-5 of each output's size against f32 arithmetic, inside
-// the f32 card tolerance (1e-4). A bf16 q is exact in bf16; an f16 q (11
+// backward's S and dV), dropping lo.lo, below 2^-16 of the term: about
+// 1e-5 of each output's size against f32 arithmetic, inside the f32 card
+// tolerance (1e-4) where no sum amplifies it (three parts, below). A bf16 q is exact in bf16; an f16 q (11
 // significant bits) is split too, exactly (`split_rows`: lo holds the 3
 // bits bf16 cannot), and S gains Q_lo K_hi^T. The f32 rows arrive by
 // cp.async in a dense staging tile (`stage_rows`) and are converted in
@@ -46,6 +47,20 @@
 // 16-bit rate) and f32 rows converted through registers (a 64-row tile is
 // 128 registers a thread) were not built. The variants measured are in the
 // kernels' notes.
+//
+// Three parts (`split3_bf16`, `split_tile<.., 3>`): hi, mid = bf16(x -
+// hi), lo = bf16(x - hi - mid), 24 significant bits, x to within 2^-24 |x|;
+// a product of two such operands keeps the six terms of order 2^-16 and
+// above (hi.hi, hi.mid, mid.hi, hi.lo, lo.hi, mid.mid), which is f32's
+// accuracy at twice the products of two parts. flash_fwd.cu's f32
+// instance runs S and P V so: with two parts its output and lse differ
+// from the f32 version's by ~1e-5 of their size, and the 2-layer f32
+// training gate of chip_smoke.py (Adam's 1 / eps slope at gradients near
+// zero amplifies that) failed; three parts keep it where the FMA kernel
+// kept it. flash_bwd.cu's f32 instances run dP in three parts, and dK and
+// dQ on three parts of Q or K (dS, in registers, in two): with two parts
+// their outputs sat at the f32 card tolerance on rows whose keys are all
+// masked (P = 1 on every key, so dS is as large as dP).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -228,6 +243,18 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
   lo = pack2<bf16>(a - h.x, b - h.y);
 }
 
+// two f32 values as packed bf16 hi, mid and lo pairs: hi = bf16(x), mid =
+// bf16(x - hi), lo = bf16(x - hi - mid) (each difference exact in f32)
+__device__ __forceinline__ void split3_bf16(float a, float b, uint32_t& hi,
+                                            uint32_t& mid, uint32_t& lo) {
+  hi = pack2<bf16>(a, b);
+  const float2 h = unpack2<bf16>(hi);
+  const float ra = a - h.x, rb = b - h.y;
+  mid = pack2<bf16>(ra, rb);
+  const float2 m = unpack2<bf16>(mid);
+  lo = pack2<bf16>(ra - m.x, rb - m.y);
+}
+
 // rows [0, R) of D f32 values into a dense staging tile (row r at byte
 // r * D * 4 of `dst`), row r from element offset row_off(r) of `src` (a
 // negative offset zero-fills the row and reads nothing), 16 bytes (4
@@ -253,23 +280,33 @@ __device__ __forceinline__ void stage_rows(uint32_t dst, const float* src,
 }
 
 // a dense staging tile of R rows x D f32 values (`stage_rows`) as bf16 hi
-// and lo tiles in the swizzled layout, 4 values (half a chunk) per step:
-// a warp reads 512 contiguous bytes and writes whole 128-byte panel rows,
-// so neither side has bank conflicts. Generic stores: fence_async_smem
-// and a barrier before a wgmma reads the tiles
-template <int R, int D, int NT>
+// and lo tiles (PARTS 3: hi, mid at `lo` and lo at `lo2`) in the swizzled
+// layout, 4 values (half a chunk) per step: a warp reads 512 contiguous
+// bytes and writes whole 128-byte panel rows, so neither side has bank
+// conflicts. Generic stores: fence_async_smem and a barrier before a
+// wgmma reads the tiles
+template <int R, int D, int NT, int PARTS = 2>
 __device__ __forceinline__ void split_tile(uint32_t hi, uint32_t lo,
-                                           uint32_t stage, int tid) {
+                                           uint32_t stage, int tid,
+                                           uint32_t lo2 = 0) {
   constexpr int QPR = D / 4;  // 4-value pieces per row
   static_assert((R * QPR) % NT == 0, "tile pieces must split evenly");
+  static_assert(PARTS == 2 || PARTS == 3, "two or three parts");
 #pragma unroll 4
   for (int j = 0; j < R * QPR / NT; ++j) {
     const int i = tid + j * NT, r = i / QPR, p = i % QPR;
     const float4 x = ld_shared_f4(stage + (uint32_t)(r * D + 4 * p) * 4);
-    uint32_t h0, h1, l0, l1;
-    split_bf16(x.x, x.y, h0, l0);
-    split_bf16(x.z, x.w, h1, l1);
     const uint32_t at = sw_chunk<R>(r, p / 2) + (p % 2) * 8;
+    uint32_t h0, h1, l0, l1;
+    if constexpr (PARTS == 3) {
+      uint32_t t0, t1;
+      split3_bf16(x.x, x.y, h0, l0, t0);
+      split3_bf16(x.z, x.w, h1, l1, t1);
+      st_shared_v2(lo2 + at, t0, t1);
+    } else {
+      split_bf16(x.x, x.y, h0, l0);
+      split_bf16(x.z, x.w, h1, l1);
+    }
     st_shared_v2(hi + at, h0, h1);
     st_shared_v2(lo + at, l0, l1);
   }

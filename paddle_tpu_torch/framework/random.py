@@ -20,8 +20,8 @@ streams (a recomputed forward replays them: ``distributed.fleet.
 recompute``).
 
 ``seed(s)`` also calls ``torch.manual_seed(s)``, so that parameters
-initialised with torch's default generators (the layers' own
-``reset_parameters``) are reproducible. The reference's jax keys give
+initialised with torch's default generators (the layers' initializers,
+``nn.initializer``, given no generator) are reproducible. The reference's jax keys give
 other numbers from the same seed; tests hand both packages the same
 seeds or data instead.
 """

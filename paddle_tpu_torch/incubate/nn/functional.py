@@ -16,10 +16,10 @@ def swiglu(x, y=None, name=None):
     return F.silu(x) * y
 
 
-def fused_layer_norm(x, scale, bias, epsilon=1e-5):
+def fused_layer_norm(x, scale, bias, epsilon=1e-5, begin_norm_axis=1):
     """LayerNorm over the last axis with ``scale`` and ``bias`` through the
-    LayerNorm kernel (the reference's own entry to ``_ln_kernel``). The
-    reference's ``begin_norm_axis`` is left out: it accepts it and always
-    normalizes the last axis."""
+    LayerNorm kernel (the reference's own entry to ``_ln_kernel``).
+    ``begin_norm_axis`` is taken and, as in the reference, not read: the
+    last axis is normalized whatever it says."""
     x, scale, bias = cast_inputs("layer_norm", x, scale, bias)
     return _fused_layer_norm(x, scale, bias, epsilon)

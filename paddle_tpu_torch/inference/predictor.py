@@ -173,12 +173,12 @@ class ContinuousBatchingPredictor:
     def __init__(self, model, max_batch_size=None, page_size=None,
                  num_pages=None, max_seq_len=None, pad_token_id=0,
                  eos_token_id=None, kv_dtype=None, use_ragged="auto",
-                 enable_prefix_cache=True, prefill_chunk_tokens=None,
-                 runtime_config=None, spec_draft_tokens=None,
-                 spec_ngram_max=None, sampling_enabled=None, device=None,
-                 engine=None, tp_degree=None, role=None, max_queue=None,
-                 shed_policy=None, decode_watchdog_s=None, name=None,
-                 devices=None):
+                 enable_prefix_cache=True, max_queue=None, shed_policy=None,
+                 decode_watchdog_s=None, name=None, engine=None,
+                 prefill_chunk_tokens=None, runtime_config=None,
+                 spec_draft_tokens=None, spec_ngram_max=None,
+                 sampling_enabled=None, tp_degree=None, devices=None,
+                 role=None, *, device=None):
         # serve.cold_start_seconds: construction -> first token
         self._t_ctor = time.perf_counter()
         self._cold_start_pending = True

@@ -48,10 +48,16 @@ class TrainStep:
     the device of the model's first parameter. After a call each
     parameter's ``.grad`` holds its unclipped gradient of that step
     (unscaled, with a ``scaler``).
+
+    ``donate_state`` is taken in the reference's place and changes
+    nothing: the reference donates the parameter and optimizer buffers to
+    its compiled program, while here the update already runs in place and
+    torch has no buffer donation.
     """
 
     def __init__(self, model, optimizer, loss_fn: Callable,
-                 n_model_inputs: int = 1, scaler=None):
+                 n_model_inputs: int = 1, donate_state: bool = True,
+                 scaler=None):
         self._model = model
         self._opt = optimizer
         self._loss_fn = loss_fn

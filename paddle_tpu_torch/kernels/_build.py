@@ -87,7 +87,7 @@ def count_launch(name: str, dtype=None, kv_dtype=None) -> None:
 
 # launches per (kernel, route) where a kernel's C entry picks one of
 # several device kernels by shape and dtype (``flash_fwd``: "decode",
-# "wgmma", "wgmma_f32kv" or "fma"; ``paged_decode`` / ``ragged_decode``:
+# "wgmma", "wgmma_f32", "wgmma_f32kv" or "fma"; ``paged_decode`` / ``ragged_decode``:
 # "split" or "fma"; ``paged_varq``: "wgmma", "wgmma_f32kv" or "fma"):
 # which device kernel ran. The launch gates read ``launch_counts``
 route_counts = collections.Counter()

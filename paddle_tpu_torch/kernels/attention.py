@@ -286,13 +286,16 @@ def fwd_route(q_dtype, kv_dtype, sq, h, hkv, dropout_p=0.0) -> str:
     csrc/flash_fwd.cu, ``tc::f32_kv`` in csrc/wgmma.cuh): "decode", the
     one-row decode walk (q, k and v of one 16-bit dtype, Sq = 1, no
     dropout, H / Hkv at most ``DECODE_MAX_GROUP``); "wgmma", the
-    tensor-core kernel (one 16-bit dtype otherwise); "wgmma_f32kv", the
+    tensor-core kernel (one 16-bit dtype otherwise); "wgmma_f32", the
+    tensor-core kernel with every operand in three bf16 parts (f32
+    throughout, Sq > 1, with or without dropout); "wgmma_f32kv", the
     tensor-core kernel with f32 K/V in bf16 hi + lo parts (a 16-bit q
-    over f32 K/V, Sq > 1, no dropout); "fma", the FMA kernel (f32, other
-    pairs of dtypes, and a 16-bit q over f32 K/V at Sq = 1)."""
-    if q_dtype != kv_dtype or q_dtype == torch.float32:
-        if q_dtype != torch.float32 and kv_dtype == torch.float32 \
-                and sq > 1 and not dropout_p:
+    over f32 K/V, Sq > 1, no dropout); "fma", the FMA kernel (f32 at Sq =
+    1, other pairs of dtypes, and a 16-bit q over f32 K/V at Sq = 1)."""
+    if q_dtype == kv_dtype == torch.float32:
+        return "wgmma_f32" if sq > 1 else "fma"
+    if q_dtype != kv_dtype:
+        if kv_dtype == torch.float32 and sq > 1 and not dropout_p:
             return "wgmma_f32kv"
         return "fma"
     if sq == 1 and not dropout_p and h // hkv <= DECODE_MAX_GROUP:
@@ -305,7 +308,8 @@ def bwd_route(dtype, head_dim, dropout_p=0.0) -> str:
     ``flash_bwd_dq`` in csrc/flash_bwd.cu) launch for q's dtype and the
     head dim (64 or 128): "wgmma", the tensor-core kernels on bf16 or f16
     operands; "wgmma_f32", the same kernels with every f32 operand split
-    into bf16 hi + lo parts. Dropout takes no other route."""
+    into bf16 parts (hi + lo; hi + mid + lo in dP, dK and dQ). Dropout
+    takes no other route."""
     del dropout_p
     if dtype not in _BWD_DTYPES or head_dim not in _HEAD_DIMS:
         raise ValueError(f"flash_bwd: no kernel for {dtype}, head_dim "

@@ -18,6 +18,7 @@ from torch import nn
 
 from ..framework import resolve_device
 from ..nn import functional as PF
+from ..nn.initializer import Normal
 from ..nn.layers_common import Dropout, Embedding, LayerNorm, Linear
 from ..nn.transformer import TransformerEncoder, TransformerEncoderLayer
 
@@ -71,14 +72,14 @@ def init_encoder_weights(model: nn.Module, std: float,
 class BertEmbeddings(nn.Module):
     def __init__(self, config: BertConfig, device=None):
         super().__init__()
-        std = config.initializer_range
+        init = Normal(0.0, config.initializer_range)
         h = config.hidden_size
-        self.word_embeddings = Embedding(config.vocab_size, h, std=std,
+        self.word_embeddings = Embedding(config.vocab_size, h, weight_attr=init,
                                          device=device)
         self.position_embeddings = Embedding(config.max_position_embeddings,
-                                             h, std=std, device=device)
+                                             h, weight_attr=init, device=device)
         self.token_type_embeddings = Embedding(config.type_vocab_size, h,
-                                               std=std, device=device)
+                                               weight_attr=init, device=device)
         self.layer_norm = LayerNorm(h, config.layer_norm_eps, device=device)
         self.dropout = Dropout(config.hidden_dropout_prob)
 

@@ -29,6 +29,7 @@ from ..generation import GenerationMixin
 from ..generation.kv_cache import (StaticCacheEntry, StaticKVCache,
                                    static_cache_update)
 from ..nn import functional as PF
+from ..nn.initializer import Normal
 from ..nn.layers_common import Dropout, Embedding, LayerList, LayerNorm, Linear
 from ._hf_import import hf_tensor_to_numpy, validate_keys
 from .llama import _DTYPES
@@ -120,11 +121,12 @@ class GPTModel(nn.Module):
     def __init__(self, config: GPTConfig, device=None):
         super().__init__()
         self.config = config
-        std, dt = config.initializer_range, config.torch_dtype
-        self.wte = Embedding(config.vocab_size, config.hidden_size, std=std,
+        dt = config.torch_dtype
+        init = Normal(0.0, config.initializer_range)
+        self.wte = Embedding(config.vocab_size, config.hidden_size, weight_attr=init,
                              device=device, dtype=dt)
         self.wpe = Embedding(config.max_position_embeddings,
-                             config.hidden_size, std=std, device=device,
+                             config.hidden_size, weight_attr=init, device=device,
                              dtype=dt)
         self.drop = Dropout(config.hidden_dropout_prob)
         self.h = LayerList([GPTBlock(config, device)

@@ -58,9 +58,11 @@ class ClipGradByNorm(ClipGradBase):
 class ClipGradByGlobalNorm(ClipGradBase):
     """All gradients scaled by ``clip_norm / max(norm, 1e-12)`` when their
     global norm exceeds ``clip_norm``; the norm is summed in f32 and the
-    factor cast to each gradient's dtype."""
+    factor cast to each gradient's dtype. ``group_name`` and
+    ``auto_skip_clip`` are taken and, as in the reference, not read."""
 
-    def __init__(self, clip_norm):
+    def __init__(self, clip_norm, group_name="default_group",
+                 auto_skip_clip=False):
         self.clip_norm = float(clip_norm)
 
     def global_norm(self, grads):

@@ -127,7 +127,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
 
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
-                  use_softmax=True, label_smoothing=0.0):
+                  use_softmax=True, label_smoothing=0.0, name=None):
     """``paddle.nn.functional.cross_entropy`` with hard integer labels
     over the last axis. The log-softmax runs in the logits' dtype, as the
     reference's ``jax.nn.log_softmax(logits)`` does; rows labelled

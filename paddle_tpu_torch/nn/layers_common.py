@@ -2,15 +2,19 @@
 ``Linear``, ``LayerNorm``, ``Embedding``, ``Dropout`` and ``LayerList``
 (what the BERT/ERNIE path uses).
 
-Parameter names are the reference's (``weight``, ``bias``), so
-``convert.load_reference_state_dict`` moves weights across by name.
-``Linear`` is a ``torch.nn.Linear`` (through ``AmpLinear``, whose
-forward casts its inputs as ``amp`` says for "linear"): it stores its
-weight as [out, in] where Paddle stores [in, out], and ``convert``
-transposes it. Default
-initialisation follows the reference: Xavier-uniform linear weights and
-zero biases, N(0, 1) embeddings (zero at ``padding_idx``), LayerNorm
-weight one and bias zero, drawn from torch's default generators (see
+Each takes the reference's parameters in the reference's order, with
+``weight_attr`` / ``bias_attr`` (a ``ParamAttr``, an initializer, a
+name, or ``False`` for no parameter) read as the reference reads them
+(``nn.initializer.create_parameter``); the port's own ``device`` and
+``dtype`` are keyword-only, after them. Parameter names are the
+reference's (``weight``, ``bias``), so ``convert.load_reference_state_dict``
+moves weights across by name. ``Linear`` is a ``torch.nn.Linear``
+(through ``AmpLinear``, whose forward casts its inputs as ``amp`` says
+for "linear"): it stores its weight as [out, in] where Paddle stores
+[in, out], and ``convert`` transposes it. Default initialisation follows
+the reference: Xavier-uniform linear weights and zero biases, N(0, 1)
+embeddings (zero at ``padding_idx``), LayerNorm weight one and bias
+zero, drawn from torch's default generators (see
 ``framework.random.seed``).
 """
 from __future__ import annotations
@@ -23,6 +27,7 @@ from torch import nn
 
 from ..amp import cast_inputs
 from . import functional as PF
+from .initializer import Constant, Normal, XavierUniform, create_parameter
 
 
 class AmpLinear(nn.Linear):
@@ -35,32 +40,38 @@ class AmpLinear(nn.Linear):
 
 
 class Linear(AmpLinear):
-    """``y = x W + b`` with a bias, as the reference's default."""
+    """``y = x W + b``; ``bias_attr=False`` leaves out the bias."""
 
-    def __init__(self, in_features, out_features, device=None, dtype=None):
-        super().__init__(in_features, out_features, device=device,
-                         dtype=dtype)
-
-    def reset_parameters(self):
-        nn.init.xavier_uniform_(self.weight)
-        nn.init.zeros_(self.bias)
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None, *, device=None, dtype=None):
+        nn.Module.__init__(self)
+        self.in_features, self.out_features = in_features, out_features
+        kw = dict(dtype=dtype, device=device)
+        self.register_parameter("weight", create_parameter(
+            [in_features, out_features], weight_attr,
+            default_initializer=XavierUniform(), transpose=True, **kw))
+        self.register_parameter("bias", create_parameter(
+            [out_features], bias_attr, is_bias=True, **kw))
 
 
 class LayerNorm(nn.Module):
     """LayerNorm over the trailing ``normalized_shape`` axes through
-    ``nn.functional.layer_norm`` (the LayerNorm kernel)."""
+    ``nn.functional.layer_norm`` (the LayerNorm kernel); ``weight_attr``
+    / ``bias_attr`` ``False`` leave out the scale / shift."""
 
-    def __init__(self, normalized_shape, epsilon=1e-05, device=None,
-                 dtype=None):
+    def __init__(self, normalized_shape, epsilon=1e-05, weight_attr=None,
+                 bias_attr=None, name=None, *, device=None, dtype=None):
         super().__init__()
         if isinstance(normalized_shape, numbers.Integral):
             normalized_shape = [normalized_shape]
         self._normalized_shape = list(normalized_shape)
         self._epsilon = epsilon
-        self.weight = nn.Parameter(torch.ones(self._normalized_shape,
-                                              device=device, dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(self._normalized_shape,
-                                             device=device, dtype=dtype))
+        kw = dict(dtype=dtype, device=device)
+        self.register_parameter("weight", create_parameter(
+            self._normalized_shape, weight_attr,
+            default_initializer=Constant(1.0), **kw))
+        self.register_parameter("bias", create_parameter(
+            self._normalized_shape, bias_attr, is_bias=True, **kw))
 
     def forward(self, x):
         return PF.layer_norm(x, self._normalized_shape, self.weight,
@@ -72,19 +83,22 @@ class LayerNorm(nn.Module):
 
 
 class Embedding(nn.Module):
-    """Lookup table [num_embeddings, embedding_dim]; ``std`` is the
-    initial N(0, std) draw (the reference's ``weight_attr=Normal(0,
-    std)``; 1 by default)."""
+    """Lookup table [num_embeddings, embedding_dim], drawn N(0, 1) unless
+    ``weight_attr`` says otherwise (the models pass ``Normal(0, std)``),
+    zero at ``padding_idx``. ``sparse`` is taken and, as in the
+    reference, changes nothing: gradients are dense."""
 
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
-                 std=1.0, device=None, dtype=None):
+                 sparse=False, weight_attr=None, name=None, *, device=None,
+                 dtype=None):
         super().__init__()
         self._padding_idx = padding_idx
-        self.weight = nn.Parameter(torch.empty(
-            num_embeddings, embedding_dim, device=device, dtype=dtype))
-        with torch.no_grad():
-            self.weight.normal_(0.0, std)
-            if padding_idx is not None:
+        self._sparse = sparse
+        self.weight = create_parameter(
+            [num_embeddings, embedding_dim], weight_attr, dtype=dtype,
+            device=device, default_initializer=Normal(0.0, 1.0))
+        if padding_idx is not None:
+            with torch.no_grad():
                 self.weight[padding_idx] = 0.0
 
     def forward(self, x):
@@ -95,7 +109,7 @@ class Embedding(nn.Module):
 
 
 class Dropout(nn.Module):
-    def __init__(self, p=0.5, axis=None, mode="upscale_in_train"):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None):
         super().__init__()
         self.p = p
         self.axis = axis
@@ -107,5 +121,8 @@ class Dropout(nn.Module):
 
 
 class LayerList(nn.ModuleList):
-    """The reference's ``LayerList``: sublayers registered as "0", "1",
-    ... (so ``layers.3.linear1.weight`` names match)."""
+    """The reference's ``LayerList``: ``sublayers`` registered as "0",
+    "1", ... (so ``layers.3.linear1.weight`` names match)."""
+
+    def __init__(self, sublayers=None):
+        super().__init__(sublayers)

@@ -13,7 +13,7 @@ class CrossEntropyLoss(nn.Module):
 
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  soft_label=False, axis=-1, use_softmax=True,
-                 label_smoothing=0.0):
+                 label_smoothing=0.0, name=None):
         super().__init__()
         self.weight = weight
         self.ignore_index = ignore_index

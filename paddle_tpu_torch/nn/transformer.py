@@ -4,9 +4,12 @@
 through ``nn.functional.scaled_dot_product_attention`` (the flash
 kernels, with their in-kernel dropout in training) on the [B, S, H, D]
 layout; masks broadcast to [B, H, Sq, Sk], e.g. a [B, 1, 1, S] additive
-or boolean key mask. The reference's incremental decoding caches
-(``gen_cache``, ``cache=``), ``kdim``/``vdim`` and ``need_weights`` are
-not ported.
+or boolean key mask. The constructors take the reference's parameters in
+its order (``kdim`` / ``vdim``, ``need_weights``, whose weights are
+``None`` as in the reference, and ``weight_attr`` / ``bias_attr`` for
+every projection), the port's ``device`` / ``dtype`` keyword-only after
+them. The reference's incremental decoding caches (``gen_cache``,
+``cache=``) are not ported.
 """
 from __future__ import annotations
 
@@ -19,21 +22,29 @@ from .layers_common import Dropout, LayerList, LayerNorm, Linear
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, embed_dim, num_heads, dropout=0.0, device=None,
-                 dtype=None):
+    def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None,
+                 vdim=None, need_weights=False, weight_attr=None,
+                 bias_attr=None, *, device=None, dtype=None):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
                              f"num_heads {num_heads}")
         self.embed_dim = embed_dim
+        self.kdim = kdim or embed_dim
+        self.vdim = vdim or embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
         self.dropout = dropout
+        self.need_weights = need_weights
         kw = dict(device=device, dtype=dtype)
-        self.q_proj = Linear(embed_dim, embed_dim, **kw)
-        self.k_proj = Linear(embed_dim, embed_dim, **kw)
-        self.v_proj = Linear(embed_dim, embed_dim, **kw)
-        self.out_proj = Linear(embed_dim, embed_dim, **kw)
+        self.q_proj = Linear(embed_dim, embed_dim, weight_attr, bias_attr,
+                             **kw)
+        self.k_proj = Linear(self.kdim, embed_dim, weight_attr, bias_attr,
+                             **kw)
+        self.v_proj = Linear(self.vdim, embed_dim, weight_attr, bias_attr,
+                             **kw)
+        self.out_proj = Linear(embed_dim, embed_dim, weight_attr, bias_attr,
+                               **kw)
 
     def _heads(self, x):
         b, s, _ = x.shape
@@ -49,7 +60,8 @@ class MultiHeadAttention(nn.Module):
             q, k, v, attn_mask=attn_mask, dropout_p=self.dropout,
             training=self.training)
         b, s = out.shape[0], out.shape[1]
-        return self.out_proj(out.reshape(b, s, self.embed_dim))
+        out = self.out_proj(out.reshape(b, s, self.embed_dim))
+        return (out, None) if self.need_weights else out
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -59,18 +71,21 @@ class TransformerEncoderLayer(nn.Module):
 
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
-                 normalize_before=False, layer_norm_eps=1e-5, device=None,
-                 dtype=None):
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 layer_norm_eps=1e-5, *, device=None, dtype=None):
         super().__init__()
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout
         kw = dict(device=device, dtype=dtype)
         self.normalize_before = normalize_before
         self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
-                                            **kw)
-        self.linear1 = Linear(d_model, dim_feedforward, **kw)
+                                            weight_attr=weight_attr,
+                                            bias_attr=bias_attr, **kw)
+        self.linear1 = Linear(d_model, dim_feedforward, weight_attr,
+                              bias_attr, **kw)
         self.dropout = Dropout(act_dropout)
-        self.linear2 = Linear(dim_feedforward, d_model, **kw)
+        self.linear2 = Linear(dim_feedforward, d_model, weight_attr,
+                              bias_attr, **kw)
         self.norm1 = LayerNorm(d_model, layer_norm_eps, **kw)
         self.norm2 = LayerNorm(d_model, layer_norm_eps, **kw)
         self.dropout1 = Dropout(dropout)

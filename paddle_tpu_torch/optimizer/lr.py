@@ -1,6 +1,8 @@
 """LR schedulers (counterpart of ``paddle_tpu/optimizer/lr.py``
 ``LRScheduler``, ``CosineAnnealingDecay``, ``PolynomialDecay`` and
 ``LinearWarmup``): plain host-side float math, stepped by the caller.
+``verbose`` is kept, and in ``state_dict``, as the reference keeps it;
+neither prints.
 """
 from __future__ import annotations
 
@@ -8,9 +10,10 @@ import math
 
 
 class LRScheduler:
-    def __init__(self, learning_rate=0.1, last_epoch=-1):
+    def __init__(self, learning_rate=0.1, last_epoch=-1, verbose=False):
         self.base_lr = float(learning_rate)
         self.last_epoch = last_epoch
+        self.verbose = verbose
         self.last_lr = self.base_lr
         self.step()
 
@@ -42,10 +45,11 @@ class LRScheduler:
 class CosineAnnealingDecay(LRScheduler):
     """``eta_min + (base_lr - eta_min) * (1 + cos(pi * epoch / T_max)) / 2``."""
 
-    def __init__(self, learning_rate, T_max, eta_min=0, last_epoch=-1):
+    def __init__(self, learning_rate, T_max, eta_min=0, last_epoch=-1,
+                 verbose=False):
         self.T_max = T_max
         self.eta_min = eta_min
-        super().__init__(learning_rate, last_epoch)
+        super().__init__(learning_rate, last_epoch, verbose)
 
     def get_lr(self):
         return (self.eta_min + (self.base_lr - self.eta_min)
@@ -58,12 +62,12 @@ class PolynomialDecay(LRScheduler):
     stretched to the next multiple past the step)."""
 
     def __init__(self, learning_rate, decay_steps, end_lr=0.0001, power=1.0,
-                 cycle=False, last_epoch=-1):
+                 cycle=False, last_epoch=-1, verbose=False):
         self.decay_steps = decay_steps
         self.end_lr = end_lr
         self.power = power
         self.cycle = cycle
-        super().__init__(learning_rate, last_epoch)
+        super().__init__(learning_rate, last_epoch, verbose)
 
     def get_lr(self):
         step = self.last_epoch
@@ -83,12 +87,12 @@ class LinearWarmup(LRScheduler):
     ``epoch - warmup_steps``."""
 
     def __init__(self, learning_rate, warmup_steps, start_lr, end_lr,
-                 last_epoch=-1):
+                 last_epoch=-1, verbose=False):
         self.lr_after = learning_rate
         self.warmup_steps = warmup_steps
         self.start_lr = start_lr
         self.end_lr = end_lr
-        super().__init__(start_lr, last_epoch)
+        super().__init__(start_lr, last_epoch, verbose)
 
     def get_lr(self):
         if self.last_epoch < self.warmup_steps:

@@ -30,10 +30,12 @@ class Optimizer:
     """Base optimizer over ``parameters`` (tensors). In ``state_dict`` and
     the eager ``step`` a parameter is called ``param<i>`` by position (the
     reference's key for a parameter without a name); ``TrainStep`` passes
-    the model's parameter names instead."""
+    the model's parameter names instead. ``name``, and ``Adam`` /
+    ``AdamW``'s ``lazy_mode`` and ``use_multi_tensor``, are taken in the
+    reference's places and, as there, not read."""
 
     def __init__(self, learning_rate=0.001, parameters=None,
-                 weight_decay=None, grad_clip=None):
+                 weight_decay=None, grad_clip=None, name=None):
         if parameters is None:
             raise ValueError("parameters is required")
         self._parameter_list = list(parameters)
@@ -240,8 +242,10 @@ def _adam_math(p, g, m, v, t, lr, b1, b2, eps, wd):
 
 class SGD(Optimizer):
     def __init__(self, learning_rate=0.001, parameters=None,
-                 weight_decay=None, grad_clip=None, multi_precision=None):
-        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+                 weight_decay=None, grad_clip=None, multi_precision=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
         self._multi_precision = multi_precision
 
     def _fn_init(self, a):
@@ -254,8 +258,9 @@ class SGD(Optimizer):
 class Momentum(Optimizer):
     def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
                  use_nesterov=False, weight_decay=None, grad_clip=None,
-                 multi_precision=None):
-        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+                 multi_precision=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
         self._momentum = momentum
         self._use_nesterov = use_nesterov
         self._multi_precision = multi_precision
@@ -273,8 +278,10 @@ class Momentum(Optimizer):
 class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
-                 grad_clip=None, multi_precision=None):
-        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+                 grad_clip=None, lazy_mode=False, multi_precision=None,
+                 use_multi_tensor=False, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
         self.beta1 = beta1
         self.beta2 = beta2
         self.epsilon = epsilon
@@ -303,9 +310,10 @@ class AdamW(Adam):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
                  lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
-                 multi_precision=None):
+                 lazy_mode=False, multi_precision=None, name=None):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         None, grad_clip, multi_precision)
+                         None, grad_clip, lazy_mode, multi_precision,
+                         name=name)
         if isinstance(weight_decay, WeightDecayRegularizer):
             # as the reference (and upstream adamw.py): the decay is
             # decoupled, so its coefficient must be a number

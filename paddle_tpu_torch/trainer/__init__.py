@@ -94,12 +94,15 @@ class SpeedMeter:
 
 @dataclass
 class TrainingArguments:
-    """The fields the loop reads (the parallel degrees of the reference
-    are not ported: the port trains on one device)."""
+    """The reference's fields up to ``max_checkpoints``, in its order
+    (its parallel degrees, which follow, are not ported: the port trains
+    on one device). ``seed`` is kept and, as in the reference, not read
+    by the loop: the caller seeds (``framework.random.seed``)."""
     output_dir: str = "output"
     max_steps: int = 1000
     logging_steps: int = 10
     save_steps: int = 100
+    seed: int = 42
     bf16: bool = False
     max_checkpoints: int = 3
 

@@ -227,7 +227,7 @@ BWD_ROUTES = [((dt, d, p), "wgmma_f32" if dt == torch.float32 else "wgmma")
 def test_bwd_route_rule(args, route):
     """Both backward kernels run on the tensor cores in every dtype and
     head_dim they take, with or without dropout: bf16 and f16 on their own
-    operands, f32 on bf16 hi + lo parts of its operands."""
+    operands, f32 on bf16 parts of its operands."""
     assert bwd_route(*args) == route
 
 
@@ -350,7 +350,7 @@ def test_flash_bwd_f16_launches_are_bitwise_repeatable(cuda, case):
                                   "tail_causal_gqa"])
 def test_flash_bwd_f32_launches_are_bitwise_repeatable(cuda, case):
     """As the bf16 test above, for the f32 instances (f32 operands as
-    bf16 hi + lo parts, products in a fixed order), each launch counted on
+    bf16 parts, products in a fixed order), each launch counted on
     the route ``bwd_route`` names."""
     q, k, v, g, causal, mask, lens = _case(case, seed=7, cases=CARD_CASES)
     q, k, v, g = (torch.from_numpy(a).to(cuda) for a in (q, k, v, g))

@@ -54,7 +54,9 @@ FWD_ROUTES = [
     ((F16, F32, 2, 32, 4, 0.0), "wgmma_f32kv"),
     ((F16, F32, 1, 32, 4, 0.0), "fma"),               # Sq = 1 stays
     ((BF16, F32, 128, 32, 32, 0.1), "fma"),           # dropout (refused)
-    ((F32, F32, 128, 32, 32, 0.0), "fma"),
+    ((F32, F32, 128, 32, 32, 0.0), "wgmma_f32"),      # f32 over bf16 parts
+    ((F32, F32, 128, 12, 12, 0.1), "wgmma_f32"),      # with dropout
+    ((F32, F32, 2, 32, 4, 0.0), "wgmma_f32"),
     ((F32, BF16, 128, 32, 32, 0.0), "fma"),
     ((BF16, F16, 128, 32, 32, 0.0), "fma"),
     ((BF16, BF16, 128, 32, 8, 0.0), "wgmma"),
@@ -66,9 +68,11 @@ FWD_ROUTES = [
                               enumerate(FWD_ROUTES)])
 def test_fwd_route_rule(args, route):
     """Sq = 1 in one 16-bit dtype without dropout takes the decode route;
-    Sq > 1 or dropout keep the tensor-core kernel; a 16-bit q over f32 K/V
-    at Sq > 1 without dropout the tensor-core kernel over bf16 parts of
-    K/V; f32 and the other pairs of dtypes the FMA kernel."""
+    Sq > 1 or dropout keep the tensor-core kernel; f32 at Sq > 1, with or
+    without dropout, the tensor-core kernel over bf16 parts of every
+    operand; a 16-bit q over f32 K/V at Sq > 1 without dropout the
+    tensor-core kernel over bf16 parts of K/V; f32 at Sq = 1 and the other
+    pairs of dtypes the FMA kernel."""
     assert A.fwd_route(*args) == route
 
 
@@ -114,8 +118,11 @@ def test_route_rule_mirrors_the_sources():
     m = re.search(r"constexpr int kDecodeMaxGroup = (\d+);", fwd)
     assert m and int(m.group(1)) == A.DECODE_MAX_GROUP
     assert "Sq == 1 && !(dscale > 0.f) &&" in fwd
-    assert ("if constexpr (tc::f32_kv<TQ, TKV>()) {\n"
-            "          if (Sq > 1 && !(dscale > 0.f)) {") in fwd
+    assert ("        constexpr bool F32 =\n"
+            "            std::is_same<TQ, float>::value && "
+            "std::is_same<TKV, float>::value;\n"
+            "        if constexpr (F32 || tc::f32_kv<TQ, TKV>()) {\n"
+            "          if (Sq > 1 && (F32 || !(dscale > 0.f))) {") in fwd
     assert ("return !std::is_same<TQ, float>::value && std::is_same<TKV, "
             "float>::value;") in (csrc / "wgmma.cuh").read_text()
     assert ("constexpr bool ONE = std::is_same<TQ, TKV>::value &&\n"

@@ -449,6 +449,11 @@ def test_flash_kernel_matches_plain(cuda, dtype, case):
         lambda: flash_attention_kernel(*args, **drop))
     if qd != kd:
         assert routes == {("flash_fwd", mixed_route(qd, kd, q.shape[1])): 1}
+    elif qd == torch.float32:
+        # f32: the tensor-core kernel over three bf16 parts at Sq > 1,
+        # the FMA kernel at one query row
+        assert routes == {("flash_fwd", "wgmma_f32" if q.shape[1] > 1
+                           else "fma"): 1}
     assert out.dtype == qd
     want, want_lse = flash_attention_plain(*args, return_lse=True, **drop)
     assert torch.isfinite(out.float()).all() and lse.shape == q.shape[:1] + (
@@ -517,12 +522,13 @@ def test_flash_f32_kv_kernel_matches_plain(cuda, qd, sk, kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("qd", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("qd", [torch.bfloat16, torch.float16,
+                                torch.float32])
 def test_flash_f32_kv_kernel_holds_magnitudes(cuda, qd):
-    """K and V entries of 1e5 and 1e-6 (``magnitude_inputs``) at the
-    suffix-prefill geometry (q[1, 128] over 384 keys, the suffix's mask,
-    GQA 4): each output feature within the 16-bit tolerance of the plain
-    version at its own size, a second launch bitwise equal."""
+    """K and V entries of 1e5 and 1e-6 (``magnitude_inputs``; an f32 q's
+    too) at the suffix-prefill geometry (q[1, 128] over 384 keys, the
+    suffix's mask, GQA 4): each output feature within q's tolerance of
+    the plain version at its own size, a second launch bitwise equal."""
     rng = np.random.RandomState(8)
     sq, sk, h, hkv, d = 128, 384, 16, 4, 128
     qn, kn, vn, scale = magnitude_inputs(rng, qd, (1, sq, h, d),
@@ -535,10 +541,92 @@ def test_flash_f32_kv_kernel_holds_magnitudes(cuda, qd):
                          .astype(np.float32)[None, None]).to(cuda)
     args = (q, k, v, d ** -0.5, False, m)
     (out, _), routes = launched_routes(lambda: flash_attention_kernel(*args))
-    assert routes == {("flash_fwd", "wgmma_f32kv"): 1}
+    assert routes == {("flash_fwd", "wgmma_f32" if qd == torch.float32
+                       else "wgmma_f32kv"): 1}
     assert torch.isfinite(out.float()).all()
     scaled_close(out, flash_attention_plain(*args), scale, CARD_TOL[qd])
     assert torch.equal(out, flash_attention_kernel(*args)[0])
+
+
+# the f32 forward on the tensor cores (every operand in three bf16
+# parts): (B, Sq, Sk, H, Hkv, D, causal, mask, kv_lens, dropout_p) at
+# BERT-base's head shape with its key mask (-1e4, as the model builds it)
+# and with -1e30 rows, head_dim 128 causal with GQA 4 and kv_lens inside a
+# tile, Sq < Sk under a mask per head, each with and without dropout 0.1
+F32_FWD_CASES = [
+    (4, 128, 128, 12, 12, 64, False, "bert", None, 0.0),
+    (4, 128, 128, 12, 12, 64, False, "bert", None, 0.1),
+    (2, 130, 130, 8, 8, 128, False, "keys", None, 0.1),
+    (2, 200, 200, 16, 4, 128, True, None, (200, 130), 0.0),
+    (2, 200, 200, 16, 4, 128, True, None, (200, 130), 0.1),
+    (2, 130, 130, 8, 2, 64, True, None, (130, 70), 0.1),
+    (2, 70, 200, 8, 2, 64, False, "head", None, 0.0),
+    (2, 70, 200, 8, 2, 128, False, "head", None, 0.1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F32_FWD_CASES, ids=[
+    f"q{c[1]}_k{c[2]}_h{c[3]}_hkv{c[4]}_d{c[5]}"
+    f"{'_causal' if c[6] else ''}_{c[7]}{'_lens' if c[8] else ''}"
+    f"_p{c[9]}" for c in F32_FWD_CASES])
+def test_flash_f32_kernel_matches_plain(cuda, case):
+    """The f32 forward at Sq > 1 on route "wgmma_f32" (the products over
+    three bf16 parts), with and without dropout: the output on rows with
+    a kept key and lse there within the f32 card tolerance of the plain
+    version, lse exactly -1e30 on rows with none, and a second launch
+    bitwise equal to the first."""
+    b, sq, sk, h, hkv, d, causal, kind, lens, p = case
+    rng = np.random.RandomState(11)
+    q = rng.randn(b, sq, h, d).astype(np.float32)
+    k, v = (rng.randn(b, sk, hkv, d).astype(np.float32) for _ in range(2))
+    mask = None
+    if kind == "bert":
+        keys = np.arange(sk)[None, :] < np.array([128, 32, 97, 64])[:, None]
+        mask = ((1.0 - keys) * -1e4).astype(np.float32)[:, None, None]
+    elif kind == "keys":
+        mask = np.zeros((b, 1, 1, sk), np.float32)
+        mask[1, ..., -50:] = NEG
+    elif kind == "head":
+        mask = np.where(rng.rand(b, h, sq, sk) < 0.3, NEG,
+                        rng.randn(b, h, sq, sk)).astype(np.float32)
+        mask[..., 0] = 0.0                        # every row keeps a key ..
+        mask[1, 3, 5] = NEG                       # .. but this one
+    s = np.zeros((b, h, sq, sk), np.float32)
+    if mask is not None:
+        s = s + mask
+    if causal:
+        s = np.where(np.arange(sq)[:, None] >= np.arange(sk)[None, :], s,
+                     NEG)
+    if lens is not None:
+        s = np.where(np.arange(sk) < np.array(lens)[:, None, None, None], s,
+                     NEG)
+    valid = torch.from_numpy((s > NEG / 2).any(-1).transpose(0, 2, 1)).to(
+        cuda)                                     # [B, Sq, H]
+    m = None if mask is None else torch.from_numpy(mask).to(cuda)
+    kl = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device=cuda)
+    drop = dict(dropout_p=p, seeds=(-5, 2 ** 31 - 3)) if p else {}
+    args = (torch.from_numpy(q).to(cuda), torch.from_numpy(k).to(cuda),
+            torch.from_numpy(v).to(cuda), d ** -0.5, causal, m, kl)
+    (out, lse), routes = launched_routes(
+        lambda: flash_attention_kernel(*args, **drop))
+    assert routes == {("flash_fwd", "wgmma_f32"): 1}
+    want, want_lse = flash_attention_plain(*args, return_lse=True, **drop)
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    tol = CARD_TOL[torch.float32]
+    torch.testing.assert_close(out[valid], want[valid], **tol)
+    lse_rows = lse.transpose(1, 2)
+    torch.testing.assert_close(lse_rows[valid],
+                               want_lse.transpose(1, 2)[valid], **tol)
+    assert (lse_rows[~valid] == NEG).all()
+    err = float((out - want)[valid].abs().max())
+    share = float(((out - want).abs() / (tol["atol"] + tol["rtol"]
+                                         * want.abs()))[valid].max())
+    print(f"f32 forward {case}: max abs err {err:.3e}, largest share of "
+          f"the tolerance {share:.3f}")
+    again = flash_attention_kernel(*args, **drop)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
 
 
 # (page, pages per sequence, context lengths, pages): a 16-token table (a

@@ -14,14 +14,14 @@ another checkout's:
   headers.
 - ``single_bf16``: P and dS enter the accumulating products as one bf16
   each, without the lo part (16-bit dK/dV 4 products per tile pair, dQ
-  3; f32 10 and 8).
+  3; f32 14 and 12).
 - ``two_warpgroups``: a dK/dV CTA of two warpgroups (128 keys) sharing
   each Q / dO tile, one CTA per SM; at BERT-base's 128 keys one CTA per
   (batch, head) walking every key (f32 at head_dim 128 does not fit and
   is reported as refused).
 - ``f32_no_split`` (diagnostic: wrong outputs by design, its time shows
   what the split costs): the f32 instances never split the streamed f32
-  tiles (Q and dO in dK/dV, K and V in dQ) into their hi and lo tiles.
+  tiles (Q and dO in dK/dV, K and V in dQ) into their part tiles.
 
 Timed cases (``chip_smoke.time_ms``: median of CUDA events around each
 call, inputs rotating past the 50 MB L2, with the CUPTI and back-to-back
@@ -62,13 +62,15 @@ def variants(src):
     single = src
     for line in ("      wgmma_rs_tb(dv_acc, pl[kk], mnmajor_desc<kBM>(os, kk));\n",
                  "      wgmma_rs_tb(dk_acc, sl[kk], mnmajor_desc<kBM>(qs, kk));\n",
-                 "      wgmma_rs_tb(acc, sl[kk], mnmajor_desc<BN>(ks, kk));\n"):
+                 "        wgmma_rs_tb(dk_acc, sl[kk], mnmajor_desc<kBM>(qs + Q_BYTES, kk));\n",
+                 "      wgmma_rs_tb(acc, sl[kk], mnmajor_desc<BN>(ks, kk));\n",
+                 "        wgmma_rs_tb(acc, sl[kk], mnmajor_desc<BN>(ks + T_BYTES, kk));\n"):
         single = sub(single, line, "")
     no_split = src
-    for line in ("      split_tile<kBM, D, NT>(qs, qs + Q_BYTES, sF, tid);\n",
-                 "      split_tile<kBM, D, NT>(os, os + Q_BYTES, sF + L::F, tid);\n",
-                 "      split_tile<BN, D, NT>(ks, ks + T_BYTES, sF, tid);\n",
-                 "      split_tile<BN, D, NT>(vs, vs + T_BYTES, sF + L::F, tid);\n"):
+    for line in ("      split_tile<kBM, D, NT, 3>(qs, qs + Q_BYTES, sF, tid, qs + 2 * Q_BYTES);\n",
+                 "      split_tile<kBM, D, NT, 3>(os, os + Q_BYTES, sF, tid, os + 2 * Q_BYTES);\n",
+                 "      split_tile<BN, D, NT, 3>(ks, ks + T_BYTES, sF, tid, ks + 2 * T_BYTES);\n",
+                 "      split_tile<BN, D, NT, 3>(vs, vs + T_BYTES, sF, tid, vs + 2 * T_BYTES);\n"):
         no_split = sub(no_split, line, "")
     return {
         "shipped": src,

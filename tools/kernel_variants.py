@@ -5,14 +5,15 @@ its one-row decode route runs the cluster-split walk of
 ``csrc/decode_split.cuh``; its instance for a 16-bit q over f32 K/V),
 paged decode (``csrc/paged_decode.cu``), ragged decode
 (``csrc/ragged_decode.cu``; both decode kernels run the same walk) and
-the variable-query span kernel (``csrc/paged_varq.cu``).
+the variable-query span kernel (``csrc/paged_varq.cu``); and the f32
+forward on the tensor cores (route ``wgmma_f32``).
 
     python3 tools/kernel_variants.py [--iters 24] [--only NAME,...]
                                      [--parent DIR] [--dtype float16]
                                      [--kv float32]
 
 ``--only`` picks sections (flash_fwd, flash_decode, flash_f32kv,
-paged_decode, ragged_decode, paged_varq; default all). ``--parent`` names a checkout
+flash_f32, paged_decode, ragged_decode, paged_varq; default all). ``--parent`` names a checkout
 of another commit (``git archive`` of it unpacked anywhere): its kernels
 of every section but flash_fwd are built and timed beside these as
 ``parent`` (a parent whose C entries take one dtype code is called with
@@ -71,6 +72,20 @@ shipped source with one choice changed:
   wrong by design and whose times show what a part of the tile's work
   costs: ``f32_no_split`` (the f32 rows never split into the hi and lo
   tiles) and ``f32_no_load`` (the f32 rows never copied in).
+- ``flash_f32``: the forward with q, k and v in f32 (the ``wgmma_f32``
+  instance: Q, K and V staged as f32 rows, split into bf16 hi, mid and
+  lo tiles; always f32, whatever ``--dtype`` says) at BERT-base's
+  fine-tune shape q[16, 128, 12, 64] under ``chip_smoke.bert_key_mask``,
+  without and with dropout 0.1, and at q[4, 512, 32, 128] causal + a
+  prefill mask; ``parent`` is the parent's f32 forward (before this
+  route: the FMA kernel), timed in the same process. ``f32_no_split``
+  is the diagnostic variant of ``flash_f32kv`` (K's and V's rows never
+  split; wrong by design); ``f32_l2_mask`` reads a mask
+  whose rows differ from L2 where the shipped kernel stages it (the
+  q[4, 512, 32, 128] case: BERT's key mask, one row for every query, is
+  read from L2 by both). Beside them f32 SDPA with the same mask (and
+  with dropout 0.1, another function of the same cost) and the bytes
+  bound; the error is held to the f32 tolerance.
 - ``paged_varq``: ``shipped`` (P as bf16 hi + lo, a 2-stage K/V ring,
   one-tile spans split over up to 2 CTAs), ``single_bf16_p``
   (``kVarqSplitP`` off), ``split_f16_p`` (``kVarqSplitPF16`` on),
@@ -186,8 +201,8 @@ def build(sources, out_dir, signatures, include, kv_code):
     return libs
 
 
-SECTIONS = ("flash_fwd", "flash_decode", "flash_f32kv", "paged_decode",
-            "ragged_decode", "paged_varq")
+SECTIONS = ("flash_fwd", "flash_decode", "flash_f32kv", "flash_f32",
+            "paged_decode", "ragged_decode", "paged_varq")
 
 
 def main(argv=None):
@@ -309,8 +324,13 @@ def main(argv=None):
         varq_consts["f32_no_load"] = [(
             vq, "      stage_rows<BN, D, NT>(f, k_pages",
             "      if (false) stage_rows<BN, D, NT>(f, k_pages")]
+    fwd_no_split = [(a.replace("NT>(sK, sKl, f, tid)",
+                               "NT, L::KP>(sK, sKl, f, tid, sK2)")
+                     .replace("NT>(sV, sVl, f + F_BYTES, tid)",
+                              "NT, L::KP>(sV, sVl, f + F_BYTES, tid, sV2)"),
+                     b) for a, b in no_split]
     f32kv_consts = {"shipped": [],
-                    "f32_no_split": [(fwd, a, b) for a, b in no_split],
+                    "f32_no_split": [(fwd, a, b) for a, b in fwd_no_split],
                     "f32_no_load": [(fwd, "      stage_rows<BN, D, NT>(\n",
                                      "      if (false) stage_rows<BN, D, "
                                      "NT>(\n")]}
@@ -324,6 +344,11 @@ def main(argv=None):
     want = {"flash_fwd": (fwd, fwd_consts, A._SIGNATURES),
             "flash_decode": (fwd, decode_consts, A._SIGNATURES),
             "flash_f32kv": (fwd, f32kv_consts, A._SIGNATURES),
+            "flash_f32": (fwd, {"shipped": [],
+                                "f32_no_split": f32kv_consts["f32_no_split"],
+                                "f32_l2_mask": fwd_consts[
+                                    "wg1_bn64_l2_mask"]},
+                          A._SIGNATURES),
             "paged_decode": ("paged_decode.cu", paged_consts,
                              P._SIGNATURES["paged_decode"]),
             "ragged_decode": ("ragged_decode.cu", ragged_consts,
@@ -335,7 +360,7 @@ def main(argv=None):
             continue
         target, consts, sig = want[sec]
         # the flash sections run q, k and v of one dtype, but flash_f32kv
-        # f32 K/V
+        # f32 K/V (flash_f32 passes its own codes)
         kv_code = CODES["float32"] if sec == "flash_f32kv" else \
             DT["code"] if sec.startswith("flash") else DT["kv_code"]
         libs[sec] = {}
@@ -381,6 +406,8 @@ def main(argv=None):
     if "flash_f32kv" in libs:
         flash_f32kv_section(torch, S, A, libs["flash_f32kv"], dev, g,
                             med_all, verdict, dt)
+    if "flash_f32" in libs:
+        flash_f32_section(torch, S, A, libs["flash_f32"], dev, g, med_all)
     if only & {"paged_decode", "ragged_decode", "paged_varq"}:
         decode_sections(torch, S, A, P, libs, dev, g, med, verdict, dt,
                         med_all)
@@ -428,18 +455,22 @@ def flash_section(torch, S, A, fwd_libs, dev, g, med, verdict, dt):
         print(f"  serve shape {e_s}; training shape {e_t}", flush=True)
 
 
-def flash_fwd_call(torch, A, dev, lib, q, k, v, mask, causal):
-    """One launch of ``lib``'s flash_fwd entry (no kv_lens, no dropout);
-    returns the output."""
+def flash_fwd_call(torch, A, dev, lib, q, k, v, mask, causal, codes=None,
+                   drop=(0, 0, 0, 0.0)):
+    """One launch of ``lib``'s flash_fwd entry (no kv_lens), with the
+    dtype ``codes`` (default ``lib.codes``) and the dropout arguments
+    ``drop`` (``attention._dropout_args``; none by default); returns the
+    output."""
     b, sq, h, d = q.shape
     m_ptr, *strides = A._mask_args(mask, k.shape[1])
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
-    err = lib.flash_fwd(*lib.codes, d, q.data_ptr(), k.data_ptr(),
+    codes = lib.codes if codes is None else codes[:len(lib.codes)]
+    err = lib.flash_fwd(*codes, d, q.data_ptr(), k.data_ptr(),
                         v.data_ptr(), m_ptr, None, out.data_ptr(),
                         lse.data_ptr(), b, sq, k.shape[1], h, k.shape[2],
-                        *strides, float(d ** -0.5), int(causal), 0, 0, 0,
-                        0.0, A.stream_ptr(dev))
+                        *strides, float(d ** -0.5), int(causal), *drop,
+                        A.stream_ptr(dev))
     if err:
         raise RuntimeError(f"flash_fwd: CUDA error {err} at launch")
     return out
@@ -470,6 +501,55 @@ def flash_f32kv_section(torch, S, A, libs, dev, g, med, verdict, dt):
             t = med(run, sets)
             print(f"flash_f32kv {name} Hkv={hkv}: {t}; "
                   f"{verdict(run(*sets[0]), want)}", flush=True)
+
+
+def flash_f32_section(torch, S, A, libs, dev, g, med):
+    """Each f32 forward (the shipped ``wgmma_f32`` instance, the parent's
+    and the diagnostic variant) at BERT-base's shape with its key mask,
+    without and with dropout 0.1, and at q[4, 512, 32, 128] causal + a
+    prefill mask, beside f32 SDPA and the bytes bound (f32 Q, K, V, O, the
+    mask and lse once); errors against the plain version at the f32
+    tolerance."""
+    F = torch.nn.functional
+    tol = S.TOL["float32"]
+    lens = torch.tensor([512, 384, 200, 64], device=dev)
+    pmask, key_valid = S.prefill_mask(torch, dev, lens, 512)
+    causal = torch.tril(torch.ones(512, 512, dtype=torch.bool, device=dev))
+    shapes = (("bert", 16, 128, 12, 64, False, S.bert_key_mask(torch, dev),
+               None, 0.0),
+              ("bert_dropout", 16, 128, 12, 64, False,
+               S.bert_key_mask(torch, dev), None, 0.1),
+              ("prefill_d128", 4, 512, 32, 128, True, pmask, key_valid, 0.0))
+    for label, b, s, h, d, cz, mask, rows, p in shapes:
+        # input sets past the 50 MB L2 (6.3 MB each at BERT's shape)
+        n = max(2, -(-64_000_000 // (3 * b * s * h * d * 4)))
+        sets = [tuple(torch.randn(b, s, h, d, device=dev, generator=g)
+                      for _ in range(3)) for _ in range(n)]
+        seeds = (-1234567891, 987654321)
+        kw = dict(dropout_p=p, seeds=seeds) if p else {}
+        drop = A._dropout_args(p, seeds if p else None)
+        want = A.flash_attention_plain(*sets[0], d ** -0.5, cz, mask, **kw)
+        full = mask + torch.where(causal, 0.0, S.NEG) if cz else mask
+        sdpa = med(lambda q_, k_, v_: F.scaled_dot_product_attention(
+            q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
+            attn_mask=full, dropout_p=p, scale=d ** -0.5), sets)
+        kept = (full > S.NEG / 2).expand(b, 1, s, s).sum().item() * h
+        b_ms, by = S.bound(4 * b * s * h * d * 4 + mask.numel() * 4
+                           + b * h * s * 4, 4 * d * kept, "bfloat16")
+        print(f"flash_f32 {label} q[{b}, {s}, {h}, {d}] float32: bound "
+              f"{b_ms:.4f} ms ({by}); SDPA {sdpa}", flush=True)
+        for name, lib in libs.items():
+            def run(q, k, v, lib=lib):
+                return flash_fwd_call(torch, A, dev, lib, q, k, v, mask, cz,
+                                      codes=(0, 0), drop=drop)
+            got, w = run(*sets[0]).float(), want.float()
+            if rows is not None:
+                got, w = got[rows], w[rows]
+            ok = torch.allclose(got, w, **tol)
+            print(f"flash_f32 {name} {label}: {med(run, sets)}; max abs err "
+                  f"{float((got - w).abs().max()):.3e} "
+                  f"{'ok' if ok else 'outside the f32 tolerance'}",
+                  flush=True)
 
 
 def flash_decode_section(torch, S, A, libs, dev, g, med, verdict):
