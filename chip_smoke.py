@@ -64,7 +64,10 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    at the prefill and static decode shapes and with bf16 q over f32 K/V
    at a suffix-prefill shape (q[1, 128], 384 keys under the suffix's
    mask); paged and ragged decode and the span kernel (both its shapes)
-   in f16, with bf16 q over f32 pages and with f32 q over bf16 pages.
+   in f16, with bf16 q over f32 pages, with f32 q over bf16 pages and
+   with f32 q over f32 pages (the f32 serving gate's instances, launches
+   counted there); the f32 forward at the static decode shape (the FMA
+   kernel of an f32 ``generate()`` step, launches counted in infer (d)).
    Then GPT-2 XL's two shapes (``gpt_kernel_rows``): LayerNorm at
    x[1200, 1600] bf16 (the 4 x 300-token prefill) and the flash forward
    at the beam route's static decode shape, q[16, 1, 25, 64] against k,
@@ -159,6 +162,18 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    synchronizes, and the flight recorder's dump at the trip names every
    wedged request's ``serve.request`` span; (e) ``serve_stream`` over an intake of 2 requests a
    poll for 4 polls (run 1's prompts, 16 new tokens each) serves all 8.
+   The layer phase (``layer_phase``, after the serve phase, on its
+   model): (a) a second model of its configuration, another seed, loads
+   the serve model's ``state_dict()`` through ``set_state_dict``:
+   ``([], [])``, no parameter rebound, keys the parameters and
+   persistable buffers; run 1's requests on it give run 1's tokens bit
+   for bit with run 1's launches; (b) a ``set_state_dict`` between two
+   serves on one predictor flushes its prefix cache (no hit, a fresh
+   predictor's tokens); (c) a 2-layer full-width Llama saved with
+   ``paddle_tpu_torch.save`` and loaded through ``Config.
+   set_model_factory`` + ``params_file``: the Predictor's first call and
+   replays equal the saved layer's eager logits bit for bit (the file is
+   written under ``output/chip_smoke_layer`` and deleted after).
    Serve run KV (after the serve phase, on its model): run 2's traffic
    with ``kv_dtype="float32"`` and block-table decode, then run 1's
    prompts 2-6 through ragged decode: every request ok, the pool's bytes
@@ -1433,7 +1448,8 @@ def dtype_phase(torch, dev, g):
         :b * pps].reshape(b, pps).to(torch.int32).contiguous()
     meta = _builder_meta(torch, dev, tables, lens, page)
     toks = int(lens.sum())
-    for qd, kd in (("float16", "float16"),) + MIXED_PAIRS:
+    for qd, kd in (("float16", "float16"),) + MIXED_PAIRS + (
+            ("float32", "float32"),):
         qt, kt = getattr(torch, qd), getattr(torch, kd)
         q = torch.randn(b, h, d, device=dev, generator=g).to(qt)
         sets = [tuple(torch.randn(num_pages, page, h, d, device=dev,
@@ -2085,9 +2101,14 @@ def lookup_prompt(torch, model, dev, toks, seg_len, reps, m, rounds=8,
 
 def f32_parity_phase(torch, dev, seed):
     """2-layer Llama-2-7B-width f32 model: card (kernels) vs CPU (plain
-    versions) on the same weights."""
+    versions) on the same weights. Returns the phase's launches per
+    (kernel, q dtype, K/V dtype): the f32-over-f32-pages decode
+    instances run here."""
     from paddle_tpu_torch.inference import ContinuousBatchingPredictor
+    from paddle_tpu_torch.kernels import (dtype_launch_counts,
+                                          reset_launch_counts)
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    reset_launch_counts()
     cfg = LlamaConfig.llama2_7b(num_hidden_layers=2, dtype="float32")
     cpu = LlamaForCausalLM(cfg, device="cpu").init_weights(
         torch.Generator().manual_seed(seed))
@@ -2168,7 +2189,7 @@ def f32_parity_phase(torch, dev, seed):
           f"{cpu_new.stats}")
     check(st["chunked_requests"] == 1, f"the f32 check did not chunk: {st}")
     f1_gate(torch, dev, gpu, prompts[:2], seed, "eager")
-    return err
+    return dict(dtype_launch_counts)
 
 
 def f1_gate(torch, dev, model, prompts, seed, label, pred=None):
@@ -2290,6 +2311,145 @@ def serve_phase(torch, dev, seed, layers, card):
     log(f"serve run 3 took {time.perf_counter() - t0:.1f} s")
     return {"model": model, "prompts": prompts, "reps": reps,
             "max_new": max_new, "runs": [run1, run2, run3]}
+
+
+LAYER_DIR = os.path.join("output", "chip_smoke_layer")
+LAYER_REPLAYS = 3
+
+
+def layer_phase(torch, dev, seed, card, serve):
+    """The slice's path built from ``nn.Layer``s and loaded as the
+    reference loads: (a) a second model of the serve model's
+    configuration (another seed) takes the serve model's ``state_dict()``
+    through ``set_state_dict``: ``([], [])``, every parameter at its
+    address, the state dict's keys the parameters and persistable
+    buffers (no RoPE table); run 1's 8 requests on it give run 1's tokens
+    bit for bit, with run 1's launches of each run 1 kernel; (b) on one
+    predictor with a prefix cache, a ``set_state_dict`` of other weights
+    between two serves: no prefix hit in the second serve, a fresh
+    predictor's tokens (and a third serve without a load hits again);
+    (c) a 2-layer full-width Llama saved with ``paddle_tpu_torch.save``
+    and loaded through ``Config.set_model_factory`` + ``params_file``
+    (``set_state_dict``): the Predictor's first call and every replay
+    equal the saved layer's eager logits bit for bit."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.inference import (Config,
+                                            ContinuousBatchingPredictor,
+                                            create_predictor)
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    model, (run1, *_) = serve["model"], serve["runs"]
+    cfg = model.config
+    t0 = time.perf_counter()
+    other = LlamaForCausalLM(cfg, device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(seed + 40))
+    own = {k: v.clone() for k, v in other.state_dict().items()}
+    where = {n: p.data_ptr() for n, p in other.named_parameters()}
+    lists = other.set_state_dict(model.state_dict())
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    keys = list(other.state_dict())
+    want = [n for n, _ in other.named_parameters()] + [
+        n for n, _ in other.named_buffers()
+        if not n.rsplit(".", 1)[-1].startswith("rope_")]
+    moved = [n for n, p in other.named_parameters()
+             if p.data_ptr() != where[n]]
+    same = all(torch.equal(a, b) for a, b in zip(
+        other.state_dict().values(), model.state_dict().values()))
+    log(f"layer (a): set_state_dict of the serve model's {len(keys)} "
+        f"tensors into a second {cfg.num_hidden_layers}-layer model "
+        f"returned {lists}; parameters rebound {len(moved)}; weights equal "
+        f"{same}; built and loaded in {load_s:.1f} s")
+    check(lists == ([], []), f"layer (a): set_state_dict returned {lists}")
+    check(not moved, f"layer (a): set_state_dict rebound {moved[:4]}")
+    check(same, "layer (a): the loaded weights differ from the source's")
+    check(sorted(keys) == sorted(want) and
+          not any("rope_" in k for k in keys),
+          f"layer (a): state_dict keys {keys[:4]}... are not the "
+          "parameters and persistable buffers")
+    res = serve_run(torch, dev, other, cfg, serve["prompts"],
+                    serve["max_new"], card, "layer (a) run 1 on the loaded "
+                    "model", RUN1_KERNELS, RUN1)
+    res.pop("cb")
+    got = {k: res["counts"][k] for k in RUN1_KERNELS}
+    ran = {k: run1["counts"][k] for k in RUN1_KERNELS}
+    log(f"layer (a): tokens equal run 1's: {res['outs'] == run1['outs']}; "
+        f"launches {got}, run 1's {ran}; decode {res['tok_s']:.1f} tok/s "
+        f"(run 1 {run1['tok_s']:.1f}) on {card}")
+    check(res["outs"] == run1["outs"],
+          "layer (a): the loaded model's tokens differ from run 1's")
+    check(got == ran, f"layer (a): launches {got}, run 1's {ran}")
+
+    prompts = serve["prompts"][:4]      # no two share a prefix
+    cb = ContinuousBatchingPredictor(other, device=dev, **GEOM, **RUN1)
+
+    def hits():
+        return cb.stats["prefix_hits"] + cb.stats["prefix_partial_hits"]
+    first = cb.generate(prompts, max_new_tokens=8)
+    h0 = hits()
+    check(other.set_state_dict(own) == ([], []),
+          "layer (b): set_state_dict did not match every key")
+    second = cb.generate(prompts, max_new_tokens=8)
+    h1 = hits()
+    fresh = ContinuousBatchingPredictor(other, device=dev, **GEOM,
+                                        **RUN1).generate(prompts,
+                                                         max_new_tokens=8)
+    third = cb.generate(prompts, max_new_tokens=8)
+    h2 = hits()
+    log(f"layer (b): prefix hits in the serve after set_state_dict "
+        f"{h1 - h0}, in a serve without a load {h2 - h1}; tokens == a "
+        f"fresh predictor's: {second == fresh}; == the serve before the "
+        f"load: {second == first}")
+    check(h1 == h0, "layer (b): a set_state_dict left the prefix cache "
+          "stale")
+    check(second == fresh and third == second,
+          "layer (b): tokens after the load differ from a fresh predictor's")
+    check(h2 > h1, "layer (b): the serve without a load did not hit the "
+          "prefix cache")
+    del cb, other, own
+    free_card(torch)
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        LAYER_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    small_cfg = LlamaConfig.llama2_7b(num_hidden_layers=2, dtype="bfloat16")
+    try:
+        small = LlamaForCausalLM(small_cfg, device=dev).init_weights(
+            torch.Generator(device=dev).manual_seed(seed + 41)).eval()
+        path = os.path.join(root, "llama_2l.pdparams")
+        t0 = time.perf_counter()
+        paddle.save(small.state_dict(), path)
+        save_s = time.perf_counter() - t0
+        ids = torch.randint(1, small_cfg.vocab_size, (1, 256),
+                            generator=torch.Generator().manual_seed(seed + 42))
+        with torch.no_grad():
+            want = small(ids.to(dev)).float().cpu().numpy()
+        conf = Config(params_file=path)
+        conf.set_model_factory(lambda: LlamaForCausalLM(
+            small_cfg, device=dev).init_weights(torch.Generator(
+                device=dev).manual_seed(seed + 43)))
+        t0 = time.perf_counter()
+        pred = create_predictor(conf)
+        load_s = time.perf_counter() - t0
+        loaded = all(torch.equal(a, b) for a, b in zip(
+            pred._layer.state_dict().values(), small.state_dict().values()))
+        x = ids.numpy()
+        outs = [pred.run([x])[0] for _ in range(1 + LAYER_REPLAYS)]
+        gs = pred.graph_stats
+        bitwise = [bool((o == want).all()) for o in outs]
+        log(f"layer (c): 2-layer full-width Llama saved in {save_s:.1f} s "
+            f"({os.path.getsize(path) / 2**30:.2f} GiB), loaded through the "
+            f"Predictor's set_state_dict in {load_s:.1f} s, weights equal "
+            f"{loaded}; first call and {LAYER_REPLAYS} replays equal the "
+            f"saved layer's eager logits bit for bit: {bitwise}; graphs {gs}")
+        check(loaded, "layer (c): the Predictor's weights differ from the "
+              "saved layer's")
+        check(all(bitwise), "layer (c): the Predictor's outputs differ "
+              "from the saved layer's eager outputs")
+        check(gs["captures"] == 1 and gs["replays"] == LAYER_REPLAYS,
+              f"layer (c): not one capture and {LAYER_REPLAYS} replays: "
+              f"{gs}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # run 3: run 2's configuration and prompts with sampling on; per request
@@ -3336,9 +3496,11 @@ def launched_routes(fn):
                  if n != before.get(k, 0)}
 
 
-def static_decode_row(torch, dev, g, label, b, h, d, lens, s, dtype):
+def static_decode_row(torch, dev, g, label, b, h, d, lens, s, dtype,
+                      route="decode"):
     """The forward at one static-route decode shape (``static_decode_case``):
-    against its plain version through the one-row decode route, a second
+    against its plain version through the device kernel ``route`` (the
+    one-row decode route; f32 takes the FMA kernel, "fma"), a second
     launch bitwise the first, then timed beside its plain version, SDPA
     with the same bool mask and the bytes bound. Returns a kernels-line
     row (``t`` the kernel's times)."""
@@ -3356,8 +3518,8 @@ def static_decode_row(torch, dev, g, label, b, h, d, lens, s, dtype):
              "padding mask")
     (out, lse), routes = launched_routes(
         lambda: A.flash_attention_kernel(*sets[0], sc, False, madd))
-    check(routes == {("flash_fwd", "decode"): 1},
-          f"flash_fwd {label}: launched {routes}, not the decode route")
+    check(routes == {("flash_fwd", route): 1},
+          f"flash_fwd {label}: launched {routes}, not the {route} route")
     err = compare(torch, f"flash_fwd {label} {shape}", out,
                   A.flash_attention_plain(*sets[0], sc, False, madd), dtype)
     again = A.flash_attention_kernel(*sets[0], sc, False, madd)
@@ -3371,12 +3533,12 @@ def static_decode_row(torch, dev, g, label, b, h, d, lens, s, dtype):
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         attn_mask=keep, scale=sc), sets)["median"]
     b_ms, by = bound(nbytes, 4 * d * pairs, dtype)
-    log(f"  flash_fwd {label}, {shape}: decode route median "
+    log(f"  flash_fwd {label}, {shape}: {route} route median "
         f"{t['median']:.4f} ms (CUPTI {t['cupti']:.4f}, back to back "
         f"{t['queue']:.4f}), bound {b_ms:.4f} ms ({by}), plain "
         f"{plain:.4f} ms, SDPA (same mask) {lib:.4f} ms")
     return dict(max_abs_err=err, t=t, plain_ms=plain, library_ms=lib,
-                bound_ms=b_ms, bound_by=by, shape=shape, route="decode")
+                bound_ms=b_ms, bound_by=by, shape=shape, route=route)
 
 
 def flash_decode_row(torch, dev, g, dtype="bfloat16"):
@@ -3925,11 +4087,14 @@ def infer_f32_gates(torch, dev, seed):
     eager route over a left-padded batch, token for token (the card's
     static route through CUDA graphs); LLMPredictor with weight_only_int8
     and weight_only_int4 (quantized in place: int4 replays int8's graph);
-    SpeculativePredictor against plain greedy."""
+    SpeculativePredictor against plain greedy. Returns the gate's launches
+    of the f32 forward at one query row (the FMA kernel, route "fma")."""
     import numpy as np
     from paddle_tpu_torch.generation import graph_stats
     from paddle_tpu_torch.inference import LLMPredictor, SpeculativePredictor
+    from paddle_tpu_torch.kernels import reset_launch_counts, route_counts
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    reset_launch_counts()
     cfg = LlamaConfig.llama2_7b(num_hidden_layers=2, dtype="float32")
     cpu = LlamaForCausalLM(cfg, device="cpu").init_weights(
         torch.Generator().manual_seed(seed))
@@ -3978,6 +4143,7 @@ def infer_f32_gates(torch, dev, seed):
         check(toks == plain, f"speculative ({label}) {toks} vs plain "
               f"greedy {plain}")
     del cpu, gpu, draft
+    return route_counts[("flash_fwd", "fma")]
 
 
 def infer_phase(torch, dev, seed, card, model):
@@ -3992,7 +4158,7 @@ def infer_phase(torch, dev, seed, card, model):
     log(f"infer (c) took {time.perf_counter() - t0:.1f} s")
     free_card(torch)
     t0 = time.perf_counter()
-    infer_f32_gates(torch, dev, seed)
+    res["f32_decode_launches"] = infer_f32_gates(torch, dev, seed)
     free_card(torch)
     t1 = time.perf_counter()
     gpt_f32_gate(torch, dev, seed)
@@ -5740,7 +5906,7 @@ def o1_scaler_gate(torch, dev, seed):
                             decr_ratio=2.0 ** -12)
         step = TrainStep(model, _adamw(model, F32_TRAIN_LR, F32_TRAIN_EPS),
                          lambda lg, lb: crit(lg, lb), scaler=sc)
-        x = ids.to(next(model.parameters()).device)
+        x = ids.to(next(iter(model.parameters())).device)
         named = dict(model.named_parameters())
         p0 = {n: p.detach().cpu().clone() for n, p in named.items()}
         losses, scales, skipped, grads = [], [], [], []
@@ -5931,6 +6097,11 @@ def main(argv=None):
     mains.update(optimizer_phase(torch, dev, args.seed))
     mains.update(sampling_phase(torch, dev, g))
     dtype_rows = {**dtype_phase(torch, dev, g), **bwd_dt, **fwd_dt}
+    # the f32 forward at the static decode shape (the FMA kernel: an f32
+    # generate() step)
+    f32_row = static_decode_row(torch, dev, g, "static decode float32", 8,
+                                32, 128, INFER_LENS[0], 512, "float32",
+                                route="fma")
     gpt_rows = gpt_kernel_rows(torch, dev, g)
     for name, m in [*mains.items(), ("layer_norm (bf16)", ln["bfloat16"]),
                     *((row_name(*k), m) for k, m in dtype_rows.items()),
@@ -5946,7 +6117,7 @@ def main(argv=None):
     free_card(torch)
 
     t0 = time.perf_counter()
-    f32_parity_phase(torch, dev, args.seed)
+    f32_counts = f32_parity_phase(torch, dev, args.seed)
     log(f"f32 serving phase took {time.perf_counter() - t0:.1f} s")
     free_card(torch)
     t0 = time.perf_counter()
@@ -5968,6 +6139,10 @@ def main(argv=None):
     serve = serve_phase(torch, dev, args.seed, args.layers, card)
     counts1, counts2, counts_s = (r["counts"] for r in serve["runs"])
     log(f"serve phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    layer_phase(torch, dev, args.seed, card, serve)
+    log(f"layer phase took {time.perf_counter() - t0:.1f} s")
+    free_card(torch)
     kv = serve_kv_run(torch, dev, serve, card)
     t0 = time.perf_counter()
     serve["front"] = frontend_phase(torch, dev, args.seed, card, serve)
@@ -6094,7 +6269,7 @@ def main(argv=None):
         route, src, replaces = sources[key[0]]
         n = next((c[key] for c in (ft_dtypes, f16["dtype_counts"],
                                    gate_counts, bert16, kv["dtype_counts"],
-                                   train16)
+                                   train16, f32_counts)
                   if c.get(key)), 0)
         check(n > 0, f"{row_name(*key)} was launched on no served path")
         rows.append({"name": row_name(*key), "route": route, "source": src,
@@ -6126,6 +6301,19 @@ def main(argv=None):
                 greedy_launches=gpt["greedy"]["counts"][name],
                 greedy_decode_route_launches=FIRST_CALL_ROUTES[
                     "GPT greedy"].get(("flash_fwd", "decode"), 0))
+    # the f32 forward at one query row: launches in the f32 generate()
+    # gate (infer (d))
+    route, src, replaces = sources["flash_fwd"]
+    n = infer["f32_decode_launches"]
+    check(n > 0, "the f32 forward at one query row was launched on no path")
+    rows.append({"name": "flash_fwd (float32, one query row)", "route": route,
+                 "source": src, "replaces": replaces, "launches": n,
+                 "max_abs_err": f32_row["max_abs_err"],
+                 "ms": f32_row["t"]["median"], "plain_ms": f32_row["plain_ms"],
+                 "bound_ms": f32_row["bound_ms"],
+                 "bound_by": f32_row["bound_by"],
+                 "library_ms": f32_row["library_ms"],
+                 "shape": f32_row["shape"], "kernel_route": "fma"})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

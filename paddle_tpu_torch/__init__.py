@@ -28,6 +28,15 @@ activation recompute (``distributed.fleet.recompute``,
 Runtime telemetry (metrics, spans, the flight recorder, exporters) is
 ``observability``, the reference's package.
 
+Every layer and model derives from ``nn.Layer``, the reference's base
+class over ``torch.nn.Module``: ``state_dict`` / ``set_state_dict``
+(loads in place and returns ``(missing, unexpected)``), ``sublayers``,
+``parameters(include_sublayers=)``, the forward pre / post hooks,
+``full_name``, ``astype`` / ``float16``, ``clear_gradients``. Code
+written against the reference runs as it is:
+``import paddle_tpu_torch as paddle``; ``paddle.seed(0)``;
+``model.set_state_dict(paddle.load(path))``; ``paddle.to_tensor(x)``.
+
 Parameters are drawn as the reference draws them: ``ParamAttr`` and the
 initializers of ``nn.initializer`` (``Normal``, ``XavierUniform``,
 ``Constant``, ... and ``set_global_initializer``), given as
@@ -37,7 +46,21 @@ initializers of ``nn.initializer`` (``Normal``, ``XavierUniform``,
 no parameter), each initializer drawing from an explicit
 ``torch.Generator`` or torch's default one.
 
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+The top level holds the reference's names for what is ported: the
+dtypes (``float32``, ``bfloat16``, ... torch's dtypes; ``bool``),
+``set_default_dtype`` / ``get_default_dtype``, ``finfo`` / ``iinfo``;
+``set_device`` / ``get_device``, ``CPUPlace``, ``CUDAPlace``,
+``device_count``; ``seed``, ``get_rng_state`` / ``set_rng_state``;
+``to_tensor`` and ``create_parameter``; ``no_grad``, ``enable_grad``,
+``is_grad_enabled``, ``set_grad_enabled``; ``save`` / ``load``;
+``ParamAttr``; ``in_dynamic_mode``; and the subpackages ``nn``,
+``optimizer``, ``amp``, ``jit``, ``inference``, ``distributed``,
+``incubate``, ``generation`` and ``observability``. The reference's
+``Tensor`` methods, ``ops``, ``io``, ``vision`` and the rest are not
+ported yet and have no name here.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
+(or ``set_device("cpu")``).
 """
 import torch
 
@@ -47,8 +70,44 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from .framework import resolve_device  # noqa: E402
-from . import observability  # noqa: E402,F401
-from .nn.initializer import ParamAttr  # noqa: E402
+__version__ = "0.1.0"
 
-__all__ = ["ParamAttr", "resolve_device", "observability"]
+from .framework import resolve_device  # noqa: E402
+from .framework.dtype import (  # noqa: E402
+    bool_ as bool,  # noqa: A001  (paddle.bool)
+    uint8, int8, int16, int32, int64, float16, bfloat16, float32, float64,
+    complex64, complex128, float8_e4m3fn, float8_e5m2,
+    set_default_dtype, get_default_dtype, finfo, iinfo)
+from .framework.place import (CPUPlace, CUDAPlace, get_device,  # noqa: E402
+                              set_device)
+from .framework.random import get_rng_state, seed, set_rng_state  # noqa: E402
+from .tensor import create_parameter, to_tensor  # noqa: E402
+from .autograd import (enable_grad, is_grad_enabled, no_grad,  # noqa: E402
+                       set_grad_enabled)
+from .framework_io import load, save  # noqa: E402
+from .nn.initializer import ParamAttr  # noqa: E402
+from . import (amp, autograd, distributed, generation,  # noqa: E402
+               incubate, inference, jit, nn, observability, optimizer)
+
+
+def in_dynamic_mode():
+    """Always True: the port runs eagerly (graphs are captured from eager
+    runs, never traced from a static program)."""
+    return True
+
+
+def device_count():
+    """The number of CUDA devices."""
+    return torch.cuda.device_count()
+
+
+__all__ = [
+    "CPUPlace", "CUDAPlace", "ParamAttr", "amp", "autograd", "bfloat16",
+    "bool", "complex128", "complex64", "create_parameter", "device_count",
+    "distributed", "enable_grad", "finfo", "float16", "float32", "float64",
+    "float8_e4m3fn", "float8_e5m2", "generation", "get_default_dtype",
+    "get_device", "get_rng_state", "iinfo", "in_dynamic_mode", "incubate",
+    "inference", "int16", "int32", "int64", "int8", "is_grad_enabled",
+    "jit", "load", "nn", "no_grad", "observability", "optimizer",
+    "resolve_device", "save", "seed", "set_default_dtype", "set_device",
+    "set_grad_enabled", "set_rng_state", "to_tensor", "uint8"]

@@ -23,8 +23,8 @@ from torch import nn
 
 def linear_weights(model: nn.Module) -> set:
     """Names of the weights the two layouts transpose."""
-    return {f"{name}.weight" for name, m in model.named_modules()
-            if isinstance(m, nn.Linear)}
+    return {f"{name}.weight" if name else "weight"
+            for name, m in model.named_modules() if isinstance(m, nn.Linear)}
 
 
 def load_reference_state_dict(model: nn.Module, state: dict) -> nn.Module:

@@ -1,12 +1,18 @@
 """Device selection shared by the port's entry points."""
 import torch
 
+from . import place as _place
+
 
 def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``cuda`` unless the caller
-    names another. Asking for CUDA (explicitly or by default) on a host
-    without a GPU raises — the port never drops to the CPU unasked."""
-    dev = torch.device("cuda" if device is None else device)
+    """The device an entry point runs on: the one the caller names, else
+    ``place.set_device``'s choice, else ``cuda``. Asking for CUDA
+    (explicitly or by default) on a host without a GPU raises — the port
+    never drops to the CPU unasked."""
+    if device is None:
+        device = _place.current_place()
+    dev = torch.device("cuda") if device is None \
+        else _place.to_torch_device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(

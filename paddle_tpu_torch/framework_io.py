@@ -103,12 +103,14 @@ def load_raw(path):
         return pickle.load(f)
 
 
-def load(path, return_numpy=False, bf16_keys=(), **configs):
+def load(path, **configs):
     """paddle.load: the nested state of ``path`` with tensors restored
-    (numpy arrays with ``return_numpy``, bf16 as f32 there). A plain
+    (numpy arrays with ``return_numpy=True``, bf16 as f32 there). A plain
     dict-of-numpy pickle (``.pdiparams``) loads too, the arrays named in
-    ``bf16_keys`` read from their uint16 bits."""
-    return restore(load_raw(path), return_numpy, bf16_keys)
+    ``bf16_keys`` read from their uint16 bits. Both are read from
+    ``configs``, as the reference reads ``return_numpy``."""
+    return restore(load_raw(path), configs.get("return_numpy", False),
+                   configs.get("bf16_keys", ()))
 
 
 def restore(obj, return_numpy=False, bf16_keys=()):

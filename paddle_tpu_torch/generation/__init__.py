@@ -267,7 +267,7 @@ class GenerationMixin:
                cfg.pad_token_id, cfg.min_new_tokens,
                float(cfg.temperature), float(cfg.top_p),
                float(cfg.repetition_penalty))
-        dev = next(self.parameters()).device
+        dev = next(iter(self.parameters())).device
         seeds = torch.as_tensor(
             (int(base_seed) + np.arange(B)).astype(np.int32), device=dev)
         out, scores = self._run_program(
@@ -399,7 +399,7 @@ class GenerationMixin:
         N = int(cfg.max_new_tokens)
         sig = ("beam", B, S, N, K, cfg.eos_token_id, cfg.pad_token_id,
                float(cfg.length_penalty), cfg.min_new_tokens)
-        dev = next(self.parameters()).device
+        dev = next(iter(self.parameters())).device
         out, scores = self._run_program(
             sig, lambda: self._build_beam_fn(n_layers, n_kv, head_dim, B, S,
                                              N, S + N, K, cfg),
@@ -499,7 +499,7 @@ class GenerationMixin:
         N = int(cfg.max_new_tokens)
         eos, pad = cfg.eos_token_id, cfg.pad_token_id
         vocab = self.config.vocab_size
-        dev = next(self.parameters()).device
+        dev = next(iter(self.parameters())).device
         cur = _repeat_rows(torch.as_tensor(np.asarray(ids), dtype=torch.long,
                                            device=dev), K)    # [B*K, S+t]
         scores = torch.full((B, K), _NEG, device=dev)
@@ -555,7 +555,7 @@ class GenerationMixin:
     def _generate_eager_batch(self, ids, mask, base_seed, cfg):
         greedy = cfg.decode_strategy in ("greedy_search", "greedy")
         B = ids.shape[0]
-        dev = next(self.parameters()).device
+        dev = next(iter(self.parameters())).device
         s_temp = np.full((B,), 0.0 if greedy else float(cfg.temperature),
                          np.float32)
         s_topk = np.full((B,), int(cfg.top_k), np.int32)

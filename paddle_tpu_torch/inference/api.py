@@ -143,8 +143,11 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def _load_params(layer, params_file):
     """Weights of ``params_file`` into ``layer``: a ``framework_io.save``
-    file holds the port's state dict, a plain pickle (``.pdiparams``) the
-    reference's layout."""
+    file holds the port's state dict and loads through
+    ``layer.set_state_dict``, as the reference's Predictor loads it (the
+    entries that match are written in place; the missing / unexpected
+    lists it returns are dropped there too); a plain pickle
+    (``.pdiparams``) holds the reference's layout."""
     raw = framework_io.load_raw(params_file)
     bf16 = ()
     base = os.path.splitext(params_file)[0]
@@ -153,7 +156,7 @@ def _load_params(layer, params_file):
             bf16 = pickle.load(f).get("bf16_keys", ())
     state = framework_io.restore(raw, bf16_keys=bf16)
     if framework_io.holds_payloads(raw):
-        layer.load_state_dict(state)
+        layer.set_state_dict(state)
     else:
         convert.load_reference_state_dict(layer, state)
 

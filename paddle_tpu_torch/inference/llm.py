@@ -137,7 +137,7 @@ class SpeculativePredictor:
     def _greedy_next(model, ids_np, last_only=False):
         """argmax of the logits: [B, S] ints, or [B] at the last position
         only (a draft step needs no more on the host)."""
-        dev = next(model.parameters()).device
+        dev = next(iter(model.parameters())).device
         out = model(torch.as_tensor(np.asarray(ids_np), dtype=torch.long,
                                     device=dev))
         logits = out[0] if isinstance(out, tuple) else out

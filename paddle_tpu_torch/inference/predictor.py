@@ -240,7 +240,7 @@ class ContinuousBatchingPredictor:
         if kv_dtype is None:
             # pages in the weights' dtype (a 16-bit model does not pay
             # f32 page bandwidth), as the reference
-            kv_dtype = next(model.parameters()).dtype
+            kv_dtype = next(iter(model.parameters())).dtype
         self.kv_dtype = kv_dtype_name(kv_dtype)
         with _graphs.device_gate.shared():   # a replica built mid-serve
             self.pool = PagedKVPool(cfg.num_hidden_layers, num_pages + 1,

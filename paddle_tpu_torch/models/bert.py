@@ -19,6 +19,7 @@ from torch import nn
 from ..framework import resolve_device
 from ..nn import functional as PF
 from ..nn.initializer import Normal
+from ..nn.layer_base import Layer
 from ..nn.layers_common import Dropout, Embedding, LayerNorm, Linear
 from ..nn.transformer import TransformerEncoder, TransformerEncoderLayer
 
@@ -69,7 +70,7 @@ def init_encoder_weights(model: nn.Module, std: float,
     return model
 
 
-class BertEmbeddings(nn.Module):
+class BertEmbeddings(Layer):
     def __init__(self, config: BertConfig, device=None):
         super().__init__()
         init = Normal(0.0, config.initializer_range)
@@ -95,7 +96,7 @@ class BertEmbeddings(nn.Module):
         return self.dropout(self.layer_norm(emb))
 
 
-class BertPooler(nn.Module):
+class BertPooler(Layer):
     def __init__(self, config: BertConfig, device=None):
         super().__init__()
         self.dense = Linear(config.hidden_size, config.hidden_size,
@@ -105,7 +106,7 @@ class BertPooler(nn.Module):
         return PF.tanh(self.dense(hidden_states[:, 0]))
 
 
-class BertModel(nn.Module):
+class BertModel(Layer):
     def __init__(self, config: BertConfig, device=None):
         super().__init__()
         self.config = config
@@ -129,7 +130,7 @@ class BertModel(nn.Module):
         return h, self.pooler(h)
 
 
-class BertForSequenceClassification(nn.Module):
+class BertForSequenceClassification(Layer):
     """BERT with a dropout and a linear classifier over the pooled first
     token. ``device`` defaults to CUDA (raising when none is present);
     ``device="cpu"`` builds the plain-path model the CPU tests use."""

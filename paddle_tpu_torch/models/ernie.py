@@ -15,11 +15,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
-from torch import nn
 
 from ..framework import resolve_device
 from ..nn import functional as PF
 from ..nn.initializer import Normal
+from ..nn.layer_base import Layer
 from ..nn.layers_common import Dropout, Embedding, LayerNorm, Linear
 from ..nn.transformer import TransformerEncoder, TransformerEncoderLayer
 from .bert import init_encoder_weights
@@ -49,7 +49,7 @@ class ErnieConfig:
         return ErnieConfig(**base)
 
 
-class ErnieEmbeddings(nn.Module):
+class ErnieEmbeddings(Layer):
     def __init__(self, config: ErnieConfig, device=None):
         super().__init__()
         init = Normal(0.0, config.initializer_range)
@@ -85,7 +85,7 @@ class ErnieEmbeddings(nn.Module):
         return self.dropout(self.layer_norm(emb))
 
 
-class ErnieModel(nn.Module):
+class ErnieModel(Layer):
     def __init__(self, config: ErnieConfig, device=None):
         super().__init__()
         self.config = config
@@ -111,7 +111,7 @@ class ErnieModel(nn.Module):
         return h, PF.tanh(self.pooler(h[:, 0]))
 
 
-class ErnieForSequenceClassification(nn.Module):
+class ErnieForSequenceClassification(Layer):
     """ERNIE with a dropout and a ``num_classes``-way linear classifier.
     ``device`` as for ``BertForSequenceClassification``."""
 

@@ -21,7 +21,6 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch import nn
 
 from ..amp import cast_inputs
 from ..framework import resolve_device
@@ -30,6 +29,7 @@ from ..generation.kv_cache import (StaticCacheEntry, StaticKVCache,
                                    static_cache_update)
 from ..nn import functional as PF
 from ..nn.initializer import Normal
+from ..nn.layer_base import Layer
 from ..nn.layers_common import Dropout, Embedding, LayerList, LayerNorm, Linear
 from ._hf_import import hf_tensor_to_numpy, validate_keys
 from .llama import _DTYPES
@@ -73,7 +73,7 @@ class GPTConfig:
         return _DTYPES[self.dtype]
 
 
-class GPTBlock(nn.Module):
+class GPTBlock(Layer):
     def __init__(self, config: GPTConfig, device=None):
         super().__init__()
         h, heads = config.hidden_size, config.num_attention_heads
@@ -117,7 +117,7 @@ class GPTBlock(nn.Module):
         return x + self.drop(y), new_cache
 
 
-class GPTModel(nn.Module):
+class GPTModel(Layer):
     def __init__(self, config: GPTConfig, device=None):
         super().__init__()
         self.config = config
@@ -158,7 +158,7 @@ class GPTModel(nn.Module):
         return x
 
 
-class GPTForCausalLM(nn.Module, GenerationMixin):
+class GPTForCausalLM(Layer, GenerationMixin):
     """GPT with its LM head tied to ``wte``. ``device`` defaults to CUDA
     (raising when none is present); ``device="cpu"`` builds the
     plain-path model the CPU tests use. ``generate()`` takes the

@@ -6,8 +6,11 @@ Parameter names equal the reference state dict's (for example
 load_reference_state_dict`` moves weights across by name. On one device
 the reference's tensor-parallel Column/Row/VocabParallel layers compute
 plain linear maps and embeddings, so both ``tensor_parallel`` settings
-build ``nn.Linear``/``nn.Embedding`` here; ``nn.Linear`` stores its
-weight as [out, in] where Paddle stores [in, out].
+build ``nn.Linear``/``nn.Embedding`` here, as ``Layer``s (torch's draws at
+construction, ``init_weights`` the reference's N(0, initializer_range));
+``nn.Linear`` stores its weight as [out, in] where Paddle stores [in,
+out]. Every class is an ``nn.Layer``, so the reference's
+``set_state_dict`` / ``sublayers`` / hooks run on it.
 
 The four attention branches of the reference are kept: the paged
 decode cache (write, then paged attention), the static cache of
@@ -34,7 +37,8 @@ from ..incubate.nn.functional import swiglu
 from ..kernels.norm import fused_rms_norm
 from ..kernels.rope import apply_rotary_emb, rope_freqs
 from ..nn import functional as PF
-from ..nn.layers_common import AmpLinear
+from ..nn.layer_base import Layer
+from ..nn.layers_common import AmpLinear, Embedding, LayerList
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -74,7 +78,7 @@ class LlamaConfig:
         return _DTYPES[self.dtype]
 
 
-class LlamaRMSNorm(nn.Module):
+class LlamaRMSNorm(Layer):
     def __init__(self, config: LlamaConfig, device=None):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(
@@ -91,7 +95,7 @@ def _linear(n_in, n_out, config, device):
                      dtype=config.torch_dtype)
 
 
-class LlamaAttention(nn.Module):
+class LlamaAttention(Layer):
     def __init__(self, config: LlamaConfig, device=None):
         super().__init__()
         self.config = config
@@ -145,7 +149,7 @@ class LlamaAttention(nn.Module):
         return self.o_proj(out), new_cache
 
 
-class LlamaMLP(nn.Module):
+class LlamaMLP(Layer):
     def __init__(self, config: LlamaConfig, device=None):
         super().__init__()
         h, i = config.hidden_size, config.intermediate_size
@@ -157,7 +161,7 @@ class LlamaMLP(nn.Module):
         return self.down_proj(swiglu(self.gate_proj(x), self.up_proj(x)))
 
 
-class LlamaDecoderLayer(nn.Module):
+class LlamaDecoderLayer(Layer):
     def __init__(self, config: LlamaConfig, device=None):
         super().__init__()
         self.self_attn = LlamaAttention(config, device)
@@ -177,14 +181,14 @@ class LlamaDecoderLayer(nn.Module):
         return residual + h2, cache
 
 
-class LlamaModel(nn.Module):
+class LlamaModel(Layer):
     def __init__(self, config: LlamaConfig, device=None):
         super().__init__()
         self.config = config
-        self.embed_tokens = nn.Embedding(config.vocab_size,
-                                         config.hidden_size, device=device,
-                                         dtype=config.torch_dtype)
-        self.layers = nn.ModuleList(
+        self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
+                                      device=device,
+                                      dtype=config.torch_dtype)
+        self.layers = LayerList(
             [LlamaDecoderLayer(config, device)
              for _ in range(config.num_hidden_layers)])
         self.norm = LlamaRMSNorm(config, device)
@@ -193,8 +197,8 @@ class LlamaModel(nn.Module):
                               config.rope_theta, device=device)
         # recomputed, never loaded: the reference keeps them out of its
         # state dict too
-        self.register_buffer("rope_cos", cos, persistent=False)
-        self.register_buffer("rope_sin", sin, persistent=False)
+        self.register_buffer("rope_cos", cos, persistable=False)
+        self.register_buffer("rope_sin", sin, persistable=False)
 
     def forward(self, input_ids, attn_mask=None, position_ids=None,
                 past_key_values=None, use_cache=False):
@@ -227,7 +231,7 @@ class LlamaModel(nn.Module):
         return h
 
 
-class LlamaForCausalLM(nn.Module, GenerationMixin):
+class LlamaForCausalLM(Layer, GenerationMixin):
     """Llama with its LM head. ``device`` defaults to CUDA (raising when
     none is present); ``device="cpu"`` builds the plain-path model the
     CPU tests use. ``generate()`` takes the static-cache route of
@@ -274,7 +278,7 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
         return logits
 
 
-class LlamaPretrainingCriterion(nn.Module):
+class LlamaPretrainingCriterion(Layer):
     """Shifted-label causal LM loss: logits [B, S, V] at position t are
     scored against labels[:, t + 1] by ``cross_entropy`` (mean over the
     labels that are not ``ignore_index``)."""

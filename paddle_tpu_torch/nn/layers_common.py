@@ -1,4 +1,4 @@
-"""Layers of ``paddle_tpu/nn/layers_common.py`` as ``torch.nn.Module``s:
+"""Layers of ``paddle_tpu/nn/layers_common.py`` over ``nn.Layer``:
 ``Linear``, ``LayerNorm``, ``Embedding``, ``Dropout`` and ``LayerList``
 (what the BERT/ERNIE path uses).
 
@@ -11,7 +11,10 @@ reference's (``weight``, ``bias``), so ``convert.load_reference_state_dict``
 moves weights across by name. ``Linear`` is a ``torch.nn.Linear``
 (through ``AmpLinear``, whose forward casts its inputs as ``amp`` says
 for "linear"): it stores its weight as [out, in] where Paddle stores
-[in, out], and ``convert`` transposes it. Default initialisation follows
+[in, out], and ``convert`` transposes it. ``Embedding`` is a
+``torch.nn.Embedding`` too and ``LayerList`` a ``torch.nn.ModuleList``,
+so code that finds layers by torch class (``init_weights``, ``convert``,
+the weight-only quantizer) finds these. Default initialisation follows
 the reference: Xavier-uniform linear weights and zero biases, N(0, 1)
 embeddings (zero at ``padding_idx``), LayerNorm weight one and bias
 zero, drawn from torch's default generators (see
@@ -28,12 +31,13 @@ from torch import nn
 from ..amp import cast_inputs
 from . import functional as PF
 from .initializer import Constant, Normal, XavierUniform, create_parameter
+from .layer_base import Layer
 
 
-class AmpLinear(nn.Linear):
-    """``torch.nn.Linear`` (same parameters, same state dict) whose
-    input, weight and bias are cast as ``amp`` says for the reference's
-    "linear" op."""
+class AmpLinear(nn.Linear, Layer):
+    """``torch.nn.Linear`` (same parameters, same state dict, torch's
+    draw) as a ``Layer``, whose input, weight and bias are cast as ``amp``
+    says for the reference's "linear" op."""
 
     def forward(self, x):
         return F.linear(*cast_inputs("linear", x, self.weight, self.bias))
@@ -44,7 +48,7 @@ class Linear(AmpLinear):
 
     def __init__(self, in_features, out_features, weight_attr=None,
                  bias_attr=None, name=None, *, device=None, dtype=None):
-        nn.Module.__init__(self)
+        Layer.__init__(self)
         self.in_features, self.out_features = in_features, out_features
         kw = dict(dtype=dtype, device=device)
         self.register_parameter("weight", create_parameter(
@@ -54,7 +58,7 @@ class Linear(AmpLinear):
             [out_features], bias_attr, is_bias=True, **kw))
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     """LayerNorm over the trailing ``normalized_shape`` axes through
     ``nn.functional.layer_norm`` (the LayerNorm kernel); ``weight_attr``
     / ``bias_attr`` ``False`` leave out the scale / shift."""
@@ -82,7 +86,7 @@ class LayerNorm(nn.Module):
                 f"epsilon={self._epsilon}")
 
 
-class Embedding(nn.Module):
+class Embedding(nn.Embedding, Layer):
     """Lookup table [num_embeddings, embedding_dim], drawn N(0, 1) unless
     ``weight_attr`` says otherwise (the models pass ``Normal(0, std)``),
     zero at ``padding_idx``. ``sparse`` is taken and, as in the
@@ -91,7 +95,13 @@ class Embedding(nn.Module):
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
                  sparse=False, weight_attr=None, name=None, *, device=None,
                  dtype=None):
-        super().__init__()
+        Layer.__init__(self)
+        # torch.nn.Embedding's attributes (its forward is not used)
+        self.num_embeddings, self.embedding_dim = num_embeddings, \
+            embedding_dim
+        self.padding_idx = padding_idx
+        self.max_norm, self.norm_type = None, 2.0
+        self.scale_grad_by_freq, self.sparse = False, sparse
         self._padding_idx = padding_idx
         self._sparse = sparse
         self.weight = create_parameter(
@@ -108,7 +118,7 @@ class Embedding(nn.Module):
         return f"{self.weight.shape[0]}, {self.weight.shape[1]}"
 
 
-class Dropout(nn.Module):
+class Dropout(Layer):
     def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None):
         super().__init__()
         self.p = p
@@ -120,9 +130,10 @@ class Dropout(nn.Module):
                           mode=self.mode)
 
 
-class LayerList(nn.ModuleList):
+class LayerList(nn.ModuleList, Layer):
     """The reference's ``LayerList``: ``sublayers`` registered as "0",
-    "1", ... (so ``layers.3.linear1.weight`` names match)."""
+    "1", ... (so ``layers.3.linear1.weight`` names match); ``len``,
+    indexing, iteration and ``append`` are ``torch.nn.ModuleList``'s."""
 
     def __init__(self, sublayers=None):
         super().__init__(sublayers)

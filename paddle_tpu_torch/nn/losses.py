@@ -1,12 +1,11 @@
 """Loss layers (counterpart of ``paddle_tpu/nn/losses.py``)."""
 from __future__ import annotations
 
-from torch import nn
-
 from . import functional as PF
+from .layer_base import Layer
 
 
-class CrossEntropyLoss(nn.Module):
+class CrossEntropyLoss(Layer):
     """``nn.functional.cross_entropy`` as a layer: hard integer labels
     over the last axis (soft labels, class weights and label smoothing
     raise, as there)."""

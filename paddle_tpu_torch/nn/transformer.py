@@ -15,13 +15,12 @@ from __future__ import annotations
 
 import copy
 
-from torch import nn
-
 from . import functional as PF
+from .layer_base import Layer
 from .layers_common import Dropout, LayerList, LayerNorm, Linear
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Layer):
     def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None,
                  vdim=None, need_weights=False, weight_attr=None,
                  bias_attr=None, *, device=None, dtype=None):
@@ -64,7 +63,7 @@ class MultiHeadAttention(nn.Module):
         return (out, None) if self.need_weights else out
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(Layer):
     """Post-norm by default; ``normalize_before`` puts each LayerNorm in
     front of its sublayer. ``attn_dropout`` and ``act_dropout`` default
     to ``dropout``."""
@@ -110,7 +109,7 @@ class TransformerEncoderLayer(nn.Module):
         return src
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(Layer):
     """``num_layers`` deep copies of ``encoder_layer`` (the first is the
     layer itself), as in the reference: every layer starts from the same
     weights until they are loaded or drawn anew."""

@@ -264,7 +264,9 @@ def test_port_imports_no_jax():
             "paddle_tpu_torch.examples.llm_serve, "
             "paddle_tpu_torch.framework.graphs, "
             "paddle_tpu_torch.observability, "
-            "paddle_tpu_torch.utils.tbwriter; "
+            "paddle_tpu_torch.utils.tbwriter, paddle_tpu_torch.tensor, "
+            "paddle_tpu_torch.framework.dtype, "
+            "paddle_tpu_torch.framework.place, paddle_tpu_torch.autograd; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'paddle_tpu' or m.startswith('paddle_tpu.')"
             " for m in sys.modules), 'paddle_tpu imported'")

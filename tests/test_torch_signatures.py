@@ -66,13 +66,51 @@ CALLABLES = [
         "XavierUniform", "KaimingNormal", "KaimingUniform", "Assign", "Dirac",
         "Orthogonal", "Bilinear", "ParamAttr", "calculate_gain",
         "set_global_initializer", "constant", "normal", "uniform")],
+    ("nn.layer_base", "Layer", ()),
+    # Layer's methods ("train" takes torch's positional ``mode``, which
+    # torch's own containers pass: test_torch_layer.py pins it)
+    *[("nn.layer_base", f"Layer.{n}", ()) for n in (
+        "full_name", "add_parameter", "add_sublayer", "register_buffer",
+        "create_parameter", "parameters", "named_buffers", "buffers",
+        "named_sublayers", "sublayers", "children", "named_children",
+        "apply", "eval", "register_forward_pre_hook",
+        "register_forward_post_hook", "state_dict", "set_state_dict",
+        "load_dict", "to", "astype", "float", "bfloat16", "float16",
+        "clear_gradients")],
+    ("nn.layer_base", "Layer.named_parameters", ("_seen",)),
+    # the new top-level callables ("": the package itself)
+    *[("framework.dtype", n, ()) for n in (
+        "set_default_dtype", "get_default_dtype", "finfo", "iinfo")],
+    *[("framework.place", n, ()) for n in (
+        "set_device", "get_device", "CPUPlace", "CUDAPlace")],
+    *[("framework.random", n, ()) for n in (
+        "seed", "get_rng_state", "set_rng_state")],
+    *[("framework_io", n, ()) for n in ("save", "load")],
+    ("tensor", "to_tensor", ()),
+    *[("autograd", n, ()) for n in (
+        "no_grad", "enable_grad", "is_grad_enabled", "set_grad_enabled")],
+    *[("", n, ()) for n in (
+        "create_parameter", "in_dynamic_mode", "device_count", "seed",
+        "to_tensor", "save", "load", "set_device", "get_device",
+        "no_grad")],
 ]
-PORT_ONLY = {"device", "dtype"}
+# torch's own keywords, which torch passes to a Layer's methods itself
+# (``named_parameters(remove_duplicate=)``, ``state_dict(prefix=,
+# keep_vars=)``, ...), are keyword-only extras too
+PORT_ONLY = {"device", "dtype", "recurse", "remove_duplicate", "prefix",
+             "keep_vars", "persistent"}
 
 
 def _both(mod, name):
-    return tuple(getattr(importlib.import_module(f"{pkg}.{mod}"), name)
-                 for pkg in ("paddle_tpu", "paddle_tpu_torch"))
+    """The callable ``name`` (dotted: a class's method) of ``mod`` (empty:
+    the package) in the reference and in the port."""
+    out = []
+    for pkg in ("paddle_tpu", "paddle_tpu_torch"):
+        obj = importlib.import_module(f"{pkg}.{mod}" if mod else pkg)
+        for part in name.split("."):
+            obj = getattr(obj, part)
+        out.append(obj)
+    return tuple(out)
 
 
 @pytest.mark.parametrize("mod,name,tail", CALLABLES,
