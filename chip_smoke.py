@@ -28,7 +28,8 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    kernel's median device time, its bound (bytes over 3.35 TB/s or
    operations over the card's peak for their type), the plain version's
    time and the one-call PyTorch equivalent's time where one exists, and
-   the flash kernels' times with and without dropout at the BERT shape.
+   the flash kernels' times with and without dropout at the BERT shape
+   (the seeds in a device slot, as the entry passes them).
    Also times the forward at the training shape q[2, 2048, 32, 128] bf16
    causal (with lse, beside causal SDPA and its operations bound), paged
    decode at contexts up to pps * page = 1024 (beside ragged decode on
@@ -321,8 +322,21 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    need 108 GB), through ``Trainer`` for 6 steps at batch 2 x 2048 on one
    fixed batch: every loss finite, the last below the first, and each
    kernel launched its per-layer count every step (``fused_update`` and
-   ``grad_sq_norm`` once a step, through ``TrainStep``). Prints step time,
-   tokens/s, MFU and peak memory, and profiles one step. Then checkpoint
+   ``grad_sq_norm`` once a step, through ``TrainStep``, whose first call
+   runs eagerly and captures one CUDA graph: the other 5 replay it, one
+   capture and each replay launching the per-step count). Prints step
+   time, tokens/s, MFU from 6 N tokens and from ``cost_analysis``'s
+   FLOPs, peak memory beside ``memory_analysis``'s argument + temp, and
+   profiles one step. The compiled step (``train_graph_phase``, after the
+   resume phase): the same 6 steps of a fresh model of the same seed run
+   op by op (``TrainStep._eager``) give the replayed run's losses and,
+   bitwise, its weights, gradients, master weights and moments; then
+   BERT-base f32 (every dropout 0.1, the fine-tune example's AdamW and
+   schedule, 16 x 128, row lengths 32-128) for 10 steps through graphs
+   and 10 op by op from one seed: bitwise the same losses and state,
+   every replay launching the fine-tune's per-step count; each side's
+   step median and profiled idle share, MFU from ``cost_analysis``
+   beside 6 N tokens, ``memory_analysis`` beside the peak. Then checkpoint
    and resume on a 2-layer hidden-1024 bf16 model: a fresh Trainer
    resumed from the step-4 checkpoint reaches the uninterrupted run's
    step-5 and step-6 losses and, bitwise, its step-6 weights and
@@ -2027,7 +2041,10 @@ def dropout_phase(torch, dev, g):
         return q, k, v, do, lse, A.bwd_delta(out, do)
     sets = [inputs() for _ in range(4)]
     times = {}
-    for label, kw in (("p=0", {}), (f"p={p}", drop)):
+    # the seeds in one device slot, as the entry hands them over (two
+    # words by value would add the slot's two fills to each call)
+    timed = dict(dropout_p=p, seeds=A.seed_slot(p, seeds, dev))
+    for label, kw in (("p=0", {}), (f"p={p}", timed)):
         times[label] = {
             "flash_fwd": time_ms(torch, lambda q_, k_, v_, *_:
                                  A.flash_attention_kernel(
@@ -5633,46 +5650,69 @@ def train_f32_phase(torch, dev, seed):
               f"its largest value (limit {F32_TRAIN_TOL[k]})")
 
 
-def _fixed_batch_iter(torch, batch, stamps):
+def _fixed_batch_iter(torch, batch, stamps, counts=None):
     """data_iter_fn for one fixed batch; stamps each step's start (after
-    a synchronize) so step times can be read back."""
+    a synchronize) so step times can be read back, and with ``counts``
+    keeps the launch counters there too."""
+    from paddle_tpu_torch.kernels import launch_counts
+
     def data_iter_fn(start_step):
         def gen():
             while True:
                 torch.cuda.synchronize()
                 stamps.append(time.perf_counter())
+                if counts is not None:
+                    counts.append(dict(launch_counts))
                 yield batch, batch
         return gen()
     return data_iter_fn
 
 
-def train_phase(torch, dev, seed, card, layers, out_dir):
-    """bf16 pretraining at Llama-2-7B widths (``layers`` of 32) through
-    ``Trainer``: 6 steps at batch 2 x 2048 on one fixed batch, AdamW (lr
-    3e-4 through CosineAnnealingDecay, wd 0.1, f32 master weights). Every
-    loss finite, the last below the first, each kernel launched its
-    per-layer count every step. Returns the run's launch counts."""
-    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+def _llama_train_setup(torch, dev, seed, layers):
+    """(model, optimizer, criterion, batch, parameters) of the training
+    run: Llama-2-7B widths, ``layers`` of 32, bf16, weights from ``seed``,
+    AdamW (lr 3e-4 through CosineAnnealingDecay, wd 0.1, global-norm
+    clip), one fixed 2 x 2048 batch."""
     from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                          LlamaPretrainingCriterion)
     from paddle_tpu_torch.optimizer.lr import CosineAnnealingDecay
-    from paddle_tpu_torch.trainer import Trainer, TrainingArguments
-    steps, b, s = 6, 2, 2048
     cfg = LlamaConfig.llama2_7b(num_hidden_layers=layers, dtype="bfloat16")
-    t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device=dev).init_weights(
         torch.Generator(device=dev).manual_seed(seed))
-    n_params = sum(p.numel() for p in model.parameters())
-    crit = LlamaPretrainingCriterion(cfg)
-    opt = _adamw(model, CosineAnnealingDecay(3e-4, T_max=steps))
-    ids = torch.randint(0, cfg.vocab_size, (b, s),
+    opt = _adamw(model, CosineAnnealingDecay(3e-4, T_max=TRAIN_STEPS))
+    ids = torch.randint(0, cfg.vocab_size, (2, 2048),
                         generator=torch.Generator().manual_seed(seed + 4))
-    stamps = []
+    n_params = sum(p.numel() for p in model.parameters())
+    return model, opt, LlamaPretrainingCriterion(cfg), ids, n_params
+
+
+TRAIN_STEPS = 6
+
+
+def train_phase(torch, dev, seed, card, layers, out_dir):
+    """bf16 pretraining at Llama-2-7B widths (``layers`` of 32) through
+    ``Trainer``: 6 steps at batch 2 x 2048 on one fixed batch, AdamW (lr
+    3e-4 through CosineAnnealingDecay, wd 0.1, f32 master weights). The
+    step is the compiled ``TrainStep``: the first call eager and
+    captured, the other 5 replays of its CUDA graph. Every loss finite,
+    the last below the first, each kernel launched its per-layer count
+    in every step (replays counted from the capture). Prints the step
+    median, MFU from 6 N tokens and from ``cost_analysis``'s FLOPs, and
+    ``memory_analysis`` beside the allocator's peak. Returns the run's
+    launch counts, losses, step median, idle share and the digest of the
+    weights, master weights and moments after the 6 steps."""
+    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.trainer import Trainer, TrainingArguments
+    steps, b, s = TRAIN_STEPS, 2, 2048
+    t0 = time.perf_counter()
+    model, opt, crit, ids, n_params = _llama_train_setup(torch, dev, seed,
+                                                         layers)
+    stamps, snaps = [], []
     trainer = Trainer(
         model, opt, lambda lg, lb: crit(lg, lb),
         TrainingArguments(output_dir=out_dir, max_steps=steps,
                           logging_steps=1, save_steps=steps + 1, bf16=True),
-        _fixed_batch_iter(torch, ids, stamps), tokens_per_batch=b * s)
+        _fixed_batch_iter(torch, ids, stamps, snaps), tokens_per_batch=b * s)
     torch.cuda.synchronize()
     log(f"train: Llama-2-7B widths, {layers} of 32 layers, bf16, "
         f"{n_params / 1e9:.3f} B parameters, random weights (seed {seed}) "
@@ -5683,30 +5723,216 @@ def train_phase(torch, dev, seed, card, layers, out_dir):
     torch.cuda.synchronize()
     stamps.append(time.perf_counter())
     counts = dict(launch_counts)
+    snaps.append(counts)
     peak = torch.cuda.max_memory_allocated(dev)
+    step = trainer._step_obj
+    digest = state_digest(torch, step_tensors(model, step))
     losses = [r["loss"] for r in res["logs"]]
     step_s = [b_ - a for a, b_ in zip(stamps, stamps[1:])]
     med = statistics.median(step_s[1:])
     tok_s = b * s / med
     log(f"train: losses {losses}; step times (s) "
-        f"{[round(t, 4) for t in step_s]}; launches {counts}")
-    log(f"train on {card}: step median (steps 2-{steps}) {med * 1e3:.1f} ms, "
-        f"{tok_s:.1f} tokens/s, MFU {6 * n_params * tok_s / 989e12:.4f} "
-        f"(6 N tokens/s over 989e12); SpeedMeter {res['tokens_per_sec']:.1f} "
-        f"tokens/s, MFU {res['mfu']:.4f}; peak memory {peak / 2**30:.2f} GiB")
+        f"{[round(t, 4) for t in step_s]}; launches {counts}; graphs "
+        f"{step.graph_stats}")
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     check(len(losses) == steps and losses[-1] < losses[0],
           f"the loss does not descend: {losses}")
     want = {k: n * steps for k, n in train_kernels_per_step(layers).items()}
     check(all(counts[k] == n for k, n in want.items()),
           f"launches {counts} are not {want} ({steps} steps)")
-    train_profile(torch, lambda: trainer._step_obj(ids, ids), card)
-    return counts
+    check_replays(step, snaps, train_kernels_per_step(layers), "train")
+    t0 = time.perf_counter()
+    flops = step.cost_analysis(ids, ids)["flops"]
+    mem = step.memory_analysis(ids, ids)
+    log(f"train on {card}: step median (steps 2-{steps}, replays) "
+        f"{med * 1e3:.1f} ms, {tok_s:.1f} tokens/s, MFU "
+        f"{6 * n_params * tok_s / 989e12:.4f} (6 N tokens/s over 989e12), "
+        f"{flops / med / 989e12:.4f} (cost_analysis {flops:.4e} FLOPs a "
+        f"step, 6 N tokens {6 * n_params * b * s:.4e}); SpeedMeter "
+        f"{res['tokens_per_sec']:.1f} tokens/s, MFU {res['mfu']:.4f}; peak "
+        f"memory {peak / 2**30:.2f} GiB, memory_analysis argument "
+        f"{mem.argument_size_in_bytes / 2**30:.2f} + temp "
+        f"{mem.temp_size_in_bytes / 2**30:.2f} GiB (analyses "
+        f"{time.perf_counter() - t0:.1f} s)")
+    busy, wall = train_profile(torch, lambda: step(ids, ids), card)
+    return {"counts": counts, "losses": losses, "median_ms": med * 1e3,
+            "idle": 1 - busy / wall, "digest": digest, "flops": flops}
+
+
+def train_graph_phase(torch, dev, seed, card, layers, captured):
+    """The compiled train step against the step run op by op (its eager
+    warm-up path, ``TrainStep._eager``) from the same seed: (a) the Llama
+    training run's 6 ``Trainer`` steps (``captured``, from
+    ``train_phase``) against 6 eager steps of a fresh model: every loss
+    and, bitwise, the weights, gradients, master weights and moments
+    after them; (b) BERT-base f32 at 16 x 128 with every dropout 0.1 (the
+    fine-tune example's model, AdamW and schedule, row lengths 32-128
+    through ``attention_mask``): 10 steps through graphs and 10 eager,
+    bitwise the same, every replay launching ``finetune_kernels_per_
+    step``. Prints each side's step median and profiled idle share,
+    MFU from ``cost_analysis``'s FLOPs beside 6 N tokens, and
+    ``memory_analysis``'s argument + temp beside the allocator's
+    peak."""
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.jit import TrainStep
+    t0 = time.perf_counter()
+    prandom.seed(seed)
+    model, opt, crit, ids, n_params = _llama_train_setup(torch, dev, seed,
+                                                         layers)
+    step = TrainStep(model, opt, lambda lg, lb: crit(lg, lb))
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(float(step._eager(ids, ids)))
+        times.append(time.perf_counter() - t1)
+    digest = state_digest(torch, step_tensors(model, step))
+    med = statistics.median(times[1:]) * 1e3
+    busy, wall = train_profile(torch, lambda: step._eager(ids, ids), card,
+                               "train eager")
+    log(f"train graphs vs eager on {card}: step median "
+        f"{captured['median_ms']:.1f} | {med:.1f} ms, idle share "
+        f"{captured['idle']:.3f} | "
+        f"{1 - busy / wall:.3f} (profiled step); losses "
+        f"{captured['losses']} | {losses}")
+    # the Trainer logs each loss rounded to 6 places
+    check(captured["losses"] == [round(x, 6) for x in losses],
+          "train: replayed losses differ from the eager step's")
+    check(torch.equal(captured["digest"], digest),
+          "train: weights, gradients or optimizer state after the replayed "
+          "steps differ from the eager steps' (bitwise)")
+    del model, opt, step
+    free_card(torch)
+    sides = {kind: bert_graph_run(torch, dev, seed, card, kind)
+             for kind in ("graphs", "eager")}
+    g, e = sides["graphs"], sides["eager"]
+    log(f"fine-tune BERT-base graphs vs eager on {card}: step median "
+        f"{g['median_ms']:.2f} | {e['median_ms']:.2f} ms, idle share "
+        f"{g['idle']:.3f} | {e['idle']:.3f} (profiled step); losses "
+        f"{g['losses']} | {e['losses']}")
+    check(g["losses"] == e["losses"],
+          "BERT: replayed losses differ from the eager step's")
+    check(torch.equal(g["digest"], e["digest"]),
+          "BERT: the state after the replayed steps differs from the eager "
+          "steps' (bitwise)")
+    log(f"train graph phase took {time.perf_counter() - t0:.1f} s")
+
+
+BERT_GRAPH_STEPS = 10
+
+
+def bert_graph_run(torch, dev, seed, card, kind):
+    """BERT-base f32 (every dropout 0.1) through a ``TrainStep`` of the
+    fine-tune example's AdamW and schedule, ``BERT_GRAPH_STEPS`` steps of
+    16 x 128 (row lengths 32-128) from ``seed``: replayed (``kind``
+    "graphs") or op by op ("eager"). Returns losses, step median, idle
+    share of one more profiled step and the digest after the steps."""
+    import numpy as np
+    from paddle_tpu_torch.examples import bert_finetune as ex
+    from paddle_tpu_torch.framework import random as prandom
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    class Masked(torch.nn.Module):
+        """model(ids, attention_mask=mask) with two positional inputs."""
+
+        def __init__(self, inner):
+            super().__init__()
+            self.inner = inner
+
+        def forward(self, ids, mask):
+            return self.inner(ids, attention_mask=mask)
+    prandom.seed(seed)
+    bert, cfg = ex.build_model("bert", False, dev)
+    model = Masked(bert)
+    opt = ex.build_optimizer(model, 3e-5, BERT_GRAPH_STEPS + 1)
+    crit = CrossEntropyLoss()
+    step = TrainStep(model, opt, lambda lg, lb: crit(lg, lb),
+                     n_model_inputs=2)
+    call = step if kind == "graphs" else step._eager
+    batches = [ex.to_device(b_, dev) for b_ in ex.synthetic_batches(
+        np.random.RandomState(seed), cfg.vocab_size, 16, 128, ex.NUM_CLASSES,
+        BERT_GRAPH_STEPS + 1, 32)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    losses, times, snaps = [], [], [dict(launch_counts)]
+    for ids, labels, mask in batches[:BERT_GRAPH_STEPS]:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(float(call(ids, mask, labels)))
+        times.append(time.perf_counter() - t1)
+        opt._learning_rate.step()
+        snaps.append(dict(launch_counts))
+    peak = torch.cuda.max_memory_allocated(dev)
+    digest = state_digest(torch, step_tensors(model, step))
+    med = statistics.median(times[1:])
+    per_step = finetune_kernels_per_step(cfg.num_hidden_layers)
+    if kind == "graphs":
+        check_replays(step, snaps, per_step, "BERT graphs")
+        ids, labels, mask = batches[0]
+        flops = step.cost_analysis(ids, mask, labels)["flops"]
+        mem = step.memory_analysis(ids, mask, labels)
+        n = sum(p.numel() for p in model.parameters())
+        n_emb = sum(m.weight.numel() for m in model.modules()
+                    if isinstance(m, torch.nn.Embedding))
+        tok_s = 16 * 128 / med
+        log(f"fine-tune BERT-base graphs on {card}: MFU "
+            f"{flops / med / F32_PEAK:.4f} (cost_analysis {flops:.4e} FLOPs "
+            f"a step over the f32 peak), "
+            f"{6 * (n - n_emb) * tok_s / F32_PEAK:.4f} (6 N tokens, "
+            f"{6 * (n - n_emb) * 16 * 128:.4e}); peak "
+            f"memory {peak / 2**30:.2f} GiB, memory_analysis argument "
+            f"{mem.argument_size_in_bytes / 2**30:.3f} + temp "
+            f"{mem.temp_size_in_bytes / 2**30:.3f} GiB")
+    ids, labels, mask = batches[-1]
+    busy, wall = train_profile(torch, lambda: call(ids, mask, labels), card,
+                               f"BERT {kind}")
+    return {"losses": losses, "median_ms": med * 1e3,
+            "idle": 1 - busy / wall, "digest": digest}
+
+
+def state_digest(torch, tensors):
+    """Per tensor, two int64 sums of its bits (plain, and weighted by
+    position): equal tensors give equal digests, and a different element
+    changes them (but for a vanishing chance); NaN payloads count."""
+    ints = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.uint8}
+    out = []
+    for t in tensors:
+        t = t.detach().contiguous().reshape(-1)
+        bits = t.view(ints[t.element_size()]).to(torch.int64)
+        w = torch.arange(bits.numel(), device=t.device) % 65521 + 1
+        out.append(torch.stack([bits.sum(), (bits * w).sum()]))
+        del bits, w
+    return torch.stack(out).cpu()
+
+
+def step_tensors(model, step):
+    """The parameters, their gradients and every optimizer-state tensor
+    (master weights, moments, step counters) of a ``TrainStep``."""
+    out = list(model.parameters())
+    out += [p.grad for p in model.parameters() if p.grad is not None]
+    return out + [t for st in step.opt_state for _, t in sorted(st.items())]
+
+
+def check_replays(step, snaps, per_step, label):
+    """Every replayed step (calls 2 on, between consecutive launch-count
+    snapshots) launched ``per_step``, and the step captured once."""
+    deltas = [{k: b[k] - a.get(k, 0) for k in per_step}
+              for a, b in zip(snaps, snaps[1:])]
+    stats = step.graph_stats
+    log(f"{label}: launches per replay {deltas[1:]}; graphs {stats}")
+    check(stats["captures"] == 1 and stats["recaptures"] == 0
+          and stats["replays"] == len(deltas) - 1,
+          f"{label}: graphs {stats} after {len(deltas)} calls")
+    check(all(d == per_step for d in deltas[1:]),
+          f"{label}: a replay launched {deltas[1:]}, not {per_step}")
 
 
 def train_profile(torch, one_step, card, label="train"):
     """One more step (``one_step()``) under the profiler: device busy and
-    idle share and the device time by kernel."""
+    idle share and the device time by kernel. Returns (busy ms, traced
+    wall ms)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -5729,6 +5955,7 @@ def train_profile(torch, one_step, card, label="train"):
     log(f"{label} profile by category: " + ", ".join(
         f"{c} {ms:.1f} ms ({100 * ms / busy:.1f}%)"
         for c, ms in sorted(cats.items(), key=lambda kv: -kv[1])))
+    return busy, wall
 
 
 # device kernels of a training step by kind, matched on the kernel name
@@ -6185,13 +6412,16 @@ def main(argv=None):
     shutil.rmtree(out_dir, ignore_errors=True)
     try:
         t0 = time.perf_counter()
-        counts3 = train_phase(torch, dev, args.seed, card, TRAIN_LAYERS,
-                              os.path.join(out_dir, "run"))
+        train = train_phase(torch, dev, args.seed, card, TRAIN_LAYERS,
+                            os.path.join(out_dir, "run"))
+        counts3 = train["counts"]
         log(f"training phase took {time.perf_counter() - t0:.1f} s")
         free_card(torch)
         resume_phase(torch, dev, args.seed, os.path.join(out_dir, "resume"))
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+    free_card(torch)
+    train_graph_phase(torch, dev, args.seed, card, TRAIN_LAYERS, train)
     free_card(torch)
     t0 = time.perf_counter()
     train16 = train_f16_phase(torch, dev, args.seed, card, TRAIN_LAYERS)

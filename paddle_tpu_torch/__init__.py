@@ -53,9 +53,10 @@ dtypes (``float32``, ``bfloat16``, ... torch's dtypes; ``bool``),
 ``device_count``; ``seed``, ``get_rng_state`` / ``set_rng_state``;
 ``to_tensor`` and ``create_parameter``; ``no_grad``, ``enable_grad``,
 ``is_grad_enabled``, ``set_grad_enabled``; ``save`` / ``load``;
-``ParamAttr``; ``in_dynamic_mode``; and the subpackages ``nn``,
-``optimizer``, ``amp``, ``jit``, ``inference``, ``distributed``,
-``incubate``, ``generation`` and ``observability``. The reference's
+``ParamAttr``; ``in_dynamic_mode``; ``flops`` (``hapi.flops``); and the
+subpackages ``nn``, ``optimizer``, ``amp``, ``jit``, ``inference``,
+``distributed``, ``incubate``, ``generation``, ``observability`` and
+``hapi``. The reference's
 ``Tensor`` methods, ``ops``, ``io``, ``vision`` and the rest are not
 ported yet and have no name here.
 
@@ -87,7 +88,8 @@ from .autograd import (enable_grad, is_grad_enabled, no_grad,  # noqa: E402
 from .framework_io import load, save  # noqa: E402
 from .nn.initializer import ParamAttr  # noqa: E402
 from . import (amp, autograd, distributed, generation,  # noqa: E402
-               incubate, inference, jit, nn, observability, optimizer)
+               hapi, incubate, inference, jit, nn, observability, optimizer)
+from .hapi.flops import flops  # noqa: E402
 
 
 def in_dynamic_mode():
@@ -105,7 +107,8 @@ __all__ = [
     "CPUPlace", "CUDAPlace", "ParamAttr", "amp", "autograd", "bfloat16",
     "bool", "complex128", "complex64", "create_parameter", "device_count",
     "distributed", "enable_grad", "finfo", "float16", "float32", "float64",
-    "float8_e4m3fn", "float8_e5m2", "generation", "get_default_dtype",
+    "float8_e4m3fn", "float8_e5m2", "flops", "generation",
+    "get_default_dtype", "hapi",
     "get_device", "get_rng_state", "iinfo", "in_dynamic_mode", "incubate",
     "inference", "int16", "int32", "int64", "int8", "is_grad_enabled",
     "jit", "load", "nn", "no_grad", "observability", "optimizer",

@@ -13,10 +13,11 @@ Two places run it, as in the reference:
   unscale is one pass over every gradient with one host sync for the
   found-inf flag;
 - ``jit.TrainStep(..., scaler=scaler)``: the step keeps the scale and
-  the counters as device tensors (:func:`scaler_state_in`,
-  :func:`device_unscale`, :func:`device_adapt`), never waits on the host
-  for found-inf, and the scaler reads them back only when asked
-  (``get_loss_scaling``, ``state_dict``: the reference's ``_dev_state``).
+  the counters as device tensors of its own, updated in place
+  (:func:`scaler_state_in`, :func:`device_unscale`, :func:`device_adapt`),
+  never waits on the host for found-inf, and the scaler reads them back
+  only when asked (``get_loss_scaling``, ``state_dict``: the reference's
+  ``_dev_state``).
 
 The unscale is ``(g.float() * (1 / scale)).to(g.dtype)``, in place
 (``device_unscale``).
@@ -150,17 +151,34 @@ AmpScaler = GradScaler
 # The step's side (jit.TrainStep): device tensors, no host sync
 # ---------------------------------------------------------------------------
 
-def scaler_state_in(scaler, device):
-    """The step's (scale f32, good int32, bad int32) on ``device``: the
-    previous step's tensors, or the host fields written by fills (no
-    host-to-device copy, which would wait for the device)."""
-    if scaler._dev_state is not None:
-        return scaler._dev_state
-    return (torch.full((), scaler._scale, dtype=torch.float32, device=device),
-            torch.full((), scaler._good_steps, dtype=torch.int32,
-                       device=device),
-            torch.full((), scaler._bad_steps, dtype=torch.int32,
-                       device=device))
+@torch.no_grad()
+def scaler_state_in(scaler, state):
+    """Make ``state``, a step's own (scale f32, good int32, bad int32)
+    device tensors, the scaler's device state and bring them up to date:
+    from the scaler's previous device state when it is another's, or from
+    its host fields by fills (no host-to-device copy, which would wait for
+    the device). The step reads and updates them in place, so a CUDA graph
+    that captured them stays valid."""
+    cur = scaler._dev_state
+    if cur is state:
+        return state
+    if cur is None:
+        state[0].fill_(scaler._scale)
+        state[1].fill_(scaler._good_steps)
+        state[2].fill_(scaler._bad_steps)
+    else:
+        for t, v in zip(state, cur):
+            t.copy_(v)
+    scaler._dev_state = state
+    return state
+
+
+def new_scaler_state(device):
+    """Uninitialised (scale f32, good int32, bad int32) device tensors for
+    :func:`scaler_state_in`."""
+    return (torch.empty((), dtype=torch.float32, device=device),
+            torch.empty((), dtype=torch.int32, device=device),
+            torch.empty((), dtype=torch.int32, device=device))
 
 
 @torch.no_grad()

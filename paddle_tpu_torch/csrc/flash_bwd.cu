@@ -187,13 +187,24 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   return x;
 }
 
-// the call's dropout: dscale = 1 / (1 - p), 0 when off. The row's first
-// hash, fmix32((b*H + h) ^ seed0) of the query head being processed, is
-// passed beside it as `row_key`
+// the call's dropout: dscale = 1 / (1 - p), 0 when off; its two seeds
+// live in a device int32 slot (`seeds`), read by the kernels (a captured
+// graph takes the words written there before each replay). The row's
+// second hash absorbs seed1, xq = fmix32(fmix32((b*H + h) ^ seed0) ^ q) ^
+// seed1, so an element's hash is fmix32(xq ^ k)
 struct Dropout {
-  uint32_t seed1, thresh;
+  uint32_t thresh;
   float dscale;
 };
+
+// one seed word from the slot, loaded where it is used: a volatile load
+// is never hoisted out of the query-tile loop into a register live across
+// the products
+__device__ __forceinline__ uint32_t load_seed(const int* p) {
+  uint32_t x;
+  asm volatile("ld.global.nc.u32 %0, [%1];" : "=r"(x) : "l"(p));
+  return x;
+}
 
 }  // namespace
 
@@ -360,7 +371,7 @@ __global__ void __launch_bounds__(128 * kDkdvWG, 2 / kDkdvWG)
     const float* __restrict__ mask, const int* __restrict__ kv_lens,
     E* __restrict__ dk, E* __restrict__ dv, int Sq, int Sk, int H,
     int Hkv, long long msb, long long msh, long long msq, long long msk,
-    float scale, int causal, uint32_t seed0, Dropout drop) {
+    float scale, int causal, const int* __restrict__ seeds, Dropout drop) {
   using L = DkdvSmem<E, D>;
   constexpr bool F32 = L::F32, F16 = std::is_same<E, f16>::value;
   // the products' operand type: bf16 hi + lo parts of f32 operands, else E
@@ -575,7 +586,11 @@ __global__ void __launch_bounds__(128 * kDkdvWG, 2 / kDkdvWG)
     }
     wgmma_wait<0>();
     fence_regs(dp);
-    const uint32_t row_key = fmix32((uint32_t)(b * H + h) ^ seed0);
+    uint32_t row_key = 0u, seed1 = 0u;
+    if constexpr (DROP) {
+      row_key = fmix32((uint32_t)(b * H + h) ^ load_seed(seeds));
+      seed1 = load_seed(seeds + 1);
+    }
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -583,7 +598,8 @@ __global__ void __launch_bounds__(128 * kDkdvWG, 2 / kDkdvWG)
         const int c = 8 * j + qc + e;
         const float dl = dl_t[c];
         uint32_t xq = 0u;
-        if constexpr (DROP) xq = fmix32(row_key ^ (uint32_t)(q0 + c));
+        if constexpr (DROP)
+          xq = fmix32(row_key ^ (uint32_t)(q0 + c)) ^ seed1;
 #pragma unroll
         for (int rr = 0; rr < 2; ++rr) {
           const int i = 4 * j + 2 * rr + e;
@@ -592,8 +608,7 @@ __global__ void __launch_bounds__(128 * kDkdvWG, 2 / kDkdvWG)
           if constexpr (DROP) {
             const uint32_t ki = (uint32_t)(kw + kr + 8 * rr);
             const float dm =
-                fmix32(xq ^ ki ^ drop.seed1) >= drop.thresh ? drop.dscale
-                                                            : 0.f;
+                fmix32(xq ^ ki) >= drop.thresh ? drop.dscale : 0.f;
             dp[i] = s[i] != 0.f ? s[i] * (dp[i] * dm - dl) : 0.f;
             s[i] *= dm;
           } else {
@@ -685,7 +700,7 @@ __global__ void __launch_bounds__(128, 2) flash_bwd_dq_wgmma(
     const float* __restrict__ mask, const int* __restrict__ kv_lens,
     E* __restrict__ dq, int Sq, int Sk, int H, int Hkv, long long msb,
     long long msh, long long msq, long long msk, float scale, int causal,
-    uint32_t seed0, Dropout drop) {
+    const int* __restrict__ seeds, Dropout drop) {
   using L = DqSmem<E, D>;
   constexpr bool F32 = L::F32, F16 = std::is_same<E, f16>::value;
   // the products' operand type: bf16 hi + lo parts of f32 operands, else E
@@ -717,15 +732,18 @@ __global__ void __launch_bounds__(128, 2) flash_bwd_dq_wgmma(
   const float* lb = lse + (long long)blockIdx.x * Sq;
   const float* db = delta + (long long)blockIdx.x * Sq;
   float l[2], nl2[2], dl[2];
-  uint32_t xq[2];
-  const uint32_t row_key = fmix32((uint32_t)blockIdx.x ^ seed0);  // b*H + h
+  uint32_t xq[2], row_key = 0u, seed1 = 0u;
+  if constexpr (DROP) {
+    row_key = fmix32((uint32_t)blockIdx.x ^ (uint32_t)seeds[0]);  // b*H + h
+    seed1 = (uint32_t)seeds[1];
+  }
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int qi = q0 + qr + 8 * rr;
     l[rr] = qi < Sq ? lb[qi] : 0.f;
     dl[rr] = qi < Sq ? db[qi] : 0.f;
     nl2[rr] = -l[rr] * kLog2e;
-    xq[rr] = DROP ? fmix32(row_key ^ (uint32_t)qi) : 0u;
+    xq[rr] = DROP ? fmix32(row_key ^ (uint32_t)qi) ^ seed1 : 0u;
   }
 
   // f32: the rows of key tile `it` of K, or with `v`, of V into the
@@ -886,8 +904,8 @@ __global__ void __launch_bounds__(128, 2) flash_bwd_dq_wgmma(
           const int i = 4 * j + 2 * rr + e;
           float dm = 1.f;
           if constexpr (DROP)
-            dm = fmix32(xq[rr] ^ (uint32_t)(k0 + 8 * j + kc + e) ^
-                        drop.seed1) >= drop.thresh
+            dm = fmix32(xq[rr] ^ (uint32_t)(k0 + 8 * j + kc + e)) >=
+                         drop.thresh
                      ? drop.dscale
                      : 0.f;
           dp[i] = s[i] != 0.f ? s[i] * (dp[i] * dm - dl[rr]) : 0.f;
@@ -944,7 +962,7 @@ struct Args {
   long long msb, msh, msq, msk;
   float scale;
   int causal;
-  uint32_t seed0;
+  const int* seeds;
   Dropout drop;
 };
 
@@ -972,7 +990,7 @@ int launch_dkdv_wgmma(const Args& a, void* dk, void* dv, cudaStream_t stream) {
       static_cast<const E*>(a.v), static_cast<const E*>(a.dout),
       a.lse, a.delta, a.mask, a.kv_lens, static_cast<E*>(dk),
       static_cast<E*>(dv), a.Sq, a.Sk, a.H, a.Hkv, a.msb, a.msh, a.msq,
-      a.msk, a.scale, a.causal, a.seed0, a.drop);
+      a.msk, a.scale, a.causal, a.seeds, a.drop);
   return (int)cudaGetLastError();
 }
 
@@ -990,13 +1008,13 @@ int launch_dq_wgmma(const Args& a, void* dq, cudaStream_t stream) {
       static_cast<const E*>(a.v), static_cast<const E*>(a.dout),
       a.lse, a.delta, a.mask, a.kv_lens, static_cast<E*>(dq), a.Sq,
       a.Sk, a.H, a.Hkv, a.msb, a.msh, a.msq, a.msk, a.scale, a.causal,
-      a.seed0, a.drop);
+      a.seeds, a.drop);
   return (int)cudaGetLastError();
 }
 
 bool valid(const Args& a) {
   return a.H > 0 && a.Hkv > 0 && a.H % a.Hkv == 0 && a.B > 0 && a.Sq > 0 &&
-         a.Sk > 0;
+         a.Sk > 0 && !(a.drop.dscale > 0.f && !a.seeds);
 }
 
 }  // namespace
@@ -1005,8 +1023,9 @@ bool valid(const Args& a) {
 // k/v/dk/dv [B, Sk, Hkv, D], lse/delta [B, H, Sq] f32, all contiguous;
 // mask (may be null) is f32 addressed as mask[b*msb + h*msh + q*msq +
 // k*msk]; kv_lens (may be null) is int32 [B]. Dropout: dscale = 1 / (1 - p)
-// as f32, 0 for none; thresh = min(2^32 - 1, round(p * 2^32)); seed0 and
-// seed1 the forward call's two int32 seeds. Every dtype and head_dim (64,
+// as f32, 0 for none; thresh = min(2^32 - 1, round(p * 2^32)); seeds (may
+// be null without dropout) the forward call's device int32 [2] slot of
+// its two seeds. Every dtype and head_dim (64,
 // 128) runs the tensor-core kernels, f32 on bf16 hi + lo parts
 // (kernels/attention.py `bwd_route` mirrors this); the tensors must be
 // 16-byte aligned. Each returns cudaGetLastError().
@@ -1016,13 +1035,13 @@ bool valid(const Args& a) {
       const float *mask, const int *kv_lens
 #define FLASH_BWD_DIMS                                                        \
   int B, int Sq, int Sk, int H, int Hkv, long long msb, long long msh,        \
-      long long msq, long long msk, float scale, int causal, int seed0,       \
-      int seed1, unsigned thresh, float dscale, cudaStream_t stream
+      long long msq, long long msk, float scale, int causal,                  \
+      const int *seeds, unsigned thresh, float dscale, cudaStream_t stream
 #define FLASH_BWD_PACK                                                        \
   const Args a{q,     k,     v,      dout,   lse, delta, mask,              \
                kv_lens, B,   Sq,     Sk,     H,   Hkv,   msb,               \
-               msh,   msq,   msk,    scale,  causal, (uint32_t)seed0,        \
-               Dropout{(uint32_t)seed1, (uint32_t)thresh, dscale}};          \
+               msh,   msq,   msk,    scale,  causal, seeds,                  \
+               Dropout{(uint32_t)thresh, dscale}};                           \
   if (!valid(a)) return (int)cudaErrorInvalidValue
 
 extern "C" int flash_bwd_dkdv(FLASH_BWD_ARGS, void* dk, void* dv,

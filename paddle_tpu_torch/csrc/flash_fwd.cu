@@ -19,8 +19,12 @@
 // (b, h, q, k) is kept iff
 //   fmix32(fmix32(fmix32((b*H + h) ^ seed0) ^ q) ^ k ^ seed1) >= thresh
 // in uint32, with absolute q and k, so the backward kernels regenerate
-// the same bits whatever their tiling. A kept P is multiplied by
-// dscale = 1 / (1 - p) before rounding; a dropped one is 0. The
+// the same bits whatever their tiling. The two seeds are read from a
+// device int32 slot (`seeds`), never passed by value, so a captured CUDA
+// graph takes the words its caller writes there before each replay; the
+// row's second hash absorbs seed1 (xq = fmix32(row ^ q) ^ seed1: XOR
+// commutes), so the per-element hash is fmix32(xq ^ k). A kept P is
+// multiplied by dscale = 1 / (1 - p) before rounding; a dropped one is 0. The
 // normalizer and lse keep the P before dropout. The first hash is taken
 // once per block, the second once per (row, tile), the third per element.
 //
@@ -259,7 +263,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const int* __restrict__ kv_lens, TQ* __restrict__ out,
     float* __restrict__ lse, int Sq, int Sk, int H, int Hkv,
     long long msb, long long msh, long long msq, long long msk,
-    float scale, int causal, uint32_t seed0, uint32_t seed1, uint32_t thresh,
+    float scale, int causal, const int* __restrict__ seeds, uint32_t thresh,
     float dscale) {
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -285,7 +289,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const TKV* vb = v + ((long long)b * Sk * Hkv + hk) * D;
   const float* mb = mask ? mask + b * msb + h * msh : nullptr;
   const int len = kv_lens ? kv_lens[b] : Sk;
-  const uint32_t row_key = fmix32((uint32_t)bh ^ seed0);  // dropout row
+  // dropout: the row's first hash and seed1, from the call's slot
+  uint32_t row_key = 0u, seed1 = 0u;
+  if constexpr (DROP) {
+    row_key = fmix32((uint32_t)bh ^ (uint32_t)seeds[0]);
+    seed1 = (uint32_t)seeds[1];
+  }
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, c = i % D, s = q0 + r;
@@ -363,10 +372,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
       const float psum = warp_sum(p0 + p1);
       if constexpr (DROP) {  // dropout after the normalizer's sum
-        const uint32_t xq = fmix32(row_key ^ (uint32_t)(q0 + r));
+        const uint32_t xq = fmix32(row_key ^ (uint32_t)(q0 + r)) ^ seed1;
         const uint32_t k_lo = (uint32_t)(k0 + lane);
-        p0 = fmix32(xq ^ k_lo ^ seed1) >= thresh ? p0 * dscale : 0.f;
-        p1 = fmix32(xq ^ (k_lo + 32u) ^ seed1) >= thresh ? p1 * dscale : 0.f;
+        p0 = fmix32(xq ^ k_lo) >= thresh ? p0 * dscale : 0.f;
+        p1 = fmix32(xq ^ (k_lo + 32u)) >= thresh ? p1 * dscale : 0.f;
       }
       row[lane] = to_f(from_f<TKV>(p0));
       row[lane + 32] = to_f(from_f<TKV>(p1));
@@ -418,7 +427,7 @@ template <typename TQ, typename TKV, int D>
 int launch(const void* q, const void* k, const void* v, const float* mask,
            const int* kv_lens, void* out, float* lse, int B, int Sq, int Sk,
            int H, int Hkv, long long msb, long long msh, long long msq,
-           long long msk, float scale, int causal, int seed0, int seed1,
+           long long msk, float scale, int causal, const int* seeds,
            unsigned thresh, float dscale, cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
   constexpr bool ONE = std::is_same<TQ, TKV>::value;
@@ -433,8 +442,8 @@ int launch(const void* q, const void* k, const void* v, const float* mask,
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), mask, kv_lens, static_cast<TQ*>(out), lse,
-      Sq, Sk, H, Hkv, msb, msh, msq, msk, scale, causal, (uint32_t)seed0,
-      (uint32_t)seed1, (uint32_t)thresh, dscale);
+      Sq, Sk, H, Hkv, msb, msh, msq, msk, scale, causal, seeds,
+      (uint32_t)thresh, dscale);
   return (int)cudaGetLastError();
 }
 
@@ -470,7 +479,7 @@ template <int NS, bool MASK, bool INTERIOR, bool DROP>
 __device__ __forceinline__ void tile_probs(
     float (&s)[NS], const float (&mv)[NS], float (&m)[2], float (&l)[2],
     float (&alpha)[2], int q_row0, int k_col0, int Sq, int kend, int causal,
-    float scale, const uint32_t (&xq)[2], uint32_t seed1, uint32_t thresh,
+    float scale, const uint32_t (&xq)[2], uint32_t thresh,
     float dscale) {
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -519,7 +528,7 @@ __device__ __forceinline__ void tile_probs(
         l[rr] += p;
         if constexpr (DROP) {
           const uint32_t ki = (uint32_t)(k_col0 + 8 * j + e);
-          x = fmix32(xq[rr] ^ ki ^ seed1) >= thresh ? p * dscale : 0.f;
+          x = fmix32(xq[rr] ^ ki) >= thresh ? p * dscale : 0.f;
         } else {
           x = p;
         }
@@ -567,7 +576,7 @@ __global__ void __launch_bounds__(128 * NWG, 1) flash_fwd_wgmma(
     const int* __restrict__ kv_lens, E* __restrict__ out,
     float* __restrict__ lse, int Sq, int Sk, int H, int Hkv, long long msb,
     long long msh, long long msq, long long msk, float scale, int causal,
-    uint32_t seed0, uint32_t seed1, uint32_t thresh, float dscale) {
+    const int* __restrict__ seeds, uint32_t thresh, float dscale) {
   using L = FwdSmem<E, TKV, D, BN, NWG>;
   constexpr bool F32 = L::F32, FQ = L::FQ, QLO = L::QLO;
   // the products' operand type: bf16 parts over f32 K/V, else E
@@ -613,12 +622,17 @@ __global__ void __launch_bounds__(128 * NWG, 1) flash_fwd_wgmma(
 
   // the thread's query rows (qr, qr + 8) and key columns (8 j + kc +
   // {0, 1}) in the accumulator layout, with their dropout row hashes
+  // (seed1 folded in)
   const int qr = 16 * warp + (lane >> 2), kc = 2 * (lane & 3);
-  const uint32_t row_key = fmix32((uint32_t)blockIdx.x ^ seed0);  // b*H + h
-  uint32_t xq[2];
+  uint32_t xq[2] = {0u, 0u};
+  if constexpr (DROP) {
+    const uint32_t row_key =
+        fmix32((uint32_t)blockIdx.x ^ (uint32_t)seeds[0]);  // b*H + h
+    const uint32_t seed1 = (uint32_t)seeds[1];
 #pragma unroll
-  for (int rr = 0; rr < 2; ++rr)
-    xq[rr] = DROP ? fmix32(row_key ^ (uint32_t)(qw + qr + 8 * rr)) : 0u;
+    for (int rr = 0; rr < 2; ++rr)
+      xq[rr] = fmix32(row_key ^ (uint32_t)(qw + qr + 8 * rr)) ^ seed1;
+  }
 
   // tile i's K and V rows into its ring stage (f32 K/V: the f32 ring);
   // rows past kend zero-filled
@@ -707,7 +721,7 @@ __global__ void __launch_bounds__(128 * NWG, 1) flash_fwd_wgmma(
     auto run = [&](auto masked, auto inner) {
       tile_probs<BN / 2, decltype(masked)::value, decltype(inner)::value,
                  DROP>(s, mv, m, l, alpha, qw + qr, k0 + kc, Sq, kend, causal,
-                       scale, xq, seed1, thresh, dscale);
+                       scale, xq, thresh, dscale);
     };
     if (mb && interior)
       run(std::true_type{}, std::true_type{});
@@ -882,7 +896,7 @@ int launch_wgmma(const void* q, const void* k, const void* v,
                  const float* mask, const int* kv_lens, void* out, float* lse,
                  int B, int Sq, int Sk, int H, int Hkv, long long msb,
                  long long msh, long long msq, long long msk, float scale,
-                 int causal, int seed0, int seed1, unsigned thresh,
+                 int causal, const int* seeds, unsigned thresh,
                  float dscale, cudaStream_t stream) {
   // f32 K/V: one warpgroup, kFwdBNF32 keys a tile, dropout with an f32 q
   // only (DR)
@@ -915,8 +929,8 @@ int launch_wgmma(const void* q, const void* k, const void* v,
   kern<<<grid, 128 * WG, smem + (stage ? mask_smem : 0), stream>>>(
       static_cast<const E*>(q), static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), mask, kv_lens, static_cast<E*>(out),
-      lse, Sq, Sk, H, Hkv, msb, msh, msq, msk, scale, causal, (uint32_t)seed0,
-      (uint32_t)seed1, (uint32_t)thresh, dscale);
+      lse, Sq, Sk, H, Hkv, msb, msh, msq, msk, scale, causal, seeds,
+      (uint32_t)thresh, dscale);
   return (int)cudaGetLastError();
 }
 
@@ -955,18 +969,19 @@ bool decode_route(int dtype, int kv_dtype, int Sq, int H, int Hkv,
 // mask (may be null) is f32 addressed as mask[b*msb + h*msh + q*msq +
 // k*msk];
 // kv_lens (may be null) is int32 [B]. Dropout: dscale = 1 / (1 - p) as
-// f32, 0 for none; thresh = min(2^32 - 1, round(p * 2^32)); seed0 and
-// seed1 the call's two int32 seeds. Returns cudaGetLastError().
+// f32, 0 for none; thresh = min(2^32 - 1, round(p * 2^32)); seeds (may
+// be null without dropout) a device int32 [2] slot holding the call's two
+// seeds, read by the kernel. Returns cudaGetLastError().
 extern "C" int flash_fwd(int dtype, int kv_dtype, int head_dim,
                          const void* q, const void* k, const void* v,
                          const float* mask, const int* kv_lens, void* out,
                          float* lse, int B, int Sq, int Sk, int H, int Hkv,
                          long long msb, long long msh, long long msq,
-                         long long msk, float scale, int causal, int seed0,
-                         int seed1, unsigned thresh, float dscale,
+                         long long msk, float scale, int causal,
+                         const int* seeds, unsigned thresh, float dscale,
                          cudaStream_t stream) {
   if (H <= 0 || Hkv <= 0 || H % Hkv != 0 || B <= 0 || Sq <= 0 || Sk <= 0 ||
-      (head_dim != 64 && head_dim != 128))
+      (head_dim != 64 && head_dim != 128) || (dscale > 0.f && !seeds))
     return (int)cudaErrorInvalidValue;
   return tc::with_dtype(dtype, [&](auto tq) {
     return tc::with_dtype(kv_dtype, [&](auto tkv) {
@@ -997,7 +1012,7 @@ extern "C" int flash_fwd(int dtype, int kv_dtype, int head_dim,
         auto run = head_dim == 64 ? tc::launch_wgmma<TQ, TQ, 64>
                                   : tc::launch_wgmma<TQ, TQ, 128>;
         return run(q, k, v, mask, kv_lens, out, lse, B, Sq, Sk, H, Hkv, msb,
-                   msh, msq, msk, scale, causal, seed0, seed1, thresh,
+                   msh, msq, msk, scale, causal, seeds, thresh,
                    dscale, stream);
       } else {
         constexpr bool F32 =
@@ -1010,14 +1025,14 @@ extern "C" int flash_fwd(int dtype, int kv_dtype, int head_dim,
             auto run = head_dim == 64 ? tc::launch_wgmma<TQ, TKV, 64>
                                       : tc::launch_wgmma<TQ, TKV, 128>;
             return run(q, k, v, mask, kv_lens, out, lse, B, Sq, Sk, H, Hkv,
-                       msb, msh, msq, msk, scale, causal, seed0, seed1,
+                       msb, msh, msq, msk, scale, causal, seeds,
                        thresh, dscale, stream);
           }
         }
         auto run = head_dim == 64 ? launch<TQ, TKV, 64>
                                   : launch<TQ, TKV, 128>;
         return run(q, k, v, mask, kv_lens, out, lse, B, Sq, Sk, H, Hkv, msb,
-                   msh, msq, msk, scale, causal, seed0, seed1, thresh,
+                   msh, msq, msk, scale, causal, seeds, thresh,
                    dscale, stream);
       }
     });

@@ -17,7 +17,10 @@ because by then the caller's context has moved on:
   ``checkpoint`` does not know: they are set back to where the first run
   started, and after the second run to where they were, so the second
   run draws the first run's dropout patterns and the live streams do not
-  move. ``checkpoint`` itself saves torch's default generators.
+  move. ``checkpoint`` itself saves torch's default generators, except
+  while a ``jit.TrainStep`` captures its CUDA graph, where torch refuses
+  to read or set a CUDA generator's state (the port draws nothing from
+  torch's default generators in a step).
 
 ``use_reentrant`` is accepted and ignored: the non-reentrant form is the
 only one (it also checks that every recomputed tensor has the first
@@ -59,7 +62,8 @@ def recompute(function, *args, **kwargs):
     def context_fn():
         return contextlib.nullcontext(), _replay(amp_state, rng_state)
     return torch.utils.checkpoint.checkpoint(
-        function, *args, use_reentrant=False, preserve_rng_state=preserve,
+        function, *args, use_reentrant=False,
+        preserve_rng_state=preserve and not _random.in_capture(),
         context_fn=context_fn, **kwargs)
 
 

@@ -1,16 +1,22 @@
 """CUDA-graph capture shared by the AOT engine (``inference/aot``),
-``generate()``'s static route (``generation``) and the inference API's
-``Predictor`` (``inference/api.py``): the port's counterpart of running
-a compiled XLA program.
+``generate()``'s static route (``generation``), the inference API's
+``Predictor`` (``inference/api.py``) and the train step
+(``jit/bridge.py``): the port's counterpart of running a compiled XLA
+program.
 
 - ``capture_stream(device)``: the stream every capture on a device runs
   on; a capturing thread's cuBLAS and cuBLASLt workspaces on it are
   allocated before its first capture.
+- ``run_on_capture_stream(device, fn, *args)``: ``fn`` run eagerly on
+  the capture stream (a real run before its capture), under the device
+  gate's exclusive side.
 - ``graph_pool(device, owner)``: the graph memory pool an owner's
   programs on a device share.
 - ``GraphProgram``: one function captured into a CUDA graph over static
   input buffers; a call copies its operands in, replays, adds the
   launch counts its capture recorded and returns clones of the outputs.
+  Generators the function draws from are registered with the graph, so
+  each replay advances them as an eager run would.
 - ``Captured``: a program with the weights it reads by address, for
   the per-signature caches that re-capture when a weight is rebound.
 - ``device_gate``: the process-wide rule that keeps captures apart from
@@ -52,7 +58,7 @@ import torch
 from ..kernels import _build
 
 __all__ = ["GraphProgram", "Captured", "capture_stream", "graph_pool",
-           "DeviceGate", "device_gate"]
+           "run_on_capture_stream", "DeviceGate", "device_gate"]
 
 
 class DeviceGate:
@@ -195,6 +201,22 @@ def capture_stream(device):
     return s
 
 
+def run_on_capture_stream(device, fn, *args):
+    """``fn(*args)`` run eagerly on ``device``'s capture stream, ordered
+    after and before the current stream's work, under the device gate's
+    exclusive side: the run before a capture, which allocates what the
+    capture will (cuBLAS keeps a workspace per stream) and does the real
+    work of that call."""
+    stream = capture_stream(device)
+    with device_gate.exclusive():
+        cur = torch.cuda.current_stream(device)
+        stream.wait_stream(cur)
+        with torch.cuda.stream(stream):
+            out = fn(*args)
+        cur.wait_stream(stream)
+    return out
+
+
 _pools = {}      # (owner, device index) -> graph memory pool
 
 
@@ -239,7 +261,7 @@ class GraphProgram:
     the counters are put back and every replay adds both. A capture
     that fails raises."""
 
-    def __init__(self, fn, args, pool, stream):
+    def __init__(self, fn, args, pool, stream, generators=()):
         self._structure = _structure(args)
         # the whole capture, its input copies and launch-count snapshot
         # included, holds the device gate's exclusive side
@@ -249,6 +271,8 @@ class GraphProgram:
             static_args = _rebuild(args, iter(self._inputs))
             before = _build.snapshot_launch_counts()
             self.graph = torch.cuda.CUDAGraph()
+            for g in generators:
+                self.graph.register_generator_state(g)
             # no cyclic garbage collection while capturing: a collected
             # graph (an engine and its predictor form a cycle) frees its
             # pool, and a cudaFree inside a capture invalidates it

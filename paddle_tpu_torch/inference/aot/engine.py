@@ -53,7 +53,7 @@ import torch
 
 from ...framework import integrity as _integrity
 from ...framework.graphs import (GraphProgram, capture_stream,
-                                 device_gate)
+                                 device_gate, run_on_capture_stream)
 from ...kernels import _build
 from ...observability import metrics as _obsm
 from ...observability import tracing as _obstr
@@ -225,23 +225,17 @@ class InferenceEngine:
         dev = self.predictor.device
         if dev.type != "cuda":
             return fn
-        stream = capture_stream(dev)
         if warm_up:
             # an eager run on the capture stream shares this thread's
             # cuBLAS workspace there with the graphs it captured, which
             # other replicas may be replaying (framework.graphs)
-            with device_gate.exclusive():
-                cur = torch.cuda.current_stream(dev)
-                stream.wait_stream(cur)
-                with torch.cuda.stream(stream):
-                    fn(*args)
-                cur.wait_stream(stream)
+            run_on_capture_stream(dev, fn, *args)
         if self._pool is None:
             # a pool of the engine's own, not generate()'s: a pool's memory
             # goes back to the allocator only once every graph captured
             # into it is freed, so the engine's goes with the engine
             self._pool = torch.cuda.graph_pool_handle()
-        return GraphProgram(fn, args, self._pool, stream)
+        return GraphProgram(fn, args, self._pool, capture_stream(dev))
 
     # ------------------------------------------------------------ serve --
     def get(self, sig):

@@ -18,7 +18,11 @@ the CPU, the kernel wrapper on CUDA, a fake for traces), so that
 Dropout follows the reference's kernel path on every device: element
 (b, h, q, k) is kept iff ``dropout_keep_mask`` says so for row b*H + h
 (the query head) and the absolute positions q and k, with two int32
-seeds drawn on the host per call (``framework.random.dropout_seeds``).
+seeds drawn on the host per call (``framework.random.dropout_seeds``)
+and handed to the kernels in a device int32 [2] slot
+(``framework.random.dropout_seed_slot``), which they read: a captured
+train step refills its slots before each replay. The plain versions take
+the same slot (or the two words).
 The normaliser and lse use the probabilities P before dropout;
 ``O = (P*D) V`` with ``D = keep / (1 - p)``, and the backward regenerates
 the same pattern: ``dV = (P*D)^T dO``, ``dS = P * (dP*D - delta)``.
@@ -29,6 +33,8 @@ import ctypes
 import math
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils.flop_counter import register_flop_formula
 
 from ..amp import cast_inputs
 from ..framework import random as _random
@@ -44,7 +50,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _DIMS = [_I, _I, _I, _I, _I,                # B, Sq, Sk, H, Hkv
          _LL, _LL, _LL, _LL,                # mask strides
          ctypes.c_float, _I,                # scale, causal
-         _I, _I, ctypes.c_uint, ctypes.c_float,  # seed0, seed1, thresh, dscale
+         _P, ctypes.c_uint, ctypes.c_float,  # seed slot, thresh, dscale
          _P]                                # stream
 _SIGNATURES = {"flash_fwd": [
     _I, _I, _I,                             # dtype, kv_dtype, head_dim
@@ -102,23 +108,49 @@ def dropout_keep_mask(q_ids, k_ids, row, seed0, seed1, p):
     return x >= dropout_threshold(p)
 
 
-def _dropout_args(dropout_p, seeds):
-    """(seed0, seed1, thresh, dscale) for a C entry; dscale 0 means no
-    dropout, else it is float32(1 / (1 - p)) as in the reference."""
+def seed_slot(dropout_p, seeds, device):
+    """The device int32 [2] slot a kernel reads the call's seeds from
+    (None without dropout): ``seeds`` itself when it is a slot on
+    ``device``, else its two int32 words in a new one."""
     if not dropout_p:
-        return 0, 0, 0, 0.0
+        return None
     if seeds is None:
         raise ValueError("dropout_p > 0 needs the call's two int32 seeds")
-    s0, s1 = (int(s) for s in seeds)
-    return s0, s1, dropout_threshold(dropout_p), 1.0 / (1.0 - dropout_p)
+    if not torch.is_tensor(seeds):
+        return _random.slot_of(seeds, device)
+    if seeds.dtype != torch.int32 or seeds.shape != (2,) \
+            or seeds.device != device or not seeds.is_contiguous():
+        raise TypeError("a dropout seed slot is a contiguous int32 [2] "
+                        "tensor on the kernel's device")
+    return seeds
+
+
+def _dropout_args(dropout_p, slot):
+    """(slot pointer, thresh, dscale) for a C entry; dscale 0 means no
+    dropout, else it is float32(1 / (1 - p)) as in the reference."""
+    if not dropout_p:
+        return None, 0, 0.0
+    return slot.data_ptr(), dropout_threshold(dropout_p), \
+        1.0 / (1.0 - dropout_p)
+
+
+def _seed_words(seeds):
+    """(seed0, seed1): ints for a pair of ints, int64 0-dim tensors (no
+    host read) for a slot."""
+    if torch.is_tensor(seeds):
+        s = seeds.reshape(2).to(torch.int64)
+        return s[0], s[1]
+    return int(seeds[0]), int(seeds[1])
 
 
 def _dropout_mult(b, h, sq, sk, dropout_p, seeds, dev):
-    """f32 [B, H, Sq, Sk]: 1 / (1 - p) where the pattern keeps, else 0."""
+    """f32 [B, H, Sq, Sk]: 1 / (1 - p) where the pattern of ``seeds`` (a
+    slot or two words) keeps, else 0."""
     rows = torch.arange(b * h, device=dev).reshape(b, h, 1, 1)
+    seed0, seed1 = _seed_words(seeds)
     keep = dropout_keep_mask(torch.arange(sq, device=dev)[:, None],
                              torch.arange(sk, device=dev)[None, :], rows,
-                             seeds[0], seeds[1], dropout_p)
+                             seed0, seed1, dropout_p)
     return torch.where(keep, torch.tensor(1.0 / (1.0 - dropout_p)), 0.0)
 
 
@@ -164,7 +196,7 @@ def flash_attention_plain(q, k, v, scale, causal=False, mask=None,
     """Reference math (``_gen_reference``): q [B, Sq, H, D], k/v [B, Sk,
     Hkv, D], mask additive f32 broadcastable to [B, H, Sq, Sk], kv_lens
     [B] ints. Scores in f32; with ``dropout_p`` the probabilities are
-    multiplied by the keep pattern of ``seeds`` (two int32) over
+    multiplied by the keep pattern of ``seeds`` (a slot or two int32) over
     1 - p after the normaliser; P is cast to V's dtype before the P.V
     product, accumulated in f32. With ``return_lse``, also the f32
     log-sum-exp [B, H, Sq] of the masked scores (before dropout), as the
@@ -338,13 +370,15 @@ def flash_attention_kernel(q, k, v, scale, causal=False, mask=None,
     v of one dtype, q of that dtype or, without dropout, of another; D 64
     or 128, H % Hkv == 0); mask additive f32 [Bm, Hm, Sq|1, Sk|1] or
     None; kv_lens int32 [B] or None; ``dropout_p`` in [0, 1) with
-    ``seeds`` (two int32) when it is not 0. The device kernel follows
-    from the dtypes and shapes alone (``fwd_route``). Returns (out [B,
-    Sq, H, D] in q's dtype, lse [B, H, Sq] f32)."""
+    ``seeds`` (a slot on q's device, or two int32) when it is not 0. The
+    device kernel follows from the dtypes and shapes alone
+    (``fwd_route``). Returns (out [B, Sq, H, D] in q's dtype, lse [B, H,
+    Sq] f32)."""
     b, sq, h, d, sk, hkv = _check("flash_fwd", q, k, v, mask, kv_lens)
     if dropout_p and k.dtype != q.dtype:
         raise TypeError("flash_fwd: dropout takes q, k and v of one dtype")
     m_ptr, *strides = _mask_args(mask, sk)
+    slot = seed_slot(dropout_p, seeds, q.device)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = load("flash_fwd", _SIGNATURES)
@@ -353,7 +387,7 @@ def flash_attention_kernel(q, k, v, scale, causal=False, mask=None,
         k.data_ptr(), v.data_ptr(),
         m_ptr, kv_lens.data_ptr() if kv_lens is not None else None,
         out.data_ptr(), lse.data_ptr(), b, sq, sk, h, hkv, *strides,
-        float(scale), int(bool(causal)), *_dropout_args(dropout_p, seeds),
+        float(scale), int(bool(causal)), *_dropout_args(dropout_p, slot),
         stream_ptr(q.device))
     check(err, "flash_fwd")
     count_launch("flash_fwd", q.dtype, k.dtype)
@@ -391,11 +425,12 @@ def flash_bwd_dkdv_kernel(q, k, v, dout, lse, delta, scale, causal=False,
     query-head group."""
     head, dims = _bwd_args("flash_bwd_dkdv", q, k, v, dout, lse, delta,
                            mask, kv_lens)
+    slot = seed_slot(dropout_p, seeds, q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = load("flash_bwd", _BWD_SIGNATURES)
     err = lib.flash_bwd_dkdv(*head, dk.data_ptr(), dv.data_ptr(), *dims,
                              float(scale), int(bool(causal)),
-                             *_dropout_args(dropout_p, seeds),
+                             *_dropout_args(dropout_p, slot),
                              stream_ptr(q.device))
     check(err, "flash_bwd_dkdv")
     count_launch("flash_bwd_dkdv", q.dtype)
@@ -409,10 +444,11 @@ def flash_bwd_dq_kernel(q, k, v, dout, lse, delta, scale, causal=False,
     as for ``flash_bwd_dkdv_kernel``. Returns dq [B, Sq, H, D]."""
     head, dims = _bwd_args("flash_bwd_dq", q, k, v, dout, lse, delta, mask,
                            kv_lens)
+    slot = seed_slot(dropout_p, seeds, q.device)
     dq = torch.empty_like(q)
     lib = load("flash_bwd", _BWD_SIGNATURES)
     err = lib.flash_bwd_dq(*head, dq.data_ptr(), *dims, float(scale),
-                           int(bool(causal)), *_dropout_args(dropout_p, seeds),
+                           int(bool(causal)), *_dropout_args(dropout_p, slot),
                            stream_ptr(q.device))
     check(err, "flash_bwd_dq")
     count_launch("flash_bwd_dq", q.dtype)
@@ -426,7 +462,8 @@ def flash_attention_bwd_kernel(q, k, v, out, lse, dout, scale, causal=False,
     """The backward on the card: delta = rowsum(dO * O) as a torch op,
     then both kernels. Returns (dq, dk, dv)."""
     delta = bwd_delta(out, dout)
-    drop = dict(dropout_p=dropout_p, seeds=seeds)
+    drop = dict(dropout_p=dropout_p,
+                seeds=seed_slot(dropout_p, seeds, q.device))
     dk, dv = flash_bwd_dkdv_kernel(q, k, v, dout, lse, delta, scale, causal,
                                    mask, kv_lens, **drop)
     dq = flash_bwd_dq_kernel(q, k, v, dout, lse, delta, scale, causal, mask,
@@ -455,6 +492,44 @@ define_op("flash_fwd(Tensor q, Tensor k, Tensor v, Tensor? mask, "
           fake=_flash_fwd_fake)
 
 
+def _flash_bwd_fake(q, k, v, out, lse, dout, mask, kv_lens, scale, causal):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+# the backward as one op too: a fake trace (``jit.TrainStep``'s
+# ``cost_analysis`` / ``memory_analysis``) sees the pair as one call of
+# known shape and products
+define_op("flash_bwd(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, "
+          "Tensor dout, Tensor? mask, Tensor? kv_lens, float scale, "
+          "bool causal) -> (Tensor, Tensor, Tensor)",
+          cpu=lambda q, k, v, o, lse, do, m, kl, sc, c:
+          flash_attention_bwd_plain(q, k, v, o, lse, do, sc, c, m, kl),
+          cuda=lambda q, k, v, o, lse, do, m, kl, sc, c:
+          flash_attention_bwd_kernel(q, k, v, o, lse, do, sc, c, m, kl),
+          fake=_flash_bwd_fake)
+
+
+def _products(q, k):
+    """Multiply-adds of one [Sq, Sk] x D product over every (batch,
+    query head): B * H * Sq * Sk * D."""
+    b, sq, h, d = q
+    return b * h * sq * k[1] * d
+
+
+# FLOPs of the two ops (``torch.utils.flop_counter``), 2 a multiply-add,
+# every product in full (no causal skip): the forward's Q K^T and P V;
+# the backward's five (S recomputed, dP = dO V^T, dV = P^T dO, dQ = dS K,
+# dK = dS^T Q), as torch counts SDPA's backward
+@register_flop_formula(torch.ops.paddle_tpu_torch.flash_fwd)
+def _flash_fwd_flops(q, k, *args, **kwargs):
+    return 2 * 2 * _products(q, k)
+
+
+@register_flop_formula(torch.ops.paddle_tpu_torch.flash_bwd)
+def _flash_bwd_flops(q, k, *args, **kwargs):
+    return 5 * 2 * _products(q, k)
+
+
 class _FlashAttention(torch.autograd.Function):
     """Counterpart of the reference's ``_flash_core`` custom_vjp (and its
     varlen and masked cores): forward and backward take the kernels for
@@ -465,7 +540,11 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, mask, kv_lens, scale, causal, dropout_p,
                 seeds):
         drop = dict(dropout_p=dropout_p, seeds=seeds)
-        if q.device.type == "cpu":
+        if is_fake(q):
+            # a trace without data (dropout changes no shape or product)
+            out, lse = torch.ops.paddle_tpu_torch.flash_fwd(
+                q, k, v, mask, kv_lens, float(scale), bool(causal))
+        elif q.device.type == "cpu":
             out, lse = flash_attention_plain(q, k, v, scale, causal, mask,
                                              kv_lens, return_lse=True, **drop)
         else:
@@ -478,6 +557,11 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse, mask, kv_lens = ctx.saved_tensors
+        if is_fake(q):
+            dq, dk, dv = torch.ops.paddle_tpu_torch.flash_bwd(
+                q, k, v, out, lse, dout.contiguous(), mask, kv_lens,
+                float(ctx.scale), bool(ctx.causal))
+            return dq, dk, dv, None, None, None, None, None, None
         bwd = flash_attention_bwd_plain if q.device.type == "cpu" \
             else flash_attention_bwd_kernel
         dq, dk, dv = bwd(q, k, v, out, lse, dout.contiguous(), ctx.scale,
@@ -494,15 +578,15 @@ def flash_attention_bshd(query, key, value, attn_mask=None, dropout_p=0.0,
     raises. Differentiable in query, key and value when grad is enabled;
     a mask that requires grad raises (the reference sends it to XLA).
     With ``training`` and ``dropout_p`` in (0, 1), the call draws its two
-    dropout seeds from ``framework.random`` (the reference's kernel-path
-    pattern); ``training=False`` runs without dropout. Under ``amp`` the
-    query, key and value are cast as for the reference's
-    "flash_attention" op."""
+    dropout seeds from ``framework.random`` into a device slot (the
+    reference's kernel-path pattern); ``training=False`` runs without
+    dropout. Under ``amp`` the query, key and value are cast as for the
+    reference's "flash_attention" op."""
     query, key, value = cast_inputs("flash_attention", query, key, value)
     p = float(dropout_p) if training else 0.0
     if not 0.0 <= p < 1.0:
         raise ValueError(f"dropout_p={dropout_p} is not in [0, 1)")
-    seeds = _random.dropout_seeds() if p else None
+    seeds = _random.dropout_seed_slot(query.device) if p else None
     b, sq, h, d = query.shape
     sk = key.shape[1]
     sc = scale if scale is not None else 1.0 / math.sqrt(d)

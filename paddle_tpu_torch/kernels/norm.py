@@ -22,6 +22,7 @@ goes through the autograd Function, as before.
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from ._build import count_launch
 from ._ops import define_op
@@ -90,6 +91,8 @@ class _RMSNorm(torch.autograd.Function):
     def forward(ctx, x2d, w, eps):
         ctx.save_for_backward(x2d, w)
         ctx.eps = eps
+        if is_fake(x2d):   # a trace without data: the kernel's output
+            return torch.ops.paddle_tpu_torch.rms_norm(x2d, w, float(eps))
         if x2d.device.type == "cpu":
             return rms_norm_plain(x2d, w, eps)
         return rms_norm_kernel(x2d, w, eps)
@@ -176,6 +179,9 @@ class _LayerNorm(torch.autograd.Function):
     def forward(ctx, x2d, w, b, eps):
         ctx.save_for_backward(x2d, w, b)
         ctx.eps = eps
+        if is_fake(x2d):   # a trace without data: the kernel's output
+            return torch.ops.paddle_tpu_torch.layer_norm(x2d, w, b,
+                                                         float(eps))
         if x2d.device.type == "cpu":
             return layer_norm_plain(x2d, w, b, eps)
         return layer_norm_kernel(x2d, w, b, eps)

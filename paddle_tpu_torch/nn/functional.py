@@ -81,7 +81,7 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
         axes = axis if isinstance(axis, (list, tuple)) else [axis]
         keep_axes = {a % len(shape) for a in axes}
         shape = [s if i in keep_axes else 1 for i, s in enumerate(shape)]
-    g = _random.device_generator(x.device)
+    g = _random.dropout_generator(x.device)
     probs = torch.full(shape, 1.0 - p, dtype=torch.float32, device=x.device)
     m = torch.bernoulli(probs, generator=g).to(x.dtype)
     if mode == "upscale_in_train":

@@ -116,13 +116,17 @@ class Optimizer:
         raise NotImplementedError
 
     @torch.no_grad()
-    def apply_gradients(self, params, grads, lr, names, bad=None):
+    def apply_gradients(self, params, grads, lr, names, bad=None,
+                        in_place=False):
         """The per-parameter update of ``params`` (in place) from
         ``grads`` at the f32 device scalar ``lr``. With ``bad`` (a device
         bool scalar), every parameter, master weight and moment keeps its
         pre-step value where ``bad`` is true: a select on the device, no
-        host sync."""
-        self._state_gen += 1
+        host sync. The new state replaces the old tensors, or, with
+        ``in_place`` (``jit.TrainStep``, whose CUDA graph reads the state
+        by address), is copied into them."""
+        if not in_place:
+            self._state_gen += 1
         for p, g, name in zip(params, grads, names):
             if g is None:
                 continue
@@ -139,7 +143,11 @@ class Optimizer:
                 p2 = torch.where(bad, p, p2)
                 s2 = {k: torch.where(bad, s[k], v) for k, v in s2.items()}
             p.copy_(p2)
-            self._states[id(p)] = s2
+            if in_place:
+                for k, v in s2.items():
+                    s[k].copy_(v)
+            else:
+                self._states[id(p)] = s2
 
     @torch.no_grad()
     def step(self):

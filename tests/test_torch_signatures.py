@@ -43,6 +43,9 @@ CALLABLES = [
     ("nn.transformer", "TransformerEncoderLayer", ()),
     ("nn.transformer", "TransformerEncoder", ()),
     ("jit.bridge", "TrainStep", ()),
+    *[("jit.bridge", f"TrainStep.{n}", ()) for n in (
+        "cost_analysis", "memory_analysis")],
+    ("hapi.flops", "flops", ()),
     ("nn.functional", "cross_entropy", ()),
     ("nn", "CrossEntropyLoss", ()),
     ("optimizer", "SGD", ()),
@@ -92,7 +95,7 @@ CALLABLES = [
     *[("", n, ()) for n in (
         "create_parameter", "in_dynamic_mode", "device_count", "seed",
         "to_tensor", "save", "load", "set_device", "get_device",
-        "no_grad")],
+        "no_grad", "flops")],
 ]
 # torch's own keywords, which torch passes to a Layer's methods itself
 # (``named_parameters(remove_duplicate=)``, ``state_dict(prefix=,

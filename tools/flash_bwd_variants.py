@@ -185,7 +185,7 @@ def main(argv=None):
     def launcher(lib, name, which):
         dt, b, s, h, hkv, d, causal, mask, p = cases[name][:9]
         tail = (float(d ** -0.5), int(causal),
-                *A._dropout_args(p, SEEDS if p else None),
+                *A._dropout_args(p, A.seed_slot(p, SEEDS, dev)),
                 A.stream_ptr(dev))
 
         def run(q, k, v, do, out, lse, delta):

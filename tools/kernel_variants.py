@@ -456,7 +456,7 @@ def flash_section(torch, S, A, fwd_libs, dev, g, med, verdict, dt):
 
 
 def flash_fwd_call(torch, A, dev, lib, q, k, v, mask, causal, codes=None,
-                   drop=(0, 0, 0, 0.0)):
+                   drop=(None, 0, 0.0)):
     """One launch of ``lib``'s flash_fwd entry (no kv_lens), with the
     dtype ``codes`` (default ``lib.codes``) and the dropout arguments
     ``drop`` (``attention._dropout_args``; none by default); returns the
@@ -527,7 +527,7 @@ def flash_f32_section(torch, S, A, libs, dev, g, med):
                       for _ in range(3)) for _ in range(n)]
         seeds = (-1234567891, 987654321)
         kw = dict(dropout_p=p, seeds=seeds) if p else {}
-        drop = A._dropout_args(p, seeds if p else None)
+        drop = A._dropout_args(p, A.seed_slot(p, seeds, dev))
         want = A.flash_attention_plain(*sets[0], d ** -0.5, cz, mask, **kw)
         full = mask + torch.where(causal, 0.0, S.NEG) if cz else mask
         sdpa = med(lambda q_, k_, v_: F.scaled_dot_product_attention(
