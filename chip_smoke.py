@@ -47,8 +47,11 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    BERT-base's 201 tensors in f32, a second kernel step from an equal
    copy bit for bit equal; each timed beside its bound, its plain version
    and ``torch._fused_adamw_`` / ``torch._foreach_norm`` on the same
-   tensors. Then the sampling draw kernel's two entry points
-   (``csrc/sampling.cu``): ``categorical_rows`` at serve run 3's decode
+   tensors; ``fused_update``'s Momentum instance (f32, L2Decay) against
+   its plain version over two steps at ResNet-50's 161 tensors, timed
+   beside ``torch._fused_sgd_``. Then the sampling draw kernel's two
+   entry points (``csrc/sampling.cu``): ``categorical_rows`` at serve
+   run 3's decode
    shape logits[4, 32000] f32 and at its verify shape [20, 32000] with
    offsets, tokens equal to the plain version's on every row (a row that
    differs prints its top-2 margin in f32 ulps), and ``uniform64_rows``
@@ -361,6 +364,23 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    64, key mask + kv_lens, and dropout at the BERT shape) and with dO
    under loss scaling (``loss_scaled_bwd``: the scaler's 2^15, dK near
    2^14, and dS past f16's 65504), and times it at the training shape.
+
+9. ResNet-50 training (``resnet_phase``, the BASELINE.json config #1
+   cell): ``paddle.vision``'s ``resnet50`` (1000 classes), Momentum(0.1,
+   0.9, L2Decay(1e-4)) over PiecewiseDecay, cross entropy with label
+   smoothing 0.1. One f32 step at [16, 3, 224, 224] on the card against
+   the CPU (the loss within 1e-6, each BN running stat within 1e-4 and
+   each weight within 0.3 of the change the CPU's step made to it:
+   about twice the CPU's own f32 distance from its f64 step); 6 steps
+   at [64, 3, 224, 224] replayed against 6 op by op, bitwise the same losses,
+   weights, gradients, momenta and BN running stats, in f32 and at
+   ``auto_cast`` O1 bf16 (cuDNN deterministic); ``Model.fit`` over
+   FakeData through ``io.DataLoader`` for 8 steps (one capture, 7
+   replays, ``fused_update`` launched) and ``evaluate`` with top-1 / top-5
+   accuracy, in both dtypes. Prints images/s and step ms replayed and op
+   by op, MFU from ``cost_analysis``, idle share and the op-by-op step's
+   device time by launching op (convolution, BN, casts, ...), peak
+   memory, capture seconds and ``fit``'s step beside the replay alone.
 
 The line before the last is the ``kernels`` JSON record; the last line
 is ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -1803,15 +1823,104 @@ def optimizer_shape(torch, dev, label, shapes, dtype, seed):
     return out, errs
 
 
+def resnet_shapes(torch):
+    """ResNet-50's 161 parameter shapes (1000 classes)."""
+    import paddle_tpu_torch as pt
+    return [tuple(p.shape) for p in
+            pt.vision.resnet50(num_classes=1000, device="meta").parameters()]
+
+
+def momentum_shape(torch, dev, shapes, seed):
+    """fused_update's Momentum instance (f32, no clip) against its plain
+    version at ``shapes``: the ResNet cell's ``Momentum(0.1, 0.9,
+    weight_decay=L2Decay(1e-4))``, two steps from zero velocity with two
+    gradient draws, so that the second step reads the velocity the first
+    stored; parameters and velocities held to ``OPT_TOL``. A dropped
+    decay moves a velocity by 1e-4 |p| (~5e-6 at a typical |p| of 0.05
+    here, against a limit of ~2e-7 at a typical |v| of 0.01), a wrong
+    momentum by a share of the first gradient. Then times, bound and
+    ``torch._fused_sgd_`` (the same update: d = g + wd p, v = mu v + d,
+    p -= lr v). Returns its row."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import fused_optimizer as fk
+    from paddle_tpu_torch.optimizer.fused import fused_plan
+    n = sum(math.prod(s) for s in shapes)
+    desc = (f"ResNet-50 Momentum: {len(shapes)} tensors, {n / 1e6:.1f} M "
+            f"parameters, float32")
+
+    def copy():
+        g = torch.Generator(device=dev).manual_seed(seed)
+        ps = [torch.nn.Parameter(0.05 * torch.randn(s, device=dev,
+                                                    generator=g))
+              for s in shapes]
+        grads = [[0.01 * torch.randn(s, device=dev, generator=g)
+                  for s in shapes] for _ in range(2)]
+        opt = pt.optimizer.Momentum(0.1, 0.9, parameters=ps,
+                                    weight_decay=pt.regularizer.L2Decay(1e-4))
+        plan = fused_plan(opt, ps, grads[0])
+        check(plan is not None and plan.kind == "momentum",
+              "the ResNet cell's Momentum did not fuse")
+        return ps, grads, opt, plan
+
+    runs = []
+    for update in (fk.fused_update, fk.fused_update_plain):
+        ps, grads, opt, plan = copy()
+        lr = opt._lr_operand(dev)
+        for gs in grads:
+            update(plan.table, gs, lr)
+        torch.cuda.synchronize()
+        runs.append(_opt_buffers(ps, opt))
+        del ps, grads, opt, plan
+    err = 0.0
+    for (k, a), (_, b) in zip(*runs):
+        e = float((a - b).abs().max())
+        err = max(err, e)
+        check(bool(torch.isfinite(a).all())
+              and scaled_close(torch, a, b, **OPT_TOL["float32"]),
+              f"{desc}: {k} differs from the plain version by {e:.3e} "
+              f"(largest {float(b.abs().max()):.3e}; {OPT_TOL['float32']})")
+    log(f"  fused optimizer, {desc}: kernel vs plain after two steps "
+        f"max_abs_err {err:.3e} (parameters and velocities)")
+    del runs
+    free_card(torch)
+
+    ps, grads, opt, plan = copy()
+    lr, table, gs = opt._lr_operand(dev), plan.table, grads[0]
+    fk.fused_update(table, gs, lr)
+    t = time_ms(torch, lambda: fk.fused_update(table, gs, lr), [()])
+    plain = time_ms(torch, lambda: fk.fused_update_plain(table, gs, lr),
+                    [()], iters=4, warmup=1)["median"]
+    vel = [opt._state_of(p)["velocity"] for p in ps]
+    lib_p = [p.detach() for p in ps]
+    lib = time_ms(torch, lambda: torch._fused_sgd_(
+        lib_p, gs, vel, weight_decay=1e-4, momentum=0.9, lr=0.1,
+        dampening=0.0, nesterov=False, maximize=False, is_first_step=False),
+        [()])["median"]
+    # the gradient, parameter and velocity read, the last two written;
+    # ~4 f32 operations an element (decay, velocity, update)
+    b, by = bound(20 * n, 4 * n, "float32")
+    log(f"  fused optimizer, {desc}: fused_update {t['median']:.4f} ms "
+        f"(CUPTI {t['cupti']:.4f}), bound {b:.4f} ms ({by}), plain "
+        f"{plain:.4f} ms, torch._fused_sgd_ {lib:.4f} ms")
+    del ps, grads, opt, plan, table, gs, vel, lib_p
+    free_card(torch)
+    return {"resnet_ms": t["median"], "resnet_cupti_ms": t["cupti"],
+            "resnet_bound_ms": b, "resnet_plain_ms": plain,
+            "resnet_library_ms": lib, "resnet_max_abs_err": err}
+
+
 def optimizer_phase(torch, dev, seed):
     """The fused optimizer kernels (``optimizer_shape``) at one Llama-2-7B
     layer's tensors plus the embedding in bf16 with f32 master weights
     (the kernels line's numbers), and at BERT-base's 201 tensors in f32
-    (its numbers under ``bert_*`` keys)."""
+    (its numbers under ``bert_*`` keys); fused_update's Momentum instance
+    at ResNet-50's tensors (``momentum_shape``, under ``resnet_*``
+    keys)."""
     llama, e_l = optimizer_shape(torch, dev, "Llama-2-7B layer + embedding",
                                  llama_layer_shapes(), "bfloat16", seed + 11)
     bert, e_b = optimizer_shape(torch, dev, "BERT-base", bert_shapes(torch),
                                 "float32", seed + 12)
+    resnet = momentum_shape(torch, dev, resnet_shapes(torch), seed + 13)
     norm_keys = ("sq", "scales")
     rows = {}
     for k in ("fused_update", "grad_sq_norm"):
@@ -1826,6 +1935,8 @@ def optimizer_phase(torch, dev, seed):
                       "bert_plain_ms": b["plain_ms"],
                       "bert_library_ms": b["library_ms"],
                       "bert_max_abs_err": worst(e_b)}
+        if k == "fused_update":
+            m["extra"].update(resnet)
         rows[k] = m
     return rows
 
@@ -5929,10 +6040,15 @@ def check_replays(step, snaps, per_step, label):
           f"{label}: a replay launched {deltas[1:]}, not {per_step}")
 
 
-def train_profile(torch, one_step, card, label="train"):
+def train_profile(torch, one_step, card, label="train", categories=None,
+                  by_op=None):
     """One more step (``one_step()``) under the profiler: device busy and
-    idle share and the device time by kernel. Returns (busy ms, traced
-    wall ms)."""
+    idle share and the device time by kernel and by kind: with ``by_op``
+    (``(kind, op-name substrings)`` pairs, the first that names an op of
+    the launching chain wins) each kernel goes to the aten op that
+    launched it, so it needs an op-by-op step; else by ``categories``
+    (kernel-name substrings, default ``TRAIN_OP_CATEGORIES``), and
+    ``categories=()`` gives no split. Returns (busy ms, traced wall ms)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -5947,15 +6063,43 @@ def train_profile(torch, one_step, card, label="train"):
         f"device busy {busy:.1f} ms, idle share {1 - busy / wall:.3f}")
     for name, (ms, n) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:14]:
         log(f"  {ms:9.2f} ms {100 * ms / busy:5.1f}% x{n:<6d} {name[:90]}")
-    cats = {}
-    for name, (ms, n) in kern.items():
-        cat = next((c for c, keys in TRAIN_OP_CATEGORIES
-                    if any(k in name for k in keys)), "other")
-        cats[cat] = cats.get(cat, 0.0) + ms
-    log(f"{label} profile by category: " + ", ".join(
-        f"{c} {ms:.1f} ms ({100 * ms / busy:.1f}%)"
+    if by_op is not None:
+        cats = op_device_ms(torch, prof, by_op)
+        cats["launched outside an aten op"] = busy - sum(cats.values())
+        how = "by launching op"
+    elif categories == ():
+        return busy, wall
+    else:
+        cats, how = {}, "by kernel name"
+        for name, (ms, n) in kern.items():
+            cat = next((c for c, keys in categories or TRAIN_OP_CATEGORIES
+                        if any(k in name for k in keys)), "other")
+            cats[cat] = cats.get(cat, 0.0) + ms
+    log(f"{label} profile {how}: " + ", ".join(
+        f"{c} {ms:.2f} ms ({100 * ms / busy:.1f}%)"
         for c, ms in sorted(cats.items(), key=lambda kv: -kv[1])))
     return busy, wall
+
+
+def op_device_ms(torch, prof, by_op):
+    """{kind: device ms} of the kernels, copies and fills that an aten op
+    launched, each under the first kind of ``by_op`` whose substrings
+    name an op of its launching chain (the op and its callers), else
+    under "other op"."""
+    from torch.autograd import DeviceType
+    out = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        chain, p = [], e
+        while p is not None:
+            chain.append(p.name)
+            p = p.cpu_parent
+        kind = next((c for c, keys in by_op if any(
+            k in n for n in chain for k in keys)), "other op")
+        out[kind] = out.get(kind, 0.0) + sum(
+            k.duration for k in e.kernels) / 1e3
+    return out
 
 
 # device kernels of a training step by kind, matched on the kernel name
@@ -6260,6 +6404,343 @@ def resume_phase(torch, dev, seed, out_dir):
           f"resumed step-6 state differs (max abs {diff:.3e})")
 
 
+# ResNet-50 training on one card (BASELINE.json config #1): paddle.vision's
+# model at ImageNet shapes through TrainStep and Model.fit
+RESNET_BATCH = 64
+RESNET_GRAPH_STEPS = 6
+RESNET_FIT_STEPS = 8
+RESNET_GATE_SHAPE = (16, 3, 224, 224)
+# resnet_card_cpu_gate's limits: the loss relative, each BN running stat
+# and each weight as a share of the change the CPU's step made to it
+# (about twice the CPU's own f32 distance from its f64 step at this shape,
+# tools/resnet_step_conditioning.py: 3.7e-7, 2.7e-5 and 0.128)
+RESNET_GATE_LIMITS = {"loss": 1e-6, "stats": 1e-4, "weights": 0.3}
+# a ResNet step's device time by the aten op that launched each kernel
+# (resnet_graph_run's op-by-op step): convolutions, BatchNorm and the fc
+# layer with their backward, then the casts and the rest
+RESNET_OPS = (
+    ("conv", ("aten::convolution",)), ("batch_norm", ("batch_norm",)),
+    ("fc", ("aten::linear", "aten::addmm", "aten::mm")),
+    ("pool", ("pool",)), ("cast", ("aten::_to_copy",)),
+    ("relu", ("relu", "threshold")), ("add", ("aten::add",)),
+    ("loss", ("softmax", "nll_loss")),
+    ("fill", ("aten::fill_", "aten::zero_")), ("copy", ("aten::copy_",)))
+
+
+def amp_scope(amp_on):
+    """``auto_cast`` O1 bf16 when ``amp_on``, else nothing."""
+    import contextlib
+    import paddle_tpu_torch as pt
+    return pt.amp.auto_cast(level="O1", dtype="bfloat16") if amp_on \
+        else contextlib.nullcontext()
+
+
+def _resnet_cell(torch, dev, seed, num_classes=1000):
+    """The ResNet cell's model, optimizer, schedule and loss:
+    ``resnet50(num_classes)`` drawn from ``seed`` on ``dev``,
+    ``Momentum(0.1, 0.9, weight_decay=L2Decay(1e-4))`` over
+    ``PiecewiseDecay([3], [0.1, 0.01])``, ``CrossEntropyLoss(
+    label_smoothing=0.1)``."""
+    import paddle_tpu_torch as pt
+    pt.seed(seed)
+    model = pt.vision.resnet50(num_classes=num_classes, device=dev)
+    sched = pt.optimizer.lr.PiecewiseDecay([3], [0.1, 0.01])
+    opt = pt.optimizer.Momentum(sched, 0.9, parameters=model.parameters(),
+                                weight_decay=pt.regularizer.L2Decay(1e-4))
+    return model, opt, sched, pt.nn.CrossEntropyLoss(label_smoothing=0.1)
+
+
+def resnet_card_cpu_gate(torch, dev, seed):
+    """One ``TrainStep`` of the cell's ResNet-50 at ``RESNET_GATE_SHAPE``
+    on the card (a captured step: its eager first call) and on the CPU,
+    f32, from the same weights (drawn on the CPU) and batch. The loss is
+    held to ``RESNET_GATE_LIMITS["loss"]`` relative; each BN running stat
+    and each weight to a share of the change that the CPU's step made to
+    that tensor.
+
+    The running stats come from the forward alone, which is well
+    conditioned (the CPU's f32 step lies within ~3e-5 of each stat's
+    change from its f64 step, ``tools/resnet_step_conditioning.py``).
+    The weights are not: in a freshly drawn ResNet-50 f32 rounding grows
+    through the forward and more through the backward, so the CPU's f32
+    step lies up to ~0.13 of a tensor's change from its f64 step at this
+    shape (more at smaller batches); the card's step is held to
+    ``RESNET_GATE_LIMITS["weights"]`` of it. A step that computed another
+    gradient for a tensor lies the order of its whole change away. One
+    step from zero velocity shows neither the momentum nor the 1e-4 decay
+    (below the rounding): ``momentum_shape`` holds the card's Momentum
+    update to its plain version at the cell's tensors, and
+    ``tests/test_torch_vision.py`` the port's two steps to the
+    reference's in f64."""
+    import numpy as np
+    from paddle_tpu_torch.convert import (export_reference_state_dict,
+                                          load_reference_state_dict)
+    from paddle_tpu_torch.jit import TrainStep
+    rng = np.random.RandomState(seed)
+    x = rng.rand(*RESNET_GATE_SHAPE).astype(np.float32)
+    y = rng.randint(0, 1000, RESNET_GATE_SHAPE[:1]).astype(np.int64)
+    cpu = torch.device("cpu")
+    init, runs = None, {}
+    for name, device in (("cpu", cpu), ("card", dev)):
+        model, opt, _, ce = _resnet_cell(torch, device, seed)
+        if init is None:
+            # copies: a CPU tensor's numpy view follows the step's update
+            init = {k: np.array(v) for k, v in
+                    export_reference_state_dict(model).items()}
+        else:
+            load_reference_state_dict(model, init)
+        step = TrainStep(model, opt, lambda o, t: ce(o, t))
+        t0 = time.perf_counter()
+        loss = float(step(torch.from_numpy(x).to(device),
+                          torch.from_numpy(y).to(device)))
+        runs[name] = (loss, export_reference_state_dict(model),
+                      time.perf_counter() - t0)
+        del model, opt, step
+    (l_cpu, cpu_sd, s_cpu), (l_card, card_sd, _) = runs["cpu"], runs["card"]
+    lim = RESNET_GATE_LIMITS
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    check(math.isfinite(l_card) and rel <= lim["loss"],
+          f"ResNet card vs CPU: loss {l_card} against {l_cpu}")
+    worst = {}
+    for k, want in cpu_sd.items():
+        kind = "stats" if k.endswith(("_mean", "_variance")) else "weights"
+        change = float(np.abs(want - init[k]).max())
+        r = float(np.abs(card_sd[k] - want).max()) / change
+        check(np.isfinite(card_sd[k]).all() and r <= lim[kind],
+              f"ResNet card vs CPU: {k} differs by {r:.3e} of its change "
+              f"{change:.3e} (limit {lim[kind]})")
+        worst[kind] = max(worst.get(kind, (0.0, "")), (r, k))
+    log(f"ResNet-50 card vs CPU, one f32 step at {list(RESNET_GATE_SHAPE)} "
+        f"(CPU {s_cpu:.1f} s): loss {l_card:.7f} | {l_cpu:.7f}, relative "
+        f"{rel:.3e} (limit {lim['loss']}); largest difference over the "
+        f"tensor's change: weights {worst['weights'][0]:.3e} "
+        f"({worst['weights'][1]}; limit {lim['weights']}), running stats "
+        f"{worst['stats'][0]:.3e} ({worst['stats'][1]}; limit "
+        f"{lim['stats']})")
+
+
+def _resnet_batches(torch, dev, n, seed):
+    """``n`` FakeData batches of ``RESNET_BATCH`` ImageNet images (1000
+    classes), drawn in a seeded order and on the card already."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+    data = pt.vision.datasets.FakeData(RESNET_BATCH * n, (3, 224, 224), 1000)
+    np.random.seed(seed)
+    loader = pt.io.DataLoader(data, places=dev, batch_size=RESNET_BATCH,
+                              shuffle=True)
+    return [tuple(b) for b in loader]
+
+
+def resnet_graph_run(torch, dev, seed, card, kind, batches, amp_on):
+    """The cell's ``TrainStep`` for ``len(batches)`` steps (the schedule
+    stepped after each), replayed (``kind`` "graphs") or op by op
+    ("eager"), in f32 or under ``auto_cast`` O1 bf16 (``amp_on``).
+    Returns losses, step median, profiled idle share, peak memory, the
+    digest of parameters, gradients, optimizer state and BN running
+    stats, and (graphs) ``cost_analysis``'s FLOPs, ``memory_analysis``
+    and the graph stats."""
+    from paddle_tpu_torch.jit import TrainStep
+    model, opt, sched, ce = _resnet_cell(torch, dev, seed)
+    step = TrainStep(model, opt, lambda o, t: ce(o, t))
+    call = step if kind == "graphs" else step._eager
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, times = [], []
+    with amp_scope(amp_on):
+        for x, y in batches:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            losses.append(float(call(x, y)))
+            times.append(time.perf_counter() - t1)
+            sched.step()
+    peak = torch.cuda.max_memory_allocated(dev)
+    digest = state_digest(torch, [*step_tensors(model, step),
+                                  *model.buffers()])
+    x, y = batches[-1]
+    label = f"ResNet-50 {'bf16 O1' if amp_on else 'f32'} {kind}"
+
+    def one():
+        with amp_scope(amp_on):
+            call(x, y)
+    # a replay's kernels belong to no aten op: the op-by-op step, whose
+    # kernels the replay repeats bit for bit, gives the split by op
+    busy, wall = train_profile(torch, one, card, label, categories=(),
+                               by_op=RESNET_OPS if kind == "eager" else None)
+    out = {"losses": losses, "median_ms": statistics.median(times[1:]) * 1e3,
+           "idle": 1 - busy / wall, "peak": peak, "digest": digest}
+    if kind == "graphs":
+        with amp_scope(amp_on):
+            out.update(flops=step.cost_analysis(x, y)["flops"],
+                       mem=step.memory_analysis(x, y),
+                       stats=dict(step.graph_stats))
+    return out
+
+
+def resnet_fit_run(torch, dev, seed, card, amp_on):
+    """``Model(resnet50).prepare(Momentum, CrossEntropyLoss, Accuracy(topk=
+    (1, 5))).fit`` over ``RESNET_FIT_STEPS`` FakeData batches (drawn on the
+    host in the loop), then ``evaluate`` on 2 batches, in f32 or O1 bf16.
+    Checks finite losses, one capture and a replay for every later step.
+    Returns the fit's per-step ms (median of steps 2 on), its launch
+    counts and the host ms to draw and copy one batch."""
+    import math as _math
+    import numpy as np
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+    model, opt, _, ce = _resnet_cell(torch, dev, seed)
+    m = pt.Model(model).prepare(opt, ce, pt.metric.Accuracy(topk=(1, 5)))
+    data = pt.vision.datasets.FakeData(RESNET_BATCH * RESNET_FIT_STEPS,
+                                       (3, 224, 224), 1000)
+
+    class Stamps(pt.callbacks.Callback):
+        def __init__(self):
+            super().__init__()
+            self.t, self.losses = [], []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.t.append(time.perf_counter())
+            self.losses.append(logs["loss"])
+    rec = Stamps()
+    np.random.seed(seed)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with amp_scope(amp_on):
+        t0 = time.perf_counter()
+        m.fit(data, batch_size=RESNET_BATCH, epochs=1, log_freq=1,
+              verbose=0, callbacks=[rec])
+        counts = dict(launch_counts)
+        logs = m.evaluate(pt.vision.datasets.FakeData(
+            2 * RESNET_BATCH, (3, 224, 224), 1000), batch_size=RESNET_BATCH,
+            verbose=0)
+    stats = m._train_step.graph_stats
+    label = f"ResNet-50 {'bf16 O1' if amp_on else 'f32'} fit"
+    check(len(rec.losses) == RESNET_FIT_STEPS and all(
+        _math.isfinite(v) for v in rec.losses), f"{label}: {rec.losses}")
+    check(stats["captures"] == 1 and stats["recaptures"] == 0
+          and stats["replays"] == RESNET_FIT_STEPS - 1,
+          f"{label}: graphs {stats}")
+    check(_math.isfinite(logs["loss"][0]) and 0 <= logs["acc_top1"]
+          <= logs["acc_top5"] <= 1, f"{label}: evaluate gave {logs}")
+    per_step = [b - a for a, b in zip([t0] + rec.t, rec.t)]
+    loader = pt.io.DataLoader(data, places=dev, batch_size=RESNET_BATCH)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    x, y = next(iter(loader))
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t1) * 1e3
+    # the fit's own graph replayed alone on a batch already on the card
+    model.train()
+    times = []
+    with amp_scope(amp_on):
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            float(m._train_step(x, y))
+            times.append(time.perf_counter() - t1)
+    check(m._train_step.graph_stats["captures"] == 1,
+          f"{label}: the replays alone re-captured")
+    replay_ms = statistics.median(times[1:]) * 1e3
+    med = statistics.median(per_step[1:]) * 1e3
+    log(f"{label} on {card}: {RESNET_FIT_STEPS} steps of "
+        f"{RESNET_BATCH} x 3 x 224 x 224, per step {med:.1f} ms median "
+        f"({RESNET_BATCH / med * 1e3:.1f} images/s; first step "
+        f"{per_step[0] * 1e3:.0f} ms with the capture); losses "
+        f"{[round(v, 4) for v in rec.losses]}; graphs {stats}; evaluate "
+        f"{logs}; drawing and copying one FakeData batch takes "
+        f"{host_ms:.1f} ms on the host; the step's graph alone on a batch "
+        f"on the card {replay_ms:.1f} ms ({RESNET_BATCH / replay_ms * 1e3:.1f}"
+        f" images/s); launches {counts}")
+    del m, model, opt
+    return {"median_ms": med, "counts": counts, "host_ms": host_ms,
+            "replay_ms": replay_ms}
+
+
+def resnet_phase(torch, dev, seed, card):
+    """ResNet-50 training at ImageNet shapes (the BASELINE.json config #1
+    cell). (a) ``resnet_card_cpu_gate``; (b) with
+    ``torch.backends.cudnn.deterministic`` on, ``RESNET_GRAPH_STEPS``
+    steps of the cell's ``TrainStep`` at [64, 3, 224, 224] replayed and
+    the same steps op by op from the same seed, in f32 and at O1 bf16:
+    bitwise the same losses, weights, gradients, momenta and BN running
+    stats; each side's step ms and images/s, profiled idle share, the
+    op-by-op step's device time by launching op (``RESNET_OPS``), MFU
+    from ``cost_analysis`` (f32 over 67e12, bf16 over 989e12), peak
+    memory beside ``memory_analysis``, capture seconds; (c) with the
+    default cuDNN setting (deterministic off, benchmark off),
+    ``Model.fit`` and ``evaluate`` over FakeData in f32 and O1 bf16
+    (``resnet_fit_run``), the fit's step beside the replay
+    alone. Returns the f32 fit's launch counts."""
+    t0 = time.perf_counter()
+    prev = torch.backends.cudnn.deterministic
+    try:
+        torch.backends.cudnn.deterministic = True
+        resnet_card_cpu_gate(torch, dev, seed)
+        free_card(torch)
+        batches = _resnet_batches(torch, dev, RESNET_GRAPH_STEPS, seed)
+        replay, flops_of = {}, {}
+        for amp_on in (False, True):
+            label = "bf16 O1" if amp_on else "f32"
+            g = resnet_graph_run(torch, dev, seed, card, "graphs", batches,
+                                 amp_on)
+            free_card(torch)
+            flops, mem, stats = g["flops"], g["mem"], g["stats"]
+            e = resnet_graph_run(torch, dev, seed, card, "eager", batches,
+                                 amp_on)
+            free_card(torch)
+            check(g["losses"] == e["losses"],
+                  f"ResNet {label}: replayed losses {g['losses']} differ "
+                  f"from the eager steps' {e['losses']}")
+            check(torch.equal(g["digest"], e["digest"]),
+                  f"ResNet {label}: the state after the replayed steps "
+                  "differs from the eager steps' (bitwise)")
+            # the steps after the first and the profiled one replay
+            check(stats["captures"] == 1 and stats["replays"]
+                  == RESNET_GRAPH_STEPS, f"ResNet {label}: {stats}")
+            peak_ops = PEAK_OPS["bfloat16" if amp_on else "float32"]
+            log(f"ResNet-50 {label} graphs vs eager on {card} "
+                f"(cudnn.deterministic=True): step median "
+                f"{g['median_ms']:.2f} | {e['median_ms']:.2f} ms, "
+                f"{RESNET_BATCH / g['median_ms'] * 1e3:.1f} | "
+                f"{RESNET_BATCH / e['median_ms'] * 1e3:.1f} images/s, idle "
+                f"share {g['idle']:.3f} | {e['idle']:.3f} (profiled step); "
+                f"MFU {flops / g['median_ms'] * 1e3 / peak_ops:.4f} | "
+                f"{flops / e['median_ms'] * 1e3 / peak_ops:.4f} "
+                f"(cost_analysis {flops:.4e} FLOPs a step over "
+                f"{peak_ops / 1e12:.0f} TFLOP/s); peak memory "
+                f"{g['peak'] / 2**30:.2f} | {e['peak'] / 2**30:.2f} GiB, "
+                f"memory_analysis argument "
+                f"{mem.argument_size_in_bytes / 2**30:.3f} + temp "
+                f"{mem.temp_size_in_bytes / 2**30:.3f} GiB; capture "
+                f"{stats['capture_s']:.2f} s; losses {g['losses']} bitwise "
+                f"the eager steps'")
+            replay[label] = g["median_ms"]
+            flops_of[label] = flops
+        del batches
+        free_card(torch)
+        torch.backends.cudnn.deterministic = prev
+        fits = {}
+        for amp_on in (False, True):
+            label = "bf16 O1" if amp_on else "f32"
+            fits[label] = resnet_fit_run(torch, dev, seed, card, amp_on)
+            free_card(torch)
+            f = fits[label]
+            peak_ops = PEAK_OPS["bfloat16" if amp_on else "float32"]
+            log(f"ResNet-50 {label} on {card} (cudnn.deterministic="
+                f"{prev}, benchmark={torch.backends.cudnn.benchmark}): "
+                f"Model.fit step {f['median_ms']:.1f} ms against its "
+                f"TrainStep graph replayed alone on a batch already on the "
+                f"card {f['replay_ms']:.1f} ms (MFU "
+                f"{flops_of[label] / f['replay_ms'] * 1e3 / peak_ops:.4f}; "
+                f"deterministic on: {replay[label]:.1f} ms); the gap is the "
+                f"input pipeline (FakeData draws "
+                f"{RESNET_BATCH * 3 * 224 * 224 / 1e6:.1f} M floats a batch "
+                f"on the host: {f['host_ms']:.1f} ms a batch)")
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    log(f"ResNet phase took {time.perf_counter() - t0:.1f} s")
+    return fits["f32"]["counts"]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=8,
@@ -6429,6 +6910,10 @@ def main(argv=None):
     t0 = time.perf_counter()
     o1_scaler_gate(torch, dev, args.seed)
     log(f"O1 scaler gate took {time.perf_counter() - t0:.1f} s")
+    free_card(torch)
+    counts_rn = resnet_phase(torch, dev, args.seed, card)
+    check(counts_rn["fused_update"] > 0,
+          "the ResNet fit launched no fused_update")
 
     sources = {"rms_norm": ("triton",
                             "paddle_tpu_torch/kernels/_rms_triton.py",
@@ -6489,6 +6974,7 @@ def main(argv=None):
                      "library_ms": m["library_ms"], **m.get("extra", {})})
         if name == "fused_update":
             rows[-1]["bert_launches"] = counts_ft[name]
+            rows[-1]["resnet_launches"] = counts_rn[name]
     # the f16 and mixed instances: launches of the instance in the run that
     # drives it on the card (serve run F16, the 2-layer gates' block-table
     # f16 decode, the BERT-base f16 eval; serve run KV for bf16 q over f32

@@ -23,7 +23,11 @@ the eager ``step()`` and ``TrainStep``) over the ``grad_sq_norm`` and
 O1 / O2, ``decorate``, ``GradScaler`` in the eager loop and inside
 ``jit.TrainStep``) over the f16 instances of the flash kernels, with
 activation recompute (``distributed.fleet.recompute``,
-``LlamaConfig.use_recompute``).
+``LlamaConfig.use_recompute``) — and ResNet training on one device:
+``vision.models`` (the ResNet family over ``nn.Conv2D``,
+``nn.BatchNorm2D`` and the pools), ``vision.datasets.FakeData``,
+``io.DataLoader``, ``metric`` and ``Model.fit`` / ``evaluate`` over the
+captured ``jit.TrainStep``.
 
 Runtime telemetry (metrics, spans, the flight recorder, exporters) is
 ``observability``, the reference's package.
@@ -53,12 +57,13 @@ dtypes (``float32``, ``bfloat16``, ... torch's dtypes; ``bool``),
 ``device_count``; ``seed``, ``get_rng_state`` / ``set_rng_state``;
 ``to_tensor`` and ``create_parameter``; ``no_grad``, ``enable_grad``,
 ``is_grad_enabled``, ``set_grad_enabled``; ``save`` / ``load``;
-``ParamAttr``; ``in_dynamic_mode``; ``flops`` (``hapi.flops``); and the
-subpackages ``nn``, ``optimizer``, ``amp``, ``jit``, ``inference``,
-``distributed``, ``incubate``, ``generation``, ``observability`` and
-``hapi``. The reference's
-``Tensor`` methods, ``ops``, ``io``, ``vision`` and the rest are not
-ported yet and have no name here.
+``ParamAttr``; ``in_dynamic_mode``; ``flops``, ``Model`` and
+``summary`` (``hapi``); and the subpackages ``nn``, ``optimizer``,
+``amp``, ``jit``, ``inference``, ``distributed``, ``incubate``,
+``generation``, ``observability``, ``hapi``, ``io``, ``metric``,
+``vision`` and ``callbacks`` (``hapi.callbacks``). The reference's
+``Tensor`` methods, ``ops`` and the rest are not ported yet and have no
+name here.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (or ``set_device("cpu")``).
@@ -88,8 +93,9 @@ from .autograd import (enable_grad, is_grad_enabled, no_grad,  # noqa: E402
 from .framework_io import load, save  # noqa: E402
 from .nn.initializer import ParamAttr  # noqa: E402
 from . import (amp, autograd, distributed, generation,  # noqa: E402
-               hapi, incubate, inference, jit, nn, observability, optimizer)
-from .hapi.flops import flops  # noqa: E402
+               hapi, incubate, inference, io, jit, metric, nn, observability,
+               optimizer, vision)
+from .hapi import Model, callbacks, flops, summary  # noqa: E402
 
 
 def in_dynamic_mode():
@@ -104,13 +110,14 @@ def device_count():
 
 
 __all__ = [
-    "CPUPlace", "CUDAPlace", "ParamAttr", "amp", "autograd", "bfloat16",
-    "bool", "complex128", "complex64", "create_parameter", "device_count",
-    "distributed", "enable_grad", "finfo", "float16", "float32", "float64",
-    "float8_e4m3fn", "float8_e5m2", "flops", "generation",
-    "get_default_dtype", "hapi",
+    "CPUPlace", "CUDAPlace", "Model", "ParamAttr", "amp", "autograd",
+    "bfloat16", "bool", "callbacks", "complex128", "complex64",
+    "create_parameter", "device_count", "distributed", "enable_grad",
+    "finfo", "float16", "float32", "float64", "float8_e4m3fn",
+    "float8_e5m2", "flops", "generation", "get_default_dtype", "hapi",
     "get_device", "get_rng_state", "iinfo", "in_dynamic_mode", "incubate",
-    "inference", "int16", "int32", "int64", "int8", "is_grad_enabled",
-    "jit", "load", "nn", "no_grad", "observability", "optimizer",
-    "resolve_device", "save", "seed", "set_default_dtype", "set_device",
-    "set_grad_enabled", "set_rng_state", "to_tensor", "uint8"]
+    "inference", "int16", "int32", "int64", "int8", "io",
+    "is_grad_enabled", "jit", "load", "metric", "nn", "no_grad",
+    "observability", "optimizer", "resolve_device", "save", "seed",
+    "set_default_dtype", "set_device", "set_grad_enabled", "set_rng_state",
+    "summary", "to_tensor", "uint8", "vision"]

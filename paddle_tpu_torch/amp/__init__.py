@@ -7,11 +7,14 @@ it. The port has no dispatcher, so the cast is :func:`cast_inputs`,
 called at each counterpart of a reference site whose op name matters on
 the ported paths: ``linear`` (``nn.functional.linear``,
 ``nn.layers_common.AmpLinear`` and the Llama projections), ``matmul``
-(the tied LM heads), ``rms_norm``, ``layer_norm``, ``cross_entropy``,
+(the tied LM heads), ``conv`` (``nn.functional.conv2d``), ``rms_norm``,
+``layer_norm``, ``batch_norm``, ``softmax``, ``cross_entropy``,
 ``flash_attention``, and, cast at O2 only, ``embedding``, ``dropout``,
-``gelu``, ``relu``, ``silu``, ``swiglu`` and ``fused_rope``. An op the
-reference leaves unnamed (residual adds, reshapes, ``tanh``) keeps its
-inputs' dtypes, and torch promotes f32 + f16 to f32 as jax does.
+``gelu``, ``relu``, ``silu``, ``swiglu``, ``fused_rope``, ``max_pool``
+and ``avg_pool``. So at O1 a ResNet's convolutions run in the amp dtype
+and its BatchNorms in f32. An op the reference leaves unnamed (residual
+adds, reshapes, ``tanh``, the adaptive pools) keeps its inputs' dtypes,
+and torch promotes f32 + f16 to f32 as jax does.
 
 ``torch.autocast`` is not used: its cast lists are PyTorch's, and it does
 not see the port's own ops (``fused_rms_norm``, ``fused_layer_norm``,

@@ -6,8 +6,10 @@
 model of the same config, so that both packages compute the same thing.
 Paddle's ``Linear`` stores its weight as [in, out] and ``nn.Linear`` as
 [out, in], so those are transposed; embeddings are [V, D] in both.
-Non-persistable buffers (the RoPE tables) are recomputed by the port's
-model, never copied. GPT's fused ``qkv`` projection is one linear (its
+Convolution weights are [out, in / groups, kh, kw] in both and are
+not transposed; persistable buffers (a BatchNorm's ``_mean`` and
+``_variance``) are copied like parameters. Non-persistable buffers (the
+RoPE tables) are recomputed by the port's model, never copied. GPT's fused ``qkv`` projection is one linear (its
 [in, 3 * hidden] weight transposed whole), and its LM head is ``wte``
 itself: the state dict names it once, so it is written once.
 ``export_reference_state_dict`` is the inverse:

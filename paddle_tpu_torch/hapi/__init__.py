@@ -1,6 +1,7 @@
-"""High-level API (counterpart of ``paddle_tpu/hapi``): ``flops``. The
-reference's ``Model``, ``summary``, callbacks and the rest are not ported
-yet."""
+"""High-level API (counterpart of ``paddle_tpu/hapi``): ``Model``,
+``summary``, ``callbacks`` and ``flops``."""
+from . import callbacks
 from .flops import flops
+from .model import Model, summary
 
-__all__ = ["flops"]
+__all__ = ["Model", "callbacks", "flops", "summary"]

@@ -5,9 +5,10 @@ The reference asks XLA's cost model about the compiled forward. Here the
 forward runs once without data (``FakeTensorMode``: the parameters and
 inputs become fake tensors, nothing is computed or written) under
 ``torch.utils.flop_counter``, which counts 2 FLOPs per multiply-add of
-every matrix product; the port's attention op counts its two products in
-full (``kernels.attention``). Elementwise work, which XLA also counts, is
-left out: a model's count is its products'."""
+every matrix product and convolution; the port's attention op counts its
+two products in full (``kernels.attention``). Elementwise work, pooling
+and normalisation, which XLA also counts, are left out: a model's count
+is its products'."""
 from __future__ import annotations
 
 import torch
@@ -51,5 +52,5 @@ def flops(net, input_size=None, inputs=None, custom_ops=None,
         net.train(was_training)
     if print_detail:
         print(f"Total Flops: {total}  (2 a multiply-add of every matrix "
-              "product of the forward)")
+              "product and convolution of the forward)")
     return total

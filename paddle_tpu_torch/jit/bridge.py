@@ -37,6 +37,15 @@ fused-optimizer flag changed, or the model's mode, the amp state or the
 dropout generator did; a load in place replays. A capture that fails
 raises: there is no eager fallback. On the CPU the step runs eagerly.
 
+Buffers a training forward writes in place (BatchNorm's running
+``_mean`` / ``_variance``) are read and written by address like the
+parameters: the eager run of a signature's first call updates them once,
+the capture does not run, and every replay updates them again, so N
+calls advance them N times, as N eager steps do. cuDNN may pick
+nondeterministic convolution algorithms; whether a replay is bitwise the
+eager step then rests on ``torch.backends.cudnn.deterministic``, which
+the package leaves to the caller.
+
 With ``scaler`` (an enabled ``amp.GradScaler``; a disabled one is
 ignored, as the reference ignores it) the step runs the reference's
 compiled dynamic loss scaling: ``backward`` of the loss times the scale
@@ -445,8 +454,9 @@ class TrainStep:
     def cost_analysis(self, *batch):
         """``{"flops": ...}`` for one whole step on a batch of this
         signature, without running it: 2 FLOPs per multiply-add of every
-        matrix product of forward and backward, the attention products in
-        full (Q K^T and P V at Sq x Sk, the backward's five), as the
+        matrix product and convolution of forward and backward (each
+        convolution's input and weight gradients), the attention products
+        in full (Q K^T and P V at Sq x Sk, the backward's five), as the
         defensible numerator of MFU. Elementwise work (XLA counts it) and
         the optimizer update are not counted. Changes no parameter,
         optimizer state, random stream or launch counter."""

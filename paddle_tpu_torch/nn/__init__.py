@@ -1,16 +1,25 @@
 """Counterpart of ``paddle_tpu/nn`` (only what the Llama serving and
-pretraining and the BERT/ERNIE fine-tuning paths use). ``Layer`` is the
-base class of every layer and model of the port."""
+pretraining, the BERT/ERNIE fine-tuning and the ResNet training paths
+use). ``Layer`` is the base class of every layer and model of the
+port."""
 from . import functional, initializer  # noqa: F401
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .initializer import ParamAttr
 from .layer_base import Layer
-from .layers_common import Dropout, Embedding, LayerList, LayerNorm, Linear
-from .losses import CrossEntropyLoss
+from .layers_common import (AdaptiveAvgPool2D, AdaptiveMaxPool2D, AvgPool2D,
+                            BatchNorm, BatchNorm1D, BatchNorm2D, Conv2D,
+                            Dropout, Embedding, Flatten, Identity, LayerList,
+                            LayerNorm, Linear, MaxPool2D, ReLU, Sequential,
+                            Softmax)
+from .losses import CrossEntropyLoss, NLLLoss
 from .transformer import (MultiHeadAttention, TransformerEncoder,
                           TransformerEncoderLayer)
 
-__all__ = ["ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
-           "CrossEntropyLoss", "Dropout", "Embedding", "Layer", "LayerList",
-           "LayerNorm", "Linear", "MultiHeadAttention", "ParamAttr",
-           "TransformerEncoder", "TransformerEncoderLayer"]
+__all__ = ["AdaptiveAvgPool2D", "AdaptiveMaxPool2D", "AvgPool2D",
+           "BatchNorm", "BatchNorm1D", "BatchNorm2D", "ClipGradByGlobalNorm",
+           "ClipGradByNorm", "ClipGradByValue", "Conv2D", "CrossEntropyLoss",
+           "Dropout", "Embedding", "Flatten", "Identity", "Layer",
+           "LayerList", "LayerNorm", "Linear", "MaxPool2D",
+           "MultiHeadAttention", "NLLLoss", "ParamAttr", "ReLU",
+           "Sequential", "Softmax", "TransformerEncoder",
+           "TransformerEncoderLayer"]

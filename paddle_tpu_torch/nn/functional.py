@@ -1,17 +1,26 @@
-"""Counterpart of ``paddle_tpu/nn/functional.py`` (only what the Llama
-serving and pretraining and the BERT/ERNIE fine-tuning paths use).
+"""Counterpart of ``paddle_tpu/nn/functional.py`` (what the Llama
+serving and pretraining, the BERT/ERNIE fine-tuning and the ResNet
+training paths use).
 
 Where the reference names an op for its dispatcher (``linear``,
 ``embedding``, ``dropout``, ``gelu``, ``relu``, ``layer_norm``,
-``cross_entropy``), the function casts its inputs as ``amp`` says for
-that name (``amp.cast_inputs``); ``tanh`` is unnamed there and never
-cast."""
+``cross_entropy``, ``conv``, ``batch_norm``, ``softmax``, ``max_pool``,
+``avg_pool``), the function casts its inputs as ``amp`` says for that
+name (``amp.cast_inputs``); ``tanh``, ``log_softmax``, the adaptive
+pools and ``flatten`` are unnamed there and never cast.
+
+Convolution, BatchNorm and pooling are not Pallas kernels in the
+reference (``jax.lax.conv_general_dilated``, plain ``jnp`` and
+``reduce_window``): here they are ``torch.nn.functional``'s, with the
+reference's padding, layout and count rules.
+"""
 import math
 
 import torch
 import torch.nn.functional as F
 
 from ..amp import cast_inputs
+from ..framework import dtype as dtypes
 from ..framework import random as _random
 from ..kernels.attention import flash_attention_bshd
 from ..kernels.norm import fused_layer_norm
@@ -24,6 +33,26 @@ def tanh(x, name=None):
 def relu(x, name=None):
     (x,) = cast_inputs("relu", x)
     return torch.relu(x)
+
+
+def relu_(x, name=None):
+    """``relu`` written into ``x`` (the reference's in-place update)."""
+    return x.relu_()
+
+
+def softmax(x, axis=-1, dtype=None, name=None):
+    """Softmax over ``axis``, in ``dtype`` when it is given (the input is
+    cast first, as the reference casts it)."""
+    (x,) = cast_inputs("softmax", x)
+    if dtype is not None:
+        x = x.to(dtypes.convert_dtype(dtype))
+    return torch.softmax(x, dim=axis)
+
+
+def log_softmax(x, axis=-1, dtype=None, name=None):
+    if dtype is not None:
+        x = x.to(dtypes.convert_dtype(dtype))
+    return torch.log_softmax(x, dim=axis)
 
 
 def gelu(x, approximate=False, name=None):
@@ -128,37 +157,264 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0, name=None):
-    """``paddle.nn.functional.cross_entropy`` with hard integer labels
-    over the last axis. The log-softmax runs in the logits' dtype, as the
-    reference's ``jax.nn.log_softmax(logits)`` does; rows labelled
-    ``ignore_index`` give 0 and leave the mean's denominator; a label
-    outside [0, C) gives NaN (the upstream kernel refuses it). Soft
-    labels, class weights, label smoothing and ``use_softmax=False`` are
-    not ported."""
-    if soft_label or weight is not None or label_smoothing or \
-            not use_softmax or axis not in (-1, input.dim() - 1):
-        raise NotImplementedError(
-            "cross_entropy: only hard labels over the last axis, without "
-            "weight or label smoothing, are ported")
+    """``paddle.nn.functional.cross_entropy``, the reference's rules:
+
+    - ``use_softmax``: log-softmax over ``axis`` in the logits' dtype;
+      else ``input`` holds probabilities, whose log (floored at 1e-30)
+      is taken;
+    - soft labels (``soft_label``, or floating labels of the logits'
+      rank): ``-sum(q log p)``, ``q`` smoothed by ``label_smoothing``, and
+      with ``weight`` times ``sum(q w)``;
+    - hard integer labels: the picked log-probability, or with
+      ``label_smoothing`` ``ls`` the smoothed one-hot's sum
+      ``(1 - ls) log p_y + ls / C sum_c log p_c``; ``weight`` scales a row
+      by ``(1 - ls) w_y + ls / C sum_c w_c``. Rows labelled
+      ``ignore_index`` give 0; a label outside [0, C) gives NaN (the
+      upstream kernel refuses it);
+    - ``mean`` over hard labels divides by the non-ignored rows' weight
+      (their count without ``weight``; 0 when all are ignored), over soft
+      labels by the number of rows."""
+    input, label, weight = cast_inputs("cross_entropy", input, label,
+                                       weight)
+    nd = input.dim()
+    ax = axis % nd
+    n = input.shape[ax]
+    if use_softmax:
+        logp = torch.log_softmax(input, dim=ax)
+    else:
+        logp = torch.log(torch.clamp(input, min=1e-30))
+    if soft_label or (label.dim() == nd and label.dtype.is_floating_point):
+        tgt = label
+        if label_smoothing > 0.0:
+            tgt = tgt * (1 - label_smoothing) + label_smoothing / n
+        loss = -(tgt * logp).sum(ax)
+        if weight is not None:
+            w = weight.reshape([-1 if i == ax else 1 for i in range(nd)])
+            loss = loss * (tgt * w).sum(ax)
+        return _reduce(loss, reduction)
     if label.dtype.is_floating_point:
         raise TypeError("cross_entropy: hard labels must be integers")
-    (input,) = cast_inputs("cross_entropy", input)
-    if label.dim() == input.dim():
-        label = label.squeeze(-1)
-    n = input.shape[-1]
-    logp = torch.log_softmax(input, dim=-1)
+    if label.dim() == nd:
+        label = label.squeeze(ax)
     valid = label != ignore_index
     safe = torch.where(valid & (label >= 0) & (label < n), label, 0)
-    nll = -logp.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
+    nll = -logp.gather(ax, safe.unsqueeze(ax)).squeeze(ax)
+    if label_smoothing > 0.0:
+        nll = (1 - label_smoothing) * nll \
+            - (label_smoothing / n) * logp.sum(ax)
+    wi = None
+    if weight is not None:
+        wi = weight[safe]
+        if label_smoothing > 0.0:
+            wi = (1 - label_smoothing) * wi \
+                + (label_smoothing / n) * weight.sum()
+        nll = nll * wi
     oob = valid & ((label < 0) | (label >= n))
     nll = torch.where(oob, float("nan"), nll)
     loss = torch.where(valid, nll, 0.0)
+    if reduction != "mean":
+        return _reduce(loss, reduction)
+    # mean over the non-ignored rows (their weight); the all-ignored case
+    # gives 0
+    den = valid.to(loss.dtype).sum() if wi is None \
+        else torch.where(valid, wi, 0.0).sum()
+    return loss.sum() / torch.clamp(den, min=1e-12)
+
+
+def _reduce(loss, reduction):
     if reduction == "none":
         return loss
     if reduction == "sum":
         return loss.sum()
+    if reduction == "mean":
+        return loss.mean()
+    raise ValueError(f"unknown reduction {reduction!r}")
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, axis=-1):
+    """Per-row ``cross_entropy`` kept as a size-1 ``axis``; with
+    ``return_softmax`` also the softmax. ``numeric_stable_mode`` is taken
+    and, as in the reference, not read."""
+    loss = cross_entropy(logits, label, soft_label=soft_label,
+                         ignore_index=ignore_index, reduction="none",
+                         axis=axis).unsqueeze(axis)
+    if return_softmax:
+        return loss, softmax(logits, axis=axis)
+    return loss
+
+
+def nll_loss(input, label, weight=None, ignore_index=-100, reduction="mean",
+             name=None):
+    """Negative log-likelihood of log-probabilities ``input`` (classes on
+    axis 1, or 0 for one row) at integer ``label``; ``mean`` divides by
+    the non-ignored rows' weight (their count, at least 1, without
+    ``weight``)."""
+    cls = 1 if input.dim() > 1 else 0
+    valid = label != ignore_index
+    safe = torch.where(valid, label, 0)
+    if input.dim() == label.dim() + 1:
+        picked = -input.gather(cls, safe.unsqueeze(cls)).squeeze(cls)
+    else:
+        picked = -input.gather(cls, safe)
+    if weight is not None:
+        picked = picked * weight[safe]
+    loss = torch.where(valid, picked, 0.0)
     if reduction != "mean":
-        raise ValueError(f"cross_entropy: unknown reduction {reduction!r}")
-    # mean over the non-ignored rows; the all-ignored case gives 0
-    den = valid.to(loss.dtype).sum()
-    return loss.sum() / torch.clamp(den, min=1e-12)
+        return _reduce(loss, reduction)
+    if weight is not None:
+        return loss.sum() / torch.where(valid, weight[safe], 0.0).sum()
+    return loss.sum() / torch.clamp(valid.sum(), min=1)
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
+    """``label * (1 - epsilon) + epsilon / C`` over the last axis;
+    ``prior_dist`` is taken and, as in the reference, not read."""
+    return label * (1 - epsilon) + epsilon / label.shape[-1]
+
+
+def flatten(x, start_axis=0, stop_axis=-1, name=None):
+    """Axes ``start_axis`` to ``stop_axis`` merged into one (a copy of
+    ``paddle_tpu/ops/manipulation.py`` ``flatten``)."""
+    if x.dim() == 0:
+        return x.reshape(1)
+    return torch.flatten(x, start_axis % x.dim(), stop_axis % x.dim())
+
+
+# ------------------------------------------------------------ convolution --
+def _ntuple(v, n):
+    if isinstance(v, (list, tuple)):
+        return tuple(int(i) for i in v)
+    return (int(v),) * n
+
+
+def _to_nchw(x, data_format):
+    return x.permute(0, 3, 1, 2) if data_format == "NHWC" else x
+
+
+def _from_nchw(x, data_format):
+    return x.permute(0, 2, 3, 1) if data_format == "NHWC" else x
+
+
+def _conv_pads(padding, x_sp, k_sp, stride, dilation):
+    """The reference's padding forms as one (low, high) pair per spatial
+    axis: ``"SAME"`` / ``"VALID"`` (XLA's rule, on the dilated kernel), an
+    int, one int per axis, a flat [lo0, hi0, lo1, hi1, ...] list, or one
+    pair per axis."""
+    n = len(x_sp)
+    if isinstance(padding, str):
+        pad = padding.upper()
+        if pad == "VALID":
+            return [(0, 0)] * n
+        if pad != "SAME":
+            raise ValueError(f"unknown padding {padding!r}")
+        out = []
+        for size, k, s, d in zip(x_sp, k_sp, stride, dilation):
+            o = -(-size // s)
+            total = max((o - 1) * s + (k - 1) * d + 1 - size, 0)
+            out.append((total // 2, total - total // 2))
+        return out
+    if isinstance(padding, (list, tuple)) and len(padding) == 2 * n:
+        return [(int(padding[2 * i]), int(padding[2 * i + 1]))
+                for i in range(n)]
+    if isinstance(padding, (list, tuple)) and len(padding) == n and \
+            isinstance(padding[0], (list, tuple)):
+        return [tuple(int(q) for q in p) for p in padding]
+    return [(p, p) for p in _ntuple(padding, n)]
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW", name=None):
+    """2-D convolution, ``weight`` [out, in / groups, kh, kw] (the same
+    layout in both packages), ``data_format`` "NCHW" or "NHWC". Unequal
+    low and high padding pads ``x`` first."""
+    x, weight, bias = cast_inputs("conv", x, weight, bias)
+    x = _to_nchw(x, data_format)
+    stride, dilation = _ntuple(stride, 2), _ntuple(dilation, 2)
+    pads = _conv_pads(padding, x.shape[2:], weight.shape[2:], stride,
+                      dilation)
+    if all(lo == hi for lo, hi in pads):
+        out = F.conv2d(x, weight, bias, stride, [lo for lo, _ in pads],
+                       dilation, groups)
+    else:
+        x = F.pad(x, [v for lo_hi in reversed(pads) for v in lo_hi])
+        out = F.conv2d(x, weight, bias, stride, 0, dilation, groups)
+    return _from_nchw(out, data_format)
+
+
+# ---------------------------------------------------------------- norms --
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-05,
+               data_format="NCHW", use_global_stats=None, name=None):
+    """BatchNorm over every axis but the channel one (axis 1 for an "NC*"
+    ``data_format``, else the last). With ``training`` (and no
+    ``use_global_stats``, which overrides it) it normalises by the
+    batch's mean and biased variance and updates the running stats in
+    place, the reference's ``r = m r + (1 - m) b`` (torch's momentum is
+    ``1 - m``), the variance with the unbiased factor ``n / (n - 1)``;
+    otherwise by the running stats. Under ``amp`` every input is f32 (the
+    reference's black list)."""
+    x, weight, bias = cast_inputs("batch_norm", x, weight, bias)
+    channel_last = not data_format.startswith("NC") and x.dim() > 2
+    if channel_last:
+        x = x.movedim(-1, 1)
+    use_batch = training and not use_global_stats
+    if not use_batch:
+        (running_mean, running_var) = cast_inputs(
+            "batch_norm", running_mean, running_var)
+    out = F.batch_norm(x, running_mean, running_var, weight, bias,
+                       training=use_batch, momentum=1.0 - momentum,
+                       eps=epsilon)
+    return out.movedim(1, -1) if channel_last else out
+
+
+# -------------------------------------------------------------- pooling --
+def _window(kernel_size, stride, padding):
+    """Kernel, stride (the kernel's when None) and padding as pairs."""
+    return (_ntuple(kernel_size, 2),
+            _ntuple(kernel_size if stride is None else stride, 2),
+            _ntuple(padding, 2))
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
+               ceil_mode=False, data_format="NCHW", name=None):
+    """Max over each window (padding counts as -inf); ``ceil_mode`` keeps
+    a last partial window unless it would start in the padding (the
+    reference's rule and torch's). ``return_mask`` also gives each
+    output's flat index within its input plane (NCHW only, as there)."""
+    if return_mask and data_format != "NCHW":
+        raise ValueError("return_mask requires NCHW data_format")
+    (x,) = cast_inputs("max_pool", x)
+    ks, st, pd = _window(kernel_size, stride, padding)
+    if return_mask:
+        return F.max_pool2d(x, ks, st, pd, 1, ceil_mode, True)
+    return _from_nchw(F.max_pool2d(_to_nchw(x, data_format), ks, st, pd, 1,
+                                   ceil_mode), data_format)
+
+
+def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None, data_format="NCHW",
+               name=None):
+    """Mean over each window: over its cells inside the input
+    (``exclusive``), or over its cells inside the padded input (the
+    ceil-mode overhang past the padding never counts: torch's
+    ``count_include_pad``). ``divisor_override`` is taken and, as in the
+    reference, not read."""
+    (x,) = cast_inputs("avg_pool", x)
+    ks, st, pd = _window(kernel_size, stride, padding)
+    return _from_nchw(F.avg_pool2d(_to_nchw(x, data_format), ks, st, pd,
+                                   ceil_mode, count_include_pad=not exclusive),
+                      data_format)
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
+    """Mean over bins [floor(i n / o), ceil((i + 1) n / o)) per axis."""
+    return _from_nchw(F.adaptive_avg_pool2d(_to_nchw(x, data_format),
+                                            output_size), data_format)
+
+
+def adaptive_max_pool2d(x, output_size, return_mask=False, name=None):
+    """Max over the same bins, NCHW. ``return_mask`` is taken and, as in
+    the reference, not read: the output alone comes back."""
+    return F.adaptive_max_pool2d(x, output_size)

@@ -1,4 +1,5 @@
-"""Loss layers (counterpart of ``paddle_tpu/nn/losses.py``)."""
+"""Loss layers (counterpart of ``paddle_tpu/nn/losses.py``:
+``CrossEntropyLoss`` and ``NLLLoss``)."""
 from __future__ import annotations
 
 from . import functional as PF
@@ -6,9 +7,8 @@ from .layer_base import Layer
 
 
 class CrossEntropyLoss(Layer):
-    """``nn.functional.cross_entropy`` as a layer: hard integer labels
-    over the last axis (soft labels, class weights and label smoothing
-    raise, as there)."""
+    """``nn.functional.cross_entropy`` as a layer, with every argument it
+    takes."""
 
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  soft_label=False, axis=-1, use_softmax=True,
@@ -29,3 +29,18 @@ class CrossEntropyLoss(Layer):
                                 soft_label=self.soft_label, axis=self.axis,
                                 use_softmax=self.use_softmax,
                                 label_smoothing=self.label_smoothing)
+
+
+class NLLLoss(Layer):
+    """``nn.functional.nll_loss`` as a layer."""
+
+    def __init__(self, weight=None, ignore_index=-100, reduction="mean",
+                 name=None):
+        super().__init__()
+        self.weight = weight
+        self.ignore_index = ignore_index
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return PF.nll_loss(input, label, self.weight, self.ignore_index,
+                           self.reduction)

@@ -1,6 +1,5 @@
 """Counterpart of ``paddle_tpu/optimizer`` (SGD, Momentum, Adam, AdamW,
-the fused multi-tensor step, and the cosine, polynomial and
-linear-warmup LR schedules so far)."""
+the fused multi-tensor step, and the LR schedules of ``optimizer.lr``)."""
 from . import lr  # noqa: F401
 from .optimizer import SGD, Adam, AdamW, Momentum, Optimizer
 

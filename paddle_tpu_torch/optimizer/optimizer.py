@@ -69,6 +69,13 @@ class Optimizer:
             raise RuntimeError("cannot set_lr when using an LRScheduler")
         self._learning_rate = float(value)
 
+    @property
+    def _lr_scheduler(self):
+        """The ``LRScheduler`` behind the learning rate, or None (what
+        ``hapi``'s ``LRScheduler`` callback steps)."""
+        lr = self._learning_rate
+        return lr if isinstance(lr, LRScheduler) else None
+
     def _lr_operand(self, device):
         """The current lr as an f32 scalar on ``device``, refilled in place
         each step (a fill, not a host-to-device copy that would sync)."""

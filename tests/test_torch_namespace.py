@@ -217,14 +217,21 @@ def test_device_names_map_to_torch(name, want):
 
 def test_top_level_names():
     for sub in ("nn", "optimizer", "amp", "jit", "inference", "distributed",
-                "incubate", "generation", "observability", "autograd"):
+                "incubate", "generation", "observability", "autograd", "io",
+                "metric", "vision", "hapi"):
         assert getattr(pt, sub).__name__ == f"paddle_tpu_torch.{sub}"
+    assert pt.callbacks is pt.hapi.callbacks
+    assert pt.Model is pt.hapi.Model and pt.summary is pt.hapi.summary
+    assert pt.vision.resnet50 is pt.vision.models.resnet50
+    for name in ("Model", "summary", "flops", "io", "metric", "vision",
+                 "callbacks"):
+        assert hasattr(paddle, name), name
     assert pt.nn.Layer is pt.nn.layer_base.Layer
     assert pt.in_dynamic_mode() is paddle.in_dynamic_mode() is True
     assert pt.__version__ == paddle.__version__
     assert pt.device_count() == torch.cuda.device_count()
     assert pt.ParamAttr is pt.nn.initializer.ParamAttr
-    for name in ("Tensor", "ops", "io", "vision", "static"):
+    for name in ("Tensor", "ops", "static"):
         assert not hasattr(pt, name), name
     assert set(pt.__all__) <= set(dir(pt))
 

@@ -95,7 +95,47 @@ CALLABLES = [
     *[("", n, ()) for n in (
         "create_parameter", "in_dynamic_mode", "device_count", "seed",
         "to_tensor", "save", "load", "set_device", "get_device",
-        "no_grad", "flops")],
+        "no_grad", "flops", "Model", "summary")],
+    # the ResNet path: layers, ops, models, data, metrics, schedules, hapi
+    *[("nn.layers_common", n, ()) for n in (
+        "Sequential", "_ConvNd", "Conv2D", "_BatchNormBase", "BatchNorm1D",
+        "BatchNorm2D", "BatchNorm", "ReLU", "Softmax", "MaxPool2D",
+        "AvgPool2D", "AdaptiveAvgPool2D", "AdaptiveMaxPool2D", "Flatten",
+        "Identity")],
+    ("nn", "NLLLoss", ()),
+    *[("nn.functional", n, ()) for n in (
+        "relu", "relu_", "softmax", "log_softmax", "conv2d", "batch_norm",
+        "max_pool2d", "avg_pool2d", "adaptive_avg_pool2d",
+        "adaptive_max_pool2d", "softmax_with_cross_entropy", "nll_loss",
+        "label_smooth")],
+    *[("vision.models.resnet", n, ()) for n in (
+        "BasicBlock", "BottleneckBlock", "ResNet", "_resnet", "resnet18",
+        "resnet34", "resnet50", "resnet101", "resnet152", "wide_resnet50_2",
+        "wide_resnet101_2", "resnext50_32x4d", "resnext101_32x4d",
+        "resnext101_64x4d", "resnext152_32x4d")],
+    ("vision.datasets", "FakeData", ()),
+    *[("io", n, ()) for n in (
+        "Dataset", "IterableDataset", "TensorDataset", "ComposeDataset",
+        "ChainDataset", "ConcatDataset", "Subset", "random_split", "Sampler",
+        "SequenceSampler", "RandomSampler", "WeightedRandomSampler",
+        "SubsetRandomSampler", "BatchSampler", "DistributedBatchSampler",
+        "default_collate_fn", "default_convert_fn", "DataLoader")],
+    *[("metric", n, ()) for n in (
+        "Metric", "Accuracy", "Accuracy.compute", "Accuracy.update",
+        "Precision", "Recall", "Auc", "accuracy")],
+    *[("optimizer.lr", n, ()) for n in (
+        "NoamDecay", "PiecewiseDecay", "NaturalExpDecay", "InverseTimeDecay",
+        "ExponentialDecay", "MultiStepDecay", "StepDecay", "LambdaDecay",
+        "MultiplicativeDecay", "CosineAnnealingWarmRestarts", "OneCycleLR",
+        "CyclicLR", "ReduceOnPlateau", "ReduceOnPlateau.step", "LinearLR")],
+    ("hapi.model", "Model", ()),
+    *[("hapi.model", f"Model.{n}", ()) for n in (
+        "prepare", "train_batch", "eval_batch", "predict_batch", "fit",
+        "evaluate", "predict", "save", "load", "parameters", "summary")],
+    ("hapi.model", "summary", ()),
+    *[("hapi.callbacks", n, ()) for n in (
+        "Callback", "ProgBarLogger", "ModelCheckpoint", "EarlyStopping",
+        "LRScheduler", "VisualDL", "ReduceLROnPlateau", "config_callbacks")],
 ]
 # torch's own keywords, which torch passes to a Layer's methods itself
 # (``named_parameters(remove_duplicate=)``, ``state_dict(prefix=,
