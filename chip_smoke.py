@@ -381,6 +381,27 @@ Needs one NVIDIA GPU, ``nvcc`` and ``triton``; imports nothing of JAX.
    by op, MFU from ``cost_analysis``, idle share and the op-by-op step's
    device time by launching op (convolution, BN, casts, ...), peak
    memory, capture seconds and ``fit``'s step beside the replay alone.
+10. The vision input pipeline and model zoo (``vision_phase``): (a) the
+   same ``Model.fit`` with ``io.DataLoader`` worker processes (all cores
+   but two, at most 8) over the shared-memory ring, its capacity set
+   through ``shm_channel_capacity_mb``: the first batches bitwise the
+   in-process loader's, one capture and replays, finite losses, in f32
+   and O1 bf16; prints the step and images/s with and without workers,
+   the replay alone and the parent's host ms per batch (pop, unpickle,
+   pin and copy). (b) The ImageNet train transform (RandomResizedCrop,
+   flip, Normalize, Transpose) over 512 seeded uint8 images through the
+   loader alone, in-process and, over 4 passes, in the workers (images/s
+   after the start-up and over the whole run; two worker runs give the
+   same first batch bitwise), then an O1 bf16 fit over one pass.
+   (c) Every ``vision.models`` family at full width in f32 (LeNet,
+   AlexNet, VGG-16, MobileNet v1 / v2 / v3 small and large, SqueezeNet
+   1.1, ShuffleNet v2 x1.0, DenseNet-121, GoogLeNet with its three heads,
+   Inception v3 at 299): the eval forward at batch 2 on the card against
+   the CPU's (``VISION_ZOO_FWD_TOL`` of the largest output), and 5
+   ``TrainStep`` calls at batch 32 replayed against the same steps op by
+   op (cuDNN deterministic): bitwise the same losses and state, the same
+   ``fused_update`` launches; prints each one's replayed step, images/s
+   and peak memory.
 
 The line before the last is the ``kernels`` JSON record; the last line
 is ``{"ok": true, "device": {...}}``. Any failed check raises, so the
@@ -6576,21 +6597,32 @@ def resnet_graph_run(torch, dev, seed, card, kind, batches, amp_on):
     return out
 
 
-def resnet_fit_run(torch, dev, seed, card, amp_on):
+def resnet_fit_run(torch, dev, seed, card, amp_on, num_workers=0,
+                   data=None, label=None, steps=RESNET_FIT_STEPS):
     """``Model(resnet50).prepare(Momentum, CrossEntropyLoss, Accuracy(topk=
-    (1, 5))).fit`` over ``RESNET_FIT_STEPS`` FakeData batches (drawn on the
-    host in the loop), then ``evaluate`` on 2 batches, in f32 or O1 bf16.
-    Checks finite losses, one capture and a replay for every later step.
-    Returns the fit's per-step ms (median of steps 2 on), its launch
-    counts and the host ms to draw and copy one batch."""
+    (1, 5))).fit`` over ``steps`` FakeData batches (or the batches of
+    ``data``), then ``evaluate`` on 2 batches, in f32 or O1
+    bf16. With ``num_workers`` 0 the fit makes its own loader and the
+    batches are drawn on the host in the loop; otherwise it is handed an
+    ``io.DataLoader`` whose worker processes draw them, and the parent's
+    host time per batch is read from the loader's ``host_s``. Checks
+    finite losses, one capture and a replay for every later step. Returns
+    the fit's per-step ms (median of steps 2 on), its launch counts, the
+    host ms to draw and copy one batch in-process, the replay alone and
+    (workers) the parent's ms per batch by part."""
     import math as _math
     import numpy as np
     import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import flags
     from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
     model, opt, _, ce = _resnet_cell(torch, dev, seed)
     m = pt.Model(model).prepare(opt, ce, pt.metric.Accuracy(topk=(1, 5)))
-    data = pt.vision.datasets.FakeData(RESNET_BATCH * RESNET_FIT_STEPS,
-                                       (3, 224, 224), 1000)
+    if data is None:
+        data = pt.vision.datasets.FakeData(RESNET_BATCH * steps,
+                                           (3, 224, 224), 1000)
+    train = data if not num_workers else pt.io.DataLoader(
+        data, places=dev, batch_size=RESNET_BATCH, shuffle=True,
+        num_workers=num_workers)
 
     class Stamps(pt.callbacks.Callback):
         def __init__(self):
@@ -6606,18 +6638,21 @@ def resnet_fit_run(torch, dev, seed, card, amp_on):
     reset_launch_counts()
     with amp_scope(amp_on):
         t0 = time.perf_counter()
-        m.fit(data, batch_size=RESNET_BATCH, epochs=1, log_freq=1,
+        m.fit(train, batch_size=RESNET_BATCH, epochs=1, log_freq=1,
               verbose=0, callbacks=[rec])
         counts = dict(launch_counts)
         logs = m.evaluate(pt.vision.datasets.FakeData(
             2 * RESNET_BATCH, (3, 224, 224), 1000), batch_size=RESNET_BATCH,
             verbose=0)
     stats = m._train_step.graph_stats
-    label = f"ResNet-50 {'bf16 O1' if amp_on else 'f32'} fit"
-    check(len(rec.losses) == RESNET_FIT_STEPS and all(
+    label = label or f"ResNet-50 {'bf16 O1' if amp_on else 'f32'} fit"
+    if num_workers:
+        label += f" ({num_workers} workers)"
+    steps = len(data) // RESNET_BATCH
+    check(len(rec.losses) == steps and all(
         _math.isfinite(v) for v in rec.losses), f"{label}: {rec.losses}")
     check(stats["captures"] == 1 and stats["recaptures"] == 0
-          and stats["replays"] == RESNET_FIT_STEPS - 1,
+          and stats["replays"] == steps - 1,
           f"{label}: graphs {stats}")
     check(_math.isfinite(logs["loss"][0]) and 0 <= logs["acc_top1"]
           <= logs["acc_top5"] <= 1, f"{label}: evaluate gave {logs}")
@@ -6641,18 +6676,30 @@ def resnet_fit_run(torch, dev, seed, card, amp_on):
           f"{label}: the replays alone re-captured")
     replay_ms = statistics.median(times[1:]) * 1e3
     med = statistics.median(per_step[1:]) * 1e3
-    log(f"{label} on {card}: {RESNET_FIT_STEPS} steps of "
+    parts = {}
+    if num_workers:
+        hs = train.host_s
+        parts = {k: hs.get(k, 0.0) / hs["batches"] * 1e3
+                 for k in ("pop", "unpickle", "to_device")}
+        log(f"{label}: the parent's host ms per batch over "
+            f"{hs['batches']} batches: pop (waiting for a worker and "
+            f"copying out of the ring) {parts['pop']:.2f}, unpickle "
+            f"{parts['unpickle']:.2f}, pin and copy to the card "
+            f"{parts['to_device']:.2f}; ring capacity "
+            f"{flags.flag_value('shm_channel_capacity_mb')} MiB")
+    log(f"{label} on {card}: {steps} steps of "
         f"{RESNET_BATCH} x 3 x 224 x 224, per step {med:.1f} ms median "
         f"({RESNET_BATCH / med * 1e3:.1f} images/s; first step "
         f"{per_step[0] * 1e3:.0f} ms with the capture); losses "
         f"{[round(v, 4) for v in rec.losses]}; graphs {stats}; evaluate "
-        f"{logs}; drawing and copying one FakeData batch takes "
+        f"{logs}; drawing and copying one batch in-process takes "
         f"{host_ms:.1f} ms on the host; the step's graph alone on a batch "
         f"on the card {replay_ms:.1f} ms ({RESNET_BATCH / replay_ms * 1e3:.1f}"
         f" images/s); launches {counts}")
-    del m, model, opt
+    del m, model, opt, train
     return {"median_ms": med, "counts": counts, "host_ms": host_ms,
-            "replay_ms": replay_ms}
+            "replay_ms": replay_ms, "parts": parts, "losses": rec.losses,
+            "steps_ms": [round(v * 1e3, 1) for v in per_step]}
 
 
 def resnet_phase(torch, dev, seed, card):
@@ -6738,7 +6785,422 @@ def resnet_phase(torch, dev, seed, card):
     finally:
         torch.backends.cudnn.deterministic = prev
     log(f"ResNet phase took {time.perf_counter() - t0:.1f} s")
-    return fits["f32"]["counts"]
+    return fits
+
+
+# The vision input pipeline and model zoo on one card: DataLoader workers
+# over the shared-memory ring under Model.fit, the ImageNet train
+# transform in the workers, and every vision.models family's TrainStep
+VISION_AUG_IMAGES = 512          # seeded uint8 [256, 256, 3] images
+VISION_AUG_SIDE = 256
+VISION_AUG_PASSES = 4            # the worker runs: 32 batches, 4+ a worker
+IMAGENET_MEAN = [123.675, 116.28, 103.53]
+IMAGENET_STD = [58.395, 57.12, 57.375]
+VISION_RING_MB = 256             # ring capacity asked for (6 f32 batches)
+VISION_FIT_STEPS = 16            # the worker fits: past the workers' start
+VISION_ZOO_BATCH = 32
+VISION_ZOO_CALLS = 5             # the eager run and capture, 4 replays
+# (constructor, kwargs, input shape): each family at full width, 1000
+# classes unless stated
+VISION_ZOO = (("LeNet", dict(num_classes=10), (1, 28, 28)),
+              ("alexnet", {}, (3, 224, 224)),
+              ("vgg16", {}, (3, 224, 224)),
+              ("mobilenet_v1", {}, (3, 224, 224)),
+              ("mobilenet_v2", {}, (3, 224, 224)),
+              ("mobilenet_v3_small", {}, (3, 224, 224)),
+              ("mobilenet_v3_large", {}, (3, 224, 224)),
+              ("squeezenet1_1", {}, (3, 224, 224)),
+              ("shufflenet_v2_x1_0", {}, (3, 224, 224)),
+              ("densenet121", {}, (3, 224, 224)),
+              ("googlenet", {}, (3, 224, 224)),
+              ("inception_v3", {}, (3, 299, 299)))
+# card f32 eval forward vs the CPU's at batch 2, over the largest output,
+# with zoo_gate_weights (tools/vision_zoo_conditioning.py on an H100): a
+# sound f32 forward lies up to 2.9e-6 from the CPU's; TF32 lies 4.4e-4 or
+# more, bf16 4.5e-3, one transposed 3x3 convolution 9.5e-3. The limit is
+# about the geometric middle of 2.9e-6 and 4.4e-4
+VISION_ZOO_FWD_TOL = 3e-5
+
+
+def vision_workers():
+    """The workers a loader forks here: two cores left to the parent."""
+    return max(1, min(8, (os.cpu_count() or 2) - 2))
+
+
+def vision_ring_mb():
+    """The ring capacity, in MiB, that ``/dev/shm`` can hold:
+    ``VISION_RING_MB`` or half of the free space, whichever is less (one
+    f32 [64, 3, 224, 224] batch pickles to 38.5 MB, so at least 40)."""
+    st = os.statvfs("/dev/shm")
+    free_mb = st.f_bavail * st.f_frsize >> 20
+    mb = min(VISION_RING_MB, free_mb // 2)
+    check(mb >= 40, f"/dev/shm has {free_mb} MiB free: too little for one "
+          "ResNet batch in the ring")
+    return mb
+
+
+def ring_copy_costs(torch, dev, reps=5):
+    """The copies of one f32 [64, 3, 224, 224] batch (and its labels) on
+    the worker path with no waiting: a worker's pickle and push into the
+    ring, the parent's pop out of it, unpickle, and the pinned copy to
+    the card. Returns the median ms of each over ``reps``."""
+    import pickle
+    import numpy as np
+    from paddle_tpu_torch._native import ShmChannel
+    from paddle_tpu_torch.io import _to_device
+    from paddle_tpu_torch.io._worker import np_tree_to_tensor
+    batch = (np.random.RandomState(0).rand(RESNET_BATCH, 3, 224, 224)
+             .astype(np.float32), np.arange(RESNET_BATCH, dtype=np.int64))
+    chan = ShmChannel(f"/pdt_copy_{os.getpid()}", 128 << 20, create=True)
+    parts = {"push": [], "pop": [], "unpickle": [], "to_device": []}
+    try:
+        for _ in range(reps):
+            t = [time.perf_counter()]
+            chan.push_obj(("b", 0, batch))
+            t.append(time.perf_counter())
+            data = chan.pop()
+            t.append(time.perf_counter())
+            msg = pickle.loads(data)
+            t.append(time.perf_counter())
+            x = _to_device(np_tree_to_tensor(msg[2]), dev)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            for k, a, b in zip(parts, t, t[1:]):
+                parts[k].append((b - a) * 1e3)
+            del data, msg, x
+    finally:
+        chan.close()
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def _same_batches(torch, a, b):
+    return len(a) == len(b) and all(
+        torch.equal(x.reshape(-1).view(torch.uint8),
+                    y.reshape(-1).view(torch.uint8))
+        for ba, bb in zip(a, b) for x, y in zip(ba, bb))
+
+
+def worker_batches_gate(torch, dev, seed, workers):
+    """The first ``RESNET_FIT_STEPS`` batches of the fit's FakeData
+    through ``workers`` worker processes equal the in-process loader's,
+    bitwise, on the card (the same sampler draws: numpy seeded alike)."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+    data = pt.vision.datasets.FakeData(RESNET_BATCH * RESNET_FIT_STEPS,
+                                       (3, 224, 224), 1000)
+    runs = []
+    for nw in (0, workers):
+        np.random.seed(seed)
+        loader = pt.io.DataLoader(data, places=dev, batch_size=RESNET_BATCH,
+                                  shuffle=True, num_workers=nw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        runs.append([tuple(b) for b in loader])
+        torch.cuda.synchronize()
+        log(f"FakeData loader, {nw} workers: {len(runs[-1])} batches of "
+            f"{RESNET_BATCH} x 3 x 224 x 224 on the card in "
+            f"{time.perf_counter() - t1:.2f} s")
+    check(_same_batches(torch, *runs), "the worker loader's batches differ "
+          "from the in-process loader's")
+    del runs
+
+
+class _AugImages:
+    """``VISION_AUG_IMAGES`` seeded uint8 images of [256, 256, 3] held in
+    memory with 1000-class labels, through ``transform``, ``passes``
+    times over (item ``i`` is image ``i % VISION_AUG_IMAGES``)."""
+
+    def __init__(self, seed, transform, passes=1):
+        import numpy as np
+        rng = np.random.RandomState(seed)
+        n, s = VISION_AUG_IMAGES, VISION_AUG_SIDE
+        self.x = rng.randint(0, 256, (n, s, s, 3)).astype(np.uint8)
+        self.y = rng.randint(0, 1000, n).astype(np.int64)
+        self.transform = transform
+        self.passes = passes
+
+    def __len__(self):
+        return len(self.x) * self.passes
+
+    def __getitem__(self, i):
+        i %= len(self.x)
+        return self.transform(self.x[i]), self.y[i]
+
+
+def imagenet_train_transform():
+    import paddle_tpu_torch as pt
+    T = pt.vision.transforms
+    return T.Compose([T.RandomResizedCrop(224), T.RandomHorizontalFlip(),
+                      T.Normalize(IMAGENET_MEAN, IMAGENET_STD,
+                                  data_format="HWC"),
+                      T.Transpose()])
+
+
+def augment_loader_rates(torch, dev, seed, card, workers):
+    """The ImageNet train transform (``RandomResizedCrop(224)``,
+    ``RandomHorizontalFlip``, ``Normalize``, ``Transpose``) through the
+    loader alone to the card: in-process over ``VISION_AUG_IMAGES``
+    images, and twice in ``workers`` workers over ``VISION_AUG_PASSES``
+    passes of them, so that each worker makes several batches after its
+    first. Gates: the two worker runs from the same seeds give the same
+    first batch, bitwise; every batch is finite and of the cell's shape.
+    Returns images/s after the start-up (the first ``workers`` batches
+    of a worker run, the first batch in-process, left out) and over the
+    whole run, per worker count."""
+    import random
+    import numpy as np
+    import paddle_tpu_torch as pt
+    aug = type("AugImages", (_AugImages, pt.io.Dataset), {})
+    steady, whole, firsts = {}, {}, []
+    for nw, passes in ((0, 1), (workers, VISION_AUG_PASSES),
+                       (workers, VISION_AUG_PASSES)):
+        data = aug(seed, imagenet_train_transform(), passes)
+        np.random.seed(seed)
+        random.seed(seed)
+        loader = pt.io.DataLoader(data, places=dev, batch_size=RESNET_BATCH,
+                                  shuffle=True, num_workers=nw)
+        skip = max(1, nw)                 # the start-up: one round
+        n, ok, first = 0, True, None
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for x, _ in loader:
+            ok = ok and tuple(x.shape) == (RESNET_BATCH, 3, 224, 224) and \
+                bool(torch.isfinite(x).all())
+            if first is None:
+                first = x
+            n += 1
+            if n == skip:
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        check(ok and n == len(data) // RESNET_BATCH and n > skip,
+              f"augmented loader, {nw} workers: bad batches")
+        whole[nw] = n * RESNET_BATCH / (t3 - t1)
+        steady[nw] = (n - skip) * RESNET_BATCH / (t3 - t2)
+        if nw:
+            firsts.append(first)
+        del first, x, loader
+    check(_same_batches(torch, [firsts[0]], [firsts[1]]),
+          "two worker runs of the ImageNet transform from the same seeds "
+          "gave other first batches")
+    log(f"ImageNet train transform, uint8 images of {VISION_AUG_SIDE} x "
+        f"{VISION_AUG_SIDE} x 3 to the card on {card}: in-process "
+        f"{steady[0]:.1f} images/s after the first batch ({whole[0]:.1f} "
+        f"over {VISION_AUG_IMAGES // RESNET_BATCH} batches); {workers} "
+        f"workers {steady[workers]:.1f} images/s after their first "
+        f"{workers} batches ({whole[workers]:.1f} over "
+        f"{VISION_AUG_IMAGES * VISION_AUG_PASSES // RESNET_BATCH} batches, "
+        f"start included); two worker runs from one seed give the same "
+        f"first batch bitwise")
+    return steady, whole
+
+
+def augment_run(torch, dev, seed, card, workers):
+    """``augment_loader_rates``, then an O1 bf16 ``Model.fit`` of
+    ResNet-50 over one pass of the augmented images."""
+    import paddle_tpu_torch as pt
+    augment_loader_rates(torch, dev, seed, card, workers)
+    free_card(torch)
+    data = type("AugImages", (_AugImages, pt.io.Dataset), {})(
+        seed, imagenet_train_transform())
+    resnet_fit_run(torch, dev, seed, card, True, num_workers=workers,
+                   data=data, label="ResNet-50 bf16 O1 fit over the "
+                   "ImageNet train transform")
+
+
+def _zoo_loss(torch):
+    import paddle_tpu_torch as pt
+    ce = pt.nn.CrossEntropyLoss(label_smoothing=0.1)
+
+    def loss(*outs_and_label):
+        # TrainStep passes a tuple output's parts one by one: GoogLeNet's
+        # out, aux1, aux2, then the label
+        *outs, y = outs_and_label
+        total = ce(outs[0], y)
+        for o in outs[1:]:
+            total = total + ce(o, y)
+        return total
+    return loss
+
+
+def _outs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def zoo_gate_weights(torch, model, seed):
+    """Redraw every weight of two or more axes from N(0, 2 / fan_in), on
+    the host from ``seed``, into ``model`` on any device. At the
+    families' own init (Kaiming uniform, a = sqrt(5)) each ReLU layer
+    shrinks the signal, so the output of a deep net barely depends on
+    its input (SqueezeNet 1.1: 7.6e-8 of its size), and a forward gate
+    there sees the biases and not the convolutions. These weights keep
+    the signal's size through the layers."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.ndim >= 2:
+                w = torch.randn(p.shape, generator=gen, dtype=torch.float64)
+                p.copy_(w * math.sqrt(2.0 / p[0].numel()))
+
+
+def zoo_model(torch, dev, seed, card, ctor, kw, shape):
+    """One family: its f32 eval forward at batch 2 on the card against the
+    CPU's from the same weights (``zoo_gate_weights``;
+    ``VISION_ZOO_FWD_TOL`` of the largest output), then ``VISION_ZOO_CALLS`` ``TrainStep`` calls at batch
+    ``VISION_ZOO_BATCH`` (ResNet's cell: Momentum over PiecewiseDecay,
+    L2Decay, cross entropy with label smoothing; GoogLeNet's loss sums
+    its three heads) replayed against the same steps op by op: bitwise
+    the same losses, weights, gradients, momenta and BN running stats,
+    and the same ``fused_update`` launches. Returns the replayed step ms,
+    peak memory and the replayed side's launch counts."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.kernels import launch_counts, reset_launch_counts
+    build = getattr(pt.vision.models, ctor)
+    classes = kw.get("num_classes", 1000)
+    rng = np.random.RandomState(seed)
+    x2 = torch.from_numpy(rng.rand(2, *shape).astype(np.float32))
+    outs = {}
+    for where in ("cpu", dev):
+        pt.seed(seed)
+        model = build(device=where, **kw).eval()
+        zoo_gate_weights(torch, model, seed)
+        with torch.no_grad():
+            outs[str(where)] = [o.cpu() for o in _outs(model(x2.to(where)))]
+        del model
+    want, got = outs["cpu"], outs[str(dev)]
+    scale = max(float(w.abs().max()) for w in want)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want)) / scale
+    check(all(bool(torch.isfinite(g).all()) for g in got) and
+          err <= VISION_ZOO_FWD_TOL,
+          f"{ctor} card vs CPU eval forward: {err:.3e} of the largest output"
+          f" {scale:.3e} (limit {VISION_ZOO_FWD_TOL})")
+    batches = [(torch.from_numpy(rng.rand(VISION_ZOO_BATCH, *shape).astype(
+        np.float32)).to(dev), torch.from_numpy(rng.randint(
+            0, classes, VISION_ZOO_BATCH)).to(dev))
+        for _ in range(VISION_ZOO_CALLS)]
+    sides = {}
+    for kind in ("graphs", "eager"):
+        pt.seed(seed)
+        model = build(device=dev, **kw)
+        sched = pt.optimizer.lr.PiecewiseDecay([3], [0.1, 0.01])
+        opt = pt.optimizer.Momentum(
+            sched, 0.9, parameters=model.parameters(),
+            weight_decay=pt.regularizer.L2Decay(1e-4))
+        step = TrainStep(model, opt, _zoo_loss(torch))
+        call = step if kind == "graphs" else step._eager
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        losses, times = [], []
+        for x, y in batches:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            losses.append(float(call(x, y)))
+            times.append(time.perf_counter() - t1)
+            sched.step()
+        sides[kind] = dict(
+            losses=losses, counts=dict(launch_counts),
+            ms=statistics.median(times[1:]) * 1e3,
+            peak=torch.cuda.max_memory_allocated(dev),
+            stats=dict(step.graph_stats),
+            digest=state_digest(torch, [*step_tensors(model, step),
+                                        *model.buffers()]))
+        del model, opt, step
+        free_card(torch)
+    g, e = sides["graphs"], sides["eager"]
+    label = f"{ctor} [{VISION_ZOO_BATCH}, {', '.join(map(str, shape))}]"
+    check(all(math.isfinite(v) for v in g["losses"]) and
+          g["losses"] == e["losses"],
+          f"{label}: replayed losses {g['losses']} against {e['losses']}")
+    check(torch.equal(g["digest"], e["digest"]),
+          f"{label}: the state after the replayed steps differs from the "
+          "eager steps' (bitwise)")
+    check(g["stats"]["captures"] == 1 and g["stats"]["recaptures"] == 0 and
+          g["stats"]["replays"] == VISION_ZOO_CALLS - 1,
+          f"{label}: graphs {g['stats']}")
+    n = g["counts"]["fused_update"]
+    check(n > 0 and n == e["counts"]["fused_update"] and
+          n % VISION_ZOO_CALLS == 0,
+          f"{label}: fused_update launched {n} times replayed, "
+          f"{e['counts']['fused_update']} op by op")
+    log(f"{label} f32 on {card}: card vs CPU eval forward {err:.3e} of the "
+        f"largest output (limit {VISION_ZOO_FWD_TOL}); replayed step "
+        f"{g['ms']:.2f} ms ({VISION_ZOO_BATCH / g['ms'] * 1e3:.1f} images/s)"
+        f", op by op {e['ms']:.2f} ms; peak memory {g['peak'] / 2**30:.2f} "
+        f"GiB; {VISION_ZOO_CALLS - 1} replays bitwise the eager steps "
+        f"(losses {[round(v, 4) for v in g['losses']]}); fused_update "
+        f"{n // VISION_ZOO_CALLS} a step")
+    return g
+
+
+def vision_phase(torch, dev, seed, card, fits):
+    """The vision input pipeline and model zoo (cuDNN deterministic where
+    a check is bitwise, its default for the timed fits, as
+    ``resnet_phase``). (a) ``Model.fit`` of the ResNet-50 cell over
+    FakeData with ``vision_workers()`` worker processes, the ring at
+    ``vision_ring_mb()`` (set through ``shm_channel_capacity_mb``): the
+    first batches bitwise the in-process loader's, one capture and
+    replays, finite losses, and the fit's step beside ``fits`` (the same
+    fits with 0 workers, from ``resnet_phase``), with the replay alone and
+    the parent's host ms per batch; (b) ``augment_run``; (c) every
+    ``VISION_ZOO`` family through ``zoo_model``. Returns the launch counts
+    of the zoo's replayed steps, summed."""
+    from paddle_tpu_torch.framework import flags
+    t0 = time.perf_counter()
+    workers = vision_workers()
+    ring = vision_ring_mb()
+    prev_ring = flags.flag_value("shm_channel_capacity_mb")
+    flags.set_flags({"shm_channel_capacity_mb": ring})
+    prev = torch.backends.cudnn.deterministic
+    counts = {}
+    try:
+        log(f"vision phase: {workers} DataLoader workers ({os.cpu_count()} "
+            f"cores), shm_channel_capacity_mb {ring}")
+        worker_batches_gate(torch, dev, seed, workers)
+        free_card(torch)
+        c = ring_copy_costs(torch, dev)
+        log(f"one f32 [{RESNET_BATCH}, 3, 224, 224] batch through the ring "
+            f"with no waiting, median of 5 on {card}: a worker's pickle and "
+            f"push {c['push']:.2f} ms; the parent's pop {c['pop']:.2f} ms, "
+            f"unpickle {c['unpickle']:.2f} ms, pinned copy to the card "
+            f"{c['to_device']:.2f} ms")
+        for amp_on in (False, True):
+            label = "bf16 O1" if amp_on else "f32"
+            f = resnet_fit_run(torch, dev, seed, card, amp_on,
+                               num_workers=workers, steps=VISION_FIT_STEPS)
+            free_card(torch)
+            z = fits[label]
+            ips = RESNET_BATCH / f["median_ms"] * 1e3
+            log(f"ResNet-50 {label} Model.fit on {card}: {workers} workers "
+                f"{f['median_ms']:.1f} ms a step ({ips:.1f} images/s) | "
+                f"0 workers {z['median_ms']:.1f} ms "
+                f"({RESNET_BATCH / z['median_ms'] * 1e3:.1f} images/s); the "
+                f"graph replayed alone {f['replay_ms']:.1f} | "
+                f"{z['replay_ms']:.1f} ms; the parent's host ms a batch "
+                f"with workers {sum(f['parts'].values()):.2f} (pop "
+                f"{f['parts']['pop']:.2f}, unpickle "
+                f"{f['parts']['unpickle']:.2f}, pin and copy "
+                f"{f['parts']['to_device']:.2f}) against "
+                f"{z['host_ms']:.1f} ms drawing a batch in-process; steps "
+                f"with workers (ms) {f['steps_ms']}")
+        augment_run(torch, dev, seed, card, workers)
+        free_card(torch)
+        torch.backends.cudnn.deterministic = True
+        t1 = time.perf_counter()
+        for ctor, kw, shape in VISION_ZOO:
+            g = zoo_model(torch, dev, seed, card, ctor, kw, shape)
+            for k, v in g["counts"].items():
+                counts[k] = counts.get(k, 0) + v
+        log(f"model zoo: {len(VISION_ZOO)} families in "
+            f"{time.perf_counter() - t1:.1f} s")
+    finally:
+        torch.backends.cudnn.deterministic = prev
+        flags.set_flags({"shm_channel_capacity_mb": prev_ring})
+    log(f"vision phase took {time.perf_counter() - t0:.1f} s")
+    return counts
 
 
 def main(argv=None):
@@ -6911,9 +7373,12 @@ def main(argv=None):
     o1_scaler_gate(torch, dev, args.seed)
     log(f"O1 scaler gate took {time.perf_counter() - t0:.1f} s")
     free_card(torch)
-    counts_rn = resnet_phase(torch, dev, args.seed, card)
+    fits = resnet_phase(torch, dev, args.seed, card)
+    counts_rn = fits["f32"]["counts"]
     check(counts_rn["fused_update"] > 0,
           "the ResNet fit launched no fused_update")
+    free_card(torch)
+    counts_vis = vision_phase(torch, dev, args.seed, card, fits)
 
     sources = {"rms_norm": ("triton",
                             "paddle_tpu_torch/kernels/_rms_triton.py",
@@ -6975,6 +7440,7 @@ def main(argv=None):
         if name == "fused_update":
             rows[-1]["bert_launches"] = counts_ft[name]
             rows[-1]["resnet_launches"] = counts_rn[name]
+            rows[-1]["vision_launches"] = counts_vis[name]
     # the f16 and mixed instances: launches of the instance in the run that
     # drives it on the card (serve run F16, the 2-layer gates' block-table
     # f16 decode, the BERT-base f16 eval; serve run KV for bf16 q over f32

@@ -154,3 +154,5 @@ define_flag("grad_bucket_bytes", 32 * 1024 * 1024,
             "Target flat-bucket payload size for gradient collectives "
             "(RuntimeConfig.grad_bucket_bytes; carried for the "
             "distributed trainer, unread on one device).")
+define_flag("shm_channel_capacity_mb", 64,
+            "Per-DataLoader shared-memory ring capacity (native worker pool).")

@@ -9,28 +9,39 @@ without one; ``places="cpu"`` keeps it on the CPU) with one copy per
 tensor, from pinned memory and without waiting for it on the card. A
 batch that reaches the card has nothing left to copy in ``jit.TrainStep``.
 
-``num_workers > 0`` raises ``NotImplementedError``: the reference's
-worker processes (``io/_worker.py``) are not ported, and the loader
-never runs them in-process instead.
+``num_workers > 0`` with ``use_shared_memory`` (the default) forks
+worker processes that collate batches and ship them through the port's
+shared-memory ring (``io/_worker.py`` over ``_native.ShmChannel``, built
+from ``csrc/shm_channel.cc`` with the host compiler at first use), in
+the order ``num_workers=0`` gives; without ``use_shared_memory``, a
+background thread collates up to ``prefetch_factor * num_workers``
+batches ahead. Where the reference falls back to the thread when its
+native library is unavailable, the port raises.
 """
 from __future__ import annotations
 
 import bisect
 import itertools
 import math
+import queue
 import random
+import threading
+import time
 
 import numpy as np
 import torch
 
 from ..framework import resolve_device
+from ._worker import WorkerInfo, WorkerPool, get_worker_info
+from . import _worker
 
 __all__ = ["BatchSampler", "ChainDataset", "ComposeDataset",
            "ConcatDataset", "DataLoader", "Dataset",
            "DistributedBatchSampler", "IterableDataset", "RandomSampler",
            "Sampler", "SequenceSampler", "Subset", "SubsetRandomSampler",
            "TensorDataset", "WeightedRandomSampler", "default_collate_fn",
-           "default_convert_fn", "random_split"]
+           "default_convert_fn", "get_worker_info", "multiprocess_reader",
+           "random_split"]
 
 
 class Dataset:
@@ -347,11 +358,21 @@ class DataLoader:
     """Batches of ``dataset`` from ``batch_sampler`` (else a
     ``BatchSampler`` over ``batch_size`` / ``shuffle`` / ``drop_last``),
     collated by ``collate_fn`` and moved to ``places`` (a device or place;
-    the first of a list). ``feed_list``, ``return_list``,
-    ``use_buffer_reader``, ``prefetch_factor``, ``use_shared_memory``,
-    ``timeout``, ``worker_init_fn`` and ``persistent_workers`` are taken
-    and not read: with ``num_workers=0``, the reference reads none of
-    them either."""
+    the first of a list).
+
+    With ``num_workers > 0`` and ``use_shared_memory``, forked workers
+    collate (``collate_fn``, else ``_worker.numpy_collate``) and the
+    batches come back in the sampler's order (an ``IterableDataset``'s in
+    the order the workers finish them); ``worker_init_fn(worker_id)``
+    runs first in each worker. The parent draws the workers' base seed
+    from numpy's global generator after the sampler, as the reference
+    does. Without ``use_shared_memory`` a thread prefetches
+    ``prefetch_factor * num_workers`` batches. ``host_s`` sums the
+    parent's seconds per part of the worker path ("pop", "unpickle",
+    "to_device": the pinned copy) and counts its "batches".
+    ``feed_list``, ``return_list``, ``use_buffer_reader``, ``timeout``
+    and ``persistent_workers`` are taken and, as in the reference, not
+    read."""
 
     def __init__(self, dataset, feed_list=None, places=None,
                  return_list=True, batch_sampler=None, batch_size=1,
@@ -359,20 +380,20 @@ class DataLoader:
                  num_workers=0, use_buffer_reader=True, prefetch_factor=2,
                  use_shared_memory=True, timeout=0, worker_init_fn=None,
                  persistent_workers=False):
-        if num_workers > 0:
-            raise NotImplementedError(
-                "DataLoader: num_workers > 0 needs the worker processes "
-                "(io/_worker.py), which are not ported; pass "
-                "num_workers=0")
         if isinstance(places, (list, tuple)):
             places = places[0] if places else None
         self.device = resolve_device(places)
         self.dataset = dataset
         self.collate_fn = collate_fn or default_collate_fn
+        self._user_collate = collate_fn
         self.num_workers = num_workers
+        self.use_shared_memory = use_shared_memory
+        self.worker_init_fn = worker_init_fn
+        self.prefetch_factor = prefetch_factor
         self._iterable_mode = isinstance(dataset, IterableDataset)
         self.batch_size = batch_size
         self.drop_last = drop_last
+        self.host_s = {}
         if self._iterable_mode:
             self.batch_sampler = None
         elif batch_sampler is not None:
@@ -392,15 +413,92 @@ class DataLoader:
             for idxs in self.batch_sampler:
                 yield self.collate_fn([self.dataset[i] for i in idxs])
             return
-        batch = []
-        for item in self.dataset:
-            batch.append(item)
-            if len(batch) == self.batch_size:
+        # one shard of one: a dataset that shards by get_worker_info()
+        # gives the same stream here as across the workers
+        prev = _worker._WORKER_INFO
+        _worker._WORKER_INFO = WorkerInfo(id=0, num_workers=1, seed=0,
+                                          dataset=self.dataset)
+        try:
+            batch = []
+            for item in self.dataset:
+                batch.append(item)
+                if len(batch) == self.batch_size:
+                    yield self.collate_fn(batch)
+                    batch = []
+            if batch and not self.drop_last:
                 yield self.collate_fn(batch)
-                batch = []
-        if batch and not self.drop_last:
-            yield self.collate_fn(batch)
+        finally:
+            _worker._WORKER_INFO = prev
+
+    def _worker_batches(self):
+        from .. import _native
+        _native.load()    # raises when the library cannot be built
+        if self._iterable_mode:
+            batch_indices = None
+            bs, dl = self.batch_size, self.drop_last
+        else:
+            batch_indices = list(self.batch_sampler)
+            bs, dl = 1, False
+        yield from WorkerPool(
+            self.dataset, batch_indices, self.num_workers,
+            self._user_collate, self.worker_init_fn,
+            seed=int(np.random.randint(0, 2 ** 31)), batch_size=bs,
+            drop_last=dl, host_s=self.host_s)
+
+    def _thread_batches(self):
+        q = queue.Queue(maxsize=self.num_workers * self.prefetch_factor)
+        end = object()
+        failed = []
+
+        def producer():
+            try:
+                for b in self._batches():
+                    q.put(b)
+            except Exception as e:    # re-raised in the consumer
+                failed.append(e)
+            finally:
+                q.put(end)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        while True:
+            item = q.get()
+            if item is end:
+                break
+            yield item
+        t.join()
+        if failed:
+            raise failed[0]
 
     def __iter__(self):
-        for batch in self._batches():
-            yield _to_device(batch, self.device)
+        if self.num_workers <= 0:
+            batches = self._batches()
+        elif self.use_shared_memory:
+            batches = self._worker_batches()
+        else:
+            batches = self._thread_batches()
+        s = self.host_s
+        for batch in batches:
+            t0 = time.perf_counter()
+            out = _to_device(batch, self.device)
+            s["to_device"] = s.get("to_device", 0.0) + \
+                time.perf_counter() - t0
+            yield out
+
+
+def multiprocess_reader(readers, use_pipe=True, queue_size=1000):
+    """The reference's legacy reader composer: the readers' samples
+    interleaved round robin in-process (``use_pipe`` and ``queue_size``
+    taken and not read, as there)."""
+    def composed():
+        iters = [r() for r in readers]
+        alive = [True] * len(iters)
+        while any(alive):
+            for i, it in enumerate(iters):
+                if not alive[i]:
+                    continue
+                try:
+                    yield next(it)
+                except StopIteration:
+                    alive[i] = False
+    return composed

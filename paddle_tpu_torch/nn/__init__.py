@@ -8,9 +8,10 @@ from .initializer import ParamAttr
 from .layer_base import Layer
 from .layers_common import (AdaptiveAvgPool2D, AdaptiveMaxPool2D, AvgPool2D,
                             BatchNorm, BatchNorm1D, BatchNorm2D, Conv2D,
-                            Dropout, Embedding, Flatten, Identity, LayerList,
-                            LayerNorm, Linear, MaxPool2D, ReLU, Sequential,
-                            Softmax)
+                            Dropout, Embedding, Flatten, Hardsigmoid,
+                            Hardswish, Identity, LayerList, LayerNorm,
+                            Linear, MaxPool2D, ReLU, ReLU6, Sequential,
+                            Softmax, Swish)
 from .losses import CrossEntropyLoss, NLLLoss
 from .transformer import (MultiHeadAttention, TransformerEncoder,
                           TransformerEncoderLayer)
@@ -18,8 +19,9 @@ from .transformer import (MultiHeadAttention, TransformerEncoder,
 __all__ = ["AdaptiveAvgPool2D", "AdaptiveMaxPool2D", "AvgPool2D",
            "BatchNorm", "BatchNorm1D", "BatchNorm2D", "ClipGradByGlobalNorm",
            "ClipGradByNorm", "ClipGradByValue", "Conv2D", "CrossEntropyLoss",
-           "Dropout", "Embedding", "Flatten", "Identity", "Layer",
+           "Dropout", "Embedding", "Flatten", "Hardsigmoid", "Hardswish",
+           "Identity", "Layer",
            "LayerList", "LayerNorm", "Linear", "MaxPool2D",
-           "MultiHeadAttention", "NLLLoss", "ParamAttr", "ReLU",
-           "Sequential", "Softmax", "TransformerEncoder",
+           "MultiHeadAttention", "NLLLoss", "ParamAttr", "ReLU", "ReLU6",
+           "Sequential", "Softmax", "Swish", "TransformerEncoder",
            "TransformerEncoderLayer"]

@@ -24,6 +24,7 @@ from ..framework import dtype as dtypes
 from ..framework import random as _random
 from ..kernels.attention import flash_attention_bshd
 from ..kernels.norm import fused_layer_norm
+from ..ops.manipulation import flatten  # noqa: F401  (nn.functional.flatten)
 
 
 def tanh(x, name=None):
@@ -38,6 +39,31 @@ def relu(x, name=None):
 def relu_(x, name=None):
     """``relu`` written into ``x`` (the reference's in-place update)."""
     return x.relu_()
+
+
+def relu6(x, name=None):
+    """``min(max(x, 0), 6)``."""
+    return torch.clamp(x, 0.0, 6.0)
+
+
+def hardsigmoid(x, slope=0.1666667, offset=0.5, name=None):
+    """``clip(slope x + offset, 0, 1)``: the reference's default slope is
+    0.1666667, not 1/6 (torch's ``hardsigmoid``)."""
+    return torch.clamp(slope * x + offset, 0.0, 1.0)
+
+
+def hardswish(x, name=None):
+    """``x clip(x + 3, 0, 6) / 6``."""
+    return x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
+
+
+def silu(x, name=None):
+    """``x sigmoid(x)``; under ``amp`` cast as the reference's "silu"."""
+    (x,) = cast_inputs("silu", x)
+    return F.silu(x)
+
+
+swish = silu
 
 
 def softmax(x, axis=-1, dtype=None, name=None):
@@ -272,14 +298,6 @@ def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
     """``label * (1 - epsilon) + epsilon / C`` over the last axis;
     ``prior_dist`` is taken and, as in the reference, not read."""
     return label * (1 - epsilon) + epsilon / label.shape[-1]
-
-
-def flatten(x, start_axis=0, stop_axis=-1, name=None):
-    """Axes ``start_axis`` to ``stop_axis`` merged into one (a copy of
-    ``paddle_tpu/ops/manipulation.py`` ``flatten``)."""
-    if x.dim() == 0:
-        return x.reshape(1)
-    return torch.flatten(x, start_axis % x.dim(), stop_axis % x.dim())
 
 
 # ------------------------------------------------------------ convolution --

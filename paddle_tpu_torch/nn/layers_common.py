@@ -2,7 +2,8 @@
 ``Linear``, ``LayerNorm``, ``Embedding``, ``Dropout`` and ``LayerList``
 (what the BERT/ERNIE path uses), and ``Sequential``, ``Conv2D``, the
 BatchNorms, ``ReLU``, the 2-D pools, ``Flatten``, ``Identity`` and
-``Softmax`` (what the ResNet path uses).
+``Softmax`` (what the ResNet path uses), and ``ReLU6``, ``Hardswish``,
+``Hardsigmoid`` and ``Swish`` (what the other vision models add).
 
 Each takes the reference's parameters in the reference's order, with
 ``weight_attr`` / ``bias_attr`` (a ``ParamAttr``, an initializer, a
@@ -333,6 +334,37 @@ class ReLU(Layer):
 
     def forward(self, x):
         return PF.relu(x, *self._args, **self._kwargs)
+
+
+class _Activation(Layer):
+    """An activation layer of the reference's generic signature
+    (``*args, **kwargs``, ``name`` dropped): the arguments go to the
+    functional op ``_fn``."""
+    _fn = None
+
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+        self._args = args
+        self._kwargs = {k: v for k, v in kwargs.items() if k != "name"}
+
+    def forward(self, x):
+        return type(self)._fn(x, *self._args, **self._kwargs)
+
+
+class ReLU6(_Activation):
+    _fn = staticmethod(PF.relu6)
+
+
+class Hardsigmoid(_Activation):
+    _fn = staticmethod(PF.hardsigmoid)
+
+
+class Hardswish(_Activation):
+    _fn = staticmethod(PF.hardswish)
+
+
+class Swish(_Activation):
+    _fn = staticmethod(PF.swish)
 
 
 class Softmax(Layer):

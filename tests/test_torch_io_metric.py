@@ -171,10 +171,18 @@ def test_fake_data_equals_the_reference_per_index():
                                                                    224)
 
 
-def test_data_loader_refusals():
+def test_data_loader_refusals(monkeypatch, tmp_path):
+    """Workers whose ring library cannot be built raise (the reference
+    falls back to a thread: ``test_torch_io_workers.py``); the default
+    device without a GPU raises."""
+    from paddle_tpu_torch import _native
     _, port_ds = _both("squares")
-    with pytest.raises(NotImplementedError, match="num_workers"):
-        pio.DataLoader(port_ds, places="cpu", num_workers=2)
+    monkeypatch.setattr(_native, "_lib", None)
+    monkeypatch.setattr(_native, "library_path",
+                        lambda: tmp_path / "libshm_channel-x.so")
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    with pytest.raises(RuntimeError, match="shm_channel.cc"):
+        list(pio.DataLoader(port_ds, places="cpu", num_workers=2))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             pio.DataLoader(port_ds)

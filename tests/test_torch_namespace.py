@@ -231,9 +231,50 @@ def test_top_level_names():
     assert pt.__version__ == paddle.__version__
     assert pt.device_count() == torch.cuda.device_count()
     assert pt.ParamAttr is pt.nn.initializer.ParamAttr
-    for name in ("Tensor", "ops", "static"):
+    for name in ("Tensor", "static"):
         assert not hasattr(pt, name), name
+    # ops: the five manipulation functions the vision models call so far
+    assert sorted(pt.ops.manipulation.__all__) == [
+        "concat", "flatten", "reshape", "split", "transpose"]
     assert set(pt.__all__) <= set(dir(pt))
+
+
+def _public(mod):
+    return {n for n in dir(mod) if not n.startswith("_")}
+
+
+def test_vision_io_and_activation_names():
+    """The names this slice ports, in both packages: the DataLoader's
+    workers, every transform and functional, the datasets, every model
+    constructor, and the activations the models use."""
+    import paddle_tpu.vision.transforms.functional as RTF
+
+    import paddle_tpu_torch.vision.transforms.functional as PTF
+    for name in ("get_worker_info", "multiprocess_reader", "DataLoader"):
+        assert hasattr(paddle.io, name) and hasattr(pt.io, name), name
+    assert pt.io.get_worker_info() is None
+    ref_t = {n for n in _public(paddle.vision.transforms)
+             if callable(getattr(paddle.vision.transforms, n)) and
+             getattr(getattr(paddle.vision.transforms, n), "__module__",
+                     "").startswith("paddle_tpu.vision")}
+    assert ref_t and ref_t <= _public(pt.vision.transforms)
+    assert set(RTF.__all__) == set(PTF.__all__)
+    assert pt.vision.transforms.functional is PTF
+    for name in ("MNIST", "FashionMNIST", "Cifar10", "Cifar100",
+                 "DatasetFolder", "ImageFolder", "Flowers", "VOC2012",
+                 "FakeData"):
+        assert hasattr(paddle.vision.datasets, name), name
+        assert name in pt.vision.datasets.__all__, name
+    ref_m = {n for n in _public(paddle.vision.models)
+             if callable(getattr(paddle.vision.models, n))}
+    assert ref_m == set(pt.vision.models.__all__)
+    ref_v = {n for n in _public(paddle.vision) if n not in ("ops",)}
+    assert ref_v <= _public(pt.vision), ref_v - _public(pt.vision)
+    for name in ("ReLU6", "Hardswish", "Hardsigmoid", "Swish"):
+        assert hasattr(paddle.nn, name) and name in pt.nn.__all__, name
+    for name in ("relu6", "hardswish", "hardsigmoid", "swish", "silu"):
+        assert hasattr(paddle.nn.functional, name), name
+        assert hasattr(pt.nn.functional, name), name
 
 
 def test_create_parameter_as_the_reference():

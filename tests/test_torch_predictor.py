@@ -266,10 +266,27 @@ def test_port_imports_no_jax():
             "paddle_tpu_torch.observability, "
             "paddle_tpu_torch.utils.tbwriter, paddle_tpu_torch.tensor, "
             "paddle_tpu_torch.framework.dtype, "
-            "paddle_tpu_torch.framework.place, paddle_tpu_torch.autograd; "
+            "paddle_tpu_torch.framework.place, paddle_tpu_torch.autograd, "
+            "paddle_tpu_torch.io._worker, paddle_tpu_torch._native, "
+            "paddle_tpu_torch.vision.transforms, "
+            "paddle_tpu_torch.vision.transforms_functional, "
+            "paddle_tpu_torch.vision.datasets, "
+            "paddle_tpu_torch.vision.models, "
+            "paddle_tpu_torch.ops.manipulation; "
+            "bad = lambda: 'jax' in sys.modules or any("
+            "m == 'paddle_tpu' or m.startswith('paddle_tpu.') "
+            "for m in sys.modules); "
             "assert 'jax' not in sys.modules, 'jax imported'; "
-            "assert not any(m == 'paddle_tpu' or m.startswith('paddle_tpu.')"
-            " for m in sys.modules), 'paddle_tpu imported'")
+            "assert not bad(), 'paddle_tpu imported'; "
+            # the worker entry point: each worker reports its own modules
+            "import numpy as np, paddle_tpu_torch.io as pio; "
+            "Probe = type('Probe', (pio.Dataset,), {"
+            "'__len__': lambda s: 4, "
+            "'__getitem__': lambda s, i: np.array([int(bad())])}); "
+            "got = [b.tolist() for b in pio.DataLoader(Probe(), "
+            "places='cpu', batch_size=2, num_workers=2)]; "
+            "assert got == [[[0], [0]], [[0], [0]]], got; "
+            "assert not bad(), 'jax or paddle_tpu imported by a worker'")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    cwd=str(REPO), timeout=120)

@@ -136,6 +136,52 @@ CALLABLES = [
     *[("hapi.callbacks", n, ()) for n in (
         "Callback", "ProgBarLogger", "ModelCheckpoint", "EarlyStopping",
         "LRScheduler", "VisualDL", "ReduceLROnPlateau", "config_callbacks")],
+    # the vision input pipeline and model zoo: workers, ring, transforms,
+    # datasets, models, activations, manipulation ops
+    *[("io", n, ()) for n in ("get_worker_info", "multiprocess_reader")],
+    *[("io._worker", n, ()) for n in (
+        "WorkerInfo", "get_worker_info", "numpy_collate", "worker_loop")],
+    ("_native", "ShmChannel", ()),
+    *[("_native", f"ShmChannel.{n}", ()) for n in (
+        "push", "pop", "push_obj", "pop_obj", "close_write", "close")],
+    *[("vision.transforms", n, ()) for n in (
+        "BaseTransform", "BrightnessTransform", "CenterCrop", "ColorJitter",
+        "Compose", "ContrastTransform", "Grayscale", "HueTransform",
+        "Normalize", "Pad", "RandomAffine", "RandomCrop", "RandomErasing",
+        "RandomHorizontalFlip", "RandomPerspective", "RandomResizedCrop",
+        "RandomRotation", "RandomVerticalFlip", "Resize",
+        "SaturationTransform", "ToTensor", "Transpose", "adjust_brightness",
+        "adjust_contrast", "adjust_hue", "adjust_saturation", "affine",
+        "center_crop", "crop", "erase", "hflip", "normalize", "pad",
+        "perspective", "resize", "rotate", "to_grayscale", "to_tensor_fn",
+        "vflip")],
+    *[("vision.transforms_functional", n, ()) for n in (
+        "normalize", "resize", "hflip", "vflip", "adjust_brightness",
+        "adjust_contrast", "adjust_saturation", "adjust_hue",
+        "to_grayscale", "crop", "center_crop", "pad", "erase", "affine",
+        "rotate", "perspective", "to_tensor")],
+    *[("vision.datasets", n, ()) for n in (
+        "Cifar10", "Cifar100", "DatasetFolder", "FashionMNIST", "Flowers",
+        "ImageFolder", "MNIST", "VOC2012")],
+    *[("vision", n, ()) for n in (
+        "set_image_backend", "get_image_backend", "image_load")],
+    *[("vision.models", n, ()) for n in (
+        "AlexNet", "DenseNet", "GoogLeNet", "InceptionV3", "LeNet",
+        "MobileNetV1", "MobileNetV2", "MobileNetV3Large", "MobileNetV3Small",
+        "ShuffleNetV2", "SqueezeNet", "VGG", "alexnet", "densenet121",
+        "densenet161", "densenet169", "densenet201", "densenet264",
+        "googlenet", "inception_v3", "mobilenet_v1", "mobilenet_v2",
+        "mobilenet_v3_large", "mobilenet_v3_small", "shufflenet_v2_swish",
+        "shufflenet_v2_x0_25", "shufflenet_v2_x0_33", "shufflenet_v2_x0_5",
+        "shufflenet_v2_x1_0", "shufflenet_v2_x1_5", "shufflenet_v2_x2_0",
+        "squeezenet1_0", "squeezenet1_1", "vgg11", "vgg13", "vgg16",
+        "vgg19")],
+    *[("nn", n, ()) for n in ("ReLU6", "Hardswish", "Hardsigmoid",
+                              "Swish")],
+    *[("nn.functional", n, ()) for n in (
+        "relu6", "hardswish", "hardsigmoid", "swish", "silu")],
+    *[("ops.manipulation", n, ()) for n in (
+        "concat", "flatten", "reshape", "transpose", "split")],
 ]
 # torch's own keywords, which torch passes to a Layer's methods itself
 # (``named_parameters(remove_duplicate=)``, ``state_dict(prefix=,
